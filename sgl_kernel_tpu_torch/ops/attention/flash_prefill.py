@@ -1,0 +1,111 @@
+"""Flash-attention prefill.
+
+``flash_attention`` is kernel K7, CUDA C++ in ``csrc/flash_prefill.cu``,
+replacing the Pallas ``flash_attention``
+(sgl_kernel_tpu/ops/attention/flash_prefill.py:165, pallas_call at :260).
+``flash_attention_ref`` is its plain PyTorch twin and covers the whole JAX
+contract (window, softcap, sinks, base-2 lse); the kernel takes the
+causal or full attention the serving path needs and raises on the rest.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+
+from ... import _build
+
+LOG2E = 1.4426950408889634
+
+
+def _lens(q, k, q_lens, kv_lens, q_start, kv_start):
+    b, sq = q.shape[:2]
+    skv = k.shape[1]
+    dev = q.device
+    q_lens = torch.full((b,), sq, dtype=torch.int32, device=dev) if q_lens is None else q_lens.to(dev, torch.int32)
+    kv_lens = torch.full((b,), skv, dtype=torch.int32, device=dev) if kv_lens is None else kv_lens.to(dev, torch.int32)
+    q_start = kv_lens - q_lens if q_start is None else q_start.to(dev, torch.int32)
+    kv_start = torch.zeros((b,), dtype=torch.int32, device=dev) if kv_start is None else kv_start.to(dev, torch.int32)
+    return q_lens, kv_lens, q_start, kv_start
+
+
+def flash_attention_ref(q, k, v, q_lens=None, kv_lens=None, sinks=None, q_start=None,
+                        kv_start=None, *, causal: bool = True, sm_scale: Optional[float] = None,
+                        sliding_window: Optional[int] = None, logit_soft_cap: Optional[float] = None,
+                        return_lse: bool = False):
+    """Plain PyTorch twin of ``flash_attention`` (dense f32 scores)."""
+    b, sq, hq, d = q.shape
+    skv, hkv = k.shape[1], k.shape[2]
+    group = hq // hkv
+    scale = sm_scale if sm_scale is not None else 1.0 / d ** 0.5
+    q_lens, kv_lens, q_start, kv_start = _lens(q, k, q_lens, kv_lens, q_start, kv_start)
+    kf = k.float().repeat_interleave(group, dim=2)
+    vf = v.float().repeat_interleave(group, dim=2)
+    s = torch.einsum("bihd,bjhd->bhij", q.float(), kf) * scale
+    if logit_soft_cap is not None:
+        s = logit_soft_cap * torch.tanh(s / logit_soft_cap)
+    rows = torch.arange(sq, device=q.device)
+    cols = torch.arange(skv, device=q.device)
+    q_pos = rows[None, :] + q_start[:, None]          # [B, Sq]
+    kv_pos = cols[None, :] + kv_start[:, None]        # [B, Skv]
+    mask = (cols[None, :] < kv_lens[:, None])[:, None, :]  # [B, 1, Skv]
+    if causal:
+        mask = mask & (kv_pos[:, None, :] <= q_pos[:, :, None])
+    if sliding_window is not None:
+        mask = mask & (kv_pos[:, None, :] > q_pos[:, :, None] - sliding_window)
+    s = s.masked_fill(~mask[:, None], float("-inf"))
+    m = s.amax(dim=-1, keepdim=True).clamp_min(-1e30)
+    p = torch.exp(s - m)
+    l = p.sum(dim=-1, keepdim=True)
+    if sinks is not None:
+        l = l + torch.exp(sinks.float().to(q.device)[None, :, None, None] - m)
+    o = torch.einsum("bhij,bjhd->bihd", p, vf)
+    l_inv = torch.where(l == 0, torch.zeros_like(l), 1.0 / l)
+    out = (o * l_inv.permute(0, 2, 1, 3)).to(q.dtype)
+    if return_lse:
+        lse = ((m + torch.log(l.clamp_min(1e-38))) * LOG2E)[..., 0]
+        return out, lse
+    return out
+
+
+_ARGS = (ctypes.c_void_p,) * 5 + (ctypes.c_int,) * 7 + (ctypes.c_float, ctypes.c_void_p)
+
+
+def flash_attention(q, k, v, q_lens=None, kv_lens=None, sinks=None, q_start=None,
+                    kv_start=None, *, causal: bool = True, sm_scale: Optional[float] = None,
+                    sliding_window: Optional[int] = None, logit_soft_cap: Optional[float] = None,
+                    return_lse: bool = False):
+    """Batched ragged flash attention. q [B, Sq, Hq, D]; k, v [B, Skv, Hkv, D];
+    q_lens/kv_lens [B]; q_start/kv_start [B] global positions of q row 0 /
+    kv row 0 (defaults kv_len - q_len and 0). Returns out [B, Sq, Hq, D]
+    (+ lse [B, Hq, Sq] base 2 when return_lse). CUDA tensors go through the
+    K7 kernel, which takes bf16, head_dim 64 or 128, and neither sinks,
+    window, softcap nor lse."""
+    if q.device.type != "cuda":
+        return flash_attention_ref(
+            q, k, v, q_lens, kv_lens, sinks, q_start, kv_start, causal=causal,
+            sm_scale=sm_scale, sliding_window=sliding_window,
+            logit_soft_cap=logit_soft_cap, return_lse=return_lse)
+    if sinks is not None or sliding_window is not None or logit_soft_cap is not None or return_lse:
+        raise NotImplementedError("flash_attention: the CUDA kernel takes no sinks, window, softcap or lse yet")
+    b, sq, hq, d = q.shape
+    skv, hkv = k.shape[1], k.shape[2]
+    if hq % hkv or d not in (64, 128) or k.shape != v.shape or k.shape[0] != b or k.shape[3] != d:
+        raise ValueError(f"flash_attention: unsupported shapes q {tuple(q.shape)} k {tuple(k.shape)}")
+    if not (q.dtype == k.dtype == v.dtype == torch.bfloat16):
+        raise NotImplementedError("flash_attention: the CUDA kernel takes bf16")
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    lens = torch.stack(_lens(q, k, q_lens, kv_lens, q_start, kv_start), dim=1).contiguous()
+    out = torch.empty_like(q)
+    scale = sm_scale if sm_scale is not None else 1.0 / d ** 0.5
+    fn = _build.bind("flash_prefill", "skt_flash_prefill", _ARGS)
+    _build.check(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), lens.data_ptr(), out.data_ptr(),
+                    b, sq, skv, hq, hkv, d, int(causal), scale, _build.stream_ptr(q.device)),
+                 "flash_attention")
+    flash_attention.launches += 1
+    return out
+
+
+flash_attention.launches = 0

@@ -1,0 +1,177 @@
+"""Rotary position embedding.
+
+``compute_cos_sin_cache`` builds the [max_pos, rot] = [cos | sin] float32
+cache of the JAX package; ``rotary_embedding`` (prefill) is plain PyTorch.
+``rope_decode_fused_qkv`` is kernel K3, a Triton kernel that replaces the
+Pallas ``rope_decode_fused_qkv`` (sgl_kernel_tpu/ops/rope.py:228,
+pallas_call at :243); ``rope_decode_fused_qkv_ref`` is its plain twin.
+
+Kernel note (K3). Bound: bytes: one read of the unsplit qkv row and of the
+cache row at each position, one write of q, k and v; a few flops a byte.
+Design: one Triton program per (token, head) over the [q | k | v] heads of
+the fused GEMM output. q and k heads rotate the neox halves of their first
+``rot`` dims (the partner half comes from a second, shifted load of the
+same row), dims at or past ``rot`` pass through, v heads are copied. The
+TPU kernel's three BlockSpecs over one array become three output pointers.
+"""
+
+from __future__ import annotations
+
+import functools
+from typing import Optional
+
+import torch
+
+from ..utils import next_power_of_2
+
+
+def compute_cos_sin_cache(
+    rotary_dim: int,
+    max_position: int,
+    base: float = 10000.0,
+    *,
+    scaling_factor: float = 1.0,
+    low_freq_factor: Optional[float] = None,
+    high_freq_factor: Optional[float] = None,
+    original_max_position: Optional[int] = None,
+    attention_factor: float = 1.0,
+    dtype=torch.float32,
+    device="cpu",
+):
+    """[max_position, rotary_dim] cache = [cos | sin], computed in float32
+    (llama3 frequency scaling when low/high_freq_factor are set)."""
+    inv_freq = 1.0 / (base ** (torch.arange(0, rotary_dim, 2, dtype=torch.float32) / rotary_dim))
+    if low_freq_factor is not None:
+        if high_freq_factor is None or original_max_position is None:
+            raise ValueError("llama3 scaling needs both freq factors and original_max_position")
+        omax = float(original_max_position)
+        low_wl = omax / low_freq_factor
+        high_wl = omax / high_freq_factor
+        wavelen = 2.0 * torch.pi / inv_freq
+        smooth = (omax / wavelen - low_freq_factor) / (high_freq_factor - low_freq_factor)
+        inv_freq = torch.where(
+            wavelen < high_wl,
+            inv_freq,
+            torch.where(wavelen > low_wl, inv_freq / scaling_factor,
+                        (1 - smooth) * inv_freq / scaling_factor + smooth * inv_freq),
+        )
+    elif scaling_factor != 1.0:
+        inv_freq = inv_freq / scaling_factor
+    t = torch.arange(max_position, dtype=torch.float32)
+    freqs = torch.outer(t, inv_freq)
+    cache = torch.cat([torch.cos(freqs) * attention_factor, torch.sin(freqs) * attention_factor], dim=-1)
+    return cache.to(dtype=dtype, device=device)
+
+
+def _rotate_neox(x, cos, sin):
+    """Neox rotate-half of the first 2*cos.shape[-1] dims of x [..., D] in
+    float32; the rest passes through. cos/sin broadcast against x."""
+    rot = 2 * cos.shape[-1]
+    half = rot // 2
+    xf = x[..., :rot].float()
+    x1, x2 = xf[..., :half], xf[..., half:]
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1).to(x.dtype)
+    return torch.cat([out, x[..., rot:]], dim=-1) if x.shape[-1] > rot else out
+
+
+def rotary_embedding(positions, query, key, head_size: int, cos_sin_cache, is_neox: bool = True):
+    """Neox RoPE on query/key at ``positions`` [T]; query [T, Hq*head_size]
+    or [T, Hq, head_size], key likewise. Returns (query, key) in their
+    input shapes."""
+    if not is_neox:
+        raise NotImplementedError("rotary_embedding: only the neox layout is ported")
+    rot = cos_sin_cache.shape[-1]
+    cs = cos_sin_cache[positions.long()].float()
+    cos = cs[:, None, : rot // 2]
+    sin = cs[:, None, rot // 2:]
+
+    def apply(x):
+        if x is None:
+            return None
+        xh = x.reshape(x.shape[0], -1, head_size)
+        return _rotate_neox(xh, cos, sin).reshape(x.shape)
+
+    return apply(query), apply(key)
+
+
+def rope_decode_fused_qkv_ref(positions, qkv, cos_sin_cache, *, num_q: int, num_kv: int, head_dim: int):
+    """Plain PyTorch twin of ``rope_decode_fused_qkv``."""
+    b = qkv.shape[0]
+    qkv3 = qkv.reshape(b, num_q + 2 * num_kv, head_dim)
+    rot = cos_sin_cache.shape[-1]
+    cs = cos_sin_cache[positions.long()].float()
+    cos = cs[:, None, : rot // 2]
+    sin = cs[:, None, rot // 2:]
+    q = _rotate_neox(qkv3[:, :num_q], cos, sin)
+    k = _rotate_neox(qkv3[:, num_q:num_q + num_kv], cos, sin)
+    v = qkv3[:, num_q + num_kv:].clone()
+    return q, k, v
+
+
+@functools.cache
+def _triton_kernel():
+    import triton
+    import triton.language as tl
+
+    @triton.jit
+    def rope_qkv_kernel(pos_ptr, qkv_ptr, cache_ptr, q_ptr, k_ptr, v_ptr,
+                        NQ: tl.constexpr, NKV: tl.constexpr, D: tl.constexpr,
+                        ROT: tl.constexpr, BLOCK: tl.constexpr):
+        b = tl.program_id(0).to(tl.int64)
+        hd = tl.program_id(1)
+        HALF: tl.constexpr = ROT // 2
+        cols = tl.arange(0, BLOCK)
+        inrow = cols < D
+        row = qkv_ptr + (b * (NQ + 2 * NKV) + hd) * D
+        x = tl.load(row + cols, mask=inrow, other=0.0)
+        if hd < NQ + NKV:
+            pos = tl.load(pos_ptr + b).to(tl.int64)
+            rotm = cols < ROT
+            first = cols < HALF
+            fi = tl.where(first, cols, cols - HALF)
+            partner = tl.where(first, cols + HALF, cols - HALF)
+            xp = tl.load(row + partner, mask=rotm, other=0.0).to(tl.float32)
+            cos = tl.load(cache_ptr + pos * ROT + fi, mask=rotm, other=0.0)
+            sin = tl.load(cache_ptr + pos * ROT + HALF + fi, mask=rotm, other=0.0)
+            xf = x.to(tl.float32)
+            y = tl.where(first, xf * cos - xp * sin, xf * cos + xp * sin)
+            y = tl.where(rotm, y.to(x.dtype), x)
+            if hd < NQ:
+                tl.store(q_ptr + (b * NQ + hd) * D + cols, y, mask=inrow)
+            else:
+                tl.store(k_ptr + (b * NKV + hd - NQ) * D + cols, y, mask=inrow)
+        else:
+            tl.store(v_ptr + (b * NKV + hd - NQ - NKV) * D + cols, x, mask=inrow)
+
+    return rope_qkv_kernel
+
+
+def rope_decode_fused_qkv(positions, qkv, cos_sin_cache, *, num_q: int, num_kv: int, head_dim: int):
+    """Split the unsplit fused-qkv GEMM output [B, (num_q + 2*num_kv) * D]
+    and apply neox RoPE to q and k at ``positions`` [B] (cache row
+    positions[b]). Returns (q [B, Hq, D] roped, k [B, Hkv, D] roped,
+    v [B, Hkv, D]). CUDA tensors go through the Triton kernel."""
+    b = qkv.shape[0]
+    if qkv.shape[1] != (num_q + 2 * num_kv) * head_dim:
+        raise ValueError(f"rope_decode_fused_qkv: qkv {tuple(qkv.shape)} for {num_q}+2x{num_kv} heads of {head_dim}")
+    rot = cos_sin_cache.shape[-1]
+    if rot > head_dim or rot % 2:
+        raise ValueError(f"rope_decode_fused_qkv: cache width {rot} for head_dim {head_dim}")
+    if qkv.device.type != "cuda":
+        return rope_decode_fused_qkv_ref(positions, qkv, cos_sin_cache,
+                                         num_q=num_q, num_kv=num_kv, head_dim=head_dim)
+    if not qkv.is_contiguous() or cos_sin_cache.dtype != torch.float32:
+        raise ValueError("rope_decode_fused_qkv: qkv must be contiguous and the cache float32")
+    q = torch.empty((b, num_q, head_dim), dtype=qkv.dtype, device=qkv.device)
+    k = torch.empty((b, num_kv, head_dim), dtype=qkv.dtype, device=qkv.device)
+    v = torch.empty((b, num_kv, head_dim), dtype=qkv.dtype, device=qkv.device)
+    if b:
+        _triton_kernel()[(b, num_q + 2 * num_kv)](
+            positions.to(torch.int32).contiguous(), qkv, cos_sin_cache.contiguous(), q, k, v,
+            NQ=num_q, NKV=num_kv, D=head_dim, ROT=rot, BLOCK=next_power_of_2(head_dim),
+            num_warps=1)
+        rope_decode_fused_qkv.launches += 1
+    return q, k, v
+
+
+rope_decode_fused_qkv.launches = 0

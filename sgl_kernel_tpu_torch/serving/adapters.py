@@ -1,0 +1,56 @@
+"""Model adapters: the seam between the scheduler (engine.py) and a model
+family's step functions.
+
+The adapter owns everything model-specific (config, weight init, rope
+cache, the KV-cache layout, the step programs); the engine stays a
+page-table and scheduling loop over opaque ``caches``.
+
+This slice serves the Llama family's fresh-prompt prefill and its decode
+step. The adapter has no ``prefill_packed`` and sets ``supports_extend`` and
+``supports_spec`` to False, so the engine turns the prefix cache off and
+sends every prompt through ``prefill``.
+"""
+
+from __future__ import annotations
+
+from ..models import llama
+from ..utils import resolve_device
+
+
+class LlamaAdapter:
+    """Llama dense family (models/llama.py) over (k_pool, v_pool) caches."""
+
+    name = "llama"
+    supports_spec = False
+    supports_extend = False
+
+    def __init__(self, cfg, device="cuda"):
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self._m = llama
+        self.rope_cache = llama.build_rope_cache(cfg, self.device)
+
+    def init_weights(self, generator):
+        return self._m.init_weights(self.cfg, generator, self.device)
+
+    def make_caches(self, num_pages: int, page_size: int):
+        return tuple(self._m.make_caches(self.cfg, num_pages, page_size, device=self.device))
+
+    def prefill(self, params, caches, tokens, positions, q_lens, slot_loc):
+        k, v = caches
+        logits, k, v = self._m.prefill(params, self.cfg, k, v, tokens, positions, q_lens,
+                                       slot_loc, self.rope_cache)
+        return logits, (k, v)
+
+    def decode(self, params, caches, tokens, positions, page_tables, lengths, slot_loc):
+        k, v = caches
+        logits, k, v = self._m.decode_step(params, self.cfg, k, v, tokens, positions,
+                                           page_tables, lengths, slot_loc, self.rope_cache)
+        return logits, (k, v)
+
+
+def adapter_for(cfg, device="cuda"):
+    """The adapter for a config's type."""
+    if isinstance(cfg, llama.LlamaConfig):
+        return LlamaAdapter(cfg, device)
+    raise TypeError(f"no serving adapter for config type {type(cfg).__name__}")

@@ -1,0 +1,37 @@
+"""Shared helpers: alignment arithmetic and device selection.
+
+The port's entry points run on the card unless the caller asks for the
+CPU; ``resolve_device`` is the one place that decision is made.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def cdiv(a: int, b: int) -> int:
+    """Ceiling division."""
+    return -(-a // b)
+
+
+def round_up(x: int, m: int) -> int:
+    """Round ``x`` up to a multiple of ``m``."""
+    return ((x + m - 1) // m) * m
+
+
+def next_power_of_2(x: int) -> int:
+    return 1 if x <= 1 else 1 << (x - 1).bit_length()
+
+
+def resolve_device(device="cuda") -> torch.device:
+    """The device an entry point runs on. ``"cuda"`` (the default of every
+    entry point) raises when no card is present; the CPU is used only when
+    the caller names it."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "sgl_kernel_tpu_torch: no CUDA device is available; pass "
+            "device='cpu' to run the plain PyTorch versions on the CPU")
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {dev}")
+    return dev

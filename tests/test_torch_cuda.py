@@ -1,0 +1,153 @@
+"""The port's hand-written kernels against their plain PyTorch twins on the
+card, over the options and edge cases the serving path's shapes in
+chip_smoke.py do not reach: other head dims and GQA groups, page sizes,
+padding rows, duplicate and dropped slots, extend offsets, non-causal
+attention, widths that are not powers of two.
+
+Needs a CUDA device: every test here is marked ``cuda`` and skips without
+one. On the card (tests/conftest.py imports JAX, which that machine need not
+have, so it is skipped):
+
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
+"""
+
+import pytest
+import torch
+
+from sgl_kernel_tpu_torch.ops import kvcache, norm, rope
+from sgl_kernel_tpu_torch.ops.attention import flash_prefill, paged_decode_dma
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def gen():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    return torch.Generator(device="cuda").manual_seed(0)
+
+
+def randn(gen, *shape, dtype=torch.bfloat16):
+    return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+
+def assert_kernel_close(out, ref):
+    # both sides compute in float32 and round once to the output type;
+    # another summation order moves a bf16 output by at most an ulp or two
+    # (2^-7 relative to the largest output); float32 outputs by ~1e-5
+    tol = (2.0 ** -7 if out.dtype == torch.bfloat16 else 1e-5) * max(1.0, float(ref.float().abs().max()))
+    err = float((out.float() - ref.float()).abs().max())
+    assert err <= tol, (err, tol)
+
+
+@pytest.mark.parametrize("shape", [(1, 4096), (7, 96), (3, 5, 256), (33, 1000)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("gemma", [False, True])
+def test_rmsnorm(gen, shape, dtype, gemma):
+    x, w = randn(gen, *shape, dtype=dtype), randn(gen, shape[-1], dtype=dtype)
+    before = norm.rmsnorm.launches
+    out = norm.rmsnorm(x, w, 1e-5, gemma=gemma)
+    assert norm.rmsnorm.launches == before + 1
+    assert_kernel_close(out, norm.rmsnorm_ref(x, w, 1e-5, gemma=gemma))
+
+
+@pytest.mark.parametrize("nq,nkv,d,rot", [(32, 8, 128, 128), (8, 2, 64, 32), (4, 4, 96, 64)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_rope_decode_fused_qkv(gen, nq, nkv, d, rot, dtype):
+    b = 5
+    cache = rope.compute_cos_sin_cache(rot, 512, 500000.0, device="cuda")
+    pos = torch.randint(0, 512, (b,), generator=gen, device="cuda", dtype=torch.int32)
+    qkv = randn(gen, b, (nq + 2 * nkv) * d, dtype=dtype)
+    kw = dict(num_q=nq, num_kv=nkv, head_dim=d)
+    out = rope.rope_decode_fused_qkv(pos, qkv, cache, **kw)
+    ref = rope.rope_decode_fused_qkv_ref(pos, qkv, cache, **kw)
+    for o, r in zip(out, ref):
+        assert o.shape == r.shape
+        assert_kernel_close(o, r)
+    assert torch.equal(out[2], ref[2])  # v is a copy
+
+
+def paged_case(gen, b, hq, hkv, d, page, lengths, n_layers):
+    n_blocks = max(1, -(-max(lengths) // page)) + 1
+    n_pages = b * n_blocks + 1
+    perm = torch.randperm(n_pages - 1, generator=gen, device="cuda") + 1
+    table = torch.zeros((b, n_blocks), dtype=torch.int32, device="cuda")
+    for i, n in enumerate(lengths):
+        used = -(-n // page)
+        table[i, :used] = perm[i * n_blocks: i * n_blocks + used]
+    shape = (n_layers, n_pages, hkv, page, d)
+    return (table, torch.tensor(lengths, dtype=torch.int32, device="cuda"), randn(gen, *shape),
+            randn(gen, *shape), randn(gen, b, hq, d), randn(gen, b, hkv, d), randn(gen, b, hkv, d))
+
+
+@pytest.mark.parametrize("hq,hkv", [(8, 8), (8, 4), (32, 8), (16, 2)])
+@pytest.mark.parametrize("d", [64, 128, 256])
+@pytest.mark.parametrize("page", [16, 64])
+@pytest.mark.parametrize("fresh", [True, False])
+def test_paged_decode(gen, hq, hkv, d, page, fresh):
+    lengths = [1, 0, 37, 3 * page + 5, 300]  # a length-0 engine padding row
+    b = len(lengths)
+    table, lens, kp, vp, q, fk, fv = paged_case(gen, b, hq, hkv, d, page, lengths, n_layers=3)
+    kw = dict(layer_id=2, fresh_k=fk, fresh_v=fv) if fresh else dict(layer_id=2)
+    out = paged_decode_dma.paged_attention_decode_dma(q, kp, vp, lens, table, **kw)
+    ref = paged_decode_dma.paged_attention_decode_ref(q, kp, vp, lens, table, **kw)
+    assert torch.isfinite(out).all()
+    assert_kernel_close(out, ref)
+    if fresh:  # the padding row sees only its fresh row
+        assert torch.equal(out[1], fv[1].repeat_interleave(hq // hkv, dim=0))
+    else:
+        assert not out[1].any()
+
+
+def test_paged_decode_unstacked_pools_and_raises(gen):
+    table, lens, kp, vp, q, fk, fv = paged_case(gen, 2, 8, 2, 128, 64, [70, 5], n_layers=1)
+    out = paged_decode_dma.paged_attention_decode_dma(q, kp[0], vp[0], lens, table, fresh_k=fk, fresh_v=fv)
+    ref = paged_decode_dma.paged_attention_decode_ref(q, kp[0], vp[0], lens, table, fresh_k=fk, fresh_v=fv)
+    assert_kernel_close(out, ref)
+    for kw in (dict(sliding_window=8), dict(logit_soft_cap=5.0), dict(return_lse=True), dict(num_splits=2)):
+        with pytest.raises(NotImplementedError):
+            paged_decode_dma.paged_attention_decode_dma(q, kp, vp, lens, table, **kw)
+
+
+@pytest.mark.parametrize("page", [16, 64])
+@pytest.mark.parametrize("dtype,d", [(torch.bfloat16, 128), (torch.bfloat16, 32), (torch.float32, 64)])
+def test_store_cache_all_layers(gen, page, dtype, d):
+    l, p, h = 4, 6, 2
+    kp, vp = randn(gen, l, p, h, page, d, dtype=dtype), randn(gen, l, p, h, page, d, dtype=dtype)
+    kp2, vp2 = kp.clone(), vp.clone()
+    # dropped (-1), out of range (P*page), a slot written twice (later wins)
+    loc = torch.tensor([5, -1, p * page, 2 * page + 3, 5, p * page - 1], dtype=torch.int32, device="cuda")
+    ka, va = randn(gen, l, 6, h, d, dtype=dtype), randn(gen, l, 6, h, d, dtype=dtype)
+    kvcache.store_cache_all_layers(ka, va, kp, vp, loc)
+    kvcache.store_cache_all_layers_ref(ka, va, kp2, vp2, loc)
+    assert torch.equal(kp, kp2) and torch.equal(vp, vp2)
+    assert torch.equal(kp[:, 0, :, 5], ka[:, 4])
+
+
+@pytest.mark.parametrize("hq,hkv,d", [(32, 8, 128), (4, 4, 64), (8, 1, 128)])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_ragged(gen, hq, hkv, d, causal):
+    b, s = 3, 200
+    q, k, v = randn(gen, b, s, hq, d), randn(gen, b, s, hkv, d), randn(gen, b, s, hkv, d)
+    ql = torch.tensor([200, 77, 1], dtype=torch.int32, device="cuda")
+    out = flash_prefill.flash_attention(q, k, v, ql, ql, causal=causal)
+    ref = flash_prefill.flash_attention_ref(q, k, v, ql, ql, causal=causal)
+    assert torch.isfinite(out).all()
+    for i, n in enumerate(ql.tolist()):
+        assert_kernel_close(out[i, :n], ref[i, :n])
+
+
+def test_flash_extend_offsets(gen):
+    """Queries as the last q_len of kv_len (Sq != Skv), then explicit
+    q_start / kv_start."""
+    b, sq, skv, hq, hkv, d = 2, 70, 150, 8, 2, 128
+    q, k, v = randn(gen, b, sq, hq, d), randn(gen, b, skv, hkv, d), randn(gen, b, skv, hkv, d)
+    ql = torch.tensor([70, 33], dtype=torch.int32, device="cuda")
+    kl = torch.tensor([150, 90], dtype=torch.int32, device="cuda")
+    qs = torch.tensor([100, 57], dtype=torch.int32, device="cuda")
+    ks = torch.tensor([0, 3], dtype=torch.int32, device="cuda")
+    for extra in ((), (None, qs, ks)):
+        out = flash_prefill.flash_attention(q, k, v, ql, kl, *extra, causal=True)
+        ref = flash_prefill.flash_attention_ref(q, k, v, ql, kl, *extra, causal=True)
+        for i, n in enumerate(ql.tolist()):
+            assert_kernel_close(out[i, :n], ref[i, :n])

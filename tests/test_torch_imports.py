@@ -1,0 +1,85 @@
+"""The port stands alone: importing it loads neither JAX nor the JAX
+package, no module of it imports them, and its entry points refuse to run
+on a machine without a card unless the CPU is asked for."""
+
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+import sgl_kernel_tpu_torch as skt
+
+torch.set_num_threads(1)
+
+ROOT = Path(__file__).resolve().parent.parent
+
+
+def test_import_loads_no_jax():
+    code = ("import sys, sgl_kernel_tpu_torch\n"
+            "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'ml_dtypes', 'sgl_kernel_tpu.'))"
+            " or m == 'sgl_kernel_tpu']\n"
+            "print(bad)\n"
+            "sys.exit(1 if bad else 0)\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stdout + out.stderr
+
+
+def test_no_module_imports_jax():
+    pat = re.compile(r"^\s*(import|from)\s+(jax|ml_dtypes|sgl_kernel_tpu)([. ]|$)", re.M)
+    files = sorted((ROOT / "sgl_kernel_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    hits = [f"{f}: {m.group(0)}" for f in files for m in pat.finditer(f.read_text())]
+    assert not hits, hits
+
+
+def test_entry_points_need_a_card_by_default():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is usable")
+    cfg = skt.LlamaConfig.tiny(fused=True)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        skt.Engine(cfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        skt.init_weights(cfg, 0)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        skt.make_caches(cfg, 4, 16)
+
+
+def test_unserved_engine_arguments_raise():
+    cfg = skt.LlamaConfig.tiny(fused=True)
+    for kw in (dict(mesh=object()), dict(draft_cfg=cfg), dict(decode_burst=4), dict(prefill_chunk=32)):
+        with pytest.raises(NotImplementedError):
+            skt.Engine(cfg, device="cpu", num_pages=8, page_size=16, **kw)
+    eng = skt.Engine(cfg, device="cpu", num_pages=8, page_size=16)
+    with pytest.raises(NotImplementedError):
+        eng.add_request([1, 2], grammar=[0])
+
+
+def test_kernel_wrappers_count_launches():
+    assert set(skt.launch_counts()) == {"rmsnorm", "rope_decode_fused_qkv", "paged_attention_decode_dma",
+                                        "store_cache_all_layers", "flash_attention"}
+    skt.reset_launch_counts()
+    x = torch.randn(3, 64)
+    skt.rmsnorm(x, torch.ones(64))  # CPU tensor: the plain twin, no launch
+    assert all(n == 0 for n in skt.launch_counts().values())
+
+
+def test_kernel_sources_and_entry_points():
+    """Every CUDA source is found by _build.sources(), exports the C entry point
+    its wrapper binds, and returns cudaGetLastError(); library names follow
+    the source bytes."""
+    from sgl_kernel_tpu_torch import _build
+
+    stems = {p.stem for p in _build.sources()}
+    assert stems == {"decode_attention", "flash_prefill", "store_cache"}
+    entry = {"decode_attention": "skt_paged_decode", "flash_prefill": "skt_flash_prefill",
+             "store_cache": "skt_store_cache_all_layers"}
+    for src in _build.sources():
+        text = src.read_text()
+        assert f'extern "C" int {entry[src.stem]}(' in text
+        assert "cudaGetLastError()" in text
+        assert "sgl_kernel_tpu/ops/" in text  # the note naming the TPU kernel it replaces
+        lib = _build._lib_path(src)
+        assert lib.parent == _build.BUILD_DIR and lib.name.startswith(src.stem + "-")
+    assert "-gencode" in _build.NVCC_FLAGS and "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS

@@ -1,0 +1,73 @@
+"""Parity of the port's KV-cache stores (K6 store_cache_all_layers and the
+per-layer store_cache_stacked) with the JAX package. A store is a copy, so
+the pools must agree bit for bit."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from sgl_kernel_tpu.ops import kvcache as jkv
+from sgl_kernel_tpu_torch.interop import tensor_from_numpy
+from sgl_kernel_tpu_torch.ops import kvcache as tkv
+
+torch.set_num_threads(1)
+
+
+def pools(rng, l, p, h, page, d, jdt):
+    kp = jnp.asarray(rng.standard_normal((l, p, h, page, d)).astype(np.float32), jdt)
+    vp = jnp.asarray(rng.standard_normal((l, p, h, page, d)).astype(np.float32), jdt)
+    return kp, vp, tensor_from_numpy(np.asarray(kp), "cpu"), tensor_from_numpy(np.asarray(vp), "cpu")
+
+
+def same(a_jax, b_torch):
+    np.testing.assert_array_equal(np.asarray(a_jax, np.float32), b_torch.float().numpy())
+
+
+@pytest.mark.parametrize("page", [16, 64])
+@pytest.mark.parametrize("jdt", [jnp.float32, jnp.bfloat16])
+def test_store_cache_all_layers(rng, page, jdt):
+    l, p, h, d = 3, 4, 2, 32
+    kp, vp, kpt, vpt = pools(rng, l, p, h, page, d, jdt)
+    # valid slots, a dropped -1, an out-of-range slot (= P*page), the last slot
+    loc = np.array([5, -1, p * page, 2 * page + 3, p * page - 1, page + 7], np.int32)
+    t = loc.shape[0]
+    ka = jnp.asarray(rng.standard_normal((l, t, h, d)).astype(np.float32), jdt)
+    va = jnp.asarray(rng.standard_normal((l, t, h, d)).astype(np.float32), jdt)
+    rk, rv = jkv.store_cache_all_layers(ka, va, kp, vp, jnp.asarray(loc))
+    ok, ov = tkv.store_cache_all_layers(tensor_from_numpy(np.asarray(ka), "cpu"),
+                                        tensor_from_numpy(np.asarray(va), "cpu"), kpt, vpt,
+                                        torch.from_numpy(loc))
+    assert ok is kpt and ov is vpt  # in place
+    same(rk, ok)
+    same(rv, ov)
+
+
+def test_store_cache_all_layers_token_order(rng):
+    """Two tokens on one slot: the later token wins, as in the JAX kernel."""
+    l, p, h, page, d = 2, 3, 2, 16, 32
+    kp, vp, kpt, vpt = pools(rng, l, p, h, page, d, jnp.float32)
+    loc = np.array([9, 20, 9], np.int32)
+    ka = jnp.asarray(rng.standard_normal((l, 3, h, d)).astype(np.float32))
+    va = jnp.asarray(rng.standard_normal((l, 3, h, d)).astype(np.float32))
+    rk, rv = jkv.store_cache_all_layers(ka, va, kp, vp, jnp.asarray(loc))
+    ok, ov = tkv.store_cache_all_layers(tensor_from_numpy(ka, "cpu"), tensor_from_numpy(va, "cpu"),
+                                        kpt, vpt, torch.from_numpy(loc))
+    same(rk, ok)
+    same(rv, ov)
+    np.testing.assert_array_equal(ok[:, 0, :, 9].numpy(), np.asarray(ka)[:, 2])
+
+
+@pytest.mark.parametrize("page", [16, 64])
+def test_store_cache_stacked(rng, page):
+    l, p, h, d = 3, 4, 2, 32
+    kp, vp, kpt, vpt = pools(rng, l, p, h, page, d, jnp.bfloat16)
+    loc = np.array([0, 1, -1, -1, 3 * page + 2, p * page + 5], np.int32)
+    k = jnp.asarray(rng.standard_normal((6, h, d)).astype(np.float32), jnp.bfloat16)
+    v = jnp.asarray(rng.standard_normal((6, h, d)).astype(np.float32), jnp.bfloat16)
+    rk, rv = jkv.store_cache_stacked(k, v, kp, vp, jnp.asarray(loc), 1)
+    ok, ov = tkv.store_cache_stacked(tensor_from_numpy(np.asarray(k), "cpu"),
+                                     tensor_from_numpy(np.asarray(v), "cpu"), kpt, vpt,
+                                     torch.from_numpy(loc), 1)
+    same(rk, ok)
+    same(rv, ov)
