@@ -15,13 +15,7 @@ Kernels of this slice (each wrapper counts its launches in ``.launches``):
 
 from .interop import params_from_numpy, tensor_from_numpy
 from .models.llama import LlamaConfig, build_rope_cache, decode_step, init_weights, make_caches, prefill
-from .ops.attention import (
-    choose_num_splits,
-    flash_attention,
-    merge_state,
-    merge_states,
-    paged_attention_decode_dma,
-)
+from .ops.attention import flash_attention, merge_state, merge_states, paged_attention_decode_dma
 from .ops.kvcache import store_cache_all_layers, store_cache_stacked
 from .ops.norm import fused_add_rmsnorm, gemma_fused_add_rmsnorm, gemma_rmsnorm, rmsnorm
 from .ops.rope import compute_cos_sin_cache, rope_decode_fused_qkv, rotary_embedding

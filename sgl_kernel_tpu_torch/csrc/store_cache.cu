@@ -35,21 +35,19 @@ __global__ void store_all_layers_kernel(
     const long long pid = slot / page, off = slot % page;
     const uint8_t* s = src + (((long long)layer * n_tokens + t) * n_heads + h) * row_bytes;
     uint8_t* d = dst + ((((long long)layer * n_pages + pid) * n_heads + h) * page + off) * row_bytes;
-    if (vecs * 16 == row_bytes) {
-      for (int i = threadIdx.x; i < vecs; i += blockDim.x)
-        reinterpret_cast<uint4*>(d)[i] = reinterpret_cast<const uint4*>(s)[i];
-    } else {
-      for (int i = threadIdx.x; i < row_bytes; i += blockDim.x) d[i] = s[i];
-    }
+    for (int i = threadIdx.x; i < vecs; i += blockDim.x)
+      reinterpret_cast<uint4*>(d)[i] = reinterpret_cast<const uint4*>(s)[i];
   }
 }
 
 }  // namespace
 
+// row_bytes (head_dim x element size) must be a multiple of 16.
 extern "C" int skt_store_cache_all_layers(
     const void* k_all, const void* v_all, void* k_pool, void* v_pool,
     const void* loc, int n_layers, int n_tokens, int n_heads, int n_pages,
     int page, int row_bytes, void* stream) {
+  if (row_bytes % 16) return (int)cudaErrorInvalidValue;
   dim3 grid(n_layers, n_heads, 2);
   store_all_layers_kernel<<<grid, 32, 0, (cudaStream_t)stream>>>(
       (const uint8_t*)k_all, (const uint8_t*)v_all, (uint8_t*)k_pool,

@@ -2,8 +2,4 @@
 
 from .flash_prefill import flash_attention, flash_attention_ref
 from .merge_state import merge_state, merge_states
-from .paged_decode_dma import (
-    choose_num_splits,
-    paged_attention_decode_dma,
-    paged_attention_decode_ref,
-)
+from .paged_decode_dma import paged_attention_decode_dma, paged_attention_decode_ref

@@ -24,19 +24,6 @@ from ...utils import cdiv
 LOG2E = 1.4426950408889634
 
 
-def choose_num_splits(batch: int, max_context: int, page: int, chunk_pages: int,
-                      num_cores: int = 1, num_kv_heads: int = 1) -> int:
-    """KV-split factor that fills ``num_cores`` SMs: the decode kernel runs
-    one block per (sequence, KV head), so a small batch leaves SMs idle and
-    splitting the context across blocks fills them (at most half the
-    chunks, so each split keeps two chunks of work)."""
-    blocks = batch * num_kv_heads
-    if blocks >= num_cores:
-        return 1
-    n_chunks = cdiv(max_context, page * chunk_pages)
-    return max(1, min(num_cores // max(blocks, 1), n_chunks // 2))
-
-
 def paged_attention_decode_ref(q, k_pages, v_pages, lengths, page_table, sinks=None,
                                k_scale=None, v_scale=None, layer_id=None, fresh_k=None,
                                fresh_v=None, *, sm_scale: Optional[float] = None,
@@ -107,10 +94,14 @@ def paged_attention_decode_dma(q, k_pages, v_pages, lengths, page_table, sinks=N
     [L, P, Hkv, page, D] (or [P, Hkv, page, D]); lengths [B] include the
     current token; page_table [B, n_blocks]. With fresh_k/fresh_v [B, Hkv, D]
     the pool holds length-1 tokens and the fresh row is attended last.
-    ``chunk_pages`` only shaped the TPU kernel's DMA and is ignored. CUDA
-    tensors go through the K5 kernel, which takes bf16 page-major pools,
-    head_dim 64/128/256, group 1/2/4/8 and no sinks, window, softcap,
-    scales, lse or splits yet. The head-major layout is not ported."""
+    CUDA tensors go through the K5 kernel, which takes bf16 page-major
+    pools, head_dim 64/128/256, group 1/2/4/8 and no sinks, window,
+    softcap, scales or lse yet.
+
+    ``chunk_pages``, ``num_splits`` and ``layout`` are contract-only: they
+    keep the JAX signature. ``chunk_pages`` sized the TPU kernel's DMA
+    refills and has no counterpart; split-KV (``num_splits > 1``) and the
+    head-major ``layout="head"`` are not ported and raise."""
     if layout != "page":
         raise NotImplementedError("paged_attention_decode_dma: only the page-major layout is ported")
     if q.device.type != "cuda":

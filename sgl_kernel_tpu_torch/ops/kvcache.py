@@ -89,12 +89,15 @@ def store_cache_all_layers(k_all, v_all, k_pool, v_pool, loc):
         raise ValueError(f"store_cache_all_layers: k_all {tuple(k_all.shape)} for pools {tuple(k_pool.shape)} and {t} slots")
     if not (k_pool.is_contiguous() and v_pool.is_contiguous()) or v_pool.dtype != k_pool.dtype:
         raise ValueError("store_cache_all_layers: pools must be contiguous and of one dtype")
+    row_bytes = d * k_pool.element_size()
+    if row_bytes % 16:
+        raise NotImplementedError(f"store_cache_all_layers: the CUDA kernel copies 16-byte lanes; a row is {row_bytes} B")
     ka = k_all.to(k_pool.dtype).contiguous()
     va = v_all.to(v_pool.dtype).contiguous()
     loc32 = loc.to(device=k_pool.device, dtype=torch.int32).contiguous()
     fn = _build.bind("store_cache", "skt_store_cache_all_layers", _ARGS)
     _build.check(fn(ka.data_ptr(), va.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-                    loc32.data_ptr(), l, t, h, p, page, d * k_pool.element_size(),
+                    loc32.data_ptr(), l, t, h, p, page, row_bytes,
                     _build.stream_ptr(k_pool.device)), "store_cache_all_layers")
     store_cache_all_layers.launches += 1
     return k_pool, v_pool

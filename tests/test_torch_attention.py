@@ -99,12 +99,23 @@ def test_paged_decode_options_lse(rng):
     close(rl, ol, **F32)
 
 
-def test_choose_num_splits():
-    # enough (sequence, head) blocks to fill the card: no split
-    assert tatt.choose_num_splits(16, 1024, 64, 16, num_cores=132, num_kv_heads=8) == 1
-    # one sequence of 8 heads on 132 SMs, 8k context: split, bounded by chunks/2
-    assert tatt.choose_num_splits(1, 8192, 64, 16, num_cores=132, num_kv_heads=8) == 4
-    assert tatt.choose_num_splits(1, 512, 64, 1, num_cores=132, num_kv_heads=8) == 4
+@pytest.mark.parametrize("num_splits", [1, 2])
+def test_paged_decode_contract_only_args(rng, num_splits):
+    """chunk_pages and num_splits keep the JAX signature: the JAX kernel's
+    split-KV gives the plain twin's result; the head-major layout is not
+    ported and raises."""
+    b, hq, hkv, d, page = 2, 4, 2, 32, 16
+    lengths = [70, 9]
+    table, [(kj, kt), (vj, vt), (qj, qt), (fkj, fkt), (fvj, fvt)] = paged_case(rng, b, hq, hkv, d, page, lengths)
+    lens = np.array(lengths, np.int32)
+    kw = dict(chunk_pages=1, num_splits=num_splits)
+    ref = jdec.paged_attention_decode_dma(qj, kj, vj, jnp.asarray(lens), jnp.asarray(table),
+                                          fresh_k=fkj, fresh_v=fvj, **kw)
+    out = tatt.paged_attention_decode_dma(qt, kt, vt, torch.from_numpy(lens), torch.from_numpy(table),
+                                          fresh_k=fkt, fresh_v=fvt, **kw)
+    close(ref, out, **F32)
+    with pytest.raises(NotImplementedError):
+        tatt.paged_attention_decode_dma(qt, kt, vt, torch.from_numpy(lens), torch.from_numpy(table), layout="head")
 
 
 @pytest.mark.parametrize("hq,hkv", [(4, 2), (4, 1), (4, 4)])
