@@ -11,16 +11,23 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
              the card at the serving path's shapes: max error against a
              stated tolerance, kernel / plain / library times (CUDA events)
              and the least time the card could take (bytes over 3.35 TB/s
-             or operations over the peak rate of their type).
-  3. parity  Llama-3-8B widths cut to 2 layers, weights from one CPU seed:
-             the same prefill and 4 decode steps on the card and on the
-             CPU; greedy tokens and logits agree.
+             or operations over the peak rate of their type). The W4A16
+             GEMM (K1) at the five decode GEMMs of a Llama-3-8B step, two
+             prefill ones, an mxfp4 and a zeros+bias case; decode attention
+             (K5) on int8 and fp8 e4m3 pools too.
+  3. parity  Llama-3-8B widths cut to 2 layers, weights from one CPU seed,
+             bf16 and W4A16: the same prefill and 4 decode steps on the card
+             and on the CPU; greedy tokens and logits agree.
   4. serve   Engine(LlamaConfig.llama3_8b(fused=True)) with random weights
              serves 16 requests (prompts of 16..1024 tokens, 32 new tokens,
-             two sampled); every kernel's launch count over this run is > 0.
-  5. profile the same engine: 16 prompts admitted again, 4 decode steps
-             traced with torch.profiler; step time, device-busy share and
-             device time per kernel name.
+             two sampled); then the same 16 on the W4A16 engine
+             (quant="w4a16"), then 4 on the W4A16 engine with int8 KV pools
+             (kv_scale 1/16). Each run's kernels each launch at least once
+             (counts set to 0 just before it), K1 in both prefill and
+             decode, K5 on the int8 pool.
+  5. profile the bf16 and the W4A16 engine: 16 prompts admitted again, 4
+             decode steps traced with torch.profiler; step time,
+             device-busy share and device time per kernel name.
 
 Prints a JSON line of per-kernel numbers, then, last,
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -73,8 +80,45 @@ def time_ms(torch, fn, iters=20, warmup=3):
     return start.elapsed_time(end) / iters
 
 
+def graph_ms(torch, fn, reps=20):
+    """Device time of one call: ``reps`` calls captured in a CUDA graph and
+    replayed, so no host launch path sits between them (back-to-back
+    launches timed with events measure the host when a kernel is shorter
+    than its launch path)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm-up off the capture stream
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    return time_ms(torch, graph.replay, iters=5, warmup=1) / reps
+
+
 def max_err(torch, a, b):
     return float((a.float() - b.float()).abs().max())
+
+
+def check(name, pairs):
+    """Element-wise: |out - ref| <= 2^-7 |ref| + 2^-12 max|ref row|.
+    Kernel and plain version both compute in float32 and round once to
+    bf16, so they may land one bf16 ulp apart (at most 2^-7 of the value);
+    the second term covers float32 sums taken in another order near zero
+    (~2^-20 of the row's scale), far below bf16 resolution. A row is the
+    last dim (one head or one hidden vector)."""
+    err, ratio = 0.0, 0.0
+    for out, ref in pairs:
+        o, r = out.float(), ref.float()
+        tol = 2.0 ** -7 * r.abs() + 2.0 ** -12 * r.abs().amax(-1, keepdim=True)
+        diff = (o - r).abs()
+        err = max(err, float(diff.max()))
+        ratio = max(ratio, float((diff / tol).nan_to_num(0.0, posinf=float("inf")).max()))
+    log(f"[kernel] {name}: max_abs_err={err:.6g} worst err/tol={ratio:.4g}")
+    if not ratio <= 1.0:
+        fail(f"{name} disagrees with its plain version: err/tol {ratio} > 1")
+    return err
 
 
 def phase_build(skt_build):
@@ -108,25 +152,6 @@ def phase_kernels(torch, skt):
 
     def randn(*shape, dtype=bf):
         return torch.randn(shape, generator=gen, device=dev).to(dtype)
-
-    def check(name, pairs):
-        """Element-wise: |out - ref| <= 2^-7 |ref| + 2^-12 max|ref row|.
-        Kernel and plain version both compute in float32 and round once to
-        bf16, so they may land one bf16 ulp apart (at most 2^-7 of the
-        value); the second term covers float32 sums taken in another order
-        near zero (~2^-20 of the row's scale), far below bf16 resolution.
-        A row is the last dim (one head or one hidden vector)."""
-        err, ratio = 0.0, 0.0
-        for out, ref in pairs:
-            o, r = out.float(), ref.float()
-            tol = 2.0 ** -7 * r.abs() + 2.0 ** -12 * r.abs().amax(-1, keepdim=True)
-            diff = (o - r).abs()
-            err = max(err, float(diff.max()))
-            ratio = max(ratio, float((diff / tol).nan_to_num(0.0, posinf=float("inf")).max()))
-        log(f"[kernel] {name}: max_abs_err={err:.6g} worst err/tol={ratio:.4g}")
-        if not ratio <= 1.0:
-            fail(f"{name} disagrees with its plain version: err/tol {ratio} > 1")
-        return err
 
     # K2 rmsnorm at the decode [16, 4096] and prefill [1024, 4096] shapes
     w = randn(h)
@@ -187,6 +212,28 @@ def phase_kernels(torch, skt):
         ms=time_ms(torch, lambda: paged_decode_dma.paged_attention_decode_dma(q, kp, vp, lengths, table, **dkw)),
         plain_ms=time_ms(torch, lambda: paged_decode_dma.paged_attention_decode_ref(q, kp, vp, lengths, table, **dkw)),
         library_ms=None, bound_ms=bms, bound_by=bby)
+    # the same attention over 1-byte pools with per-tensor scales (int8 at
+    # the engine's kv_scale 1/16, fp8 e4m3 at 0.5): a 1-byte row halves
+    # the pool bytes
+    for kind, kv_dt, scale in (("int8", torch.int8, 1 / 16), ("e4m3", torch.float8_e4m3fn, 0.5)):
+        if kv_dt == torch.int8:
+            kq, vq = (torch.randint(-127, 128, pool_shape, generator=gen, device=dev, dtype=torch.int32).to(kv_dt)
+                      for _ in range(2))
+        else:
+            kq, vq = ((torch.randn(pool_shape, generator=gen, device=dev) * 4).to(kv_dt) for _ in range(2))
+        qkw = dict(dkw, k_scale=scale, v_scale=scale)
+        out = paged_decode_dma.paged_attention_decode_dma(q, kq, vq, lengths, table, **qkw)
+        ref = paged_decode_dma.paged_attention_decode_ref(q, kq, vq, lengths, table, **qkw)
+        err = check(f"paged_attention_decode_dma {kind} pools", [(out, ref)])
+        q_bytes = 2 * pool_tokens * nkv * d + (2 * b * nq * d + 2 * b * nkv * d) * 2 + sum(n_used) * 4 + b * 4
+        bms, bby = bound_ms(q_bytes, 4 * sum(lengths_l) * nq * d, BF16_FLOPS)
+        rows[f"paged_attention_decode_dma_{kind}"] = dict(
+            max_abs_err=err,
+            ms=time_ms(torch, lambda: paged_decode_dma.paged_attention_decode_dma(q, kq, vq, lengths, table, **qkw)),
+            plain_ms=time_ms(torch, lambda: paged_decode_dma.paged_attention_decode_ref(q, kq, vq, lengths, table,
+                                                                                        **qkw)),
+            library_ms=None, bound_ms=bms, bound_by=bby)
+        del kq, vq
     del kp, vp
 
     # K6 all-layers KV store: B=16 tokens of 32 layers into 1024-page pools,
@@ -247,13 +294,108 @@ def phase_kernels(torch, skt):
     return rows
 
 
-def phase_parity(torch, skt):
+def int4pack_yardstick(torch, w, scales, group):
+    """torch._weight_int4pack_mm (tinygemm) over the same int4 weights: the
+    library's timing yardstick, which the port never calls. Our nibble c
+    in [-8, 7] becomes q = c + 8 (= nibble ^ 8) with zero 0, since tinygemm
+    computes (q - 8) * s + z. Returns (fn, None), or (None, reason)."""
+    from sgl_kernel_tpu_torch.ops.gemm.w4a16 import unpack_w4_tpu
+
+    if not (hasattr(torch, "_weight_int4pack_mm") and hasattr(torch, "_convert_weight_to_int4pack")):
+        return None, "this torch has no _weight_int4pack_mm"
+    q = (unpack_w4_tpu(w) ^ 8).t().contiguous()  # [N, K] in 0..15
+    try:  # [N, K/2] bytes, the even k in the high nibble
+        packed = torch._convert_weight_to_int4pack(((q[:, ::2] << 4) | q[:, 1::2]).contiguous(), 8)
+    except RuntimeError as e:
+        return None, f"_convert_weight_to_int4pack refused the weights: {str(e).splitlines()[0]}"
+    sz = torch.stack([scales.to(torch.bfloat16), torch.zeros_like(scales, dtype=torch.bfloat16)], -1).contiguous()
+    return (lambda a: torch._weight_int4pack_mm(a, packed, group, sz)), None
+
+
+def phase_w4a16(torch, skt):
+    """K1 against its plain version at the W4A16 Llama-3-8B GEMMs: the five
+    decode GEMMs of a step (M=16) with the prologue and epilogue each has on
+    the path, two prefill GEMMs (M=1024), an mxfp4 and a zeros+bias case."""
+    from sgl_kernel_tpu_torch.ops.gemm import w4a16
+
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 4)
+    bf = torch.bfloat16
+    g = 128
+    rows = {}
+    cases = [("qkv", 16, 6144, 4096, "norm"), ("o", 16, 4096, 4096, "residual"),
+             ("gate_up", 16, 28672, 4096, "norm"), ("down", 16, 4096, 14336, "fused"),
+             ("lm_head", 16, 129024, 4096, "norm"), ("gate_up_prefill", 1024, 28672, 4096, None),
+             ("down_prefill", 1024, 4096, 14336, "fused"), ("mxfp4", 16, 4096, 4096, "mxfp4"),
+             ("zeros_bias", 16, 4096, 4096, "zeros_bias")]
+    for name, m, n, k, opt in cases:
+        kw = dict(group_size=g)
+        if opt == "mxfp4":
+            kw.update(fmt="mxfp4", group_size=32)
+            w = torch.randint(0, 256, (k // 2, n), generator=gen, device=dev, dtype=torch.int32).to(torch.uint8)
+            scales = torch.exp2(torch.randint(-8, -3, (k // 32, n), generator=gen, device=dev).float()).to(bf)
+        else:
+            wf = torch.randn((n, k), generator=gen, device=dev) * 0.02 + (0.005 if opt == "zeros_bias" else 0.0)
+            w, scales, zeros = w4a16.quantize_w4(wf, group_size=g, symmetric=opt != "zeros_bias")
+            del wf
+            if opt == "zeros_bias":
+                kw.update(zeros=zeros, bias=torch.randn(n, generator=gen, device=dev))
+        a = torch.randn((m, 2 * k if opt == "fused" else k), generator=gen, device=dev).to(bf)
+        if opt == "norm":
+            kw["norm_weight"] = (1 + 0.1 * torch.randn(k, generator=gen, device=dev)).to(bf)
+        elif opt == "residual":
+            kw["residual"] = torch.randn((m, n), generator=gen, device=dev).to(bf)
+        elif opt == "fused":
+            kw.update(prologue="silu_mul", fused_gate_up=True, residual=torch.randn((m, n), generator=gen,
+                                                                                    device=dev).to(bf))
+        out = w4a16.w4a16_gemm(a, w, scales, **kw)
+        ref = w4a16.w4a16_gemm_ref(a, w, scales, **kw)
+        err = check(f"w4a16_gemm {name} [{m}, {n}, {k}]", [(out, ref)])
+        del out, ref
+        # bytes the call must move: codes, scales (and zeros), activations,
+        # norm weight, residual, bias, the bf16 output
+        n_bytes = (w.numel() + 2 * scales.numel() * (2 if "zeros" in kw else 1) + 2 * a.numel()
+                   + (2 * k if opt == "norm" else 0) + (2 * m * n if "residual" in kw else 0)
+                   + (4 * n if "bias" in kw else 0) + 2 * m * n)
+        bms, bby = bound_ms(n_bytes, 2 * m * n * k, BF16_FLOPS)
+        lib_ms, lib_note = None, "no library call for this format"
+        if kw.get("fmt", "int4") == "int4" and "zeros" not in kw:
+            fn, lib_note = int4pack_yardstick(torch, w, scales, g)
+            if fn is not None:
+                # the library call is the bare GEMM: held to the plain
+                # version without prologue or epilogue; tinygemm rounds each
+                # dequantized weight to bf16, 2^-9 relative, so 2^-6 of the
+                # output's scale
+                a0 = a[:, :k].contiguous()
+                bare = w4a16.w4a16_gemm_ref(a0, w, scales, group_size=g).float()
+                lib = fn(a0).float()
+                lib_err = float((lib - bare).abs().max())
+                if lib_err <= 2.0 ** -6 * float(bare.abs().max()):
+                    lib_ms, lib_note = time_ms(torch, lambda: fn(a0)), f"max_abs_err {lib_err:.4g}"
+                else:
+                    lib_note = f"_weight_int4pack_mm disagrees with the plain GEMM by {lib_err:.4g}"
+                del bare, lib
+        rows[f"w4a16_gemm_{name}"] = dict(
+            max_abs_err=err, ms=time_ms(torch, lambda: w4a16.w4a16_gemm(a, w, scales, **kw)),
+            plain_ms=time_ms(torch, lambda: w4a16.w4a16_gemm_ref(a, w, scales, **kw), iters=5),
+            library_ms=lib_ms, bound_ms=bms, bound_by=bby)
+        r = rows[f"w4a16_gemm_{name}"]
+        lib = "null" if lib_ms is None else f"{lib_ms:.4f}"
+        dev_ms = graph_ms(torch, lambda: w4a16.w4a16_gemm(a, w, scales, **kw))
+        log(f"[kernel] w4a16_gemm {name} [{m}, {n}, {k}]: ms={r['ms']:.4f} graph_ms={dev_ms:.4f} "
+            f"plain_ms={r['plain_ms']:.4f} library_ms={lib} ({lib_note}) bound_ms={bms:.4f} ({bby})")
+        del a, w, scales, kw
+        torch.cuda.empty_cache()
+    return rows
+
+
+def phase_parity(torch, skt, cfg, label):
     """Full width, 2 layers: the card against the CPU on the same weights."""
-    cfg = dataclasses.replace(skt.LlamaConfig.llama3_8b(fused=True), num_layers=2)
+    cfg = dataclasses.replace(cfg, num_layers=2)
     t0 = time.perf_counter()
     params_cpu = skt.init_weights(cfg, torch.Generator().manual_seed(SEED), device="cpu")
-    params_gpu = {k: ({kk: vv.to(DEVICE) for kk, vv in v.items()} if isinstance(v, dict) else v.to(DEVICE))
-                  for k, v in params_cpu.items()}
+    to_dev = lambda v: {k: to_dev(x) for k, x in v.items()} if isinstance(v, dict) else v.to(DEVICE)
+    params_gpu = to_dev(params_cpu)
     page, n_pages, bucket = 64, 8, 64
     sides = {}
     for dev in ("cpu", DEVICE):
@@ -272,27 +414,28 @@ def phase_parity(torch, skt):
         logits, sd["k"], sd["v"] = fn(sd["params"], cfg, sd["k"], sd["v"], *ts, sd["rope"])
         return logits.float().cpu()
 
-    # bf16 at full width: the two devices round each linear's output
-    # (4096..28672-long dot products) in another order, one bf16 ulp (2^-8)
-    # per element, and the error grows through 2 layers and the final norm.
+    # bf16 activations at full width (bf16 or W4A16 weights): the two
+    # devices round each linear's output (4096..28672-long dot products) in
+    # another order, one bf16 ulp (2^-8) per element, and the error grows
+    # through 2 layers and the final norm.
     tol = 0.25
     worst, near_ties, steps = 0.0, 0, 0
 
     def compare(lc, lg, what):
         nonlocal worst, near_ties, steps
         if not torch.isfinite(lg).all():
-            fail(f"parity {what}: non-finite logits on the card")
+            fail(f"parity {label} {what}: non-finite logits on the card")
         err = float((lc - lg).abs().max())
         worst = max(worst, err)
         if err > tol:
-            fail(f"parity {what}: logits differ by {err} > {tol}")
+            fail(f"parity {label} {what}: logits differ by {err} > {tol}")
         for row_c, row_g in zip(lc, lg):
             tc, tg = int(row_c.argmax()), int(row_g.argmax())
             steps += 1
             if tc != tg:
                 # a flip is a near-tie only if the CPU's own margin is within tol
                 if float(row_c[tc] - row_c[tg]) > tol:
-                    fail(f"parity {what}: greedy token {tg} on the card, {tc} on the CPU")
+                    fail(f"parity {label} {what}: greedy token {tg} on the card, {tc} on the CPU")
                 near_ties += 1
         return lc.argmax(-1).tolist()
 
@@ -315,32 +458,43 @@ def phase_parity(torch, skt):
         nxt = compare(out["cpu"][:2], out[DEVICE][:2], f"decode {step}")
         for s, t in zip(seqs, nxt):
             s.append(t)
-    log(f"[parity] 2-layer Llama-3-8B widths, card vs CPU: max |logit diff|={worst:.4g} (tol {tol}), "
+    log(f"[parity] {label} 2-layer Llama-3-8B widths, card vs CPU: max |logit diff|={worst:.4g} (tol {tol}), "
         f"greedy near-ties={near_ties}/{steps}, {time.perf_counter() - t0:.1f} s")
     return dict(max_logit_diff=worst, near_ties=near_ties, steps=steps)
 
 
-def phase_serve(torch, skt):
-    """The slice's main path: the Engine serving Llama-3-8B bf16."""
+def phase_serve(torch, skt, cfg, label, n_req=16, params=None, skip=()):
+    """One main path: the Engine serving Llama-3-8B on ``cfg``. Every kernel
+    but those in ``skip`` must launch in this run (counts set to 0 just
+    before it); K1's launches are split by regime."""
     from sgl_kernel_tpu_torch.utils.metrics import Metrics
 
-    cfg = skt.LlamaConfig.llama3_8b(fused=True)
     t0 = time.perf_counter()
-    eng = skt.Engine(cfg, device=DEVICE, max_batch=16, page_size=64, num_pages=1024, seed=SEED)
+    eng = skt.Engine(cfg, params, device=DEVICE, max_batch=16, page_size=64, num_pages=1024, seed=SEED)
     torch.cuda.synchronize()
-    log(f"[serve] engine up in {time.perf_counter() - t0:.1f} s, "
-        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated")
+    log(f"[serve] {label}: engine up in {time.perf_counter() - t0:.1f} s, "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated, KV pools {eng.caches[0].dtype}")
     # warm-up request: first Triton compiles and cuBLAS plans
     eng.add_request(list(range(1, 17)), max_new_tokens=2)
     eng.run_until_done()
     eng.finished.clear()
     eng.metrics = Metrics()
+    # K1 launches by regime: the adapter's prefill and decode calls, counted
+    gemm, by_regime = skt.KERNELS["w4a16_gemm"], {"prefill": 0, "decode": 0}
+    for regime in by_regime:
+        def counted(*args, _fn=getattr(eng.adapter, regime), _regime=regime):
+            before = gemm.launches
+            out = _fn(*args)
+            by_regime[_regime] += gemm.launches - before
+            return out
+        setattr(eng.adapter, regime, counted)
 
     gen = torch.Generator().manual_seed(SEED + 2)
-    n_req, new = 16, 32
+    new = 32
     lens = [16 + (1008 * i) // (n_req - 1) for i in range(n_req)]
     sampled = {3, 11}
     rids = []
+    torch.cuda.reset_peak_memory_stats()
     skt.reset_launch_counts()
     for i, n in enumerate(lens):
         prompt = torch.randint(1, cfg.vocab_size, (n,), generator=gen).tolist()
@@ -353,28 +507,30 @@ def phase_serve(torch, skt):
     counts = skt.launch_counts()
 
     if sorted(fin) != sorted(rids):
-        fail(f"serve: {len(fin)} of {len(rids)} requests finished")
+        fail(f"serve {label}: {len(fin)} of {len(rids)} requests finished")
     for rid in rids:
         out = fin[rid].output
         if len(out) != new or not all(0 <= t < cfg.vocab_size for t in out):
-            fail(f"serve: request {rid} produced {out}")
+            fail(f"serve {label}: request {rid} produced {out}")
     snap = eng.metrics.snapshot()
     if snap.get("nonfinite_logits", 0):
-        fail(f"serve: {snap['nonfinite_logits']} rows of non-finite logits")
-    missing = [k for k, v in counts.items() if v <= 0]
+        fail(f"serve {label}: {snap['nonfinite_logits']} rows of non-finite logits")
+    missing = [k for k, v in counts.items() if v <= 0 and k not in skip]
     if missing:
-        fail(f"serve: kernels never launched on the main path: {missing}")
+        fail(f"serve {label}: kernels never launched on the main path: {missing}")
+    if "w4a16_gemm" not in skip and not all(by_regime.values()):
+        fail(f"serve {label}: K1 launches by regime {by_regime}")
     res = dict(
-        requests=len(fin), prompt_tokens=sum(lens), new_tokens=new,
+        engine=label, requests=len(fin), prompt_tokens=sum(lens), new_tokens=new,
         prefill_tok_s=snap["tokens_prefilled"] / snap["prefill_total_s"],
         decode_ms_step=snap["decode_mean_ms"], decode_steps=snap["decode_count"],
         decode_tok_s=snap["tokens_decoded"] / snap["decode_total_s"], wall_s=wall,
-        peak_gb=torch.cuda.max_memory_allocated() / 1e9, launches=counts)
+        peak_gb=torch.cuda.max_memory_allocated() / 1e9, launches=counts, w4a16_by_regime=dict(by_regime))
     log("[serve] " + json.dumps(res))
     return res, eng, lens
 
 
-def phase_profile(torch, eng, lens):
+def phase_profile(torch, eng, lens, label):
     """Where a decode step's time goes: the serving engine of phase 4, the
     same 16 prompt lengths admitted again, then 4 decode-only
     scheduler steps traced with torch.profiler. Device-busy time is the
@@ -411,7 +567,7 @@ def phase_profile(torch, eng, lens):
         last = max(last, end)
     top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:12]
     res = dict(
-        batch=len(lens), steps=steps, step_ms=1e3 * wall / steps,
+        engine=label, batch=len(lens), steps=steps, step_ms=1e3 * wall / steps,
         device_busy_ms_per_step=busy_us / 1e3 / steps if spans else None,
         device_busy_share=busy_us / 1e6 / wall if spans else None,
         kernel_launches_per_step=len(spans) / steps,
@@ -442,13 +598,31 @@ def main():
     _, card = phase_build(_build)
     rows = phase_kernels(torch, skt)
     torch.cuda.empty_cache()
-    parity = phase_parity(torch, skt)
+    rows.update(phase_w4a16(torch, skt))
+    bf16_cfg = skt.LlamaConfig.llama3_8b(fused=True)
+    w4_cfg = skt.LlamaConfig.llama3_8b(quant="w4a16", fused=True)
+    parity = {label: phase_parity(torch, skt, c, label) for label, c in (("bf16", bf16_cfg), ("w4a16", w4_cfg))}
     torch.cuda.empty_cache()
-    serve, eng, lens = phase_serve(torch, skt)
-    phase_profile(torch, eng, lens)
+    serve, eng, lens = phase_serve(torch, skt, bf16_cfg, "bf16", skip=("w4a16_gemm",))
+    profile = {"bf16": phase_profile(torch, eng, lens, "bf16")}
     del eng
+    torch.cuda.empty_cache()
+    w4, eng, lens = phase_serve(torch, skt, w4_cfg, "w4a16")
+    profile["w4a16"] = phase_profile(torch, eng, lens, "w4a16")
+    params = eng.params
+    del eng
+    torch.cuda.empty_cache()
+    # the same W4A16 weights over int8 KV pools (bench.py:121's kv_scale)
+    int8_cfg = dataclasses.replace(w4_cfg, kv_dtype=torch.int8, kv_scale=1 / 16)
+    int8, eng, _ = phase_serve(torch, skt, int8_cfg, "w4a16-int8kv", n_req=4, params=params)
+    if eng.caches[0].dtype != torch.int8:
+        fail(f"serve w4a16-int8kv: pools are {eng.caches[0].dtype}")
+    del eng, params
+    torch.cuda.empty_cache()
 
     meta = {
+        "w4a16_gemm": ("cuda", "sgl_kernel_tpu_torch/csrc/w4a16_gemm.cu", "sgl_kernel_tpu/ops/gemm/w4a16.py:301",
+                       "w4a16_gemm_gate_up"),
         "rmsnorm": ("triton", "sgl_kernel_tpu_torch/ops/norm.py", "sgl_kernel_tpu/ops/norm.py:40", "rmsnorm_16"),
         "rope_decode_fused_qkv": ("triton", "sgl_kernel_tpu_torch/ops/rope.py", "sgl_kernel_tpu/ops/rope.py:228",
                                   "rope_decode_fused_qkv"),
@@ -461,14 +635,18 @@ def main():
                             "sgl_kernel_tpu/ops/attention/flash_prefill.py:165", "flash_attention"),
     }
     kernels = []
+    # launches: this slice's main path, the W4A16 engine run of phase 4
     for name, (route, src, repl, row) in meta.items():
         r = rows[row]
         kernels.append(dict(name=name, route=route, source=src, replaces=repl,
-                            launches=serve["launches"][name], max_abs_err=r["max_abs_err"], ms=r["ms"],
+                            launches=w4["launches"][name], max_abs_err=r["max_abs_err"], ms=r["ms"],
                             plain_ms=r["plain_ms"], bound_ms=r["bound_ms"], bound_by=r["bound_by"],
                             library_ms=r["library_ms"]))
     log("[kernel] rmsnorm at [1024, 4096]: " + json.dumps(rows["rmsnorm_1024"]))
-    log(json.dumps({"card": card, "parity": parity}))
+    for name in ("paged_attention_decode_dma_int8", "paged_attention_decode_dma_e4m3"):
+        log(f"[kernel] {name}: " + json.dumps(rows[name]))
+    log(json.dumps({"card": card, "parity": parity, "serve": {"bf16": serve, "w4a16": w4, "w4a16-int8kv": int8},
+                    "profile": profile}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -7,15 +7,16 @@ bound with ctypes) or Triton. A CUDA tensor goes through the kernel, a CPU
 tensor through the kernel's plain PyTorch twin. Entry points run on the card
 unless the caller passes ``device="cpu"``.
 
-Kernels of this slice (each wrapper counts its launches in ``.launches``):
-  K2 rmsnorm, K3 rope_decode_fused_qkv (Triton);
-  K5 paged_attention_decode_dma, K6 store_cache_all_layers,
-  K7 flash_attention (CUDA C++).
+Kernels ported so far (each wrapper counts its launches in ``.launches``):
+  K1 w4a16_gemm, K5 paged_attention_decode_dma, K6 store_cache_all_layers,
+  K7 flash_attention (CUDA C++); K2 rmsnorm, K3 rope_decode_fused_qkv
+  (Triton).
 """
 
 from .interop import params_from_numpy, tensor_from_numpy
 from .models.llama import LlamaConfig, build_rope_cache, decode_step, init_weights, make_caches, prefill
 from .ops.attention import flash_attention, merge_state, merge_states, paged_attention_decode_dma
+from .ops.gemm import dequant_w4, quantize_w4, w4a16_gemm
 from .ops.kvcache import store_cache_all_layers, store_cache_stacked
 from .ops.norm import fused_add_rmsnorm, gemma_fused_add_rmsnorm, gemma_rmsnorm, rmsnorm
 from .ops.rope import compute_cos_sin_cache, rope_decode_fused_qkv, rotary_embedding
@@ -32,6 +33,7 @@ from .utils import cdiv, next_power_of_2, resolve_device, round_up
 
 # the kernel wrappers whose ``launches`` counters show a run went through them
 KERNELS = {
+    "w4a16_gemm": w4a16_gemm,
     "rmsnorm": rmsnorm,
     "rope_decode_fused_qkv": rope_decode_fused_qkv,
     "paged_attention_decode_dma": paged_attention_decode_dma,

@@ -7,10 +7,18 @@
 // pool holds length-1 tokens and the fresh row is merged last
 // (paged_decode_dma.py:118-122, :246-271); a row with no pool tokens and
 // no fresh row gives 0 (:277). Padding rows (length 0) read nothing.
+// Pools are bf16, int8, fp8 e4m3 or fp8 e5m2; a quantized pool carries
+// per-tensor k/v scales the JAX way (:392-405, :498-499): q * k_scale and
+// fresh_k / k_scale, fresh_v / v_scale are rounded to bf16, and the bf16
+// output is multiplied by v_scale and rounded again (scales of 1 change
+// nothing). 1-byte rows load as one 4-byte word a lane at D=128 and are
+// converted in registers, exactly (no denormal flush, unlike the TPU's
+// bit-twiddle upcast at :41-70).
 //
 // Bound: bytes. Every pool token of the batch is read once for K and once
 // for V (about 2 x 16 x 1056 x 8 x 128 x 2 B = 69 MB at the main path's
-// ragged B=16), against 2 flops per byte: far below the card's ridge.
+// ragged B=16; half that from 1-byte pools), against 2 flops per byte (4
+// from 1-byte pools): far below the card's ridge.
 // Design: one block per (KV head, sequence), so each K/V row is read once
 // for the whole group of G query heads (the TPU kernel's page DMA reads
 // all heads of a page; here the block reads one head's rows, 256 B each,
@@ -22,22 +30,64 @@
 // sequence folding (one core must never wait) have no counterpart: the
 // card hides latency with many resident warps instead.
 
+#include <cuda_fp8.h>
+
 #include "common.cuh"
 
 namespace {
 
 using skt::bf16;
 
+// N consecutive pool elements -> float, one vector load, exact
+template <int N>
+__device__ __forceinline__ void load_row(const bf16* p, float (&out)[N]) {
+  skt::load_bf16<N>(p, out);
+}
+
+template <int N> struct ByteVec;
+template <> struct ByteVec<2> { typedef uint16_t T; };
+template <> struct ByteVec<4> { typedef uint32_t T; };
+template <> struct ByteVec<8> { typedef uint2 T; };
+
+template <int N>
+__device__ __forceinline__ void load_row(const int8_t* p, float (&out)[N]) {
+  typename ByteVec<N>::T raw = *reinterpret_cast<const typename ByteVec<N>::T*>(p);
+  const int8_t* b = reinterpret_cast<const int8_t*>(&raw);
+#pragma unroll
+  for (int i = 0; i < N; ++i) out[i] = (float)b[i];
+}
+
+template <int N>
+__device__ __forceinline__ void load_row(const __nv_fp8_e4m3* p, float (&out)[N]) {
+  typename ByteVec<N>::T raw = *reinterpret_cast<const typename ByteVec<N>::T*>(p);
+  const __nv_fp8_e4m3* b = reinterpret_cast<const __nv_fp8_e4m3*>(&raw);
+#pragma unroll
+  for (int i = 0; i < N; ++i) out[i] = float(b[i]);
+}
+
+template <int N>
+__device__ __forceinline__ void load_row(const __nv_fp8_e5m2* p, float (&out)[N]) {
+  typename ByteVec<N>::T raw = *reinterpret_cast<const typename ByteVec<N>::T*>(p);
+  const __nv_fp8_e5m2* b = reinterpret_cast<const __nv_fp8_e5m2*>(&raw);
+#pragma unroll
+  for (int i = 0; i < N; ++i) out[i] = float(b[i]);
+}
+
+__device__ __forceinline__ float round_bf16(float x) {
+  return __bfloat162float(__float2bfloat16(x));
+}
+
 constexpr int kWarps = 4;
 constexpr int kUnroll = 4;
 
-template <int D, int G>
+template <typename T, int D, int G>
 __global__ void __launch_bounds__(kWarps * 32) decode_kernel(
-    const bf16* __restrict__ q, const bf16* __restrict__ k_pool,
-    const bf16* __restrict__ v_pool, const bf16* __restrict__ fresh_k,
+    const bf16* __restrict__ q, const T* __restrict__ k_pool,
+    const T* __restrict__ v_pool, const bf16* __restrict__ fresh_k,
     const bf16* __restrict__ fresh_v, const int* __restrict__ lengths,
     const int* __restrict__ table, bf16* __restrict__ out, int n_pages,
-    int n_kv_heads, int page, int n_blocks, int layer, float scale_log2) {
+    int n_kv_heads, int page, int n_blocks, int layer, float scale_log2,
+    float k_scale, float v_scale) {
   constexpr int N = D / 32;  // elements of a row per lane
   const int h = blockIdx.x, b = blockIdx.y;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
@@ -48,7 +98,7 @@ __global__ void __launch_bounds__(kWarps * 32) decode_kernel(
   for (int g = 0; g < G; ++g) {
     skt::load_bf16<N>(q + ((long long)b * n_q_heads + h * G + g) * D + lane * N, qr[g]);
 #pragma unroll
-    for (int i = 0; i < N; ++i) qr[g][i] *= scale_log2;
+    for (int i = 0; i < N; ++i) qr[g][i] = round_bf16(qr[g][i] * k_scale) * scale_log2;
   }
 
   const int length = lengths[b];
@@ -75,8 +125,8 @@ __global__ void __launch_bounds__(kWarps * 32) decode_kernel(
         const long long pid = pt[t / page];
         const long long row =
             (((layer_base + pid) * n_kv_heads + h) * page + t % page) * D + lane * N;
-        skt::load_bf16<N>(k_pool + row, kr[u]);
-        skt::load_bf16<N>(v_pool + row, vr[u]);
+        load_row<N>(k_pool + row, kr[u]);
+        load_row<N>(v_pool + row, vr[u]);
       }
     }
 #pragma unroll
@@ -114,6 +164,8 @@ __global__ void __launch_bounds__(kWarps * 32) decode_kernel(
     float fk[N];
     skt::load_bf16<N>(fresh_k + ((long long)b * n_kv_heads + h) * D + lane * N, fk);
 #pragma unroll
+    for (int i = 0; i < N; ++i) fk[i] = round_bf16(fk[i] / k_scale);
+#pragma unroll
     for (int g = 0; g < G; ++g) {
       if (g % kWarps != warp) continue;
       float s = 0.f;
@@ -142,41 +194,52 @@ __global__ void __launch_bounds__(kWarps * 32) decode_kernel(
       const float m_new = fmaxf(mt, sf);
       const float alpha = exp2f(mt - m_new);
       const float pf = exp2f(sf - m_new);
-      const float vf = __bfloat162float(fresh_v[((long long)b * n_kv_heads + h) * D + d]);
+      const float vf =
+          round_bf16(__bfloat162float(fresh_v[((long long)b * n_kv_heads + h) * D + d]) / v_scale);
       lt = lt * alpha + pf;
       at = at * alpha + pf * vf;
     }
-    const float o = lt == 0.f ? 0.f : at / lt;
-    out[((long long)b * n_q_heads + h * G + g) * D + d] = __float2bfloat16(o);
+    const float o = round_bf16(lt == 0.f ? 0.f : at / lt);
+    out[((long long)b * n_q_heads + h * G + g) * D + d] = __float2bfloat16(o * v_scale);
   }
 }
 
-template <int D, int G>
-cudaError_t launch(const void* q, const void* k_pool, const void* v_pool,
-                   const void* fresh_k, const void* fresh_v, const void* lengths,
-                   const void* table, void* out, int batch, int n_pages,
-                   int n_kv_heads, int page, int n_blocks, int layer,
-                   float scale_log2, cudaStream_t stream) {
-  dim3 grid(n_kv_heads, batch);
-  decode_kernel<D, G><<<grid, kWarps * 32, 0, stream>>>(
-      (const bf16*)q, (const bf16*)k_pool, (const bf16*)v_pool,
-      (const bf16*)fresh_k, (const bf16*)fresh_v, (const int*)lengths,
-      (const int*)table, (bf16*)out, n_pages, n_kv_heads, page, n_blocks,
-      layer, scale_log2);
+struct Args {
+  const void *q, *k_pool, *v_pool, *fresh_k, *fresh_v, *lengths, *table;
+  void* out;
+  int batch, n_pages, n_kv_heads, page, n_blocks, layer;
+  float scale_log2, k_scale, v_scale;
+  cudaStream_t stream;
+};
+
+template <typename T, int D, int G>
+cudaError_t launch(const Args& a) {
+  dim3 grid(a.n_kv_heads, a.batch);
+  decode_kernel<T, D, G><<<grid, kWarps * 32, 0, a.stream>>>(
+      (const bf16*)a.q, (const T*)a.k_pool, (const T*)a.v_pool, (const bf16*)a.fresh_k,
+      (const bf16*)a.fresh_v, (const int*)a.lengths, (const int*)a.table, (bf16*)a.out,
+      a.n_pages, a.n_kv_heads, a.page, a.n_blocks, a.layer, a.scale_log2, a.k_scale,
+      a.v_scale);
   return cudaGetLastError();
 }
 
-template <int D>
-cudaError_t dispatch_group(int group, const void* q, const void* kp, const void* vp,
-                           const void* fk, const void* fv, const void* lens,
-                           const void* table, void* out, int batch, int n_pages,
-                           int hkv, int page, int n_blocks, int layer, float sl,
-                           cudaStream_t st) {
+template <typename T, int D>
+cudaError_t dispatch_group(int group, const Args& a) {
   switch (group) {
-    case 1: return launch<D, 1>(q, kp, vp, fk, fv, lens, table, out, batch, n_pages, hkv, page, n_blocks, layer, sl, st);
-    case 2: return launch<D, 2>(q, kp, vp, fk, fv, lens, table, out, batch, n_pages, hkv, page, n_blocks, layer, sl, st);
-    case 4: return launch<D, 4>(q, kp, vp, fk, fv, lens, table, out, batch, n_pages, hkv, page, n_blocks, layer, sl, st);
-    case 8: return launch<D, 8>(q, kp, vp, fk, fv, lens, table, out, batch, n_pages, hkv, page, n_blocks, layer, sl, st);
+    case 1: return launch<T, D, 1>(a);
+    case 2: return launch<T, D, 2>(a);
+    case 4: return launch<T, D, 4>(a);
+    case 8: return launch<T, D, 8>(a);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+template <typename T>
+cudaError_t dispatch_dim(int head_dim, int group, const Args& a) {
+  switch (head_dim) {
+    case 64: return dispatch_group<T, 64>(group, a);
+    case 128: return dispatch_group<T, 128>(group, a);
+    case 256: return dispatch_group<T, 256>(group, a);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -184,19 +247,23 @@ cudaError_t dispatch_group(int group, const void* q, const void* kp, const void*
 }  // namespace
 
 // fresh_k/fresh_v may be null (no fresh row). Supported: head_dim 64, 128,
-// 256; group 1, 2, 4, 8; bf16 pools.
+// 256; group 1, 2, 4, 8; pool_type 0 bf16, 1 int8, 2 fp8 e4m3, 3 fp8 e5m2
+// (q, fresh rows and output bf16); k_scale = v_scale = 1 for unscaled pools.
 extern "C" int skt_paged_decode(
     const void* q, const void* k_pool, const void* v_pool, const void* fresh_k,
     const void* fresh_v, const void* lengths, const void* table, void* out,
     int batch, int n_pages, int n_kv_heads, int page, int n_blocks,
-    int head_dim, int group, int layer, float sm_scale, void* stream) {
-  const float sl = sm_scale * skt::kLog2e;
-  cudaStream_t st = (cudaStream_t)stream;
+    int head_dim, int group, int layer, int pool_type, float sm_scale,
+    float k_scale, float v_scale, void* stream) {
+  const Args a{q, k_pool, v_pool, fresh_k, fresh_v, lengths, table, out,
+               batch, n_pages, n_kv_heads, page, n_blocks, layer,
+               sm_scale * skt::kLog2e, k_scale, v_scale, (cudaStream_t)stream};
   cudaError_t err;
-  switch (head_dim) {
-    case 64: err = dispatch_group<64>(group, q, k_pool, v_pool, fresh_k, fresh_v, lengths, table, out, batch, n_pages, n_kv_heads, page, n_blocks, layer, sl, st); break;
-    case 128: err = dispatch_group<128>(group, q, k_pool, v_pool, fresh_k, fresh_v, lengths, table, out, batch, n_pages, n_kv_heads, page, n_blocks, layer, sl, st); break;
-    case 256: err = dispatch_group<256>(group, q, k_pool, v_pool, fresh_k, fresh_v, lengths, table, out, batch, n_pages, n_kv_heads, page, n_blocks, layer, sl, st); break;
+  switch (pool_type) {
+    case 0: err = dispatch_dim<bf16>(head_dim, group, a); break;
+    case 1: err = dispatch_dim<int8_t>(head_dim, group, a); break;
+    case 2: err = dispatch_dim<__nv_fp8_e4m3>(head_dim, group, a); break;
+    case 3: err = dispatch_dim<__nv_fp8_e5m2>(head_dim, group, a); break;
     default: err = cudaErrorInvalidValue;
   }
   return (int)err;

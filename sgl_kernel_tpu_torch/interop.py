@@ -2,8 +2,9 @@
 
 The JAX package's parameter pytree, with every leaf turned into a numpy
 array by the caller (``np.asarray`` on the JAX side), becomes the port's
-nested dict of tensors by a copy. bfloat16 arrays move through a uint16
-view, so no bfloat16-aware numpy extension is needed.
+nested dict of tensors by a copy. bfloat16 and fp8 (e4m3fn, e5m2) arrays
+move through a same-width unsigned integer view, matched by the dtype's
+name, so no extension of numpy's types is needed here.
 """
 
 from __future__ import annotations
@@ -14,10 +15,19 @@ import torch
 from .utils import resolve_device
 
 
+# dtypes numpy knows only through an extension: name -> (view, torch dtype)
+_VIEWED = {
+    "bfloat16": (np.uint16, torch.bfloat16),
+    "float8_e4m3fn": (np.uint8, torch.float8_e4m3fn),
+    "float8_e5m2": (np.uint8, torch.float8_e5m2),
+}
+
+
 def tensor_from_numpy(arr, device="cuda") -> torch.Tensor:
     arr = np.array(arr)  # a writable, contiguous copy
-    if arr.dtype.name == "bfloat16":
-        t = torch.from_numpy(arr.view(np.uint16)).view(torch.bfloat16)
+    if arr.dtype.name in _VIEWED:
+        view, dtype = _VIEWED[arr.dtype.name]
+        t = torch.from_numpy(arr.view(view)).view(dtype)
     else:
         t = torch.from_numpy(arr)
     return t.to(resolve_device(device))

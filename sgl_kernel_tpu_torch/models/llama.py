@@ -1,21 +1,27 @@
-"""Llama-family model (bf16 or float32 weights) on the port's operators.
+"""Llama-family model (bf16/float32 or W4A16 int4 weights) on the port's operators.
 
 Decoder-only transformer: RMSNorm, RoPE, GQA attention over a paged KV
 cache, SwiGLU MLP. Parameters are a nested dict of layer-stacked tensors
 whose keys are the JAX package's pytree paths (``embed``, ``final_norm``,
 ``lm_head``, ``layers.qkv``, ``layers.gate_up``, ...), so a JAX parameter
-tree converts by a copy (``interop.params_from_numpy``).
+tree converts by a copy (``interop.params_from_numpy``). With
+``quant="w4a16"`` every linear is a ``{"packed", "scales"}`` dict in the
+layout of ops/gemm/w4a16.py and runs the W4A16 GEMM (K1); the lm_head's N
+is padded to a multiple of 2048 and its logits sliced back.
 
 Entry points: ``prefill`` (flash attention over a padded prompt batch, KV
 stored per layer, last-token logits) and ``decode_step`` (one token per
 sequence against the paged cache). Both update the KV pools IN PLACE,
-where the JAX versions donate them, and return them.
+where the JAX versions donate them, and return them. KV pools may be int8
+or fp8 with a per-tensor ``kv_scale``: stores quantize (``_kv_quant``) and
+decode attention folds the scale back in.
 
-Kernels on the path: rmsnorm (K2), rope_decode_fused_qkv (K3), paged decode
-attention (K5), the all-layers KV store (K6), flash prefill (K7). The large
-linears are plain ``torch.matmul``, as the JAX model leaves them to XLA.
-Not in this slice: ``quant="w4a16"`` and the ``fused=False`` decode step
-(its split-q/k RoPE kernel is another kernel); both raise.
+Kernels on the path: W4A16 GEMM (K1, with the decode norms in its
+prologue), rmsnorm (K2), rope_decode_fused_qkv (K3), paged decode attention
+(K5), the all-layers KV store (K6), flash prefill (K7). The bf16 linears
+are plain ``torch.matmul``, as the JAX model leaves them to XLA. Not in
+this slice: ``gemm_impl="dma"`` decode (K10) and the ``fused=False`` decode
+step (its split-q/k RoPE kernel is K4); both raise.
 """
 
 from __future__ import annotations
@@ -26,10 +32,11 @@ from typing import Any, Dict, Optional, Union
 import torch
 
 from ..ops.attention import flash_attention, paged_attention_decode_dma
+from ..ops.gemm.w4a16 import quantize_w4, w4a16_gemm
 from ..ops.kvcache import store_cache_all_layers, store_cache_stacked
 from ..ops.norm import rmsnorm
 from ..ops.rope import compute_cos_sin_cache, rope_decode_fused_qkv, rotary_embedding
-from ..utils import resolve_device
+from ..utils import resolve_device, round_up
 
 # Products accumulate in float32 as the JAX model's
 # preferred_element_type=float32 does: no TF32 for float32 weights and no
@@ -51,13 +58,29 @@ class LlamaConfig:
     rms_eps: float = 1e-5
     max_position: int = 8192
     dtype: torch.dtype = torch.bfloat16
-    quant: Optional[str] = None
+    quant: Optional[str] = None  # None | "w4a16"
+    group_size: int = 128
     # q/k/v and gate/up as single fused projections (the serving layout)
     fused: bool = False
+    # W4A16 decode GEMM: "pipeline" (K1) or "dma" (K10, not ported: its
+    # decode raises); prefill always takes K1
+    gemm_impl: str = "pipeline"
+    # KV pool dtype: None (the model dtype), torch.int8, torch.float8_e4m3fn
+    # or torch.float8_e5m2
+    kv_dtype: Optional[torch.dtype] = None
+    # symmetric per-tensor KV scale: stores write round(x / kv_scale) (int8)
+    # or (x / kv_scale) cast (fp8), decode attention folds it back in;
+    # required for int8 pools
+    kv_scale: Optional[float] = None
 
     def __post_init__(self):
-        if self.quant is not None:
-            raise NotImplementedError(f"quant={self.quant!r}: the W4A16 path is not ported yet")
+        if self.quant not in (None, "w4a16"):
+            raise NotImplementedError(f"quant={self.quant!r}: only 'w4a16' is ported")
+        if self.gemm_impl not in ("pipeline", "dma"):
+            raise ValueError(f"gemm_impl must be 'pipeline' or 'dma', got {self.gemm_impl!r}")
+        if self.kv_dtype not in (None, torch.bfloat16, torch.float32, torch.int8, torch.float8_e4m3fn,
+                                 torch.float8_e5m2):
+            raise ValueError(f"unsupported kv_dtype {self.kv_dtype}")
 
     @staticmethod
     def llama3_8b(**kw):
@@ -79,20 +102,25 @@ class LlamaConfig:
 def init_weights(cfg: LlamaConfig, generator: Union[torch.Generator, int] = 0,
                  device="cuda") -> Dict[str, Any]:
     """Random layer-stacked weights. ``generator`` is a torch.Generator on
-    ``device`` or an int seed. Each layer's matrix is drawn in float32 and
-    cast on its own, so the float32 temporaries stay one layer large."""
+    ``device`` or an int seed. Each layer's matrix is drawn in float32, cast
+    to the model dtype and (with ``quant="w4a16"``) quantized on its own, so
+    the float32 temporaries stay one matrix large."""
     dev = resolve_device(device)
     if isinstance(generator, int):
         generator = torch.Generator(device=dev).manual_seed(generator)
     h, d = cfg.hidden_size, cfg.head_dim
     nq, nkv, n_layers = cfg.num_heads, cfg.num_kv_heads, cfg.num_layers
 
-    def w(shape, scale=None):
-        scale = scale if scale is not None else 1.0 / shape[-1] ** 0.5
-        out = torch.empty(shape, dtype=cfg.dtype, device=dev)
-        for i in range(shape[0] if len(shape) == 3 else 1):
-            dst = out[i] if len(shape) == 3 else out
-            dst.copy_(torch.randn(dst.shape, generator=generator, device=dev) * scale)
+    def draw(n, k, scale):
+        return (torch.randn((n, k), generator=generator, device=dev) * scale).to(cfg.dtype)
+
+    def linear(n, k):
+        mats = (draw(n, k, 1.0 / k ** 0.5) for _ in range(n_layers))
+        if cfg.quant is not None:
+            return _quantize_stack(mats, n_layers, cfg)
+        out = torch.empty((n_layers, n, k), dtype=cfg.dtype, device=dev)
+        for i, m in enumerate(mats):
+            out[i] = m
         return out
 
     layers = {
@@ -100,46 +128,110 @@ def init_weights(cfg: LlamaConfig, generator: Union[torch.Generator, int] = 0,
         "post_norm": torch.ones((n_layers, h), dtype=cfg.dtype, device=dev),
     }
     if cfg.fused:
-        layers["qkv"] = w((n_layers, (nq + 2 * nkv) * d, h), 1.0 / h ** 0.5)
+        layers["qkv"] = linear((nq + 2 * nkv) * d, h)
     else:
-        layers["q"] = w((n_layers, nq * d, h))
-        layers["k"] = w((n_layers, nkv * d, h))
-        layers["v"] = w((n_layers, nkv * d, h))
-    layers["o"] = w((n_layers, h, nq * d))
+        layers["q"] = linear(nq * d, h)
+        layers["k"] = linear(nkv * d, h)
+        layers["v"] = linear(nkv * d, h)
+    layers["o"] = linear(h, nq * d)
     if cfg.fused:
-        layers["gate_up"] = w((n_layers, 2 * cfg.intermediate_size, h), 1.0 / h ** 0.5)
+        layers["gate_up"] = linear(2 * cfg.intermediate_size, h)
     else:
-        layers["gate"] = w((n_layers, cfg.intermediate_size, h))
-        layers["up"] = w((n_layers, cfg.intermediate_size, h))
-    layers["down"] = w((n_layers, h, cfg.intermediate_size))
+        layers["gate"] = linear(cfg.intermediate_size, h)
+        layers["up"] = linear(cfg.intermediate_size, h)
+    layers["down"] = linear(h, cfg.intermediate_size)
+    embed = draw(cfg.vocab_size, h, 0.02)
+    lm_head = draw(cfg.vocab_size, h, 1.0 / h ** 0.5)
     return {
-        "embed": w((cfg.vocab_size, h), 0.02),
+        "embed": embed,
         "final_norm": torch.ones((h,), dtype=cfg.dtype, device=dev),
-        "lm_head": w((cfg.vocab_size, h)),
+        "lm_head": _quantize_matrix(lm_head, cfg) if cfg.quant is not None else lm_head,
         "layers": layers,
     }
+
+
+def _quantize_stack(mats, n_layers: int, cfg: LlamaConfig):
+    """Layer matrices [N, K], quantized one at a time into the stacked
+    {"packed": [L, K/2, N], "scales": [L, K/G, N]}."""
+    packed = scales = None
+    for i, m in enumerate(mats):
+        p, s, _ = quantize_w4(m, group_size=cfg.group_size)
+        if packed is None:
+            packed = p.new_empty((n_layers, *p.shape))
+            scales = s.new_empty((n_layers, *s.shape))
+        packed[i], scales[i] = p, s
+    return {"packed": packed, "scales": scales}
+
+
+def _quantize_matrix(wm, cfg: LlamaConfig):
+    """One [N, K] matrix (the lm_head) with N padded to a multiple of 2048
+    (llama.py:150-158); the extra logits are sliced off after the GEMM."""
+    n = wm.shape[0]
+    wm = torch.nn.functional.pad(wm, (0, 0, 0, round_up(n, 2048) - n))
+    packed, scales, _ = quantize_w4(wm, group_size=cfg.group_size)
+    return {"packed": packed, "scales": scales}
+
+
+def _quantize_layers(layers, cfg: LlamaConfig):
+    """A float stacked layer tree with separate q/k/v/gate/up (the JAX
+    init's) -> the W4A16 tree; with ``cfg.fused`` q/k/v and gate/up are
+    concatenated first (llama.py:161-178)."""
+    out = dict(layers)
+
+    def qz(wm):
+        return _quantize_stack(iter(wm), wm.shape[0], cfg)
+
+    names = ("o", "down")
+    if cfg.fused:
+        out["qkv"] = qz(torch.cat([out.pop("q"), out.pop("k"), out.pop("v")], dim=1))
+        out["gate_up"] = qz(torch.cat([out.pop("gate"), out.pop("up")], dim=1))
+    else:
+        names = ("q", "k", "v", "o", "gate", "up", "down")
+    for name in names:
+        out[name] = qz(layers[name])
+    return out
+
+
+def _w4_kernel_for(cfg: LlamaConfig, m: int):
+    """The W4A16 GEMM for M rows: K1, or K10 for decode with
+    ``gemm_impl="dma"``, which is not ported."""
+    if cfg.gemm_impl == "dma" and m <= 32:
+        raise NotImplementedError("gemm_impl='dma': the DMA decode GEMM (K10) is not ported yet")
+    return w4a16_gemm
 
 
 def _linear(x, w, cfg: LlamaConfig, residual=None, layer_id=None, norm=None, bias=None):
     """x @ w.T (w is [N, K], or the layer-stacked [L, N, K] with
     ``layer_id``), rounded to the model dtype; ``norm`` is an rmsnorm weight
-    applied to x first; ``residual`` and ``bias`` are added after."""
-    if norm is not None:
-        x = rmsnorm(x, norm[layer_id] if layer_id is not None else norm, cfg.rms_eps)
-    wl = w[layer_id] if layer_id is not None else w
-    out = torch.matmul(x, wl.t()).to(cfg.dtype)
-    if residual is not None:
-        out = out + residual
+    applied to x first; ``residual`` and ``bias`` are added after. A
+    quantized ``w`` ({"packed", "scales"}) runs the W4A16 GEMM, with the
+    norm in its prologue and the residual added before its one rounding."""
+    if isinstance(w, dict):
+        kw = {} if norm is None else {"norm_weight": norm, "norm_eps": cfg.rms_eps}
+        out = _w4_kernel_for(cfg, x.shape[0])(
+            x, w["packed"], w["scales"], residual=residual, layer_id=layer_id,
+            group_size=cfg.group_size, out_dtype=cfg.dtype, **kw)
+    else:
+        if norm is not None:
+            x = rmsnorm(x, norm[layer_id] if layer_id is not None else norm, cfg.rms_eps)
+        wl = w[layer_id] if layer_id is not None else w
+        out = torch.matmul(x, wl.t()).to(cfg.dtype)
+        if residual is not None:
+            out = out + residual
     if bias is not None:
         out = out + (bias[layer_id] if layer_id is not None and bias.ndim == 2 else bias).to(out.dtype)
     return out
 
 
 def make_caches(cfg: LlamaConfig, num_pages: int, page_size: int, kv_dtype=None, device="cuda"):
-    """Layer-stacked page-major K and V pools [L, P, Hkv, page, D]."""
+    """Layer-stacked page-major K and V pools [L, P, Hkv, page, D], of
+    ``kv_dtype``, else the config's ``kv_dtype``, else the model dtype."""
     dev = resolve_device(device)
     shape = (cfg.num_layers, num_pages, cfg.num_kv_heads, page_size, cfg.head_dim)
-    dt = kv_dtype or cfg.dtype
+    dt = kv_dtype or cfg.kv_dtype or cfg.dtype
+    if dt == torch.int8 and cfg.kv_scale is None:
+        # without a scale the store's cast would truncate K/V to {-1, 0, 1}
+        raise ValueError("int8 KV pools require cfg.kv_scale")
     return torch.zeros(shape, dtype=dt, device=dev), torch.zeros(shape, dtype=dt, device=dev)
 
 
@@ -164,9 +256,18 @@ def _qkv(h, weights, cfg, n_tokens, layer_id=None):
 
 def _mlp(h2, weights, cfg, residual=None, layer_id=None, norm=None):
     """SwiGLU MLP; with ``norm`` h2 is the raw residual stream and the
-    post-norm is applied first."""
+    post-norm is applied first (in the gate_up GEMM's prologue when it is
+    quantized and fused)."""
+    w = weights["down"]
     if cfg.fused:
         gu = _linear(h2, weights["gate_up"], cfg, layer_id=layer_id, norm=norm)
+        # the fused gate_up output feeds the down GEMM's silu prologue
+        # directly when the down proj's packed K is the true intermediate
+        # size (a zero-padded K cannot pad the interleaved [M, 2I] array)
+        if isinstance(w, dict) and gu.shape[-1] // 2 == w["packed"].shape[-2] * 2:
+            return w4a16_gemm(gu, w["packed"], w["scales"], residual=residual, layer_id=layer_id,
+                              prologue="silu_mul", fused_gate_up=True, group_size=cfg.group_size,
+                              out_dtype=cfg.dtype)
         inter = gu.shape[-1] // 2
         gate, up = gu[:, :inter], gu[:, inter:]
     else:
@@ -174,11 +275,42 @@ def _mlp(h2, weights, cfg, residual=None, layer_id=None, norm=None):
             h2 = rmsnorm(h2, norm[layer_id] if layer_id is not None else norm, cfg.rms_eps)
         gate = _linear(h2, weights["gate"], cfg, layer_id=layer_id)
         up = _linear(h2, weights["up"], cfg, layer_id=layer_id)
+    if isinstance(w, dict):
+        # silu-mul prologue and residual epilogue in the down GEMM
+        return _w4_kernel_for(cfg, gate.shape[0])(
+            gate, w["packed"], w["scales"], a2=up, residual=residual, layer_id=layer_id,
+            prologue="silu_mul", group_size=cfg.group_size, out_dtype=cfg.dtype)
     g = gate.float()
     act = (g * torch.sigmoid(g) * up.float()).to(cfg.dtype)
-    w = weights["down"][layer_id] if layer_id is not None else weights["down"]
-    out = torch.matmul(act, w.t()).to(cfg.dtype)
+    wl = w[layer_id] if layer_id is not None else w
+    out = torch.matmul(act, wl.t()).to(cfg.dtype)
     return out + residual if residual is not None else out
+
+
+def _kv_quant(cfg: LlamaConfig, x):
+    """Fresh K/V -> the pool's representation before a store: int8 rounds
+    x / kv_scale half to even and clips to +-127; fp8 divides and casts.
+    Without a scale, the store's own cast applies (llama.py:312-322)."""
+    if cfg.kv_scale is None:
+        return x
+    y = x.float() * (1.0 / cfg.kv_scale)
+    if cfg.kv_dtype == torch.int8:
+        return torch.clamp(torch.round(y), -127, 127).to(torch.int8)
+    return y.to(cfg.kv_dtype or cfg.dtype)
+
+
+def _kv_att_kwargs(cfg: LlamaConfig):
+    """k_scale / v_scale for decode attention: it folds k_scale into q and
+    v_scale into the output, nothing per KV element."""
+    if cfg.kv_scale is None:
+        return {}
+    return {"k_scale": cfg.kv_scale, "v_scale": cfg.kv_scale}
+
+
+def _kv_deq(cfg: LlamaConfig, x, dtype):
+    """A gathered KV prefix back in the compute dtype (llama.py:334-337)."""
+    x = x.to(dtype)
+    return x if cfg.kv_scale is None else x * torch.tensor(cfg.kv_scale, dtype=dtype)
 
 
 def decode_step(params, cfg: LlamaConfig, k_cache, v_cache, tokens, positions, page_tables,
@@ -210,12 +342,13 @@ def decode_layers(lw, cfg: LlamaConfig, k_cache, v_cache, x, positions, page_tab
         q, k, v = rope_decode_fused_qkv(positions, qkv, rope_cache, num_q=cfg.num_heads,
                                         num_kv=cfg.num_kv_heads, head_dim=cfg.head_dim)
         attn = paged_attention_decode_dma(q, k_cache, v_cache, lengths, page_tables,
-                                          layer_id=lidx, fresh_k=k, fresh_v=v)
+                                          layer_id=lidx, fresh_k=k, fresh_v=v, **_kv_att_kwargs(cfg))
         x = _linear(attn.reshape(b, -1), lw["o"], cfg, residual=x, layer_id=lidx)
         x = _mlp(x, lw, cfg, residual=x, layer_id=lidx, norm=lw["post_norm"])
         k_all.append(k)
         v_all.append(v)
-    store_cache_all_layers(torch.stack(k_all), torch.stack(v_all), k_cache, v_cache, slot_loc)
+    store_cache_all_layers(_kv_quant(cfg, torch.stack(k_all)), _kv_quant(cfg, torch.stack(v_all)),
+                           k_cache, v_cache, slot_loc)
     return x, k_cache, v_cache
 
 
@@ -246,7 +379,7 @@ def prefill_layers(lw, cfg: LlamaConfig, k_cache, v_cache, x, positions, q_lens,
         h = rmsnorm(x, lw["input_norm"][lidx], cfg.rms_eps)
         q, k, v = _qkv(h, lw, cfg, b * s, layer_id=lidx)
         q, k = rotary_embedding(positions.reshape(-1), q, k, cfg.head_dim, rope_cache)
-        store_cache_stacked(k, v, k_cache, v_cache, slot_loc.reshape(-1), lidx)
+        store_cache_stacked(_kv_quant(cfg, k), _kv_quant(cfg, v), k_cache, v_cache, slot_loc.reshape(-1), lidx)
         attn = flash_attention(
             q.reshape(b, s, cfg.num_heads, cfg.head_dim),
             k.reshape(b, s, cfg.num_kv_heads, cfg.head_dim),

@@ -6,8 +6,8 @@
 (sgl_kernel_tpu/ops/attention/paged_decode_dma.py:306, pallas_call at
 :461). ``paged_attention_decode_ref`` is its plain PyTorch twin and covers the
 JAX contract over page-major pools (sinks, window, softcap, k/v scales,
-lse); the kernel takes the bf16 form the serving path uses and raises on
-the rest. The name keeps the JAX module's: the kernel streams pages, but
+lse); the kernel takes bf16, int8, fp8 e4m3 and e5m2 pools with per-tensor
+k/v scales, the form the serving path uses, and raises on the rest. The name keeps the JAX module's: the kernel streams pages, but
 no longer by manual DMA.
 """
 
@@ -31,7 +31,11 @@ def paged_attention_decode_ref(q, k_pages, v_pages, lengths, page_table, sinks=N
                                logit_soft_cap: Optional[float] = None,
                                return_lse: bool = False):
     """Plain PyTorch twin of ``paged_attention_decode_dma`` (gathers the
-    pages the longest sequence uses, dense f32 scores)."""
+    pages the longest sequence uses, dense f32 scores). Pool values convert
+    exactly to float32; the per-tensor scales round where the JAX function
+    rounds (paged_decode_dma.py:392-405, :498-499): q * k_scale and
+    fresh_k / k_scale, fresh_v / v_scale to the input dtypes, the output
+    times v_scale again to q's dtype."""
     b, hq, d = q.shape
     if k_pages.ndim == 4:
         k_pages, v_pages = k_pages[None], v_pages[None]
@@ -47,11 +51,14 @@ def paged_attention_decode_ref(q, k_pages, v_pages, lengths, page_table, sinks=N
     # [B, nb, Hkv, page, D] -> [B, Hkv, nb*page, D]
     kg = kp[pt].permute(0, 2, 1, 3, 4).reshape(b, hkv, nb * page, d).float()
     vg = vp[pt].permute(0, 2, 1, 3, 4).reshape(b, hkv, nb * page, d).float()
-    if k_scale is not None:
-        kg = kg * float(k_scale)
-    if v_scale is not None:
-        vg = vg * float(v_scale)
     qh = q.reshape(b, hkv, group, d).float()
+    if k_scale is not None:
+        # the scale folds into q; the unquantized fresh row is compensated
+        qh = (qh * float(k_scale)).to(q.dtype).float()
+        if fresh_k is not None:
+            fresh_k = (fresh_k.float() / float(k_scale)).to(fresh_k.dtype)
+    if v_scale is not None and fresh_v is not None:
+        fresh_v = (fresh_v.float() / float(v_scale)).to(fresh_v.dtype)
     s = torch.einsum("bhgd,bhtd->bhgt", qh, kg) * scale
     pos = torch.arange(nb * page, device=q.device)
     mask = pos[None, :] < limit[:, None]
@@ -73,6 +80,8 @@ def paged_attention_decode_ref(q, k_pages, v_pages, lengths, page_table, sinks=N
     o = torch.einsum("bhgt,bhtd->bhgd", p, vg)
     o = torch.where(l == 0, torch.zeros_like(o), o / l)
     out = o.reshape(b, hq, d).to(q.dtype)
+    if v_scale is not None:
+        out = (out.float() * float(v_scale)).to(q.dtype)
     if return_lse:
         lse = (m + torch.log(l.clamp_min(1e-38))) * LOG2E
         lse = torch.where(l == 0, torch.full_like(lse, float("-inf")), lse)
@@ -80,7 +89,9 @@ def paged_attention_decode_ref(q, k_pages, v_pages, lengths, page_table, sinks=N
     return out
 
 
-_ARGS = (ctypes.c_void_p,) * 8 + (ctypes.c_int,) * 8 + (ctypes.c_float, ctypes.c_void_p)
+_ARGS = (ctypes.c_void_p,) * 8 + (ctypes.c_int,) * 9 + (ctypes.c_float,) * 3 + (ctypes.c_void_p,)
+# pool dtypes of the kernel (csrc/decode_attention.cu)
+_POOL_TYPES = {torch.bfloat16: 0, torch.int8: 1, torch.float8_e4m3fn: 2, torch.float8_e5m2: 3}
 
 
 def paged_attention_decode_dma(q, k_pages, v_pages, lengths, page_table, sinks=None,
@@ -94,9 +105,10 @@ def paged_attention_decode_dma(q, k_pages, v_pages, lengths, page_table, sinks=N
     [L, P, Hkv, page, D] (or [P, Hkv, page, D]); lengths [B] include the
     current token; page_table [B, n_blocks]. With fresh_k/fresh_v [B, Hkv, D]
     the pool holds length-1 tokens and the fresh row is attended last.
-    CUDA tensors go through the K5 kernel, which takes bf16 page-major
-    pools, head_dim 64/128/256, group 1/2/4/8 and no sinks, window,
-    softcap, scales or lse yet.
+    ``k_scale``/``v_scale`` are per-tensor scales of quantized pools (floats).
+    CUDA tensors go through the K5 kernel, which takes bf16 q, page-major
+    pools of bf16, int8, fp8 e4m3 or e5m2, head_dim 64/128/256, group
+    1/2/4/8, and no sinks, window, softcap or lse yet.
 
     ``chunk_pages``, ``num_splits`` and ``layout`` are contract-only: they
     keep the JAX signature. ``chunk_pages`` sized the TPU kernel's DMA
@@ -109,11 +121,11 @@ def paged_attention_decode_dma(q, k_pages, v_pages, lengths, page_table, sinks=N
             q, k_pages, v_pages, lengths, page_table, sinks, k_scale, v_scale, layer_id,
             fresh_k, fresh_v, sm_scale=sm_scale, sliding_window=sliding_window,
             logit_soft_cap=logit_soft_cap, return_lse=return_lse)
-    if (sinks is not None or k_scale is not None or v_scale is not None or sliding_window is not None
-            or logit_soft_cap is not None or return_lse or num_splits != 1):
+    if (sinks is not None or sliding_window is not None or logit_soft_cap is not None or return_lse
+            or num_splits != 1):
         raise NotImplementedError(
-            "paged_attention_decode_dma: the CUDA kernel takes no sinks, scales, window, "
-            "softcap, lse or splits yet")
+            "paged_attention_decode_dma: the CUDA kernel takes no sinks, window, softcap, lse or "
+            "splits yet")
     if k_pages.ndim == 4:
         k_pages, v_pages = k_pages[None], v_pages[None]
     b, hq, d = q.shape
@@ -121,8 +133,9 @@ def paged_attention_decode_dma(q, k_pages, v_pages, lengths, page_table, sinks=N
     group = hq // hkv
     if hq % hkv or group not in (1, 2, 4, 8) or d not in (64, 128, 256) or k_pages.shape[-1] != d:
         raise ValueError(f"paged_attention_decode_dma: unsupported q {tuple(q.shape)} pools {tuple(k_pages.shape)}")
-    if not (q.dtype == k_pages.dtype == v_pages.dtype == torch.bfloat16):
-        raise NotImplementedError("paged_attention_decode_dma: the CUDA kernel takes bf16")
+    if q.dtype != torch.bfloat16 or k_pages.dtype != v_pages.dtype or k_pages.dtype not in _POOL_TYPES:
+        raise NotImplementedError("paged_attention_decode_dma: the CUDA kernel takes bf16 q and "
+                                  "bf16, int8, float8_e4m3fn or float8_e5m2 pools")
     if not (k_pages.is_contiguous() and v_pages.is_contiguous()):
         raise ValueError("paged_attention_decode_dma: pools must be contiguous")
     lid = 0 if layer_id is None else int(layer_id)
@@ -140,7 +153,9 @@ def paged_attention_decode_dma(q, k_pages, v_pages, lengths, page_table, sinks=N
     fn = _build.bind("decode_attention", "skt_paged_decode", _ARGS)
     _build.check(fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), fk_ptr, fv_ptr,
                     lens.data_ptr(), table.data_ptr(), out.data_ptr(), b, n_pages, hkv, page,
-                    table.shape[1], d, group, lid, scale, _build.stream_ptr(q.device)),
+                    table.shape[1], d, group, lid, _POOL_TYPES[k_pages.dtype], scale,
+                    1.0 if k_scale is None else float(k_scale), 1.0 if v_scale is None else float(v_scale),
+                    _build.stream_ptr(q.device)),
                  "paged_attention_decode_dma")
     paged_attention_decode_dma.launches += 1
     return out

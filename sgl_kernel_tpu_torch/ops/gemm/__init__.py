@@ -1,0 +1,13 @@
+"""GEMMs of the port: the W4A16 dequant-fused GEMM (K1) and its layouts."""
+
+from .w4a16 import (
+    awq_to_tpu_layout,
+    dequant_w4,
+    gptq_to_tpu_layout,
+    mxfp4_to_tpu_layout,
+    pack_w4_tpu,
+    quantize_w4,
+    unpack_w4_tpu,
+    w4a16_gemm,
+    w4a16_gemm_ref,
+)

@@ -1,0 +1,39 @@
+"""4-bit nibble packing and the AWQ int32 packing order.
+
+Plain PyTorch copies of the parts of sgl_kernel_tpu/ops/quant/formats.py
+(:101-135) that the W4A16 layout converters need; same bytes out.
+"""
+
+from __future__ import annotations
+
+import torch
+
+# logical[k] = nibble[AWQ_ORDER[k]] within one int32 word
+AWQ_ORDER = (0, 4, 1, 5, 2, 6, 3, 7)
+
+
+def pack_int4(codes: torch.Tensor) -> torch.Tensor:
+    """Pack uint4 codes [..., K] -> bytes [..., K//2], low nibble first."""
+    lo = codes[..., 0::2].to(torch.uint8) & 0xF
+    hi = codes[..., 1::2].to(torch.uint8) & 0xF
+    return lo | (hi << 4)
+
+
+def unpack_int4(packed: torch.Tensor) -> torch.Tensor:
+    """Unpack bytes [..., K//2] -> uint8 codes [..., K], low nibble first."""
+    packed = packed.to(torch.uint8)
+    return torch.stack([packed & 0xF, packed >> 4], dim=-1).reshape(*packed.shape[:-1], -1)
+
+
+def _nibbles(q: torch.Tensor) -> torch.Tensor:
+    """int32 words [...] -> their 8 nibbles [..., 8], nibble 0 lowest (the
+    words are read as unsigned, through int64)."""
+    q = q.to(torch.int64) & 0xFFFFFFFF
+    shifts = torch.arange(8, device=q.device, dtype=torch.int64) * 4
+    return (q[..., None] >> shifts) & 0xF
+
+
+def awq_unpack_int32(q: torch.Tensor) -> torch.Tensor:
+    """Unpack AWQ int32 [..., C//8] -> uint8 codes [..., C] in logical order."""
+    logical = _nibbles(q)[..., list(AWQ_ORDER)]
+    return logical.reshape(*q.shape[:-1], -1).to(torch.uint8)

@@ -169,3 +169,76 @@ def test_merge_states(rng):
     ov, os_ = tatt.merge_states(torch.from_numpy(vs), torch.from_numpy(ss))
     close(rv, ov, **F32)
     close(rs, os_, **F32)
+
+
+def quant_pools(rng, kind, shape):
+    """K and V pools of 1-byte codes as (JAX array, tensor) pairs. fp8 codes
+    keep |x| in [2^-6, 8) and avoid the encodings where the JAX upcast
+    deliberately differs (denormals flush, NaN reads as +-480,
+    paged_decode_dma.py:41-70)."""
+    if kind == "int8":
+        return [both(rng.integers(-127, 128, shape).astype(np.int8), jnp.int8) for _ in range(2)]
+    codes = np.array([b for b in range(256) if 1 <= (b >> 3) & 0xF <= 9], np.uint8)
+    out = []
+    for _ in range(2):
+        u8 = codes[rng.integers(0, len(codes), shape)]
+        xj = jnp.asarray(u8).view(jnp.float8_e4m3fn)
+        out.append((xj, tensor_from_numpy(np.asarray(xj), "cpu")))
+    return out
+
+
+@pytest.mark.parametrize("kind,scales", [("int8", (1 / 16, 1 / 16)), ("float8_e4m3fn", (0.5, 0.25))])
+@pytest.mark.parametrize("qdt", ["f32", "bf16"])
+def test_paged_decode_quantized_pools(rng, kind, scales, qdt):
+    """int8 / fp8 pools with per-tensor k/v scales: q * k_scale and the
+    fresh rows / scale round to q's dtype, the output is scaled again
+    (paged_decode_dma.py:392-405, :498-499); f32 q holds the twin to the
+    kernel tightly, bf16 q adds the Pallas kernel's bf16 probabilities."""
+    b, hq, hkv, d, page = 4, 8, 2, 32, 16
+    lengths = [1, 37, 0, 2 * page + 5]
+    jdt = jnp.float32 if qdt == "f32" else jnp.bfloat16
+    table, [_, _, (qj, qt), (fkj, fkt), (fvj, fvt)] = paged_case(rng, b, hq, hkv, d, page, lengths, jdt=jdt)
+    n_pages = b * (table.shape[1]) + 1
+    (kj, kt), (vj, vt) = quant_pools(rng, kind, (2, n_pages, hkv, page, d))
+    ks, vs = scales
+    lens = np.array(lengths, np.int32)
+    ref = jdec.paged_attention_decode_dma(qj, kj, vj, jnp.asarray(lens), jnp.asarray(table), k_scale=ks,
+                                          v_scale=vs, layer_id=1, fresh_k=fkj, fresh_v=fvj, chunk_pages=2)
+    out = tatt.paged_attention_decode_dma(qt, kt, vt, torch.from_numpy(lens), torch.from_numpy(table), k_scale=ks,
+                                          v_scale=vs, layer_id=1, fresh_k=fkt, fresh_v=fvt)
+    assert out.dtype == qt.dtype
+    close(ref, out, **(F32 if qdt == "f32" else BF16))
+
+
+def fp8_table(kind):
+    """The value of each of the 256 codes from the format's definition."""
+    vals = []
+    for b in range(256):
+        sign = -1.0 if b & 0x80 else 1.0
+        if kind == "e4m3":
+            e, m = (b >> 3) & 0xF, b & 7
+            v = np.nan if (e == 15 and m == 7) else (m / 8 * 2.0 ** -6 if e == 0 else (1 + m / 8) * 2.0 ** (e - 7))
+        else:
+            e, m = (b >> 2) & 0x1F, b & 3
+            if e == 31:
+                v = np.inf if m == 0 else np.nan
+            else:
+                v = m / 4 * 2.0 ** -14 if e == 0 else (1 + m / 4) * 2.0 ** (e - 15)
+        vals.append(sign * v)
+    return np.array(vals, np.float32)
+
+
+@pytest.mark.parametrize("kind", ["e4m3", "e5m2"])
+def test_fp8_codes_convert_exactly(kind):
+    """The port reads fp8 pools by exact conversion, denormals and NaN
+    included; interop carries the JAX (ml_dtypes) bytes unchanged. The JAX
+    upcast differs on denormals and NaN codes by design, so parity inputs
+    avoid those."""
+    codes = np.arange(256, dtype=np.uint8)
+    tdt, jdt = ((torch.float8_e4m3fn, jnp.float8_e4m3fn) if kind == "e4m3"
+                else (torch.float8_e5m2, jnp.float8_e5m2))
+    vals = torch.from_numpy(codes).view(tdt).float().numpy()
+    np.testing.assert_array_equal(vals, fp8_table(kind))
+    carried = tensor_from_numpy(np.asarray(jnp.asarray(codes).view(jdt)), "cpu")
+    assert carried.dtype == tdt
+    np.testing.assert_array_equal(carried.view(torch.uint8).numpy(), codes)

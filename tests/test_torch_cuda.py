@@ -2,7 +2,8 @@
 card, over the options and edge cases the serving path's shapes in
 chip_smoke.py do not reach: other head dims and GQA groups, page sizes,
 padding rows, duplicate and dropped slots, extend offsets, non-causal
-attention, widths that are not powers of two.
+attention, widths that are not powers of two, quantized KV pools, and
+every option, row count, group size and ragged width of the W4A16 GEMM.
 
 Needs a CUDA device: every test here is marked ``cuda`` and skips without
 one. On the card (tests/conftest.py imports JAX, which that machine need not
@@ -16,6 +17,7 @@ import torch
 
 from sgl_kernel_tpu_torch.ops import kvcache, norm, rope
 from sgl_kernel_tpu_torch.ops.attention import flash_prefill, paged_decode_dma
+from sgl_kernel_tpu_torch.ops.gemm import w4a16
 
 pytestmark = pytest.mark.cuda
 
@@ -151,3 +153,135 @@ def test_flash_extend_offsets(gen):
         ref = flash_prefill.flash_attention_ref(q, k, v, ql, kl, *extra, causal=True)
         for i, n in enumerate(ql.tolist()):
             assert_kernel_close(out[i, :n], ref[i, :n])
+
+
+@pytest.mark.parametrize("dtype", [torch.int8, torch.float8_e4m3fn, torch.float8_e5m2])
+@pytest.mark.parametrize("hq,hkv,d", [(32, 8, 128), (8, 2, 64), (16, 8, 256)])
+@pytest.mark.parametrize("fresh", [True, False])
+def test_paged_decode_quantized_pools(gen, dtype, hq, hkv, d, fresh):
+    """1-byte pools converted in registers, k/v scales folded into q and the
+    output, the fresh rows divided by them."""
+    lengths = [1, 0, 37, 133, 300]
+    table, lens, kp, vp, q, fk, fv = paged_case(gen, len(lengths), hq, hkv, d, 64, lengths, n_layers=2)
+    if dtype == torch.int8:
+        kp = torch.randint(-127, 128, kp.shape, generator=gen, device="cuda", dtype=torch.int32).to(dtype)
+        vp = torch.randint(-127, 128, vp.shape, generator=gen, device="cuda", dtype=torch.int32).to(dtype)
+        ks = vs = 1 / 16
+    else:
+        kp, vp = (kp.float() * 4).to(dtype), (vp.float() * 4).to(dtype)
+        ks, vs = 0.5, 0.25
+    kw = dict(layer_id=1, k_scale=ks, v_scale=vs)
+    if fresh:
+        kw.update(fresh_k=fk, fresh_v=fv)
+    out = paged_decode_dma.paged_attention_decode_dma(q, kp, vp, lens, table, **kw)
+    ref = paged_decode_dma.paged_attention_decode_ref(q, kp, vp, lens, table, **kw)
+    assert torch.isfinite(out).all()
+    assert_elementwise(out, ref)
+
+
+def assert_elementwise(out, ref):
+    """|out - ref| <= 2^-7 |ref| + 2^-12 max|ref row|: both sides compute in
+    float32 and round once, so they may land one output ulp apart; the
+    row term covers float32 sums taken in another order near zero."""
+    o, r = out.float(), ref.float()
+    tol = 2.0 ** -7 * r.abs() + 2.0 ** -12 * r.abs().amax(-1, keepdim=True)
+    assert ((o - r).abs() <= tol).all(), float(((o - r).abs() / tol).max())
+
+
+def w4_case(gen, m, n, k, gs, option=None, layers=3):
+    """(a, w, scales, kwargs) of one W4A16 call."""
+    bf = torch.bfloat16
+    kw = dict(group_size=gs)
+    stacked = option in ("layer_id", "norm_stacked", "fused_gate_up")
+    if option in ("mxfp4", "mxfp4_zeros"):
+        kw.update(fmt="mxfp4")
+        w = torch.randint(0, 256, (k // 2, n), generator=gen, device="cuda", dtype=torch.int32).to(torch.uint8)
+        s = torch.exp2(torch.randint(-8, -3, (k // gs, n), generator=gen, device="cuda").float()).to(bf)
+        if option == "mxfp4_zeros":  # the contract applies z*s for either format
+            kw["zeros"] = (s.float() * torch.randn(s.shape, generator=gen, device="cuda")).to(bf)
+        return randn(gen, m, k), w, s, kw
+    kk = k - 40 if option == "padded_k" else k
+    qs = [w4a16.quantize_w4(torch.randn((n, kk), generator=gen, device="cuda") * 0.05 + 0.01, group_size=gs,
+                            symmetric=option != "zeros") for _ in range(layers if stacked else 1)]
+    w, s = (torch.stack([q[0] for q in qs]), torch.stack([q[1] for q in qs])) if stacked else qs[0][:2]
+    a = randn(gen, m, kk)
+    if option == "zeros":
+        kw["zeros"] = qs[0][2]
+    elif option == "bias":
+        kw["bias"] = randn(gen, n, dtype=torch.float32)
+    elif option == "a2_silu":
+        kw.update(a2=randn(gen, m, k), prologue="silu_mul")
+    elif option == "fused_gate_up":
+        a = randn(gen, m, 2 * k)
+        kw.update(prologue="silu_mul", fused_gate_up=True, layer_id=1, residual=randn(gen, m, n))
+    elif option == "residual":
+        kw["residual"] = randn(gen, m, n)
+    elif option == "norm":
+        a = randn(gen, m, k) * 3
+        kw["norm_weight"] = randn(gen, k)
+    elif option == "norm_stacked":
+        kw.update(norm_weight=randn(gen, layers, k), layer_id=2)
+    elif option == "layer_id":
+        kw["layer_id"] = 2
+    elif option == "f32_out":
+        kw["out_dtype"] = torch.float32
+    return a, w, s, kw
+
+
+def check_w4(a, w, s, kw):
+    before = w4a16.w4a16_gemm.launches
+    out = w4a16.w4a16_gemm(a, w, s, **kw)
+    assert w4a16.w4a16_gemm.launches == before + 1
+    ref = w4a16.w4a16_gemm_ref(a, w, s, **kw)
+    assert out.dtype == ref.dtype and out.shape == ref.shape
+    assert torch.isfinite(out).all()
+    assert_elementwise(out, ref)
+
+
+@pytest.mark.parametrize("option", ["mxfp4", "mxfp4_zeros", "zeros", "bias", "a2_silu", "fused_gate_up",
+                                    "residual", "norm", "norm_stacked", "layer_id", "padded_k", "f32_out"])
+@pytest.mark.parametrize("m", [16, 100])
+def test_w4a16_options(gen, option, m):
+    """Every option of the contract, at a decode and a prefill row count."""
+    check_w4(*w4_case(gen, m, 384, 512, 32 if option.startswith("mxfp4") else 64, option))
+
+
+@pytest.mark.parametrize("m", [1, 16, 32, 33, 1000])
+@pytest.mark.parametrize("gs", [32, 64, 128])
+def test_w4a16_rows_and_groups(gen, m, gs):
+    """Both decode tiles (M <= 16, <= 32), the prefill tile past 32 rows,
+    ragged row tiles; each group size the kernel is built for."""
+    check_w4(*w4_case(gen, m, 320, 1024, gs, "norm" if m <= 32 else "a2_silu"))
+
+
+@pytest.mark.parametrize("n", [200, 1000, 4104])
+@pytest.mark.parametrize("m", [5, 70])
+def test_w4a16_ragged_columns(gen, n, m):
+    """N not a multiple of the 128- or 64-column tile; N=200 and 1000 are
+    not multiples of 16 either, so the weight and scale rows take the
+    masked byte loads."""
+    check_w4(*w4_case(gen, m, n, 256, 64, "zeros"))
+
+
+def test_w4a16_split_k(gen):
+    """Few column tiles: K splits across blocks in whole groups and a
+    second pass sums the partials, adds bias and residual, and casts."""
+    m, n, k, gs = 16, 256, 8192, 128
+    tile, split, per = w4a16.plan(m, n, k, gs, w4a16._sm_count(0))
+    assert split > 1 and (split - 1) * per < k // gs
+    a, w, s, kw = w4_case(gen, m, n, k, gs, "residual")
+    kw["bias"] = randn(gen, n, dtype=torch.float32)
+    check_w4(a, w, s, kw)
+
+
+def test_w4a16_unsupported_raise(gen):
+    a, w, s, kw = w4_case(gen, 8, 256, 512, 64)
+    with pytest.raises(NotImplementedError):
+        w4a16.w4a16_gemm(a.float(), w, s, **kw)
+    with pytest.raises(NotImplementedError):
+        w4a16.w4a16_gemm(a, w, s, out_dtype=torch.float16, **kw)
+    with pytest.raises(NotImplementedError):
+        w4a16.w4a16_gemm(a, w, s.float(), **kw)
+    a, w, s, _ = w4_case(gen, 8, 256, 512, 256)
+    with pytest.raises(NotImplementedError):
+        w4a16.w4a16_gemm(a, w, s, group_size=256)

@@ -8,7 +8,9 @@ adapter without packed prefill or extend, so both engines take the same
 path: one padded prefill per prompt, the prefix cache off."""
 
 import jax
+import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from sgl_kernel_tpu.models import llama as jllama
@@ -54,3 +56,31 @@ def test_engine_greedy_outputs_identical():
     assert teng.metrics.counters.get("nonfinite_logits", 0) == 0
     # on the CPU every wrapper takes its plain twin: no kernel launched
     assert all(n == 0 for n in launch_counts().values())
+
+
+@pytest.mark.parametrize("kv", [None, "int8"])
+def test_engine_w4a16_greedy_outputs_identical(kv):
+    """The W4A16 model, with bf16-model-dtype pools or int8 pools at
+    kv_scale 1/16 (bench.py's setting), served by both engines unchanged:
+    the adapter builds the pools from the config."""
+    kw_cfg = dict(quant="w4a16", group_size=32, fused=True)
+    jkw, tkw = dict(kw_cfg), dict(kw_cfg)
+    if kv:
+        jkw.update(kv_dtype=jnp.int8, kv_scale=1 / 16)
+        tkw.update(kv_dtype=torch.int8, kv_scale=1 / 16)
+    jcfg = jllama.LlamaConfig.tiny(**jkw)
+    jparams = jllama.init_weights(jcfg, jax.random.PRNGKey(13))
+    rng = np.random.default_rng(6)
+    prompts = [rng.integers(1, jcfg.vocab_size, n).tolist() for n in (4, 33, 12)]
+    kw = dict(max_batch=2, page_size=16, num_pages=32)
+    jeng = JaxEngine(jcfg, jparams, adapter=PlainPrefillAdapter(jcfg), **kw)
+    teng = Engine(LlamaConfig.tiny(**tkw), params_from_numpy(jax.tree_util.tree_map(np.asarray, jparams), "cpu"),
+                  device="cpu", **kw)
+    assert teng.caches[0].dtype == (torch.int8 if kv else torch.float32)
+    for p in prompts:
+        jeng.add_request(p, max_new_tokens=6)
+        teng.add_request(p, max_new_tokens=6)
+    jfin, tfin = jeng.run_until_done(), teng.run_until_done()
+    assert sorted(jfin) == sorted(tfin)
+    for rid in jfin:
+        assert tfin[rid].output == jfin[rid].output, rid

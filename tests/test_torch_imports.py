@@ -57,8 +57,8 @@ def test_unserved_engine_arguments_raise():
 
 
 def test_kernel_wrappers_count_launches():
-    assert set(skt.launch_counts()) == {"rmsnorm", "rope_decode_fused_qkv", "paged_attention_decode_dma",
-                                        "store_cache_all_layers", "flash_attention"}
+    assert set(skt.launch_counts()) == {"w4a16_gemm", "rmsnorm", "rope_decode_fused_qkv",
+                                        "paged_attention_decode_dma", "store_cache_all_layers", "flash_attention"}
     skt.reset_launch_counts()
     x = torch.randn(3, 64)
     skt.rmsnorm(x, torch.ones(64))  # CPU tensor: the plain twin, no launch
@@ -72,9 +72,9 @@ def test_kernel_sources_and_entry_points():
     from sgl_kernel_tpu_torch import _build
 
     stems = {p.stem for p in _build.sources()}
-    assert stems == {"decode_attention", "flash_prefill", "store_cache"}
+    assert stems == {"decode_attention", "flash_prefill", "store_cache", "w4a16_gemm"}
     entry = {"decode_attention": "skt_paged_decode", "flash_prefill": "skt_flash_prefill",
-             "store_cache": "skt_store_cache_all_layers"}
+             "store_cache": "skt_store_cache_all_layers", "w4a16_gemm": "skt_w4a16_gemm"}
     for src in _build.sources():
         text = src.read_text()
         assert f'extern "C" int {entry[src.stem]}(' in text

@@ -71,3 +71,32 @@ def test_store_cache_stacked(rng, page):
                                      torch.from_numpy(loc), 1)
     same(rk, ok)
     same(rv, ov)
+
+
+@pytest.mark.parametrize("kind", ["int8", "float8_e4m3fn", "float8_e5m2"])
+def test_stores_on_one_byte_pools(rng, kind):
+    """int8 / fp8 pools (rows of D bytes) take the model's already
+    quantized K/V (llama._kv_quant): both stores copy the codes bit for
+    bit, as the JAX ones do."""
+    l, p, h, page, d = 2, 3, 2, 16, 32
+    jdt = getattr(jnp, kind)
+
+    def codes(shape):
+        if kind == "int8":
+            return jnp.asarray(rng.integers(-127, 128, shape).astype(np.int8))
+        return jnp.asarray(rng.standard_normal(shape).astype(np.float32)).astype(jdt)
+
+    kp, vp = codes((l, p, h, page, d)), codes((l, p, h, page, d))
+    kpt, vpt = tensor_from_numpy(np.asarray(kp), "cpu"), tensor_from_numpy(np.asarray(vp), "cpu")
+    assert kpt.dtype == getattr(torch, kind)
+    loc = np.array([5, -1, p * page, 2 * page + 3, 5], np.int32)
+    ka, va = codes((l, 5, h, d)), codes((l, 5, h, d))
+    rk, rv = jkv.store_cache_all_layers(ka, va, kp, vp, jnp.asarray(loc))
+    tkv.store_cache_all_layers(tensor_from_numpy(np.asarray(ka), "cpu"), tensor_from_numpy(np.asarray(va), "cpu"),
+                               kpt, vpt, torch.from_numpy(loc))
+    k1, v1 = codes((5, h, d)), codes((5, h, d))
+    rk, rv = jkv.store_cache_stacked(k1, v1, rk, rv, jnp.asarray(loc[::-1].copy()), 1)
+    tkv.store_cache_stacked(tensor_from_numpy(np.asarray(k1), "cpu"), tensor_from_numpy(np.asarray(v1), "cpu"),
+                            kpt, vpt, torch.from_numpy(loc[::-1].copy()), 1)
+    for a, b in ((rk, kpt), (rv, vpt)):
+        np.testing.assert_array_equal(np.asarray(a).view(np.uint8), b.view(torch.uint8).numpy())

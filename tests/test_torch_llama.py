@@ -19,20 +19,28 @@ torch.set_num_threads(1)
 PAGE, N_PAGES, BUCKET = 16, 12, 32
 
 
-def configs(dtype):
+def configs(dtype, kv_dtype=None, **extra):
+    """The JAX and port configs; ``kv_dtype`` by name ("int8",
+    "float8_e4m3fn"), ``extra`` fields the same on both sides."""
+    if kv_dtype is not None:
+        extra_j = dict(extra, kv_dtype=getattr(jnp, kv_dtype))
+        extra_t = dict(extra, kv_dtype=getattr(torch, kv_dtype))
+    else:
+        extra_j = extra_t = extra
     if dtype == "f32":
-        return jllama.LlamaConfig.tiny(fused=True), tllama.LlamaConfig.tiny(fused=True)
+        return jllama.LlamaConfig.tiny(fused=True, **extra_j), tllama.LlamaConfig.tiny(fused=True, **extra_t)
     # narrow bf16 variant: 3 layers, GQA group 4
     kw = dict(vocab_size=192, hidden_size=128, intermediate_size=192, num_layers=3,
               num_heads=8, num_kv_heads=2, head_dim=16, max_position=128, fused=True)
-    return (jllama.LlamaConfig(dtype=jnp.bfloat16, **kw), tllama.LlamaConfig(dtype=torch.bfloat16, **kw))
+    return (jllama.LlamaConfig(dtype=jnp.bfloat16, **kw, **extra_j),
+            tllama.LlamaConfig(dtype=torch.bfloat16, **kw, **extra_t))
 
 
-def run_both(dtype, prompt_lens, n_decode):
+def run_both(dtype, prompt_lens, n_decode, **cfg_kw):
     """Prefill each prompt (batch of one, bucket-padded, as the engine does),
     then decode all sequences together. Returns the per-call logits of both
     sides and the final pools."""
-    jcfg, tcfg = configs(dtype)
+    jcfg, tcfg = configs(dtype, **cfg_kw)
     jparams = jllama.init_weights(jcfg, jax.random.PRNGKey(3))
     tparams = interop.params_from_numpy(jax.tree_util.tree_map(np.asarray, jparams), "cpu")
     jk, jv = jllama.make_caches(jcfg, N_PAGES, PAGE)
@@ -113,7 +121,20 @@ def test_params_from_numpy_bf16_bytes():
 
 def test_unported_options_raise():
     with pytest.raises(NotImplementedError):
-        tllama.LlamaConfig.tiny(quant="w4a16")
+        tllama.LlamaConfig.tiny(quant="w8a8")
+    # K10, the DMA decode GEMM, is not ported: its decode raises, prefill runs K1
+    dma = tllama.LlamaConfig.tiny(quant="w4a16", group_size=32, fused=True, gemm_impl="dma")
+    assert tllama._w4_kernel_for(dma, 64) is tllama.w4a16_gemm
+    with pytest.raises(NotImplementedError):
+        tllama._w4_kernel_for(dma, 16)
+    params = tllama.init_weights(dma, 0, device="cpu")
+    k, v = tllama.make_caches(dma, 4, 16, device="cpu")
+    with pytest.raises(NotImplementedError):
+        tllama.decode_step(params, dma, k, v, *(torch.zeros(1, dtype=torch.int32) for _ in range(2)),
+                           torch.zeros((1, 4), dtype=torch.int32), torch.ones(1, dtype=torch.int32),
+                           torch.zeros(1, dtype=torch.int32), tllama.build_rope_cache(dma, "cpu"))
+    with pytest.raises(ValueError):  # int8 pools need a scale
+        tllama.make_caches(tllama.LlamaConfig.tiny(kv_dtype=torch.int8), 4, 16, device="cpu")
     cfg = tllama.LlamaConfig.tiny(fused=False)
     with pytest.raises(NotImplementedError):
         tllama.decode_layers({"input_norm": torch.ones(2, 128)}, cfg, None, None, torch.zeros(1, 128),
@@ -149,3 +170,89 @@ def test_sample_tokens_distribution():
     assert (freq[kept == 0] == 0).all()
     # 2000 draws: the standard error of a frequency is at most 0.011
     torch.testing.assert_close(freq, kept, atol=0.05, rtol=0)
+
+
+W4 = dict(quant="w4a16", group_size=32)
+
+
+def test_w4a16_prefill_decode_f32():
+    """W4A16 weights quantized by the JAX init, carried across: the packed
+    codes are the same bytes, so only f32 summation order differs."""
+    jl, tl, (jk, jv), (tk, tv) = run_both("f32", [5, 23], n_decode=4, **W4)
+    for a, b in zip(jl, tl):
+        np.testing.assert_allclose(a, b, rtol=1e-4, atol=1e-4)
+        np.testing.assert_array_equal(a.argmax(-1), b.argmax(-1))
+    np.testing.assert_allclose(np.asarray(jk), tk.numpy(), rtol=1e-4, atol=1e-4)
+
+
+def test_w4a16_prefill_decode_bf16():
+    # as the bf16 model: bf16 rounding after every GEMM and the Pallas
+    # attention's bf16 probabilities drift the logits by a few bf16 ulps
+    jl, tl, _, _ = run_both("bf16", [9, 30], n_decode=3, **W4)
+    for a, b in zip(jl, tl):
+        np.testing.assert_allclose(a, b, rtol=0.05, atol=0.05)
+
+
+@pytest.mark.parametrize("kv", [("int8", 1 / 16), ("float8_e4m3fn", 0.25)])
+def test_quantized_kv_prefill_decode(kv):
+    """W4A16 with int8 or fp8 e4m3 pools and a per-tensor scale: the stores
+    quantize, K5 folds the scale back. In float32 the K/V rows of the two
+    sides agree to ~1e-6 before the store, so a pool code differs (by one)
+    only where a value sits on a rounding tie; the JAX upcast flushes
+    e4m3 denormals (|code| < 2^-6, before the scale) to 0 where the port
+    converts exactly, at most 2^-7 x 0.25 per pool element, which the
+    logits see at ~1e-3."""
+    kv_dtype, scale = kv
+    jl, tl, (jk, jv), (tk, tv) = run_both("f32", [5, 23], n_decode=4, kv_dtype=kv_dtype, kv_scale=scale, **W4)
+    assert tk.dtype == getattr(torch, kv_dtype)
+    for a, b in zip(jl, tl):
+        np.testing.assert_allclose(a, b, rtol=2e-3, atol=2e-3)
+        np.testing.assert_array_equal(a.argmax(-1), b.argmax(-1))
+    for jp, tp in ((jk, tk), (jv, tv)):
+        # x / kv_scale lands within ~1e-6 of a rounding tie for a few
+        # elements: those codes are neighbours (int8 and fp8 codes of one
+        # sign are ordered like their values)
+        diff = np.abs(np.asarray(jp).view(np.int8).astype(np.int32) - tp.view(torch.int8).numpy().astype(np.int32))
+        assert diff.max() <= 1 and (diff > 0).mean() < 1e-3
+
+
+@pytest.mark.parametrize("fused", [True, False])
+def test_quantize_layers_bytes(fused):
+    """_quantize_layers / _quantize_matrix on the JAX init's float weights
+    give the JAX tree's bytes (the lm_head padded to 2048 rows)."""
+    jcfg = jllama.LlamaConfig.tiny(fused=fused, **W4)
+    tcfg = tllama.LlamaConfig.tiny(fused=fused, **W4)
+    jfloat = jllama.init_weights(jllama.LlamaConfig.tiny(), jax.random.PRNGKey(2))
+    jq = jllama._quantize_layers(dict(jfloat["layers"]), jcfg)
+    tfloat = interop.params_from_numpy(jax.tree_util.tree_map(np.asarray, jfloat), "cpu")
+    tq = tllama._quantize_layers(tfloat["layers"], tcfg)
+    assert sorted(jq) == sorted(tq)
+    for name, leaf in jq.items():
+        if isinstance(leaf, dict):
+            for part in ("packed", "scales"):
+                b = tq[name][part]
+                np.testing.assert_array_equal(np.asarray(leaf[part]).view(np.uint8),
+                                              b.contiguous().view(torch.uint8).numpy())
+    jh = jllama._quantize_matrix(jfloat["lm_head"], jcfg)
+    th = tllama._quantize_matrix(tfloat["lm_head"], tcfg)
+    assert th["packed"].shape == (64, 2048)
+    np.testing.assert_array_equal(np.asarray(jh["packed"]), th["packed"].numpy())
+    np.testing.assert_array_equal(np.asarray(jh["scales"]).view(np.uint16),
+                                  th["scales"].view(torch.int16).numpy().view(np.uint16))
+
+
+@pytest.mark.parametrize("kv_dtype,scale", [("int8", 1 / 16), ("float8_e4m3fn", 0.5), ("float8_e5m2", None)])
+def test_kv_quant_dequant(rng, kv_dtype, scale):
+    jcfg, tcfg = configs("bf16", kv_dtype=kv_dtype, kv_scale=scale)
+    x = jnp.asarray(rng.standard_normal((6, 2, 16)) * 3, jnp.bfloat16)
+    xq_j = jllama._kv_quant(jcfg, x)
+    xq_t = tllama._kv_quant(tcfg, interop.tensor_from_numpy(np.asarray(x), "cpu"))
+    if scale is not None:
+        assert xq_t.dtype == getattr(torch, kv_dtype)
+        np.testing.assert_array_equal(np.asarray(xq_j).view(np.uint8), xq_t.contiguous().view(torch.uint8).numpy())
+        back_j = jllama._kv_deq(jcfg, xq_j, jnp.bfloat16)
+        back_t = tllama._kv_deq(tcfg, xq_t, torch.bfloat16)
+        np.testing.assert_array_equal(np.asarray(back_j).view(np.uint16), back_t.view(torch.int16).numpy().view(np.uint16))
+    else:
+        assert xq_t.dtype == torch.bfloat16  # no scale: the store casts
+    assert tllama._kv_att_kwargs(tcfg) == ({} if scale is None else {"k_scale": scale, "v_scale": scale})
