@@ -5,8 +5,9 @@
 
 Phases (any failure exits non-zero; nothing is caught and passed over):
   1. build   compile every kernel source of sgl_kernel_tpu_torch/csrc with
-             nvcc (one process per source, all at once); print the build
-             time and the card's name and power limit.
+             nvcc (one process per source, all at once) and the host C++
+             serving runtime (serving_native.cpp) with c++ beside them;
+             print the build time and the card's name and power limit.
   2. kernels each hand-written kernel against its plain PyTorch version on
              the card at the serving path's shapes: max error against a
              stated tolerance, kernel / plain / library times (CUDA events)
@@ -14,17 +15,29 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
              or operations over the peak rate of their type). The W4A16
              GEMM (K1) at the five decode GEMMs of a Llama-3-8B step, two
              prefill ones, an mxfp4 and a zeros+bias case; decode attention
-             (K5) on int8 and fp8 e4m3 pools too.
+             (K5) on int8 and fp8 e4m3 pools too; packed prefill (K9) at the
+             packed shape of phase 4's 16 prompts, with lse; K7's two
+             extend passes with lse (512 tokens over a 512-token prefix).
   3. parity  Llama-3-8B widths cut to 2 layers, weights from one CPU seed,
-             bf16 and W4A16: the same prefill and 4 decode steps on the card
-             and on the CPU; greedy tokens and logits agree.
+             bf16 and W4A16: the same prefill and 4 decode steps, then a
+             packed prefill, an extend and a mixed step, on the card and
+             on the CPU; greedy tokens and logits agree.
   4. serve   Engine(LlamaConfig.llama3_8b(fused=True)) with random weights
-             serves 16 requests (prompts of 16..1024 tokens, 32 new tokens,
-             two sampled); then the same 16 on the W4A16 engine
-             (quant="w4a16"), then 4 on the W4A16 engine with int8 KV pools
-             (kv_scale 1/16). Each run's kernels each launch at least once
-             (counts set to 0 just before it), K1 in both prefill and
-             decode, K5 on the int8 pool.
+             and the default arguments (prefix cache, packed admission,
+             mixed steps) plus prefill_chunk=1024, in three waves: (A) 16
+             fresh prompts of 16..1024 tokens, 32 new tokens, two sampled,
+             one packed launch; (B) 12 prompts that each begin with the
+             first 512 tokens of one of A's 8 prompts of 553 tokens or
+             more, then a fresh suffix of 64..512 tokens: every one hits 8
+             cached pages; (C) with B, a fresh 4,096-token prompt prefilled
+             in 1,024-token chunks, the first on its own, the rest in mixed
+             steps beside B's decodes. B's prompts again through an engine
+             with the prefix cache off: first-token logits agree. Then the
+             same on the W4A16 engine (quant="w4a16"), then waves A and B
+             of 4 requests on the W4A16 engine with int8 KV pools
+             (kv_scale 1/16). Each wave's kernels each launch at least once
+             (counts set to 0 just before it), K1 in prefill, decode and
+             mixed steps, K5 on the int8 pool.
   5. profile the bf16 and the W4A16 engine: 16 prompts admitted again, 4
              decode steps traced with torch.profiler; step time,
              device-busy share and device time per kernel name.
@@ -38,10 +51,13 @@ package beside it.
 from __future__ import annotations
 
 import dataclasses
+import gc
+import itertools
 import json
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM memory rate (NVIDIA data sheet)
@@ -97,6 +113,13 @@ def graph_ms(torch, fn, reps=20):
     return time_ms(torch, graph.replay, iters=5, warmup=1) / reps
 
 
+def free_memory(torch):
+    """Free a dropped engine's weights and pools now: its instrumented
+    methods (``instrument``) hold it in a reference cycle."""
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def max_err(torch, a, b):
     return float((a.float() - b.float()).abs().max())
 
@@ -121,11 +144,14 @@ def check(name, pairs):
     return err
 
 
-def phase_build(skt_build):
+def phase_build(skt_build, native):
     t0 = time.perf_counter()
-    logs = skt_build.build_all()
+    with ThreadPoolExecutor(1) as pool:  # the host C++ build beside nvcc's
+        host = pool.submit(native.build)
+        logs = skt_build.build_all()
+        lib = host.result()
     build_s = time.perf_counter() - t0
-    log(f"[build] {len(skt_build.sources())} sources in {build_s:.2f} s (compiled: {sorted(logs)})")
+    log(f"[build] {len(skt_build.sources())} sources and {lib.name} in {build_s:.2f} s (compiled: {sorted(logs)})")
     for stem, text in sorted(logs.items()):
         for line in text.splitlines():
             if "registers" in line or "spill" in line or "error" in line.lower():
@@ -287,10 +313,122 @@ def phase_kernels(torch, skt):
         plain_ms=time_ms(torch, lambda: flash_prefill.flash_attention_ref(q, k, v, ql, ql, causal=True), iters=5),
         library_ms=time_ms(torch, lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)),
         bound_ms=bms, bound_by=bby)
+    rows.update(packed_and_extend_rows(torch, skt, gen, randn, cfg))
     for name, r in rows.items():
         lib = "null" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
         log(f"[kernel] {name}: ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} library_ms={lib} "
             f"bound_ms={r['bound_ms']:.4f} ({r['bound_by']})")
+    return rows
+
+
+def serve_lens(n_req):
+    """Wave A's prompt lengths: n_req evenly from 16 to 1024 tokens."""
+    return [16 + (1008 * i) // (n_req - 1) for i in range(n_req)]
+
+
+def packed_library(torch, F, q, k, v, lens, tok0, ref):
+    """One SDPA call over jagged nested tensors (causal) computing K9's
+    function on the same valid rows, as the library yardstick: with
+    ``enable_gqa``, or, where this PyTorch refuses GQA over jagged tensors,
+    on K/V whose heads are repeated to the query's beforehand (outside the
+    timed call). Returns (fn, note): fn None when both are refused or the
+    result disagrees with the plain version by more than 2^-6 of its scale."""
+    dev = q.device
+    idx = torch.cat([torch.arange(t0, t0 + n, device=dev) for t0, n in zip(tok0, lens)])
+    offsets = torch.tensor([0] + list(itertools.accumulate(lens)), device=dev)
+    group = q.shape[1] // k.shape[1]
+    notes = []
+    for gqa in (True, False):
+        kv = [x[idx] if gqa else x[idx].repeat_interleave(group, dim=1) for x in (k, v)]
+        njt = [torch.nested.nested_tensor_from_jagged(x, offsets).transpose(1, 2) for x in [q[idx]] + kv]
+
+        def fn(njt=njt, gqa=gqa):
+            return F.scaled_dot_product_attention(*njt, is_causal=True, enable_gqa=gqa)
+
+        try:
+            out = fn().transpose(1, 2).values()
+        except Exception as e:  # this PyTorch refuses this form over jagged tensors
+            notes.append(f"enable_gqa={gqa} refused: {type(e).__name__}: {str(e).splitlines()[0][:120]}")
+            continue
+        err = float((out.float() - ref[idx].float()).abs().max())
+        if err > 2.0 ** -6 * float(ref.float().abs().max()):
+            return None, "; ".join(notes + [f"enable_gqa={gqa} disagrees with the plain version by {err:.4g}"])
+        return fn, "; ".join(notes + [f"enable_gqa={gqa}: max_abs_err {err:.4g}"])
+    return None, "SDPA over jagged nested tensors: " + "; ".join(notes)
+
+
+def packed_and_extend_rows(torch, skt, gen, randn, cfg):
+    """K9 at the packed shape of phase 4's wave A (16 prompts of 16..1024
+    tokens, block 256, 64 blocks of which 24 pad), with lse; K7's two
+    extend passes with lse, 512 fresh tokens over a 512-token prefix."""
+    from sgl_kernel_tpu_torch.ops.attention import flash_packed, flash_prefill, merge_state
+    from sgl_kernel_tpu_torch.serving.engine import packed_layout
+
+    F = torch.nn.functional
+    dev = torch.device(DEVICE)
+    nq, nkv, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    rows = {}
+    lens = serve_lens(16)
+    blk_seq, blk_q0, seq_meta, tok0, tp, max_kvb = packed_layout(lens, 17)
+    ints = [torch.from_numpy(a).to(dev) for a in (blk_seq, blk_q0, seq_meta)]
+    q, k, v = randn(tp, nq, d), randn(tp, nkv, d), randn(tp, nkv, d)
+    kw = dict(max_kvb=max_kvb, causal=True, return_lse=True)
+    out, lse = flash_packed.flash_attention_packed(q, k, v, *ints, **kw)
+    ref, ref_lse = flash_packed.flash_attention_packed_ref(q, k, v, *ints, **kw)
+    pairs = []
+    for t0, n in zip(tok0, lens):
+        pairs += [(out[t0: t0 + n], ref[t0: t0 + n]), (lse[:, t0: t0 + n], ref_lse[:, t0: t0 + n])]
+    err = check(f"flash_attention_packed[{tp} tokens, 16 prompts, lse]", pairs)
+    if not (torch.isfinite(out).all() and torch.isfinite(lse).all()):
+        fail("flash_attention_packed: non-finite rows")
+    n_tok = sum(lens)
+    # reads: the valid rows of q, k and v; writes: every packed output row
+    # and lse entry (padding rows too)
+    n_bytes = n_tok * (nq + 2 * nkv) * d * 2 + tp * nq * d * 2 + nq * tp * 4
+    n_ops = 4 * nq * d * sum(n * (n + 1) // 2 for n in lens)
+    bms, bby = bound_ms(n_bytes, n_ops, BF16_FLOPS)
+    lib_fn, lib_note = packed_library(torch, F, q, k, v, lens, tok0, ref)
+    rows["flash_attention_packed"] = dict(
+        max_abs_err=err, ms=time_ms(torch, lambda: flash_packed.flash_attention_packed(q, k, v, *ints, **kw)),
+        plain_ms=time_ms(torch, lambda: flash_packed.flash_attention_packed_ref(q, k, v, *ints, **kw), iters=3),
+        library_ms=None if lib_fn is None else time_ms(torch, lib_fn), bound_ms=bms, bound_by=bby,
+        library_note=lib_note)
+    log(f"[kernel] flash_attention_packed library: {lib_note}")
+    del q, k, v, out, ref, lse, ref_lse
+
+    # K7's extend passes (llama._extend_attention): the fresh rows causal at
+    # global offsets, then the prefix fully visible, each with its lse
+    s = pre = 512
+    q, k1, v1 = randn(1, s, nq, d), randn(1, s, nkv, d), randn(1, s, nkv, d)
+    k2, v2 = randn(1, pre, nkv, d), randn(1, pre, nkv, d)
+    ql = torch.tensor([s], dtype=torch.int32, device=dev)
+    pl_ = torch.tensor([pre], dtype=torch.int32, device=dev)
+    zero = torch.zeros_like(pl_)
+
+    def passes(fn):
+        return (fn(q, k1, v1, ql, ql, None, pl_, pl_, causal=True, return_lse=True)
+                + fn(q, k2, v2, ql, pl_, None, pl_, zero, causal=True, return_lse=True))
+
+    got, want = passes(flash_prefill.flash_attention), passes(flash_prefill.flash_attention_ref)
+    err = check("flash_attention lse, extend 512 over 512", list(zip(got, want)))
+    n_bytes = (s * nq * d + 2 * (s + pre) * nkv * d) * 2 + 2 * (s * nq * d * 2 + nq * s * 4)
+    bms, bby = bound_ms(n_bytes, 4 * nq * d * (s * (s + 1) // 2 + s * pre), BF16_FLOPS)
+    # yardstick: one SDPA over prefix + fresh keys with the extend mask
+    # (the merged output; SDPA returns no lse)
+    qt = q.transpose(1, 2)
+    kt, vt = (torch.cat([a, b], 1).transpose(1, 2) for a, b in ((k2, k1), (v2, v1)))
+    mask = torch.arange(pre + s, device=dev)[None, :] <= (pre + torch.arange(s, device=dev))[:, None]
+    o1, l1, o2, l2 = got
+    merged, _ = merge_state(o1[0], l1[0].t(), o2[0], l2[0].t())
+    lib = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask, enable_gqa=True).transpose(1, 2)[0]
+    lib_err = float((lib.float() - merged.float()).abs().max())
+    log(f"[kernel] flash_attention lse library (SDPA with the extend mask vs merged passes): max_abs_err {lib_err:.4g}")
+    rows["flash_attention_lse"] = dict(
+        max_abs_err=err, ms=time_ms(torch, lambda: passes(flash_prefill.flash_attention)),
+        plain_ms=time_ms(torch, lambda: passes(flash_prefill.flash_attention_ref), iters=5),
+        library_ms=time_ms(torch, lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
+                                                                          enable_gqa=True)),
+        bound_ms=bms, bound_by=bby)
     return rows
 
 
@@ -391,6 +529,8 @@ def phase_w4a16(torch, skt):
 
 def phase_parity(torch, skt, cfg, label):
     """Full width, 2 layers: the card against the CPU on the same weights."""
+    from sgl_kernel_tpu_torch.serving.engine import packed_layout
+
     cfg = dataclasses.replace(cfg, num_layers=2)
     t0 = time.perf_counter()
     params_cpu = skt.init_weights(cfg, torch.Generator().manual_seed(SEED), device="cpu")
@@ -407,12 +547,13 @@ def phase_parity(torch, skt, cfg, label):
     pages = [[1, 2], [3, 4]]
     slot = lambda i, p: pages[i][p // page] * page + p % page
 
-    def run(dev, name, *arrays):
+    def run(dev, name, *arrays, n_out=1, **kw):
         sd = sides[dev]
         fn = getattr(skt, name)
         ts = [torch.tensor(a, dtype=torch.int32, device=dev) for a in arrays]
-        logits, sd["k"], sd["v"] = fn(sd["params"], cfg, sd["k"], sd["v"], *ts, sd["rope"])
-        return logits.float().cpu()
+        *logits, sd["k"], sd["v"] = fn(sd["params"], cfg, sd["k"], sd["v"], *ts, sd["rope"], **kw)
+        logits = [x.float().cpu() for x in logits]
+        return logits[0] if n_out == 1 else logits
 
     # bf16 activations at full width (bf16 or W4A16 weights): the two
     # devices round each linear's output (4096..28672-long dot products) in
@@ -458,76 +599,214 @@ def phase_parity(torch, skt, cfg, label):
         nxt = compare(out["cpu"][:2], out[DEVICE][:2], f"decode {step}")
         for s, t in zip(seqs, nxt):
             s.append(t)
-    log(f"[parity] {label} 2-layer Llama-3-8B widths, card vs CPU: max |logit diff|={worst:.4g} (tol {tol}), "
+    # the admission programs on fresh pools: a packed prefill of both
+    # prompts (block 256), an extend of 23 tokens of the first over its 40
+    # cached ones, then the second's decode (with a padding row) fused with
+    # a 20-token chunk of the first in one mixed step
+    for dev in ("cpu", DEVICE):
+        sides[dev]["k"], sides[dev]["v"] = skt.make_caches(cfg, n_pages, page, device=dev)
+    ext = torch.randint(0, cfg.vocab_size, (43,), generator=rng).tolist()
+    lens = [len(p) for p in prompts]
+    blk_seq, blk_q0, seq_meta, tok0, tp, max_kvb = packed_layout(lens, 3)
+    tokens, positions, slots = [0] * tp, [0] * tp, [-1] * tp
+    for i, (pr, t) in enumerate(zip(prompts, tok0)):
+        tokens[t: t + len(pr)], positions[t: t + len(pr)] = pr, list(range(len(pr)))
+        slots[t: t + len(pr)] = [slot(i, p) for p in range(len(pr))]
+    last = [t + n - 1 for t, n in zip(tok0, lens)] + [0]
+    out = {dev: run(dev, "prefill_packed", tokens, positions, blk_seq, blk_q0, seq_meta, last, slots,
+                    max_kvb=max_kvb) for dev in ("cpu", DEVICE)}
+    first = compare(out["cpu"][:2], out[DEVICE][:2], "prefill_packed")
+    n0, s = lens[0], 32
+    pad = lambda xs, fill: xs + [fill] * (s - len(xs))
+    tab = lambda i: pages[i] + [0] * (8 - len(pages[i]))
+    out = {dev: run(dev, "prefill_extend", [pad(ext[:23], 0)], [pad(list(range(n0, n0 + 23)), 0)], [23], [n0 + 23],
+                    [tab(0)], [pad([slot(0, p) for p in range(n0, n0 + 23)], -1)], prefix_max=page)
+           for dev in ("cpu", DEVICE)}
+    compare(out["cpu"], out[DEVICE], "prefill_extend")
+    n1, p0 = lens[1], n0 + 23
+    dec = ([first[1], 0], [n1, 0], [tab(1), [0] * 8], [n1 + 1, 1], [slot(1, n1), -1])
+    out = {dev: run(dev, "mixed_step", *dec, pad(ext[23:43], 0), pad(list(range(p0, p0 + 20)), 0), 20, p0 + 20,
+                    tab(0), pad([slot(0, p) for p in range(p0, p0 + 20)], -1), prefix_max=page, n_out=2)
+           for dev in ("cpu", DEVICE)}
+    compare(torch.cat([out["cpu"][0][:1], out["cpu"][1][None]]),
+            torch.cat([out[DEVICE][0][:1], out[DEVICE][1][None]]), "mixed_step")
+    log(f"[parity] {label} 2-layer Llama-3-8B widths, card vs CPU (prefill, 4 decode steps, prefill_packed, "
+        f"prefill_extend, mixed_step): max |logit diff|={worst:.4g} (tol {tol}), "
         f"greedy near-ties={near_ties}/{steps}, {time.perf_counter() - t0:.1f} s")
     return dict(max_logit_diff=worst, near_ties=near_ties, steps=steps)
 
 
-def phase_serve(torch, skt, cfg, label, n_req=16, params=None, skip=()):
-    """One main path: the Engine serving Llama-3-8B on ``cfg``. Every kernel
-    but those in ``skip`` must launch in this run (counts set to 0 just
-    before it); K1's launches are split by regime."""
+PREFIX = 512       # wave B's shared prefix: 8 pages of 64
+NEW_TOKENS = 32
+
+
+def random_prompt(torch, gen, vocab, n):
+    return torch.randint(1, vocab, (n,), generator=gen).tolist()
+
+
+def instrument(eng):
+    """Wrap one engine's programs to count K1 launches by regime (prefill
+    programs, decode step, mixed step) and the prompt tokens that mixed
+    steps carry, and to keep each request's first-token logits while
+    ``stats["capture"]`` is set. Returns the stats dict."""
+    import sgl_kernel_tpu_torch as skt
+
+    gemm = skt.KERNELS["w4a16_gemm"]
+    stats = dict(by_regime={"prefill": 0, "decode": 0, "mixed": 0}, mixed_tokens=0, first={}, capture=False)
+
+    def counted(fn, regime):
+        def call(*args, **kw):
+            before = gemm.launches
+            out = fn(*args, **kw)
+            stats["by_regime"][regime] += gemm.launches - before
+            return out
+        return call
+
+    for name in ("prefill", "prefill_packed", "prefill_extend"):
+        setattr(eng.adapter, name, counted(getattr(eng.adapter, name), "prefill"))
+    eng.adapter.decode = counted(eng.adapter.decode, "decode")
+    try_mixed = counted(eng._try_mixed_step, "mixed")
+
+    def mixed():
+        pos = {r.rid: r.prefill_pos for r in eng.prefilling}
+        pf = try_mixed()
+        if pf is not None:
+            stats["mixed_tokens"] += pf.prefill_pos - pos[pf.rid]
+        return pf
+
+    append = eng._append_tokens
+
+    def capture(reqs, logits):
+        if stats["capture"]:
+            for i, r in enumerate(reqs):
+                if not r.output:
+                    stats["first"][r.rid] = logits[i].float().cpu()
+        return append(reqs, logits)
+
+    eng._try_mixed_step, eng._append_tokens = mixed, capture
+    return stats
+
+
+def run_wave(torch, skt, eng, stats, label, wave, prompts, sampled=(), expect=(), hits=None, min_mixed=0):
+    """Serve ``prompts`` to completion: counts set to 0 just before and read
+    just after; every kernel in ``expect`` must have launched. Returns the
+    wave's numbers and request ids."""
     from sgl_kernel_tpu_torch.utils.metrics import Metrics
 
+    eng.metrics = Metrics()
+    stats["mixed_tokens"] = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    skt.reset_launch_counts()
+    rids = [eng.add_request(p, max_new_tokens=NEW_TOKENS,
+                            **(dict(temperature=0.8, top_p=0.9) if i in sampled else {}))
+            for i, p in enumerate(prompts)]
     t0 = time.perf_counter()
-    eng = skt.Engine(cfg, params, device=DEVICE, max_batch=16, page_size=64, num_pages=1024, seed=SEED)
+    fin = eng.run_until_done()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = skt.launch_counts()
+    for rid in rids:
+        out = fin[rid].output if rid in fin else None
+        if out is None or len(out) != NEW_TOKENS or not all(0 <= t < eng.cfg.vocab_size for t in out):
+            fail(f"serve {label} wave {wave}: request {rid} produced {out}")
+    snap = eng.metrics.snapshot()
+    if snap.get("nonfinite_logits", 0):
+        fail(f"serve {label} wave {wave}: {snap['nonfinite_logits']} rows of non-finite logits")
+    missing = [k for k in expect if counts[k] <= 0]
+    if missing:
+        fail(f"serve {label} wave {wave}: kernels never launched: {missing} ({counts})")
+    hit = snap.get("prefix_cache_hit_tokens", 0)
+    if hits is not None and hit != hits:
+        fail(f"serve {label} wave {wave}: {hit} prefix-cache hit tokens, expected {hits}")
+    n_mixed = snap.get("mixed_steps", 0)
+    if n_mixed < min_mixed:
+        fail(f"serve {label} wave {wave}: {n_mixed} mixed steps, expected >= {min_mixed}")
+    plain_tokens = snap["tokens_prefilled"] - stats["mixed_tokens"]
+    res = dict(
+        wave=wave, requests=len(rids), prompt_tokens=sum(len(p) for p in prompts),
+        prefill_tokens=snap["tokens_prefilled"], prefill_tok_s=plain_tokens / snap["prefill_total_s"],
+        prefill_s=snap["prefill_total_s"], decode_ms_step=snap.get("decode_mean_ms"),
+        decode_steps=snap.get("decode_count", 0), mixed_steps=n_mixed, mixed_ms=snap.get("mixed_mean_ms"),
+        mixed_prefill_tokens=stats["mixed_tokens"], prefix_cache_hit_tokens=hit, wall_s=wall,
+        peak_gb=torch.cuda.max_memory_allocated() / 1e9, launches=counts)
+    log(f"[serve] {label} wave {wave}: " + json.dumps(res))
+    return res, rids
+
+
+def phase_serve(torch, skt, cfg, label, n_a=16, n_b=12, wave_c=True, params=None, skip=(), cold=True):
+    """One main path: the default Engine serving Llama-3-8B on ``cfg`` in
+    waves A, B (+ C). Each wave's kernels must launch in it, K1 in every
+    regime the waves run; wave B hits exactly PREFIX tokens a prompt."""
+    t0 = time.perf_counter()
+    eng = skt.Engine(cfg, params, device=DEVICE, max_batch=16, page_size=64, num_pages=1024, seed=SEED,
+                     prefill_chunk=1024)
+    if eng.native is None:
+        fail(f"serve {label}: the default engine has no prefix cache")
     torch.cuda.synchronize()
     log(f"[serve] {label}: engine up in {time.perf_counter() - t0:.1f} s, "
         f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated, KV pools {eng.caches[0].dtype}")
-    # warm-up request: first Triton compiles and cuBLAS plans
-    eng.add_request(list(range(1, 17)), max_new_tokens=2)
+    # warm-up: two short prompts (one packed launch; no full page is cached)
+    for n in (16, 40):
+        eng.add_request(list(range(1, n + 1)), max_new_tokens=2)
     eng.run_until_done()
     eng.finished.clear()
-    eng.metrics = Metrics()
-    # K1 launches by regime: the adapter's prefill and decode calls, counted
-    gemm, by_regime = skt.KERNELS["w4a16_gemm"], {"prefill": 0, "decode": 0}
-    for regime in by_regime:
-        def counted(*args, _fn=getattr(eng.adapter, regime), _regime=regime):
-            before = gemm.launches
-            out = _fn(*args)
-            by_regime[_regime] += gemm.launches - before
-            return out
-        setattr(eng.adapter, regime, counted)
+    stats = instrument(eng)
+    kernels = [k for k in skt.KERNELS if k not in skip]
 
     gen = torch.Generator().manual_seed(SEED + 2)
-    new = 32
-    lens = [16 + (1008 * i) // (n_req - 1) for i in range(n_req)]
-    sampled = {3, 11}
-    rids = []
-    torch.cuda.reset_peak_memory_stats()
-    skt.reset_launch_counts()
-    for i, n in enumerate(lens):
-        prompt = torch.randint(1, cfg.vocab_size, (n,), generator=gen).tolist()
-        kw = dict(temperature=0.8, top_p=0.9) if i in sampled else {}
-        rids.append(eng.add_request(prompt, max_new_tokens=new, **kw))
-    t1 = time.perf_counter()
-    fin = eng.run_until_done()
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t1
-    counts = skt.launch_counts()
-
-    if sorted(fin) != sorted(rids):
-        fail(f"serve {label}: {len(fin)} of {len(rids)} requests finished")
-    for rid in rids:
-        out = fin[rid].output
-        if len(out) != new or not all(0 <= t < cfg.vocab_size for t in out):
-            fail(f"serve {label}: request {rid} produced {out}")
-    snap = eng.metrics.snapshot()
-    if snap.get("nonfinite_logits", 0):
-        fail(f"serve {label}: {snap['nonfinite_logits']} rows of non-finite logits")
-    missing = [k for k, v in counts.items() if v <= 0 and k not in skip]
-    if missing:
-        fail(f"serve {label}: kernels never launched on the main path: {missing}")
-    if "w4a16_gemm" not in skip and not all(by_regime.values()):
-        fail(f"serve {label}: K1 launches by regime {by_regime}")
-    res = dict(
-        engine=label, requests=len(fin), prompt_tokens=sum(lens), new_tokens=new,
-        prefill_tok_s=snap["tokens_prefilled"] / snap["prefill_total_s"],
-        decode_ms_step=snap["decode_mean_ms"], decode_steps=snap["decode_count"],
-        decode_tok_s=snap["tokens_decoded"] / snap["decode_total_s"], wall_s=wall,
-        peak_gb=torch.cuda.max_memory_allocated() / 1e9, launches=counts, w4a16_by_regime=dict(by_regime))
-    log("[serve] " + json.dumps(res))
+    lens = serve_lens(n_a)
+    prompts_a = [random_prompt(torch, gen, cfg.vocab_size, n) for n in lens]
+    a, _ = run_wave(torch, skt, eng, stats, label, "A", prompts_a, sampled={3, 11},
+                    expect=[k for k in kernels if k != "flash_attention"], hits=0)
+    # wave B: each prompt the first PREFIX tokens of one of A's prompts of
+    # 553 tokens or more (in turn), then a fresh suffix of 64..512 tokens
+    donors = [p for p in prompts_a if len(p) >= 553]
+    prompts_b = [donors[i % len(donors)][:PREFIX]
+                 + random_prompt(torch, gen, cfg.vocab_size, 64 + (448 * i) // max(n_b - 1, 1)) for i in range(n_b)]
+    prompts_c = [random_prompt(torch, gen, cfg.vocab_size, 4096)] if wave_c else []
+    stats["capture"] = True
+    bc, rids = run_wave(torch, skt, eng, stats, label, "B+C" if wave_c else "B", prompts_b + prompts_c,
+                        expect=[k for k in kernels if k != "flash_attention_packed"], hits=n_b * PREFIX,
+                        min_mixed=1 if wave_c else 0)
+    stats["capture"] = False
+    want = {"prefill", "decode"} | ({"mixed"} if wave_c else set())
+    if "w4a16_gemm" not in skip and not all(stats["by_regime"][r] > 0 for r in want):
+        fail(f"serve {label}: K1 launches by regime {stats['by_regime']}")
+    res = dict(engine=label, waves=[a, bc], w4a16_by_regime=dict(stats["by_regime"]),
+               launches={k: a["launches"][k] + bc["launches"][k] for k in a["launches"]})
+    if cold:
+        res["cold_b"] = cold_compare(torch, skt, cfg, label, eng, prompts_b, rids[:n_b], stats["first"])
     return res, eng, lens
+
+
+def cold_compare(torch, skt, cfg, label, eng, prompts, warm_rids, warm_first):
+    """Wave B's prompts through an engine without the prefix cache (one
+    packed launch), on the same weights: first-token logits within 0.25 of
+    the warm engine's (its extends over cached pages); identical greedy
+    tokens are counted."""
+    cold = skt.Engine(cfg, eng.params, device=DEVICE, max_batch=16, page_size=64, num_pages=256, seed=SEED,
+                      prefill_chunk=1024, enable_prefix_cache=False)
+    stats = instrument(cold)
+    stats["capture"] = True
+    first = stats["first"]
+    rids = [cold.add_request(p, max_new_tokens=NEW_TOKENS) for p in prompts]
+    fin = cold.run_until_done()
+    worst, same_tokens, same_requests = 0.0, 0, 0
+    for wr, cr in zip(warm_rids, rids):
+        worst = max(worst, float((warm_first[wr] - first[cr]).abs().max()))
+        w_out, c_out = eng.finished[wr].output, fin[cr].output
+        n = next((i for i, (x, y) in enumerate(zip(w_out, c_out)) if x != y), len(w_out))
+        same_tokens += n
+        same_requests += n == len(w_out)
+    res = dict(max_first_logit_diff=worst, identical_greedy_prefix_tokens=same_tokens,
+               tokens=NEW_TOKENS * len(prompts), identical_requests=same_requests, requests=len(prompts))
+    log(f"[serve] {label} wave B warm vs cold (prefix cache off): " + json.dumps(res))
+    if not worst <= 0.25:
+        fail(f"serve {label}: warm and cold first-token logits differ by {worst} > 0.25")
+    del cold
+    free_memory(torch)
+    return res
 
 
 def phase_profile(torch, eng, lens, label):
@@ -541,7 +820,7 @@ def phase_profile(torch, eng, lens, label):
     for n in lens:
         eng.add_request(torch.randint(1, eng.cfg.vocab_size, (n,), generator=gen).tolist(),
                         max_new_tokens=steps + 4)
-    eng.step()  # admission, 16 prefills and the first decode step
+    eng.step()  # admission (one packed prefill) and the first decode step
     eng.step()  # one decode-only step outside the trace
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
@@ -595,7 +874,9 @@ def main():
     log(f"torch {torch.__version__} cuda {torch.version.cuda} on {torch.cuda.get_device_name(0)} "
         f"x{torch.cuda.device_count()}")
 
-    _, card = phase_build(_build)
+    from sgl_kernel_tpu_torch.serving import native
+
+    _, card = phase_build(_build, native)
     rows = phase_kernels(torch, skt)
     torch.cuda.empty_cache()
     rows.update(phase_w4a16(torch, skt))
@@ -606,19 +887,20 @@ def main():
     serve, eng, lens = phase_serve(torch, skt, bf16_cfg, "bf16", skip=("w4a16_gemm",))
     profile = {"bf16": phase_profile(torch, eng, lens, "bf16")}
     del eng
-    torch.cuda.empty_cache()
+    free_memory(torch)
     w4, eng, lens = phase_serve(torch, skt, w4_cfg, "w4a16")
     profile["w4a16"] = phase_profile(torch, eng, lens, "w4a16")
     params = eng.params
     del eng
-    torch.cuda.empty_cache()
+    free_memory(torch)
     # the same W4A16 weights over int8 KV pools (bench.py:121's kv_scale)
     int8_cfg = dataclasses.replace(w4_cfg, kv_dtype=torch.int8, kv_scale=1 / 16)
-    int8, eng, _ = phase_serve(torch, skt, int8_cfg, "w4a16-int8kv", n_req=4, params=params)
+    int8, eng, _ = phase_serve(torch, skt, int8_cfg, "w4a16-int8kv", n_a=4, n_b=4, wave_c=False, params=params,
+                               cold=False)
     if eng.caches[0].dtype != torch.int8:
         fail(f"serve w4a16-int8kv: pools are {eng.caches[0].dtype}")
     del eng, params
-    torch.cuda.empty_cache()
+    free_memory(torch)
 
     meta = {
         "w4a16_gemm": ("cuda", "sgl_kernel_tpu_torch/csrc/w4a16_gemm.cu", "sgl_kernel_tpu/ops/gemm/w4a16.py:301",
@@ -633,9 +915,11 @@ def main():
                                    "sgl_kernel_tpu/ops/kvcache.py:193", "store_cache_all_layers"),
         "flash_attention": ("cuda", "sgl_kernel_tpu_torch/csrc/flash_prefill.cu",
                             "sgl_kernel_tpu/ops/attention/flash_prefill.py:165", "flash_attention"),
+        "flash_attention_packed": ("cuda", "sgl_kernel_tpu_torch/csrc/flash_packed.cu",
+                                   "sgl_kernel_tpu/ops/attention/flash_packed.py:195", "flash_attention_packed"),
     }
     kernels = []
-    # launches: this slice's main path, the W4A16 engine run of phase 4
+    # launches: this slice's main path, the W4A16 engine's waves in phase 4
     for name, (route, src, repl, row) in meta.items():
         r = rows[row]
         kernels.append(dict(name=name, route=route, source=src, replaces=repl,
@@ -643,7 +927,7 @@ def main():
                             plain_ms=r["plain_ms"], bound_ms=r["bound_ms"], bound_by=r["bound_by"],
                             library_ms=r["library_ms"]))
     log("[kernel] rmsnorm at [1024, 4096]: " + json.dumps(rows["rmsnorm_1024"]))
-    for name in ("paged_attention_decode_dma_int8", "paged_attention_decode_dma_e4m3"):
+    for name in ("paged_attention_decode_dma_int8", "paged_attention_decode_dma_e4m3", "flash_attention_lse"):
         log(f"[kernel] {name}: " + json.dumps(rows[name]))
     log(json.dumps({"card": card, "parity": parity, "serve": {"bf16": serve, "w4a16": w4, "w4a16-int8kv": int8},
                     "profile": profile}))

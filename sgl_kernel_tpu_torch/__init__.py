@@ -9,13 +9,32 @@ unless the caller passes ``device="cpu"``.
 
 Kernels ported so far (each wrapper counts its launches in ``.launches``):
   K1 w4a16_gemm, K5 paged_attention_decode_dma, K6 store_cache_all_layers,
-  K7 flash_attention (CUDA C++); K2 rmsnorm, K3 rope_decode_fused_qkv
-  (Triton).
+  K7 flash_attention, K9 flash_attention_packed (CUDA C++); K2 rmsnorm, K3
+  rope_decode_fused_qkv (Triton). The serving engine's radix prefix cache
+  is host C++ (``csrc/serving_native.cpp``, bound by ``serving/native.py``).
 """
 
 from .interop import params_from_numpy, tensor_from_numpy
-from .models.llama import LlamaConfig, build_rope_cache, decode_step, init_weights, make_caches, prefill
-from .ops.attention import flash_attention, merge_state, merge_states, paged_attention_decode_dma
+from .models.llama import (
+    LlamaConfig,
+    build_rope_cache,
+    decode_step,
+    init_weights,
+    make_caches,
+    mixed_step,
+    prefill,
+    prefill_extend,
+    prefill_packed,
+)
+from .ops.attention import (
+    build_packed_metadata,
+    flash_attention,
+    flash_attention_packed,
+    make_seq_meta,
+    merge_state,
+    merge_states,
+    paged_attention_decode_dma,
+)
 from .ops.gemm import dequant_w4, quantize_w4, w4a16_gemm
 from .ops.kvcache import store_cache_all_layers, store_cache_stacked
 from .ops.norm import fused_add_rmsnorm, gemma_fused_add_rmsnorm, gemma_rmsnorm, rmsnorm
@@ -39,6 +58,7 @@ KERNELS = {
     "paged_attention_decode_dma": paged_attention_decode_dma,
     "store_cache_all_layers": store_cache_all_layers,
     "flash_attention": flash_attention,
+    "flash_attention_packed": flash_attention_packed,
 }
 
 

@@ -1,0 +1,89 @@
+// K9: flash-attention prefill over block-aligned packed tokens.
+//
+// Replaces flash_attention_packed (sgl_kernel_tpu/ops/attention/
+// flash_packed.py:195, Pallas kernel _kernel, pallas_call at :292).
+// Contract: q [TPq, Hq, D], k/v [TPkv, Hkv, D] bf16, each sequence starting
+// at a multiple of `block` tokens; blk_seq / blk_q0 [NQB] int32 give each
+// q block's sequence and in-sequence row 0; seq_meta [B, 6] int32 rows
+// (q_len, kv_len, q_start, kv_start, kv_blk0, kv_blks). Query row r of a
+// sequence sits at global position q_start + r and sees key c (packed row
+// kv_blk0 * block + c, position kv_start + c) when r < q_len,
+// c < min(kv_len, kv_blks * block, max_kvb * block) and, causal, the key's
+// position <= the query's (flash_packed.py:141-160). out [TPq, Hq, D]; lse
+// [Hq, TPq] float32 base 2 when its pointer is not null. A row that sees no
+// key (past q_len, or a padding block whose sequence has q_len 0) gets
+// o = 0 and the twin's lse, -1e30 * log2(e), and reads nothing.
+//
+// Bound: operations, 4 * Hq * D * sum_i len_i (len_i + 1) / 2 at the bf16
+// tensor-core peak for a causal self-attention batch. Design: the 256-token
+// alignment stays the contract, not the tile. One block of 128 threads per
+// (64-row q tile, q head) reads its sequence id and offsets from the
+// metadata itself (there is no scalar prefetch) and runs the tile loop of
+// flash_tile.cuh, shared with K7, over that sequence's keys up to the
+// tile's causal limit: the work follows each sequence's length, and
+// max_kvb (a power-of-two pad in the engine) only caps it as the TPU grid's
+// kv extent does. The TPU kernel's clamped index maps, which made skipped
+// steps re-fetch nothing, have no counterpart: skipped tiles are never
+// visited.
+
+#include "flash_tile.cuh"
+
+namespace {
+
+using skt::bf16;
+
+template <int D>
+__global__ void __launch_bounds__(skt::kFlashThreads) packed_kernel(
+    const bf16* __restrict__ q, const bf16* __restrict__ k,
+    const bf16* __restrict__ v, const int* __restrict__ blk_seq,
+    const int* __restrict__ blk_q0, const int* __restrict__ seq_meta,
+    bf16* __restrict__ out, float* __restrict__ lse, int tp, int block,
+    int n_q_heads, int n_kv_heads, int max_kvb, int causal, float scale_log2) {
+  const int tiles = block / skt::kFlashBQ;
+  const int nb = blockIdx.x / tiles;
+  const int sub = (blockIdx.x % tiles) * skt::kFlashBQ;
+  const int h = blockIdx.y;
+  const int hk = h / (n_q_heads / n_kv_heads);
+
+  const int* meta = seq_meta + blk_seq[nb] * 6;
+  const int q0 = blk_q0[nb] + sub;  // in-sequence index of the tile's row 0
+  const int q_len = meta[0];
+  const int kv_len = min(min(meta[1], meta[5] * block), max_kvb * block);
+  const int q_start = meta[2];
+  const int kv_start = meta[3];
+
+  const long long q_row_stride = (long long)n_q_heads * D;
+  const long long kv_row_stride = (long long)n_kv_heads * D;
+  const long long row0 = (long long)nb * block + sub;  // packed row of the tile
+  const long long q_off = row0 * q_row_stride + (long long)h * D;
+  const long long kv_off = (long long)meta[4] * block * kv_row_stride + (long long)hk * D;
+  skt::flash_rows<D>(q + q_off, q_row_stride, k + kv_off, v + kv_off, kv_row_stride, out + q_off,
+                     lse == nullptr ? nullptr : lse + (long long)h * tp + row0,
+                     skt::kFlashBQ, q_len - q0, kv_len, q_start + q0, kv_start, causal, scale_log2);
+}
+
+}  // namespace
+
+// Supported: head_dim 64 or 128, bf16, Hq a multiple of Hkv, block a
+// multiple of 64. tp = NQB * block. lse may be null.
+extern "C" int skt_flash_packed(
+    const void* q, const void* k, const void* v, const void* blk_seq, const void* blk_q0,
+    const void* seq_meta, void* out, void* lse, int nqb, int block, int n_q_heads,
+    int n_kv_heads, int head_dim, int max_kvb, int causal, float sm_scale, void* stream) {
+  if (block % skt::kFlashBQ != 0) return (int)cudaErrorInvalidValue;
+  dim3 grid(nqb * (block / skt::kFlashBQ), n_q_heads);
+  const int tp = nqb * block;
+  const float sl = sm_scale * skt::kLog2e;
+  cudaStream_t st = (cudaStream_t)stream;
+  switch (head_dim) {
+    case 64:
+      packed_kernel<64><<<grid, skt::kFlashThreads, 0, st>>>((const bf16*)q, (const bf16*)k, (const bf16*)v, (const int*)blk_seq, (const int*)blk_q0, (const int*)seq_meta, (bf16*)out, (float*)lse, tp, block, n_q_heads, n_kv_heads, max_kvb, causal, sl);
+      break;
+    case 128:
+      packed_kernel<128><<<grid, skt::kFlashThreads, 0, st>>>((const bf16*)q, (const bf16*)k, (const bf16*)v, (const int*)blk_seq, (const int*)blk_q0, (const int*)seq_meta, (bf16*)out, (float*)lse, tp, block, n_q_heads, n_kv_heads, max_kvb, causal, sl);
+      break;
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}

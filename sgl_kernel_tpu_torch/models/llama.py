@@ -10,15 +10,20 @@ layout of ops/gemm/w4a16.py and runs the W4A16 GEMM (K1); the lm_head's N
 is padded to a multiple of 2048 and its logits sliced back.
 
 Entry points: ``prefill`` (flash attention over a padded prompt batch, KV
-stored per layer, last-token logits) and ``decode_step`` (one token per
-sequence against the paged cache). Both update the KV pools IN PLACE,
-where the JAX versions donate them, and return them. KV pools may be int8
+stored per layer, last-token logits), ``prefill_packed`` (several fresh
+prompts block-aligned packed into one launch), ``prefill_extend`` (a suffix
+over a prefix already in the paged cache: two flash passes joined by
+``merge_state``), ``decode_step`` (one token per sequence against the paged
+cache) and ``mixed_step`` (a decode batch and one prefill chunk as one token
+stream). All update the KV pools IN PLACE, where the JAX versions donate
+them, and return them. KV pools may be int8
 or fp8 with a per-tensor ``kv_scale``: stores quantize (``_kv_quant``) and
 decode attention folds the scale back in.
 
 Kernels on the path: W4A16 GEMM (K1, with the decode norms in its
 prologue), rmsnorm (K2), rope_decode_fused_qkv (K3), paged decode attention
-(K5), the all-layers KV store (K6), flash prefill (K7). The bf16 linears
+(K5), the all-layers KV store (K6), flash prefill (K7, with its base-2 lse
+on the extend passes), packed flash prefill (K9). The bf16 linears
 are plain ``torch.matmul``, as the JAX model leaves them to XLA. Not in
 this slice: ``gemm_impl="dma"`` decode (K10) and the ``fused=False`` decode
 step (its split-q/k RoPE kernel is K4); both raise.
@@ -31,7 +36,7 @@ from typing import Any, Dict, Optional, Union
 
 import torch
 
-from ..ops.attention import flash_attention, paged_attention_decode_dma
+from ..ops.attention import flash_attention, flash_attention_packed, merge_state, paged_attention_decode_dma
 from ..ops.gemm.w4a16 import quantize_w4, w4a16_gemm
 from ..ops.kvcache import store_cache_all_layers, store_cache_stacked
 from ..ops.norm import rmsnorm
@@ -390,3 +395,158 @@ def prefill_layers(lw, cfg: LlamaConfig, k_cache, v_cache, x, positions, q_lens,
         h2 = rmsnorm(x, lw["post_norm"][lidx], cfg.rms_eps)
         x = _mlp(h2, lw, cfg, residual=x, layer_id=lidx)
     return x, k_cache, v_cache
+
+
+def prefill_packed(params, cfg: LlamaConfig, k_cache, v_cache, tokens, positions, blk_seq, blk_q0, seq_meta,
+                   last_idx, slot_loc, rope_cache, *, max_kvb: int):
+    """Token-packed multi-prompt prefill: prompts block-aligned packed into
+    one launch (ops/attention/flash_packed.py). tokens/positions/slot_loc
+    [TP] packed; blk_seq/blk_q0 [NQB]; seq_meta [B, 6] (make_seq_meta);
+    last_idx [B] packed index of each prompt's final token. Returns (logits
+    [B, V] float32, k_cache, v_cache); the pools are updated in place."""
+    tp = tokens.shape[0]
+    x = params["embed"][tokens.long()].to(cfg.dtype)
+    lw = params["layers"]
+    for lidx in range(cfg.num_layers):
+        h = rmsnorm(x, lw["input_norm"][lidx], cfg.rms_eps)
+        q, k, v = _qkv(h, lw, cfg, tp, layer_id=lidx)
+        q, k = rotary_embedding(positions, q, k, cfg.head_dim, rope_cache)
+        store_cache_stacked(_kv_quant(cfg, k), _kv_quant(cfg, v), k_cache, v_cache, slot_loc, lidx)
+        attn = flash_attention_packed(q, k, v, blk_seq, blk_q0, seq_meta, max_kvb=max_kvb,
+                                      causal=True).reshape(tp, -1)
+        x = _linear(attn, lw["o"], cfg, residual=x, layer_id=lidx)
+        h2 = rmsnorm(x, lw["post_norm"][lidx], cfg.rms_eps)
+        x = _mlp(h2, lw, cfg, residual=x, layer_id=lidx)
+    x = rmsnorm(x, params["final_norm"], cfg.rms_eps)
+    logits = _linear(x[last_idx.long().to(x.device)], params["lm_head"], cfg).float()[:, : cfg.vocab_size]
+    return logits, k_cache, v_cache
+
+
+def _prefix_slots(page_tables, prefix_max: int, page_size: int):
+    """Flat slots of the first ``prefix_max`` cached positions of each
+    sequence: page_tables [B, P] -> [B, prefix_max]."""
+    pos = torch.arange(prefix_max, device=page_tables.device)
+    return page_tables.long()[:, pos // page_size] * page_size + (pos % page_size)[None, :]
+
+
+def _gather_prefix(pool, lidx: int, pre_slots, page_size: int):
+    """Layer ``lidx`` of a page-major pool [L, P, H, page, D] at flat slots
+    [B, n] -> [B, n, H, D] (a plain index gather, as XLA's in JAX)."""
+    return pool[lidx][pre_slots // page_size, :, pre_slots % page_size]
+
+
+def _extend_attention(cfg: LlamaConfig, q, k, v, q_lens, prefix_lens, kpre, vpre):
+    """Attention of a suffix over its fresh rows and a cached prefix:
+    merge_state(flash(q, fresh kv, causal at global offsets), flash(q,
+    prefix kv, masked by the prefix length)). q [B, S, Hq, D]; k/v [B, S,
+    Hkv, D]; kpre/vpre [B, prefix_max, Hkv, D] in the compute dtype. Returns
+    [B*S, Hq*D] in the model dtype."""
+    b, s = q.shape[:2]
+    o1, l1 = flash_attention(q, k, v, q_lens, q_lens, q_start=prefix_lens, kv_start=prefix_lens,
+                             causal=True, return_lse=True)
+    o2, l2 = flash_attention(q, kpre, vpre, q_lens, prefix_lens, q_start=prefix_lens,
+                             kv_start=torch.zeros_like(prefix_lens), causal=True, return_lse=True)
+    hq, d = cfg.num_heads, cfg.head_dim
+    om, _ = merge_state(o1.reshape(b * s, hq, d), l1.transpose(1, 2).reshape(b * s, hq),
+                        o2.reshape(b * s, hq, d), l2.transpose(1, 2).reshape(b * s, hq))
+    return om.reshape(b * s, -1).to(cfg.dtype)
+
+
+def prefill_extend(params, cfg: LlamaConfig, k_cache, v_cache, tokens, positions, q_lens, kv_lens, page_tables,
+                   slot_loc, rope_cache, *, prefix_max: int, num_logits: int = 1):
+    """Extend (chunked) prefill: the q tokens are the suffix of sequences
+    whose prefix KV already lives in the paged cache (a radix-cache hit or
+    an earlier chunk). tokens/positions/slot_loc [B, S] (padded); q_lens [B]
+    suffix lengths; kv_lens [B] total lengths; page_tables [B, P];
+    ``prefix_max`` a page multiple >= every prefix length. Each layer stores
+    the suffix's K/V first, then gathers ``prefix_max`` cached positions (the
+    mask by prefix length hides the fresh rows among them). Returns (logits
+    [B, V] float32 of each suffix's last token, k_cache, v_cache); the pools
+    are updated in place. Only ``num_logits=1`` is ported (the speculative
+    verify's several logits per sequence are a later slice)."""
+    if num_logits != 1:
+        raise NotImplementedError("prefill_extend(num_logits>1): speculative verify is not ported yet")
+    b, s = tokens.shape
+    dev = k_cache.device
+    x = params["embed"][tokens.reshape(-1).long()].to(cfg.dtype)
+    lw = params["layers"]
+    q_lens = q_lens.to(dev, torch.int32)
+    prefix_lens = kv_lens.to(dev, torch.int32) - q_lens
+    page_sz = k_cache.shape[-2]
+    pre_slots = _prefix_slots(page_tables.to(dev), prefix_max, page_sz)
+    nq, nkv, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    for lidx in range(cfg.num_layers):
+        h = rmsnorm(x, lw["input_norm"][lidx], cfg.rms_eps)
+        q, k, v = _qkv(h, lw, cfg, b * s, layer_id=lidx)
+        q, k = rotary_embedding(positions.reshape(-1), q, k, cfg.head_dim, rope_cache)
+        store_cache_stacked(_kv_quant(cfg, k), _kv_quant(cfg, v), k_cache, v_cache, slot_loc.reshape(-1), lidx)
+        qb = q.reshape(b, s, nq, d)
+        kpre = _kv_deq(cfg, _gather_prefix(k_cache, lidx, pre_slots, page_sz), qb.dtype)
+        vpre = _kv_deq(cfg, _gather_prefix(v_cache, lidx, pre_slots, page_sz), qb.dtype)
+        attn = _extend_attention(cfg, qb, k.reshape(b, s, nkv, d), v.reshape(b, s, nkv, d), q_lens,
+                                 prefix_lens, kpre, vpre)
+        x = x + _linear(attn, lw["o"], cfg, layer_id=lidx)
+        h2 = rmsnorm(x, lw["post_norm"][lidx], cfg.rms_eps)
+        x = x + _mlp(h2, lw, cfg, layer_id=lidx)
+    x = rmsnorm(x, params["final_norm"], cfg.rms_eps).reshape(b, s, -1)
+    last = (q_lens.long() - 1).clamp(0, s - 1)
+    logits = _linear(x[torch.arange(b, device=dev), last], params["lm_head"], cfg).float()[:, : cfg.vocab_size]
+    return logits, k_cache, v_cache
+
+
+def mixed_step(params, cfg: LlamaConfig, k_cache, v_cache, dec_tokens, dec_positions, dec_tables, dec_lengths,
+               dec_slots, pf_tokens, pf_positions, pf_q_len, pf_kv_len, pf_table, pf_slots, rope_cache, *,
+               prefix_max: int):
+    """One step serving a decode batch and one prefill chunk: the Bd decode
+    rows and the S chunk tokens run as one token stream through every GEMM
+    (the weights are read once for both), and split for attention: K5 with
+    the fresh rows for the decode rows, the two-pass extend for the chunk,
+    whose own K/V it attends in-tensor. All layers' K/V of the Bd + S tokens
+    are stored once after the loop (K6; slot -1 rows are dropped), so the
+    chunk's prefix gather reads pools that do not hold the chunk yet.
+
+    dec_*: [Bd] / dec_tables [Bd, P], a padded decode batch. pf_*: one
+    chunked-prefill request: tokens/positions/slots [S] (padded), q_len and
+    kv_len scalars (ints or one-element tensors), table [P2]. Returns
+    (dec_logits [Bd, V], pf_logits [V], k_cache, v_cache); the pools are
+    updated in place."""
+    dev = k_cache.device
+    bd, s = dec_tokens.shape[0], pf_tokens.shape[0]
+    t = bd + s
+    tokens = torch.cat([dec_tokens, pf_tokens]).to(dev)
+    positions = torch.cat([dec_positions, pf_positions]).to(dev)
+    slots = torch.cat([dec_slots, pf_slots]).to(dev)
+    x = params["embed"][tokens.long()].to(cfg.dtype)
+    lw = params["layers"]
+    pf_q = torch.as_tensor(pf_q_len, dtype=torch.int32, device=dev).reshape(1)
+    prefix_len = torch.as_tensor(pf_kv_len, dtype=torch.int32, device=dev).reshape(1) - pf_q
+    page_sz = k_cache.shape[-2]
+    pre_slots = _prefix_slots(pf_table.to(dev)[None], prefix_max, page_sz)
+    nq, nkv, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    k_all, v_all = [], []
+    for lidx in range(cfg.num_layers):
+        h = rmsnorm(x, lw["input_norm"][lidx], cfg.rms_eps)
+        q, k, v = _qkv(h, lw, cfg, t, layer_id=lidx)
+        q, k = rotary_embedding(positions, q, k, cfg.head_dim, rope_cache)
+        attn_d = paged_attention_decode_dma(q[:bd], k_cache, v_cache, dec_lengths, dec_tables, layer_id=lidx,
+                                            fresh_k=k[:bd], fresh_v=v[:bd], **_kv_att_kwargs(cfg))
+        qb = q[bd:].reshape(1, s, nq, d)
+        kpre = _kv_deq(cfg, _gather_prefix(k_cache, lidx, pre_slots, page_sz), qb.dtype)
+        vpre = _kv_deq(cfg, _gather_prefix(v_cache, lidx, pre_slots, page_sz), qb.dtype)
+        om = _extend_attention(cfg, qb, k[bd:].reshape(1, s, nkv, d), v[bd:].reshape(1, s, nkv, d), pf_q,
+                               prefix_len, kpre, vpre)
+        attn = torch.cat([attn_d.reshape(bd, -1), om])
+        x = _linear(attn, lw["o"], cfg, residual=x, layer_id=lidx)
+        h2 = rmsnorm(x, lw["post_norm"][lidx], cfg.rms_eps)
+        x = _mlp(h2, lw, cfg, residual=x, layer_id=lidx)
+        k_all.append(k)
+        v_all.append(v)
+    store_cache_all_layers(_kv_quant(cfg, torch.stack(k_all)), _kv_quant(cfg, torch.stack(v_all)),
+                           k_cache, v_cache, slots)
+    x = rmsnorm(x, params["final_norm"], cfg.rms_eps)
+    # lm_head only on the rows that need logits: the decode batch and the
+    # chunk's last fresh token
+    last_pf = bd + (pf_q.long() - 1).clamp(0, s - 1)
+    sel = torch.cat([torch.arange(bd, device=dev), last_pf])
+    logits = _linear(x[sel], params["lm_head"], cfg).float()[:, : cfg.vocab_size]
+    return logits[:bd], logits[bd], k_cache, v_cache

@@ -1,5 +1,14 @@
-"""Attention operators: flash prefill (K7), paged decode (K5), state merge."""
+"""Attention operators: flash prefill (K7), packed flash prefill (K9), paged
+decode (K5), state merge."""
 
+from .flash_packed import (
+    build_packed_metadata,
+    flash_attention_packed,
+    flash_attention_packed_ref,
+    make_seq_meta,
+    pack_padded,
+    unpack_to_padded,
+)
 from .flash_prefill import flash_attention, flash_attention_ref
 from .merge_state import merge_state, merge_states
 from .paged_decode_dma import paged_attention_decode_dma, paged_attention_decode_ref

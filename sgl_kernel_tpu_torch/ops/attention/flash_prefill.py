@@ -5,7 +5,8 @@ replacing the Pallas ``flash_attention``
 (sgl_kernel_tpu/ops/attention/flash_prefill.py:165, pallas_call at :260).
 ``flash_attention_ref`` is its plain PyTorch twin and covers the whole JAX
 contract (window, softcap, sinks, base-2 lse); the kernel takes the
-causal or full attention the serving path needs and raises on the rest.
+causal or full attention and the base-2 lse the serving path needs, and
+raises on the rest.
 """
 
 from __future__ import annotations
@@ -70,7 +71,7 @@ def flash_attention_ref(q, k, v, q_lens=None, kv_lens=None, sinks=None, q_start=
     return out
 
 
-_ARGS = (ctypes.c_void_p,) * 5 + (ctypes.c_int,) * 7 + (ctypes.c_float, ctypes.c_void_p)
+_ARGS = (ctypes.c_void_p,) * 6 + (ctypes.c_int,) * 7 + (ctypes.c_float, ctypes.c_void_p)
 
 
 def flash_attention(q, k, v, q_lens=None, kv_lens=None, sinks=None, q_start=None,
@@ -80,16 +81,17 @@ def flash_attention(q, k, v, q_lens=None, kv_lens=None, sinks=None, q_start=None
     """Batched ragged flash attention. q [B, Sq, Hq, D]; k, v [B, Skv, Hkv, D];
     q_lens/kv_lens [B]; q_start/kv_start [B] global positions of q row 0 /
     kv row 0 (defaults kv_len - q_len and 0). Returns out [B, Sq, Hq, D]
-    (+ lse [B, Hq, Sq] base 2 when return_lse). CUDA tensors go through the
-    K7 kernel, which takes bf16, head_dim 64 or 128, and neither sinks,
-    window, softcap nor lse."""
+    (+ lse [B, Hq, Sq] float32 base 2 when return_lse; a row that sees no
+    key has o = 0 and lse -1e30 * log2(e)). CUDA tensors go through the K7
+    kernel, which takes bf16, head_dim 64 or 128, and neither sinks, window
+    nor softcap."""
     if q.device.type != "cuda":
         return flash_attention_ref(
             q, k, v, q_lens, kv_lens, sinks, q_start, kv_start, causal=causal,
             sm_scale=sm_scale, sliding_window=sliding_window,
             logit_soft_cap=logit_soft_cap, return_lse=return_lse)
-    if sinks is not None or sliding_window is not None or logit_soft_cap is not None or return_lse:
-        raise NotImplementedError("flash_attention: the CUDA kernel takes no sinks, window, softcap or lse yet")
+    if sinks is not None or sliding_window is not None or logit_soft_cap is not None:
+        raise NotImplementedError("flash_attention: the CUDA kernel takes no sinks, window or softcap yet")
     b, sq, hq, d = q.shape
     skv, hkv = k.shape[1], k.shape[2]
     if hq % hkv or d not in (64, 128) or k.shape != v.shape or k.shape[0] != b or k.shape[3] != d:
@@ -99,13 +101,15 @@ def flash_attention(q, k, v, q_lens=None, kv_lens=None, sinks=None, q_start=None
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     lens = torch.stack(_lens(q, k, q_lens, kv_lens, q_start, kv_start), dim=1).contiguous()
     out = torch.empty_like(q)
+    lse = torch.empty((b, hq, sq), dtype=torch.float32, device=q.device) if return_lse else None
     scale = sm_scale if sm_scale is not None else 1.0 / d ** 0.5
     fn = _build.bind("flash_prefill", "skt_flash_prefill", _ARGS)
     _build.check(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), lens.data_ptr(), out.data_ptr(),
-                    b, sq, skv, hq, hkv, d, int(causal), scale, _build.stream_ptr(q.device)),
+                    None if lse is None else lse.data_ptr(), b, sq, skv, hq, hkv, d, int(causal), scale,
+                    _build.stream_ptr(q.device)),
                  "flash_attention")
     flash_attention.launches += 1
-    return out
+    return (out, lse) if return_lse else out
 
 
 flash_attention.launches = 0

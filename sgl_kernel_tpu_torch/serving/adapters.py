@@ -5,10 +5,12 @@ The adapter owns everything model-specific (config, weight init, rope
 cache, the KV-cache layout, the step programs); the engine stays a
 page-table and scheduling loop over opaque ``caches``.
 
-This slice serves the Llama family's fresh-prompt prefill and its decode
-step. The adapter has no ``prefill_packed`` and sets ``supports_extend`` and
-``supports_spec`` to False, so the engine turns the prefix cache off and
-sends every prompt through ``prefill``.
+The Llama adapter serves the padded ``prefill``, the packed multi-prompt
+``prefill_packed``, the ``prefill_extend`` of a cached prefix or a prompt
+chunk, and the ``decode`` step; the engine reaches ``mixed_step`` through
+``_m``. ``supports_spec`` is False (speculative decoding is a later slice),
+and the PD page transfer (``extract_pages`` / ``inject_pages``) is not
+ported yet.
 """
 
 from __future__ import annotations
@@ -22,7 +24,7 @@ class LlamaAdapter:
 
     name = "llama"
     supports_spec = False
-    supports_extend = False
+    supports_extend = True  # prefill_extend: prefix reuse + chunked prefill
 
     def __init__(self, cfg, device="cuda"):
         self.cfg = cfg
@@ -40,6 +42,22 @@ class LlamaAdapter:
         k, v = caches
         logits, k, v = self._m.prefill(params, self.cfg, k, v, tokens, positions, q_lens,
                                        slot_loc, self.rope_cache)
+        return logits, (k, v)
+
+    def prefill_extend(self, params, caches, tokens, positions, q_lens, kv_lens, page_tables, slot_loc, *,
+                       prefix_max: int):
+        k, v = caches
+        logits, k, v = self._m.prefill_extend(params, self.cfg, k, v, tokens, positions, q_lens, kv_lens,
+                                              page_tables, slot_loc, self.rope_cache, prefix_max=prefix_max)
+        return logits, (k, v)
+
+    def prefill_packed(self, params, caches, tokens, positions, blk_seq, blk_q0, seq_meta, last_idx, slot_loc,
+                       *, max_kvb: int):
+        """Several fresh prompts block-aligned packed into one launch
+        (ops/attention/flash_packed.py)."""
+        k, v = caches
+        logits, k, v = self._m.prefill_packed(params, self.cfg, k, v, tokens, positions, blk_seq, blk_q0,
+                                              seq_meta, last_idx, slot_loc, self.rope_cache, max_kvb=max_kvb)
         return logits, (k, v)
 
     def decode(self, params, caches, tokens, positions, page_tables, lengths, slot_loc):

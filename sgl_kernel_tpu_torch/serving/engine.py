@@ -1,16 +1,23 @@
 """Continuous-batching serving engine.
 
-A paged-KV page allocator (free list), a prefill/decode scheduler, and a
-step loop that feeds the model adapter's prefill and decode programs. Each
-scheduler step admits waiting requests while the batch has room (each
-fresh prompt prefilled on its own, padded to a power-of-two bucket), runs
-one decode step over the running batch padded to ``max_batch``, and
-retires finished requests, whose pages return to the free list.
+A paged-KV page allocator, a prefill/decode scheduler, and a step loop that
+feeds the model adapter's programs. Each scheduler step:
 
-This slice serves fresh prompts and the plain decode step. Prefix reuse,
-chunked and packed prefill, speculative decoding, decode bursts, grammars
-and a device mesh are later slices: the arguments that ask for them raise
-``NotImplementedError``.
+- admits waiting requests while the batch has room. Each prompt is matched
+  against the radix prefix cache (``serving/native.py``) and reuses its
+  longest cached page-aligned prefix. Fresh prompts go into one
+  block-aligned packed launch (``prefill_packed``); a prompt with a cached
+  prefix goes through ``prefill_extend``; with ``prefill_chunk`` a longer
+  prompt is ingested one chunk per step;
+- fuses the first in-flight chunk with the decode batch into one
+  ``mixed_step`` where it can (``enable_mixed``), else advances each chunked
+  prefill by one chunk and runs one decode step over the running batch
+  padded to ``max_batch``;
+- retires finished requests: their full pages go to the prefix cache, the
+  rest to the free list.
+
+Speculative decoding, decode bursts, grammars and a device mesh are later
+slices: the arguments that ask for them raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -40,10 +47,38 @@ class Request:
     output: List[int] = dataclasses.field(default_factory=list)
     pages: List[int] = dataclasses.field(default_factory=list)
     done: bool = False
+    prefix_len: int = 0          # tokens reused from the radix cache
+    shared_pages: int = 0        # leading cache-owned pages in ``pages``
+    lock_id: int = 0             # radix-cache pin handle (0 = none)
+    prefill_pos: int = 0         # chunked-prefill progress (tokens stored)
 
     @property
     def seq_len(self) -> int:
         return len(self.prompt) + len(self.output)
+
+
+def packed_layout(lens: List[int], n_rows: int, block: int = 256):
+    """The packed-prefill metadata of fresh prompts of ``lens``, as
+    ``Engine._prefill_packed_batch`` builds it: each prompt starts at a
+    block multiple; the block count is padded to a power of two, the
+    padding blocks pointing at the empty pseudo-sequence row ``len(lens)``
+    (q_len 0, kv_blks 1) of ``n_rows`` seq_meta rows. Returns (blk_seq,
+    blk_q0, seq_meta, tok0, tp, max_kvb): int32 arrays, each prompt's first
+    packed token, the packed token count and the power-of-two kv block cap."""
+    nqb = [max(cdiv(n, block), 1) for n in lens]
+    nb = 1 << (sum(nqb) - 1).bit_length()
+    blk_seq = np.full(nb, len(lens), np.int32)
+    blk_q0 = np.zeros(nb, np.int32)
+    seq_meta = np.zeros((n_rows, 6), np.int32)
+    seq_meta[:, 5] = 1  # kv_blks >= 1, as the JAX metadata has it
+    tok0, b0 = [], 0
+    for i, n in enumerate(lens):
+        blk_seq[b0: b0 + nqb[i]] = i
+        blk_q0[b0: b0 + nqb[i]] = np.arange(nqb[i]) * block
+        seq_meta[i] = (n, n, 0, 0, b0, nqb[i])
+        tok0.append(b0 * block)
+        b0 += nqb[i]
+    return blk_seq, blk_q0, seq_meta, tok0, nb * block, 1 << (max(nqb) - 1).bit_length()
 
 
 class PageAllocator:
@@ -65,7 +100,16 @@ class PageAllocator:
 class Engine:
     """Continuous batching on one device. ``device="cuda"`` (the default)
     runs the kernels on the card and raises without one; ``device="cpu"``
-    runs the plain PyTorch versions."""
+    runs the plain PyTorch versions.
+
+    ``enable_prefix_cache`` (the default) needs the native serving library,
+    which is compiled on first use: unlike the JAX engine, which then
+    serves without the cache, this engine raises if the library cannot be
+    built. An adapter without ``prefill_extend`` (``supports_extend =
+    False``) turns the cache off and cannot chunk prompts; one without
+    ``prefill_packed`` prefills each fresh prompt on its own."""
+
+    _PACK_BLOCK = 256  # flash_packed block / sequence alignment
 
     def __init__(
         self,
@@ -85,6 +129,7 @@ class Engine:
         log_every: int = 0,
         adapter=None,
         decode_burst: int = 1,
+        enable_mixed: bool = True,
         device="cuda",
     ):
         if mesh is not None:
@@ -93,8 +138,6 @@ class Engine:
             raise NotImplementedError("Engine(draft_cfg=...): speculative decoding is not ported yet")
         if decode_burst != 1:
             raise NotImplementedError("Engine(decode_burst>1): decode bursts are not ported yet")
-        if prefill_chunk is not None:
-            raise NotImplementedError("Engine(prefill_chunk=...): chunked prefill is not ported yet")
         self.device = resolve_device(device)
         self.adapter = adapter if adapter is not None else adapter_for(cfg, self.device)
         self.cfg = cfg
@@ -102,17 +145,30 @@ class Engine:
         self.max_batch = max_batch
         self.max_pages_per_seq = max_pages_per_seq or cdiv(cfg.max_position, page_size)
         self.prefill_bucket = prefill_bucket
+        # chunked prefill: prompts longer than prefill_chunk are ingested one
+        # chunk per scheduler step through the extend path, so running
+        # decodes are not stalled behind a whole prompt
+        self.prefill_chunk = prefill_chunk
+        self.enable_mixed = enable_mixed
         if params is None:
             params = self.adapter.init_weights(torch.Generator(device=self.device).manual_seed(seed))
         self.params = params
         self.rope_cache = self.adapter.rope_cache
         self.caches = self.adapter.make_caches(num_pages, page_size)
-        # an adapter without an extend program cannot consume a cached
-        # prefix, so the prefix cache is off (as the JAX engine does)
-        if enable_prefix_cache and getattr(self.adapter, "supports_extend", True):
-            raise NotImplementedError("prefix caching needs an extend-prefill adapter, not ported yet")
-        self.allocator = PageAllocator(num_pages)
+        # an adapter without an extend program can consume no cached prefix
+        # and chunk no prompt
+        if not getattr(self.adapter, "supports_extend", True):
+            enable_prefix_cache = False
+            if prefill_chunk is not None:
+                raise ValueError(f"{self.adapter.name} has no extend program; prefill_chunk needs one")
+        self.native = None
+        if enable_prefix_cache:
+            from .native import NativeAllocator
+
+            self.native = NativeAllocator(num_pages, page_size)
+        self.allocator = self.native if self.native is not None else PageAllocator(num_pages)
         self.waiting: List[Request] = []
+        self.prefilling: List[Request] = []  # chunked prefills in flight
         self.running: List[Request] = []
         self.finished: Dict[int, Request] = {}
         self._next_rid = 0
@@ -145,50 +201,168 @@ class Engine:
     def _slot(self, req: Request, pos: int) -> int:
         return req.pages[pos // self.page_size] * self.page_size + pos % self.page_size
 
+    def _page_table(self, req: Request) -> np.ndarray:
+        pt = np.zeros(self.max_pages_per_seq, np.int32)
+        pt[: len(req.pages)] = req.pages
+        return pt
+
     def _batch_tables(self, reqs, bp: int) -> np.ndarray:
+        """[bp, max_pages_per_seq] page tables, zero-padded; through the
+        native library's ``assemble_tables`` when the prefix cache is on."""
+        if self.native is not None:
+            lists = [r.pages for r in reqs] + [[]] * (bp - len(reqs))
+            return self.native.assemble_tables(lists, self.max_pages_per_seq)
         t = np.zeros((bp, self.max_pages_per_seq), np.int32)
         for i, r in enumerate(reqs):
             t[i, : len(r.pages)] = r.pages
         return t
 
-    def _dev(self, a: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(a).to(self.device)
+    def _dev(self, a) -> torch.Tensor:
+        return torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(self.device)
+
+    def _decode_inputs(self, reqs, pad_length: int):
+        """tokens, positions, lengths, slot_loc [max_batch] and page tables of
+        a decode batch; padding rows have length ``pad_length`` and slot -1
+        (as in the JAX engine: 0 in the decode step, 1 in the mixed step)."""
+        bp = self.max_batch
+        tokens = np.zeros(bp, np.int32)
+        positions = np.zeros(bp, np.int32)
+        lengths = np.full(bp, pad_length, np.int32)
+        slot_loc = np.full(bp, -1, np.int32)
+        for i, r in enumerate(reqs):
+            pos = r.seq_len - 1  # position of the token being fed
+            tokens[i] = r.output[-1] if r.output else r.prompt[-1]
+            positions[i] = pos
+            lengths[i] = r.seq_len
+            slot_loc[i] = self._slot(r, pos)
+        return tokens, positions, lengths, slot_loc, self._batch_tables(reqs, bp)
 
     # ------------------------------------------------------------------
     def _admit(self):
-        while self.waiting and len(self.running) < self.max_batch:
+        batch: List[Request] = []  # fresh full prefills -> one packed launch
+        while self.waiting and len(self.running) + len(self.prefilling) + len(batch) < self.max_batch:
             req = self.waiting[0]
-            need = cdiv(req.seq_len + req.max_new_tokens, self.page_size)
+            shared: List[int] = []
+            if self.native is not None and len(req.prompt) > 1:
+                # reuse the longest cached page-aligned prefix, keeping at
+                # least one fresh token so prefill produces logits
+                matched, shared, req.lock_id = self.native.match_prefix_locked(req.prompt[:-1])
+                req.prefix_len = matched
+                req.shared_pages = len(shared)
+            need = cdiv(req.seq_len + req.max_new_tokens, self.page_size) - len(shared)
             pages = self.allocator.alloc(need)
+            if pages is None and self.native is not None:
+                # evict unpinned cached pages (LRU) back to the free list and
+                # retry: retired requests' pages adopted by the cache would
+                # otherwise starve new admissions
+                self.metrics.inc("pages_evicted", self.native.evict(need - self.allocator.free))
+                pages = self.allocator.alloc(need)
             if pages is None:
+                if req.lock_id:
+                    self.native.unlock(req.lock_id)
+                    req.prefix_len = req.shared_pages = req.lock_id = 0
                 self.metrics.inc("admission_blocked")
                 break
-            req.pages = pages
+            req.pages = shared + pages
             self.waiting.pop(0)
             self.metrics.inc("requests_admitted")
+            self.metrics.inc("prefix_cache_hit_tokens", req.prefix_len)
+            if self.prefill_chunk is not None and len(req.prompt) - req.prefix_len > self.prefill_chunk:
+                # long prompt: one chunk per scheduler step
+                req.prefill_pos = req.prefix_len
+                self.prefilling.append(req)
+            elif req.prefix_len == 0 and getattr(self.adapter, "prefill_packed", None) is not None:
+                batch.append(req)  # packed multi-prompt launch below
+            else:
+                with self.metrics.time("prefill"):
+                    self._prefill(req)
+                self.metrics.inc("tokens_prefilled", len(req.prompt) - req.prefix_len)
+                self.running.append(req)
+        if batch:
             with self.metrics.time("prefill"):
-                self._prefill(req)
-            self.metrics.inc("tokens_prefilled", len(req.prompt))
-            self.running.append(req)
+                self._prefill_packed_batch(batch)
+            self.metrics.inc("tokens_prefilled", sum(len(r.prompt) for r in batch))
+            self.running.extend(batch)
+
+    def _prefill_packed_batch(self, reqs: List[Request]):
+        """Fresh prompts block-aligned packed into one model launch: padding
+        below one block per prompt instead of bucket - len, one launch for
+        all. The block count is padded to a power of two, the padding blocks
+        pointing at an empty pseudo-sequence row (q_len 0)."""
+        if len(reqs) == 1:
+            self._prefill(reqs[0])
+            return
+        # +1 seq_meta row for the padding pseudo-sequence
+        blk_seq, blk_q0, seq_meta, tok0, tp, max_kvb = packed_layout(
+            [len(r.prompt) for r in reqs], self.max_batch + 1, self._PACK_BLOCK)
+        tokens = np.zeros(tp, np.int32)
+        positions = np.zeros(tp, np.int32)
+        slot_loc = np.full(tp, -1, np.int32)
+        last_idx = np.zeros(self.max_batch + 1, np.int32)
+        for i, (r, t0) in enumerate(zip(reqs, tok0)):
+            n = len(r.prompt)
+            tokens[t0: t0 + n] = r.prompt
+            positions[t0: t0 + n] = np.arange(n)
+            slot_loc[t0: t0 + n] = [self._slot(r, p) for p in range(n)]
+            last_idx[i] = t0 + n - 1
+        logits, self.caches = self.adapter.prefill_packed(
+            self.params, self.caches, *(self._dev(a) for a in (tokens, positions, blk_seq, blk_q0, seq_meta,
+                                                               last_idx, slot_loc)), max_kvb=max_kvb)
+        self._append_tokens(reqs, logits)
 
     def _prefill(self, req: Request):
-        logits = self._prefill_range(req, 0, len(req.prompt))
-        self._append_tokens([req], logits)
+        pre = req.prefix_len
+        total = len(req.prompt)
+        if self.prefill_chunk is not None:
+            while total - pre > self.prefill_chunk:
+                self._prefill_range(req, pre, pre + self.prefill_chunk)
+                pre += self.prefill_chunk
+        self._append_tokens([req], self._prefill_range(req, pre, total))
+
+    def _advance_prefilling(self, skip=None):
+        """One chunk of progress per chunked prefill, so this step's decode
+        batch is not starved. ``skip``: a request the mixed step already
+        advanced this step."""
+        still = []
+        for req in self.prefilling:
+            if req is skip:
+                still.append(req)
+                continue
+            total = len(req.prompt)
+            end = min(req.prefill_pos + self.prefill_chunk, total)
+            with self.metrics.time("prefill"):
+                logits = self._prefill_range(req, req.prefill_pos, end)
+            self.metrics.inc("tokens_prefilled", end - req.prefill_pos)
+            req.prefill_pos = end
+            if end == total:
+                self._append_tokens([req], logits)
+                self.running.append(req)
+            else:
+                still.append(req)
+        self.prefilling = still
 
     def _prefill_range(self, req: Request, pre: int, end: int):
-        if pre != 0:
-            raise NotImplementedError("extend prefill (a cached prefix) is not ported yet")
+        """Prefill prompt tokens [pre, end) of one request, padded to a
+        power-of-two bucket: the plain prefill from position 0, else the
+        extend program over the cached positions [0, pre)."""
         s = end - pre
         bucket = max(self.prefill_bucket, 1 << (s - 1).bit_length())
         tokens = np.zeros((1, bucket), np.int32)
         tokens[0, :s] = req.prompt[pre:end]
         positions = np.zeros((1, bucket), np.int32)
-        positions[0, :s] = np.arange(pre, pre + s)
+        positions[0, :s] = np.arange(pre, end)
         slot_loc = np.full((1, bucket), -1, np.int32)
         slot_loc[0, :s] = [self._slot(req, p) for p in range(pre, end)]
-        logits, self.caches = self.adapter.prefill(
-            self.params, self.caches, self._dev(tokens), self._dev(positions),
-            self._dev(np.array([s], np.int32)), self._dev(slot_loc))
+        if pre == 0:
+            logits, self.caches = self.adapter.prefill(
+                self.params, self.caches, self._dev(tokens), self._dev(positions),
+                self._dev(np.array([s], np.int32)), self._dev(slot_loc))
+        else:
+            logits, self.caches = self.adapter.prefill_extend(
+                self.params, self.caches, self._dev(tokens), self._dev(positions),
+                self._dev(np.array([s], np.int32)), self._dev(np.array([end], np.int32)),
+                self._dev(self._page_table(req)[None]), self._dev(slot_loc),
+                prefix_max=cdiv(pre, self.page_size) * self.page_size)
         return logits
 
     def _append_tokens(self, reqs: List[Request], logits):
@@ -217,25 +391,59 @@ class Engine:
         reqs = [r for r in self.running if not r.done]
         if not reqs:
             return
-        b = len(reqs)
-        bp = self.max_batch  # padded to a fixed batch; pad rows have length 0, slot -1
-        tokens = np.zeros(bp, np.int32)
-        positions = np.zeros(bp, np.int32)
-        lengths = np.zeros(bp, np.int32)
-        slot_loc = np.full(bp, -1, np.int32)
-        tables = self._batch_tables(reqs, bp)
-        for i, r in enumerate(reqs):
-            pos = r.seq_len - 1  # position of the token being fed
-            tokens[i] = r.output[-1] if r.output else r.prompt[-1]
-            positions[i] = pos
-            lengths[i] = r.seq_len
-            slot_loc[i] = self._slot(r, pos)
+        tokens, positions, lengths, slot_loc, tables = self._decode_inputs(reqs, 0)
         logits, self.caches = self.adapter.decode(
             self.params, self.caches, self._dev(tokens), self._dev(positions),
             self._dev(tables), self._dev(lengths), self._dev(slot_loc))
         self._append_tokens(reqs, logits)
-        self.metrics.inc("tokens_decoded", b)
-        self.metrics.set_gauge("decode_batch", b)
+        self.metrics.inc("tokens_decoded", len(reqs))
+        self.metrics.set_gauge("decode_batch", len(reqs))
+
+    def _try_mixed_step(self):
+        """Fuse the first in-flight prefill chunk with this step's decode
+        batch into one ``mixed_step``. Returns the prefill Request it
+        advanced (the caller skips it in ``_advance_prefilling``), or None
+        when the plain path should run."""
+        if not self.enable_mixed or not self.prefilling:
+            return None
+        if not hasattr(getattr(self.adapter, "_m", None), "mixed_step"):
+            return None
+        reqs = [r for r in self.running if not r.done]
+        if not reqs:
+            return None
+        pf = self.prefilling[0]
+        pre = pf.prefill_pos
+        if pre == 0:
+            return None  # the first chunk has no cached prefix: plain path
+        total = len(pf.prompt)
+        end = min(pre + self.prefill_chunk, total)
+        s = end - pre
+        bucket = max(self.prefill_bucket, 1 << (s - 1).bit_length())
+        pf_tokens = np.zeros(bucket, np.int32)
+        pf_tokens[:s] = pf.prompt[pre:end]
+        pf_positions = np.zeros(bucket, np.int32)
+        pf_positions[:s] = np.arange(pre, end)
+        pf_slots = np.full(bucket, -1, np.int32)
+        pf_slots[:s] = [self._slot(pf, p) for p in range(pre, end)]
+        tokens, positions, lengths, slot_loc, tables = self._decode_inputs(reqs, 1)
+        k, v = self.caches
+        with self.metrics.time("mixed"):
+            dec_logits, pf_logits, k, v = self.adapter._m.mixed_step(
+                self.params, self.cfg, k, v,
+                *(self._dev(a) for a in (tokens, positions, tables, lengths, slot_loc, pf_tokens, pf_positions)),
+                s, end, self._dev(self._page_table(pf)), self._dev(pf_slots), self.rope_cache,
+                prefix_max=cdiv(pre, self.page_size) * self.page_size)
+            self.caches = (k, v)
+            self._append_tokens(reqs, dec_logits)
+        self.metrics.inc("tokens_decoded", len(reqs))
+        self.metrics.inc("tokens_prefilled", s)
+        self.metrics.inc("mixed_steps")
+        pf.prefill_pos = end
+        if end == total:
+            self.prefilling.remove(pf)
+            self._append_tokens([pf], pf_logits[None])
+            self.running.append(pf)
+        return pf
 
     def _retire(self):
         still = []
@@ -243,7 +451,27 @@ class Engine:
             if not r.done:
                 still.append(r)
                 continue
-            self.allocator.release(r.pages)
+            if self.native is not None:
+                seq = r.prompt + r.output
+                # the last emitted token was never fed through the model, so
+                # its slot holds no KV: only positions [0, len(seq) - 1) are
+                # valid, and a page holding that slot must not be cached
+                full_pages = (len(seq) - 1) // self.page_size
+                adopted = 0
+                if full_pages > 0:
+                    adopted = self.native.insert_prefix(seq[: full_pages * self.page_size], r.pages[:full_pages])
+                # ownership: pages[:shared_pages] were the cache's already; the
+                # adopted tail of the full-page range is the cache's now;
+                # everything else returns to the free list
+                keep = set(range(r.shared_pages)) | set(range(full_pages - adopted, full_pages))
+                release = [p for i, p in enumerate(r.pages) if i not in keep]
+                if release:
+                    self.allocator.release(release)
+                if r.lock_id:
+                    self.native.unlock(r.lock_id)
+                    r.lock_id = 0
+            else:
+                self.allocator.release(r.pages)
             r.pages = []
             self.finished[r.rid] = r
             self.metrics.inc("requests_finished")
@@ -251,14 +479,21 @@ class Engine:
 
     # ------------------------------------------------------------------
     def step(self):
-        """One scheduler iteration: admit+prefill, one decode step, retire."""
+        """One scheduler iteration: admit and prefill, the mixed step or the
+        chunk advances and one decode step, retire."""
         with self.metrics.time("step"):
             self._admit()
-            with self.metrics.time("decode"):
-                self._decode_batch()
+            mixed_pf = self._try_mixed_step()  # the Request served fused, or None
+            self._advance_prefilling(skip=mixed_pf)
+            if mixed_pf is None:
+                # timed only here: a fused step must not log a ~0 "decode"
+                # sample
+                with self.metrics.time("decode"):
+                    self._decode_batch()
             self._retire()
         self.metrics.inc("scheduler_steps")
-        self.metrics.set_gauge("free_pages", len(self.allocator.free))
+        free = self.allocator.free  # int (native) or the free list
+        self.metrics.set_gauge("free_pages", free if isinstance(free, int) else len(free))
         self.metrics.set_gauge("running", len(self.running))
         self.metrics.set_gauge("waiting", len(self.waiting))
         if self.log_every and self.metrics.counters["scheduler_steps"] % self.log_every == 0:
@@ -266,7 +501,7 @@ class Engine:
 
     def run_until_done(self, max_steps: int = 10_000):
         steps = 0
-        while (self.waiting or self.running) and steps < max_steps:
+        while (self.waiting or self.prefilling or self.running) and steps < max_steps:
             self.step()
             steps += 1
         return self.finished

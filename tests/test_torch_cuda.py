@@ -2,8 +2,10 @@
 card, over the options and edge cases the serving path's shapes in
 chip_smoke.py do not reach: other head dims and GQA groups, page sizes,
 padding rows, duplicate and dropped slots, extend offsets, non-causal
-attention, widths that are not powers of two, quantized KV pools, and
-every option, row count, group size and ragged width of the W4A16 GEMM.
+attention, the base-2 lse and rows that see no key, packed prefill at block
+edges with padding blocks, widths that are not powers of two, quantized KV
+pools, and every option, row count, group size and ragged width of the
+W4A16 GEMM.
 
 Needs a CUDA device: every test here is marked ``cuda`` and skips without
 one. On the card (tests/conftest.py imports JAX, which that machine need not
@@ -12,11 +14,12 @@ have, so it is skipped):
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 """
 
+import numpy as np
 import pytest
 import torch
 
 from sgl_kernel_tpu_torch.ops import kvcache, norm, rope
-from sgl_kernel_tpu_torch.ops.attention import flash_prefill, paged_decode_dma
+from sgl_kernel_tpu_torch.ops.attention import flash_packed, flash_prefill, paged_decode_dma
 from sgl_kernel_tpu_torch.ops.gemm import w4a16
 
 pytestmark = pytest.mark.cuda
@@ -153,6 +156,105 @@ def test_flash_extend_offsets(gen):
         ref = flash_prefill.flash_attention_ref(q, k, v, ql, kl, *extra, causal=True)
         for i, n in enumerate(ql.tolist()):
             assert_kernel_close(out[i, :n], ref[i, :n])
+
+
+EMPTY_LSE = -1e30 * flash_prefill.LOG2E
+
+
+def is_empty_lse(lse):
+    """The lse of a row that sees no key, -1e30 * log2(e), to a float32 ulp
+    (the product is rounded once in float32 on either side)."""
+    return bool(torch.allclose(lse, torch.full_like(lse, EMPTY_LSE), rtol=1e-6, atol=0.0))
+
+
+@pytest.mark.parametrize("hq,hkv", [(8, 8), (8, 2)])
+def test_flash_lse_and_keyless_rows(gen, hq, hkv):
+    """K7's lse [B, Hq, Sq] against the twin: the prefix pass of an extend
+    (every row sees all prefix keys), a sequence with an empty prefix (its
+    rows see no key: o = 0 and lse -1e30 * log2(e)), and the fresh pass at
+    global offsets."""
+    b, sq, skv, d = 3, 130, 200, 128
+    q, k, v = randn(gen, b, sq, hq, d), randn(gen, b, skv, hkv, d), randn(gen, b, skv, hkv, d)
+    ql = torch.tensor([130, 65, 7], dtype=torch.int32, device="cuda")
+    pre = torch.tensor([200, 0, 33], dtype=torch.int32, device="cuda")
+    zero = torch.zeros_like(pre)
+    for args in ((ql, pre, None, pre, zero), (ql, ql, None, pre, pre)):
+        out, lse = flash_prefill.flash_attention(q, k, v, *args, causal=True, return_lse=True)
+        ref, ref_lse = flash_prefill.flash_attention_ref(q, k, v, *args, causal=True, return_lse=True)
+        assert lse.shape == (b, hq, sq) and lse.dtype == torch.float32 and torch.isfinite(lse).all()
+        for i, n in enumerate(ql.tolist()):
+            assert_kernel_close(out[i, :n], ref[i, :n])
+            assert_elementwise(lse[i, :, :n], ref_lse[i, :, :n])
+    out, lse = flash_prefill.flash_attention(q, k, v, ql, pre, None, pre, zero, causal=True, return_lse=True)
+    assert not out[1].any() and is_empty_lse(lse[1])
+
+
+def packed_inputs(gen, lens, hq, hkv, d, n_pad_blocks=0, block=256):
+    """Packed q/k/v of causal self-attention over ``lens`` and the engine's
+    metadata: padding blocks on an empty pseudo-sequence row."""
+    seq_meta, meta = flash_packed.make_seq_meta(lens, block=block)
+    blk_seq, blk_q0 = meta["blk_seq"], meta["blk_q0"]
+    if n_pad_blocks:
+        seq_meta = np.concatenate([seq_meta, np.array([[0, 0, 0, 0, 0, 1]], np.int32)])
+        blk_seq = np.concatenate([blk_seq, np.full(n_pad_blocks, len(lens), np.int32)])
+        blk_q0 = np.concatenate([blk_q0, np.zeros(n_pad_blocks, np.int32)])
+    tp = meta["total_q"] + n_pad_blocks * block
+    ints = [torch.from_numpy(a).cuda() for a in (blk_seq, blk_q0, seq_meta)]
+    return (randn(gen, tp, hq, d), randn(gen, tp, hkv, d), randn(gen, tp, hkv, d)), ints, meta
+
+
+def check_packed(qkv, ints, meta, lens, max_kvb, hq):
+    before = flash_packed.flash_attention_packed.launches
+    out, lse = flash_packed.flash_attention_packed(*qkv, *ints, max_kvb=max_kvb, return_lse=True)
+    assert flash_packed.flash_attention_packed.launches == before + 1
+    ref, ref_lse = flash_packed.flash_attention_packed_ref(*qkv, *ints, max_kvb=max_kvb, return_lse=True)
+    assert lse.shape == (hq, qkv[0].shape[0]) and torch.isfinite(out).all() and torch.isfinite(lse).all()
+    for t0, n in zip(meta["seq_tok0"].tolist(), lens):
+        assert_elementwise(out[t0: t0 + n], ref[t0: t0 + n])
+        assert_elementwise(lse[:, t0: t0 + n], ref_lse[:, t0: t0 + n])
+    # rows that see no key (past q_len, padding blocks): zeros and the twin's lse
+    seen = torch.zeros(qkv[0].shape[0], dtype=torch.bool, device="cuda")
+    for t0, n in zip(meta["seq_tok0"].tolist(), lens):
+        seen[t0: t0 + n] = True
+    assert not out[~seen].any() and is_empty_lse(lse[:, ~seen])
+
+
+@pytest.mark.parametrize("n", [1, 255, 256, 257])
+@pytest.mark.parametrize("hq,hkv,d", [(8, 8, 128), (8, 2, 64), (32, 4, 128)])
+def test_packed_single_sequence(gen, n, hq, hkv, d):
+    """One sequence at the 256-token block edges, GQA groups 1, 4 and 8."""
+    qkv, ints, meta = packed_inputs(gen, [n], hq, hkv, d)
+    check_packed(qkv, ints, meta, [n], meta["max_kvb"], hq)
+
+
+@pytest.mark.parametrize("d", [64, 128])
+def test_packed_ragged_batch_padding_blocks(gen, d):
+    """The engine's layout: a ragged batch, the block count padded to a
+    power of two with blocks on the empty pseudo-sequence, and max_kvb a
+    power of two above every sequence's kv block count."""
+    lens = [16, 300, 1, 777, 256, 90]
+    qkv, ints, meta = packed_inputs(gen, lens, 32, 8, d, n_pad_blocks=3)
+    check_packed(qkv, ints, meta, lens, 8, 32)
+
+
+def test_packed_extend_offsets_and_raises(gen):
+    """Extend metadata (q the last q_len of kv_len, explicit kv_start),
+    non-causal attention, and the options the kernel does not take."""
+    q_lens, kv_lens = [40, 300], [500, 300]
+    seq_meta, meta = flash_packed.make_seq_meta(q_lens, kv_lens, kv_start=[0, 7])
+    ints = [torch.from_numpy(a).cuda() for a in (meta["blk_seq"], meta["blk_q0"], seq_meta)]
+    q = randn(gen, meta["total_q"], 8, 128)
+    k, v = randn(gen, meta["total_kv"], 2, 128), randn(gen, meta["total_kv"], 2, 128)
+    for causal in (True, False):
+        out = flash_packed.flash_attention_packed(q, k, v, *ints, max_kvb=meta["max_kvb"], causal=causal)
+        ref = flash_packed.flash_attention_packed_ref(q, k, v, *ints, max_kvb=meta["max_kvb"], causal=causal)
+        for t0, n in zip(meta["seq_tok0"].tolist(), q_lens):
+            assert_elementwise(out[t0: t0 + n], ref[t0: t0 + n])
+    for kw in (dict(sliding_window=64), dict(logit_soft_cap=5.0), dict(sinks=torch.zeros(8, device="cuda"))):
+        with pytest.raises(NotImplementedError):
+            flash_packed.flash_attention_packed(q, k, v, *ints, max_kvb=meta["max_kvb"], **kw)
+        with pytest.raises(NotImplementedError):
+            flash_prefill.flash_attention(q[None], k[None], v[None], **kw)
 
 
 @pytest.mark.parametrize("dtype", [torch.int8, torch.float8_e4m3fn, torch.float8_e5m2])

@@ -1,11 +1,15 @@
-"""The slice end to end: the JAX Engine and the port's Engine(device="cpu")
+"""The engine end to end: the JAX Engine and the port's Engine(device="cpu")
 serve the same greedy workload on the same weights and must emit identical
 tokens for every request.
 
-Six requests with prompts of 3 to 40 tokens on a max_batch of 4, so the
-last two are admitted only after earlier ones retire. The JAX side gets an
-adapter without packed prefill or extend, so both engines take the same
-path: one padded prefill per prompt, the prefix cache off."""
+The plain path: six requests with prompts of 3 to 40 tokens on a max_batch
+of 4, so the last two are admitted only after earlier ones retire. Both
+sides get an adapter without packed prefill or extend, so both take one
+padded prefill per prompt with the prefix cache off.
+
+The default path (prefix cache, packed admission, extend on a cache hit,
+chunked prefill fused with decode): three waves through both default
+engines, and the cache accounting compared as well as the tokens."""
 
 import jax
 import jax.numpy as jnp
@@ -17,11 +21,17 @@ from sgl_kernel_tpu.models import llama as jllama
 from sgl_kernel_tpu.serving.adapters import LlamaAdapter as JaxLlamaAdapter
 from sgl_kernel_tpu.serving.engine import Engine as JaxEngine
 from sgl_kernel_tpu_torch import Engine, LlamaConfig, launch_counts, params_from_numpy
+from sgl_kernel_tpu_torch.serving.adapters import LlamaAdapter
 
 torch.set_num_threads(1)
 
 
 class PlainPrefillAdapter(JaxLlamaAdapter):
+    prefill_packed = None
+    supports_extend = False
+
+
+class TorchPlainPrefillAdapter(LlamaAdapter):
     prefill_packed = None
     supports_extend = False
 
@@ -35,9 +45,9 @@ def test_engine_greedy_outputs_identical():
     kw = dict(max_batch=4, page_size=16, num_pages=64)
 
     jeng = JaxEngine(jcfg, jparams, adapter=PlainPrefillAdapter(jcfg), **kw)
-    teng = Engine(LlamaConfig.tiny(fused=True),
-                  params_from_numpy(jax.tree_util.tree_map(np.asarray, jparams), "cpu"),
-                  device="cpu", **kw)
+    tcfg = LlamaConfig.tiny(fused=True)
+    teng = Engine(tcfg, params_from_numpy(jax.tree_util.tree_map(np.asarray, jparams), "cpu"),
+                  device="cpu", adapter=TorchPlainPrefillAdapter(tcfg, "cpu"), **kw)
     for p in prompts:
         jeng.add_request(p, max_new_tokens=8)
         teng.add_request(p, max_new_tokens=8)
@@ -74,8 +84,9 @@ def test_engine_w4a16_greedy_outputs_identical(kv):
     prompts = [rng.integers(1, jcfg.vocab_size, n).tolist() for n in (4, 33, 12)]
     kw = dict(max_batch=2, page_size=16, num_pages=32)
     jeng = JaxEngine(jcfg, jparams, adapter=PlainPrefillAdapter(jcfg), **kw)
-    teng = Engine(LlamaConfig.tiny(**tkw), params_from_numpy(jax.tree_util.tree_map(np.asarray, jparams), "cpu"),
-                  device="cpu", **kw)
+    tcfg = LlamaConfig.tiny(**tkw)
+    teng = Engine(tcfg, params_from_numpy(jax.tree_util.tree_map(np.asarray, jparams), "cpu"),
+                  device="cpu", adapter=TorchPlainPrefillAdapter(tcfg, "cpu"), **kw)
     assert teng.caches[0].dtype == (torch.int8 if kv else torch.float32)
     for p in prompts:
         jeng.add_request(p, max_new_tokens=6)
@@ -84,3 +95,47 @@ def test_engine_w4a16_greedy_outputs_identical(kv):
     assert sorted(jfin) == sorted(tfin)
     for rid in jfin:
         assert tfin[rid].output == jfin[rid].output, rid
+
+
+@pytest.mark.parametrize("num_pages", [64, 10])
+def test_default_engine_matches_jax(num_pages):
+    """Both default engines (prefix cache on, packed admission, mixed steps)
+    with prefill_chunk=32 on tiny: wave A is three fresh prompts (two packed
+    into one launch, the 40-token one chunked); wave B reuses 32 and 16
+    cached tokens of wave A's prompts (extend prefill) beside a fresh
+    100-token prompt chunked in 32s, whose later chunks ride mixed steps
+    beside wave B's decodes. With 10 pages admission blocks and evicts
+    cached pages. Tokens, hit tokens, mixed steps, evictions and page
+    accounting must be identical."""
+    jcfg = jllama.LlamaConfig.tiny(fused=True)
+    jparams = jllama.init_weights(jcfg, jax.random.PRNGKey(11))
+    rng = np.random.default_rng(5)
+    kw = dict(max_batch=4, page_size=16, num_pages=num_pages, prefill_chunk=32)
+    jeng = JaxEngine(jcfg, jparams, **kw)
+    teng = Engine(LlamaConfig.tiny(fused=True), params_from_numpy(jax.tree_util.tree_map(np.asarray, jparams), "cpu"),
+                  device="cpu", **kw)
+    assert teng.native is not None and jeng.native is not None
+    a = [rng.integers(1, jcfg.vocab_size, n).tolist() for n in (20, 40, 9)]
+    b = [a[1][:32] + rng.integers(1, jcfg.vocab_size, 10).tolist(),
+         a[0][:16] + rng.integers(1, jcfg.vocab_size, 5).tolist(),
+         rng.integers(1, jcfg.vocab_size, 100).tolist()]
+    for wave in (a, b):
+        for eng in (jeng, teng):
+            for p in wave:
+                eng.add_request(p, max_new_tokens=6)
+            eng.run_until_done()
+    assert sorted(jeng.finished) == sorted(teng.finished) == list(range(6))
+    for rid in jeng.finished:
+        assert teng.finished[rid].output == jeng.finished[rid].output, rid
+    jc, tc = jeng.metrics.counters, teng.metrics.counters
+    for key in ("prefix_cache_hit_tokens", "mixed_steps", "tokens_prefilled", "tokens_decoded", "requests_finished",
+                "pages_evicted", "admission_blocked"):
+        assert tc.get(key) == jc.get(key), key
+    assert (tc.get("pages_evicted", 0) > 0) == (num_pages == 10)
+    assert tc["prefix_cache_hit_tokens"] == 48 and tc["mixed_steps"] >= 1
+    assert teng.allocator.free == jeng.allocator.free
+    assert teng.native.cached_pages == jeng.native.cached_pages
+    # every page is free or cached: retire released exactly what the cache
+    # did not adopt
+    assert teng.allocator.free + teng.native.cached_pages == num_pages - 1
+    assert tc.get("nonfinite_logits", 0) == 0

@@ -48,17 +48,28 @@ def test_entry_points_need_a_card_by_default():
 
 def test_unserved_engine_arguments_raise():
     cfg = skt.LlamaConfig.tiny(fused=True)
-    for kw in (dict(mesh=object()), dict(draft_cfg=cfg), dict(decode_burst=4), dict(prefill_chunk=32)):
+    for kw in (dict(mesh=object()), dict(draft_cfg=cfg), dict(decode_burst=4)):
         with pytest.raises(NotImplementedError):
             skt.Engine(cfg, device="cpu", num_pages=8, page_size=16, **kw)
-    eng = skt.Engine(cfg, device="cpu", num_pages=8, page_size=16)
+    eng = skt.Engine(cfg, device="cpu", num_pages=8, page_size=16, prefill_chunk=32)
+    assert eng.native is not None and eng.allocator.free == 7  # the prefix cache is on by default
     with pytest.raises(NotImplementedError):
         eng.add_request([1, 2], grammar=[0])
+
+    class NoExtend(skt.LlamaAdapter):
+        supports_extend = False
+
+    # without an extend program the cache is off and chunking is refused
+    eng = skt.Engine(cfg, device="cpu", num_pages=8, page_size=16, adapter=NoExtend(cfg, "cpu"))
+    assert eng.native is None and len(eng.allocator.free) == 7
+    with pytest.raises(ValueError):
+        skt.Engine(cfg, device="cpu", num_pages=8, page_size=16, adapter=NoExtend(cfg, "cpu"), prefill_chunk=32)
 
 
 def test_kernel_wrappers_count_launches():
     assert set(skt.launch_counts()) == {"w4a16_gemm", "rmsnorm", "rope_decode_fused_qkv",
-                                        "paged_attention_decode_dma", "store_cache_all_layers", "flash_attention"}
+                                        "paged_attention_decode_dma", "store_cache_all_layers", "flash_attention",
+                                        "flash_attention_packed"}
     skt.reset_launch_counts()
     x = torch.randn(3, 64)
     skt.rmsnorm(x, torch.ones(64))  # CPU tensor: the plain twin, no launch
@@ -72,9 +83,10 @@ def test_kernel_sources_and_entry_points():
     from sgl_kernel_tpu_torch import _build
 
     stems = {p.stem for p in _build.sources()}
-    assert stems == {"decode_attention", "flash_prefill", "store_cache", "w4a16_gemm"}
-    entry = {"decode_attention": "skt_paged_decode", "flash_prefill": "skt_flash_prefill",
-             "store_cache": "skt_store_cache_all_layers", "w4a16_gemm": "skt_w4a16_gemm"}
+    assert stems == {"decode_attention", "flash_packed", "flash_prefill", "store_cache", "w4a16_gemm"}
+    entry = {"decode_attention": "skt_paged_decode", "flash_packed": "skt_flash_packed",
+             "flash_prefill": "skt_flash_prefill", "store_cache": "skt_store_cache_all_layers",
+             "w4a16_gemm": "skt_w4a16_gemm"}
     for src in _build.sources():
         text = src.read_text()
         assert f'extern "C" int {entry[src.stem]}(' in text

@@ -256,3 +256,116 @@ def test_kv_quant_dequant(rng, kv_dtype, scale):
     else:
         assert xq_t.dtype == torch.bfloat16  # no scale: the store casts
     assert tllama._kv_att_kwargs(tcfg) == ({} if scale is None else {"k_scale": scale, "v_scale": scale})
+
+
+def run_admission_paths(dtype, **cfg_kw):
+    """The engine's admission programs on both sides, in the order the
+    engine uses them: ``prefill_packed`` of two fresh prompts (block 256,
+    two padding blocks on the empty pseudo-sequence row), ``prefill_extend``
+    of a 12-token chunk of the first over its 20 cached tokens, then
+    ``mixed_step`` of the second's decode (plus a padding row) fused with a
+    10-token chunk of the first. Returns the logits of each call and the
+    final pools of both sides."""
+    jcfg, tcfg = configs(dtype, **cfg_kw)
+    jparams = jllama.init_weights(jcfg, jax.random.PRNGKey(4))
+    tparams = interop.params_from_numpy(jax.tree_util.tree_map(np.asarray, jparams), "cpu")
+    jk, jv = jllama.make_caches(jcfg, N_PAGES, PAGE)
+    tk, tv = tllama.make_caches(tcfg, N_PAGES, PAGE, device="cpu")
+    jrope, trope = jllama.build_rope_cache(jcfg), tllama.build_rope_cache(tcfg, device="cpu")
+    rng = np.random.default_rng(9)
+    a = rng.integers(0, jcfg.vocab_size, 42).tolist()
+    b = rng.integers(0, jcfg.vocab_size, 9).tolist()
+    pages = [[1, 2, 3], [4, 5]]
+    slot = lambda i, p: pages[i][p // PAGE] * PAGE + p % PAGE
+    table = lambda i: np.array(pages[i] + [0] * (8 - len(pages[i])), np.int32)
+    jl, tl = [], []
+
+    def call(name, *arrays, **kw):
+        nonlocal jk, jv, tk, tv
+        lj, *rest_j = getattr(jllama, name)(jparams, jcfg, jk, jv, *(jnp.asarray(x) for x in arrays), jrope, **kw)
+        lt, *rest_t = getattr(tllama, name)(tparams, tcfg, tk, tv, *(torch.from_numpy(np.asarray(x)) for x in arrays),
+                                            trope, **kw)
+        *out_j, jk, jv = [lj, *rest_j]
+        *out_t, tk, tv = [lt, *rest_t]
+        jl.extend(np.asarray(x) for x in out_j)
+        tl.extend(x.numpy() for x in out_t)
+
+    # packed: a[:20] and b, 256-token blocks, 4 blocks (2 of padding)
+    block, nb = 256, 4
+    tokens = np.zeros(nb * block, np.int32)
+    positions = np.zeros(nb * block, np.int32)
+    slots = np.full(nb * block, -1, np.int32)
+    for i, (pr, t0) in enumerate(((a[:20], 0), (b, block))):
+        tokens[t0: t0 + len(pr)] = pr
+        positions[t0: t0 + len(pr)] = np.arange(len(pr))
+        slots[t0: t0 + len(pr)] = [slot(i, p) for p in range(len(pr))]
+    blk_seq = np.array([0, 1, 2, 2], np.int32)
+    blk_q0 = np.zeros(nb, np.int32)
+    seq_meta = np.array([[20, 20, 0, 0, 0, 1], [9, 9, 0, 0, 1, 1], [0, 0, 0, 0, 0, 1]], np.int32)
+    last_idx = np.array([19, block + 8, 0], np.int32)
+    call("prefill_packed", tokens, positions, blk_seq, blk_q0, seq_meta, last_idx, slots, max_kvb=2)
+    # extend: a[20:32] over the 20 cached tokens (prefix_max a page multiple)
+    s = 16
+    tok, pos, sl = np.zeros((1, s), np.int32), np.zeros((1, s), np.int32), np.full((1, s), -1, np.int32)
+    tok[0, :12], pos[0, :12], sl[0, :12] = a[20:32], np.arange(20, 32), [slot(0, p) for p in range(20, 32)]
+    call("prefill_extend", tok, pos, np.array([12], np.int32), np.array([32], np.int32), table(0)[None], sl,
+         prefix_max=32)
+    # mixed: b's first decode token (one padding row) and a[32:42]
+    nxt = int(np.argmax(jl[0][1]))
+    dec = [np.array([nxt, 0], np.int32), np.array([9, 0], np.int32), np.stack([table(1), table(1) * 0]),
+           np.array([10, 1], np.int32), np.array([slot(1, 9), -1], np.int32)]
+    pf_tok, pf_pos, pf_sl = np.zeros(s, np.int32), np.zeros(s, np.int32), np.full(s, -1, np.int32)
+    pf_tok[:10], pf_pos[:10], pf_sl[:10] = a[32:42], np.arange(32, 42), [slot(0, p) for p in range(32, 42)]
+    call("mixed_step", *dec, pf_tok, pf_pos, np.int32(10), np.int32(42), table(0), pf_sl, prefix_max=32)
+    jl[2], tl[2] = jl[2][:1], tl[2][:1]  # the padding decode row's logits are not compared
+    return jl, tl, (jk, jv), (tk, tv)
+
+
+def test_admission_paths_f32():
+    """float32 end to end: the twins and the Pallas kernels (K9 and the
+    two-pass extend of K7) differ only in summation order."""
+    jl, tl, (jk, jv), (tk, tv) = run_admission_paths("f32")
+    for a, b in zip(jl, tl):
+        np.testing.assert_allclose(a, b, rtol=1e-4, atol=1e-4)
+        np.testing.assert_array_equal(a.argmax(-1), b.argmax(-1))
+    np.testing.assert_allclose(np.asarray(jk), tk.numpy(), rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(np.asarray(jv), tv.numpy(), rtol=1e-4, atol=1e-4)
+
+
+def test_admission_paths_bf16():
+    # bf16 rounding after every linear and the Pallas attention's bf16
+    # probabilities drift the logits by a few bf16 ulps over 3 layers
+    jl, tl, _, _ = run_admission_paths("bf16")
+    for a, b in zip(jl, tl):
+        np.testing.assert_allclose(a, b, rtol=0.05, atol=0.05)
+
+
+def test_admission_paths_w4a16():
+    """W4A16 weights quantized by the JAX init, float32 activations: the
+    packed codes are the same bytes, so only summation order differs."""
+    jl, tl, (jk, _), (tk, _) = run_admission_paths("f32", **W4)
+    for a, b in zip(jl, tl):
+        np.testing.assert_allclose(a, b, rtol=1e-4, atol=1e-4)
+        np.testing.assert_array_equal(a.argmax(-1), b.argmax(-1))
+    np.testing.assert_allclose(np.asarray(jk), tk.numpy(), rtol=1e-4, atol=1e-4)
+
+
+def test_admission_paths_int8_kv():
+    """W4A16 over int8 pools at kv_scale 1/16: the extend passes read the
+    gathered prefix through ``_kv_deq``. Codes may differ by one on a
+    rounding tie (see test_quantized_kv_prefill_decode)."""
+    jl, tl, (jk, jv), (tk, tv) = run_admission_paths("f32", kv_dtype="int8", kv_scale=1 / 16, **W4)
+    assert tk.dtype == torch.int8
+    for a, b in zip(jl, tl):
+        np.testing.assert_allclose(a, b, rtol=2e-3, atol=2e-3)
+        np.testing.assert_array_equal(a.argmax(-1), b.argmax(-1))
+    for jp, tp in ((jk, tk), (jv, tv)):
+        diff = np.abs(np.asarray(jp).astype(np.int32) - tp.numpy().astype(np.int32))
+        assert diff.max() <= 1 and (diff > 0).mean() < 1e-3
+
+
+def test_extend_num_logits_raises():
+    cfg = tllama.LlamaConfig.tiny(fused=True)
+    with pytest.raises(NotImplementedError):
+        tllama.prefill_extend(None, cfg, None, None, torch.zeros((1, 4), dtype=torch.int32), None, None, None,
+                              None, None, None, prefix_max=16, num_logits=2)
