@@ -41,6 +41,18 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
   5. profile the bf16 and the W4A16 engine: 16 prompts admitted again, 4
              decode steps traced with torch.profiler; step time,
              device-busy share and device time per kernel name.
+Then the same phases for the DeepSeek path (DeepSeek-V2-Lite widths, W4A16,
+int8 latent pool): (2) the grouped W4A16 GEMM (K11) at the B=16 decode's
+gate_up and down and at a 1,024-token prefill, MLA decode (K13a) at B=16
+over contexts 1..1056 on bf16, int8 and e4m3 pools, the MLA qkv prep (K14)
+at 16 tokens, and K7 / K9 at head dim 576 (the extend passes, wave A's
+packing); (3) card against CPU at V2-Lite widths cut to 2 layers (layer 0
+dense, layer 1 MoE), bf16 and int8 latent: prefill, 4 decode steps,
+prefill_packed, prefill_extend, with the card's routing replaced by the
+CPU's where they differ (each flip counted); (4) the engine at full depth
+(27 layers) in waves A, B (exactly 6,144 hit tokens, warm against cold)
+and C (the 4,096-token prompt in chunks, by extend: no mixed step), each
+wave's kernels launching; (5) its profile of 4 decode steps.
 
 Prints a JSON line of per-kernel numbers, then, last,
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -326,7 +338,7 @@ def serve_lens(n_req):
     return [16 + (1008 * i) // (n_req - 1) for i in range(n_req)]
 
 
-def packed_library(torch, F, q, k, v, lens, tok0, ref):
+def packed_library(torch, F, q, k, v, lens, tok0, ref, scale=None):
     """One SDPA call over jagged nested tensors (causal) computing K9's
     function on the same valid rows, as the library yardstick: with
     ``enable_gqa``, or, where this PyTorch refuses GQA over jagged tensors,
@@ -343,7 +355,7 @@ def packed_library(torch, F, q, k, v, lens, tok0, ref):
         njt = [torch.nested.nested_tensor_from_jagged(x, offsets).transpose(1, 2) for x in [q[idx]] + kv]
 
         def fn(njt=njt, gqa=gqa):
-            return F.scaled_dot_product_attention(*njt, is_causal=True, enable_gqa=gqa)
+            return F.scaled_dot_product_attention(*njt, is_causal=True, scale=scale, enable_gqa=gqa)
 
         try:
             out = fn().transpose(1, 2).values()
@@ -637,6 +649,8 @@ def phase_parity(torch, skt, cfg, label):
 
 
 PREFIX = 512       # wave B's shared prefix: 8 pages of 64
+# kernels of the DeepSeek path only (the Llama engines do not run them)
+DEEPSEEK_ONLY = ("w4a16_grouped_mm", "mla_decode", "mla_qkv_prep")
 NEW_TOKENS = 32
 
 
@@ -734,10 +748,12 @@ def run_wave(torch, skt, eng, stats, label, wave, prompts, sampled=(), expect=()
     return res, rids
 
 
-def phase_serve(torch, skt, cfg, label, n_a=16, n_b=12, wave_c=True, params=None, skip=(), cold=True):
-    """One main path: the default Engine serving Llama-3-8B on ``cfg`` in
-    waves A, B (+ C). Each wave's kernels must launch in it, K1 in every
-    regime the waves run; wave B hits exactly PREFIX tokens a prompt."""
+def phase_serve(torch, skt, cfg, label, n_a=16, n_b=12, wave_c=True, params=None, skip=(), cold=True, mixed=True):
+    """One main path: the default Engine serving ``cfg`` (Llama-3-8B or
+    DeepSeek-V2-Lite widths) in waves A, B (+ C). Each wave's kernels must
+    launch in it, K1 in every regime the waves run; wave B hits exactly
+    PREFIX tokens a prompt. Without ``mixed`` (a model with no mixed step)
+    wave C's chunks must all go by extend: zero mixed steps."""
     t0 = time.perf_counter()
     eng = skt.Engine(cfg, params, device=DEVICE, max_batch=16, page_size=64, num_pages=1024, seed=SEED,
                      prefill_chunk=1024)
@@ -768,9 +784,11 @@ def phase_serve(torch, skt, cfg, label, n_a=16, n_b=12, wave_c=True, params=None
     stats["capture"] = True
     bc, rids = run_wave(torch, skt, eng, stats, label, "B+C" if wave_c else "B", prompts_b + prompts_c,
                         expect=[k for k in kernels if k != "flash_attention_packed"], hits=n_b * PREFIX,
-                        min_mixed=1 if wave_c else 0)
+                        min_mixed=1 if wave_c and mixed else 0)
     stats["capture"] = False
-    want = {"prefill", "decode"} | ({"mixed"} if wave_c else set())
+    if not mixed and bc["mixed_steps"]:
+        fail(f"serve {label}: {bc['mixed_steps']} mixed steps on a model without one")
+    want = {"prefill", "decode"} | ({"mixed"} if wave_c and mixed else set())
     if "w4a16_gemm" not in skip and not all(stats["by_regime"][r] > 0 for r in want):
         fail(f"serve {label}: K1 launches by regime {stats['by_regime']}")
     res = dict(engine=label, waves=[a, bc], w4a16_by_regime=dict(stats["by_regime"]),
@@ -855,7 +873,351 @@ def phase_profile(torch, eng, lens, label):
     return res
 
 
+def v2_lite_cfg(torch, skt, **kw):
+    """DeepSeek-V2-Lite widths (deepseek-ai/DeepSeek-V2-Lite config.json) in
+    the JAX package's DSv3-style architecture, as
+    benchmark/bench_deepseek_e2e.py's v2_lite_cfg: 27 layers, hidden 2048, 16
+    heads (nope 128, v 128, latent 512, rope 64), 64 experts top-6 of 1,408,
+    one dense layer of 10,944, vocab 102,400; W4A16 with groups of 128.
+    max_position 8192 so that wave C's 4,096-token prompt and its outputs fit."""
+    return skt.DeepseekConfig(
+        vocab_size=102400, hidden_size=2048, num_layers=27, num_heads=16, qk_nope_dim=128, v_head_dim=128,
+        num_experts=64, num_experts_per_tok=6, moe_intermediate=1408, dense_intermediate=10944,
+        num_dense_layers=1, routed_scaling_factor=1.0, max_position=8192, dtype=torch.bfloat16, quant="w4a16",
+        group_size=128, **kw)
+
+
+def deepseek_step_bytes(cfg, batch=16, ctx=1024):
+    """The bytes one W4A16 decode step of ``cfg`` must read, from the shapes
+    ``models/deepseek.init_weights`` gives: every layer's attention linears
+    (packed codes and bf16 group scales), w_uk / w_uv (bf16), layer 0's
+    dense MLP (down's K padded to a multiple of 8 groups), each MoE layer's
+    shared expert, router and the routed experts that ``batch`` tokens of
+    top-k hit (the expected count E (1 - (1 - k/E)^batch) for uniform
+    routing), the lm_head; and, apart, the latent pool rows of ``batch``
+    sequences of ``ctx`` tokens. Returns (weight bytes, pool bytes, experts
+    hit)."""
+    g, h, nh = cfg.group_size, cfg.hidden_size, cfg.num_heads
+    pad = lambda k: -(-k // (8 * g)) * (8 * g) if k % g else k
+
+    def lin(n, k):
+        k = pad(k)
+        return k // 2 * n + 2 * (k // g) * n
+
+    attn = (lin(nh * (cfg.qk_nope_dim + 64), h) + lin(576, h) + lin(h, nh * cfg.v_head_dim)
+            + 2 * 2 * nh * cfg.qk_nope_dim * 512)
+    dense = 2 * lin(cfg.dense_intermediate, h) + lin(h, cfg.dense_intermediate)
+    e, k = cfg.num_experts, cfg.num_experts_per_tok
+    hit = e * (1 - (1 - k / e) ** batch)
+    moe = (2 * lin(cfg.moe_intermediate, h) + lin(h, cfg.moe_intermediate) + 2 * e * h
+           + hit * (lin(2 * cfg.moe_intermediate, h) + lin(h, cfg.moe_intermediate)))
+    n_moe = cfg.num_layers - cfg.num_dense_layers
+    weights = (cfg.num_layers * attn + cfg.num_dense_layers * dense + n_moe * moe
+               + lin(-(-cfg.vocab_size // 2048) * 2048, h))
+    return weights, batch * ctx * 576 * cfg.num_layers, hit
+
+
+def phase_deepseek_kernels(torch, skt):
+    """K11, K13a, K14 and K7 / K9 at 576 against their plain versions at the
+    V2-Lite path's shapes."""
+    from sgl_kernel_tpu_torch.ops import moe, rope
+    from sgl_kernel_tpu_torch.ops.activation import silu_and_mul
+    from sgl_kernel_tpu_torch.ops.attention import flash_packed, flash_prefill, mla
+    from sgl_kernel_tpu_torch.serving.engine import packed_layout
+
+    F = torch.nn.functional
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 5)
+    bf = torch.bfloat16
+    cfg = v2_lite_cfg(torch, skt)
+    h, e, k_top, inter, g = cfg.hidden_size, cfg.num_experts, cfg.num_experts_per_tok, cfg.moe_intermediate, 128
+    rows = {}
+
+    def randn(*shape, dtype=bf, scale=1.0):
+        return (torch.randn(shape, generator=gen, device=dev) * scale).to(dtype)
+
+    def bank(k, n):  # two stacked layers of random codes and scales; layer 1 is used
+        w = torch.randint(0, 256, (2, e, k // 2, n), generator=gen, device=dev, dtype=torch.int32).to(torch.uint8)
+        return w, (0.005 + 0.015 * torch.rand((2, e, k // g, n), generator=gen, device=dev)).to(bf)
+
+    def report(name, row, dev_fn=None):
+        lib = "null" if row["library_ms"] is None else f"{row['library_ms']:.4f}"
+        extra = f" graph_ms={graph_ms(torch, dev_fn):.4f}" if dev_fn is not None else ""
+        log(f"[kernel] {name}: ms={row['ms']:.4f}{extra} plain_ms={row['plain_ms']:.4f} library_ms={lib} "
+            f"bound_ms={row['bound_ms']:.4f} ({row['bound_by']})")
+        rows[name] = row
+
+    # K11: tokens routed by biased top-k on random logits, aligned, through
+    # gate_up [K 2048 -> N 2816] and down [1408 -> 2048]
+    w1, s1 = bank(h, 2 * inter)
+    w2, s2 = bank(inter, h)
+    for t, label in ((16, "decode"), (1024, "prefill")):
+        bm = moe.pick_block_size(t, k_top, e)
+        tw, tids = moe.biased_topk(torch.randn((t, e), generator=gen, device=dev), torch.zeros(e, device=dev), k_top,
+                                   renormalize=True, apply_routed_scaling_factor_on_output=True)
+        al = moe.moe_align_block_size(tids, tw, e, bm)
+        nv = int(al.num_valid_blocks)
+        hit = int((al.group_sizes > 0).sum())
+        x = moe.scatter_tokens_to_experts(randn(t, h), al)
+        pairs = t * k_top
+        steps = [("gate_up", x, w1, s1)]
+        if label == "decode":
+            steps.append(("down", silu_and_mul(moe.w4a16_grouped_mm(x, w1, s1, al.block_expert_ids, None, 1,
+                                                                    al.num_valid_blocks, bm=bm)), w2, s2))
+        for name, a, w, sc in steps:
+            kw = dict(bm=bm)
+            args = (a, w, sc, al.block_expert_ids, None, 1, al.num_valid_blocks)
+            out = moe.w4a16_grouped_mm(*args, **kw)
+            ref = moe.w4a16_grouped_mm_ref(*args, **kw)
+            err = check(f"w4a16_grouped_mm {label} {name} [cap {a.shape[0]}, bm {bm}, {nv} valid blocks, "
+                        f"{hit} experts]", [(out[: nv * bm], ref[: nv * bm])])
+            k, n = a.shape[1], w.shape[-1]
+            n_bytes = hit * (k // 2 * n + 2 * (k // g) * n) + pairs * (k + n) * 2 + 4 * (al.block_expert_ids.numel() + 1)
+            bms, bby = bound_ms(n_bytes, 2 * pairs * k * n, BF16_FLOPS)
+            report(f"w4a16_grouped_mm_{label}_{name}", dict(
+                max_abs_err=err, ms=time_ms(torch, lambda: moe.w4a16_grouped_mm(*args, **kw)),
+                plain_ms=time_ms(torch, lambda: moe.w4a16_grouped_mm_ref(*args, **kw), iters=2, warmup=1),
+                library_ms=None, library_note="no PyTorch call computes a grouped int4 GEMM",
+                bound_ms=bms, bound_by=bby, valid_blocks=nv, experts_hit=hit),
+                (lambda: moe.w4a16_grouped_mm(*args, **kw)) if label == "decode" else None)
+    del w1, s1, w2, s2
+
+    # K13a: B=16, contexts 1..1056 (the current token included), page 64,
+    # 128-entry page tables, a two-layer pool (layer 1), bf16 / int8 / e4m3
+    b, page, nh = 16, 64, cfg.num_heads
+    lengths_l = [1 + (1055 * i) // (b - 1) for i in range(b)]
+    n_used = [-(-n // page) for n in lengths_l]
+    n_pages = sum(n_used) + 1
+    perm = torch.randperm(n_pages - 1, generator=gen, device=dev) + 1
+    table = torch.zeros((b, cfg.max_position // page), dtype=torch.int32, device=dev)
+    at = 0
+    for i, n in enumerate(n_used):
+        table[i, :n] = perm[at: at + n]
+        at += n
+    lengths = torch.tensor(lengths_l, dtype=torch.int32, device=dev)
+    qn, qp = randn(b, nh, 512, scale=0.3), randn(b, nh, 64, scale=0.3)
+    shape = (2, n_pages, page, 576)
+    sm = 1.0 / (cfg.qk_nope_dim + 64) ** 0.5
+    for kind, dt, scale in (("bf16", bf, None), ("int8", torch.int8, 1 / 16), ("e4m3", torch.float8_e4m3fn, 0.5)):
+        if dt == torch.int8:
+            pool = torch.randint(-127, 128, shape, generator=gen, device=dev, dtype=torch.int32).to(dt)
+        else:
+            pool = randn(*shape, dtype=dt, scale=1.0 if dt == bf else 2.0)
+        kw = dict(sm_scale=sm * (scale or 1.0), return_lse=True)
+        fn = lambda: mla.mla_decode(qn, qp, pool, lengths, table, 1, **kw)
+        out, lse = fn()
+        ref, ref_lse = mla.mla_decode_ref(qn, qp, pool, lengths, table, 1, **kw)
+        err = check(f"mla_decode {kind} pool [16, ctx 1..1056]", [(out, ref), (lse, ref_lse)])
+        n_bytes = sum(lengths_l) * 576 * pool.element_size() + b * nh * (576 + 512) * 2 + b * nh * 4 + sum(n_used) * 4
+        bms, bby = bound_ms(n_bytes, 2 * nh * (576 + 512) * sum(lengths_l), BF16_FLOPS)
+        report("mla_decode" + ("" if kind == "bf16" else f"_{kind}"), dict(
+            max_abs_err=err, ms=time_ms(torch, fn),
+            plain_ms=time_ms(torch, lambda: mla.mla_decode_ref(qn, qp, pool, lengths, table, 1, **kw)),
+            library_ms=None, library_note="no PyTorch call attends over a paged pool", bound_ms=bms, bound_by=bby),
+            fn)
+        del pool
+
+    # K14: 16 decode tokens, layer 26 of the stacked norm weight
+    t, dn = 16, cfg.qk_nope_dim
+    q = randn(t, nh, dn + 64)
+    kv = randn(t, 576, scale=2.0)
+    w = (1 + 0.1 * torch.randn((cfg.num_layers, 512), generator=gen, device=dev)).to(bf)
+    cache = rope.compute_cos_sin_cache(64, cfg.max_position, cfg.rope_theta, device=dev)
+    pos = torch.randint(0, 4096, (t,), generator=gen, device=dev, dtype=torch.int32)
+    kw = dict(nope_dim=dn, eps=cfg.rms_eps)
+    fn = lambda: rope.mla_qkv_prep(pos, 26, q, kv, w, cache, **kw)
+    err = check("mla_qkv_prep [16 tokens]", list(zip(fn(), rope.mla_qkv_prep_ref(pos, 26, q, kv, w, cache, **kw))))
+    n_bytes = 2 * 2 * t * (nh * (dn + 64) + 576) + 512 * 2 + t * 64 * 4 + t * 4
+    bms, bby = bound_ms(n_bytes, t * (nh * 64 * 3 + 512 * 4 + 64 * 3), F32_FLOPS)
+    report("mla_qkv_prep", dict(max_abs_err=err, ms=time_ms(torch, fn),
+                                plain_ms=time_ms(torch, lambda: rope.mla_qkv_prep_ref(pos, 26, q, kv, w, cache, **kw)),
+                                library_ms=None, library_note="no single PyTorch call", bound_ms=bms, bound_by=bby), fn)
+
+    # K7 at 576: the two extend passes of prefill_extend, 512 fresh latent
+    # rows over a 512-row prefix, with lse
+    s = pre = 512
+    q = randn(1, s, nh, 576, scale=0.3)
+    k1, k2 = randn(1, s, 1, 576), randn(1, pre, 1, 576)
+    v1, v2 = (F.pad(x[..., :512], (0, 64)) for x in (k1, k2))
+    ql = torch.tensor([s], dtype=torch.int32, device=dev)
+    pl_ = torch.tensor([pre], dtype=torch.int32, device=dev)
+    zero = torch.zeros_like(pl_)
+
+    def passes(fn):
+        return (fn(q, k1, v1, ql, ql, None, pl_, pl_, causal=True, sm_scale=sm, return_lse=True)
+                + fn(q, k2, v2, ql, pl_, None, pl_, zero, causal=True, sm_scale=sm, return_lse=True))
+
+    err = check("flash_attention 576 lse, extend 512 over 512",
+                list(zip(passes(flash_prefill.flash_attention), passes(flash_prefill.flash_attention_ref))))
+    n_bytes = (s * nh * 576 + 2 * (s + pre) * 576) * 2 + 2 * (s * nh * 576 * 2 + nh * s * 4)
+    bms, bby = bound_ms(n_bytes, 4 * nh * 576 * (s * (s + 1) // 2 + s * pre), BF16_FLOPS)
+    qt = q.transpose(1, 2)
+    kt, vt = (torch.cat([a, c], 1).transpose(1, 2) for a, c in ((k2, k1), (v2, v1)))
+    mask = torch.arange(pre + s, device=dev)[None, :] <= (pre + torch.arange(s, device=dev))[:, None]
+    lib_fn = lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask, scale=sm, enable_gqa=True)
+    report("flash_attention_576_lse", dict(
+        max_abs_err=err, ms=time_ms(torch, lambda: passes(flash_prefill.flash_attention)),
+        plain_ms=time_ms(torch, lambda: passes(flash_prefill.flash_attention_ref), iters=3),
+        library_ms=time_ms(torch, lib_fn), library_note="SDPA with the extend mask: the merged output, no lse",
+        bound_ms=bms, bound_by=bby))
+
+    # K9 at 576: wave A's packing (16 prompts of 16..1024 tokens, block 256)
+    lens = serve_lens(16)
+    blk_seq, blk_q0, seq_meta, tok0, tp, max_kvb = packed_layout(lens, 17)
+    ints = [torch.from_numpy(a).to(dev) for a in (blk_seq, blk_q0, seq_meta)]
+    q, k = randn(tp, nh, 576, scale=0.3), randn(tp, 1, 576)
+    v = F.pad(k[..., :512], (0, 64))
+    kw = dict(max_kvb=max_kvb, causal=True, sm_scale=sm, return_lse=True)
+    out, lse = flash_packed.flash_attention_packed(q, k, v, *ints, **kw)
+    ref, ref_lse = flash_packed.flash_attention_packed_ref(q, k, v, *ints, **kw)
+    pairs = []
+    for t0, n in zip(tok0, lens):
+        pairs += [(out[t0: t0 + n], ref[t0: t0 + n]), (lse[:, t0: t0 + n], ref_lse[:, t0: t0 + n])]
+    err = check(f"flash_attention_packed 576 [{tp} tokens, 16 prompts, lse]", pairs)
+    n_tok = sum(lens)
+    n_bytes = n_tok * (nh + 2) * 576 * 2 + tp * nh * 576 * 2 + nh * tp * 4
+    bms, bby = bound_ms(n_bytes, 4 * nh * 576 * sum(n * (n + 1) // 2 for n in lens), BF16_FLOPS)
+    lib_fn, lib_note = packed_library(torch, F, q, k, v, lens, tok0, ref, scale=sm)
+    log(f"[kernel] flash_attention_packed 576 library: {lib_note}")
+    report("flash_attention_packed_576", dict(
+        max_abs_err=err, ms=time_ms(torch, lambda: flash_packed.flash_attention_packed(q, k, v, *ints, **kw)),
+        plain_ms=time_ms(torch, lambda: flash_packed.flash_attention_packed_ref(q, k, v, *ints, **kw), iters=2,
+                         warmup=1),
+        library_ms=None if lib_fn is None else time_ms(torch, lib_fn), library_note=lib_note,
+        bound_ms=bms, bound_by=bby))
+    return rows
+
+
+class RoutingReplay:
+    """Routing of the DeepSeek model recorded on the CPU and replayed on the
+    card: the card computes its own top-k, counts the tokens whose expert
+    set differs from the CPU's (a flip between near-tied experts, from bf16
+    sums in another order), and continues with the CPU's choice, so the
+    rest of the comparison holds both sides to the same routing."""
+
+    def __init__(self, module):
+        self.module, self.orig = module, module.biased_topk
+        self.calls, self.mode, self.at, self.flips, self.tokens = [], "record", 0, 0, 0
+        module.biased_topk = self
+
+    def __call__(self, *args, **kw):
+        w, ids = self.orig(*args, **kw)
+        if self.mode == "record":
+            self.calls.append((w.cpu(), ids.cpu()))
+            return w, ids
+        rw, rids = self.calls[self.at]
+        self.at += 1
+        same = (ids.sort(-1).values.cpu() == rids.sort(-1).values).all(-1)
+        self.flips += int((~same).sum())
+        self.tokens += int(same.numel())
+        return rw.to(w.device), rids.to(ids.device)
+
+    def restore(self):
+        self.module.biased_topk = self.orig
+
+
+def phase_parity_deepseek(torch, skt, cfg, label):
+    """V2-Lite widths cut to 2 layers (layer 0 dense, layer 1 MoE): the card
+    against the CPU on the same weights (drawn on the card, copied to the
+    CPU): prefill, 4 decode steps, prefill_packed and prefill_extend."""
+    from sgl_kernel_tpu_torch.models import deepseek as ds
+    from sgl_kernel_tpu_torch.serving.engine import packed_layout
+
+    cfg = dataclasses.replace(cfg, num_layers=2)
+    t0 = time.perf_counter()
+    params_gpu = ds.init_weights(cfg, torch.Generator(device=DEVICE).manual_seed(SEED), device=DEVICE)
+    to_cpu = lambda v: {k: to_cpu(x) for k, x in v.items()} if isinstance(v, dict) else v.cpu()
+    params_cpu = to_cpu(params_gpu)
+    page, n_pages, bucket = 64, 8, 64
+    sides = {dev: dict(params=params_cpu if dev == "cpu" else params_gpu,
+                       kv=ds.make_cache(cfg, n_pages, page, device=dev), rope=ds.build_rope_cache(cfg, device=dev))
+             for dev in ("cpu", DEVICE)}
+    rng = torch.Generator().manual_seed(SEED + 1)
+    prompts = [torch.randint(0, cfg.vocab_size, (n,), generator=rng).tolist() for n in (40, 23)]
+    pages = [[1, 2], [3, 4]]
+    slot = lambda i, p: pages[i][p // page] * page + p % page
+    replay = RoutingReplay(ds)
+
+    def run(name, *arrays, **kw):
+        out = {}
+        for dev in ("cpu", DEVICE):
+            replay.mode, sd = ("record", sides["cpu"]) if dev == "cpu" else ("replay", sides[DEVICE])
+            ts = [None if a is None else torch.tensor(a, dtype=torch.int32, device=dev) for a in arrays]
+            logits, sd["kv"] = getattr(ds, name)(sd["params"], cfg, sd["kv"], *ts, sd["rope"], **kw)
+            out[dev] = logits.float().cpu()
+        return out["cpu"], out[DEVICE]
+
+    tol = 0.25  # as the Llama parity: bf16 activations rounded in another order through 2 layers
+    worst, near_ties, steps = 0.0, 0, 0
+
+    def compare(lc, lg, what):
+        nonlocal worst, near_ties, steps
+        if not torch.isfinite(lg).all():
+            fail(f"parity {label} {what}: non-finite logits on the card")
+        err = float((lc - lg).abs().max())
+        worst = max(worst, err)
+        if err > tol:
+            fail(f"parity {label} {what}: logits differ by {err} > {tol}")
+        for row_c, row_g in zip(lc, lg):
+            tc, tg = int(row_c.argmax()), int(row_g.argmax())
+            steps += 1
+            if tc != tg:
+                if float(row_c[tc] - row_c[tg]) > tol:
+                    fail(f"parity {label} {what}: greedy token {tg} on the card, {tc} on the CPU")
+                near_ties += 1
+        return lc.argmax(-1).tolist()
+
+    try:
+        seqs = []
+        for i, pr in enumerate(prompts):
+            n = len(pr)
+            tok = [pr + [0] * (bucket - n)]
+            pos = [list(range(n)) + [0] * (bucket - n)]
+            sl = [[slot(i, p) for p in range(n)] + [-1] * (bucket - n)]
+            seqs.append(pr + compare(*run("prefill", tok, pos, [n], sl), f"prefill {i}"))
+        for step in range(4):
+            tokens = [sq[-1] for sq in seqs] + [0, 0]
+            positions = [len(sq) - 1 for sq in seqs] + [0, 0]
+            lengths = [len(sq) for sq in seqs] + [0, 0]
+            slots = [slot(i, len(sq) - 1) for i, sq in enumerate(seqs)] + [-1, -1]
+            tables = [p + [0] * (8 - len(p)) for p in pages] + [[0] * 8] * 2
+            lc, lg = run("decode_step", tokens, positions, tables, lengths, slots)
+            for sq, t in zip(seqs, compare(lc[:2], lg[:2], f"decode {step}")):
+                sq.append(t)
+        for dev in ("cpu", DEVICE):
+            sides[dev]["kv"] = ds.make_cache(cfg, n_pages, page, device=dev)
+        lens = [len(p) for p in prompts]
+        blk_seq, blk_q0, seq_meta, tok0, tp, max_kvb = packed_layout(lens, 3)
+        tokens, positions, slots = [0] * tp, [0] * tp, [-1] * tp
+        for i, (pr, t) in enumerate(zip(prompts, tok0)):
+            tokens[t: t + len(pr)], positions[t: t + len(pr)] = pr, list(range(len(pr)))
+            slots[t: t + len(pr)] = [slot(i, p) for p in range(len(pr))]
+        last = [t + n - 1 for t, n in zip(tok0, lens)] + [0]
+        lc, lg = run("prefill_packed", None, None, tokens, positions, blk_seq, blk_q0, seq_meta, last, slots,
+                     max_kvb=max_kvb)
+        compare(lc[:2], lg[:2], "prefill_packed")
+        ext = torch.randint(0, cfg.vocab_size, (23,), generator=rng).tolist()
+        n0, s = lens[0], 32
+        pad = lambda xs, fill: xs + [fill] * (s - len(xs))
+        lc, lg = run("prefill_extend", [pad(ext, 0)], [pad(list(range(n0, n0 + 23)), 0)], [23], [n0 + 23],
+                     [pages[0] + [0] * 6], [pad([slot(0, p) for p in range(n0, n0 + 23)], -1)], prefix_max=page)
+        compare(lc, lg, "prefill_extend")
+    finally:
+        replay.restore()
+    res = dict(max_logit_diff=worst, near_ties=near_ties, steps=steps, routing_flips=replay.flips,
+               routed_tokens=replay.tokens)
+    log(f"[parity] deepseek {label} 2-layer V2-Lite widths, card vs CPU (prefill, 4 decode steps, prefill_packed, "
+        f"prefill_extend): max |logit diff|={worst:.4g} (tol {tol}), greedy near-ties={near_ties}/{steps}, "
+        f"routing flips replayed={replay.flips}/{replay.tokens} routed tokens, {time.perf_counter() - t0:.1f} s")
+    del params_gpu, sides
+    free_memory(torch)
+    return res
+
+
 def main():
+    import faulthandler
+
+    faulthandler.enable()  # a crash in native code prints the Python stack
     import torch
 
     if not torch.cuda.is_available():
@@ -880,15 +1242,18 @@ def main():
     rows = phase_kernels(torch, skt)
     torch.cuda.empty_cache()
     rows.update(phase_w4a16(torch, skt))
+    torch.cuda.empty_cache()
+    rows.update(phase_deepseek_kernels(torch, skt))
+    torch.cuda.empty_cache()
     bf16_cfg = skt.LlamaConfig.llama3_8b(fused=True)
     w4_cfg = skt.LlamaConfig.llama3_8b(quant="w4a16", fused=True)
     parity = {label: phase_parity(torch, skt, c, label) for label, c in (("bf16", bf16_cfg), ("w4a16", w4_cfg))}
     torch.cuda.empty_cache()
-    serve, eng, lens = phase_serve(torch, skt, bf16_cfg, "bf16", skip=("w4a16_gemm",))
+    serve, eng, lens = phase_serve(torch, skt, bf16_cfg, "bf16", skip=("w4a16_gemm",) + DEEPSEEK_ONLY)
     profile = {"bf16": phase_profile(torch, eng, lens, "bf16")}
     del eng
     free_memory(torch)
-    w4, eng, lens = phase_serve(torch, skt, w4_cfg, "w4a16")
+    w4, eng, lens = phase_serve(torch, skt, w4_cfg, "w4a16", skip=DEEPSEEK_ONLY)
     profile["w4a16"] = phase_profile(torch, eng, lens, "w4a16")
     params = eng.params
     del eng
@@ -896,10 +1261,28 @@ def main():
     # the same W4A16 weights over int8 KV pools (bench.py:121's kv_scale)
     int8_cfg = dataclasses.replace(w4_cfg, kv_dtype=torch.int8, kv_scale=1 / 16)
     int8, eng, _ = phase_serve(torch, skt, int8_cfg, "w4a16-int8kv", n_a=4, n_b=4, wave_c=False, params=params,
-                               cold=False)
+                               cold=False, skip=DEEPSEEK_ONLY)
     if eng.caches[0].dtype != torch.int8:
         fail(f"serve w4a16-int8kv: pools are {eng.caches[0].dtype}")
     del eng, params
+    free_memory(torch)
+
+    # the DeepSeek path: V2-Lite widths, W4A16, int8 latent (bench.py's
+    # DeepSeek headline configuration), at full depth
+    ds_cfg = v2_lite_cfg(torch, skt, kv_dtype=torch.int8, kv_scale=1 / 16)
+    w_bytes, pool_bytes, hit = deepseek_step_bytes(ds_cfg)
+    log(f"[bound] deepseek W4A16 decode step, B=16: {w_bytes / 1e9:.4f} GB of weights ({hit:.2f} of 64 experts "
+        f"hit per MoE layer) -> {1e3 * w_bytes / HBM_BYTES_PER_S:.4f} ms at 3.35 TB/s; int8 latent rows at a "
+        f"1,024-token context {pool_bytes / 1e9:.4f} GB more")
+    parity.update({f"deepseek-{lab}": phase_parity_deepseek(torch, skt, c, lab)
+                   for lab, c in (("bf16-latent", v2_lite_cfg(torch, skt)), ("int8-latent", ds_cfg))})
+    ds, eng, lens = phase_serve(torch, skt, ds_cfg, "deepseek-w4a16-int8",
+                                skip=("rope_decode_fused_qkv", "paged_attention_decode_dma", "store_cache_all_layers"),
+                                mixed=False)
+    if eng.caches[0].dtype != torch.int8:
+        fail(f"serve deepseek: the latent pool is {eng.caches[0].dtype}")
+    profile["deepseek-w4a16-int8"] = phase_profile(torch, eng, lens, "deepseek-w4a16-int8")
+    del eng
     free_memory(torch)
 
     meta = {
@@ -917,19 +1300,29 @@ def main():
                             "sgl_kernel_tpu/ops/attention/flash_prefill.py:165", "flash_attention"),
         "flash_attention_packed": ("cuda", "sgl_kernel_tpu_torch/csrc/flash_packed.cu",
                                    "sgl_kernel_tpu/ops/attention/flash_packed.py:195", "flash_attention_packed"),
+        "w4a16_grouped_mm": ("cuda", "sgl_kernel_tpu_torch/csrc/grouped_gemm.cu",
+                             "sgl_kernel_tpu/ops/moe/grouped_gemm.py:259", "w4a16_grouped_mm_decode_gate_up"),
+        "mla_decode": ("cuda", "sgl_kernel_tpu_torch/csrc/mla_decode.cu", "sgl_kernel_tpu/ops/attention/mla.py:375",
+                       "mla_decode_int8"),
+        "mla_qkv_prep": ("triton", "sgl_kernel_tpu_torch/ops/rope.py", "sgl_kernel_tpu/ops/rope.py:295",
+                         "mla_qkv_prep"),
     }
     kernels = []
-    # launches: this slice's main path, the W4A16 engine's waves in phase 4
+    # launches: the main paths' waves in phase 4, counted from 0 before each
+    # wave: the W4A16 Llama engine's and the DeepSeek engine's
     for name, (route, src, repl, row) in meta.items():
         r = rows[row]
         kernels.append(dict(name=name, route=route, source=src, replaces=repl,
-                            launches=w4["launches"][name], max_abs_err=r["max_abs_err"], ms=r["ms"],
-                            plain_ms=r["plain_ms"], bound_ms=r["bound_ms"], bound_by=r["bound_by"],
+                            launches=w4["launches"][name] + ds["launches"][name], max_abs_err=r["max_abs_err"],
+                            ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"], bound_by=r["bound_by"],
                             library_ms=r["library_ms"]))
     log("[kernel] rmsnorm at [1024, 4096]: " + json.dumps(rows["rmsnorm_1024"]))
-    for name in ("paged_attention_decode_dma_int8", "paged_attention_decode_dma_e4m3", "flash_attention_lse"):
+    for name in ("paged_attention_decode_dma_int8", "paged_attention_decode_dma_e4m3", "flash_attention_lse",
+                 "w4a16_grouped_mm_decode_down", "w4a16_grouped_mm_prefill_gate_up", "mla_decode", "mla_decode_e4m3",
+                 "flash_attention_576_lse", "flash_attention_packed_576"):
         log(f"[kernel] {name}: " + json.dumps(rows[name]))
-    log(json.dumps({"card": card, "parity": parity, "serve": {"bf16": serve, "w4a16": w4, "w4a16-int8kv": int8},
+    log(json.dumps({"card": card, "parity": parity,
+                    "serve": {"bf16": serve, "w4a16": w4, "w4a16-int8kv": int8, "deepseek-w4a16-int8": ds},
                     "profile": profile}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -25,8 +25,14 @@
 // kv extent does. The TPU kernel's clamped index maps, which made skipped
 // steps re-fetch nothing, have no counterpart: skipped tiles are never
 // visited.
+//
+// Head dim 576 (DeepSeek MLA packed prefill, deepseek.py:444-459: q
+// [TP, 16, 576] against one latent K/V head) takes K7's 576 tile
+// (mla_tile.cuh): a block's 16 rows are consecutive (position, head) pairs
+// of one packed q block and KV head, one position's 16 heads for MLA.
 
 #include "flash_tile.cuh"
+#include "mla_tile.cuh"
 
 namespace {
 
@@ -62,9 +68,48 @@ __global__ void __launch_bounds__(skt::kFlashThreads) packed_kernel(
                      skt::kFlashBQ, q_len - q0, kv_len, q_start + q0, kv_start, causal, scale_log2);
 }
 
+__global__ void __launch_bounds__(skt::kMlaThreads) packed576_kernel(
+    const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
+    const int* __restrict__ blk_seq, const int* __restrict__ blk_q0, const int* __restrict__ seq_meta,
+    bf16* __restrict__ out, float* __restrict__ lse, int tp, int block, int n_q_heads, int n_kv_heads,
+    int max_kvb, int causal, float scale_log2) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  constexpr int D = skt::kMlaD;
+  const int group = n_q_heads / n_kv_heads;
+  const int tiles = block * group / skt::kMlaRows;
+  const int nb = blockIdx.x / tiles;
+  const int r0 = (blockIdx.x % tiles) * skt::kMlaRows;  // first (position, head) row in the q block
+  const int hk = blockIdx.y;
+  const int* meta = seq_meta + blk_seq[nb] * 6;
+  const int q0 = blk_q0[nb];
+  const int q_len = meta[0];
+  const int kv_len = min(min(meta[1], meta[5] * block), max_kvb * block);
+  const int q_start = meta[2];
+  const int kv_start = meta[3];
+  // the last row that sees keys sets the causal limit
+  const int last_vis = min((r0 + skt::kMlaRows - 1) / group, q_len - q0 - 1);
+  int kv_end = last_vis >= r0 / group ? kv_len : 0;
+  if (causal && kv_end > 0) kv_end = min(kv_end, max(0, q_start + q0 + last_vis - kv_start + 1));
+  auto offset = [&](int r) {
+    const long long row = (long long)nb * block + (r0 + r) / group;
+    return row * n_q_heads * D + (long long)(hk * group + (r0 + r) % group) * D;
+  };
+  const long long kv_off = (long long)meta[4] * block * n_kv_heads * D + (long long)hk * D;
+  skt::mla_flash_rows(
+      smem, [&](int r) { return q + offset(r); }, k + kv_off, v + kv_off, (long long)n_kv_heads * D, kv_len,
+      kv_end, kv_start, causal, [&](int r) { return q_start + q0 + (r0 + r) / group; },
+      [&](int r) { return q0 + (r0 + r) / group < q_len; }, [&](int r) { return out + offset(r); },
+      [&](int r) -> float* {
+        if (lse == nullptr) return nullptr;
+        return lse + (long long)(hk * group + (r0 + r) % group) * tp + (long long)nb * block + (r0 + r) / group;
+      },
+      scale_log2);
+}
+
 }  // namespace
 
-// Supported: head_dim 64 or 128, bf16, Hq a multiple of Hkv, block a
+// Supported: head_dim 64, 128 or 576 (576: Hq / Hkv dividing 16 or a
+// multiple of 16), bf16, Hq a multiple of Hkv, block a
 // multiple of 64. tp = NQB * block. lse may be null.
 extern "C" int skt_flash_packed(
     const void* q, const void* k, const void* v, const void* blk_seq, const void* blk_q0,
@@ -82,6 +127,16 @@ extern "C" int skt_flash_packed(
     case 128:
       packed_kernel<128><<<grid, skt::kFlashThreads, 0, st>>>((const bf16*)q, (const bf16*)k, (const bf16*)v, (const int*)blk_seq, (const int*)blk_q0, (const int*)seq_meta, (bf16*)out, (float*)lse, tp, block, n_q_heads, n_kv_heads, max_kvb, causal, sl);
       break;
+    case 576: {
+      const int group = n_q_heads / n_kv_heads;
+      if (skt::kMlaRows % group && group % skt::kMlaRows) return (int)cudaErrorInvalidValue;
+      constexpr size_t bytes = skt::MlaSmem<true>::kBytes;
+      cudaError_t err = cudaFuncSetAttribute(packed576_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+      if (err != cudaSuccess) return (int)err;
+      dim3 grid576(nqb * (block * group / skt::kMlaRows), n_kv_heads);
+      packed576_kernel<<<grid576, skt::kMlaThreads, bytes, st>>>((const bf16*)q, (const bf16*)k, (const bf16*)v, (const int*)blk_seq, (const int*)blk_q0, (const int*)seq_meta, (bf16*)out, (float*)lse, tp, block, n_q_heads, n_kv_heads, max_kvb, causal, sl);
+      break;
+    }
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -19,8 +19,17 @@
 // sequence) runs the tile loop of flash_tile.cuh, shared with K9. The TPU
 // kernel's head-major transpose is not needed: the kernel reads the
 // [B, S, H, D] layout with strides.
+//
+// Head dim 576 (DeepSeek MLA prefill: q [B, S, 16, 576], one latent K/V
+// head, V zero past 512, mla.py:520-557) takes another tile: the 16 query
+// rows of a block are the (position, head) pairs of one KV head in order,
+// which for 16 heads over one KV head is one position's heads, so each K/V
+// tile is read once for all of them (mla_tile.cuh, mma.sync). Grid: one
+// block per 16 such rows, per KV head and sequence; the causal limit is the
+// block's last position.
 
 #include "flash_tile.cuh"
+#include "mla_tile.cuh"
 
 namespace {
 
@@ -54,9 +63,47 @@ __global__ void __launch_bounds__(skt::kFlashThreads) flash_kernel(
                      rows, see_rows, kv_len, q_start + q0, kv_start, causal, scale_log2);
 }
 
+__global__ void __launch_bounds__(skt::kMlaThreads) flash576_kernel(
+    const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
+    const int* __restrict__ lens, bf16* __restrict__ out, float* __restrict__ lse, int sq, int skv,
+    int n_q_heads, int n_kv_heads, int causal, float scale_log2) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  constexpr int D = skt::kMlaD;
+  const int group = n_q_heads / n_kv_heads;
+  const int hk = blockIdx.y, b = blockIdx.z;
+  const int r0 = blockIdx.x * skt::kMlaRows;  // first (position, head) row of the KV head
+  const int total = sq * group;
+  const int q_len = lens[b * 4 + 0];
+  const int kv_len = min(lens[b * 4 + 1], skv);
+  const int q_start = lens[b * 4 + 2];
+  const int kv_start = lens[b * 4 + 3];
+  const int last_pos = (min(total, r0 + skt::kMlaRows) - 1) / group;
+  // padding rows of a block that starts before q_len attend like valid rows
+  const bool see = r0 / group < q_len;
+  int kv_end = see ? kv_len : 0;
+  if (causal && kv_end > 0) kv_end = min(kv_end, max(0, q_start + last_pos - kv_start + 1));
+  auto offset = [&](int r) {
+    const int pos = (r0 + r) / group, head = hk * group + (r0 + r) % group;
+    return ((long long)b * sq + pos) * n_q_heads * D + (long long)head * D;
+  };
+  const long long kv_off = (long long)b * skv * n_kv_heads * D + (long long)hk * D;
+  skt::mla_flash_rows(
+      smem, [&](int r) { return r0 + r < total ? q + offset(r) : nullptr; }, k + kv_off, v + kv_off,
+      (long long)n_kv_heads * D, kv_len, kv_end, kv_start, causal,
+      [&](int r) { return q_start + (r0 + r) / group; }, [&](int) { return see; },
+      [&](int r) { return out + offset(r); },
+      [&](int r) -> float* {
+        if (lse == nullptr) return nullptr;
+        const int pos = (r0 + r) / group, head = hk * group + (r0 + r) % group;
+        return lse + ((long long)b * n_q_heads + head) * sq + pos;
+      },
+      scale_log2);
+}
+
 }  // namespace
 
-// Supported: head_dim 64 or 128, bf16, Hq a multiple of Hkv. lse may be null.
+// Supported: head_dim 64, 128 or 576 (576: Hq / Hkv dividing 16 or a
+// multiple of 16), bf16, Hq a multiple of Hkv. lse may be null.
 extern "C" int skt_flash_prefill(
     const void* q, const void* k, const void* v, const void* lens, void* out, void* lse,
     int batch, int sq, int skv, int n_q_heads, int n_kv_heads, int head_dim,
@@ -71,6 +118,16 @@ extern "C" int skt_flash_prefill(
     case 128:
       flash_kernel<128><<<grid, skt::kFlashThreads, 0, st>>>((const bf16*)q, (const bf16*)k, (const bf16*)v, (const int*)lens, (bf16*)out, (float*)lse, sq, skv, n_q_heads, n_kv_heads, causal, sl);
       break;
+    case 576: {
+      const int group = n_q_heads / n_kv_heads;
+      if (skt::kMlaRows % group && group % skt::kMlaRows) return (int)cudaErrorInvalidValue;
+      constexpr size_t bytes = skt::MlaSmem<true>::kBytes;
+      cudaError_t err = cudaFuncSetAttribute(flash576_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+      if (err != cudaSuccess) return (int)err;
+      dim3 grid576((sq * group + skt::kMlaRows - 1) / skt::kMlaRows, n_kv_heads, batch);
+      flash576_kernel<<<grid576, skt::kMlaThreads, bytes, st>>>((const bf16*)q, (const bf16*)k, (const bf16*)v, (const int*)lens, (bf16*)out, (float*)lse, sq, skv, n_q_heads, n_kv_heads, causal, sl);
+      break;
+    }
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -1,5 +1,5 @@
 """Attention operators: flash prefill (K7), packed flash prefill (K9), paged
-decode (K5), state merge."""
+decode (K5), MLA decode (K13a) and prefill, state merge."""
 
 from .flash_packed import (
     build_packed_metadata,
@@ -11,4 +11,5 @@ from .flash_packed import (
 )
 from .flash_prefill import flash_attention, flash_attention_ref
 from .merge_state import merge_state, merge_states
+from .mla import D_CKV, D_CKV_PAD, D_LATENT, D_ROPE, mla_decode, mla_decode_ref, mla_prefill
 from .paged_decode_dma import paged_attention_decode_dma, paged_attention_decode_ref

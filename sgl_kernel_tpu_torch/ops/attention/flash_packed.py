@@ -167,8 +167,9 @@ def flash_attention_packed(q, k, v, blk_seq, blk_q0, seq_meta, *, max_kvb: int, 
     [NQB] and seq_meta [B, 6] int32; ``max_kvb`` caps the kv blocks a
     sequence may see (the TPU grid's kv extent). Returns out [TPq, Hq, D]
     (+ lse [Hq, TPq] float32 base 2 when return_lse). CUDA tensors go through
-    the K9 kernel, which takes bf16, head_dim 64 or 128, a block that is a
-    multiple of 64, and no window, softcap or sinks."""
+    the K9 kernel, which takes bf16, head_dim 64, 128 or 576 (576: the MLA
+    prefill, with Hq / Hkv dividing 16 or a multiple of 16), a block that is
+    a multiple of 64, and no window, softcap or sinks."""
     if q.device.type != "cuda":
         return flash_attention_packed_ref(
             q, k, v, blk_seq, blk_q0, seq_meta, max_kvb=max_kvb, causal=causal, sm_scale=sm_scale,
@@ -178,7 +179,8 @@ def flash_attention_packed(q, k, v, blk_seq, blk_q0, seq_meta, *, max_kvb: int, 
         raise NotImplementedError("flash_attention_packed: the CUDA kernel takes no sinks, window or softcap yet")
     tp, hq, d = q.shape
     hkv = k.shape[1]
-    if (hq % hkv or d not in (64, 128) or k.shape != v.shape or k.shape[2] != d or block % 64
+    if (hq % hkv or d not in (64, 128, 576) or k.shape != v.shape or k.shape[2] != d or block % 64
+            or (d == 576 and 16 % (hq // hkv) and (hq // hkv) % 16)
             or tp % block or k.shape[0] % block or blk_seq.shape[0] != tp // block):
         raise ValueError(f"flash_attention_packed: unsupported shapes q {tuple(q.shape)} k {tuple(k.shape)} "
                          f"blocks {tuple(blk_seq.shape)} of {block}")

@@ -83,8 +83,9 @@ def flash_attention(q, k, v, q_lens=None, kv_lens=None, sinks=None, q_start=None
     kv row 0 (defaults kv_len - q_len and 0). Returns out [B, Sq, Hq, D]
     (+ lse [B, Hq, Sq] float32 base 2 when return_lse; a row that sees no
     key has o = 0 and lse -1e30 * log2(e)). CUDA tensors go through the K7
-    kernel, which takes bf16, head_dim 64 or 128, and neither sinks, window
-    nor softcap."""
+    kernel, which takes bf16, head_dim 64, 128 or 576 (576: the MLA prefill,
+    with Hq / Hkv dividing 16 or a multiple of 16), and neither sinks,
+    window nor softcap."""
     if q.device.type != "cuda":
         return flash_attention_ref(
             q, k, v, q_lens, kv_lens, sinks, q_start, kv_start, causal=causal,
@@ -94,7 +95,8 @@ def flash_attention(q, k, v, q_lens=None, kv_lens=None, sinks=None, q_start=None
         raise NotImplementedError("flash_attention: the CUDA kernel takes no sinks, window or softcap yet")
     b, sq, hq, d = q.shape
     skv, hkv = k.shape[1], k.shape[2]
-    if hq % hkv or d not in (64, 128) or k.shape != v.shape or k.shape[0] != b or k.shape[3] != d:
+    if (hq % hkv or d not in (64, 128, 576) or k.shape != v.shape or k.shape[0] != b or k.shape[3] != d
+            or (d == 576 and 16 % (hq // hkv) and (hq // hkv) % 16)):
         raise ValueError(f"flash_attention: unsupported shapes q {tuple(q.shape)} k {tuple(k.shape)}")
     if not (q.dtype == k.dtype == v.dtype == torch.bfloat16):
         raise NotImplementedError("flash_attention: the CUDA kernel takes bf16")

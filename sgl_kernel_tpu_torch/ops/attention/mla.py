@@ -1,0 +1,179 @@
+"""DeepSeek MLA (multi-head latent attention).
+
+The shape contract (mla.py:1-19 of the JAX package): D_latent 512 (kv_c,
+which doubles as V), D_rope 64, D_ckv 576; q = [q_nope (in latent space) |
+q_pe] per head; a cache row is [kv_c | k_pe]; pools [L, P, page, 576], or
+640 wide with 64 zero lanes.
+
+``mla_decode`` is kernel K13a, CUDA C++ in ``csrc/mla_decode.cu``,
+replacing the Pallas ``mla_decode`` (sgl_kernel_tpu/ops/attention/mla.py:375,
+pallas_call at :474); ``mla_decode_ref`` is its plain twin. ``num_splits``
+is the JAX formulation (mla.py:403-426): each (sequence, split) becomes a
+pseudo-sequence over its share of the pages, and ``merge_states`` joins the
+partial outputs by their base-2 lse. ``engine="dma"`` asks for K13b, the
+TPU's manual-DMA engine, which is not ported: it raises.
+
+``mla_prefill`` is the flash prefill (K7) over the latent as one MQA head,
+V zero-padded from 512 to 576 lanes and sliced back, as JAX does
+(mla.py:520-557).
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from ... import _build
+from ...utils import sm_count
+from .flash_prefill import LOG2E, flash_attention
+from .merge_state import merge_states
+
+D_LATENT = 512
+D_ROPE = 64
+D_CKV = 576
+D_CKV_PAD = 640
+
+
+def _check(q_nope, q_pe, kv_cache):
+    if kv_cache.shape[-1] not in (D_CKV, D_CKV_PAD) or q_nope.shape[-1] != D_LATENT or q_pe.shape[-1] != D_ROPE:
+        raise ValueError(f"mla_decode: q_nope {tuple(q_nope.shape)} q_pe {tuple(q_pe.shape)} "
+                         f"pool {tuple(kv_cache.shape)}")
+
+
+def mla_decode_ref(q_nope, q_pe, kv_cache, lengths, page_table, layer_id=None, *,
+                   sm_scale: Optional[float] = None, return_lse: bool = False):
+    """Plain twin of ``mla_decode`` (one split): gathers the pages the
+    longest sequence uses, dense float32 scores and softmax; pool values
+    convert exactly to float32. A sequence of length 0 gives o = 0 and lse
+    (-1e30 + ln 1e-38) * log2(e), as the TPU kernel's clamps give."""
+    _check(q_nope, q_pe, kv_cache)
+    b, h, _ = q_nope.shape
+    pool = kv_cache if layer_id is None else kv_cache[int(layer_id)]
+    n_pages, page = pool.shape[0], pool.shape[1]
+    scale = sm_scale if sm_scale is not None else 1.0 / D_CKV ** 0.5
+    lengths = lengths.to(q_nope.device).long()
+    nb = max(1, min(page_table.shape[1], -(-int(lengths.max().clamp_min(0)) // page)))
+    pt = page_table[:, :nb].to(q_nope.device).long().clamp(0, n_pages - 1)
+    rows = pool[pt][..., :D_CKV].reshape(b, nb * page, D_CKV).float()  # [B, T, 576]
+    q = torch.cat([q_nope, q_pe], dim=-1).float()
+    s = torch.einsum("bhd,btd->bht", q, rows) * scale
+    mask = torch.arange(nb * page, device=q.device)[None, :] < lengths[:, None]
+    s = s.masked_fill(~mask[:, None, :], float("-inf"))
+    m = s.amax(-1, keepdim=True).clamp_min(-1e30)
+    p = torch.exp(s - m)
+    l = p.sum(-1, keepdim=True)
+    o = torch.einsum("bht,btd->bhd", p, rows[..., :D_LATENT])
+    out = torch.where(l == 0, torch.zeros_like(o), o / l).to(q_nope.dtype)
+    if return_lse:
+        return out, ((m + torch.log(l.clamp_min(1e-38))) * LOG2E)[..., 0]
+    return out
+
+
+_ARGS = (ctypes.c_void_p,) * 8 + (ctypes.c_int,) * 9 + (ctypes.c_float, ctypes.c_void_p)
+# pool dtypes of the kernel (csrc/mla_decode.cu)
+_POOL_TYPES = {torch.bfloat16: 0, torch.int8: 1, torch.float8_e4m3fn: 2, torch.float8_e5m2: 3}
+# keys per block when the grid splits sequences: two 64-row tiles
+_SPLIT_KEYS = 128
+
+
+def split_keys_for(batch: int, heads: int, capacity: int, n_sm: int) -> int:
+    """Keys per block of the kernel's own split (0: none): split when one
+    block per (head group, sequence) leaves SMs idle and a sequence can hold
+    more than one span. The lengths stay on the device, so the split follows
+    the page tables' capacity; a span past a sequence's length costs one
+    block that returns at once."""
+    if batch * -(-heads // 16) >= n_sm or capacity <= _SPLIT_KEYS:
+        return 0
+    return _SPLIT_KEYS
+
+
+def _decode_kernel(q_nope, q_pe, kv_cache, lengths, page_table, layer_id, sm_scale, return_lse):
+    b, h, _ = q_nope.shape
+    if q_nope.dtype != torch.bfloat16 or q_pe.dtype != torch.bfloat16 or kv_cache.dtype not in _POOL_TYPES:
+        raise NotImplementedError("mla_decode: the CUDA kernel takes bf16 q and bf16, int8, float8_e4m3fn or "
+                                  "float8_e5m2 pools")
+    if not kv_cache.is_contiguous():
+        raise ValueError("mla_decode: the pool must be contiguous")
+    pool = kv_cache if layer_id is not None else kv_cache[None]
+    lid = 0 if layer_id is None else int(layer_id)
+    _, n_pages, page, width = pool.shape
+    q = torch.cat([q_nope, q_pe], dim=-1).contiguous()
+    lens = lengths.to(device=q.device, dtype=torch.int32).contiguous()
+    table = page_table.to(device=q.device, dtype=torch.int32).contiguous()
+    out = torch.empty((b, h, D_LATENT), dtype=q.dtype, device=q.device)
+    lse = torch.empty((b, h), dtype=torch.float32, device=q.device) if return_lse else None
+    cap = table.shape[1] * page
+    split = split_keys_for(b, h, cap, sm_count(q.device.index or 0))
+    part_o = part_lse = None
+    if split:
+        n_splits = -(-cap // split)
+        part_o = torch.empty((b, n_splits, h, D_LATENT), dtype=torch.float32, device=q.device)
+        part_lse = torch.empty((b, n_splits, h), dtype=torch.float32, device=q.device)
+    ptr = lambda t: None if t is None else t.data_ptr()
+    fn = _build.bind("mla_decode", "skt_mla_decode", _ARGS)
+    _build.check(fn(q.data_ptr(), pool.data_ptr(), lens.data_ptr(), table.data_ptr(), out.data_ptr(), ptr(lse),
+                    ptr(part_o), ptr(part_lse), b, h, n_pages, page, width, table.shape[1], lid,
+                    _POOL_TYPES[kv_cache.dtype], split, sm_scale, _build.stream_ptr(q.device)), "mla_decode")
+    mla_decode.launches += 1
+    return (out, lse) if return_lse else out
+
+
+def mla_decode(q_nope, q_pe, kv_cache, lengths, page_table, layer_id=None, *, sm_scale: Optional[float] = None,
+               return_lse: bool = False, num_splits: int = 1, engine: str = "blockspec"):
+    """MLA paged decode. q_nope [B, H, 512] (already in latent space); q_pe
+    [B, H, 64]; kv_cache [P, page, 576 | 640], or the stacked
+    [L, P, page, ...] with ``layer_id``; lengths [B] (the current token
+    included); page_table [B, max_pages]. Returns out [B, H, 512] (+ lse
+    [B, H] float32 base 2 with ``return_lse``).
+
+    CUDA tensors go through K13a, which takes bf16 q and bf16, int8, fp8
+    e4m3 or e5m2 pools (a quantized pool's scale folds into ``sm_scale``,
+    by the caller). ``engine="dma"`` (K13b) is not ported and raises."""
+    if engine not in ("blockspec", "dma"):
+        raise ValueError(f"mla_decode: unknown engine {engine!r}")
+    if engine == "dma":
+        raise NotImplementedError("mla_decode(engine='dma'): the manual-DMA engine (K13b) is not ported yet")
+    _check(q_nope, q_pe, kv_cache)
+    scale = sm_scale if sm_scale is not None else 1.0 / D_CKV ** 0.5
+    if num_splits > 1:
+        b, h, _ = q_nope.shape
+        s = num_splits
+        nb = page_table.shape[1]
+        bps = -(-nb // s)  # pages per split
+        page_table = F.pad(page_table, (0, bps * s - nb)).reshape(b * s, bps)
+        page = kv_cache.shape[-2]
+        local = lengths.to(q_nope.device, torch.int32)[:, None] - torch.arange(
+            s, dtype=torch.int32, device=q_nope.device)[None, :] * (bps * page)
+        len_s = local.clamp(0, bps * page).reshape(b * s)
+        o, lse = mla_decode(q_nope.repeat_interleave(s, 0), q_pe.repeat_interleave(s, 0), kv_cache, len_s,
+                            page_table, layer_id, sm_scale=scale, return_lse=True)
+        om, lm = merge_states(o.reshape(b, s, h, D_LATENT).transpose(0, 1), lse.reshape(b, s, h).transpose(0, 1))
+        return (om, lm) if return_lse else om
+    if q_nope.device.type != "cuda":
+        return mla_decode_ref(q_nope, q_pe, kv_cache, lengths, page_table, layer_id, sm_scale=scale,
+                              return_lse=return_lse)
+    return _decode_kernel(q_nope, q_pe, kv_cache, lengths, page_table, layer_id, scale, return_lse)
+
+
+mla_decode.launches = 0
+
+
+def mla_prefill(q_nope, q_pe, kv, q_lens=None, kv_lens=None, *, sm_scale: Optional[float] = None,
+                causal: bool = True, q_start=None, kv_start=None, return_lse: bool = False):
+    """MLA ragged prefill. q_nope [B, S, H, 512], q_pe [B, S, H, 64], kv
+    [B, Skv, 576] (latent rows before the cache). Returns [B, S, H, 512], or
+    (out, lse [B, H, S] base 2) with ``return_lse``; ``q_start`` /
+    ``kv_start`` offset the causal mask as in ``flash_attention``."""
+    scale = sm_scale if sm_scale is not None else 1.0 / D_CKV ** 0.5
+    q = torch.cat([q_nope, q_pe], dim=-1)
+    k = kv[:, :, None, :].to(q.dtype)
+    v = F.pad(kv[:, :, None, :D_LATENT], (0, D_ROPE)).to(q.dtype)
+    out = flash_attention(q, k, v, q_lens, kv_lens, q_start=q_start, kv_start=kv_start, causal=causal,
+                          sm_scale=scale, return_lse=return_lse)
+    if return_lse:
+        o, lse = out
+        return o[..., :D_LATENT], lse
+    return out[..., :D_LATENT]

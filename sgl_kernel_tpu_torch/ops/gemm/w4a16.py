@@ -26,7 +26,7 @@ import torch
 import torch.nn.functional as F
 
 from ... import _build
-from ...utils import cdiv, round_up
+from ...utils import cdiv, round_up, sm_count
 from ..quant.formats import awq_unpack_int32, unpack_int4
 
 GROUPS_PER_KTILE = 8  # quantize_w4 pads a ragged K to a multiple of 8 groups
@@ -259,11 +259,6 @@ def w4a16_gemm_ref(a, w, scales, zeros=None, bias=None, a2=None, residual=None, 
 _TILES = {0: (16, 128), 1: (32, 128), 2: (64, 64)}
 
 
-@functools.cache
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
 def plan(m: int, n: int, k_pad: int, group_size: int, n_sm: int = 132):
     """(tile, split, groups_per_split) of a launch. Decode rows (M <= 32)
     take a 16- or 32-row tile, prefill a 64 x 64 one. When the output tiles
@@ -331,7 +326,7 @@ def w4a16_gemm(a, w, scales, zeros=None, bias=None, a2=None, residual=None, laye
     w_, s_, z_, res = dense(w_), dense(s_), dense(z_), dense(residual)
     b_ = b_.float().contiguous() if b_ is not None else None
     nw_ = dense(nw_.reshape(-1)) if nw_ is not None else None
-    tile, split, per = plan(m, n, k_pad, group_size, _sm_count(a.device.index or 0))
+    tile, split, per = plan(m, n, k_pad, group_size, sm_count(a.device.index or 0))
     out = torch.empty((m, n), dtype=out_dtype, device=a.device)
     prologue_id = 1 if nw_ is not None else (2 if a2_ is not None else 0)
     # one float32 workspace: the split-K partials, then the norm's row factors

@@ -60,6 +60,37 @@ def store_cache_stacked(k, v, k_pool, v_pool, loc, layer_id):
     return k_pool, v_pool
 
 
+def store_cache_mla(kv, pool, loc):
+    """MLA single pool: latent rows kv [T, D] into pool [P, page, D] at flat
+    slots ``loc`` [T], in place, cast to the pool's dtype; slots < 0 or past
+    the pool are dropped (kvcache.py:242-248, where JAX scatters with plain
+    jnp). A stacked [L, P, page, D] pool passed as its [L*P, page, D] view
+    takes layer-offset slots. Returns the pool.
+
+    The drop never waits for the host (a decode step stores every layer): a
+    dropped row is redirected to the call's last kept row with that row's
+    value (or, when nothing is kept, rewrites row 0 with itself), so one
+    ``index_put_`` serves. A slot written twice by kept rows has no defined
+    winner, as in XLA's scatter; the serving path never writes one twice."""
+    p, page, d = pool.shape
+    flat = pool.view(p * page, d)
+    rows = loc.to(device=pool.device, dtype=torch.long).reshape(-1)
+    if rows.numel() == 0:
+        return pool
+    # the rows move as integers of the pool's width (fp8 has no where/index_put)
+    bits = {1: torch.uint8, 2: torch.int16, 4: torch.int32}[pool.element_size()]
+    vals = kv.reshape(rows.shape[0], d).to(pool.dtype).view(bits)
+    flat = flat.view(bits)
+    keep = (rows >= 0) & (rows < p * page)
+    # one-element index_select, not t[0-d tensor], which reads the index on the host
+    last = torch.where(keep, torch.arange(rows.shape[0], device=rows.device), -1).max().clamp_min(0).reshape(1)
+    any_kept = keep.any()
+    fb_row = torch.where(any_kept, rows.index_select(0, last), 0)
+    fb_val = torch.where(any_kept, vals.index_select(0, last), flat.index_select(0, fb_row))
+    flat.index_put_((torch.where(keep, rows, fb_row),), torch.where(keep[:, None], vals, fb_val))
+    return pool
+
+
 def store_cache_all_layers_ref(k_all, v_all, k_pool, v_pool, loc):
     """Plain PyTorch twin of ``store_cache_all_layers``."""
     l, p, h, page, d = k_pool.shape

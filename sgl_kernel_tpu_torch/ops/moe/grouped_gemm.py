@@ -1,0 +1,199 @@
+"""Grouped (per-expert) GEMMs over expert-sorted, block-aligned rows.
+
+``w4a16_grouped_mm`` is kernel K11, CUDA C++ in ``csrc/grouped_gemm.cu`` on
+K1's tile code, replacing the Pallas ``w4a16_grouped_mm``
+(sgl_kernel_tpu/ops/moe/grouped_gemm.py:259, pallas_call at :419).
+``w4a16_grouped_mm_ref`` is its plain twin: K1's twin (ops/gemm/w4a16.py)
+per valid row block, so the two differ only by summation order.
+
+``bf16_grouped_mm`` is the bf16 form (K12 in the JAX package,
+grouped_gemm.py:107, pallas_call at :175). Only its plain twin is ported: a
+CUDA tensor raises until K12's kernel lands.
+
+Row block i of ``x_sorted`` (``bm`` rows, the alignment block of
+ops/moe/align.py) takes expert ``block_expert_ids[i]``; blocks at or past
+``num_valid_blocks`` are padding and their output rows are undefined
+(grouped_gemm.py:279-282): compare valid rows only. Stacked [L, E, ...]
+banks take ``layer_id``; the layer is a view, never a copy of the bank.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Optional
+
+import torch
+
+from ... import _build
+from ..gemm.w4a16 import GROUPS_PER_KTILE, _gemm_ref
+from ...utils import round_up
+
+
+def _valid_blocks(num_valid_blocks, n_blocks: int) -> int:
+    """The valid block count as a host int (the plain twins only)."""
+    if num_valid_blocks is None:
+        return n_blocks
+    return min(n_blocks, int(num_valid_blocks))
+
+
+def _layer(t, layer_id):
+    return t if t is None or layer_id is None else t[int(layer_id)]
+
+
+def _grouped_operands(x_sorted, w, scales, zeros, layer_id, *, group_size, bm, per_channel):
+    """Check the contract (grouped_gemm.py:306-356) and select the layer.
+    Returns (w, scales, zeros, k, k_pad) with [E, ...] weight operands;
+    ``per_channel`` [E, 1, N] scales and zeros are expanded to every group."""
+    cap, k = x_sorted.shape
+    stacked = layer_id is not None
+    if w.ndim != (4 if stacked else 3) or w.dtype != torch.uint8:
+        raise ValueError(f"w4a16_grouped_mm: w {tuple(w.shape)} {w.dtype} (stacked={stacked})")
+    if cap % bm:
+        raise ValueError(f"w4a16_grouped_mm: {cap} rows are not a multiple of bm={bm}")
+    k_pad = w.shape[-2] * 2
+    if k_pad != k and not k < k_pad <= round_up(k, GROUPS_PER_KTILE * group_size):
+        raise ValueError(f"w4a16_grouped_mm: activations of K={k} for packed K={k_pad}")
+    if k_pad % group_size:
+        raise ValueError(f"w4a16_grouped_mm: K={k_pad} is not a multiple of group {group_size}")
+    w, scales, zeros = _layer(w, layer_id), _layer(scales, layer_id), _layer(zeros, layer_id)
+    e, n = w.shape[0], w.shape[-1]
+    if per_channel:
+        if scales.shape != (e, 1, n) or (zeros is not None and zeros.shape != (e, 1, n)):
+            raise ValueError(f"w4a16_grouped_mm: per_channel scales {tuple(scales.shape)} for {(e, 1, n)}")
+        scales = scales.expand(e, k_pad // group_size, n)
+        zeros = None if zeros is None else zeros.expand(e, k_pad // group_size, n)
+    if tuple(scales.shape) != (e, k_pad // group_size, n):
+        raise ValueError(f"w4a16_grouped_mm: scales {tuple(scales.shape)} for K={k_pad}, group {group_size}")
+    if zeros is not None and zeros.shape != scales.shape:
+        raise ValueError(f"w4a16_grouped_mm: zeros {tuple(zeros.shape)} vs scales {tuple(scales.shape)}")
+    return w, scales, zeros, k, k_pad
+
+
+def w4a16_grouped_mm_ref(x_sorted, w, scales, block_expert_ids, zeros=None, layer_id=None,
+                         num_valid_blocks=None, *, group_size: int = 128, fmt: str = "int4", bm: int = 128,
+                         bn: Optional[int] = None, bk: Optional[int] = None, out_dtype=None,
+                         per_channel: bool = False, gmode: Optional[str] = None):
+    """Plain twin of ``w4a16_grouped_mm``: K1's twin on each run of valid
+    row blocks of one expert; rows of padding blocks come out zero."""
+    w, scales, zeros, k, k_pad = _grouped_operands(x_sorted, w, scales, zeros, layer_id, group_size=group_size,
+                                                   bm=bm, per_channel=per_channel)
+    cap = x_sorted.shape[0]
+    out_dtype = out_dtype or x_sorted.dtype
+    out = torch.zeros((cap, w.shape[-1]), dtype=out_dtype, device=x_sorted.device)
+    nv = _valid_blocks(num_valid_blocks, cap // bm)
+    eids = block_expert_ids.tolist()[:nv]
+    i = 0
+    while i < nv:
+        j = i
+        while j < nv and eids[j] == eids[i]:
+            j += 1
+        e, rows = eids[i], slice(i * bm, j * bm)
+        out[rows] = _gemm_ref(x_sorted[rows], None, w[e], scales[e], None if zeros is None else zeros[e], None,
+                              None, None, k, k_pad, norm_eps=0.0, group_size=group_size, fmt=fmt,
+                              out_dtype=out_dtype)
+        i = j
+    return out
+
+
+# row tiles of the kernel (csrc/w4a16_tile.cuh): 0 = 16 x 128, 1 = 32 x 128,
+# 2 = 64 x 64
+def _tile(bm: int) -> int:
+    return 0 if bm == 16 else (1 if bm == 32 else 2)
+
+
+_ARGS = ((ctypes.c_void_p,) * 7 + (ctypes.c_int,) * 8 + (ctypes.c_longlong,) * 2 + (ctypes.c_int,) * 4
+         + (ctypes.c_void_p,))
+
+
+@functools.cache
+def _entry():
+    return _build.bind("grouped_gemm", "skt_w4a16_grouped_mm", _ARGS)
+
+
+def w4a16_grouped_mm(x_sorted, w, scales, block_expert_ids, zeros=None, layer_id=None, num_valid_blocks=None, *,
+                     group_size: int = 128, fmt: str = "int4", bm: int = 128, bn: Optional[int] = None,
+                     bk: Optional[int] = None, out_dtype=None, per_channel: bool = False,
+                     gmode: Optional[str] = None):
+    """Block-aligned grouped W4A16 GEMM. x_sorted [cap, K] (cap a multiple of
+    ``bm``); w [E, K/2, N] packed uint8, or the stacked [L, E, K/2, N] with
+    ``layer_id``; scales [E, K/G, N] (per_channel: [E, 1, N] for every
+    group); zeros optional (z*s); block_expert_ids [cap // bm] int32;
+    num_valid_blocks a 0-d int32 tensor (or int), default every block.
+    Returns [cap, N] in ``out_dtype`` (default x's dtype); rows of blocks at
+    or past num_valid_blocks are undefined.
+
+    CUDA tensors go through the K11 kernel, which takes bf16 activations,
+    scales and zeros, groups of 32, 64 or 128, bm of 16, 32, 64 or 128 and
+    a bf16 or float32 output; it reads num_valid_blocks on the device.
+    ``bn``, ``bk`` and ``gmode`` are contract-only: they chose the TPU
+    kernel's tiles and per-group decode schedule."""
+    if fmt not in ("int4", "mxfp4"):
+        raise ValueError(f"w4a16_grouped_mm: fmt must be 'int4' or 'mxfp4', got {fmt!r}")
+    if x_sorted.device.type != "cuda":
+        return w4a16_grouped_mm_ref(x_sorted, w, scales, block_expert_ids, zeros, layer_id, num_valid_blocks,
+                                    group_size=group_size, fmt=fmt, bm=bm, out_dtype=out_dtype,
+                                    per_channel=per_channel)
+    w_, s_, z_, k, k_pad = _grouped_operands(x_sorted, w, scales, zeros, layer_id, group_size=group_size, bm=bm,
+                                             per_channel=per_channel)
+    bf = torch.bfloat16
+    out_dtype = out_dtype or x_sorted.dtype
+    if group_size not in (32, 64, 128) or bm not in (16, 32, 64, 128):
+        raise NotImplementedError(f"w4a16_grouped_mm: the CUDA kernel takes groups of 32/64/128 and bm "
+                                  f"16/32/64/128, not {group_size} / {bm}")
+    if out_dtype not in (bf, torch.float32) or any(t is not None and t.dtype != bf for t in (x_sorted, s_, z_)):
+        raise NotImplementedError("w4a16_grouped_mm: the CUDA kernel takes bf16 activations, scales and zeros "
+                                  "and writes bf16 or float32")
+    cap, n = x_sorted.shape[0], w_.shape[-1]
+    out = torch.empty((cap, n), dtype=out_dtype, device=x_sorted.device)
+    if cap == 0:
+        return out
+    x = x_sorted if x_sorted.stride(1) == 1 else x_sorted.contiguous()
+    w_, s_ = w_.contiguous(), s_.contiguous()
+    z_ = None if z_ is None else z_.contiguous()
+    eids = block_expert_ids.to(device=x.device, dtype=torch.int32).contiguous()
+    if eids.shape[0] != cap // bm:
+        raise ValueError(f"w4a16_grouped_mm: {eids.shape[0]} block expert ids for {cap // bm} blocks")
+    nv = num_valid_blocks if num_valid_blocks is not None else cap // bm
+    nv = torch.as_tensor(nv, dtype=torch.int32, device=x.device).reshape(())
+    ptr = lambda t: t.data_ptr() if t is not None else None
+    vec_a = x.data_ptr() % 16 == 0 and x.stride(0) % 8 == 0
+    vec_w = n % 16 == 0 and all(t is None or t.data_ptr() % 16 == 0 for t in (w_, s_, z_))
+    _build.check(_entry()(ptr(x), ptr(w_), ptr(s_), ptr(z_), ptr(eids), ptr(nv), ptr(out), cap, n, k_pad, k,
+                          x.stride(0), group_size, _tile(bm), bm, w_[0].numel(), s_[0].numel(),
+                          int(fmt == "mxfp4"), int(out_dtype == torch.float32), int(vec_a), int(vec_w),
+                          _build.stream_ptr(x.device)), "w4a16_grouped_mm")
+    w4a16_grouped_mm.launches += 1
+    return out
+
+
+w4a16_grouped_mm.launches = 0
+
+
+def bf16_grouped_mm_ref(x_sorted, w, block_expert_ids, layer_id=None, num_valid_blocks=None, *, bm: int = 128,
+                        bn: Optional[int] = None, bk: Optional[int] = None, out_dtype=None):
+    """Plain twin of ``bf16_grouped_mm``: x rows of each valid block times
+    its expert's [K, N] weight, float32 accumulation, one rounding; rows of
+    padding blocks come out zero."""
+    cap, k = x_sorted.shape
+    wl = _layer(w, layer_id)
+    if wl.ndim != 3 or wl.shape[1] != k or cap % bm:
+        raise ValueError(f"bf16_grouped_mm: x {tuple(x_sorted.shape)} w {tuple(w.shape)} bm {bm}")
+    out_dtype = out_dtype or x_sorted.dtype
+    out = torch.zeros((cap, wl.shape[-1]), dtype=out_dtype, device=x_sorted.device)
+    nv = _valid_blocks(num_valid_blocks, cap // bm)
+    for i, e in enumerate(block_expert_ids.tolist()[:nv]):
+        rows = slice(i * bm, (i + 1) * bm)
+        out[rows] = (x_sorted[rows].float() @ wl[e].float()).to(out_dtype)
+    return out
+
+
+def bf16_grouped_mm(x_sorted, w, block_expert_ids, layer_id=None, num_valid_blocks=None, *, bm: int = 128,
+                    bn: Optional[int] = None, bk: Optional[int] = None, out_dtype=None):
+    """Block-aligned grouped bf16 GEMM: x_sorted [cap, K], w [E, K, N] or
+    stacked [L, E, K, N] with ``layer_id``. Returns [cap, N]. Only the plain
+    twin is ported (CPU tensors); a CUDA tensor raises until K12's kernel
+    lands."""
+    if x_sorted.device.type == "cuda":
+        raise NotImplementedError("bf16_grouped_mm: the CUDA kernel (K12) is not ported yet")
+    return bf16_grouped_mm_ref(x_sorted, w, block_expert_ids, layer_id, num_valid_blocks, bm=bm, out_dtype=out_dtype)

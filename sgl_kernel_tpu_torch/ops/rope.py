@@ -13,6 +13,21 @@ the fused GEMM output. q and k heads rotate the neox halves of their first
 ``rot`` dims (the partner half comes from a second, shifted load of the
 same row), dims at or past ``rot`` pass through, v heads are copied. The
 TPU kernel's three BlockSpecs over one array become three output pointers.
+
+``mla_qkv_prep`` is kernel K14, a Triton kernel that replaces the Pallas
+``mla_qkv_prep`` (sgl_kernel_tpu/ops/rope.py:295, pallas_call at :312);
+``mla_qkv_prep_ref`` is its plain twin.
+
+Kernel note (K14). Bound: bytes: one read of the decode tokens' q rows
+[T, nh, nope + rot] and wkv_a rows [T, lat + rot], of the layer's norm
+weight and the cache rows at their positions; one write of q_nope, q_pe and
+the cache row [T, lat + rot]. Design: one Triton program per (token, head)
+copies the head's nope part and ropes its pe part (the partner half by a
+second, shifted load), and one more program per token takes the latent's
+mean square in one in-register reduction, scales it by the layer's weight
+(the stacked [L, lat] weight indexed by ``layer_id`` without a copy) and
+ropes k_pe into the 576-wide row. The JAX rounding points are kept: float32
+math, one cast to q's / kv's dtype.
 """
 
 from __future__ import annotations
@@ -175,3 +190,98 @@ def rope_decode_fused_qkv(positions, qkv, cos_sin_cache, *, num_q: int, num_kv: 
 
 
 rope_decode_fused_qkv.launches = 0
+
+
+def mla_qkv_prep_ref(positions, layer_id, q, kv, kv_norm_w, cos_sin_cache, *, nope_dim: int, eps: float = 1e-6):
+    """Plain PyTorch twin of ``mla_qkv_prep``."""
+    rot = cos_sin_cache.shape[-1]
+    lat = kv.shape[-1] - rot
+    cs = cos_sin_cache[positions.long()].float()
+    cos, sin = cs[:, None, : rot // 2], cs[:, None, rot // 2:]
+    q_nope = q[..., :nope_dim].clone()
+    q_pe = _rotate_neox(q[..., nope_dim:], cos, sin)
+    x = kv[:, :lat].float()
+    ms = (x * x).mean(-1, keepdim=True)
+    latn = (x * torch.rsqrt(ms + eps)) * kv_norm_w[int(layer_id)].float()[None, :]
+    k_pe = _rotate_neox(kv[:, None, lat:], cos, sin)[:, 0]
+    return q_nope, q_pe, torch.cat([latn.to(kv.dtype), k_pe], dim=-1)
+
+
+@functools.cache
+def _mla_prep_kernel():
+    import triton
+    import triton.language as tl
+
+    @triton.jit
+    def mla_prep_kernel(pos_ptr, q_ptr, kv_ptr, w_ptr, cache_ptr, qn_ptr, qpe_ptr, row_ptr, eps,
+                        NH: tl.constexpr, NOPE: tl.constexpr, ROT: tl.constexpr, LAT: tl.constexpr,
+                        BNOPE: tl.constexpr, BLAT: tl.constexpr):
+        t = tl.program_id(0).to(tl.int64)
+        h = tl.program_id(1)
+        HALF: tl.constexpr = ROT // 2
+        pos = tl.load(pos_ptr + t).to(tl.int64)
+        rc = tl.arange(0, ROT)
+        first = rc < HALF
+        fi = tl.where(first, rc, rc - HALF)
+        partner = tl.where(first, rc + HALF, rc - HALF)
+        cos = tl.load(cache_ptr + pos * ROT + fi)
+        sin = tl.load(cache_ptr + pos * ROT + HALF + fi)
+        if h < NH:
+            src = q_ptr + (t * NH + h) * (NOPE + ROT)
+            nc = tl.arange(0, BNOPE)
+            nm = nc < NOPE
+            tl.store(qn_ptr + (t * NH + h) * NOPE + nc, tl.load(src + nc, mask=nm), mask=nm)
+            pe = tl.load(src + NOPE + rc)
+            pe_p = tl.load(src + NOPE + partner).to(tl.float32)
+            pe_f = pe.to(tl.float32)
+            pe_r = tl.where(first, pe_f * cos - pe_p * sin, pe_f * cos + pe_p * sin)
+            tl.store(qpe_ptr + (t * NH + h) * ROT + rc, pe_r.to(pe.dtype))
+        else:
+            row = kv_ptr + t * (LAT + ROT)
+            lc = tl.arange(0, BLAT)
+            lm = lc < LAT
+            lat = tl.load(row + lc, mask=lm, other=0.0)
+            lat_f = lat.to(tl.float32)
+            ms = tl.sum(lat_f * lat_f, axis=0) / LAT
+            w = tl.load(w_ptr + lc, mask=lm, other=0.0).to(tl.float32)
+            lat_n = (lat_f * (1.0 / tl.sqrt(ms + eps))) * w
+            tl.store(row_ptr + t * (LAT + ROT) + lc, lat_n.to(lat.dtype), mask=lm)
+            kp = tl.load(row + LAT + rc)
+            kp_p = tl.load(row + LAT + partner).to(tl.float32)
+            kp_f = kp.to(tl.float32)
+            kp_r = tl.where(first, kp_f * cos - kp_p * sin, kp_f * cos + kp_p * sin)
+            tl.store(row_ptr + t * (LAT + ROT) + LAT + rc, kp_r.to(kp.dtype))
+
+    return mla_prep_kernel
+
+
+def mla_qkv_prep(positions, layer_id, q, kv, kv_norm_w, cos_sin_cache, *, nope_dim: int, eps: float = 1e-6):
+    """Fused MLA decode qkv prep. q [T, nh, nope + rot]; kv [T, lat + rot]
+    (the wkv_a output); kv_norm_w [L, lat] (row ``layer_id``);
+    cos_sin_cache [max_pos, rot] float32. Returns (q_nope [T, nh, nope],
+    q_pe [T, nh, rot] roped, kv_row [T, lat + rot]: the latent rmsnormed,
+    k_pe roped). CUDA tensors go through the Triton kernel (K14), which
+    takes a power-of-two ``rot``."""
+    t, nh, dq = q.shape
+    rot = cos_sin_cache.shape[-1]
+    lat = kv.shape[-1] - rot
+    if dq != nope_dim + rot or kv.shape[0] != t or kv_norm_w.shape[-1] != lat:
+        raise ValueError(f"mla_qkv_prep: q {tuple(q.shape)} kv {tuple(kv.shape)} for nope {nope_dim}, rot {rot}")
+    if q.device.type != "cuda":
+        return mla_qkv_prep_ref(positions, layer_id, q, kv, kv_norm_w, cos_sin_cache, nope_dim=nope_dim, eps=eps)
+    if rot & (rot - 1) or not (q.is_contiguous() and kv.is_contiguous()) or cos_sin_cache.dtype != torch.float32:
+        raise ValueError("mla_qkv_prep: the kernel takes contiguous q and kv, a power-of-two rot and a float32 cache")
+    w = kv_norm_w[int(layer_id)]
+    q_nope = torch.empty((t, nh, nope_dim), dtype=q.dtype, device=q.device)
+    q_pe = torch.empty((t, nh, rot), dtype=q.dtype, device=q.device)
+    row = torch.empty((t, lat + rot), dtype=kv.dtype, device=kv.device)
+    if t:
+        _mla_prep_kernel()[(t, nh + 1)](
+            positions.to(torch.int32).contiguous(), q, kv, w.contiguous(), cos_sin_cache.contiguous(), q_nope,
+            q_pe, row, float(eps), NH=nh, NOPE=nope_dim, ROT=rot, LAT=lat, BNOPE=next_power_of_2(nope_dim),
+            BLAT=next_power_of_2(lat), num_warps=4)
+        mla_qkv_prep.launches += 1
+    return q_nope, q_pe, row
+
+
+mla_qkv_prep.launches = 0

@@ -8,14 +8,16 @@ page-table and scheduling loop over opaque ``caches``.
 The Llama adapter serves the padded ``prefill``, the packed multi-prompt
 ``prefill_packed``, the ``prefill_extend`` of a cached prefix or a prompt
 chunk, and the ``decode`` step; the engine reaches ``mixed_step`` through
-``_m``. ``supports_spec`` is False (speculative decoding is a later slice),
-and the PD page transfer (``extract_pages`` / ``inject_pages``) is not
-ported yet.
+``_m``. The DeepSeek adapter serves the same four programs over one latent
+pool; its model has no ``mixed_step``, so the engine advances chunked
+prompts by extend. ``supports_spec`` is False (speculative decoding is a
+later slice), and the PD page transfer (``extract_pages`` /
+``inject_pages``) is not ported yet.
 """
 
 from __future__ import annotations
 
-from ..models import llama
+from ..models import deepseek, llama
 from ..utils import resolve_device
 
 
@@ -67,8 +69,64 @@ class LlamaAdapter:
         return logits, (k, v)
 
 
+class DeepseekAdapter:
+    """DeepSeek MLA family (models/deepseek.py) over a one-pool cache
+    ``(latent_pool,)``, [L, P, page, 576]. The page size is the caller's:
+    the JAX adapter's ``recommended_page_size = 1024`` is a TPU finding
+    (adapters.py:258-265) this port does not rely on. NSA sparse decode
+    (``use_nsa``) and KV compression (``use_compress``) are not ported and
+    raise."""
+
+    name = "deepseek"
+    supports_spec = False
+    supports_extend = True
+
+    def __init__(self, cfg, device="cuda", *, use_nsa: bool = False, use_compress: bool = False):
+        if use_nsa or use_compress:
+            raise NotImplementedError("DeepseekAdapter: NSA sparse decode and KV compression are not ported yet")
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self._m = deepseek
+        self.rope_cache = deepseek.build_rope_cache(cfg, self.device)
+
+    def init_weights(self, generator):
+        return self._m.init_weights(self.cfg, generator, self.device)
+
+    def make_caches(self, num_pages: int, page_size: int):
+        return (self._m.make_cache(self.cfg, num_pages, page_size, device=self.device),)
+
+    def prefill(self, params, caches, tokens, positions, q_lens, slot_loc):
+        (kv,) = caches
+        logits, kv = self._m.prefill(params, self.cfg, kv, tokens, positions, q_lens, slot_loc, self.rope_cache)
+        return logits, (kv,)
+
+    def prefill_extend(self, params, caches, tokens, positions, q_lens, kv_lens, page_tables, slot_loc, *,
+                       prefix_max: int):
+        (kv,) = caches
+        logits, kv = self._m.prefill_extend(params, self.cfg, kv, tokens, positions, q_lens, kv_lens, page_tables,
+                                            slot_loc, self.rope_cache, prefix_max=prefix_max)
+        return logits, (kv,)
+
+    def decode(self, params, caches, tokens, positions, page_tables, lengths, slot_loc):
+        (kv,) = caches
+        logits, kv = self._m.decode_step(params, self.cfg, kv, tokens, positions, page_tables, lengths, slot_loc,
+                                         self.rope_cache)
+        return logits, (kv,)
+
+    def prefill_packed(self, params, caches, tokens, positions, blk_seq, blk_q0, seq_meta, last_idx, slot_loc, *,
+                       max_kvb: int):
+        """Several fresh prompts block-aligned packed into one launch."""
+        (kv,) = caches
+        logits, kv = self._m.prefill_packed(params, self.cfg, kv, None, None, tokens, positions, blk_seq, blk_q0,
+                                            seq_meta, last_idx, slot_loc, self.rope_cache, max_kvb=max_kvb)
+        return logits, (kv,)
+
+
 def adapter_for(cfg, device="cuda"):
-    """The adapter for a config's type."""
+    """The adapter for a config's type; a DeepSeek config asks for the
+    decode mode it names (NSA or compression, which raise)."""
+    if isinstance(cfg, deepseek.DeepseekConfig):
+        return DeepseekAdapter(cfg, device, use_nsa=bool(cfg.nsa), use_compress=bool(cfg.compress))
     if isinstance(cfg, llama.LlamaConfig):
         return LlamaAdapter(cfg, device)
     raise TypeError(f"no serving adapter for config type {type(cfg).__name__}")

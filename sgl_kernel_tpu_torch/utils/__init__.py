@@ -6,6 +6,8 @@ CPU; ``resolve_device`` is the one place that decision is made.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 
@@ -35,3 +37,9 @@ def resolve_device(device="cuda") -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev}")
     return dev
+
+
+@functools.cache
+def sm_count(index: int = 0) -> int:
+    """Streaming multiprocessors of CUDA device ``index`` (launch planning)."""
+    return torch.cuda.get_device_properties(index).multi_processor_count

@@ -21,6 +21,7 @@ import torch
 from sgl_kernel_tpu_torch.ops import kvcache, norm, rope
 from sgl_kernel_tpu_torch.ops.attention import flash_packed, flash_prefill, paged_decode_dma
 from sgl_kernel_tpu_torch.ops.gemm import w4a16
+from sgl_kernel_tpu_torch.utils import sm_count
 
 pytestmark = pytest.mark.cuda
 
@@ -369,7 +370,7 @@ def test_w4a16_split_k(gen):
     """Few column tiles: K splits across blocks in whole groups and a
     second pass sums the partials, adds bias and residual, and casts."""
     m, n, k, gs = 16, 256, 8192, 128
-    tile, split, per = w4a16.plan(m, n, k, gs, w4a16._sm_count(0))
+    tile, split, per = w4a16.plan(m, n, k, gs, sm_count(0))
     assert split > 1 and (split - 1) * per < k // gs
     a, w, s, kw = w4_case(gen, m, n, k, gs, "residual")
     kw["bias"] = randn(gen, n, dtype=torch.float32)
@@ -387,3 +388,228 @@ def test_w4a16_unsupported_raise(gen):
     a, w, s, _ = w4_case(gen, 8, 256, 512, 256)
     with pytest.raises(NotImplementedError):
         w4a16.w4a16_gemm(a, w, s, group_size=256)
+
+
+# ---------------------------------------------------------------------------
+# DeepSeek path: K11 grouped W4A16 GEMM, K13a MLA decode, K14 MLA qkv prep,
+# K7 / K9 at head dim 576
+# ---------------------------------------------------------------------------
+
+from sgl_kernel_tpu_torch.ops import moe  # noqa: E402
+from sgl_kernel_tpu_torch.ops.attention import mla  # noqa: E402
+
+
+def grouped_inputs(gen, *, bm, blocks, k, n, gs, e=6, layers=2, fmt="int4", zeros=False):
+    bf = torch.bfloat16
+    if fmt == "mxfp4":
+        w = torch.randint(0, 256, (layers, e, k // 2, n), generator=gen, device="cuda", dtype=torch.int32).to(torch.uint8)
+        s = torch.exp2(torch.randint(-8, -3, (layers, e, k // gs, n), generator=gen, device="cuda").float()).to(bf)
+    else:
+        qs = [w4a16.quantize_w4(torch.randn((e * n, k), generator=gen, device="cuda") * 0.05 + 0.01, group_size=gs,
+                                symmetric=not zeros) for _ in range(layers)]
+        w = torch.stack([q[0].reshape(k // 2, e, n).permute(1, 0, 2) for q in qs]).contiguous()
+        s = torch.stack([q[1].reshape(k // gs, e, n).permute(1, 0, 2) for q in qs]).contiguous()
+    z = None
+    if zeros:
+        z = (s.float() * torch.randn(s.shape, generator=gen, device="cuda")).to(bf)
+    x = randn(gen, blocks * bm, k)
+    eids = torch.randint(0, e, (blocks,), generator=gen, device="cuda", dtype=torch.int32)
+    return x, w, s, z, eids
+
+
+@pytest.mark.parametrize("bm", [16, 32, 64, 128])
+@pytest.mark.parametrize("valid", ["none", "one", "all"])
+def test_grouped_w4a16_blocks(gen, bm, valid):
+    """Each alignment block size; 0, 1 and every block valid (the count is
+    read on the device; padding rows are undefined and not compared)."""
+    blocks = 5
+    x, w, s, _, eids = grouped_inputs(gen, bm=bm, blocks=blocks, k=512, n=384, gs=128)
+    nv = {"none": 0, "one": 1, "all": blocks}[valid]
+    eids[nv:] = eids[max(nv - 1, 0)]
+    nvt = torch.tensor(nv, dtype=torch.int32, device="cuda")
+    before = moe.w4a16_grouped_mm.launches
+    out = moe.w4a16_grouped_mm(x, w, s, eids, None, 1, nvt, bm=bm)
+    assert moe.w4a16_grouped_mm.launches == before + 1
+    ref = moe.w4a16_grouped_mm_ref(x, w, s, eids, None, 1, nvt, bm=bm)
+    assert_elementwise(out[: nv * bm], ref[: nv * bm])
+
+
+@pytest.mark.parametrize("option", ["k1408", "zeros", "mxfp4", "f32_out", "unstacked", "padded_k"])
+def test_grouped_w4a16_options(gen, option):
+    """K of 11 groups (V2-Lite's moe_intermediate 1408), zeros, mxfp4, a
+    float32 output, an unstacked bank, and activations below the packed K."""
+    k = 1408 if option in ("k1408", "padded_k") else 512
+    gs = 32 if option == "mxfp4" else 128
+    x, w, s, z, eids = grouped_inputs(gen, bm=16, blocks=6, k=k, n=256, gs=gs, fmt="mxfp4" if option == "mxfp4" else "int4",
+                                      zeros=option == "zeros")
+    kw = dict(bm=16, group_size=gs, fmt="mxfp4" if option == "mxfp4" else "int4")
+    if option == "f32_out":
+        kw["out_dtype"] = torch.float32
+    lid = None if option == "unstacked" else 0
+    wl, sl, zl = (w[0], s[0], None if z is None else z[0]) if lid is None else (w, s, z)
+    if option == "padded_k":
+        x = x[:, :1400]
+    nv = torch.tensor(5, dtype=torch.int32, device="cuda")
+    out = moe.w4a16_grouped_mm(x, wl, sl, eids, zl, lid, nv, **kw)
+    ref = moe.w4a16_grouped_mm_ref(x, wl, sl, eids, zl, lid, nv, **kw)
+    assert out.dtype == ref.dtype
+    assert_elementwise(out[: 5 * 16], ref[: 5 * 16])
+
+
+def test_grouped_unported_raise(gen):
+    x = randn(gen, 32, 64)
+    with pytest.raises(NotImplementedError):
+        moe.bf16_grouped_mm(x, randn(gen, 4, 64, 32), torch.zeros(2, dtype=torch.int32, device="cuda"), bm=16)
+    x, w, s, _, eids = grouped_inputs(gen, bm=16, blocks=2, k=256, n=128, gs=128)
+    with pytest.raises(NotImplementedError):
+        moe.w4a16_grouped_mm(x, w, s, eids, layer_id=0, bm=8)
+
+
+def mla_pool(gen, lengths, page, width, layers, dtype):
+    n_blocks = max(1, -(-max(lengths) // page))
+    n_pages = len(lengths) * n_blocks + 1
+    perm = torch.randperm(n_pages - 1, generator=gen, device="cuda") + 1
+    table = torch.zeros((len(lengths), n_blocks + 1), dtype=torch.int32, device="cuda")
+    for i, n in enumerate(lengths):
+        used = -(-n // page)
+        table[i, :used] = perm[i * n_blocks: i * n_blocks + used]
+    shape = (layers, n_pages, page, width)
+    if dtype == torch.int8:
+        pool = torch.randint(-127, 128, shape, generator=gen, device="cuda", dtype=torch.int32).to(dtype)
+    else:
+        pool = (torch.randn(shape, generator=gen, device="cuda") * (4 if dtype != torch.bfloat16 else 0.5)).to(dtype)
+    if width == 640:
+        pool[..., 576:] = 0
+    return pool, table, torch.tensor(lengths, dtype=torch.int32, device="cuda")
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.int8, torch.float8_e4m3fn, torch.float8_e5m2])
+@pytest.mark.parametrize("width", [576, 640])
+@pytest.mark.parametrize("page", [16, 64])
+def test_mla_decode(gen, dtype, width, page):
+    """Length 1, a length-0 padding row, lengths at and past page edges;
+    the four pool dtypes converted exactly; 576- and 640-wide rows; lse."""
+    lengths = [1, 0, page, page + 1, 3 * page - 1, 300]
+    h = 16
+    pool, table, lens = mla_pool(gen, lengths, page, width, 3, dtype)
+    qn, qp = randn(gen, len(lengths), h, 512), randn(gen, len(lengths), h, 64)
+    scale = 0.01 if dtype == torch.int8 else 1 / 576 ** 0.5
+    before = mla.mla_decode.launches
+    out, lse = mla.mla_decode(qn, qp, pool, lens, table, 2, sm_scale=scale, return_lse=True)
+    assert mla.mla_decode.launches == before + 1
+    ref, ref_lse = mla.mla_decode_ref(qn, qp, pool, lens, table, 2, sm_scale=scale, return_lse=True)
+    assert torch.isfinite(out).all() and torch.isfinite(lse).all()
+    assert_elementwise(out, ref)
+    assert torch.allclose(lse, ref_lse, rtol=1e-5, atol=1e-4)
+    assert not out[1].any() and is_empty_lse(lse[1])
+
+
+@pytest.mark.parametrize("h", [2, 16, 40])
+def test_mla_decode_heads_and_splits(gen, h):
+    """Head counts below, at and above one 16-row tile; num_splits=2 (the
+    pseudo-sequence form merged by lse); an unstacked pool."""
+    lengths = [5, 200, 64]
+    pool, table, lens = mla_pool(gen, lengths, 64, 576, 1, torch.bfloat16)
+    qn, qp = randn(gen, 3, h, 512), randn(gen, 3, h, 64)
+    out = mla.mla_decode(qn, qp, pool[0], lens, table)
+    assert_elementwise(out, mla.mla_decode_ref(qn, qp, pool[0], lens, table))
+    # the JAX split form rounds each pseudo-sequence's output to bf16 before
+    # the merge, on either device: held to the same form on the CPU (the twin
+    # per split). One split landing one bf16 ulp apart (2^-8 of the row's
+    # scale) reaches the merged value whatever its size, so the row term is
+    # 2^-7 here.
+    out = mla.mla_decode(qn, qp, pool[0], lens, table, num_splits=2).float()
+    ref = mla.mla_decode(*(t.cpu() for t in (qn, qp, pool[0], lens, table)), num_splits=2).cuda().float()
+    tol = 2.0 ** -7 * ref.abs() + 2.0 ** -7 * ref.abs().amax(-1, keepdim=True)
+    assert ((out - ref).abs() <= tol).all(), float(((out - ref).abs() / tol).max())
+    with pytest.raises(NotImplementedError):
+        mla.mla_decode(qn, qp, pool, lens, table, 0, engine="dma")
+    with pytest.raises(NotImplementedError):
+        mla.mla_decode(qn.float(), qp.float(), pool, lens, table, 0)
+
+
+@pytest.mark.parametrize("t", [1, 7, 16, 64])
+def test_mla_qkv_prep(gen, t):
+    nh, nope, rot, lat = 16, 128, 64, 512
+    q, kv = randn(gen, t, nh, nope + rot), randn(gen, t, lat + rot) * 2
+    w = randn(gen, 27, lat)
+    cache = rope.compute_cos_sin_cache(rot, 4096, 10000.0, device="cuda")
+    pos = torch.randint(0, 4096, (t,), generator=gen, device="cuda", dtype=torch.int32)
+    before = rope.mla_qkv_prep.launches
+    out = rope.mla_qkv_prep(pos, 26, q, kv, w, cache, nope_dim=nope, eps=1e-6)
+    assert rope.mla_qkv_prep.launches == before + 1
+    ref = rope.mla_qkv_prep_ref(pos, 26, q, kv, w, cache, nope_dim=nope, eps=1e-6)
+    assert torch.equal(out[0], ref[0])
+    for o, r in zip(out[1:], ref[1:]):
+        assert_elementwise(o, r)
+
+
+def mla_qkv(gen, b, s, skv, h=16):
+    q = randn(gen, b, s, h, 576)
+    kv = randn(gen, b, skv, 576)
+    v = torch.nn.functional.pad(kv[..., :512], (0, 64))
+    return q, kv[:, :, None].contiguous(), v[:, :, None].contiguous()
+
+
+@pytest.mark.parametrize("n", [1, 255, 256, 257])
+def test_flash_576_causal(gen, n):
+    """K7 at head dim 576 (the MLA prefill: 16 heads over one latent head,
+    V zero past 512) at lengths around the 256 bucket, with lse."""
+    q, k, v = mla_qkv(gen, 2, 264, 264)
+    ql = torch.tensor([n, max(1, n // 3)], dtype=torch.int32, device="cuda")
+    out, lse = flash_prefill.flash_attention(q, k, v, ql, ql, causal=True, sm_scale=0.06, return_lse=True)
+    ref, ref_lse = flash_prefill.flash_attention_ref(q, k, v, ql, ql, causal=True, sm_scale=0.06, return_lse=True)
+    assert torch.isfinite(out).all()
+    for i, m in enumerate(ql.tolist()):
+        assert_elementwise(out[i, :m], ref[i, :m])
+        assert_elementwise(lse[i, :, :m], ref_lse[i, :, :m])
+
+
+def test_flash_576_extend_and_keyless_rows(gen):
+    """The two extend passes at 576: fresh rows causal at global offsets,
+    then a prefix pass in which one sequence has no prefix (its rows see no
+    key: o = 0, lse -1e30 * log2(e)); GQA groups 16 and 4."""
+    for h in (16, 4):
+        q, k, v = mla_qkv(gen, 2, 70, 130, h)
+        ql = torch.tensor([70, 33], dtype=torch.int32, device="cuda")
+        pre = torch.tensor([130, 0], dtype=torch.int32, device="cuda")
+        zero = torch.zeros_like(pre)
+        for args in ((ql, ql, None, pre, pre), (ql, pre, None, pre, zero)):
+            out, lse = flash_prefill.flash_attention(q, k[:, :70] if args[1] is ql else k,
+                                                     v[:, :70] if args[1] is ql else v, *args, causal=True,
+                                                     return_lse=True)
+            ref, ref_lse = flash_prefill.flash_attention_ref(q, k[:, :70] if args[1] is ql else k,
+                                                             v[:, :70] if args[1] is ql else v, *args, causal=True,
+                                                             return_lse=True)
+            for i, m in enumerate(ql.tolist()):
+                if args[1] is pre and i == 1:
+                    assert not out[1].any() and is_empty_lse(lse[1])
+                    continue
+                assert_elementwise(out[i, :m], ref[i, :m])
+                assert_elementwise(lse[i, :, :m], ref_lse[i, :, :m])
+
+
+@pytest.mark.parametrize("n", [1, 255, 256, 257])
+def test_packed_576_group16(gen, n):
+    """K9 at head dim 576 with GQA group 16 over one KV head, at the block
+    edges, beside a second sequence and padding blocks."""
+    lens = [n, 90]
+    qkv, ints, meta = packed_inputs(gen, lens, 16, 1, 576, n_pad_blocks=1)
+    q, k, _ = qkv
+    v = torch.nn.functional.pad(k[..., :512], (0, 64)).contiguous()
+    check_packed((q, k, v), ints, meta, lens, 4, 16)
+
+
+def test_mla_decode_unsplit_grid(gen):
+    """A batch that fills the card with one block per sequence takes the
+    kernel's one-pass form (no split, no merge); a smaller one splits
+    (test_mla_decode above)."""
+    lengths = [1 + (37 * i) % 200 for i in range(140)]
+    pool, table, lens = mla_pool(gen, lengths, 16, 576, 1, torch.bfloat16)
+    assert mla.split_keys_for(140, 16, table.shape[1] * 16, sm_count(0)) == 0
+    assert mla.split_keys_for(6, 16, table.shape[1] * 16, sm_count(0)) > 0
+    qn, qp = randn(gen, 140, 16, 512), randn(gen, 140, 16, 64)
+    out, lse = mla.mla_decode(qn, qp, pool[0], lens, table, return_lse=True)
+    ref, ref_lse = mla.mla_decode_ref(qn, qp, pool[0], lens, table, return_lse=True)
+    assert_elementwise(out, ref)
+    assert torch.allclose(lse, ref_lse, rtol=1e-5, atol=1e-4)

@@ -139,3 +139,74 @@ def test_default_engine_matches_jax(num_pages):
     # did not adopt
     assert teng.allocator.free + teng.native.cached_pages == num_pages - 1
     assert tc.get("nonfinite_logits", 0) == 0
+
+
+def deepseek_pair(**kw):
+    from sgl_kernel_tpu.models import deepseek as jds
+    from sgl_kernel_tpu_torch import DeepseekConfig
+
+    jcfg = jds.DeepseekConfig.tiny(**kw)
+    jparams = jds.init_weights(jcfg, jax.random.PRNGKey(3))
+    return jcfg, jparams, DeepseekConfig.tiny(**kw), params_from_numpy(jax.tree_util.tree_map(np.asarray, jparams),
+                                                                       "cpu")
+
+
+def test_deepseek_engine_matches_direct_stepping():
+    """The DeepSeek engine's plain path (no prefix cache, one padded
+    prefill a prompt) against stepping the port's model by hand: one
+    prefill, then decode_step a token (tests/test_engine_deepseek.py)."""
+    from sgl_kernel_tpu_torch.models import deepseek as tds
+
+    _, _, cfg, params = deepseek_pair()
+    rng = np.random.default_rng(9)
+    prompt = rng.integers(0, cfg.vocab_size, 9).tolist()
+    page, n_new = 16, 6
+    rope = tds.build_rope_cache(cfg, "cpu")
+    kv = tds.make_cache(cfg, 16, page, device="cpu")
+    s = len(prompt)
+    tok, pos, sl = np.zeros((1, 16), np.int32), np.zeros((1, 16), np.int32), np.full((1, 16), -1, np.int32)
+    tok[0, :s], pos[0, :s], sl[0, :s] = prompt, np.arange(s), page + np.arange(s)
+    t = lambda a: torch.from_numpy(np.asarray(a, np.int32))
+    logits, kv = tds.prefill(params, cfg, kv, t(tok), t(pos), t([s]), t(sl), rope)
+    ref = [int(logits[0].argmax())]
+    table = t(np.arange(1, 1 + (s + n_new + page) // page)[None])
+    for i in range(n_new - 1):
+        n = s + i
+        logits, kv = tds.decode_step(params, cfg, kv, t([ref[-1]]), t([n]), table, t([n + 1]), t([page + n]), rope)
+        ref.append(int(logits[0].argmax()))
+    eng = Engine(cfg, params, device="cpu", num_pages=16, page_size=page, enable_prefix_cache=False)
+    rid = eng.add_request(prompt, max_new_tokens=n_new)
+    assert eng.run_until_done()[rid].output == ref
+
+
+def test_deepseek_default_engine_matches_jax():
+    """Both default DeepSeek engines (prefix cache, packed admission,
+    prefill_chunk=32; the model has no mixed step, so chunks go by extend)
+    on the tiny W4A16 model: wave A is three fresh prompts (two packed, the
+    40-token one chunked), wave B reuses cached pages of A's prompts beside
+    a fresh 70-token prompt in chunks. Tokens, hit tokens and page
+    accounting must be identical, with no mixed step."""
+    jcfg, jparams, cfg, params = deepseek_pair(quant="w4a16", group_size=32)
+    rng = np.random.default_rng(10)
+    kw = dict(max_batch=4, page_size=16, num_pages=48, prefill_chunk=32)
+    jeng = JaxEngine(jcfg, jparams, **kw)
+    teng = Engine(cfg, params, device="cpu", **kw)
+    assert teng.native is not None and type(teng.adapter).__name__ == "DeepseekAdapter"
+    a = [rng.integers(1, cfg.vocab_size, n).tolist() for n in (20, 40, 9)]
+    b = [a[1][:32] + rng.integers(1, cfg.vocab_size, 10).tolist(),
+         a[0][:16] + rng.integers(1, cfg.vocab_size, 5).tolist(),
+         rng.integers(1, cfg.vocab_size, 70).tolist()]
+    for wave in (a, b):
+        for eng in (jeng, teng):
+            for p in wave:
+                eng.add_request(p, max_new_tokens=5)
+            eng.run_until_done()
+    assert sorted(jeng.finished) == sorted(teng.finished) == list(range(6))
+    for rid in jeng.finished:
+        assert teng.finished[rid].output == jeng.finished[rid].output, rid
+    jc, tc = jeng.metrics.counters, teng.metrics.counters
+    for key in ("prefix_cache_hit_tokens", "tokens_prefilled", "tokens_decoded", "requests_finished"):
+        assert tc.get(key) == jc.get(key), key
+    assert tc["prefix_cache_hit_tokens"] == 48 and tc.get("mixed_steps", 0) == 0
+    assert teng.allocator.free + teng.native.cached_pages == 47
+    assert tc.get("nonfinite_logits", 0) == 0

@@ -44,6 +44,8 @@ def test_entry_points_need_a_card_by_default():
         skt.init_weights(cfg, 0)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         skt.make_caches(cfg, 4, 16)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        skt.Engine(skt.DeepseekConfig.tiny())
 
 
 def test_unserved_engine_arguments_raise():
@@ -69,7 +71,8 @@ def test_unserved_engine_arguments_raise():
 def test_kernel_wrappers_count_launches():
     assert set(skt.launch_counts()) == {"w4a16_gemm", "rmsnorm", "rope_decode_fused_qkv",
                                         "paged_attention_decode_dma", "store_cache_all_layers", "flash_attention",
-                                        "flash_attention_packed"}
+                                        "flash_attention_packed", "w4a16_grouped_mm", "mla_decode",
+                                        "mla_qkv_prep"}
     skt.reset_launch_counts()
     x = torch.randn(3, 64)
     skt.rmsnorm(x, torch.ones(64))  # CPU tensor: the plain twin, no launch
@@ -83,10 +86,12 @@ def test_kernel_sources_and_entry_points():
     from sgl_kernel_tpu_torch import _build
 
     stems = {p.stem for p in _build.sources()}
-    assert stems == {"decode_attention", "flash_packed", "flash_prefill", "store_cache", "w4a16_gemm"}
+    assert stems == {"decode_attention", "flash_packed", "flash_prefill", "store_cache", "w4a16_gemm",
+                     "grouped_gemm", "mla_decode"}
     entry = {"decode_attention": "skt_paged_decode", "flash_packed": "skt_flash_packed",
              "flash_prefill": "skt_flash_prefill", "store_cache": "skt_store_cache_all_layers",
-             "w4a16_gemm": "skt_w4a16_gemm"}
+             "w4a16_gemm": "skt_w4a16_gemm", "grouped_gemm": "skt_w4a16_grouped_mm",
+             "mla_decode": "skt_mla_decode"}
     for src in _build.sources():
         text = src.read_text()
         assert f'extern "C" int {entry[src.stem]}(' in text
@@ -95,3 +100,18 @@ def test_kernel_sources_and_entry_points():
         lib = _build._lib_path(src)
         assert lib.parent == _build.BUILD_DIR and lib.name.startswith(src.stem + "-")
     assert "-gencode" in _build.NVCC_FLAGS and "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
+
+
+def test_deepseek_adapter_serves_the_plain_mode_only():
+    """adapter_for picks the DeepSeek adapter by config type; the NSA and
+    compression modes it would ask for are not ported and raise."""
+    cfg = skt.DeepseekConfig.tiny()
+    ad = skt.adapter_for(cfg, "cpu")
+    assert isinstance(ad, skt.DeepseekAdapter) and ad.supports_extend and not hasattr(ad._m, "mixed_step")
+    (pool,) = ad.make_caches(4, 16)
+    assert pool.shape == (cfg.num_layers, 4, 16, 576)
+    for kw in (dict(nsa=True), dict(compress="c128")):
+        with pytest.raises(NotImplementedError):
+            skt.adapter_for(skt.DeepseekConfig.tiny(**kw), "cpu")
+    with pytest.raises(NotImplementedError):
+        skt.DeepseekAdapter(cfg, "cpu", use_nsa=True)

@@ -1,0 +1,182 @@
+"""The port's MLA operators against the JAX package's on the same inputs
+(numpy, from a seed): ``mla_decode`` (K13a's plain twin; the Pallas kernel
+in interpret mode) on bf16, int8 and fp8 e4m3 pools, with lse, with
+``num_splits``, stacked and 640 wide; ``mla_prefill`` (K7 at head dim 576)
+with extend offsets and lse; ``mla_qkv_prep`` (K14's twin); and
+``store_cache_mla``.
+
+Tolerances. float32 q over an exactly converted pool: 2e-5 of the output's
+scale (another summation order). bf16 q: the TPU kernel rounds P to bf16
+before P.V (mla.py:99-101) where the port's twin keeps float32 (and its
+kernel carries P as two bf16 terms), so 2^-6 of the scale. lse: 1e-4
+absolute (base-2 logits of order 10). Integer outputs and copies: exact.
+fp8 pools hold normal values only: the JAX upcast flushes denormals, a
+known reference quirk (ROADMAP queue 3)."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from sgl_kernel_tpu.ops import kvcache as jkv
+from sgl_kernel_tpu.ops import rope as jrope
+from sgl_kernel_tpu.ops.attention import mla as jmla
+from sgl_kernel_tpu_torch import tensor_from_numpy
+from sgl_kernel_tpu_torch.ops import kvcache, rope
+from sgl_kernel_tpu_torch.ops.attention import mla
+
+torch.set_num_threads(1)
+
+
+def t_(a):
+    return tensor_from_numpy(np.asarray(a), "cpu")
+
+
+def close(out, ref, rel):
+    out = out.float().numpy()
+    ref = np.asarray(ref, np.float32)
+    tol = rel * max(1.0, float(np.abs(ref).max()))
+    assert np.abs(out - ref).max() <= tol, (float(np.abs(out - ref).max()), tol)
+
+
+def paged_latents(rng, lengths, page, width=576, layers=1, dtype="bf16"):
+    """Random latent rows for ``lengths`` paged into a [L, P, page, width]
+    pool (64 zero lanes when width is 640), its page table, the pool as a
+    JAX array of ``dtype`` (int8 codes, or normal fp8 values)."""
+    b = len(lengths)
+    n_blocks = max(1, -(-max(lengths) // page))
+    n_pages = b * n_blocks + 1
+    perm = rng.permutation(n_pages - 1) + 1
+    table = np.zeros((b, n_blocks + 1), np.int32)  # one spare column, as the engine's tables have
+    for i, n in enumerate(lengths):
+        table[i, : -(-n // page)] = perm[i * n_blocks: i * n_blocks + -(-n // page)]
+    shape = (layers, n_pages, page, width)
+    if dtype == "int8":
+        pool = jnp.asarray(rng.integers(-127, 128, shape).astype(np.int8))
+    elif dtype == "e4m3":
+        mag = rng.uniform(0.05, 4.0, shape) * rng.choice([-1.0, 1.0], shape)
+        pool = jnp.asarray(mag.astype(np.float32)).astype(jnp.float8_e4m3fn)
+    else:
+        pool = jnp.asarray((rng.standard_normal(shape) * 0.5).astype(np.float32)).astype(
+            jnp.bfloat16 if dtype == "bf16" else jnp.float32)
+    if width == 640:
+        pool = pool.at[..., 576:].set(0)
+    return pool, table
+
+
+@pytest.mark.parametrize("pool_dtype,q_dtype,width,splits", [
+    ("f32", "f32", 576, 1),
+    ("bf16", "bf16", 576, 1),
+    ("int8", "f32", 576, 1),
+    ("int8", "bf16", 576, 1),
+    ("e4m3", "bf16", 576, 1),
+    ("f32", "f32", 576, 2),
+    ("bf16", "bf16", 640, 1),
+    ("f32", "f32", 640, 3),
+])
+def test_mla_decode_twin(pool_dtype, q_dtype, width, splits):
+    rng = np.random.default_rng(11)
+    lengths = [1, 0, 37, 16, 100]  # a length-0 padding row, page edges
+    page, h, layers = 16, 4, 3
+    pool, table = paged_latents(rng, lengths, page, width, layers, pool_dtype)
+    qdt = jnp.bfloat16 if q_dtype == "bf16" else jnp.float32
+    q_nope = jnp.asarray(rng.standard_normal((len(lengths), h, 512)) * 0.3, qdt)
+    q_pe = jnp.asarray(rng.standard_normal((len(lengths), h, 64)) * 0.3, qdt)
+    scale = 0.07 if pool_dtype in ("int8", "e4m3") else 1 / 576 ** 0.5
+    lens = np.array(lengths, np.int32)
+    jo, jl = jmla.mla_decode(q_nope, q_pe, pool, jnp.asarray(lens), jnp.asarray(table), 2, sm_scale=scale,
+                             return_lse=True, num_splits=splits)
+    to, tl = mla.mla_decode(t_(q_nope), t_(q_pe), t_(pool), t_(lens), t_(table), 2, sm_scale=scale,
+                            return_lse=True, num_splits=splits)
+    assert to.dtype == (torch.bfloat16 if q_dtype == "bf16" else torch.float32)
+    # a length-0 padding row is compared apart: o = 0 here, while the JAX
+    # function's split form gives NaN there (a reference quirk)
+    valid = lens > 0
+    close(to[valid], np.asarray(jo)[valid], 2.0 ** -6 if q_dtype == "bf16" else 2e-5)
+    np.testing.assert_allclose(tl.numpy()[valid], np.asarray(jl)[valid], rtol=1e-5, atol=1e-4)
+    assert not to[1].any() and torch.isfinite(tl).all()
+    # the unstacked pool form
+    if splits == 1 and width == 576:
+        jo1 = jmla.mla_decode(q_nope, q_pe, pool[2], jnp.asarray(lens), jnp.asarray(table), sm_scale=scale)
+        to1 = mla.mla_decode(t_(q_nope), t_(q_pe), t_(pool[2]), t_(lens), t_(table), sm_scale=scale)
+        close(to1, jo1, 2.0 ** -6 if q_dtype == "bf16" else 2e-5)
+
+
+def test_split_keys_policy():
+    """K13a splits a sequence's keys over blocks only when one block per
+    (head group, sequence) would leave SMs idle and the tables hold more
+    than one span."""
+    assert mla.split_keys_for(16, 16, 8192, 132) == 128
+    assert mla.split_keys_for(16, 16, 128, 132) == 0
+    assert mla.split_keys_for(132, 16, 8192, 132) == 0
+    assert mla.split_keys_for(8, 128, 8192, 132) == 128  # 8 groups of 16 heads a sequence
+
+
+def test_mla_decode_raises():
+    q = torch.zeros(1, 2, 512)
+    with pytest.raises(NotImplementedError):
+        mla.mla_decode(q, torch.zeros(1, 2, 64), torch.zeros(4, 16, 576), torch.ones(1, dtype=torch.int32),
+                       torch.zeros(1, 2, dtype=torch.int32), engine="dma")
+    with pytest.raises(ValueError):
+        mla.mla_decode(q, torch.zeros(1, 2, 64), torch.zeros(4, 16, 512), torch.ones(1, dtype=torch.int32),
+                       torch.zeros(1, 2, dtype=torch.int32))
+
+
+@pytest.mark.parametrize("offsets", [False, True])
+def test_mla_prefill(offsets):
+    """Causal prefill over the fresh latents, and the extend form: the
+    queries as the last q_len of kv_len at global offsets (q_start /
+    kv_start), with lse; q rows past q_len are padding and not compared."""
+    rng = np.random.default_rng(12)
+    b, s, skv, h = 2, 24, 40 if offsets else 24, 4
+    q_nope = (rng.standard_normal((b, s, h, 512)) * 0.3).astype(np.float32)
+    q_pe = (rng.standard_normal((b, s, h, 64)) * 0.3).astype(np.float32)
+    kv = (rng.standard_normal((b, skv, 576)) * 0.5).astype(np.float32)
+    q_lens = np.array([24, 9], np.int32)
+    kv_lens = np.array([40, 30], np.int32) if offsets else q_lens
+    kw = dict(q_start=np.array([16, 21], np.int32), kv_start=np.array([0, 0], np.int32)) if offsets else {}
+    jo, jl = jmla.mla_prefill(jnp.asarray(q_nope), jnp.asarray(q_pe), jnp.asarray(kv), jnp.asarray(q_lens),
+                              jnp.asarray(kv_lens), sm_scale=0.08, return_lse=True,
+                              **{k: jnp.asarray(v) for k, v in kw.items()})
+    to, tl = mla.mla_prefill(t_(q_nope), t_(q_pe), t_(kv), t_(q_lens), t_(kv_lens), sm_scale=0.08,
+                             return_lse=True, **{k: t_(v) for k, v in kw.items()})
+    assert to.shape == (b, s, h, 512) and tl.shape == (b, h, s)
+    for i, n in enumerate(q_lens):
+        close(to[i, :n], np.asarray(jo)[i, :n], 2e-5)
+        np.testing.assert_allclose(tl.numpy()[i, :, :n], np.asarray(jl)[i, :, :n], rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.parametrize("t,dtype", [(1, "f32"), (5, "bf16"), (64, "f32")])
+def test_mla_qkv_prep_twin(t, dtype):
+    rng = np.random.default_rng(13)
+    nh, nope, rot, lat, layers = 4, 32, 64, 512, 3
+    dt = jnp.bfloat16 if dtype == "bf16" else jnp.float32
+    q = jnp.asarray(rng.standard_normal((t, nh, nope + rot)), dt)
+    kv = jnp.asarray(rng.standard_normal((t, lat + rot)) * 2, dt)
+    w = jnp.asarray(1 + 0.1 * rng.standard_normal((layers, lat)), dt)
+    cache = jrope.compute_cos_sin_cache(rot, 256, 10000.0)
+    pos = rng.integers(0, 256, t).astype(np.int32)
+    jout = jrope.mla_qkv_prep(jnp.asarray(pos), 1, q, kv, w, cache, nope_dim=nope, eps=1e-6)
+    tout = rope.mla_qkv_prep(t_(pos), 1, t_(q), t_(kv), t_(w), t_(cache), nope_dim=nope, eps=1e-6)
+    for o, r in zip(tout, jout):
+        assert o.shape == r.shape and o.dtype == (torch.bfloat16 if dtype == "bf16" else torch.float32)
+        # float32 math and one rounding on both sides: one output ulp at most
+        close(o, r, 2.0 ** -8 if dtype == "bf16" else 1e-6)
+    np.testing.assert_array_equal(tout[0].float().numpy(), np.asarray(jout[0], np.float32))  # a copy
+    assert rope.mla_qkv_prep.launches == 0
+
+
+@pytest.mark.parametrize("dtype", ["f32", "int8"])
+def test_store_cache_mla(dtype):
+    """Rows into the flat view of a stacked pool at layer-offset slots:
+    slot -1 and slots past the pool are dropped."""
+    rng = np.random.default_rng(14)
+    l, p, page = 2, 5, 16
+    pool = np.zeros((l * p, page, 576), np.int8 if dtype == "int8" else np.float32)
+    rows = (rng.integers(-127, 128, (6, 576)) if dtype == "int8" else rng.standard_normal((6, 576))).astype(pool.dtype)
+    loc = np.array([3, -1, p * page + 7, 2 * p * page, 0, l * p * page - 1], np.int32)
+    ref = jkv.store_cache_mla(jnp.asarray(rows), jnp.asarray(pool), jnp.asarray(loc))
+    tp = t_(pool)
+    out = kvcache.store_cache_mla(t_(rows), tp, t_(loc))
+    assert out is tp  # in place
+    np.testing.assert_array_equal(out.numpy(), np.asarray(ref))

@@ -1,0 +1,206 @@
+"""The port's MoE stack against the JAX package's on the same inputs (numpy,
+from a seed): biased top-k routing, the block alignment, K11's plain twin
+(``w4a16_grouped_mm`` on CPU tensors) against the Pallas kernel in interpret
+mode, K12's twin, and ``fused_experts`` on stacked int4 and bf16 banks.
+
+Tolerances: routing ids and every alignment array are exact (integers; the
+weights are the same float32 ops). The grouped GEMMs and fused_experts take
+float32 products of identical operands in another summation order: 2e-5 of
+the output's scale for float32 outputs; bf16 outputs one bf16 ulp (2^-8 of
+the scale)."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from sgl_kernel_tpu.ops import moe as jmoe
+from sgl_kernel_tpu.ops.gemm import w4a16 as jw4
+from sgl_kernel_tpu_torch import tensor_from_numpy
+from sgl_kernel_tpu_torch.ops import activation
+from sgl_kernel_tpu_torch.ops import moe as tmoe
+
+torch.set_num_threads(1)
+
+
+def t_(a):
+    return tensor_from_numpy(np.asarray(a), "cpu")
+
+
+def close(out, ref, rel):
+    out = out.float().numpy()
+    ref = np.asarray(ref, np.float32)
+    tol = rel * max(1.0, float(np.abs(ref).max()))
+    assert np.abs(out - ref).max() <= tol, (float(np.abs(out - ref).max()), tol)
+
+
+@pytest.mark.parametrize("shared,renorm,rsf", [(0, True, 2.5), (1, True, 1.0), (0, False, 2.5), (2, False, 1.0)])
+def test_biased_topk(shared, renorm, rsf):
+    rng = np.random.default_rng(1)
+    t, e, k = 37, 16, 6
+    g = rng.standard_normal((t, e)).astype(np.float32)
+    g[:5] = np.round(g[:5])  # equal scores: the lower expert id first, as jax.lax.top_k
+    bias = (rng.standard_normal(e) * 0.1).astype(np.float32)
+    bias[:8] = 0.0
+    kw = dict(renormalize=renorm, routed_scaling_factor=rsf, apply_routed_scaling_factor_on_output=True,
+              num_fused_shared_experts=shared)
+    jw, jids = jmoe.biased_topk(jnp.asarray(g), jnp.asarray(bias), k, **kw)
+    tw, tids = tmoe.biased_topk(t_(g), t_(bias), k, **kw)
+    assert tids.dtype == torch.int32
+    np.testing.assert_array_equal(tids.numpy(), np.asarray(jids))
+    np.testing.assert_allclose(tw.numpy(), np.asarray(jw), rtol=1e-6, atol=1e-7)
+
+
+@pytest.mark.parametrize("t,k,e,bs", [(16, 4, 8, 8), (1, 6, 64, 16), (16, 6, 64, 16), (300, 6, 64, 128), (5, 2, 4, 32)])
+def test_alignment_arrays(t, k, e, bs):
+    rng = np.random.default_rng(2)
+    ids = rng.integers(0, e, (t, k)).astype(np.int32)
+    if t > 10:
+        ids[: t // 2] = 3  # a skewed expert
+    w = rng.random((t, k)).astype(np.float32)
+    ja = jmoe.moe_align_block_size(jnp.asarray(ids), jnp.asarray(w), e, bs)
+    ta = tmoe.moe_align_block_size(t_(ids), t_(w), e, bs)
+    for name in ja._fields:
+        np.testing.assert_array_equal(getattr(ta, name).numpy(), np.asarray(getattr(ja, name)), err_msg=name)
+    assert ta.num_valid_blocks.ndim == 0 and ta.num_valid_blocks.dtype == torch.int32
+    assert tmoe.pick_block_size(t, k, e) == jmoe.pick_block_size(t, k, e)
+    h = rng.standard_normal((t, 24)).astype(np.float32)
+    xs = tmoe.scatter_tokens_to_experts(t_(h), ta)
+    np.testing.assert_array_equal(xs.numpy(), np.asarray(jmoe.scatter_tokens_to_experts(jnp.asarray(h), ja)))
+    y = rng.standard_normal((xs.shape[0], 24)).astype(np.float32)
+    np.testing.assert_allclose(tmoe.apply_shuffle_mul_sum(t_(y), ta, t).numpy(),
+                               np.asarray(jmoe.apply_shuffle_mul_sum(jnp.asarray(y), ja, t)), rtol=1e-5, atol=1e-6)
+
+
+def grouped_case(rng, *, e=4, k=256, n=128, gs=64, fmt="int4", zeros=False, layers=None, bm=16, blocks=5,
+                 valid=4):
+    """Inputs of one grouped call: bf16 x [blocks*bm, k], packed codes,
+    bf16 scales (and zeros), block expert ids, the valid block count."""
+    lead = (layers, e) if layers else (e,)
+    w = rng.integers(0, 256, lead + (k // 2, n)).astype(np.uint8)
+    if fmt == "mxfp4":
+        s = np.exp2(rng.integers(-8, -3, lead + (k // gs, n))).astype(np.float32)
+    else:
+        s = (rng.random(lead + (k // gs, n)) * 0.02 + 0.005).astype(np.float32)
+    z = (rng.standard_normal(lead + (k // gs, n)) * 0.01).astype(np.float32) if zeros else None
+    x = rng.standard_normal((blocks * bm, k)).astype(np.float32)
+    eids = rng.integers(0, e, blocks).astype(np.int32)
+    eids[valid:] = eids[valid - 1] if valid else 0  # trailing blocks pinned, as the alignment does
+    bf = lambda a: None if a is None else np.asarray(jnp.asarray(a, jnp.bfloat16))
+    return bf(x), w, bf(s), bf(z), eids, np.int32(valid)
+
+
+@pytest.mark.parametrize("fmt,zeros,layers,gs,bm,valid", [
+    ("int4", False, None, 64, 16, 4),
+    ("int4", True, None, 32, 32, 3),
+    ("mxfp4", False, None, 32, 16, 5),
+    ("int4", False, 3, 128, 16, 2),
+    ("int4", True, 2, 64, 64, 1),
+])
+def test_w4a16_grouped_mm_twin(fmt, zeros, layers, gs, bm, valid):
+    """K11's twin against the Pallas kernel (interpret mode) on the rows of
+    valid blocks: int4, zeros, mxfp4, stacked banks under layer_id, and a
+    valid block count below the block count."""
+    rng = np.random.default_rng(3)
+    x, w, s, z, eids, nv = grouped_case(rng, fmt=fmt, zeros=zeros, layers=layers, gs=gs, bm=bm)
+    lid = layers - 1 if layers else None
+    kw = dict(group_size=gs, fmt=fmt, bm=bm, out_dtype=jnp.float32)
+    ref = jmoe.w4a16_grouped_mm(jnp.asarray(x), jnp.asarray(w), jnp.asarray(s), jnp.asarray(eids),
+                                None if z is None else jnp.asarray(z), lid, jnp.asarray(nv), **kw)
+    kw["out_dtype"] = torch.float32
+    out = tmoe.w4a16_grouped_mm(t_(x), t_(w), t_(s), t_(eids), None if z is None else t_(z), lid,
+                                torch.tensor(nv), **kw)
+    rows = int(nv) * bm
+    close(out[:rows], np.asarray(ref)[:rows], 2e-5)
+    assert tmoe.w4a16_grouped_mm.launches == 0  # a CPU tensor takes the twin
+
+
+def test_w4a16_grouped_mm_padded_k_and_per_channel():
+    """An activation K below the packed (group-padded) K, and per-channel
+    [E, 1, N] scales applied to every group."""
+    rng = np.random.default_rng(4)
+    x, w, s, _, eids, nv = grouped_case(rng, k=256, gs=128, valid=5)
+    xk = x[:, :200]
+    ref = jmoe.w4a16_grouped_mm(jnp.asarray(xk), jnp.asarray(w), jnp.asarray(s), jnp.asarray(eids),
+                                group_size=128, bm=16, out_dtype=jnp.float32)
+    out = tmoe.w4a16_grouped_mm(t_(xk), t_(w), t_(s), t_(eids), group_size=128, bm=16, out_dtype=torch.float32)
+    close(out, ref, 2e-5)
+    s1 = s[:, :1]
+    ref = jmoe.w4a16_grouped_mm(jnp.asarray(x), jnp.asarray(w), jnp.asarray(s1), jnp.asarray(eids),
+                                group_size=128, bm=16, bk=128, out_dtype=jnp.float32, per_channel=True)
+    out = tmoe.w4a16_grouped_mm(t_(x), t_(w), t_(s1), t_(eids), group_size=128, bm=16, out_dtype=torch.float32,
+                                per_channel=True)
+    close(out, ref, 2e-5)
+
+
+def test_bf16_grouped_mm_twin():
+    rng = np.random.default_rng(5)
+    e, k, n, bm, blocks, nv = 4, 64, 96, 16, 4, 3
+    x = rng.standard_normal((blocks * bm, k)).astype(np.float32)
+    w = (rng.standard_normal((2, e, k, n)) * 0.1).astype(np.float32)
+    eids = np.array([2, 0, 3, 3], np.int32)
+    ref = jmoe.bf16_grouped_mm(jnp.asarray(x), jnp.asarray(w), jnp.asarray(eids), 1, jnp.int32(nv), bm=bm)
+    out = tmoe.bf16_grouped_mm(t_(x), t_(w), t_(eids), 1, torch.tensor(nv), bm=bm)
+    close(out[: nv * bm], np.asarray(ref)[: nv * bm], 2e-5)
+
+
+def stacked_banks(rng, layers, e, h, inter, quant, gs=64):
+    """Expert banks [L, E, H, 2I] / [L, E, I, H] (x @ W), quantized per
+    expert the JAX model's way (quantize_w4 of W.T) when ``quant``."""
+    w1 = (rng.standard_normal((layers, e, h, 2 * inter)) / np.sqrt(h)).astype(np.float32)
+    w2 = (rng.standard_normal((layers, e, inter, h)) / np.sqrt(inter)).astype(np.float32)
+    if not quant:
+        return jmoe.MoeWeights(w1=jnp.asarray(w1), w2=jnp.asarray(w2), fmt="bf16")
+    q = jax.vmap(jax.vmap(lambda m: jw4.quantize_w4(m.T, group_size=gs)[:2]))
+    (p1, s1), (p2, s2) = q(jnp.asarray(w1)), q(jnp.asarray(w2))
+    return jmoe.MoeWeights(w1=p1, w2=p2, w1_scales=s1, w2_scales=s2, fmt="int4", group_size=gs)
+
+
+def port_weights(mw):
+    return tmoe.MoeWeights(**{f: (t_(v) if hasattr(v, "shape") else v) for f, v in mw._asdict().items()
+                              if v is not None})
+
+
+@pytest.mark.parametrize("quant,t,biases", [(True, 5, False), (True, 70, False), (False, 9, False),
+                                            (True, 9, True)])
+def test_fused_experts_stacked(quant, t, biases):
+    """One layer of stacked banks (int4 through K11's twin, bf16 through
+    K12's), routed by biased top-k: ids equal first, then the outputs; with
+    per-expert biases (stacked [L, E, ...]) before the activation and after
+    the second GEMM."""
+    rng = np.random.default_rng(6)
+    layers, e, h, inter, k = 2, 8, 128, 64, 3
+    mw = stacked_banks(rng, layers, e, h, inter, quant)
+    if biases:
+        mw = mw._replace(b1=jnp.asarray(rng.standard_normal((layers, e, 2 * inter)) * 0.1, jnp.bfloat16),
+                         b2=jnp.asarray(rng.standard_normal((layers, e, h)) * 0.1, jnp.bfloat16))
+    x = rng.standard_normal((t, h)).astype(np.float32)
+    logits = rng.standard_normal((t, e)).astype(np.float32)
+    bias = (rng.standard_normal(e) * 0.1).astype(np.float32)
+    kw = dict(renormalize=True, routed_scaling_factor=2.5, apply_routed_scaling_factor_on_output=True)
+    jtw, jids = jmoe.biased_topk(jnp.asarray(logits), jnp.asarray(bias), k, **kw)
+    ttw, tids = tmoe.biased_topk(t_(logits), t_(bias), k, **kw)
+    np.testing.assert_array_equal(tids.numpy(), np.asarray(jids))
+    xj = jnp.asarray(x, jnp.bfloat16) if quant else jnp.asarray(x)
+    ref = jmoe.fused_experts(xj, mw, jtw, jids, layer_id=1)
+    out = tmoe.fused_experts(t_(np.asarray(xj)), port_weights(mw), ttw, tids, layer_id=1)
+    assert out.dtype == (torch.bfloat16 if quant else torch.float32)
+    close(out, np.asarray(ref, np.float32), 2.0 ** -7 if quant else 2e-5)
+
+
+def test_fused_experts_raises_on_unported_paths():
+    w = torch.zeros(4, 8, 16)
+    with pytest.raises(NotImplementedError):
+        tmoe.fused_experts(torch.zeros(2, 8), tmoe.MoeWeights(w1=w, w2=torch.zeros(4, 8, 8)),
+                           torch.ones(2, 1), torch.zeros(2, 1, dtype=torch.int32))
+
+
+@pytest.mark.parametrize("name", ["silu", "gelu", "gelu_tanh", "silu_clamp", "swiglu_gpt_oss"])
+def test_activations(name):
+    from sgl_kernel_tpu.ops.activation import ACTIVATIONS as JACT
+
+    rng = np.random.default_rng(7)
+    x = (rng.standard_normal((6, 32)) * 4).astype(np.float32)
+    # float32 on both sides; erf / tanh are other implementations: 1e-5 of the scale
+    close(activation.ACTIVATIONS[name](t_(x)), JACT[name](jnp.asarray(x)), 1e-5)
