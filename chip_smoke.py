@@ -53,6 +53,21 @@ CPU's where they differ (each flip counted); (4) the engine at full depth
 (27 layers) in waves A, B (exactly 6,144 hit tokens, warm against cold)
 and C (the 4,096-token prompt in chunks, by extend: no mixed step), each
 wave's kernels launching; (5) its profile of 4 decode steps.
+Then the Mixtral path and the bf16 DeepSeek engine: (2) the split-q/k decode
+RoPE (K4) at Mixtral-8x7B's B=16 decode, the grouped bf16 GEMM (K12) at
+DeepSeek-V2-Lite's B=16 decode (gate_up and down, 64 experts, stacked),
+Mixtral's B=16 decode (8 experts, unstacked) and a 1,024-token Mixtral
+prefill at bm 128, each with torch._grouped_mm as the library yardstick
+where this torch has it; (3) card against CPU at 2 layers: Llama-3-8B bf16
+with fused=False (prefill and decode, through K4), DeepSeek-V2-Lite with bf16
+weights, and Mixtral-8x7B bf16 and W4A16 (prefill, 2 decode steps, packed,
+extend; routing replayed as for DeepSeek); (4) Engine(MixtralConfig.
+mixtral_8x7b(quant="w4a16")) at full depth (32 layers) and the bf16
+DeepSeek-V2-Lite engine at full depth, each in waves A, B+C (C's prompt in
+one prefill and three extends) and the cold check, then the bf16
+Mixtral-8x7B engine cut to 8 of 32 layers (93.4 GB of bf16 weights do not
+fit in 80 GB) in waves A and B of 4; (5) the two full-depth engines'
+decode profiles. Each phase prints its time ([time] lines).
 
 Prints a JSON line of per-kernel numbers, then, last,
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -62,6 +77,7 @@ package beside it.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gc
 import itertools
@@ -539,31 +555,43 @@ def phase_w4a16(torch, skt):
     return rows
 
 
-def phase_parity(torch, skt, cfg, label):
-    """Full width, 2 layers: the card against the CPU on the same weights."""
+PARITY_PROGRAMS = ("prefill", "decode", "packed", "extend", "mixed")
+
+
+def phase_parity(torch, skt, cfg, label, programs=PARITY_PROGRAMS, n_decode=4):
+    """Full width, 2 layers: the card against the CPU on the same weights
+    (drawn on the card, copied to the CPU). ``programs``: the prefill of two
+    prompts and ``n_decode`` decode steps, then on fresh pools a packed
+    prefill, an extend and a mixed step (those named). A Mixtral config runs
+    models/mixtral.py with its routing recorded on the CPU and replayed on
+    the card (flips counted); a Llama config models/llama.py."""
+    from sgl_kernel_tpu_torch.models import llama, mixtral
     from sgl_kernel_tpu_torch.serving.engine import packed_layout
 
+    m = mixtral if isinstance(cfg, skt.MixtralConfig) else llama
     cfg = dataclasses.replace(cfg, num_layers=2)
     t0 = time.perf_counter()
-    params_cpu = skt.init_weights(cfg, torch.Generator().manual_seed(SEED), device="cpu")
-    to_dev = lambda v: {k: to_dev(x) for k, x in v.items()} if isinstance(v, dict) else v.to(DEVICE)
-    params_gpu = to_dev(params_cpu)
+    params_gpu = m.init_weights(cfg, torch.Generator(device=DEVICE).manual_seed(SEED), device=DEVICE)
+    to_cpu = lambda v: {k: to_cpu(x) for k, x in v.items()} if isinstance(v, dict) else v.cpu()
+    params_cpu = to_cpu(params_gpu)
     page, n_pages, bucket = 64, 8, 64
     sides = {}
     for dev in ("cpu", DEVICE):
-        caches = skt.make_caches(cfg, n_pages, page, device=dev)
+        caches = m.make_caches(cfg, n_pages, page, device=dev)
         sides[dev] = dict(params=params_cpu if dev == "cpu" else params_gpu, k=caches[0], v=caches[1],
-                          rope=skt.build_rope_cache(cfg, device=dev))
+                          rope=m.build_rope_cache(cfg, device=dev))
     rng = torch.Generator().manual_seed(SEED + 1)
     prompts = [torch.randint(0, cfg.vocab_size, (n,), generator=rng).tolist() for n in (40, 23)]
     pages = [[1, 2], [3, 4]]
     slot = lambda i, p: pages[i][p // page] * page + p % page
+    replay = RoutingReplay(mixtral, "topk_softmax") if m is mixtral else None
 
     def run(dev, name, *arrays, n_out=1, **kw):
         sd = sides[dev]
-        fn = getattr(skt, name)
+        if replay is not None:
+            replay.mode = "record" if dev == "cpu" else "replay"
         ts = [torch.tensor(a, dtype=torch.int32, device=dev) for a in arrays]
-        *logits, sd["k"], sd["v"] = fn(sd["params"], cfg, sd["k"], sd["v"], *ts, sd["rope"], **kw)
+        *logits, sd["k"], sd["v"] = getattr(m, name)(sd["params"], cfg, sd["k"], sd["v"], *ts, sd["rope"], **kw)
         logits = [x.float().cpu() for x in logits]
         return logits[0] if n_out == 1 else logits
 
@@ -592,66 +620,91 @@ def phase_parity(torch, skt, cfg, label):
                 near_ties += 1
         return lc.argmax(-1).tolist()
 
-    seqs = []
-    for i, pr in enumerate(prompts):
-        n = len(pr)
-        tok = [pr + [0] * (bucket - n)]
-        pos = [list(range(n)) + [0] * (bucket - n)]
-        sl = [[slot(i, p) for p in range(n)] + [-1] * (bucket - n)]
-        out = {dev: run(dev, "prefill", tok, pos, [n], sl) for dev in ("cpu", DEVICE)}
-        seqs.append(pr + compare(out["cpu"], out[DEVICE], f"prefill {i}"))
-    for step in range(4):
-        b = 4  # two sequences and two padding rows
-        tokens = [s[-1] for s in seqs] + [0, 0]
-        positions = [len(s) - 1 for s in seqs] + [0, 0]
-        lengths = [len(s) for s in seqs] + [0, 0]
-        slots = [slot(i, len(s) - 1) for i, s in enumerate(seqs)] + [-1, -1]
-        tables = [p + [0] * (8 - len(p)) for p in pages] + [[0] * 8] * (b - 2)
-        out = {dev: run(dev, "decode_step", tokens, positions, tables, lengths, slots) for dev in ("cpu", DEVICE)}
-        nxt = compare(out["cpu"][:2], out[DEVICE][:2], f"decode {step}")
-        for s, t in zip(seqs, nxt):
-            s.append(t)
-    # the admission programs on fresh pools: a packed prefill of both
-    # prompts (block 256), an extend of 23 tokens of the first over its 40
-    # cached ones, then the second's decode (with a padding row) fused with
-    # a 20-token chunk of the first in one mixed step
-    for dev in ("cpu", DEVICE):
-        sides[dev]["k"], sides[dev]["v"] = skt.make_caches(cfg, n_pages, page, device=dev)
-    ext = torch.randint(0, cfg.vocab_size, (43,), generator=rng).tolist()
-    lens = [len(p) for p in prompts]
-    blk_seq, blk_q0, seq_meta, tok0, tp, max_kvb = packed_layout(lens, 3)
-    tokens, positions, slots = [0] * tp, [0] * tp, [-1] * tp
-    for i, (pr, t) in enumerate(zip(prompts, tok0)):
-        tokens[t: t + len(pr)], positions[t: t + len(pr)] = pr, list(range(len(pr)))
-        slots[t: t + len(pr)] = [slot(i, p) for p in range(len(pr))]
-    last = [t + n - 1 for t, n in zip(tok0, lens)] + [0]
-    out = {dev: run(dev, "prefill_packed", tokens, positions, blk_seq, blk_q0, seq_meta, last, slots,
-                    max_kvb=max_kvb) for dev in ("cpu", DEVICE)}
-    first = compare(out["cpu"][:2], out[DEVICE][:2], "prefill_packed")
-    n0, s = lens[0], 32
-    pad = lambda xs, fill: xs + [fill] * (s - len(xs))
-    tab = lambda i: pages[i] + [0] * (8 - len(pages[i]))
-    out = {dev: run(dev, "prefill_extend", [pad(ext[:23], 0)], [pad(list(range(n0, n0 + 23)), 0)], [23], [n0 + 23],
-                    [tab(0)], [pad([slot(0, p) for p in range(n0, n0 + 23)], -1)], prefix_max=page)
-           for dev in ("cpu", DEVICE)}
-    compare(out["cpu"], out[DEVICE], "prefill_extend")
-    n1, p0 = lens[1], n0 + 23
-    dec = ([first[1], 0], [n1, 0], [tab(1), [0] * 8], [n1 + 1, 1], [slot(1, n1), -1])
-    out = {dev: run(dev, "mixed_step", *dec, pad(ext[23:43], 0), pad(list(range(p0, p0 + 20)), 0), 20, p0 + 20,
-                    tab(0), pad([slot(0, p) for p in range(p0, p0 + 20)], -1), prefix_max=page, n_out=2)
-           for dev in ("cpu", DEVICE)}
-    compare(torch.cat([out["cpu"][0][:1], out["cpu"][1][None]]),
-            torch.cat([out[DEVICE][0][:1], out[DEVICE][1][None]]), "mixed_step")
-    log(f"[parity] {label} 2-layer Llama-3-8B widths, card vs CPU (prefill, 4 decode steps, prefill_packed, "
-        f"prefill_extend, mixed_step): max |logit diff|={worst:.4g} (tol {tol}), "
-        f"greedy near-ties={near_ties}/{steps}, {time.perf_counter() - t0:.1f} s")
-    return dict(max_logit_diff=worst, near_ties=near_ties, steps=steps)
+    try:
+        seqs = []
+        for i, pr in enumerate(prompts):
+            n = len(pr)
+            tok = [pr + [0] * (bucket - n)]
+            pos = [list(range(n)) + [0] * (bucket - n)]
+            sl = [[slot(i, p) for p in range(n)] + [-1] * (bucket - n)]
+            out = {dev: run(dev, "prefill", tok, pos, [n], sl) for dev in ("cpu", DEVICE)}
+            seqs.append(pr + compare(out["cpu"], out[DEVICE], f"prefill {i}"))
+        for step in range(n_decode if "decode" in programs else 0):
+            b = 4  # two sequences and two padding rows
+            tokens = [s[-1] for s in seqs] + [0, 0]
+            positions = [len(s) - 1 for s in seqs] + [0, 0]
+            lengths = [len(s) for s in seqs] + [0, 0]
+            slots = [slot(i, len(s) - 1) for i, s in enumerate(seqs)] + [-1, -1]
+            tables = [p + [0] * (8 - len(p)) for p in pages] + [[0] * 8] * (b - 2)
+            out = {dev: run(dev, "decode_step", tokens, positions, tables, lengths, slots) for dev in ("cpu", DEVICE)}
+            nxt = compare(out["cpu"][:2], out[DEVICE][:2], f"decode {step}")
+            for s, t in zip(seqs, nxt):
+                s.append(t)
+        # the admission programs on fresh pools: a packed prefill of both
+        # prompts (block 256), an extend of 23 tokens of the first over its 40
+        # cached ones, then the second's decode (with a padding row) fused with
+        # a 20-token chunk of the first in one mixed step
+        for dev in ("cpu", DEVICE):
+            sides[dev]["k"], sides[dev]["v"] = m.make_caches(cfg, n_pages, page, device=dev)
+        ext = torch.randint(0, cfg.vocab_size, (43,), generator=rng).tolist()
+        lens = [len(p) for p in prompts]
+        first = None
+        if "packed" in programs:
+            blk_seq, blk_q0, seq_meta, tok0, tp, max_kvb = packed_layout(lens, 3)
+            tokens, positions, slots = [0] * tp, [0] * tp, [-1] * tp
+            for i, (pr, t) in enumerate(zip(prompts, tok0)):
+                tokens[t: t + len(pr)], positions[t: t + len(pr)] = pr, list(range(len(pr)))
+                slots[t: t + len(pr)] = [slot(i, p) for p in range(len(pr))]
+            last = [t + n - 1 for t, n in zip(tok0, lens)] + [0]
+            out = {dev: run(dev, "prefill_packed", tokens, positions, blk_seq, blk_q0, seq_meta, last, slots,
+                            max_kvb=max_kvb) for dev in ("cpu", DEVICE)}
+            first = compare(out["cpu"][:2], out[DEVICE][:2], "prefill_packed")
+        n0, s = lens[0], 32
+        pad = lambda xs, fill: xs + [fill] * (s - len(xs))
+        tab = lambda i: pages[i] + [0] * (8 - len(pages[i]))
+        if "extend" in programs:
+            out = {dev: run(dev, "prefill_extend", [pad(ext[:23], 0)], [pad(list(range(n0, n0 + 23)), 0)], [23],
+                            [n0 + 23], [tab(0)], [pad([slot(0, p) for p in range(n0, n0 + 23)], -1)],
+                            prefix_max=page)
+                   for dev in ("cpu", DEVICE)}
+            compare(out["cpu"], out[DEVICE], "prefill_extend")
+        if "mixed" in programs:
+            n1, p0 = lens[1], n0 + 23
+            dec = ([first[1], 0], [n1, 0], [tab(1), [0] * 8], [n1 + 1, 1], [slot(1, n1), -1])
+            out = {dev: run(dev, "mixed_step", *dec, pad(ext[23:43], 0), pad(list(range(p0, p0 + 20)), 0), 20,
+                            p0 + 20, tab(0), pad([slot(0, p) for p in range(p0, p0 + 20)], -1), prefix_max=page,
+                            n_out=2)
+                   for dev in ("cpu", DEVICE)}
+            compare(torch.cat([out["cpu"][0][:1], out["cpu"][1][None]]),
+                    torch.cat([out[DEVICE][0][:1], out[DEVICE][1][None]]), "mixed_step")
+    finally:
+        if replay is not None:
+            replay.restore()
+    res = dict(max_logit_diff=worst, near_ties=near_ties, steps=steps)
+    flips = ""
+    if replay is not None:
+        res.update(routing_flips=replay.flips, routed_tokens=replay.tokens)
+        flips = f", routing flips replayed={replay.flips}/{replay.tokens} routed tokens"
+    log(f"[parity] {label} 2-layer {type(cfg).__name__} {cfg.hidden_size}-wide, card vs CPU "
+        f"({', '.join(programs)}): max |logit diff|={worst:.4g} (tol {tol}), "
+        f"greedy near-ties={near_ties}/{steps}{flips}, {time.perf_counter() - t0:.1f} s")
+    del params_gpu, sides
+    free_memory(torch)
+    return res
 
 
 PREFIX = 512       # wave B's shared prefix: 8 pages of 64
-# kernels of the DeepSeek path only (the Llama engines do not run them)
-DEEPSEEK_ONLY = ("w4a16_grouped_mm", "mla_decode", "mla_qkv_prep")
 NEW_TOKENS = 32
+# the kernels each engine's waves must launch
+LLAMA_BF16 = ("rmsnorm", "rope_decode_fused_qkv", "paged_attention_decode_dma", "store_cache_all_layers",
+              "flash_attention", "flash_attention_packed")
+LLAMA_W4 = LLAMA_BF16 + ("w4a16_gemm",)
+MIXTRAL_BF16 = ("rmsnorm", "rope_decode_fused", "paged_attention_decode_dma", "store_cache_all_layers",
+                "flash_attention", "flash_attention_packed", "bf16_grouped_mm")
+MIXTRAL_W4 = MIXTRAL_BF16[:-1] + ("w4a16_gemm", "w4a16_grouped_mm")
+DEEPSEEK_BF16 = ("rmsnorm", "flash_attention", "flash_attention_packed", "bf16_grouped_mm", "mla_decode",
+                 "mla_qkv_prep")
+DEEPSEEK_W4 = DEEPSEEK_BF16[:3] + ("w4a16_gemm", "w4a16_grouped_mm", "mla_decode", "mla_qkv_prep")
 
 
 def random_prompt(torch, gen, vocab, n):
@@ -660,24 +713,28 @@ def random_prompt(torch, gen, vocab, n):
 
 def instrument(eng):
     """Wrap one engine's programs to count K1 launches by regime (prefill
-    programs, decode step, mixed step) and the prompt tokens that mixed
-    steps carry, and to keep each request's first-token logits while
-    ``stats["capture"]`` is set. Returns the stats dict."""
+    programs, decode step, mixed step), the calls of each prefill program
+    and the prompt tokens that mixed steps carry, and to keep each
+    request's first-token logits while ``stats["capture"]`` is set. Returns
+    the stats dict."""
     import sgl_kernel_tpu_torch as skt
 
     gemm = skt.KERNELS["w4a16_gemm"]
-    stats = dict(by_regime={"prefill": 0, "decode": 0, "mixed": 0}, mixed_tokens=0, first={}, capture=False)
+    stats = dict(by_regime={"prefill": 0, "decode": 0, "mixed": 0}, calls={}, mixed_tokens=0, first={},
+                 capture=False)
 
-    def counted(fn, regime):
+    def counted(fn, regime, name=None):
         def call(*args, **kw):
             before = gemm.launches
             out = fn(*args, **kw)
             stats["by_regime"][regime] += gemm.launches - before
+            if name is not None:
+                stats["calls"][name] = stats["calls"].get(name, 0) + 1
             return out
         return call
 
     for name in ("prefill", "prefill_packed", "prefill_extend"):
-        setattr(eng.adapter, name, counted(getattr(eng.adapter, name), "prefill"))
+        setattr(eng.adapter, name, counted(getattr(eng.adapter, name), "prefill", name))
     eng.adapter.decode = counted(eng.adapter.decode, "decode")
     try_mixed = counted(eng._try_mixed_step, "mixed")
 
@@ -709,6 +766,7 @@ def run_wave(torch, skt, eng, stats, label, wave, prompts, sampled=(), expect=()
 
     eng.metrics = Metrics()
     stats["mixed_tokens"] = 0
+    stats["calls"] = {}
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     skt.reset_launch_counts()
@@ -742,18 +800,20 @@ def run_wave(torch, skt, eng, stats, label, wave, prompts, sampled=(), expect=()
         prefill_tokens=snap["tokens_prefilled"], prefill_tok_s=plain_tokens / snap["prefill_total_s"],
         prefill_s=snap["prefill_total_s"], decode_ms_step=snap.get("decode_mean_ms"),
         decode_steps=snap.get("decode_count", 0), mixed_steps=n_mixed, mixed_ms=snap.get("mixed_mean_ms"),
-        mixed_prefill_tokens=stats["mixed_tokens"], prefix_cache_hit_tokens=hit, wall_s=wall,
-        peak_gb=torch.cuda.max_memory_allocated() / 1e9, launches=counts)
+        mixed_prefill_tokens=stats["mixed_tokens"], prefix_cache_hit_tokens=hit, program_calls=dict(stats["calls"]),
+        wall_s=wall, peak_gb=torch.cuda.max_memory_allocated() / 1e9, launches=counts)
     log(f"[serve] {label} wave {wave}: " + json.dumps(res))
     return res, rids
 
 
-def phase_serve(torch, skt, cfg, label, n_a=16, n_b=12, wave_c=True, params=None, skip=(), cold=True, mixed=True):
-    """One main path: the default Engine serving ``cfg`` (Llama-3-8B or
-    DeepSeek-V2-Lite widths) in waves A, B (+ C). Each wave's kernels must
-    launch in it, K1 in every regime the waves run; wave B hits exactly
-    PREFIX tokens a prompt. Without ``mixed`` (a model with no mixed step)
-    wave C's chunks must all go by extend: zero mixed steps."""
+def phase_serve(torch, skt, cfg, label, kernels, n_a=16, n_b=12, wave_c=True, params=None, cold=True, mixed=True):
+    """One main path: the default Engine serving ``cfg`` (Llama-3-8B,
+    Mixtral-8x7B or DeepSeek-V2-Lite widths) in waves A, B (+ C). Each of
+    ``kernels`` must launch in each wave that runs it, K1 in every regime
+    the waves run; wave B hits exactly PREFIX tokens a prompt. Without
+    ``mixed`` (a model with no mixed step) wave C's 4,096-token prompt must
+    go in four chunks, one plain prefill and three extends (beside wave B's
+    extends): zero mixed steps."""
     t0 = time.perf_counter()
     eng = skt.Engine(cfg, params, device=DEVICE, max_batch=16, page_size=64, num_pages=1024, seed=SEED,
                      prefill_chunk=1024)
@@ -768,7 +828,13 @@ def phase_serve(torch, skt, cfg, label, n_a=16, n_b=12, wave_c=True, params=None
     eng.run_until_done()
     eng.finished.clear()
     stats = instrument(eng)
-    kernels = [k for k in skt.KERNELS if k not in skip]
+    routing = None
+    if cold and isinstance(cfg, skt.MixtralConfig):
+        from sgl_kernel_tpu_torch.models import mixtral
+
+        routing = TokenRouting(mixtral, "topk_softmax")
+        routing.watch(eng)
+        routing.mode = "record"
 
     gen = torch.Generator().manual_seed(SEED + 2)
     lens = serve_lens(n_a)
@@ -788,23 +854,37 @@ def phase_serve(torch, skt, cfg, label, n_a=16, n_b=12, wave_c=True, params=None
     stats["capture"] = False
     if not mixed and bc["mixed_steps"]:
         fail(f"serve {label}: {bc['mixed_steps']} mixed steps on a model without one")
+    if not mixed and wave_c and bc["program_calls"] != {"prefill": 1, "prefill_extend": n_b + 3}:
+        fail(f"serve {label}: wave C's prompt in chunks by {bc['program_calls']}, expected one prefill and "
+             f"{n_b} + 3 extends")
     want = {"prefill", "decode"} | ({"mixed"} if wave_c and mixed else set())
-    if "w4a16_gemm" not in skip and not all(stats["by_regime"][r] > 0 for r in want):
+    if "w4a16_gemm" in kernels and not all(stats["by_regime"][r] > 0 for r in want):
         fail(f"serve {label}: K1 launches by regime {stats['by_regime']}")
     res = dict(engine=label, waves=[a, bc], w4a16_by_regime=dict(stats["by_regime"]),
                launches={k: a["launches"][k] + bc["launches"][k] for k in a["launches"]})
     if cold:
-        res["cold_b"] = cold_compare(torch, skt, cfg, label, eng, prompts_b, rids[:n_b], stats["first"])
+        if routing is not None:
+            routing.mode = None
+        try:
+            res["cold_b"] = cold_compare(torch, skt, cfg, label, eng, prompts_b, rids[:n_b], stats["first"], routing)
+        finally:
+            if routing is not None:
+                routing.restore()
     return res, eng, lens
 
 
-def cold_compare(torch, skt, cfg, label, eng, prompts, warm_rids, warm_first):
+def cold_compare(torch, skt, cfg, label, eng, prompts, warm_rids, warm_first, routing=None):
     """Wave B's prompts through an engine without the prefix cache (one
     packed launch), on the same weights: first-token logits within 0.25 of
     the warm engine's (its extends over cached pages); identical greedy
-    tokens are counted."""
+    tokens are counted. With ``routing`` (a TokenRouting that recorded the
+    warm engine's prefill programs) the cold engine's prefill takes the warm
+    engine's routing, its flips counted."""
     cold = skt.Engine(cfg, eng.params, device=DEVICE, max_batch=16, page_size=64, num_pages=256, seed=SEED,
                       prefill_chunk=1024, enable_prefix_cache=False)
+    if routing is not None:
+        routing.watch(cold)
+        routing.mode = "replay"
     stats = instrument(cold)
     stats["capture"] = True
     first = stats["first"]
@@ -817,8 +897,12 @@ def cold_compare(torch, skt, cfg, label, eng, prompts, warm_rids, warm_first):
         n = next((i for i, (x, y) in enumerate(zip(w_out, c_out)) if x != y), len(w_out))
         same_tokens += n
         same_requests += n == len(w_out)
+    if routing is not None:
+        routing.mode = None
     res = dict(max_first_logit_diff=worst, identical_greedy_prefix_tokens=same_tokens,
                tokens=NEW_TOKENS * len(prompts), identical_requests=same_requests, requests=len(prompts))
+    if routing is not None:
+        res.update(routing_flips_replayed=routing.flips, routed_rows_replayed=routing.replayed)
     log(f"[serve] {label} wave B warm vs cold (prefix cache off): " + json.dumps(res))
     if not worst <= 0.25:
         fail(f"serve {label}: warm and cold first-token logits differ by {worst} > 0.25")
@@ -878,43 +962,89 @@ def v2_lite_cfg(torch, skt, **kw):
     the JAX package's DSv3-style architecture, as
     benchmark/bench_deepseek_e2e.py's v2_lite_cfg: 27 layers, hidden 2048, 16
     heads (nope 128, v 128, latent 512, rope 64), 64 experts top-6 of 1,408,
-    one dense layer of 10,944, vocab 102,400; W4A16 with groups of 128.
+    one dense layer of 10,944, vocab 102,400; W4A16 with groups of 128 unless
+    ``quant`` says otherwise (None: bf16 weights, the config's default).
     max_position 8192 so that wave C's 4,096-token prompt and its outputs fit."""
+    kw.setdefault("quant", "w4a16")
     return skt.DeepseekConfig(
         vocab_size=102400, hidden_size=2048, num_layers=27, num_heads=16, qk_nope_dim=128, v_head_dim=128,
         num_experts=64, num_experts_per_tok=6, moe_intermediate=1408, dense_intermediate=10944,
-        num_dense_layers=1, routed_scaling_factor=1.0, max_position=8192, dtype=torch.bfloat16, quant="w4a16",
-        group_size=128, **kw)
+        num_dense_layers=1, routed_scaling_factor=1.0, max_position=8192, dtype=torch.bfloat16, group_size=128,
+        **kw)
+
+
+def linear_bytes(cfg):
+    """Bytes of one [N, K] linear of ``cfg``: bf16, or W4A16 packed codes
+    and bf16 group scales (K padded to a multiple of 8 groups when it is not
+    a group multiple)."""
+    g = cfg.group_size
+
+    def lin(n, k):
+        if cfg.quant is None:
+            return 2 * n * k
+        k = -(-k // (8 * g)) * (8 * g) if k % g else k
+        return k // 2 * n + 2 * (k // g) * n
+    return lin
+
+
+def experts_hit(e, k, batch):
+    """Expected experts that ``batch`` tokens of top-k hit under uniform
+    routing: E (1 - (1 - k/E)^batch)."""
+    return e * (1 - (1 - k / e) ** batch)
 
 
 def deepseek_step_bytes(cfg, batch=16, ctx=1024):
-    """The bytes one W4A16 decode step of ``cfg`` must read, from the shapes
-    ``models/deepseek.init_weights`` gives: every layer's attention linears
-    (packed codes and bf16 group scales), w_uk / w_uv (bf16), layer 0's
-    dense MLP (down's K padded to a multiple of 8 groups), each MoE layer's
-    shared expert, router and the routed experts that ``batch`` tokens of
-    top-k hit (the expected count E (1 - (1 - k/E)^batch) for uniform
-    routing), the lm_head; and, apart, the latent pool rows of ``batch``
-    sequences of ``ctx`` tokens. Returns (weight bytes, pool bytes, experts
-    hit)."""
-    g, h, nh = cfg.group_size, cfg.hidden_size, cfg.num_heads
-    pad = lambda k: -(-k // (8 * g)) * (8 * g) if k % g else k
-
-    def lin(n, k):
-        k = pad(k)
-        return k // 2 * n + 2 * (k // g) * n
+    """The bytes one decode step of ``cfg`` (bf16 or W4A16) must read, from
+    the shapes ``models/deepseek.init_weights`` gives: every layer's
+    attention linears, w_uk / w_uv (bf16), layer 0's dense MLP, each MoE
+    layer's shared expert, router and the routed experts that ``batch``
+    tokens of top-k hit (``experts_hit``), the lm_head; and, apart, the
+    latent pool rows of ``batch`` sequences of ``ctx`` tokens. Returns
+    (weight bytes, pool bytes, experts hit)."""
+    h, nh = cfg.hidden_size, cfg.num_heads
+    lin = linear_bytes(cfg)
 
     attn = (lin(nh * (cfg.qk_nope_dim + 64), h) + lin(576, h) + lin(h, nh * cfg.v_head_dim)
             + 2 * 2 * nh * cfg.qk_nope_dim * 512)
     dense = 2 * lin(cfg.dense_intermediate, h) + lin(h, cfg.dense_intermediate)
     e, k = cfg.num_experts, cfg.num_experts_per_tok
-    hit = e * (1 - (1 - k / e) ** batch)
+    hit = experts_hit(e, k, batch)
     moe = (2 * lin(cfg.moe_intermediate, h) + lin(h, cfg.moe_intermediate) + 2 * e * h
            + hit * (lin(2 * cfg.moe_intermediate, h) + lin(h, cfg.moe_intermediate)))
     n_moe = cfg.num_layers - cfg.num_dense_layers
-    weights = (cfg.num_layers * attn + cfg.num_dense_layers * dense + n_moe * moe
-               + lin(-(-cfg.vocab_size // 2048) * 2048, h))
-    return weights, batch * ctx * 576 * cfg.num_layers, hit
+    vocab = cfg.vocab_size if cfg.quant is None else -(-cfg.vocab_size // 2048) * 2048
+    weights = cfg.num_layers * attn + cfg.num_dense_layers * dense + n_moe * moe + lin(vocab, h)
+    pool_bytes = batch * ctx * 576 * cfg.num_layers * (cfg.kv_dtype.itemsize if cfg.kv_dtype is not None else 2)
+    return weights, pool_bytes, hit
+
+
+def mixtral_step_bytes(cfg, batch=16, ctx=1024):
+    """The bytes one Mixtral decode step of ``cfg`` must read, from the
+    shapes ``models/mixtral.init_weights`` gives: every layer's q, k, v, o
+    and router, the expert banks that ``batch`` tokens of top-k hit
+    (``experts_hit``), the lm_head (N padded to 2048 in W4A16); and, apart,
+    the bf16 K and V rows of ``batch`` sequences of ``ctx`` tokens. Returns
+    (weight bytes, pool bytes, experts hit)."""
+    h, d, inter = cfg.hidden_size, cfg.head_dim, cfg.intermediate_size
+    lin = linear_bytes(cfg)
+    hit = experts_hit(cfg.num_experts, cfg.top_k, batch)
+    layer = (lin(cfg.num_heads * d, h) + 2 * lin(cfg.num_kv_heads * d, h) + lin(h, cfg.num_heads * d)
+             + 2 * cfg.num_experts * h + hit * (lin(2 * inter, h) + lin(h, inter)))
+    vocab = cfg.vocab_size if cfg.quant is None else -(-cfg.vocab_size // 2048) * 2048
+    pool_bytes = batch * ctx * 2 * cfg.num_kv_heads * d * 2 * cfg.num_layers
+    return cfg.num_layers * layer + lin(vocab, h), pool_bytes, hit
+
+
+def report_row(torch, name, row, dev_fn=None):
+    """Log one kernel's row; with ``dev_fn`` (a call of the kernel) add its
+    CUDA-graph device time as ``graph_ms``. Returns the row."""
+    lib = "null" if row["library_ms"] is None else f"{row['library_ms']:.4f}"
+    if dev_fn is not None:
+        row["graph_ms"] = graph_ms(torch, dev_fn)
+    extra = f" graph_ms={row['graph_ms']:.4f}" if dev_fn is not None else ""
+    log(f"[kernel] {name}: ms={row['ms']:.4f}{extra} plain_ms={row['plain_ms']:.4f} library_ms={lib} "
+        f"bound_ms={row['bound_ms']:.4f} ({row['bound_by']}) {row.get('library_note', '')}")
+    return row
 
 
 def phase_deepseek_kernels(torch, skt):
@@ -941,11 +1071,7 @@ def phase_deepseek_kernels(torch, skt):
         return w, (0.005 + 0.015 * torch.rand((2, e, k // g, n), generator=gen, device=dev)).to(bf)
 
     def report(name, row, dev_fn=None):
-        lib = "null" if row["library_ms"] is None else f"{row['library_ms']:.4f}"
-        extra = f" graph_ms={graph_ms(torch, dev_fn):.4f}" if dev_fn is not None else ""
-        log(f"[kernel] {name}: ms={row['ms']:.4f}{extra} plain_ms={row['plain_ms']:.4f} library_ms={lib} "
-            f"bound_ms={row['bound_ms']:.4f} ({row['bound_by']})")
-        rows[name] = row
+        rows[name] = report_row(torch, name, row, dev_fn)
 
     # K11: tokens routed by biased top-k on random logits, aligned, through
     # gate_up [K 2048 -> N 2816] and down [1408 -> 2048]
@@ -1088,17 +1214,137 @@ def phase_deepseek_kernels(torch, skt):
     return rows
 
 
-class RoutingReplay:
-    """Routing of the DeepSeek model recorded on the CPU and replayed on the
-    card: the card computes its own top-k, counts the tokens whose expert
-    set differs from the CPU's (a flip between near-tied experts, from bf16
-    sums in another order), and continues with the CPU's choice, so the
-    rest of the comparison holds both sides to the same routing."""
+def grouped_mm_yardstick(torch, x, w, al, nv_rows, ref):
+    """torch._grouped_mm over the padded group offsets, computing K12's
+    function on the same valid rows: the library's timing yardstick, which
+    the port never calls. Tried on the bank as it lies ([E, K, N], N
+    contiguous), then on a column-major copy made outside the timed call.
+    Returns (fn, note): fn None when this torch has no such call, refuses
+    both layouts, or disagrees with the plain version by more than 2^-6 of
+    its scale."""
+    if not hasattr(torch, "_grouped_mm"):
+        return None, "this torch has no torch._grouped_mm"
+    offs = torch.cumsum(al.padded_group_sizes, 0).to(torch.int32)
+    notes = []
+    for layout in ("row-major", "column-major"):
+        wl = w if layout == "row-major" else w.transpose(-2, -1).contiguous().transpose(-2, -1)
 
-    def __init__(self, module):
-        self.module, self.orig = module, module.biased_topk
+        def fn(wl=wl):
+            return torch._grouped_mm(x, wl, offs=offs, out_dtype=torch.bfloat16)
+
+        try:
+            out = fn()[:nv_rows]
+        except Exception as e:  # this torch refuses this layout or shape
+            notes.append(f"{layout} refused: {type(e).__name__}: {str(e).splitlines()[0][:120]}")
+            continue
+        err = float((out.float() - ref[:nv_rows].float()).abs().max())
+        if err > 2.0 ** -6 * float(ref[:nv_rows].float().abs().max()):
+            return None, "; ".join(notes + [f"{layout} disagrees with the plain version by {err:.4g}"])
+        return fn, "; ".join(notes + [f"{layout}: max_abs_err {err:.4g}"])
+    return None, "torch._grouped_mm: " + "; ".join(notes)
+
+
+def phase_moe_bf16_kernels(torch, skt):
+    """K4 rope_decode_fused at Mixtral-8x7B's decode shape and K12
+    bf16_grouped_mm at the bf16 MoE paths' shapes, against their plain
+    versions: DeepSeek-V2-Lite's B=16 decode (64 experts, top-6, stacked
+    banks, layer 1 of 2), Mixtral-8x7B's B=16 decode (8 experts, top-2, an
+    unstacked bank) and a 1,024-token Mixtral prefill at bm 128."""
+    from sgl_kernel_tpu_torch.ops import moe, rope
+    from sgl_kernel_tpu_torch.ops.activation import silu_and_mul
+
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 6)
+    bf = torch.bfloat16
+    mcfg = skt.MixtralConfig.mixtral_8x7b()
+    rows = {}
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen, device=dev) * scale).to(bf)
+
+    def report(name, row, dev_fn=None):
+        rows[name] = report_row(torch, name, row, dev_fn)
+
+    # K4 at B=16, 32 q and 8 kv heads of 128, positions across the 8,192 cache
+    b, nq, nkv, d = 16, mcfg.num_heads, mcfg.num_kv_heads, mcfg.head_dim
+    cache = skt.build_rope_cache(mcfg, device=dev)
+    pos = torch.randint(0, mcfg.max_position, (b,), generator=gen, device=dev, dtype=torch.int32)
+    q, k = randn(b, nq, d), randn(b, nkv, d)
+    fn = lambda: rope.rope_decode_fused(pos, q, k, cache)
+    err = check("rope_decode_fused[16, 32+8 heads of 128]", list(zip(fn(), rope.rope_decode_fused_ref(pos, q, k,
+                                                                                                     cache))))
+    bms, bby = bound_ms(2 * b * (nq + nkv) * d * 2 + b * d * 4 + b * 4, 6 * b * (nq + nkv) * d, F32_FLOPS)
+    report("rope_decode_fused", dict(
+        max_abs_err=err, ms=time_ms(torch, fn), plain_ms=time_ms(torch, lambda: rope.rope_decode_fused_ref(
+            pos, q, k, cache)), library_ms=None, library_note="no single PyTorch call", bound_ms=bms, bound_by=bby),
+        fn)
+
+    def grouped(label, t, e, k_top, w1, w2, lid, routing, down=True):
+        """One routed call: tokens through routing, the alignment, then
+        gate_up (and down on silu_and_mul of gate_up's output)."""
+        bm = moe.pick_block_size(t, k_top, e)
+        tw, tids = routing(torch.randn((t, e), generator=gen, device=dev))
+        al = moe.moe_align_block_size(tids, tw, e, bm)
+        nv, hit = int(al.num_valid_blocks), int((al.group_sizes > 0).sum())
+        x = moe.scatter_tokens_to_experts(randn(t, w1.shape[-2]), al)
+        steps = [("gate_up", x, w1)]
+        if down:
+            steps.append(("down", silu_and_mul(moe.bf16_grouped_mm(x, w1, al.block_expert_ids, lid,
+                                                                   al.num_valid_blocks, bm=bm)), w2))
+        for name, a, w in steps:
+            args = (a, w, al.block_expert_ids, lid, al.num_valid_blocks)
+            out, ref = moe.bf16_grouped_mm(*args, bm=bm), moe.bf16_grouped_mm_ref(*args, bm=bm)
+            kk, n = a.shape[1], w.shape[-1]
+            err = check(f"bf16_grouped_mm {label} {name} [cap {a.shape[0]}, K {kk}, N {n}, bm {bm}, {nv} valid "
+                        f"blocks, {hit} of {e} experts, {'stacked' if lid is not None else 'unstacked'}]",
+                        [(out[: nv * bm], ref[: nv * bm])])
+            pairs = t * k_top
+            # the hit experts' banks once, the routed rows in and out
+            n_bytes = hit * kk * n * 2 + pairs * (kk + n) * 2 + 4 * (al.block_expert_ids.numel() + 1)
+            bms, bby = bound_ms(n_bytes, 2 * pairs * kk * n, BF16_FLOPS)
+            wl = w[lid] if lid is not None else w
+            lib_fn, lib_note = grouped_mm_yardstick(torch, a, wl, al, nv * bm, ref)
+            call = lambda: moe.bf16_grouped_mm(*args, bm=bm)
+            report(f"bf16_grouped_mm_{label}_{name}", dict(
+                max_abs_err=err, ms=time_ms(torch, call),
+                plain_ms=time_ms(torch, lambda: moe.bf16_grouped_mm_ref(*args, bm=bm), iters=3, warmup=1),
+                library_ms=None if lib_fn is None else time_ms(torch, lib_fn), library_note=lib_note,
+                bound_ms=bms, bound_by=bby, valid_blocks=nv, experts_hit=hit, bm=bm), call)
+            del out, ref
+
+    dcfg = v2_lite_cfg(torch, skt, quant=None)
+    e, h, inter = dcfg.num_experts, dcfg.hidden_size, dcfg.moe_intermediate
+    w1 = randn(2, e, h, 2 * inter, scale=h ** -0.5)
+    w2 = randn(2, e, inter, h, scale=inter ** -0.5)
+    grouped("deepseek_decode", 16, e, dcfg.num_experts_per_tok, w1, w2, 1,
+            lambda lg: moe.biased_topk(lg, torch.zeros(e, device=dev), dcfg.num_experts_per_tok, renormalize=True,
+                                       apply_routed_scaling_factor_on_output=True))
+    del w1, w2
+    torch.cuda.empty_cache()
+    e, h, inter = mcfg.num_experts, mcfg.hidden_size, mcfg.intermediate_size
+    w1 = randn(e, h, 2 * inter, scale=h ** -0.5)
+    w2 = randn(e, inter, h, scale=inter ** -0.5)
+    softmax = lambda lg: moe.topk_softmax(lg, mcfg.top_k, renormalize=True)
+    grouped("mixtral_decode", 16, e, mcfg.top_k, w1, w2, None, softmax)
+    grouped("mixtral_prefill", 1024, e, mcfg.top_k, w1, w2, None, softmax, down=False)
+    del w1, w2
+    torch.cuda.empty_cache()
+    return rows
+
+
+class RoutingReplay:
+    """Routing of an MoE model recorded on the CPU and replayed on the card:
+    the card computes its own top-k, counts the tokens whose expert set
+    differs from the CPU's (a flip between near-tied experts, from bf16
+    sums in another order), and continues with the CPU's choice, so the
+    rest of the comparison holds both sides to the same routing. ``attr``
+    is the module's routing function (DeepSeek's biased_topk, Mixtral's
+    topk_softmax)."""
+
+    def __init__(self, module, attr="biased_topk"):
+        self.module, self.attr, self.orig = module, attr, getattr(module, attr)
         self.calls, self.mode, self.at, self.flips, self.tokens = [], "record", 0, 0, 0
-        module.biased_topk = self
+        setattr(module, attr, self)
 
     def __call__(self, *args, **kw):
         w, ids = self.orig(*args, **kw)
@@ -1113,7 +1359,100 @@ class RoutingReplay:
         return rw.to(w.device), rids.to(ids.device)
 
     def restore(self):
-        self.module.biased_topk = self.orig
+        setattr(self.module, self.attr, self.orig)
+
+
+def prefix_keys(prompt, start, end):
+    """A key for each prompt position in [start, end): a hash of the
+    prompt's tokens up to and including it (the same token in the same
+    prompt prefix has the same key in any program)."""
+    h, keys = 0, []
+    for p, t in enumerate(prompt[:end]):
+        h = hash((h, t))
+        if p >= start:
+            keys.append(h)
+    return keys
+
+
+class TokenRouting:
+    """Routing of one engine's prefill programs recorded per (layer, prompt
+    prefix) and replayed in another engine's, for the warm-against-cold
+    check of a top-2 MoE: the two engines prefill a token by different
+    programs (extend over cached pages, or one packed launch), whose bf16
+    attention sums differ by an ulp, and a flip between the 2nd and 3rd
+    expert compounds over 32 layers. The cold engine computes its own top-k,
+    counts the rows whose expert set differs from the warm engine's, and
+    continues with the warm engine's choice. ``watch`` keys the rows of an
+    engine's prefill calls; decode steps pass through."""
+
+    def __init__(self, module, attr):
+        self.module, self.attr, self.orig = module, attr, getattr(module, attr)
+        self.mode, self.keys, self.layer = None, None, 0
+        self.calls, self.table = [], None  # recorded (layer, keys, w, ids); replay index
+        self.flips = self.replayed = 0
+        setattr(module, attr, self)
+
+    def restore(self):
+        setattr(self.module, self.attr, self.orig)
+
+    def watch(self, eng):
+        from sgl_kernel_tpu_torch.serving.engine import packed_layout
+
+        def keyed(fn, keys_of):
+            def call(*args):
+                self.keys, self.layer = keys_of(*args), 0
+                try:
+                    return fn(*args)
+                finally:
+                    self.keys = None
+            return call
+
+        def packed_keys(reqs):
+            if len(reqs) == 1:  # the engine prefills a lone prompt through _prefill_range
+                return None
+            tok0, tp = packed_layout([len(r.prompt) for r in reqs], eng.max_batch + 1, eng._PACK_BLOCK)[3:5]
+            keys = [None] * tp
+            for r, t0 in zip(reqs, tok0):
+                keys[t0: t0 + len(r.prompt)] = prefix_keys(r.prompt, 0, len(r.prompt))
+            return keys
+
+        eng._prefill_range = keyed(eng._prefill_range, lambda req, pre, end: prefix_keys(req.prompt, pre, end))
+        eng._prefill_packed_batch = keyed(eng._prefill_packed_batch, packed_keys)
+
+    def __call__(self, *args, **kw):
+        w, ids = self.orig(*args, **kw)
+        if self.mode is None or self.keys is None:
+            return w, ids
+        layer, keys = self.layer, self.keys
+        self.layer += 1
+        if self.mode == "record":  # kept on the device: no host wait inside the timed waves
+            self.calls.append((layer, keys, w, ids))
+            return w, ids
+        if self.table is None:
+            self.table = {}
+            for c, (lay, ks, rw, ri) in enumerate(self.calls):
+                self.calls[c] = (lay, ks, rw.cpu(), ri.cpu())
+                self.table.update({(lay, k): (c, r) for r, k in enumerate(ks) if k is not None})
+        by_call = {}
+        for r, k in enumerate(keys[: w.shape[0]]):
+            hit = self.table.get((layer, k)) if k is not None else None
+            if hit is not None:
+                rows, src = by_call.setdefault(hit[0], ([], []))
+                rows.append(r)
+                src.append(hit[1])
+        if not by_call:
+            return w, ids
+        import torch
+
+        w, ids = w.clone(), ids.clone()
+        for c, (rows, src) in by_call.items():
+            rw, ri = self.calls[c][2][src], self.calls[c][3][src]
+            mine = ids[rows].cpu()
+            self.flips += int((mine.sort(-1).values != ri.sort(-1).values).any(-1).sum())
+            self.replayed += len(rows)
+            at = torch.tensor(rows, device=w.device)
+            w[at], ids[at] = rw.to(w.device), ri.to(ids.device)
+        return w, ids
 
 
 def phase_parity_deepseek(torch, skt, cfg, label):
@@ -1238,52 +1577,105 @@ def main():
 
     from sgl_kernel_tpu_torch.serving import native
 
-    _, card = phase_build(_build, native)
-    rows = phase_kernels(torch, skt)
-    torch.cuda.empty_cache()
-    rows.update(phase_w4a16(torch, skt))
-    torch.cuda.empty_cache()
-    rows.update(phase_deepseek_kernels(torch, skt))
-    torch.cuda.empty_cache()
+    times = {}
+
+    @contextlib.contextmanager
+    def phase(name):
+        t0 = time.perf_counter()
+        yield
+        times[name] = time.perf_counter() - t0
+        log(f"[time] {name}: {times[name]:.1f} s")
+
+    with phase("1 build"):
+        _, card = phase_build(_build, native)
+    with phase("2 kernels"):
+        rows = phase_kernels(torch, skt)
+        torch.cuda.empty_cache()
+        rows.update(phase_w4a16(torch, skt))
+        torch.cuda.empty_cache()
+        rows.update(phase_deepseek_kernels(torch, skt))
+        torch.cuda.empty_cache()
+        rows.update(phase_moe_bf16_kernels(torch, skt))
     bf16_cfg = skt.LlamaConfig.llama3_8b(fused=True)
     w4_cfg = skt.LlamaConfig.llama3_8b(quant="w4a16", fused=True)
-    parity = {label: phase_parity(torch, skt, c, label) for label, c in (("bf16", bf16_cfg), ("w4a16", w4_cfg))}
-    torch.cuda.empty_cache()
-    serve, eng, lens = phase_serve(torch, skt, bf16_cfg, "bf16", skip=("w4a16_gemm",) + DEEPSEEK_ONLY)
-    profile = {"bf16": phase_profile(torch, eng, lens, "bf16")}
-    del eng
-    free_memory(torch)
-    w4, eng, lens = phase_serve(torch, skt, w4_cfg, "w4a16", skip=DEEPSEEK_ONLY)
-    profile["w4a16"] = phase_profile(torch, eng, lens, "w4a16")
-    params = eng.params
-    del eng
-    free_memory(torch)
-    # the same W4A16 weights over int8 KV pools (bench.py:121's kv_scale)
-    int8_cfg = dataclasses.replace(w4_cfg, kv_dtype=torch.int8, kv_scale=1 / 16)
-    int8, eng, _ = phase_serve(torch, skt, int8_cfg, "w4a16-int8kv", n_a=4, n_b=4, wave_c=False, params=params,
-                               cold=False, skip=DEEPSEEK_ONLY)
-    if eng.caches[0].dtype != torch.int8:
-        fail(f"serve w4a16-int8kv: pools are {eng.caches[0].dtype}")
-    del eng, params
-    free_memory(torch)
+    with phase("3 parity llama"):
+        parity = {label: phase_parity(torch, skt, c, label) for label, c in (("bf16", bf16_cfg), ("w4a16", w4_cfg))}
+        # the fused=False layout (K2, separate q/k/v linears, K4) at decode
+        parity["bf16-unfused"] = phase_parity(torch, skt, skt.LlamaConfig.llama3_8b(), "bf16-unfused",
+                                              programs=("prefill", "decode"))
+    serve = {}
+    with phase("4-5 serve llama bf16"):
+        serve["bf16"], eng, lens = phase_serve(torch, skt, bf16_cfg, "bf16", LLAMA_BF16)
+        profile = {"bf16": phase_profile(torch, eng, lens, "bf16")}
+        del eng
+        free_memory(torch)
+    with phase("4-5 serve llama w4a16"):
+        serve["w4a16"], eng, lens = phase_serve(torch, skt, w4_cfg, "w4a16", LLAMA_W4)
+        profile["w4a16"] = phase_profile(torch, eng, lens, "w4a16")
+        params = eng.params
+        del eng
+        free_memory(torch)
+    with phase("4 serve llama w4a16-int8kv"):
+        # the same W4A16 weights over int8 KV pools (bench.py:121's kv_scale)
+        int8_cfg = dataclasses.replace(w4_cfg, kv_dtype=torch.int8, kv_scale=1 / 16)
+        serve["w4a16-int8kv"], eng, _ = phase_serve(torch, skt, int8_cfg, "w4a16-int8kv", LLAMA_W4, n_a=4, n_b=4,
+                                                    wave_c=False, params=params, cold=False)
+        if eng.caches[0].dtype != torch.int8:
+            fail(f"serve w4a16-int8kv: pools are {eng.caches[0].dtype}")
+        del eng, params
+        free_memory(torch)
 
     # the DeepSeek path: V2-Lite widths, W4A16, int8 latent (bench.py's
-    # DeepSeek headline configuration), at full depth
+    # DeepSeek headline configuration), at full depth; then bf16 weights
     ds_cfg = v2_lite_cfg(torch, skt, kv_dtype=torch.int8, kv_scale=1 / 16)
-    w_bytes, pool_bytes, hit = deepseek_step_bytes(ds_cfg)
-    log(f"[bound] deepseek W4A16 decode step, B=16: {w_bytes / 1e9:.4f} GB of weights ({hit:.2f} of 64 experts "
-        f"hit per MoE layer) -> {1e3 * w_bytes / HBM_BYTES_PER_S:.4f} ms at 3.35 TB/s; int8 latent rows at a "
-        f"1,024-token context {pool_bytes / 1e9:.4f} GB more")
-    parity.update({f"deepseek-{lab}": phase_parity_deepseek(torch, skt, c, lab)
-                   for lab, c in (("bf16-latent", v2_lite_cfg(torch, skt)), ("int8-latent", ds_cfg))})
-    ds, eng, lens = phase_serve(torch, skt, ds_cfg, "deepseek-w4a16-int8",
-                                skip=("rope_decode_fused_qkv", "paged_attention_decode_dma", "store_cache_all_layers"),
-                                mixed=False)
-    if eng.caches[0].dtype != torch.int8:
-        fail(f"serve deepseek: the latent pool is {eng.caches[0].dtype}")
-    profile["deepseek-w4a16-int8"] = phase_profile(torch, eng, lens, "deepseek-w4a16-int8")
-    del eng
-    free_memory(torch)
+    ds_bf16_cfg = v2_lite_cfg(torch, skt, quant=None)
+    mx_w4_cfg = skt.MixtralConfig.mixtral_8x7b(quant="w4a16")
+    mx_bf16_cfg = skt.MixtralConfig.mixtral_8x7b()
+    for label, c, fn in (("deepseek W4A16 + int8 latent", ds_cfg, deepseek_step_bytes),
+                         ("deepseek bf16", ds_bf16_cfg, deepseek_step_bytes),
+                         ("mixtral-8x7b W4A16", mx_w4_cfg, mixtral_step_bytes)):
+        w_bytes, pool_bytes, hit = fn(c)
+        log(f"[bound] {label} decode step, B=16: {w_bytes / 1e9:.4f} GB of weights ({hit:.2f} experts hit per MoE "
+            f"layer) -> {1e3 * w_bytes / HBM_BYTES_PER_S:.4f} ms at 3.35 TB/s; KV rows at a 1,024-token context "
+            f"{pool_bytes / 1e9:.4f} GB more")
+    with phase("3 parity deepseek"):
+        parity.update({f"deepseek-{lab}": phase_parity_deepseek(torch, skt, c, lab)
+                       for lab, c in (("bf16-latent", v2_lite_cfg(torch, skt)), ("int8-latent", ds_cfg),
+                                      ("bf16", ds_bf16_cfg))})
+    with phase("4-5 serve deepseek w4a16-int8"):
+        serve["deepseek-w4a16-int8"], eng, lens = phase_serve(torch, skt, ds_cfg, "deepseek-w4a16-int8", DEEPSEEK_W4,
+                                                              mixed=False)
+        if eng.caches[0].dtype != torch.int8:
+            fail(f"serve deepseek: the latent pool is {eng.caches[0].dtype}")
+        profile["deepseek-w4a16-int8"] = phase_profile(torch, eng, lens, "deepseek-w4a16-int8")
+        del eng
+        free_memory(torch)
+
+    # the Mixtral path (K4, K11 and K12 at Mixtral-8x7B's widths) and the
+    # bf16 DeepSeek-V2-Lite engine (K12 stacked)
+    with phase("3 parity mixtral"):
+        parity.update({f"mixtral-{lab}": phase_parity(torch, skt, c, f"mixtral-{lab}",
+                                                      programs=("prefill", "decode", "packed", "extend"), n_decode=2)
+                       for lab, c in (("bf16", mx_bf16_cfg), ("w4a16", mx_w4_cfg))})
+    with phase("4-5 serve mixtral w4a16"):
+        serve["mixtral-w4a16"], eng, lens = phase_serve(torch, skt, mx_w4_cfg, "mixtral-w4a16", MIXTRAL_W4,
+                                                        mixed=False)
+        profile["mixtral-w4a16"] = phase_profile(torch, eng, lens, "mixtral-w4a16")
+        del eng
+        free_memory(torch)
+    with phase("4-5 serve deepseek bf16"):
+        serve["deepseek-bf16"], eng, lens = phase_serve(torch, skt, ds_bf16_cfg, "deepseek-bf16", DEEPSEEK_BF16,
+                                                        mixed=False)
+        profile["deepseek-bf16"] = phase_profile(torch, eng, lens, "deepseek-bf16")
+        del eng
+        free_memory(torch)
+    with phase("4 serve mixtral bf16 8 layers"):
+        # 8 of 32 layers: the full bf16 model (93.4 GB) does not fit in 80 GB
+        serve["mixtral-bf16-8l"], eng, _ = phase_serve(
+            torch, skt, dataclasses.replace(mx_bf16_cfg, num_layers=8), "mixtral-bf16-8l", MIXTRAL_BF16, n_a=4,
+            n_b=4, wave_c=False, cold=False, mixed=False)
+        del eng
+        free_memory(torch)
 
     meta = {
         "w4a16_gemm": ("cuda", "sgl_kernel_tpu_torch/csrc/w4a16_gemm.cu", "sgl_kernel_tpu/ops/gemm/w4a16.py:301",
@@ -1291,6 +1683,8 @@ def main():
         "rmsnorm": ("triton", "sgl_kernel_tpu_torch/ops/norm.py", "sgl_kernel_tpu/ops/norm.py:40", "rmsnorm_16"),
         "rope_decode_fused_qkv": ("triton", "sgl_kernel_tpu_torch/ops/rope.py", "sgl_kernel_tpu/ops/rope.py:228",
                                   "rope_decode_fused_qkv"),
+        "rope_decode_fused": ("triton", "sgl_kernel_tpu_torch/ops/rope.py", "sgl_kernel_tpu/ops/rope.py:360",
+                              "rope_decode_fused"),
         "paged_attention_decode_dma": ("cuda", "sgl_kernel_tpu_torch/csrc/decode_attention.cu",
                                        "sgl_kernel_tpu/ops/attention/paged_decode_dma.py:306",
                                        "paged_attention_decode_dma"),
@@ -1302,6 +1696,8 @@ def main():
                                    "sgl_kernel_tpu/ops/attention/flash_packed.py:195", "flash_attention_packed"),
         "w4a16_grouped_mm": ("cuda", "sgl_kernel_tpu_torch/csrc/grouped_gemm.cu",
                              "sgl_kernel_tpu/ops/moe/grouped_gemm.py:259", "w4a16_grouped_mm_decode_gate_up"),
+        "bf16_grouped_mm": ("cuda", "sgl_kernel_tpu_torch/csrc/bf16_grouped_gemm.cu",
+                            "sgl_kernel_tpu/ops/moe/grouped_gemm.py:107", "bf16_grouped_mm_deepseek_decode_gate_up"),
         "mla_decode": ("cuda", "sgl_kernel_tpu_torch/csrc/mla_decode.cu", "sgl_kernel_tpu/ops/attention/mla.py:375",
                        "mla_decode_int8"),
         "mla_qkv_prep": ("triton", "sgl_kernel_tpu_torch/ops/rope.py", "sgl_kernel_tpu/ops/rope.py:295",
@@ -1309,21 +1705,23 @@ def main():
     }
     kernels = []
     # launches: the main paths' waves in phase 4, counted from 0 before each
-    # wave: the W4A16 Llama engine's and the DeepSeek engine's
+    # wave, summed over every engine
     for name, (route, src, repl, row) in meta.items():
         r = rows[row]
         kernels.append(dict(name=name, route=route, source=src, replaces=repl,
-                            launches=w4["launches"][name] + ds["launches"][name], max_abs_err=r["max_abs_err"],
-                            ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"], bound_by=r["bound_by"],
-                            library_ms=r["library_ms"]))
+                            launches=sum(res["launches"][name] for res in serve.values()),
+                            max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+                            bound_by=r["bound_by"], library_ms=r["library_ms"]))
+        if kernels[-1]["launches"] <= 0:
+            fail(f"{name}: no launch in the served waves")
     log("[kernel] rmsnorm at [1024, 4096]: " + json.dumps(rows["rmsnorm_1024"]))
     for name in ("paged_attention_decode_dma_int8", "paged_attention_decode_dma_e4m3", "flash_attention_lse",
                  "w4a16_grouped_mm_decode_down", "w4a16_grouped_mm_prefill_gate_up", "mla_decode", "mla_decode_e4m3",
-                 "flash_attention_576_lse", "flash_attention_packed_576"):
+                 "flash_attention_576_lse", "flash_attention_packed_576", "bf16_grouped_mm_deepseek_decode_down",
+                 "bf16_grouped_mm_mixtral_decode_gate_up", "bf16_grouped_mm_mixtral_decode_down",
+                 "bf16_grouped_mm_mixtral_prefill_gate_up"):
         log(f"[kernel] {name}: " + json.dumps(rows[name]))
-    log(json.dumps({"card": card, "parity": parity,
-                    "serve": {"bf16": serve, "w4a16": w4, "w4a16-int8kv": int8, "deepseek-w4a16-int8": ds},
-                    "profile": profile}))
+    log(json.dumps({"card": card, "parity": parity, "serve": serve, "profile": profile, "phase_s": times}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -10,15 +10,17 @@ unless the caller passes ``device="cpu"``.
 Kernels ported so far (each wrapper counts its launches in ``.launches``):
   K1 w4a16_gemm, K5 paged_attention_decode_dma, K6 store_cache_all_layers,
   K7 flash_attention and K9 flash_attention_packed (head dim 64, 128 and
-  576), K11 w4a16_grouped_mm, K13a mla_decode (CUDA C++); K2 rmsnorm, K3
-  rope_decode_fused_qkv, K14 mla_qkv_prep (Triton). Models: Llama
-  (``LlamaConfig``) and DeepSeek MLA + MoE (``DeepseekConfig``, module
-  ``models.deepseek``). The serving engine's radix prefix cache is host C++
+  576), K11 w4a16_grouped_mm, K12 bf16_grouped_mm, K13a mla_decode (CUDA
+  C++); K2 rmsnorm, K3 rope_decode_fused_qkv, K4 rope_decode_fused, K14
+  mla_qkv_prep (Triton). Models: Llama (``LlamaConfig``), Mixtral
+  (``MixtralConfig``, module ``models.mixtral``) and DeepSeek MLA + MoE
+  (``DeepseekConfig``, module ``models.deepseek``). The serving engine's radix prefix cache is host C++
   (``csrc/serving_native.cpp``, bound by ``serving/native.py``).
 """
 
 from .interop import params_from_numpy, tensor_from_numpy
 from .models.deepseek import DeepseekConfig
+from .models.mixtral import MixtralConfig
 from .models.llama import (
     LlamaConfig,
     build_rope_cache,
@@ -43,9 +45,24 @@ from .ops.attention import (
 )
 from .ops.gemm import dequant_w4, quantize_w4, w4a16_gemm
 from .ops.kvcache import store_cache_all_layers, store_cache_mla, store_cache_stacked
-from .ops.moe import MoeWeights, biased_topk, fused_experts, moe_align_block_size, w4a16_grouped_mm
+from .ops.moe import (
+    MoeWeights,
+    bf16_grouped_mm,
+    biased_topk,
+    fused_experts,
+    moe_align_block_size,
+    ragged_grouped_mm,
+    topk_softmax,
+    w4a16_grouped_mm,
+)
 from .ops.norm import fused_add_rmsnorm, gemma_fused_add_rmsnorm, gemma_rmsnorm, rmsnorm
-from .ops.rope import compute_cos_sin_cache, mla_qkv_prep, rope_decode_fused_qkv, rotary_embedding
+from .ops.rope import (
+    compute_cos_sin_cache,
+    mla_qkv_prep,
+    rope_decode_fused,
+    rope_decode_fused_qkv,
+    rotary_embedding,
+)
 from .ops.sampling import (
     min_p_filter_probs,
     sample_tokens,
@@ -53,7 +70,7 @@ from .ops.sampling import (
     top_k_renorm_probs,
     top_p_renorm_probs,
 )
-from .serving.adapters import DeepseekAdapter, LlamaAdapter, adapter_for
+from .serving.adapters import DeepseekAdapter, LlamaAdapter, MixtralAdapter, adapter_for
 from .serving.engine import Engine, PageAllocator, Request
 from .utils import cdiv, next_power_of_2, resolve_device, round_up
 
@@ -62,11 +79,13 @@ KERNELS = {
     "w4a16_gemm": w4a16_gemm,
     "rmsnorm": rmsnorm,
     "rope_decode_fused_qkv": rope_decode_fused_qkv,
+    "rope_decode_fused": rope_decode_fused,
     "paged_attention_decode_dma": paged_attention_decode_dma,
     "store_cache_all_layers": store_cache_all_layers,
     "flash_attention": flash_attention,
     "flash_attention_packed": flash_attention_packed,
     "w4a16_grouped_mm": w4a16_grouped_mm,
+    "bf16_grouped_mm": bf16_grouped_mm,
     "mla_decode": mla_decode,
     "mla_qkv_prep": mla_qkv_prep,
 }

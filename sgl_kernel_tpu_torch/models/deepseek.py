@@ -25,12 +25,13 @@ prompts block-aligned into one launch) and ``prefill_extend`` (a suffix over
 latents already cached: two flash passes merged by lse). ``jax.lax.scan``
 over layers is a Python loop; ``lax.cond`` on the dense layers an ``if``.
 
-Kernels on the path: K1 (every W4A16 linear), K2 (the norms), K14 (decode
-qkv prep, up to 64 tokens), K13a (decode attention), K11 (the routed
-experts), K7 (prefill and the extend passes at head dim 576) and K9 (packed
-prefill at 576). Not ported, and raising: NSA sparse decode (``nsa``), KV
-compression (``compress``), several logits per sequence (speculative
-verify), and bf16 expert banks on the card (their grouped GEMM is K12).
+Kernels on the path: K1 (every W4A16 linear; with ``quant=None`` the
+linears are plain ``torch.matmul``), K2 (the norms), K14 (decode qkv prep,
+up to 64 tokens), K13a (decode attention), the routed experts' grouped GEMM
+(K11 on int4 banks, K12 on the bf16 banks of ``quant=None``), K7 (prefill
+and the extend passes at head dim 576) and K9 (packed prefill at 576). Not
+ported, and raising: NSA sparse decode (``nsa``), KV compression
+(``compress``) and several logits per sequence (speculative verify).
 """
 
 from __future__ import annotations

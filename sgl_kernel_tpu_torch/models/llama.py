@@ -21,12 +21,12 @@ or fp8 with a per-tensor ``kv_scale``: stores quantize (``_kv_quant``) and
 decode attention folds the scale back in.
 
 Kernels on the path: W4A16 GEMM (K1, with the decode norms in its
-prologue), rmsnorm (K2), rope_decode_fused_qkv (K3), paged decode attention
-(K5), the all-layers KV store (K6), flash prefill (K7, with its base-2 lse
-on the extend passes), packed flash prefill (K9). The bf16 linears
-are plain ``torch.matmul``, as the JAX model leaves them to XLA. Not in
-this slice: ``gemm_impl="dma"`` decode (K10) and the ``fused=False`` decode
-step (its split-q/k RoPE kernel is K4); both raise.
+prologue), rmsnorm (K2), rope_decode_fused_qkv (K3; the ``fused=False``
+decode step takes K2, the separate q/k/v linears and rope_decode_fused, K4),
+paged decode attention (K5), the all-layers KV store (K6), flash prefill
+(K7, with its base-2 lse on the extend passes), packed flash prefill (K9).
+The bf16 linears are plain ``torch.matmul``, as the JAX model leaves them to
+XLA. Not ported: ``gemm_impl="dma"`` decode (K10), which raises.
 """
 
 from __future__ import annotations
@@ -40,7 +40,7 @@ from ..ops.attention import flash_attention, flash_attention_packed, merge_state
 from ..ops.gemm.w4a16 import quantize_w4, w4a16_gemm
 from ..ops.kvcache import store_cache_all_layers, store_cache_stacked
 from ..ops.norm import rmsnorm
-from ..ops.rope import compute_cos_sin_cache, rope_decode_fused_qkv, rotary_embedding
+from ..ops.rope import compute_cos_sin_cache, rope_decode_fused, rope_decode_fused_qkv, rotary_embedding
 from ..utils import resolve_device, round_up
 
 # Products accumulate in float32 as the JAX model's
@@ -105,11 +105,12 @@ class LlamaConfig:
 
 
 def init_weights(cfg: LlamaConfig, generator: Union[torch.Generator, int] = 0,
-                 device="cuda") -> Dict[str, Any]:
+                 device="cuda", *, mlp: bool = True) -> Dict[str, Any]:
     """Random layer-stacked weights. ``generator`` is a torch.Generator on
     ``device`` or an int seed. Each layer's matrix is drawn in float32, cast
     to the model dtype and (with ``quant="w4a16"``) quantized on its own, so
-    the float32 temporaries stay one matrix large."""
+    the float32 temporaries stay one matrix large. ``mlp=False`` draws no
+    dense MLP (a model whose MLP is routed experts, models/mixtral.py)."""
     dev = resolve_device(device)
     if isinstance(generator, int):
         generator = torch.Generator(device=dev).manual_seed(generator)
@@ -139,12 +140,13 @@ def init_weights(cfg: LlamaConfig, generator: Union[torch.Generator, int] = 0,
         layers["k"] = linear(nkv * d, h)
         layers["v"] = linear(nkv * d, h)
     layers["o"] = linear(h, nq * d)
-    if cfg.fused:
+    if mlp and cfg.fused:
         layers["gate_up"] = linear(2 * cfg.intermediate_size, h)
-    else:
+    elif mlp:
         layers["gate"] = linear(cfg.intermediate_size, h)
         layers["up"] = linear(cfg.intermediate_size, h)
-    layers["down"] = linear(h, cfg.intermediate_size)
+    if mlp:
+        layers["down"] = linear(h, cfg.intermediate_size)
     embed = draw(cfg.vocab_size, h, 0.02)
     lm_head = draw(cfg.vocab_size, h, 1.0 / h ** 0.5)
     return {
@@ -337,15 +339,19 @@ def decode_layers(lw, cfg: LlamaConfig, k_cache, v_cache, x, positions, page_tab
     reads pools that do not hold the current token yet (it rides as the
     fresh row); all layers' K/V are stored once after the loop, so the
     current token is never counted twice."""
-    if not cfg.fused:
-        raise NotImplementedError("decode with fused=False needs the split-q/k RoPE kernel, not ported yet")
     b = x.shape[0]
     n_stack = lw["input_norm"].shape[0]
     k_all, v_all = [], []
     for lidx in range(n_stack):
-        qkv = _linear(x, lw["qkv"], cfg, layer_id=lidx, norm=lw["input_norm"])
-        q, k, v = rope_decode_fused_qkv(positions, qkv, rope_cache, num_q=cfg.num_heads,
-                                        num_kv=cfg.num_kv_heads, head_dim=cfg.head_dim)
+        if cfg.fused:
+            # input_norm in the qkv GEMM's prologue, then split + rope (K3)
+            qkv = _linear(x, lw["qkv"], cfg, layer_id=lidx, norm=lw["input_norm"])
+            q, k, v = rope_decode_fused_qkv(positions, qkv, rope_cache, num_q=cfg.num_heads,
+                                            num_kv=cfg.num_kv_heads, head_dim=cfg.head_dim)
+        else:
+            h = rmsnorm(x, lw["input_norm"][lidx], cfg.rms_eps)
+            q, k, v = _qkv(h, lw, cfg, b, layer_id=lidx)
+            q, k = rope_decode_fused(positions, q, k, rope_cache)
         attn = paged_attention_decode_dma(q, k_cache, v_cache, lengths, page_tables,
                                           layer_id=lidx, fresh_k=k, fresh_v=v, **_kv_att_kwargs(cfg))
         x = _linear(attn.reshape(b, -1), lw["o"], cfg, residual=x, layer_id=lidx)

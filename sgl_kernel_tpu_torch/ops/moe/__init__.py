@@ -1,4 +1,4 @@
-"""MoE stack: routing, alignment, grouped GEMMs (K11; K12's twin), fused_experts."""
+"""MoE stack: routing, alignment, grouped GEMMs (K11, K12), fused_experts."""
 
 from .align import (  # noqa: F401
     MoeAlignment,
@@ -11,7 +11,8 @@ from .fused_experts import MoeWeights, fused_experts  # noqa: F401
 from .grouped_gemm import (  # noqa: F401
     bf16_grouped_mm,
     bf16_grouped_mm_ref,
+    ragged_grouped_mm,
     w4a16_grouped_mm,
     w4a16_grouped_mm_ref,
 )
-from .routing import biased_topk  # noqa: F401
+from .routing import biased_topk, topk_softmax  # noqa: F401

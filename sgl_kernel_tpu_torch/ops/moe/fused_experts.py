@@ -3,14 +3,22 @@
     route -> align / sort by expert -> grouped GEMM1 -> activation
           -> grouped GEMM2 -> weighted combine
 
-The port of sgl_kernel_tpu/ops/moe/fused_experts.py on the stacked paths
-DeepSeek reaches: layer-stacked bf16 banks through ``bf16_grouped_mm``
-(:116-124; its kernel K12 is not ported, so a CUDA tensor raises there) and
-int4 / mxfp4 banks, stacked or not, through ``w4a16_grouped_mm`` (K11,
-:146-158). The unstacked bf16 paths (the grouped kernel at decode sizes and
-``ragged_dot`` above) serve Mixtral and raise here. The alignment and the
-combine are plain PyTorch on the device; the activation between the GEMMs
-is ``ops/activation.py``.
+The port of sgl_kernel_tpu/ops/moe/fused_experts.py. Its branches
+(fused_experts.py:116-158):
+
+  - layer-stacked bf16 banks (DeepSeek, Mixtral; ``layer_id`` given): the
+    grouped bf16 GEMM ``bf16_grouped_mm`` (K12), the layer picked by offset;
+  - unstacked bf16 banks: on the card K12 over the alignment's blocks at any
+    token count, so the host never reads a group size; on the CPU the JAX
+    choice, the grouped GEMM's twin at up to 64 tokens and
+    ``ragged_grouped_mm`` (``jax.lax.ragged_dot``) over the padded group
+    sizes above. The two agree on valid rows, and the combine drops pad rows;
+  - int4 / mxfp4 banks, stacked or not: ``w4a16_grouped_mm`` (K11).
+
+The JAX grouped branch also checks that the TPU kernel's tiles fit VMEM
+(``bf16_group_tiles_fit``); that rule has no meaning here. The alignment and
+the combine are plain PyTorch on the device; the activation between the
+GEMMs is ``ops/activation.py``.
 """
 
 from __future__ import annotations
@@ -21,7 +29,7 @@ import torch
 
 from ..activation import ACTIVATIONS
 from .align import apply_shuffle_mul_sum, moe_align_block_size, pick_block_size, scatter_tokens_to_experts
-from .grouped_gemm import bf16_grouped_mm, w4a16_grouped_mm
+from .grouped_gemm import bf16_grouped_mm, ragged_grouped_mm, w4a16_grouped_mm
 
 
 class MoeWeights(NamedTuple):
@@ -56,8 +64,6 @@ def fused_experts(hidden, weights: MoeWeights, topk_weights, topk_ids, layer_id=
     e = w1.shape[1] if stacked else w1.shape[0]
     if block_size is None:
         block_size = pick_block_size(t, topk_ids.shape[1], w1.shape[-3])
-    if weights.fmt == "bf16" and not stacked:
-        raise NotImplementedError("fused_experts: unstacked bf16 banks (the ragged_dot path) are not ported yet")
     act_fn = ACTIVATIONS[activation]
 
     align = moe_align_block_size(topk_ids, topk_weights, e, block_size)
@@ -79,11 +85,17 @@ def fused_experts(hidden, weights: MoeWeights, topk_weights, topk_ids, layer_id=
             return act_fn(inter, gemm1_alpha, gemm1_limit)
         return act_fn(inter)
 
-    if weights.fmt == "bf16":
+    if weights.fmt == "bf16" and (stacked or t <= 64 or hidden.device.type == "cuda"):
         inter = bf16_grouped_mm(x, w1, align.block_expert_ids, layer_id, align.num_valid_blocks, bm=block_size)
         a = act(inter)
         out_sorted = bf16_grouped_mm(a.to(hidden.dtype), w2, align.block_expert_ids, layer_id,
                                      align.num_valid_blocks, bm=block_size)
+    elif weights.fmt == "bf16":
+        # rows grouped by the padded per-expert sizes: pad rows multiply real
+        # weights and the combine drops them
+        inter = ragged_grouped_mm(x, w1, align.padded_group_sizes)
+        a = act(inter)
+        out_sorted = ragged_grouped_mm(a, w2, align.padded_group_sizes)
     else:
         kw = dict(group_size=weights.group_size, fmt=weights.fmt, bm=block_size)
         inter = w4a16_grouped_mm(x, w1, weights.w1_scales, align.block_expert_ids, weights.w1_zeros, layer_id,

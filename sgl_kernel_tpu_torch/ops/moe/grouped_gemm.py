@@ -6,9 +6,11 @@ K1's tile code, replacing the Pallas ``w4a16_grouped_mm``
 ``w4a16_grouped_mm_ref`` is its plain twin: K1's twin (ops/gemm/w4a16.py)
 per valid row block, so the two differ only by summation order.
 
-``bf16_grouped_mm`` is the bf16 form (K12 in the JAX package,
-grouped_gemm.py:107, pallas_call at :175). Only its plain twin is ported: a
-CUDA tensor raises until K12's kernel lands.
+``bf16_grouped_mm`` is kernel K12, CUDA C++ in ``csrc/bf16_grouped_gemm.cu``,
+replacing the Pallas ``bf16_grouped_mm`` (grouped_gemm.py:107, pallas_call
+at :175); ``bf16_grouped_mm_ref`` is its plain twin. ``ragged_grouped_mm``
+is ``jax.lax.ragged_dot`` (grouped_gemm.py:30-33, XLA, no TPU kernel) as
+plain PyTorch: the CPU path of the unstacked bf16 MoE and a reference.
 
 Row block i of ``x_sorted`` (``bm`` rows, the alignment block of
 ops/moe/align.py) takes expert ``block_expert_ids[i]``; blocks at or past
@@ -170,30 +172,105 @@ def w4a16_grouped_mm(x_sorted, w, scales, block_expert_ids, zeros=None, layer_id
 w4a16_grouped_mm.launches = 0
 
 
-def bf16_grouped_mm_ref(x_sorted, w, block_expert_ids, layer_id=None, num_valid_blocks=None, *, bm: int = 128,
-                        bn: Optional[int] = None, bk: Optional[int] = None, out_dtype=None):
-    """Plain twin of ``bf16_grouped_mm``: x rows of each valid block times
-    its expert's [K, N] weight, float32 accumulation, one rounding; rows of
-    padding blocks come out zero."""
+def ragged_grouped_mm(x_sorted, weights, group_sizes):
+    """bf16 grouped GEMM over rows sorted by expert (``jax.lax.ragged_dot``):
+    x_sorted [M, K], weights [E, K, N], group_sizes [E]; the first
+    group_sizes[0] rows take expert 0, the next group_sizes[1] expert 1, and
+    so on; rows past the total come out zero. Float32 products rounded once
+    to x's dtype. Plain PyTorch with host reads of the sizes."""
+    out = torch.zeros((x_sorted.shape[0], weights.shape[-1]), dtype=x_sorted.dtype, device=x_sorted.device)
+    start = 0
+    for e, n in enumerate(group_sizes.tolist()):
+        if n:
+            out[start: start + n] = (x_sorted[start: start + n].float() @ weights[e].float()).to(out.dtype)
+        start += n
+    return out
+
+
+def _bf16_operands(x_sorted, w, layer_id, bm):
     cap, k = x_sorted.shape
     wl = _layer(w, layer_id)
-    if wl.ndim != 3 or wl.shape[1] != k or cap % bm:
-        raise ValueError(f"bf16_grouped_mm: x {tuple(x_sorted.shape)} w {tuple(w.shape)} bm {bm}")
+    if w.ndim != (3 if layer_id is None else 4) or wl.shape[1] != k or cap % bm:
+        raise ValueError(f"bf16_grouped_mm: x {tuple(x_sorted.shape)} w {tuple(w.shape)} bm {bm} "
+                         f"(stacked={layer_id is not None})")
+    return wl
+
+
+def bf16_grouped_mm_ref(x_sorted, w, block_expert_ids, layer_id=None, num_valid_blocks=None, *, bm: int = 128,
+                        bn: Optional[int] = None, bk: Optional[int] = None, out_dtype=None):
+    """Plain twin of ``bf16_grouped_mm``: each run of valid row blocks of one
+    expert times its [K, N] weight, float32 accumulation, one rounding; rows
+    of padding blocks come out zero."""
+    wl = _bf16_operands(x_sorted, w, layer_id, bm)
     out_dtype = out_dtype or x_sorted.dtype
-    out = torch.zeros((cap, wl.shape[-1]), dtype=out_dtype, device=x_sorted.device)
-    nv = _valid_blocks(num_valid_blocks, cap // bm)
-    for i, e in enumerate(block_expert_ids.tolist()[:nv]):
-        rows = slice(i * bm, (i + 1) * bm)
-        out[rows] = (x_sorted[rows].float() @ wl[e].float()).to(out_dtype)
+    out = torch.zeros((x_sorted.shape[0], wl.shape[-1]), dtype=out_dtype, device=x_sorted.device)
+    nv = _valid_blocks(num_valid_blocks, x_sorted.shape[0] // bm)
+    eids = block_expert_ids.tolist()[:nv]
+    i = 0
+    while i < nv:
+        j = i
+        while j < nv and eids[j] == eids[i]:
+            j += 1
+        rows = slice(i * bm, j * bm)
+        out[rows] = (x_sorted[rows].float() @ wl[eids[i]].float()).to(out_dtype)
+        i = j
     return out
+
+
+_BF16_ARGS = (ctypes.c_void_p,) * 5 + (ctypes.c_int,) * 5 + (ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p)
+
+
+@functools.cache
+def _bf16_entry():
+    return _build.bind("bf16_grouped_gemm", "skt_bf16_grouped_mm", _BF16_ARGS)
 
 
 def bf16_grouped_mm(x_sorted, w, block_expert_ids, layer_id=None, num_valid_blocks=None, *, bm: int = 128,
                     bn: Optional[int] = None, bk: Optional[int] = None, out_dtype=None):
-    """Block-aligned grouped bf16 GEMM: x_sorted [cap, K], w [E, K, N] or
-    stacked [L, E, K, N] with ``layer_id``. Returns [cap, N]. Only the plain
-    twin is ported (CPU tensors); a CUDA tensor raises until K12's kernel
-    lands."""
-    if x_sorted.device.type == "cuda":
-        raise NotImplementedError("bf16_grouped_mm: the CUDA kernel (K12) is not ported yet")
-    return bf16_grouped_mm_ref(x_sorted, w, block_expert_ids, layer_id, num_valid_blocks, bm=bm, out_dtype=out_dtype)
+    """Block-aligned grouped bf16 GEMM. x_sorted [cap, K] (cap a multiple of
+    ``bm``); w [E, K, N], or the stacked [L, E, K, N] with ``layer_id``;
+    block_expert_ids [cap // bm] int32; num_valid_blocks a 0-d int32 tensor
+    (or int), default every block. Returns [cap, N] in ``out_dtype``
+    (default x's dtype); rows of blocks at or past num_valid_blocks are
+    undefined.
+
+    CUDA tensors go through the K12 kernel, which takes bf16 x and w, K and
+    N multiples of 8, bm of 16, 32, 64 or 128 and a bf16 or float32 output;
+    it reads num_valid_blocks on the device. ``bn`` and ``bk`` are
+    contract-only: they chose the TPU kernel's VMEM tiles."""
+    if x_sorted.device.type != "cuda":
+        return bf16_grouped_mm_ref(x_sorted, w, block_expert_ids, layer_id, num_valid_blocks, bm=bm,
+                                   out_dtype=out_dtype)
+    wl = _bf16_operands(x_sorted, w, layer_id, bm)
+    bf = torch.bfloat16
+    out_dtype = out_dtype or x_sorted.dtype
+    cap, k = x_sorted.shape
+    n = wl.shape[-1]
+    if bm not in (16, 32, 64, 128):
+        raise NotImplementedError(f"bf16_grouped_mm: the CUDA kernel takes bm 16/32/64/128, not {bm}")
+    if x_sorted.dtype != bf or wl.dtype != bf or out_dtype not in (bf, torch.float32):
+        raise NotImplementedError("bf16_grouped_mm: the CUDA kernel takes bf16 x and w and writes bf16 or float32")
+    if k % 8 or n % 8:
+        raise NotImplementedError(f"bf16_grouped_mm: the CUDA kernel takes K and N multiples of 8, not {k} / {n}")
+    out = torch.empty((cap, n), dtype=out_dtype, device=x_sorted.device)
+    if cap == 0:
+        return out
+    x = x_sorted.contiguous()
+    if x.data_ptr() % 16:  # the kernel copies 16-byte rows with cp.async
+        x = x.clone()
+    wl = wl.contiguous()
+    if wl.data_ptr() % 16:
+        raise ValueError("bf16_grouped_mm: the weight bank must start at a 16-byte boundary")
+    eids = block_expert_ids.to(device=x.device, dtype=torch.int32).contiguous()
+    if eids.shape[0] != cap // bm:
+        raise ValueError(f"bf16_grouped_mm: {eids.shape[0]} block expert ids for {cap // bm} blocks")
+    nv = num_valid_blocks if num_valid_blocks is not None else cap // bm
+    nv = torch.as_tensor(nv, dtype=torch.int32, device=x.device).reshape(())
+    _build.check(_bf16_entry()(x.data_ptr(), wl.data_ptr(), eids.data_ptr(), nv.data_ptr(), out.data_ptr(), cap, n,
+                               k, x.stride(0), bm, wl[0].numel(), int(out_dtype == torch.float32),
+                               _build.stream_ptr(x.device)), "bf16_grouped_mm")
+    bf16_grouped_mm.launches += 1
+    return out
+
+
+bf16_grouped_mm.launches = 0

@@ -1,7 +1,8 @@
-"""MoE routing: DeepSeek-V3-style biased top-k (plain PyTorch).
+"""MoE routing: softmax top-k (Mixtral) and DeepSeek-V3-style biased top-k
+(plain PyTorch).
 
-The JAX function (sgl_kernel_tpu/ops/moe/routing.py:113-158) is jnp code
-around ``jax.lax.top_k``; there is no TPU kernel to port. Top-k here is a
+The JAX functions (sgl_kernel_tpu/ops/moe/routing.py:49-56 and :113-158) are
+jnp code around ``jax.lax.top_k``; there is no TPU kernel to port. Top-k here is a
 stable descending sort, which keeps ``jax.lax.top_k``'s order and its tie
 rule (of equal values, the lower expert index first); ``torch.topk`` makes
 no such promise. Ids are int32. ``topk`` counts fused shared experts, whose
@@ -33,6 +34,18 @@ def _top_k_ids(x, k: int):
     """Indices of the k largest entries of each row, largest first, ties to
     the lower index (``jax.lax.top_k``'s order)."""
     return torch.sort(x, dim=-1, descending=True, stable=True).indices[..., :k]
+
+
+def topk_softmax(gating_output, topk: int, renormalize: bool = False):
+    """Softmax over experts in float32, then top-k; with ``renormalize``
+    the k weights are divided by their sum (at least 1e-20). gating_output
+    [T, E]. Returns (weights [T, topk] float32, ids [T, topk] int32)."""
+    scores = _score(gating_output, "softmax")
+    ids = _top_k_ids(scores, topk)
+    w = torch.gather(scores, -1, ids)
+    if renormalize:
+        w = w / torch.clamp_min(w.sum(-1, keepdim=True), 1e-20)
+    return w, ids.to(torch.int32)
 
 
 def biased_topk(gating_output, bias, topk: int, scoring_func: str = "sigmoid", renormalize: bool = False,

@@ -14,6 +14,19 @@ the fused GEMM output. q and k heads rotate the neox halves of their first
 same row), dims at or past ``rot`` pass through, v heads are copied. The
 TPU kernel's three BlockSpecs over one array become three output pointers.
 
+``rope_decode_fused`` is kernel K4, a Triton kernel that replaces the Pallas
+``rope_decode_fused`` (sgl_kernel_tpu/ops/rope.py:360, pallas_call at :369);
+``rope_decode_fused_ref`` is its plain twin. It serves the decode steps
+whose q, k and v come from separate GEMMs (Mixtral, the ``fused=False``
+Llama).
+
+Kernel note (K4). Bound: bytes: one read of q [B, Hq, D] and k [B, Hkv, D]
+and of the cache row at each position, one write of both; a few flops a
+byte. Design: K3's, one Triton program per (token, head) over the q heads
+then the k heads, the partner half by a second, shifted load of the same
+row; dims at or past ``rot`` pass through. The TPU kernel's scalar-prefetched
+cache row becomes a gather at ``positions[b]`` inside the program.
+
 ``mla_qkv_prep`` is kernel K14, a Triton kernel that replaces the Pallas
 ``mla_qkv_prep`` (sgl_kernel_tpu/ops/rope.py:295, pallas_call at :312);
 ``mla_qkv_prep_ref`` is its plain twin.
@@ -190,6 +203,78 @@ def rope_decode_fused_qkv(positions, qkv, cos_sin_cache, *, num_q: int, num_kv: 
 
 
 rope_decode_fused_qkv.launches = 0
+
+
+def rope_decode_fused_ref(positions, q, k, cos_sin_cache):
+    """Plain PyTorch twin of ``rope_decode_fused``."""
+    rot = cos_sin_cache.shape[-1]
+    cs = cos_sin_cache[positions.long()].float()
+    cos, sin = cs[:, None, : rot // 2], cs[:, None, rot // 2:]
+    return _rotate_neox(q, cos, sin), _rotate_neox(k, cos, sin)
+
+
+@functools.cache
+def _rope_decode_kernel():
+    import triton
+    import triton.language as tl
+
+    @triton.jit
+    def rope_decode_kernel(pos_ptr, q_ptr, k_ptr, cache_ptr, qo_ptr, ko_ptr,
+                           NQ: tl.constexpr, NKV: tl.constexpr, D: tl.constexpr,
+                           ROT: tl.constexpr, BLOCK: tl.constexpr):
+        b = tl.program_id(0).to(tl.int64)
+        hd = tl.program_id(1)
+        HALF: tl.constexpr = ROT // 2
+        cols = tl.arange(0, BLOCK)
+        inrow = cols < D
+        if hd < NQ:
+            src = q_ptr + (b * NQ + hd) * D
+            dst = qo_ptr + (b * NQ + hd) * D
+        else:
+            src = k_ptr + (b * NKV + hd - NQ) * D
+            dst = ko_ptr + (b * NKV + hd - NQ) * D
+        x = tl.load(src + cols, mask=inrow, other=0.0)
+        pos = tl.load(pos_ptr + b).to(tl.int64)
+        rotm = cols < ROT
+        first = cols < HALF
+        fi = tl.where(first, cols, cols - HALF)
+        partner = tl.where(first, cols + HALF, cols - HALF)
+        xp = tl.load(src + partner, mask=rotm, other=0.0).to(tl.float32)
+        cos = tl.load(cache_ptr + pos * ROT + fi, mask=rotm, other=0.0)
+        sin = tl.load(cache_ptr + pos * ROT + HALF + fi, mask=rotm, other=0.0)
+        xf = x.to(tl.float32)
+        y = tl.where(first, xf * cos - xp * sin, xf * cos + xp * sin)
+        tl.store(dst + cols, tl.where(rotm, y.to(x.dtype), x), mask=inrow)
+
+    return rope_decode_kernel
+
+
+def rope_decode_fused(positions, q, k, cos_sin_cache):
+    """Neox RoPE at decode on split q [B, Hq, D] and k [B, Hkv, D] at
+    ``positions`` [B] (cache row positions[b]): the first ``rot`` dims
+    rotate in float32 and round once to the input dtype, the rest pass
+    through. Returns (q, k) roped, new tensors. CUDA tensors go through the
+    Triton kernel (K4)."""
+    b, hq, d = q.shape
+    hkv = k.shape[1]
+    rot = cos_sin_cache.shape[-1]
+    if k.shape[0] != b or k.shape[2] != d or rot > d or rot % 2:
+        raise ValueError(f"rope_decode_fused: q {tuple(q.shape)} k {tuple(k.shape)} cache width {rot}")
+    if q.device.type != "cuda":
+        return rope_decode_fused_ref(positions, q, k, cos_sin_cache)
+    if cos_sin_cache.dtype != torch.float32 or q.dtype != k.dtype:
+        raise ValueError("rope_decode_fused: q and k of one dtype and a float32 cache")
+    q, k = q.contiguous(), k.contiguous()
+    qo, ko = torch.empty_like(q), torch.empty_like(k)
+    if b:
+        _rope_decode_kernel()[(b, hq + hkv)](
+            positions.to(torch.int32).contiguous(), q, k, cos_sin_cache.contiguous(), qo, ko,
+            NQ=hq, NKV=hkv, D=d, ROT=rot, BLOCK=next_power_of_2(d), num_warps=1)
+        rope_decode_fused.launches += 1
+    return qo, ko
+
+
+rope_decode_fused.launches = 0
 
 
 def mla_qkv_prep_ref(positions, layer_id, q, kv, kv_norm_w, cos_sin_cache, *, nope_dim: int, eps: float = 1e-6):

@@ -8,8 +8,9 @@ page-table and scheduling loop over opaque ``caches``.
 The Llama adapter serves the padded ``prefill``, the packed multi-prompt
 ``prefill_packed``, the ``prefill_extend`` of a cached prefix or a prompt
 chunk, and the ``decode`` step; the engine reaches ``mixed_step`` through
-``_m``. The DeepSeek adapter serves the same four programs over one latent
-pool; its model has no ``mixed_step``, so the engine advances chunked
+``_m``. The Mixtral adapter serves the same four programs of its own model
+over the same (k, v) pools, and the DeepSeek adapter over one latent pool;
+neither model has a ``mixed_step``, so the engine advances their chunked
 prompts by extend. ``supports_spec`` is False (speculative decoding is a
 later slice), and the PD page transfer (``extract_pages`` /
 ``inject_pages``) is not ported yet.
@@ -17,7 +18,7 @@ later slice), and the PD page transfer (``extract_pages`` /
 
 from __future__ import annotations
 
-from ..models import deepseek, llama
+from ..models import deepseek, llama, mixtral
 from ..utils import resolve_device
 
 
@@ -67,6 +68,19 @@ class LlamaAdapter:
         logits, k, v = self._m.decode_step(params, self.cfg, k, v, tokens, positions,
                                            page_tables, lengths, slot_loc, self.rope_cache)
         return logits, (k, v)
+
+
+class MixtralAdapter(LlamaAdapter):
+    """Mixtral routed-MoE Llama (models/mixtral.py): the Llama adapter's
+    programs and (k, v) pools over the Mixtral model's functions."""
+
+    name = "mixtral"
+    supports_spec = False
+    supports_extend = True
+
+    def __init__(self, cfg, device="cuda"):
+        super().__init__(cfg, device)
+        self._m = mixtral
 
 
 class DeepseekAdapter:
@@ -123,10 +137,13 @@ class DeepseekAdapter:
 
 
 def adapter_for(cfg, device="cuda"):
-    """The adapter for a config's type; a DeepSeek config asks for the
+    """The adapter for a config's type, the most specific first
+    (``MixtralConfig`` is a ``LlamaConfig``); a DeepSeek config asks for the
     decode mode it names (NSA or compression, which raise)."""
     if isinstance(cfg, deepseek.DeepseekConfig):
         return DeepseekAdapter(cfg, device, use_nsa=bool(cfg.nsa), use_compress=bool(cfg.compress))
+    if isinstance(cfg, mixtral.MixtralConfig):
+        return MixtralAdapter(cfg, device)
     if isinstance(cfg, llama.LlamaConfig):
         return LlamaAdapter(cfg, device)
     raise TypeError(f"no serving adapter for config type {type(cfg).__name__}")

@@ -73,6 +73,26 @@ def test_rope_decode_fused_qkv(gen, nq, nkv, d, rot, dtype):
     assert torch.equal(out[2], ref[2])  # v is a copy
 
 
+@pytest.mark.parametrize("hq,hkv,d,rot", [(32, 8, 128, 128), (8, 2, 64, 32), (4, 4, 128, 64), (16, 2, 64, 64)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_rope_decode_fused(gen, hq, hkv, d, rot, dtype):
+    """K4 on split q and k: head dims 64 and 128, rot below D (the tail
+    passes through unchanged), a padding row at position 0."""
+    b = 6
+    cache = rope.compute_cos_sin_cache(rot, 8192, 1e6, device="cuda")
+    pos = torch.randint(0, 8192, (b,), generator=gen, device="cuda", dtype=torch.int32)
+    pos[-1] = 0
+    q, k = randn(gen, b, hq, d, dtype=dtype), randn(gen, b, hkv, d, dtype=dtype)
+    before = rope.rope_decode_fused.launches
+    out = rope.rope_decode_fused(pos, q, k, cache)
+    assert rope.rope_decode_fused.launches == before + 1
+    ref = rope.rope_decode_fused_ref(pos, q, k, cache)
+    for o, r, x in zip(out, ref, (q, k)):
+        assert o.shape == x.shape and o.dtype == x.dtype
+        assert_kernel_close(o, r)
+        assert torch.equal(o[..., rot:], x[..., rot:])
+
+
 def paged_case(gen, b, hq, hkv, d, page, lengths, n_layers):
     n_blocks = max(1, -(-max(lengths) // page)) + 1
     n_pages = b * n_blocks + 1
@@ -391,8 +411,8 @@ def test_w4a16_unsupported_raise(gen):
 
 
 # ---------------------------------------------------------------------------
-# DeepSeek path: K11 grouped W4A16 GEMM, K13a MLA decode, K14 MLA qkv prep,
-# K7 / K9 at head dim 576
+# MoE paths: K11 grouped W4A16 GEMM, K12 grouped bf16 GEMM; DeepSeek's K13a
+# MLA decode, K14 MLA qkv prep, K7 / K9 at head dim 576
 # ---------------------------------------------------------------------------
 
 from sgl_kernel_tpu_torch.ops import moe  # noqa: E402
@@ -456,10 +476,92 @@ def test_grouped_w4a16_options(gen, option):
     assert_elementwise(out[: 5 * 16], ref[: 5 * 16])
 
 
+def bf16_grouped_inputs(gen, *, bm, blocks, k, n, e=5, layers=None):
+    lead = (layers, e) if layers else (e,)
+    w = randn(gen, *lead, k, n) * (1.0 / k ** 0.5)
+    x = randn(gen, blocks * bm, k)
+    eids = torch.randint(0, e, (blocks,), generator=gen, device="cuda", dtype=torch.int32)
+    return x, w.to(torch.bfloat16), eids
+
+
+@pytest.mark.parametrize("bm", [16, 32, 64, 128])
+@pytest.mark.parametrize("stacked", [True, False])
+@pytest.mark.parametrize("valid", [0, 1, 3, 5])
+def test_grouped_bf16_blocks(gen, bm, stacked, valid):
+    """K12 at each alignment block size, stacked (layer 1 of 2) and
+    unstacked banks, 0, 1, 3 and all of 5 blocks valid (the count read on
+    the device; padding rows are undefined and not compared); a ragged K
+    and N tail (K 200, N 136 against the 64- and 128-wide tiles)."""
+    blocks = 5
+    x, w, eids = bf16_grouped_inputs(gen, bm=bm, blocks=blocks, k=200, n=136, layers=2 if stacked else None)
+    eids[valid:] = eids[max(valid - 1, 0)]
+    lid = 1 if stacked else None
+    nvt = torch.tensor(valid, dtype=torch.int32, device="cuda")
+    before = moe.bf16_grouped_mm.launches
+    out = moe.bf16_grouped_mm(x, w, eids, lid, nvt, bm=bm)
+    assert moe.bf16_grouped_mm.launches == before + 1
+    ref = moe.bf16_grouped_mm_ref(x, w, eids, lid, nvt, bm=bm)
+    assert_elementwise(out[: valid * bm], ref[: valid * bm])
+
+
+@pytest.mark.parametrize("bm", [16, 128])
+def test_grouped_bf16_f32_out(gen, bm):
+    x, w, eids = bf16_grouped_inputs(gen, bm=bm, blocks=4, k=256, n=192, layers=3)
+    out = moe.bf16_grouped_mm(x, w, eids, 2, 3, bm=bm, out_dtype=torch.float32)
+    ref = moe.bf16_grouped_mm_ref(x, w, eids, 2, 3, bm=bm, out_dtype=torch.float32)
+    assert out.dtype == torch.float32
+    # float32 outputs: sums of the same bf16 products in another order
+    tol = 1e-5 * max(1.0, float(ref.abs().max()))
+    assert float((out[: 3 * bm] - ref[: 3 * bm]).abs().max()) <= tol
+
+
+@pytest.mark.parametrize("model,k,n,e", [("deepseek_gate_up", 2048, 2816, 4), ("deepseek_down", 1408, 2048, 4),
+                                         ("mixtral_gate_up", 4096, 28672, 2), ("mixtral_down", 14336, 4096, 2)])
+def test_grouped_bf16_model_widths(gen, model, k, n, e):
+    """K12 at DeepSeek-V2-Lite's and Mixtral-8x7B's expert widths with a few
+    experts: three blocks of 16 rows, two of them one expert's run."""
+    x, w, eids = bf16_grouped_inputs(gen, bm=16, blocks=4, k=k, n=n, e=e)
+    eids[:] = torch.tensor([1, 1, 0, 0], dtype=torch.int32)
+    out = moe.bf16_grouped_mm(x, w, eids, None, 3, bm=16)
+    assert_elementwise(out[:48], moe.bf16_grouped_mm_ref(x, w, eids, None, 3, bm=16)[:48])
+
+
+@pytest.mark.parametrize("t", [5, 70])
+def test_fused_experts_unstacked_bf16(gen, t):
+    """fused_experts on unstacked bf16 banks goes through K12 at any token
+    count on the card (the CPU takes ragged_dot's form above 64 tokens):
+    both against the CPU's result on the same inputs."""
+    e, h, inter = 8, 256, 128
+    w1 = (randn(gen, e, h, 2 * inter) * (1 / h ** 0.5)).to(torch.bfloat16)
+    w2 = (randn(gen, e, inter, h) * (1 / inter ** 0.5)).to(torch.bfloat16)
+    x = randn(gen, t, h)
+    tw, tids = moe.topk_softmax(torch.randn((t, e), generator=gen, device="cuda"), 2, renormalize=True)
+    mw = moe.MoeWeights(w1=w1, w2=w2, fmt="bf16")
+    before = moe.bf16_grouped_mm.launches
+    out = moe.fused_experts(x, mw, tw, tids)
+    assert moe.bf16_grouped_mm.launches == before + 2
+    ref = moe.fused_experts(x.cpu(), moe.MoeWeights(w1=w1.cpu(), w2=w2.cpu(), fmt="bf16"), tw.cpu(), tids.cpu())
+    # the intermediate rounds to bf16 before the second GEMM on both sides;
+    # one ulp there moves the output by about an ulp of its row
+    o, r = out.float().cpu(), ref.float()
+    tol = 2.0 ** -7 * r.abs() + 2.0 ** -7 * r.abs().amax(-1, keepdim=True)
+    assert ((o - r).abs() <= tol).all(), float(((o - r).abs() / tol).max())
+
+
 def test_grouped_unported_raise(gen):
+    """K12 raises on what its kernel does not take: float32 inputs, N or K
+    not a multiple of 8, an alignment block of 8; K11 on a block of 8."""
+    eids = torch.zeros(2, dtype=torch.int32, device="cuda")
     x = randn(gen, 32, 64)
+    for xx, w, kw in ((x.float(), randn(gen, 4, 64, 32, dtype=torch.float32), dict(bm=16)),
+                      (x, randn(gen, 4, 64, 36), dict(bm=16)),
+                      (randn(gen, 32, 60), randn(gen, 4, 60, 32), dict(bm=16)),
+                      (x, randn(gen, 4, 64, 32), dict(bm=8))):
+        ids = eids if kw["bm"] == 16 else torch.zeros(4, dtype=torch.int32, device="cuda")
+        with pytest.raises(NotImplementedError):
+            moe.bf16_grouped_mm(xx, w, ids, **kw)
     with pytest.raises(NotImplementedError):
-        moe.bf16_grouped_mm(x, randn(gen, 4, 64, 32), torch.zeros(2, dtype=torch.int32, device="cuda"), bm=16)
+        moe.bf16_grouped_mm(x, randn(gen, 4, 64, 32), eids, bm=16, out_dtype=torch.float16)
     x, w, s, _, eids = grouped_inputs(gen, bm=16, blocks=2, k=256, n=128, gs=128)
     with pytest.raises(NotImplementedError):
         moe.w4a16_grouped_mm(x, w, s, eids, layer_id=0, bm=8)

@@ -210,3 +210,41 @@ def test_deepseek_default_engine_matches_jax():
     assert tc["prefix_cache_hit_tokens"] == 48 and tc.get("mixed_steps", 0) == 0
     assert teng.allocator.free + teng.native.cached_pages == 47
     assert tc.get("nonfinite_logits", 0) == 0
+
+
+def test_mixtral_default_engine_matches_jax():
+    """Both default engines on the tiny Mixtral (float32; prefix cache,
+    packed admission, prefill_chunk=32; the model has no mixed step, so
+    chunks go by extend): wave A three fresh prompts (two packed, the
+    40-token one chunked), wave B reusing 32 and 16 cached tokens of A's
+    prompts beside a fresh 70-token prompt in chunks. Identical greedy
+    tokens, hit tokens and page accounting, no mixed step."""
+    from sgl_kernel_tpu.models import mixtral as jmix
+    from sgl_kernel_tpu_torch import MixtralConfig
+
+    jcfg = jmix.MixtralConfig.tiny()
+    jparams = jmix.init_weights(jcfg, jax.random.PRNGKey(17))
+    rng = np.random.default_rng(12)
+    kw = dict(max_batch=4, page_size=16, num_pages=48, prefill_chunk=32)
+    jeng = JaxEngine(jcfg, jparams, **kw)
+    teng = Engine(MixtralConfig.tiny(), params_from_numpy(jax.tree_util.tree_map(np.asarray, jparams), "cpu"),
+                  device="cpu", **kw)
+    assert teng.native is not None and type(teng.adapter).__name__ == "MixtralAdapter"
+    a = [rng.integers(1, jcfg.vocab_size, n).tolist() for n in (20, 40, 9)]
+    b = [a[1][:32] + rng.integers(1, jcfg.vocab_size, 10).tolist(),
+         a[0][:16] + rng.integers(1, jcfg.vocab_size, 5).tolist(),
+         rng.integers(1, jcfg.vocab_size, 70).tolist()]
+    for wave in (a, b):
+        for eng in (jeng, teng):
+            for p in wave:
+                eng.add_request(p, max_new_tokens=5)
+            eng.run_until_done()
+    assert sorted(jeng.finished) == sorted(teng.finished) == list(range(6))
+    for rid in jeng.finished:
+        assert teng.finished[rid].output == jeng.finished[rid].output, rid
+    jc, tc = jeng.metrics.counters, teng.metrics.counters
+    for key in ("prefix_cache_hit_tokens", "tokens_prefilled", "tokens_decoded", "requests_finished"):
+        assert tc.get(key) == jc.get(key), key
+    assert tc["prefix_cache_hit_tokens"] == 48 and tc.get("mixed_steps", 0) == 0 == jc.get("mixed_steps", 0)
+    assert teng.allocator.free + teng.native.cached_pages == 47
+    assert tc.get("nonfinite_logits", 0) == 0

@@ -46,6 +46,8 @@ def test_entry_points_need_a_card_by_default():
         skt.make_caches(cfg, 4, 16)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         skt.Engine(skt.DeepseekConfig.tiny())
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        skt.Engine(skt.MixtralConfig.tiny())
 
 
 def test_unserved_engine_arguments_raise():
@@ -69,10 +71,10 @@ def test_unserved_engine_arguments_raise():
 
 
 def test_kernel_wrappers_count_launches():
-    assert set(skt.launch_counts()) == {"w4a16_gemm", "rmsnorm", "rope_decode_fused_qkv",
+    assert set(skt.launch_counts()) == {"w4a16_gemm", "rmsnorm", "rope_decode_fused_qkv", "rope_decode_fused",
                                         "paged_attention_decode_dma", "store_cache_all_layers", "flash_attention",
-                                        "flash_attention_packed", "w4a16_grouped_mm", "mla_decode",
-                                        "mla_qkv_prep"}
+                                        "flash_attention_packed", "w4a16_grouped_mm", "bf16_grouped_mm",
+                                        "mla_decode", "mla_qkv_prep"}
     skt.reset_launch_counts()
     x = torch.randn(3, 64)
     skt.rmsnorm(x, torch.ones(64))  # CPU tensor: the plain twin, no launch
@@ -87,11 +89,11 @@ def test_kernel_sources_and_entry_points():
 
     stems = {p.stem for p in _build.sources()}
     assert stems == {"decode_attention", "flash_packed", "flash_prefill", "store_cache", "w4a16_gemm",
-                     "grouped_gemm", "mla_decode"}
+                     "grouped_gemm", "bf16_grouped_gemm", "mla_decode"}
     entry = {"decode_attention": "skt_paged_decode", "flash_packed": "skt_flash_packed",
              "flash_prefill": "skt_flash_prefill", "store_cache": "skt_store_cache_all_layers",
              "w4a16_gemm": "skt_w4a16_gemm", "grouped_gemm": "skt_w4a16_grouped_mm",
-             "mla_decode": "skt_mla_decode"}
+             "bf16_grouped_gemm": "skt_bf16_grouped_mm", "mla_decode": "skt_mla_decode"}
     for src in _build.sources():
         text = src.read_text()
         assert f'extern "C" int {entry[src.stem]}(' in text

@@ -21,17 +21,21 @@ PAGE, N_PAGES, BUCKET = 16, 12, 32
 
 def configs(dtype, kv_dtype=None, **extra):
     """The JAX and port configs; ``kv_dtype`` by name ("int8",
-    "float8_e4m3fn"), ``extra`` fields the same on both sides."""
+    "float8_e4m3fn"), ``extra`` fields the same on both sides (``fused``
+    defaults to True)."""
     if kv_dtype is not None:
         extra_j = dict(extra, kv_dtype=getattr(jnp, kv_dtype))
         extra_t = dict(extra, kv_dtype=getattr(torch, kv_dtype))
     else:
-        extra_j = extra_t = extra
+        extra_j, extra_t = dict(extra), dict(extra)
+    fused = extra_j.pop("fused", True)
+    extra_t = dict(extra_t)
+    extra_t.pop("fused", None)
     if dtype == "f32":
-        return jllama.LlamaConfig.tiny(fused=True, **extra_j), tllama.LlamaConfig.tiny(fused=True, **extra_t)
+        return jllama.LlamaConfig.tiny(fused=fused, **extra_j), tllama.LlamaConfig.tiny(fused=fused, **extra_t)
     # narrow bf16 variant: 3 layers, GQA group 4
     kw = dict(vocab_size=192, hidden_size=128, intermediate_size=192, num_layers=3,
-              num_heads=8, num_kv_heads=2, head_dim=16, max_position=128, fused=True)
+              num_heads=8, num_kv_heads=2, head_dim=16, max_position=128, fused=fused)
     return (jllama.LlamaConfig(dtype=jnp.bfloat16, **kw, **extra_j),
             tllama.LlamaConfig(dtype=torch.bfloat16, **kw, **extra_t))
 
@@ -135,10 +139,26 @@ def test_unported_options_raise():
                            torch.zeros(1, dtype=torch.int32), tllama.build_rope_cache(dma, "cpu"))
     with pytest.raises(ValueError):  # int8 pools need a scale
         tllama.make_caches(tllama.LlamaConfig.tiny(kv_dtype=torch.int8), 4, 16, device="cpu")
-    cfg = tllama.LlamaConfig.tiny(fused=False)
-    with pytest.raises(NotImplementedError):
-        tllama.decode_layers({"input_norm": torch.ones(2, 128)}, cfg, None, None, torch.zeros(1, 128),
-                             None, None, None, None, None)
+    # the fused=False decode step runs since K4 was ported: held to JAX in
+    # test_prefill_decode_unfused
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_prefill_decode_unfused(dtype):
+    """The fused=False layout (the JAX LlamaConfig's default): K2, the
+    separate q/k/v linears and K4's twin at decode. float32: the same ops in
+    another summation order, 2e-5 of the logits' scale (1e-6 seen); bf16: a
+    few bf16 ulps over 3 layers (~2^-7 of the scale seen), as
+    test_prefill_decode_bf16."""
+    jl, tl, (jk, jv), (tk, tv) = run_both(dtype, [5, 23], n_decode=3, fused=False)
+    if dtype == "f32":
+        for a, b in zip(jl, tl):
+            assert np.abs(a - b).max() <= 2e-5 * max(1.0, float(np.abs(a).max()))
+            np.testing.assert_array_equal(a.argmax(-1), b.argmax(-1))
+        assert np.abs(np.asarray(jk) - tk.numpy()).max() <= 2e-5 * max(1.0, float(np.abs(np.asarray(jk)).max()))
+    else:
+        for a, b in zip(jl, tl):
+            np.testing.assert_allclose(a, b, rtol=0.05, atol=0.05)
 
 
 @pytest.mark.parametrize("fn", ["top_k", "top_p", "min_p"])

@@ -1,7 +1,10 @@
 """The port's MoE stack against the JAX package's on the same inputs (numpy,
-from a seed): biased top-k routing, the block alignment, K11's plain twin
-(``w4a16_grouped_mm`` on CPU tensors) against the Pallas kernel in interpret
-mode, K12's twin, and ``fused_experts`` on stacked int4 and bf16 banks.
+from a seed): biased and softmax top-k routing, the block alignment, K11's
+plain twin (``w4a16_grouped_mm`` on CPU tensors) against the Pallas kernel
+in interpret mode, K12's twin (stacked and unstacked) against its Pallas
+kernel, ``ragged_grouped_mm`` against ``jax.lax.ragged_dot``, and
+``fused_experts`` on stacked int4 and bf16 banks and on unstacked bf16 banks
+(the grouped branch at up to 64 tokens, ragged_dot's above).
 
 Tolerances: routing ids and every alignment array are exact (integers; the
 weights are the same float32 ops). The grouped GEMMs and fused_experts take
@@ -135,14 +138,61 @@ def test_w4a16_grouped_mm_padded_k_and_per_channel():
 
 
 def test_bf16_grouped_mm_twin():
+    bf16_twin_case(stacked=True)
+
+
+def test_bf16_grouped_mm_twin_unstacked():
+    bf16_twin_case(stacked=False)
+
+
+def bf16_twin_case(stacked):
+    """K12's twin against the Pallas kernel (interpret mode) on the rows of
+    valid blocks, a stacked bank under layer_id or an unstacked one; a run
+    of two blocks of one expert."""
     rng = np.random.default_rng(5)
     e, k, n, bm, blocks, nv = 4, 64, 96, 16, 4, 3
     x = rng.standard_normal((blocks * bm, k)).astype(np.float32)
-    w = (rng.standard_normal((2, e, k, n)) * 0.1).astype(np.float32)
-    eids = np.array([2, 0, 3, 3], np.int32)
-    ref = jmoe.bf16_grouped_mm(jnp.asarray(x), jnp.asarray(w), jnp.asarray(eids), 1, jnp.int32(nv), bm=bm)
-    out = tmoe.bf16_grouped_mm(t_(x), t_(w), t_(eids), 1, torch.tensor(nv), bm=bm)
+    w = (rng.standard_normal((2, e, k, n) if stacked else (e, k, n)) * 0.1).astype(np.float32)
+    eids = np.array([2, 0, 0, 3], np.int32)
+    lid = 1 if stacked else None
+    ref = jmoe.bf16_grouped_mm(jnp.asarray(x), jnp.asarray(w), jnp.asarray(eids), lid, jnp.int32(nv), bm=bm)
+    out = tmoe.bf16_grouped_mm(t_(x), t_(w), t_(eids), lid, torch.tensor(nv), bm=bm)
     close(out[: nv * bm], np.asarray(ref)[: nv * bm], 2e-5)
+    assert tmoe.bf16_grouped_mm.launches == 0  # a CPU tensor takes the twin
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_ragged_grouped_mm(dtype):
+    """ragged_grouped_mm against jax.lax.ragged_dot: groups of 5, 0, 11 and
+    3 rows of 24, the last 5 rows in no group (zero)."""
+    rng = np.random.default_rng(8)
+    x = rng.standard_normal((24, 48)).astype(np.float32)
+    w = (rng.standard_normal((4, 48, 40)) * 0.2).astype(np.float32)
+    gs = np.array([5, 0, 11, 3], np.int32)
+    jdt = jnp.float32 if dtype == "f32" else jnp.bfloat16
+    xj, wj = jnp.asarray(x, jdt), jnp.asarray(w, jdt)
+    ref = jmoe.ragged_grouped_mm(xj, wj, jnp.asarray(gs))
+    out = tmoe.ragged_grouped_mm(t_(np.asarray(xj)), t_(np.asarray(wj)), t_(gs))
+    assert out.dtype == (torch.float32 if dtype == "f32" else torch.bfloat16)
+    assert not out[19:].any()
+    # bf16 output: one rounding of a float32 sum on each side, one ulp apart
+    close(out, np.asarray(ref, np.float32), 2e-5 if dtype == "f32" else 2.0 ** -7)
+
+
+@pytest.mark.parametrize("renorm", [True, False])
+def test_topk_softmax(renorm):
+    """Softmax top-2 and top-3 with tied logits: equal scores go to the
+    lower expert id first, as jax.lax.top_k orders them."""
+    rng = np.random.default_rng(9)
+    g = rng.standard_normal((33, 8)).astype(np.float32)
+    g[:6] = np.round(g[:6])
+    g[6:9, 2:6] = 0.5  # four experts tied at the top
+    for k in (2, 3):
+        jw, jids = jmoe.topk_softmax(jnp.asarray(g), k, renormalize=renorm)
+        tw, tids = tmoe.topk_softmax(t_(g), k, renormalize=renorm)
+        assert tids.dtype == torch.int32 and tw.dtype == torch.float32
+        np.testing.assert_array_equal(tids.numpy(), np.asarray(jids))
+        np.testing.assert_allclose(tw.numpy(), np.asarray(jw), rtol=1e-6, atol=1e-7)
 
 
 def stacked_banks(rng, layers, e, h, inter, quant, gs=64):
@@ -190,10 +240,33 @@ def test_fused_experts_stacked(quant, t, biases):
 
 
 def test_fused_experts_raises_on_unported_paths():
-    w = torch.zeros(4, 8, 16)
-    with pytest.raises(NotImplementedError):
-        tmoe.fused_experts(torch.zeros(2, 8), tmoe.MoeWeights(w1=w, w2=torch.zeros(4, 8, 8)),
-                           torch.ones(2, 1), torch.zeros(2, 1, dtype=torch.int32))
+    """The unstacked bf16 call that raised before K12 was ported now runs:
+    held to the JAX function (the cases below)."""
+    test_fused_experts_unstacked_bf16(9, "f32")
+
+
+@pytest.mark.parametrize("t", [2, 64, 70])
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_fused_experts_unstacked_bf16(t, dtype):
+    """Unstacked bf16 banks, which raised before K12 was ported, against the
+    JAX function on softmax top-2 routing: the grouped branch at up to 64
+    tokens and ragged_dot's above (both sides take the same branch on the
+    CPU). float32: 2e-5 of the scale; bf16: one rounding of the expert
+    outputs and of the combine apart, 2^-7."""
+    rng = np.random.default_rng(10)
+    e, h, inter = 8, 128, 64
+    jdt = jnp.float32 if dtype == "f32" else jnp.bfloat16
+    w1 = jnp.asarray(rng.standard_normal((e, h, 2 * inter)) / np.sqrt(h), jdt)
+    w2 = jnp.asarray(rng.standard_normal((e, inter, h)) / np.sqrt(inter), jdt)
+    x = jnp.asarray(rng.standard_normal((t, h)), jdt)
+    logits = rng.standard_normal((t, e)).astype(np.float32)
+    jtw, jids = jmoe.topk_softmax(jnp.asarray(logits), 2, renormalize=True)
+    ttw, tids = tmoe.topk_softmax(t_(logits), 2, renormalize=True)
+    mw = jmoe.MoeWeights(w1=w1, w2=w2, fmt="bf16")
+    ref = jmoe.fused_experts(x, mw, jtw, jids)
+    out = tmoe.fused_experts(t_(np.asarray(x)), port_weights(mw), ttw, tids)
+    assert out.dtype == (torch.float32 if dtype == "f32" else torch.bfloat16)
+    close(out, np.asarray(ref, np.float32), 2e-5 if dtype == "f32" else 2.0 ** -7)
 
 
 @pytest.mark.parametrize("name", ["silu", "gelu", "gelu_tanh", "silu_clamp", "swiglu_gpt_oss"])

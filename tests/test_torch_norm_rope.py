@@ -1,5 +1,6 @@
 """Parity of the port's norm and RoPE operators (K2 rmsnorm, K3
-rope_decode_fused_qkv and their plain neighbours) with the JAX package.
+rope_decode_fused_qkv, K4 rope_decode_fused and their plain neighbours)
+with the JAX package.
 
 The same numpy-seeded bytes go through the JAX function (its Pallas kernels
 in interpret mode on the CPU) and the port's CPU path (the kernels' plain
@@ -106,7 +107,32 @@ def test_rope_decode_fused_qkv(rng, dt, nq, nkv, d, rot):
     np.testing.assert_array_equal(np.asarray(ref[2], np.float32), out[2].float().numpy())
 
 
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("hq,hkv,d,rot", [(4, 2, 32, 32), (8, 2, 64, 32), (32, 8, 128, 128), (4, 4, 96, 64)])
+def test_rope_decode_fused(rng, dt, hq, hkv, d, rot):
+    """K4's twin against the Pallas kernel (interpret mode): q and k split,
+    rot < D passing the tail through."""
+    jdt, _ = DTYPES[dt]
+    b = 5
+    cache = jrope.compute_cos_sin_cache(rot, 256, 1e6)
+    cache_t = torch.from_numpy(np.asarray(cache))
+    pos = rng.integers(0, 256, b).astype(np.int32)
+    qj, qt = both(rng.standard_normal((b, hq, d)).astype(np.float32), jdt)
+    kj, kt = both(rng.standard_normal((b, hkv, d)).astype(np.float32), jdt)
+    ref = jrope.rope_decode_fused(jnp.asarray(pos), qj, kj, cache)
+    out = trope.rope_decode_fused(torch.from_numpy(pos), qt, kt, cache_t)
+    for r, o, x in zip(ref, out, (qt, kt)):
+        assert o.shape == x.shape and o.dtype == x.dtype
+        close(r, o, **TOL[dt])
+        # the dims past rot pass through, bit for bit
+        np.testing.assert_array_equal(np.asarray(r, np.float32)[..., rot:], o[..., rot:].float().numpy())
+    assert trope.rope_decode_fused.launches == 0  # a CPU tensor takes the twin
+
+
 def test_rope_decode_rejects_bad_width():
     with pytest.raises(ValueError):
         trope.rope_decode_fused_qkv(torch.zeros(2, dtype=torch.int32), torch.zeros(2, 100),
                                     torch.zeros(8, 32), num_q=4, num_kv=2, head_dim=32)
+    with pytest.raises(ValueError):
+        trope.rope_decode_fused(torch.zeros(2, dtype=torch.int32), torch.zeros(2, 4, 32), torch.zeros(2, 2, 32),
+                                torch.zeros(8, 48))
