@@ -67,7 +67,21 @@ DeepSeek-V2-Lite engine at full depth, each in waves A, B+C (C's prompt in
 one prefill and three extends) and the cold check, then the bf16
 Mixtral-8x7B engine cut to 8 of 32 layers (93.4 GB of bf16 weights do not
 fit in 80 GB) in waves A and B of 4; (5) the two full-depth engines'
-decode profiles. Each phase prints its time ([time] lines).
+decode profiles. Then the NSA path (DeepSeek-V2-Lite widths, W4A16, int8
+latent, the indexer at DeepSeek-V3.2-Exp's widths: 64 heads of 128, top-k
+2,048): (2) the indexer's scores (K15) at the engine's decode (B=16,
+lengths 1..1,056), at B=16 x 8,192 and B=1 x 32,768 tokens (fp8 keys with
+scales) and on bf16 keys, and mla_decode(engine="dma") (K13b) at K13a's
+shapes on bf16 576, bf16 640 and fp8 640 pools; (3) card against CPU at 2
+layers with contexts of ~3,000 tokens: prefill_nsa, prefill_packed with the
+indexer, prefill_extend_nsa and 4 decode_step_nsa steps, routing replayed,
+selection flips counted per layer (the CPU's selection replayed on the card
+if the logits miss the gate); (4) the NSA engine at full depth in waves A,
+B+C, the cold check, and wave D (4 fresh prompts of 6,144 tokens in
+1,024-token chunks, 32 decode tokens each over a sparse selection), and
+K13b's path, its op entry point over a 27-layer bf16 pool (no model calls
+it); (5) its decode profile at 16 rows of 6,144 tokens. Each phase prints
+its time ([time] lines).
 
 Prints a JSON line of per-kernel numbers, then, last,
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -806,16 +820,18 @@ def run_wave(torch, skt, eng, stats, label, wave, prompts, sampled=(), expect=()
     return res, rids
 
 
-def phase_serve(torch, skt, cfg, label, kernels, n_a=16, n_b=12, wave_c=True, params=None, cold=True, mixed=True):
+def phase_serve(torch, skt, cfg, label, kernels, n_a=16, n_b=12, wave_c=True, params=None, cold=True, mixed=True,
+                num_pages=1024, after=None):
     """One main path: the default Engine serving ``cfg`` (Llama-3-8B,
     Mixtral-8x7B or DeepSeek-V2-Lite widths) in waves A, B (+ C). Each of
     ``kernels`` must launch in each wave that runs it, K1 in every regime
     the waves run; wave B hits exactly PREFIX tokens a prompt. Without
     ``mixed`` (a model with no mixed step) wave C's 4,096-token prompt must
     go in four chunks, one plain prefill and three extends (beside wave B's
-    extends): zero mixed steps."""
+    extends): zero mixed steps. ``after(eng, stats, res)`` runs further
+    waves on the same engine after the cold check."""
     t0 = time.perf_counter()
-    eng = skt.Engine(cfg, params, device=DEVICE, max_batch=16, page_size=64, num_pages=1024, seed=SEED,
+    eng = skt.Engine(cfg, params, device=DEVICE, max_batch=16, page_size=64, num_pages=num_pages, seed=SEED,
                      prefill_chunk=1024)
     if eng.native is None:
         fail(f"serve {label}: the default engine has no prefix cache")
@@ -870,6 +886,8 @@ def phase_serve(torch, skt, cfg, label, kernels, n_a=16, n_b=12, wave_c=True, pa
         finally:
             if routing is not None:
                 routing.restore()
+    if after is not None:
+        after(eng, stats, res)
     return res, eng, lens
 
 
@@ -911,9 +929,10 @@ def cold_compare(torch, skt, cfg, label, eng, prompts, warm_rids, warm_first, ro
     return res
 
 
-def phase_profile(torch, eng, lens, label):
-    """Where a decode step's time goes: the serving engine of phase 4, the
-    same 16 prompt lengths admitted again, then 4 decode-only
+def phase_profile(torch, eng, lens, label, top=12):
+    """Where a decode step's time goes: the serving engine of phase 4, 16
+    prompts of ``lens`` admitted again (prompts past the engine's chunk are
+    prefilled a chunk a step, all 16 side by side), then 4 decode-only
     scheduler steps traced with torch.profiler. Device-busy time is the
     union of the kernel intervals over the window (kernels of one stream do
     not overlap)."""
@@ -922,7 +941,9 @@ def phase_profile(torch, eng, lens, label):
     for n in lens:
         eng.add_request(torch.randint(1, eng.cfg.vocab_size, (n,), generator=gen).tolist(),
                         max_new_tokens=steps + 4)
-    eng.step()  # admission (one packed prefill) and the first decode step
+    eng.step()  # admission (one packed prefill, or the first chunks) and the first decode step
+    while eng.waiting or eng.prefilling:
+        eng.step()
     eng.step()  # one decode-only step outside the trace
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
@@ -946,7 +967,7 @@ def phase_profile(torch, eng, lens, label):
     for start, end in sorted(spans):
         busy_us += max(0.0, end - max(start, last))
         last = max(last, end)
-    top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:12]
+    top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:top]
     res = dict(
         engine=label, batch=len(lens), steps=steps, step_ms=1e3 * wall / steps,
         device_busy_ms_per_step=busy_us / 1e3 / steps if spans else None,
@@ -1014,6 +1035,9 @@ def deepseek_step_bytes(cfg, batch=16, ctx=1024):
     n_moe = cfg.num_layers - cfg.num_dense_layers
     vocab = cfg.vocab_size if cfg.quant is None else -(-cfg.vocab_size // 2048) * 2048
     weights = cfg.num_layers * attn + cfg.num_dense_layers * dense + n_moe * moe + lin(vocab, h)
+    if cfg.nsa:  # the indexer's projections stay in the model dtype
+        weights += cfg.num_layers * 2 * (cfg.idx_heads * cfg.idx_dim * (cfg.q_lora_rank or h)
+                                         + cfg.idx_dim * h + cfg.idx_heads * h)
     pool_bytes = batch * ctx * 576 * cfg.num_layers * (cfg.kv_dtype.itemsize if cfg.kv_dtype is not None else 2)
     return weights, pool_bytes, hit
 
@@ -1553,6 +1577,377 @@ def phase_parity_deepseek(torch, skt, cfg, label):
     return res
 
 
+DEEPSEEK_NSA = DEEPSEEK_W4 + ("fp8_paged_mqa_logits",)
+NSA_PROMPT = 6144  # wave D's prompt length: every decode row keeps 2,048 of 6,145 or more tokens
+
+
+def nsa_cfg(torch, skt, **kw):
+    """DeepSeek-V2-Lite widths with the NSA indexer at the widths of
+    deepseek-ai/DeepSeek-V3.2-Exp's config.json (index_n_heads 64,
+    index_head_dim 128, index_topk 2048), the one public model with one;
+    W4A16 and the int8 latent of the DeepSeek engine above."""
+    return v2_lite_cfg(torch, skt, nsa=True, idx_heads=64, idx_dim=128, index_topk=2048, **kw)
+
+
+def check_logits(name, out, ref):
+    """``check`` on logits with -inf past each length: the -inf positions
+    must match exactly, the finite ones elementwise."""
+    if not bool((out.isneginf() == ref.isneginf()).all()) or bool(out.isnan().any()):
+        fail(f"{name}: the -inf (past the length) positions differ from the plain version's")
+    fin = ref.isfinite()
+    return check(name, [(out.where(fin, 0.0), ref.where(fin, 0.0))])
+
+
+def paged_table(torch, gen, lengths, page, n_cols):
+    """A page table of ``n_cols`` columns holding each length's pages, from
+    a permutation of pages 1.. (page 0 pads). Returns (table, pages used)."""
+    used = [-(-n // page) for n in lengths]
+    perm = torch.randperm(sum(used), generator=gen, device=DEVICE) + 1
+    table = torch.zeros((len(lengths), n_cols), dtype=torch.int32, device=DEVICE)
+    at = 0
+    for i, n in enumerate(used):
+        table[i, :n] = perm[at: at + n]
+        at += n
+    return table, sum(used)
+
+
+def phase_nsa_kernels(torch, skt):
+    """K15 fp8_paged_mqa_logits at the NSA indexer's widths (64 heads of 128,
+    fp8 e4m3 keys with float32 scales, page 64): the engine's decode (B=16,
+    lengths 1..1,056, 128-page tables), B=16 at 8,192 tokens and B=1 at
+    32,768 (benchmark/bench_misc_ops.py's long shape), and one call on bf16
+    keys without scales; K13b (mla_decode(engine="dma")) at K13a's shapes
+    on a bf16 pool, a 640-wide bf16 pool and a 640-wide fp8 pool, with lse.
+    Each against its plain version."""
+    from sgl_kernel_tpu_torch.ops.attention import mla, nsa
+
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 7)
+    bf = torch.bfloat16
+    cfg = nsa_cfg(torch, skt)
+    h, d, page, b = cfg.idx_heads, cfg.idx_dim, 64, 16
+    rows = {}
+
+    def report(name, row, dev_fn=None):
+        rows[name] = report_row(torch, name, row, dev_fn)
+
+    decode_lens = [1 + (1055 * i) // (b - 1) for i in range(b)]
+    for label, lengths_l, n_cols, key_dt in (("decode", decode_lens, cfg.max_position // page, torch.float8_e4m3fn),
+                                             ("decode_bf16", decode_lens, cfg.max_position // page, bf),
+                                             ("ctx8192", [8192] * b, 8192 // page, torch.float8_e4m3fn),
+                                             ("ctx32768", [32768], 32768 // page, torch.float8_e4m3fn)):
+        table, n_used = paged_table(torch, gen, lengths_l, page, n_cols)
+        bb = len(lengths_l)
+        keys = (torch.randn((n_used + 1, page, d), generator=gen, device=dev) * 2).to(key_dt)
+        scales = None if key_dt == bf else torch.rand((n_used + 1, page), generator=gen, device=dev) * 0.01 + 1e-3
+        q = (torch.randn((bb, h, d), generator=gen, device=dev) * 0.5).to(bf)
+        w = torch.sigmoid(torch.randn((bb, h), generator=gen, device=dev))  # the engine's head gates
+        lengths = torch.tensor(lengths_l, dtype=torch.int32, device=dev)
+        fn = lambda: nsa.fp8_paged_mqa_logits(q, keys, w, lengths, table, scales)
+        ref_fn = lambda: nsa.fp8_paged_mqa_logits_ref(q, keys, w, lengths, table, scales)
+        err = check_logits(f"fp8_paged_mqa_logits {label} [B {bb}, {h} heads of {d}, {keys.dtype}, "
+                           f"{'scaled' if scales is not None else 'no scales'}]", fn(), ref_fn())
+        n_tok = sum(lengths_l)
+        # each cached key (and its scale) read once, q, the gates and the used
+        # table entries once; every logit written once, -inf past the length too
+        n_bytes = (n_tok * (d * keys.element_size() + (4 if scales is not None else 0)) + bb * h * (d * 2 + 4)
+                   + n_used * 4 + bb * 4 + bb * n_cols * page * 4)
+        bms, bby = bound_ms(n_bytes, 2 * h * d * n_tok, BF16_FLOPS)
+        report(f"fp8_paged_mqa_logits_{label}", dict(
+            max_abs_err=err, ms=time_ms(torch, fn), plain_ms=time_ms(torch, ref_fn, iters=3, warmup=1),
+            library_ms=None, library_note="no PyTorch call computes a paged, relu-weighted head reduction",
+            bound_ms=bms, bound_by=bby, span_tiles=nsa.span_tiles_for(bb, n_cols * page, torch.cuda.get_device_properties(
+                0).multi_processor_count)), fn)
+        del keys
+
+    # K13b at K13a's shapes: B=16, contexts 1..1056, 16 heads, page 64,
+    # 128-entry tables, a two-layer pool (layer 1)
+    nh = cfg.num_heads
+    table, n_used = paged_table(torch, gen, decode_lens, page, cfg.max_position // page)
+    lengths = torch.tensor(decode_lens, dtype=torch.int32, device=dev)
+    qn = (torch.randn((b, nh, 512), generator=gen, device=dev) * 0.3).to(bf)
+    qp = (torch.randn((b, nh, 64), generator=gen, device=dev) * 0.3).to(bf)
+    sm = 1.0 / (cfg.qk_nope_dim + 64) ** 0.5
+    for kind, dt, width, scale in (("bf16", bf, 576, 1.0), ("bf16_640", bf, 640, 1.0),
+                                   ("e4m3_640", torch.float8_e4m3fn, 640, 0.5)):
+        pool = (torch.randn((2, n_used + 1, page, width), generator=gen, device=dev) * (1.0 if dt == bf else 2.0))
+        pool[..., 576:] = 0
+        pool = pool.to(dt)
+        kw = dict(sm_scale=sm * scale, return_lse=True)
+        fn = lambda: mla.mla_decode(qn, qp, pool, lengths, table, 1, engine="dma", **kw)
+        ref_fn = lambda: mla.mla_decode_dma_ref(qn, qp, pool, lengths, table, 1, **kw)
+        before = mla.mla_decode_dma.launches
+        out, lse = fn()
+        if mla.mla_decode_dma.launches != before + 1:
+            fail(f"mla_decode(engine='dma') on a {kind} pool did not launch K13b")
+        ref, ref_lse = ref_fn()
+        err = check(f"mla_decode_dma {kind} pool [16, ctx 1..1056]", [(out, ref), (lse, ref_lse)])
+        n_bytes = (sum(decode_lens) * 576 * pool.element_size() + b * nh * (576 + 512) * 2 + b * nh * 4
+                   + n_used * 4 + b * 4)
+        bms, bby = bound_ms(n_bytes, 2 * nh * (576 + 512) * sum(decode_lens), BF16_FLOPS)
+        report(f"mla_decode_dma_{kind}", dict(
+            max_abs_err=err, ms=time_ms(torch, fn), plain_ms=time_ms(torch, ref_fn), library_ms=None,
+            library_note="no PyTorch call attends over a paged pool", bound_ms=bms, bound_by=bby), fn)
+        del pool
+    return rows
+
+
+class SelectionReplay(RoutingReplay):
+    """The NSA selections (``fast_topk_transform_fused``'s slots) of the CPU
+    recorded and compared with the card's: the card's scores differ from the
+    CPU's in the last bits, so the 2,048th place may flip. ``compare`` counts,
+    per layer, the slots the card selects that the CPU does not, and keeps
+    the card's selection; ``replay`` counts the same and continues with the
+    CPU's."""
+
+    def __init__(self, module, n_layers, attr="fast_topk_transform_fused"):
+        super().__init__(module, attr)
+        self.n_layers, self.flips, self.slots = n_layers, [0] * n_layers, [0] * n_layers
+
+    def __call__(self, *args, **kw):
+        out = self.orig(*args, **kw)
+        if self.mode == "record":
+            self.calls.append(out.cpu())
+            return out
+        ref = self.calls[self.at]
+        layer = self.at % self.n_layers
+        self.at += 1
+        for mine, theirs in zip(out.cpu().tolist(), ref.tolist()):
+            keep = set(theirs) - {-1}
+            self.flips[layer] += len((set(mine) - {-1}) - keep)
+            self.slots[layer] += len(keep)
+        return ref.to(out.device) if self.mode == "replay" else out
+
+
+def phase_parity_nsa(torch, skt, cfg, label):
+    """V2-Lite widths with the NSA indexer, cut to 2 layers (layer 0 dense,
+    layer 1 MoE): the card against the CPU on the same weights. Sequence 0
+    by prefill_nsa (1,024 tokens) and two prefill_extend_nsa chunks (3,000
+    tokens), sequence 1 by prefill_packed(with_indexer=True) (1,024) and two
+    extends (2,900), then 4 decode_step_nsa steps over both (contexts above
+    index_topk: the selection drops tokens), the routing of the CPU replayed
+    on the card as for DeepSeek. Selection flips are counted per layer; if
+    the decode logits miss the 0.25 gate the decode steps run again on the
+    card with the CPU's selection replayed, and both runs are reported."""
+    from sgl_kernel_tpu_torch.models import deepseek as ds
+    from sgl_kernel_tpu_torch.serving.engine import packed_layout
+
+    cfg = dataclasses.replace(cfg, num_layers=2)
+    t0 = time.perf_counter()
+    params_gpu = ds.init_weights(cfg, torch.Generator(device=DEVICE).manual_seed(SEED), device=DEVICE)
+    to_cpu = lambda v: {k: to_cpu(x) for k, x in v.items()} if isinstance(v, dict) else v.cpu()
+    params_cpu = to_cpu(params_gpu)
+    page, chunk, per_seq = 64, 1024, 48  # 48 pages = 3,072 tokens a sequence
+    lens = [3000, 2900]
+    n_pages = len(lens) * per_seq + 1
+    pages = [list(range(1 + i * per_seq, 1 + (i + 1) * per_seq)) for i in range(len(lens))]
+    slot = lambda i, p: pages[i][p // page] * page + p % page
+    sides = {}
+    for dev in ("cpu", DEVICE):
+        ik, isc = ds.make_indexer_cache(cfg, n_pages, page, device=dev)
+        sides[dev] = dict(params=params_cpu if dev == "cpu" else params_gpu, kv=ds.make_cache(cfg, n_pages, page,
+                                                                                              device=dev),
+                          ik=ik, isc=isc, rope=ds.build_rope_cache(cfg, device=dev),
+                          irope=ds.build_idx_rope_cache(cfg, device=dev))
+    rng = torch.Generator().manual_seed(SEED + 8)
+    prompts = [torch.randint(0, cfg.vocab_size, (n,), generator=rng).tolist() for n in lens]
+    routing = RoutingReplay(ds)
+    sel = SelectionReplay(ds, cfg.num_layers)
+
+    def run(dev, name, *arrays, **kw):
+        sd = sides[dev]
+        routing.mode = "record" if dev == "cpu" else "replay"
+        sel.mode = "record" if dev == "cpu" else sel_mode
+        ts = [torch.tensor(a, dtype=torch.int32, device=dev) for a in arrays]
+        pools = (sd["kv"], sd["ik"], sd["isc"])
+        if name == "prefill_packed":
+            out = ds.prefill_packed(sd["params"], cfg, *pools, *ts, sd["rope"], with_indexer=True,
+                                    idx_rope_cache=sd["irope"], **kw)
+        else:
+            out = getattr(ds, name)(sd["params"], cfg, *pools, *ts, sd["rope"], sd["irope"], **kw)
+        logits, sd["kv"], sd["ik"], sd["isc"] = out
+        return logits.float().cpu()
+
+    tol = 0.25  # as the other parity checks
+    worst = {"prefill": 0.0}
+    greedy_ties = 0
+
+    def err_of(lc, lg, what):
+        nonlocal greedy_ties
+        if not torch.isfinite(lg).all():
+            fail(f"parity nsa {label} {what}: non-finite logits on the card")
+        for row_c, row_g in zip(lc, lg):
+            tc, tg = int(row_c.argmax()), int(row_g.argmax())
+            if tc != tg:
+                if float(row_c[tc] - row_c[tg]) > tol:
+                    fail(f"parity nsa {label} {what}: greedy token {tg} on the card, {tc} on the CPU")
+                greedy_ties += 1
+        return float((lc - lg).abs().max())
+
+    sel_mode = "compare"
+    try:
+        first = []
+        for i, pr in enumerate(prompts):
+            n0 = chunk
+            if i == 0:
+                tok, pos = [pr[:n0]], [list(range(n0))]
+                sl = [[slot(0, p) for p in range(n0)]]
+                out = {dev: run(dev, "prefill_nsa", tok, pos, [n0], sl) for dev in ("cpu", DEVICE)}
+            else:
+                blk_seq, blk_q0, seq_meta, tok0, tp, max_kvb = packed_layout([n0], 2)
+                tokens, positions, slots = [0] * tp, [0] * tp, [-1] * tp
+                tokens[:n0], positions[:n0], slots[:n0] = pr[:n0], list(range(n0)), [slot(1, p) for p in range(n0)]
+                out = {dev: run(dev, "prefill_packed", tokens, positions, blk_seq, blk_q0, seq_meta, [n0 - 1, 0],
+                                slots, max_kvb=max_kvb) for dev in ("cpu", DEVICE)}
+            worst["prefill"] = max(worst["prefill"], err_of(out["cpu"][:1], out[DEVICE][:1], f"prefill {i}"))
+            table = [pages[i]]
+            for pre in range(n0, len(pr), chunk):
+                end = min(pre + chunk, len(pr))
+                pad = lambda xs, fill: [xs + [fill] * (chunk - len(xs))]
+                out = {dev: run(dev, "prefill_extend_nsa", pad(pr[pre:end], 0), pad(list(range(pre, end)), 0),
+                                [end - pre], [end], table, pad([slot(i, p) for p in range(pre, end)], -1),
+                                prefix_max=pre) for dev in ("cpu", DEVICE)}
+                worst["prefill"] = max(worst["prefill"], err_of(out["cpu"], out[DEVICE], f"extend {i} to {end}"))
+            first.append(int(out["cpu"][0].argmax()))
+        if worst["prefill"] > tol:
+            fail(f"parity nsa {label}: prefill logits differ by {worst['prefill']} > {tol}")
+        # decode: the CPU's 4 steps first (recording routing and selections),
+        # then the card's on the CPU's greedy tokens
+        seqs = [pr + [t] for pr, t in zip(prompts, first)]
+        steps, cpu_logits = [], []
+        for step in range(4):
+            b = 4  # two sequences and two padding rows
+            args = ([s[-1] for s in seqs] + [0, 0], [len(s) - 1 for s in seqs] + [0, 0],
+                    [pages[0], pages[1]] + [[0] * per_seq] * (b - 2), [len(s) for s in seqs] + [0, 0],
+                    [slot(i, len(s) - 1) for i, s in enumerate(seqs)] + [-1, -1])
+            steps.append(args)
+            lc = run("cpu", "decode_step_nsa", *args)[:2]
+            cpu_logits.append(lc)
+            for s, t in zip(seqs, lc.argmax(-1).tolist()):
+                s.append(t)
+        saved = {k: sides[DEVICE][k].clone() for k in ("kv", "ik", "isc")}
+        at0, sel_at0 = routing.at, sel.at
+        runs = {}
+        for sel_mode in ("compare", "replay"):
+            sel.flips, sel.slots = [0] * cfg.num_layers, [0] * cfg.num_layers
+            routing.at, sel.at = at0, sel_at0
+            sides[DEVICE].update({k: v.clone() for k, v in saved.items()})
+            errs = [err_of(lc, run(DEVICE, "decode_step_nsa", *args)[:2], f"decode {i} ({sel_mode})")
+                    for i, (lc, args) in enumerate(zip(cpu_logits, steps))]
+            runs[sel_mode] = dict(max_logit_diff=max(errs), selection_flips_by_layer=list(sel.flips),
+                                  selected_slots_by_layer=list(sel.slots))
+            log(f"[parity] nsa {label} decode ({sel_mode} the CPU's selection): max |logit diff|={max(errs):.4g}, "
+                f"selection flips by layer {sel.flips} of {sel.slots} selected slots")
+            if max(errs) <= tol:
+                break
+        if runs[sel_mode]["max_logit_diff"] > tol:
+            fail(f"parity nsa {label}: decode logits differ by {runs[sel_mode]['max_logit_diff']} > {tol} "
+                 f"with the CPU's selection replayed")
+    finally:
+        routing.restore()
+        sel.restore()
+    res = dict(max_prefill_logit_diff=worst["prefill"], decode=runs, greedy_near_ties=greedy_ties,
+               routing_flips=routing.flips, routed_tokens=routing.tokens, contexts=[len(s) for s in seqs])
+    log(f"[parity] nsa {label} 2-layer V2-Lite widths, card vs CPU (prefill_nsa, prefill_packed with the "
+        f"indexer, prefill_extend_nsa, 4 decode_step_nsa steps at contexts {res['contexts']}): max |prefill logit "
+        f"diff|={worst['prefill']:.4g} (tol {tol}), routing flips replayed={routing.flips}/{routing.tokens}, "
+        f"greedy near-ties={greedy_ties}, {time.perf_counter() - t0:.1f} s")
+    del params_gpu, sides, saved
+    free_memory(torch)
+    return res
+
+
+class SparseRows:
+    """Counts, at each decode step's first layer, the rows that select fewer
+    slots than their length (on the device; read after the wave)."""
+
+    def __init__(self, module, n_layers, attr="fast_topk_transform_fused"):
+        self.module, self.attr, self.orig, self.n_layers = module, attr, getattr(module, attr), n_layers
+        self.calls, self.found = 0, []
+        setattr(module, attr, self)
+
+    def restore(self):
+        setattr(self.module, self.attr, self.orig)
+
+    def __call__(self, logits, lengths, *args, **kw):
+        out = self.orig(logits, lengths, *args, **kw)
+        if self.calls % self.n_layers == 0:
+            self.found.append(((out >= 0).sum(1) < lengths.to(out.device)).sum())
+        self.calls += 1
+        return out
+
+    def count(self):
+        return int(sum(int(x) for x in self.found))
+
+
+def wave_d(torch, skt, eng, stats, res, label):
+    """Wave D of the NSA engine: 4 fresh prompts of NSA_PROMPT tokens in
+    1,024-token chunks (one plain prefill and five extends each), then 32
+    decode tokens each, every decode row over a sparse selection. K15
+    launches (only decode steps score), and at least one decode row selects
+    fewer slots than its length."""
+    from sgl_kernel_tpu_torch.models import deepseek as ds
+
+    gen = torch.Generator().manual_seed(SEED + 4)
+    prompts = [random_prompt(torch, gen, eng.cfg.vocab_size, NSA_PROMPT) for _ in range(4)]
+    sparse = SparseRows(ds, eng.cfg.num_layers)
+    try:
+        d, _ = run_wave(torch, skt, eng, stats, label, "D", prompts,
+                        expect=[k for k in DEEPSEEK_NSA if k != "flash_attention_packed"], hits=0)
+    finally:
+        sparse.restore()
+    n_chunks = -(-NSA_PROMPT // 1024)
+    if d["program_calls"] != {"prefill": len(prompts), "prefill_extend": len(prompts) * (n_chunks - 1)}:
+        fail(f"serve {label} wave D: prompts in chunks by {d['program_calls']}")
+    d["sparse_decode_rows"] = sparse.count()
+    log(f"[serve] {label} wave D: {d['sparse_decode_rows']} decode rows (first layer) selected fewer slots than "
+        f"their length; decode {d['decode_ms_step']:.2f} ms/step against wave A's "
+        f"{res['waves'][0]['decode_ms_step']:.2f}")
+    if d["sparse_decode_rows"] <= 0:
+        fail(f"serve {label} wave D: no decode row selected fewer slots than its length")
+    res["waves"].append(d)
+    for k in res["launches"]:
+        res["launches"][k] += d["launches"][k]
+
+
+def path_mla_decode_dma(torch, skt):
+    """K13b's path: no model calls mla_decode(engine="dma"), in the JAX
+    package either; its one entry point is the op. Driven as a user calls
+    it, over the 27 layers of a full-depth bf16 V2-Lite latent pool at the
+    DeepSeek decode shape (B=16, 16 heads, contexts 1..1,056, page 64),
+    counts set to 0 just before and read just after: K13b launches once a
+    layer and K13a never."""
+    from sgl_kernel_tpu_torch.ops.attention import mla
+
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 9)
+    cfg = v2_lite_cfg(torch, skt)
+    b, page, nh = 16, 64, cfg.num_heads
+    lengths_l = [1 + (1055 * i) // (b - 1) for i in range(b)]
+    table, n_used = paged_table(torch, gen, lengths_l, page, cfg.max_position // page)
+    lengths = torch.tensor(lengths_l, dtype=torch.int32, device=dev)
+    pool = torch.randn((cfg.num_layers, n_used + 1, page, 576), generator=gen, device=dev).to(torch.bfloat16)
+    q_lat = (torch.randn((cfg.num_layers, b, nh, 512), generator=gen, device=dev) * 0.3).to(torch.bfloat16)
+    q_pe = (torch.randn((cfg.num_layers, b, nh, 64), generator=gen, device=dev) * 0.3).to(torch.bfloat16)
+    sm = 1.0 / (cfg.qk_nope_dim + 64) ** 0.5
+    torch.cuda.synchronize()
+    skt.reset_launch_counts()
+    t0 = time.perf_counter()
+    outs = [mla.mla_decode(q_lat[lidx], q_pe[lidx], pool, lengths, table, lidx, sm_scale=sm, engine="dma")
+            for lidx in range(cfg.num_layers)]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = skt.launch_counts()
+    if counts["mla_decode_dma"] != cfg.num_layers or counts["mla_decode"] != 0:
+        fail(f"mla_decode(engine='dma') path: launches {counts}")
+    if not all(bool(torch.isfinite(o).all()) for o in outs):
+        fail("mla_decode(engine='dma') path: non-finite output")
+    res = dict(layers=cfg.num_layers, batch=b, wall_ms=1e3 * wall, launches=counts)
+    log("[path] mla_decode(engine='dma') over 27 layers: " + json.dumps(res))
+    del pool
+    return res
+
+
 def main():
     import faulthandler
 
@@ -1596,6 +1991,8 @@ def main():
         rows.update(phase_deepseek_kernels(torch, skt))
         torch.cuda.empty_cache()
         rows.update(phase_moe_bf16_kernels(torch, skt))
+        torch.cuda.empty_cache()
+        rows.update(phase_nsa_kernels(torch, skt))
     bf16_cfg = skt.LlamaConfig.llama3_8b(fused=True)
     w4_cfg = skt.LlamaConfig.llama3_8b(quant="w4a16", fused=True)
     with phase("3 parity llama"):
@@ -1669,6 +2066,24 @@ def main():
         profile["deepseek-bf16"] = phase_profile(torch, eng, lens, "deepseek-bf16")
         del eng
         free_memory(torch)
+    # the NSA path: V2-Lite widths, W4A16, int8 latent, the indexer at
+    # DeepSeek-V3.2-Exp's widths; then K13b's path (its op entry point)
+    ds_nsa_cfg = nsa_cfg(torch, skt, kv_dtype=torch.int8, kv_scale=1 / 16)
+    w_bytes, _, hit = deepseek_step_bytes(ds_nsa_cfg)
+    log(f"[bound] deepseek NSA W4A16 + int8 latent decode step, B=16: {w_bytes / 1e9:.4f} GB of weights "
+        f"({hit:.2f} experts hit per MoE layer) -> {1e3 * w_bytes / HBM_BYTES_PER_S:.4f} ms at 3.35 TB/s")
+    with phase("3 parity deepseek nsa"):
+        parity["deepseek-nsa"] = phase_parity_nsa(torch, skt, ds_nsa_cfg, "w4a16-int8")
+    with phase("4-5 serve deepseek nsa"):
+        # 1,664 pages: the profile's 16 prompts of NSA_PROMPT tokens need 1,552
+        serve["deepseek-nsa"], eng, _ = phase_serve(
+            torch, skt, ds_nsa_cfg, "deepseek-nsa", DEEPSEEK_NSA, mixed=False, num_pages=1664,
+            after=lambda eng, stats, res: wave_d(torch, skt, eng, stats, res, "deepseek-nsa"))
+        profile["deepseek-nsa"] = phase_profile(torch, eng, [NSA_PROMPT] * 16, "deepseek-nsa", top=24)
+        del eng
+        free_memory(torch)
+    with phase("4 path mla_decode dma"):
+        paths = {"mla_decode_dma": path_mla_decode_dma(torch, skt)}
     with phase("4 serve mixtral bf16 8 layers"):
         # 8 of 32 layers: the full bf16 model (93.4 GB) does not fit in 80 GB
         serve["mixtral-bf16-8l"], eng, _ = phase_serve(
@@ -1702,14 +2117,18 @@ def main():
                        "mla_decode_int8"),
         "mla_qkv_prep": ("triton", "sgl_kernel_tpu_torch/ops/rope.py", "sgl_kernel_tpu/ops/rope.py:295",
                          "mla_qkv_prep"),
+        "mla_decode_dma": ("cuda", "sgl_kernel_tpu_torch/csrc/mla_decode_dma.cu",
+                           "sgl_kernel_tpu/ops/attention/mla.py:287", "mla_decode_dma_bf16"),
+        "fp8_paged_mqa_logits": ("cuda", "sgl_kernel_tpu_torch/csrc/mqa_logits.cu",
+                                 "sgl_kernel_tpu/ops/attention/nsa.py:141", "fp8_paged_mqa_logits_decode"),
     }
     kernels = []
     # launches: the main paths' waves in phase 4, counted from 0 before each
-    # wave, summed over every engine
+    # wave, summed over every engine, and K13b's op path
     for name, (route, src, repl, row) in meta.items():
         r = rows[row]
         kernels.append(dict(name=name, route=route, source=src, replaces=repl,
-                            launches=sum(res["launches"][name] for res in serve.values()),
+                            launches=sum(res["launches"][name] for res in (*serve.values(), *paths.values())),
                             max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
                             bound_by=r["bound_by"], library_ms=r["library_ms"]))
         if kernels[-1]["launches"] <= 0:
@@ -1719,9 +2138,12 @@ def main():
                  "w4a16_grouped_mm_decode_down", "w4a16_grouped_mm_prefill_gate_up", "mla_decode", "mla_decode_e4m3",
                  "flash_attention_576_lse", "flash_attention_packed_576", "bf16_grouped_mm_deepseek_decode_down",
                  "bf16_grouped_mm_mixtral_decode_gate_up", "bf16_grouped_mm_mixtral_decode_down",
-                 "bf16_grouped_mm_mixtral_prefill_gate_up"):
+                 "bf16_grouped_mm_mixtral_prefill_gate_up", "fp8_paged_mqa_logits_decode_bf16",
+                 "fp8_paged_mqa_logits_ctx8192", "fp8_paged_mqa_logits_ctx32768", "mla_decode_dma_bf16_640",
+                 "mla_decode_dma_e4m3_640"):
         log(f"[kernel] {name}: " + json.dumps(rows[name]))
-    log(json.dumps({"card": card, "parity": parity, "serve": serve, "profile": profile, "phase_s": times}))
+    log(json.dumps({"card": card, "parity": parity, "serve": serve, "profile": profile, "paths": paths,
+                    "phase_s": times}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

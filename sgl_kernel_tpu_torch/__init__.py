@@ -10,11 +10,13 @@ unless the caller passes ``device="cpu"``.
 Kernels ported so far (each wrapper counts its launches in ``.launches``):
   K1 w4a16_gemm, K5 paged_attention_decode_dma, K6 store_cache_all_layers,
   K7 flash_attention and K9 flash_attention_packed (head dim 64, 128 and
-  576), K11 w4a16_grouped_mm, K12 bf16_grouped_mm, K13a mla_decode (CUDA
-  C++); K2 rmsnorm, K3 rope_decode_fused_qkv, K4 rope_decode_fused, K14
-  mla_qkv_prep (Triton). Models: Llama (``LlamaConfig``), Mixtral
+  576), K11 w4a16_grouped_mm, K12 bf16_grouped_mm, K13a mla_decode, K13b
+  mla_decode_dma (``mla_decode(engine="dma")``), K15 fp8_paged_mqa_logits
+  (CUDA C++); K2 rmsnorm, K3 rope_decode_fused_qkv, K4 rope_decode_fused,
+  K14 mla_qkv_prep (Triton). Models: Llama (``LlamaConfig``), Mixtral
   (``MixtralConfig``, module ``models.mixtral``) and DeepSeek MLA + MoE
-  (``DeepseekConfig``, module ``models.deepseek``). The serving engine's radix prefix cache is host C++
+  (``DeepseekConfig``, module ``models.deepseek``), with NSA sparse decode
+  (``nsa=True``). The serving engine's radix prefix cache is host C++
   (``csrc/serving_native.cpp``, bound by ``serving/native.py``).
 """
 
@@ -33,17 +35,29 @@ from .models.llama import (
     prefill_packed,
 )
 from .ops.attention import (
+    apply_sinks,
     build_packed_metadata,
+    fast_topk,
+    fast_topk_transform_fused,
+    fast_topk_transform_ragged_fused,
     flash_attention,
     flash_attention_packed,
+    fp8_mqa_logits,
+    fp8_paged_mqa_logits,
+    fused_k_indexer_norm_rope_quant_store,
+    fused_q_indexer_rope_hadamard_quant,
     make_seq_meta,
     merge_state,
     merge_states,
     mla_decode,
+    mla_decode_dma,
     mla_prefill,
     paged_attention_decode_dma,
+    sparse_mla_decode,
+    sparse_mla_prefill,
 )
 from .ops.gemm import dequant_w4, quantize_w4, w4a16_gemm
+from .ops.hadamard import hadamard_transform
 from .ops.kvcache import store_cache_all_layers, store_cache_mla, store_cache_stacked
 from .ops.moe import (
     MoeWeights,
@@ -56,6 +70,7 @@ from .ops.moe import (
     w4a16_grouped_mm,
 )
 from .ops.norm import fused_add_rmsnorm, gemma_fused_add_rmsnorm, gemma_rmsnorm, rmsnorm
+from .ops.quant import per_token_quant_fp8
 from .ops.rope import (
     compute_cos_sin_cache,
     mla_qkv_prep,
@@ -87,7 +102,9 @@ KERNELS = {
     "w4a16_grouped_mm": w4a16_grouped_mm,
     "bf16_grouped_mm": bf16_grouped_mm,
     "mla_decode": mla_decode,
+    "mla_decode_dma": mla_decode_dma,
     "mla_qkv_prep": mla_qkv_prep,
+    "fp8_paged_mqa_logits": fp8_paged_mqa_logits,
 }
 
 

@@ -2,6 +2,7 @@
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp8.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -34,6 +35,23 @@ __device__ __forceinline__ void store_bf16(bf16* p, const float (&in)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) h[i] = __float2bfloat16(in[i]);
   *reinterpret_cast<typename VecOf<N>::T*>(p) = raw;
+}
+
+// 16 one-byte values -> bf16, exactly: int8 and both fp8 formats (denormals
+// included) fit bf16
+__device__ __forceinline__ void to_bf16x16(const int8_t* b, bf16* out) {
+#pragma unroll
+  for (int i = 0; i < 16; ++i) out[i] = __float2bfloat16((float)b[i]);
+}
+
+__device__ __forceinline__ void to_bf16x16(const __nv_fp8_e4m3* b, bf16* out) {
+#pragma unroll
+  for (int i = 0; i < 16; ++i) out[i] = __float2bfloat16(float(b[i]));
+}
+
+__device__ __forceinline__ void to_bf16x16(const __nv_fp8_e5m2* b, bf16* out) {
+#pragma unroll
+  for (int i = 0; i < 16; ++i) out[i] = __float2bfloat16(float(b[i]));
 }
 
 __device__ __forceinline__ float warp_sum(float v) {

@@ -41,21 +41,7 @@
 namespace {
 
 using skt::bf16;
-
-__device__ __forceinline__ void to_bf16x16(const int8_t* b, bf16* out) {
-#pragma unroll
-  for (int i = 0; i < 16; ++i) out[i] = __float2bfloat16((float)b[i]);
-}
-
-__device__ __forceinline__ void to_bf16x16(const __nv_fp8_e4m3* b, bf16* out) {
-#pragma unroll
-  for (int i = 0; i < 16; ++i) out[i] = __float2bfloat16(float(b[i]));
-}
-
-__device__ __forceinline__ void to_bf16x16(const __nv_fp8_e5m2* b, bf16* out) {
-#pragma unroll
-  for (int i = 0; i < 16; ++i) out[i] = __float2bfloat16(float(b[i]));
-}
+using skt::to_bf16x16;
 
 // split_keys 0: one block per (head group, sequence) writes out / lse;
 // else block z takes keys [z * split_keys, (z + 1) * split_keys) and writes

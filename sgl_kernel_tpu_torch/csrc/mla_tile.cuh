@@ -216,10 +216,11 @@ __device__ __forceinline__ void mla_store_pair(float* p, float a, float b) {
 }
 
 // o = acc / l for the rows < n_rows at out_row(row) (a pointer to the row's
-// DV outputs: bf16, rounded once, or float32); lse (base 2, kEmptyLse for a
+// DV outputs: bf16, rounded once, or float32); lse (base 2, empty_lse for a
 // row that saw no key) at lse_ptr(row) when lse_ptr gives non-null.
 template <int DV, typename OutRow, typename LsePtr>
-__device__ __forceinline__ void mla_store(const MlaState<DV>& st, int n_rows, OutRow out_row, LsePtr lse_ptr) {
+__device__ __forceinline__ void mla_store(const MlaState<DV>& st, int n_rows, OutRow out_row, LsePtr lse_ptr,
+                                          float empty_lse = -1e30f * kLog2e) {
   constexpr int NT = MlaState<DV>::NT;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane >> 2, t = lane & 3;
 #pragma unroll
@@ -232,7 +233,7 @@ __device__ __forceinline__ void mla_store(const MlaState<DV>& st, int n_rows, Ou
     for (int n = 0; n < NT; ++n)
       mla_store_pair(o + (warp * NT + n) * 8 + 2 * t, st.acc[n][2 * i] * inv, st.acc[n][2 * i + 1] * inv);
     float* lp = lse_ptr(row);
-    if (lp != nullptr && warp == 0 && t == 0) *lp = st.l[i] == 0.f ? -1e30f * kLog2e : st.m[i] + log2f(st.l[i]);
+    if (lp != nullptr && warp == 0 && t == 0) *lp = st.l[i] == 0.f ? empty_lse : st.m[i] + log2f(st.l[i]);
   }
 }
 

@@ -25,13 +25,25 @@ prompts block-aligned into one launch) and ``prefill_extend`` (a suffix over
 latents already cached: two flash passes merged by lse). ``jax.lax.scan``
 over layers is a Python loop; ``lax.cond`` on the dense layers an ``if``.
 
+NSA sparse decode (``nsa=True``): each layer also holds an indexer
+(``wq_idx``, ``wk_idx``, ``idx_norm``, ``w_idx_gate``, in the model dtype
+under W4A16 as in JAX) and two flat pools, fp8 keys [L*P*page, idx_dim] and
+their float32 scales (``make_indexer_cache``). ``decode_step_nsa`` stores
+the fresh latent row and indexer key, scores every cached token with K15,
+keeps the best ``index_topk`` and attends only to those latent rows
+(``sparse_mla_decode`` on K13a). The prefill programs stay dense and store
+each token's indexer key too: ``prefill_nsa``, ``prefill_extend_nsa`` and
+``prefill_packed(with_indexer=True)`` are the dense programs with an
+``indexer`` argument.
+
 Kernels on the path: K1 (every W4A16 linear; with ``quant=None`` the
 linears are plain ``torch.matmul``), K2 (the norms), K14 (decode qkv prep,
-up to 64 tokens), K13a (decode attention), the routed experts' grouped GEMM
-(K11 on int4 banks, K12 on the bf16 banks of ``quant=None``), K7 (prefill
-and the extend passes at head dim 576) and K9 (packed prefill at 576). Not
-ported, and raising: NSA sparse decode (``nsa``), KV compression
-(``compress``) and several logits per sequence (speculative verify).
+up to 64 tokens), K13a (decode attention, dense or over the selected rows),
+K15 (the NSA indexer), the routed experts' grouped GEMM (K11 on int4 banks,
+K12 on the bf16 banks of ``quant=None``), K7 (prefill and the extend passes
+at head dim 576) and K9 (packed prefill at 576). Not ported, and raising:
+KV compression (``compress``) and several logits per sequence (speculative
+verify).
 """
 
 from __future__ import annotations
@@ -44,6 +56,13 @@ import torch
 from ..ops.attention import merge_state
 from ..ops.attention.flash_packed import flash_attention_packed
 from ..ops.attention.mla import D_CKV, D_LATENT, D_ROPE, mla_decode, mla_prefill
+from ..ops.attention.nsa import (
+    fast_topk_transform_fused,
+    fp8_paged_mqa_logits,
+    fused_k_indexer_norm_rope_quant_store,
+    fused_q_indexer_rope_hadamard_quant,
+    sparse_mla_decode,
+)
 from ..ops.gemm.w4a16 import quantize_w4, w4a16_gemm
 from ..ops.kvcache import store_cache_mla
 from ..ops.moe import MoeWeights, biased_topk, fused_experts, pick_block_size
@@ -78,7 +97,8 @@ class DeepseekConfig:
     rms_eps: float = 1e-6
     max_position: int = 4096
     dtype: torch.dtype = torch.bfloat16
-    # DSv4 NSA sparse decode and its indexer (not ported: raises)
+    # NSA sparse decode: an fp8 indexer scores the cached tokens and decode
+    # attends to the best index_topk (idx_dim a power of two)
     nsa: bool = False
     index_topk: int = 2048
     idx_heads: int = 4
@@ -117,8 +137,6 @@ class DeepseekConfig:
 
 def _served(cfg: DeepseekConfig):
     """Raise for the configurations whose paths are not ported."""
-    if cfg.nsa:
-        raise NotImplementedError("DeepseekConfig(nsa=True): NSA sparse decode is not ported yet")
     if cfg.compress:
         raise NotImplementedError(f"DeepseekConfig(compress={cfg.compress!r}): KV compression is not ported yet")
 
@@ -208,6 +226,13 @@ def init_weights(cfg: DeepseekConfig, generator: Union[torch.Generator, int] = 0
         layers["wq_b"] = linear(nh * (dn + D_ROPE), r)
     else:
         layers["wq"] = linear(nh * (dn + D_ROPE), h)
+    if cfg.nsa:
+        # never quantized (JAX leaves them out of W4A16); with q-LoRA the
+        # indexer q projects from the q latent c_q, else from the hidden state
+        layers["wq_idx"] = stack(lambda: draw((cfg.idx_heads * cfg.idx_dim, cfg.q_lora_rank or h)))
+        layers["wk_idx"] = stack(lambda: draw((cfg.idx_dim, h)))
+        layers["idx_norm"] = torch.ones((n_layers, cfg.idx_dim), dtype=cfg.dtype, device=dev)
+        layers["w_idx_gate"] = stack(lambda: draw((cfg.idx_heads, h), 0.02))
     lm_head = draw((cfg.vocab_size, h))
     if quant:
         # N padded to a multiple of 2048 (the JAX llama._quantize_matrix)
@@ -236,6 +261,20 @@ def make_cache(cfg: DeepseekConfig, num_pages: int, page_size: int, kv_dtype=Non
 
 def build_rope_cache(cfg: DeepseekConfig, device="cuda"):
     return compute_cos_sin_cache(D_ROPE, cfg.max_position, cfg.rope_theta, device=resolve_device(device))
+
+
+def make_indexer_cache(cfg: DeepseekConfig, num_pages: int, page_size: int, device="cuda"):
+    """The NSA indexer pools, flat and layer-stacked: fp8 e4m3 keys
+    [L*P*page, idx_dim] and their float32 scales [L*P*page]."""
+    _served(cfg)
+    dev = resolve_device(device)
+    s = cfg.num_layers * num_pages * page_size
+    return (torch.zeros((s, cfg.idx_dim), dtype=torch.float8_e4m3fn, device=dev),
+            torch.zeros((s,), dtype=torch.float32, device=dev))
+
+
+def build_idx_rope_cache(cfg: DeepseekConfig, device="cuda"):
+    return compute_cos_sin_cache(cfg.idx_dim, cfg.max_position, cfg.rope_theta, device=resolve_device(device))
 
 
 def _lin(x, w, cfg: DeepseekConfig, lidx=None):
@@ -378,41 +417,101 @@ def _logits(x_last, params, cfg: DeepseekConfig):
     return _lin(x_last, params["lm_head"], cfg).float()[:, : cfg.vocab_size]
 
 
+def _indexer_ingest(h, lw, lidx: int, cfg: DeepseekConfig, positions, slot_loc, indexer, pool_tokens: int):
+    """The indexer key of each token (K2, RoPE, Hadamard, fp8) into layer
+    ``lidx``'s slots of the flat indexer pools, in place; slot -1 dropped.
+    ``indexer`` is (idx_k, idx_s, idx_rope_cache)."""
+    idx_k, idx_s, idx_rope = indexer
+    sl = slot_loc.reshape(-1).to(idx_k.device).long()
+    off = torch.where(sl >= 0, lidx * pool_tokens + sl, torch.full_like(sl, -1))
+    fused_k_indexer_norm_rope_quant_store(_lin(h, lw["wk_idx"], cfg, lidx), positions.reshape(-1), idx_rope,
+                                          lw["idx_norm"][lidx], idx_k, idx_s, off, eps=cfg.rms_eps)
+
+
+def _indexer_select(h, h_q, lw, lidx: int, cfg: DeepseekConfig, positions, lengths, page_tables, indexer,
+                    num_pages: int, page_size: int):
+    """Score every cached token with the indexer (K15) and return the flat,
+    layer-local latent slots of the best ``index_topk`` [B, index_topk]
+    (-1 padded). ``h_q`` is the indexer q's input: c_q under q-LoRA, else the
+    hidden state; the head gates always read the hidden state. The dtypes
+    are JAX's: q rounded to the model dtype, dequantized in bf16, the gates a
+    sigmoid of a float32 product."""
+    idx_k, idx_s, idx_rope = indexer
+    b = h.shape[0]
+    q_i = _lin(h_q, lw["wq_idx"], cfg, lidx).reshape(b, cfg.idx_heads, cfg.idx_dim)
+    q8, qs = fused_q_indexer_rope_hadamard_quant(q_i, positions, idx_rope)
+    q_deq = q8.to(torch.bfloat16) * qs.to(torch.bfloat16)
+    gate = torch.sigmoid(torch.matmul(h.float(), lw["w_idx_gate"][lidx].float().t()))  # [B, Hi]
+    # the whole stacked pool, layer-offset page ids: no per-layer copy
+    kv_pages = idx_k.view(cfg.num_layers * num_pages, page_size, cfg.idx_dim)
+    kv_scales = idx_s.view(cfg.num_layers * num_pages, page_size)
+    tables = page_tables.to(h.device)
+    logits = fp8_paged_mqa_logits(q_deq, kv_pages, gate, lengths, tables + lidx * num_pages, kv_scales)
+    return fast_topk_transform_fused(logits, lengths, tables, page_size, topk=cfg.index_topk)
+
+
 def decode_step(params, cfg: DeepseekConfig, kv_cache, tokens, positions, page_tables, lengths, slot_loc,
-                rope_cache):
+                rope_cache, *, indexer=None):
     """One decode step. tokens/positions/lengths/slot_loc [B]; page_tables
     [B, max_pages]; kv_cache [L, P, page, 576]. Each layer stores the fresh
-    latent row, then attends over the pool (K13a). Returns (logits [B, V]
-    float32, kv_cache)."""
+    latent row, then attends over the pool (K13a). With ``indexer`` =
+    (idx_k, idx_s, idx_rope_cache) each layer also stores the fresh indexer
+    key, then selects and attends only to the best ``index_topk`` rows
+    (``decode_step_nsa``). Returns (logits [B, V] float32, kv_cache)."""
     _served(cfg)
     b = tokens.shape[0]
     x = params["embed"][tokens.long()].to(cfg.dtype)
     lw = params["layers"]
+    n_layers, n_pages, page, d = kv_cache.shape
+    pool_tokens = n_pages * page
     for lidx in range(cfg.num_layers):
         h = rmsnorm(x, lw["input_norm"][lidx], cfg.rms_eps)
-        q_lat, q_pe, kv_row = _mla_qkv(h, lw, lidx, cfg, b, positions, rope_cache)
+        q_lat, q_pe, kv_row, c_q = _mla_qkv_full(h, lw, lidx, cfg, b, positions, rope_cache)
         _store(cfg, kv_cache, kv_row, slot_loc, lidx)
-        attn = _lat_rescale(cfg, mla_decode(q_lat, q_pe, kv_cache, lengths, page_tables, layer_id=lidx,
-                                            sm_scale=_lat_sm(cfg)))
-        x = x + _mla_out(attn, lw, lidx, cfg, b)
+        if indexer is None:
+            attn = mla_decode(q_lat, q_pe, kv_cache, lengths, page_tables, layer_id=lidx, sm_scale=_lat_sm(cfg))
+        else:
+            # the fresh token's key goes in before the selection
+            _indexer_ingest(h, lw, lidx, cfg, positions, slot_loc, indexer, pool_tokens)
+            slots = _indexer_select(h, c_q if c_q is not None else h, lw, lidx, cfg, positions, lengths,
+                                    page_tables, indexer, n_pages, page)
+            slots = torch.where(slots >= 0, lidx * pool_tokens + slots, -1)
+            attn = sparse_mla_decode(q_lat, q_pe, kv_cache.view(n_layers * pool_tokens, d), slots,
+                                     sm_scale=_lat_sm(cfg))
+        x = x + _mla_out(_lat_rescale(cfg, attn), lw, lidx, cfg, b)
         x = x + _mlp(rmsnorm(x, lw["post_norm"][lidx], cfg.rms_eps), lw, lidx, cfg)
     x = rmsnorm(x, params["final_norm"], cfg.rms_eps)
     return _logits(x, params, cfg), kv_cache
 
 
-def prefill(params, cfg: DeepseekConfig, kv_cache, tokens, positions, q_lens, slot_loc, rope_cache):
+def decode_step_nsa(params, cfg: DeepseekConfig, kv_cache, idx_k, idx_s, tokens, positions, page_tables, lengths,
+                    slot_loc, rope_cache, idx_rope_cache):
+    """NSA decode step: ``decode_step`` over the selected rows; idx_k /
+    idx_s [L*P*page, ...] from ``make_indexer_cache``. Returns (logits,
+    kv_cache, idx_k, idx_s), every pool updated in place."""
+    logits, kv_cache = decode_step(params, cfg, kv_cache, tokens, positions, page_tables, lengths, slot_loc,
+                                   rope_cache, indexer=(idx_k, idx_s, idx_rope_cache))
+    return logits, kv_cache, idx_k, idx_s
+
+
+def prefill(params, cfg: DeepseekConfig, kv_cache, tokens, positions, q_lens, slot_loc, rope_cache, *,
+            indexer=None):
     """Prefill a padded batch [B, S]: causal MLA (K7 at 576) over the fresh
-    latent rows, stored per layer. Returns (last-token logits [B, V]
-    float32, kv_cache)."""
+    latent rows, stored per layer; with ``indexer`` = (idx_k, idx_s,
+    idx_rope_cache) each token's indexer key is stored too. Returns
+    (last-token logits [B, V] float32, kv_cache)."""
     _served(cfg)
     b, s = tokens.shape
     x = params["embed"][tokens.reshape(-1).long()].to(cfg.dtype)
     lw = params["layers"]
     nh = cfg.num_heads
+    pool_tokens = kv_cache.shape[1] * kv_cache.shape[2]
     for lidx in range(cfg.num_layers):
         h = rmsnorm(x, lw["input_norm"][lidx], cfg.rms_eps)
         q_lat, q_pe, kv_row = _mla_qkv(h, lw, lidx, cfg, b * s, positions.reshape(-1), rope_cache)
         _store(cfg, kv_cache, kv_row, slot_loc, lidx)
+        if indexer is not None:
+            _indexer_ingest(h, lw, lidx, cfg, positions, slot_loc, indexer, pool_tokens)
         attn = mla_prefill(q_lat.reshape(b, s, nh, D_LATENT), q_pe.reshape(b, s, nh, D_ROPE),
                            kv_row.reshape(b, s, D_CKV), q_lens, q_lens, sm_scale=_sm_scale(cfg))
         x = x + _mla_out(attn.reshape(b * s, nh, D_LATENT), lw, lidx, cfg, b * s)
@@ -420,6 +519,16 @@ def prefill(params, cfg: DeepseekConfig, kv_cache, tokens, positions, q_lens, sl
     x = rmsnorm(x, params["final_norm"], cfg.rms_eps).reshape(b, s, -1)
     last = (q_lens.to(x.device).long() - 1).clamp(0, s - 1)
     return _logits(x[torch.arange(b, device=x.device), last], params, cfg), kv_cache
+
+
+def prefill_nsa(params, cfg: DeepseekConfig, kv_cache, idx_k, idx_s, tokens, positions, q_lens, slot_loc,
+                rope_cache, idx_rope_cache):
+    """Dense prefill that also stores the indexer keys, so that later
+    ``decode_step_nsa`` steps can score the whole history. Returns (logits,
+    kv_cache, idx_k, idx_s)."""
+    logits, kv_cache = prefill(params, cfg, kv_cache, tokens, positions, q_lens, slot_loc, rope_cache,
+                               indexer=(idx_k, idx_s, idx_rope_cache))
+    return logits, kv_cache, idx_k, idx_s
 
 
 def _mla_attend_packed(q_lat, q_pe, kv_row, blk_seq, blk_q0, seq_meta, cfg: DeepseekConfig, tp: int, max_kvb: int):
@@ -437,28 +546,31 @@ def prefill_packed(params, cfg: DeepseekConfig, kv_cache, idx_k, idx_s, tokens, 
                    seq_meta, last_idx, slot_loc, rope_cache, *, max_kvb: int, with_indexer: bool = False,
                    idx_rope_cache=None):
     """Token-packed multi-prompt MLA prefill: tokens/positions/slot_loc [TP]
-    packed; blk_seq/blk_q0 [NQB]; seq_meta [B, 6]; last_idx [B]. ``idx_k`` /
-    ``idx_s`` are the NSA indexer pools, which ``with_indexer`` would fill:
-    not ported (raises). Returns (logits [B, V] float32, kv_cache)."""
+    packed; blk_seq/blk_q0 [NQB]; seq_meta [B, 6]; last_idx [B]. With
+    ``with_indexer`` each token's NSA indexer key goes into ``idx_k`` /
+    ``idx_s`` too (rope at ``idx_rope_cache``). Returns (logits [B, V]
+    float32, kv_cache), and idx_k, idx_s after them with the indexer."""
     _served(cfg)
-    if with_indexer:
-        raise NotImplementedError("prefill_packed(with_indexer=True): the NSA indexer is not ported yet")
     tp = tokens.shape[0]
     x = params["embed"][tokens.long()].to(cfg.dtype)
     lw = params["layers"]
+    pool_tokens = kv_cache.shape[1] * kv_cache.shape[2]
     for lidx in range(cfg.num_layers):
         h = rmsnorm(x, lw["input_norm"][lidx], cfg.rms_eps)
         q_lat, q_pe, kv_row = _mla_qkv(h, lw, lidx, cfg, tp, positions, rope_cache)
         _store(cfg, kv_cache, kv_row, slot_loc, lidx)
+        if with_indexer:
+            _indexer_ingest(h, lw, lidx, cfg, positions, slot_loc, (idx_k, idx_s, idx_rope_cache), pool_tokens)
         attn = _mla_attend_packed(q_lat, q_pe, kv_row, blk_seq, blk_q0, seq_meta, cfg, tp, max_kvb)
         x = x + _mla_out(attn.reshape(tp, cfg.num_heads, D_LATENT), lw, lidx, cfg, tp)
         x = x + _mlp(rmsnorm(x, lw["post_norm"][lidx], cfg.rms_eps), lw, lidx, cfg)
     x = rmsnorm(x, params["final_norm"], cfg.rms_eps)
-    return _logits(x[last_idx.long().to(x.device)], params, cfg), kv_cache
+    logits = _logits(x[last_idx.long().to(x.device)], params, cfg)
+    return (logits, kv_cache, idx_k, idx_s) if with_indexer else (logits, kv_cache)
 
 
 def prefill_extend(params, cfg: DeepseekConfig, kv_cache, tokens, positions, q_lens, kv_lens, page_tables, slot_loc,
-                   rope_cache, *, prefix_max: int, num_logits: int = 1):
+                   rope_cache, *, prefix_max: int, num_logits: int = 1, indexer=None):
     """Extend (chunked) MLA prefill: the q tokens are the suffix of sequences
     whose prefix latents already live in the pool (a radix-cache hit or an
     earlier chunk). tokens/positions/slot_loc [B, S]; q_lens [B] suffix
@@ -466,9 +578,10 @@ def prefill_extend(params, cfg: DeepseekConfig, kv_cache, tokens, positions, q_l
     multiple >= every prefix. Per layer: pass 1 attends causally over the
     fresh latents at global offsets, pass 2 fully over the gathered prefix
     (masked by its length), and merge_state joins them by the base-2 lse.
-    Returns (logits [B, V] float32 of each suffix's last token, kv_cache).
-    Only ``num_logits=1`` is ported (several logits per sequence serve the
-    speculative verify)."""
+    With ``indexer`` = (idx_k, idx_s, idx_rope_cache) the chunk's indexer
+    keys are stored too. Returns (logits [B, V] float32 of each suffix's
+    last token, kv_cache). Only ``num_logits=1`` is ported (several logits
+    per sequence serve the speculative verify)."""
     _served(cfg)
     if num_logits != 1:
         raise NotImplementedError("prefill_extend(num_logits>1): speculative verify is not ported yet")
@@ -480,6 +593,7 @@ def prefill_extend(params, cfg: DeepseekConfig, kv_cache, tokens, positions, q_l
     q_lens = q_lens.to(dev, torch.int32)
     prefix_lens = kv_lens.to(dev, torch.int32) - q_lens
     page = kv_cache.shape[-2]
+    pool_tokens = kv_cache.shape[1] * page
     pos = torch.arange(prefix_max, device=dev)
     pre_slots = page_tables.to(dev).long()[:, pos // page] * page + (pos % page)[None, :]  # [B, prefix_max]
     zero = torch.zeros_like(prefix_lens)
@@ -487,6 +601,8 @@ def prefill_extend(params, cfg: DeepseekConfig, kv_cache, tokens, positions, q_l
         h = rmsnorm(x, lw["input_norm"][lidx], cfg.rms_eps)
         q_lat, q_pe, kv_row = _mla_qkv(h, lw, lidx, cfg, b * s, positions.reshape(-1), rope_cache)
         _store(cfg, kv_cache, kv_row, slot_loc, lidx)
+        if indexer is not None:
+            _indexer_ingest(h, lw, lidx, cfg, positions, slot_loc, indexer, pool_tokens)
         qn = q_lat.reshape(b, s, nh, D_LATENT)
         qp = q_pe.reshape(b, s, nh, D_ROPE)
         o1, l1 = mla_prefill(qn, qp, kv_row.reshape(b, s, D_CKV), q_lens, q_lens, q_start=prefix_lens,
@@ -501,3 +617,14 @@ def prefill_extend(params, cfg: DeepseekConfig, kv_cache, tokens, positions, q_l
     x = rmsnorm(x, params["final_norm"], cfg.rms_eps).reshape(b, s, -1)
     last = (q_lens.long() - 1).clamp(0, s - 1)
     return _logits(x[torch.arange(b, device=dev), last], params, cfg), kv_cache
+
+
+def prefill_extend_nsa(params, cfg: DeepseekConfig, kv_cache, idx_k, idx_s, tokens, positions, q_lens, kv_lens,
+                       page_tables, slot_loc, rope_cache, idx_rope_cache, *, prefix_max: int):
+    """The dense extend that also stores the chunk's indexer keys (an
+    indexer key depends on its token only). Returns (logits, kv_cache,
+    idx_k, idx_s)."""
+    logits, kv_cache = prefill_extend(params, cfg, kv_cache, tokens, positions, q_lens, kv_lens, page_tables,
+                                      slot_loc, rope_cache, prefix_max=prefix_max,
+                                      indexer=(idx_k, idx_s, idx_rope_cache))
+    return logits, kv_cache, idx_k, idx_s

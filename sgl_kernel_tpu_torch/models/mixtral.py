@@ -149,8 +149,9 @@ def _moe_mlp(h2, lw, lidx: int, cfg: MixtralConfig):
 
 
 def _block_tail(x, attn, lw, lidx: int, cfg: MixtralConfig):
-    """o projection with the residual, then the post-norm and the MoE MLP."""
-    x = llama._linear(attn, lw["o"], cfg, residual=x, layer_id=lidx)
+    """o projection with the residual (and ``o_bias`` where the tree has one),
+    then the post-norm and the MoE MLP."""
+    x = llama._linear(attn, lw["o"], cfg, residual=x, layer_id=lidx, bias=lw.get("o_bias"))
     return x + _moe_mlp(rmsnorm(x, lw["post_norm"][lidx], cfg.rms_eps), lw, lidx, cfg)
 
 

@@ -1,5 +1,6 @@
 """Attention operators: flash prefill (K7), packed flash prefill (K9), paged
-decode (K5), MLA decode (K13a) and prefill, state merge."""
+decode (K5), MLA decode (K13a, and K13b for engine="dma") and prefill, state
+merge, and the NSA indexer (K15), its top-k and sparse MLA."""
 
 from .flash_packed import (
     build_packed_metadata,
@@ -10,6 +11,19 @@ from .flash_packed import (
     unpack_to_padded,
 )
 from .flash_prefill import flash_attention, flash_attention_ref
-from .merge_state import merge_state, merge_states
-from .mla import D_CKV, D_CKV_PAD, D_LATENT, D_ROPE, mla_decode, mla_decode_ref, mla_prefill
+from .merge_state import apply_sinks, merge_state, merge_states
+from .mla import (D_CKV, D_CKV_PAD, D_LATENT, D_ROPE, mla_decode, mla_decode_dma, mla_decode_dma_ref, mla_decode_ref,
+                  mla_prefill)
+from .nsa import (
+    fast_topk,
+    fast_topk_transform_fused,
+    fast_topk_transform_ragged_fused,
+    fp8_mqa_logits,
+    fp8_paged_mqa_logits,
+    fp8_paged_mqa_logits_ref,
+    fused_k_indexer_norm_rope_quant_store,
+    fused_q_indexer_rope_hadamard_quant,
+    sparse_mla_decode,
+    sparse_mla_prefill,
+)
 from .paged_decode_dma import paged_attention_decode_dma, paged_attention_decode_ref

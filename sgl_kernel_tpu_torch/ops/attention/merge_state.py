@@ -31,3 +31,14 @@ def merge_states(v_stack, s_stack):
     d = w.sum(dim=0)
     v = (v_stack.float() * w[..., None]).sum(dim=0) / d[..., None]
     return v.to(v_stack.dtype), m + torch.log2(d)
+
+
+LOG2E = 1.4426950408889634
+
+
+def apply_sinks(v, s, sinks):
+    """Attention sinks applied once to a merged, normalized state: v [T, H, D]
+    times sum / (sum + exp(sink)), from its base-2 lse s [T, H] and the
+    natural-log sink logits sinks [H]."""
+    w = 1.0 / (1.0 + torch.exp2(sinks[None, :].float() * LOG2E - s.float()))
+    return (v.float() * w[..., None]).to(v.dtype)

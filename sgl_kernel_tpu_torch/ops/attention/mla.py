@@ -10,8 +10,15 @@ replacing the Pallas ``mla_decode`` (sgl_kernel_tpu/ops/attention/mla.py:375,
 pallas_call at :474); ``mla_decode_ref`` is its plain twin. ``num_splits``
 is the JAX formulation (mla.py:403-426): each (sequence, split) becomes a
 pseudo-sequence over its share of the pages, and ``merge_states`` joins the
-partial outputs by their base-2 lse. ``engine="dma"`` asks for K13b, the
-TPU's manual-DMA engine, which is not ported: it raises.
+partial outputs by their base-2 lse.
+
+``engine="dma"`` takes K13b, ``mla_decode_dma`` (CUDA C++ in
+``csrc/mla_decode_dma.cu``, replacing the Pallas ``_mla_decode_dma``,
+mla.py:287, pallas_call at :321), by JAX's rule (mla.py:451): for pools of
+2 bytes or more and for 640-wide pools; a one-byte 576-wide pool takes K13a.
+K13b computes K13a's function in one block per (sequence, 16 heads) with the
+keys streamed through a two-stage ring; a length-0 row's lse is -inf there
+(K13a: -1e30 * log2(e)), as on the TPU. ``mla_decode_dma_ref`` is its twin.
 
 ``mla_prefill`` is the flash prefill (K7) over the latent as one MQA head,
 V zero-padded from 512 to 576 lanes and sliced back, as JAX does
@@ -121,6 +128,55 @@ def _decode_kernel(q_nope, q_pe, kv_cache, lengths, page_table, layer_id, sm_sca
     return (out, lse) if return_lse else out
 
 
+def mla_decode_dma_ref(q_nope, q_pe, kv_cache, lengths, page_table, layer_id=None, *,
+                       sm_scale: Optional[float] = None, return_lse: bool = False):
+    """Plain twin of ``mla_decode_dma``: ``mla_decode_ref``'s function, with
+    lse -inf for a sequence of length 0."""
+    out, lse = mla_decode_ref(q_nope, q_pe, kv_cache, lengths, page_table, layer_id, sm_scale=sm_scale,
+                              return_lse=True)
+    if not return_lse:
+        return out
+    return out, torch.where(lengths.to(lse.device)[:, None] > 0, lse, float("-inf"))
+
+
+_DMA_ARGS = (ctypes.c_void_p,) * 6 + (ctypes.c_int,) * 8 + (ctypes.c_float, ctypes.c_void_p)
+
+
+def mla_decode_dma(q_nope, q_pe, kv_cache, lengths, page_table, layer_id=None, *, sm_scale: Optional[float] = None,
+                   return_lse: bool = False):
+    """K13b, the streaming MLA decode (``mla_decode(engine="dma")``): the
+    arguments and result of ``mla_decode``. CUDA tensors take bf16 q and
+    bf16 or one-byte (int8, fp8 e4m3, e5m2) pools; CPU tensors the twin."""
+    _check(q_nope, q_pe, kv_cache)
+    scale = sm_scale if sm_scale is not None else 1.0 / D_CKV ** 0.5
+    if q_nope.device.type != "cuda":
+        return mla_decode_dma_ref(q_nope, q_pe, kv_cache, lengths, page_table, layer_id, sm_scale=scale,
+                                  return_lse=return_lse)
+    if q_nope.dtype != torch.bfloat16 or q_pe.dtype != torch.bfloat16 or kv_cache.dtype not in _POOL_TYPES:
+        raise NotImplementedError("mla_decode_dma: the CUDA kernel takes bf16 q and bf16, int8, float8_e4m3fn or "
+                                  "float8_e5m2 pools")
+    if not kv_cache.is_contiguous():
+        raise ValueError("mla_decode_dma: the pool must be contiguous")
+    b, h, _ = q_nope.shape
+    pool = kv_cache if layer_id is not None else kv_cache[None]
+    _, n_pages, page, width = pool.shape
+    q = torch.cat([q_nope, q_pe], dim=-1).contiguous()
+    lens = lengths.to(device=q.device, dtype=torch.int32).contiguous()
+    table = page_table.to(device=q.device, dtype=torch.int32).contiguous()
+    out = torch.empty((b, h, D_LATENT), dtype=q.dtype, device=q.device)
+    lse = torch.empty((b, h), dtype=torch.float32, device=q.device) if return_lse else None
+    fn = _build.bind("mla_decode_dma", "skt_mla_decode_dma", _DMA_ARGS)
+    _build.check(fn(q.data_ptr(), pool.data_ptr(), lens.data_ptr(), table.data_ptr(), out.data_ptr(),
+                    None if lse is None else lse.data_ptr(), b, h, n_pages, page, width, table.shape[1],
+                    0 if layer_id is None else int(layer_id), _POOL_TYPES[kv_cache.dtype], scale,
+                    _build.stream_ptr(q.device)), "mla_decode_dma")
+    mla_decode_dma.launches += 1
+    return (out, lse) if return_lse else out
+
+
+mla_decode_dma.launches = 0
+
+
 def mla_decode(q_nope, q_pe, kv_cache, lengths, page_table, layer_id=None, *, sm_scale: Optional[float] = None,
                return_lse: bool = False, num_splits: int = 1, engine: str = "blockspec"):
     """MLA paged decode. q_nope [B, H, 512] (already in latent space); q_pe
@@ -131,11 +187,10 @@ def mla_decode(q_nope, q_pe, kv_cache, lengths, page_table, layer_id=None, *, sm
 
     CUDA tensors go through K13a, which takes bf16 q and bf16, int8, fp8
     e4m3 or e5m2 pools (a quantized pool's scale folds into ``sm_scale``,
-    by the caller). ``engine="dma"`` (K13b) is not ported and raises."""
+    by the caller); ``engine="dma"`` through K13b (``mla_decode_dma``) for
+    pools of 2 bytes or more and 640-wide pools, else K13a."""
     if engine not in ("blockspec", "dma"):
         raise ValueError(f"mla_decode: unknown engine {engine!r}")
-    if engine == "dma":
-        raise NotImplementedError("mla_decode(engine='dma'): the manual-DMA engine (K13b) is not ported yet")
     _check(q_nope, q_pe, kv_cache)
     scale = sm_scale if sm_scale is not None else 1.0 / D_CKV ** 0.5
     if num_splits > 1:
@@ -149,9 +204,16 @@ def mla_decode(q_nope, q_pe, kv_cache, lengths, page_table, layer_id=None, *, sm
             s, dtype=torch.int32, device=q_nope.device)[None, :] * (bps * page)
         len_s = local.clamp(0, bps * page).reshape(b * s)
         o, lse = mla_decode(q_nope.repeat_interleave(s, 0), q_pe.repeat_interleave(s, 0), kv_cache, len_s,
-                            page_table, layer_id, sm_scale=scale, return_lse=True)
+                            page_table, layer_id, sm_scale=scale, return_lse=True, engine=engine)
         om, lm = merge_states(o.reshape(b, s, h, D_LATENT).transpose(0, 1), lse.reshape(b, s, h).transpose(0, 1))
+        if engine == "dma":
+            # a length-0 row merges s lses of -inf: NaN in JAX; o = 0, lse -inf, as unsplit
+            empty = lengths.to(om.device)[:, None] <= 0
+            om, lm = om.masked_fill(empty[..., None], 0.0), lm.masked_fill(empty, float("-inf"))
         return (om, lm) if return_lse else om
+    if engine == "dma" and (kv_cache.element_size() >= 2 or kv_cache.shape[-1] == D_CKV_PAD):
+        return mla_decode_dma(q_nope, q_pe, kv_cache, lengths, page_table, layer_id, sm_scale=scale,
+                              return_lse=return_lse)
     if q_nope.device.type != "cuda":
         return mla_decode_ref(q_nope, q_pe, kv_cache, lengths, page_table, layer_id, sm_scale=scale,
                               return_lse=return_lse)

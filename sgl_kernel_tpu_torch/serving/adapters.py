@@ -9,7 +9,8 @@ The Llama adapter serves the padded ``prefill``, the packed multi-prompt
 ``prefill_packed``, the ``prefill_extend`` of a cached prefix or a prompt
 chunk, and the ``decode`` step; the engine reaches ``mixed_step`` through
 ``_m``. The Mixtral adapter serves the same four programs of its own model
-over the same (k, v) pools, and the DeepSeek adapter over one latent pool;
+over the same (k, v) pools, and the DeepSeek adapter over one latent pool
+(with NSA sparse decode, the latent pool and the two indexer pools);
 neither model has a ``mixed_step``, so the engine advances their chunked
 prompts by extend. ``supports_spec`` is False (speculative decoding is a
 later slice), and the PD page transfer (``extract_pages`` /
@@ -84,62 +85,73 @@ class MixtralAdapter(LlamaAdapter):
 
 
 class DeepseekAdapter:
-    """DeepSeek MLA family (models/deepseek.py) over a one-pool cache
-    ``(latent_pool,)``, [L, P, page, 576]. The page size is the caller's:
-    the JAX adapter's ``recommended_page_size = 1024`` is a TPU finding
-    (adapters.py:258-265) this port does not rely on. NSA sparse decode
-    (``use_nsa``) and KV compression (``use_compress``) are not ported and
-    raise."""
+    """DeepSeek MLA family (models/deepseek.py) over the cache
+    ``(latent_pool,)``, [L, P, page, 576], or with ``use_nsa`` (NSA sparse
+    decode) ``(latent_pool, idx_k, idx_s)``, the indexer's fp8 keys and
+    scales, every program routed to its NSA form. The page size is the
+    caller's: the JAX adapter's ``recommended_page_size = 1024`` is a TPU
+    finding (adapters.py:258-265) this port does not rely on. KV compression
+    (``use_compress``) is not ported and raises."""
 
     name = "deepseek"
     supports_spec = False
     supports_extend = True
 
     def __init__(self, cfg, device="cuda", *, use_nsa: bool = False, use_compress: bool = False):
-        if use_nsa or use_compress:
-            raise NotImplementedError("DeepseekAdapter: NSA sparse decode and KV compression are not ported yet")
+        if use_compress:
+            raise NotImplementedError("DeepseekAdapter: KV compression is not ported yet")
         self.cfg = cfg
         self.device = resolve_device(device)
         self._m = deepseek
+        self.use_nsa = use_nsa
         self.rope_cache = deepseek.build_rope_cache(cfg, self.device)
+        self.idx_rope_cache = deepseek.build_idx_rope_cache(cfg, self.device) if use_nsa else None
 
     def init_weights(self, generator):
         return self._m.init_weights(self.cfg, generator, self.device)
 
     def make_caches(self, num_pages: int, page_size: int):
-        return (self._m.make_cache(self.cfg, num_pages, page_size, device=self.device),)
+        kv = self._m.make_cache(self.cfg, num_pages, page_size, device=self.device)
+        if not self.use_nsa:
+            return (kv,)
+        return (kv, *self._m.make_indexer_cache(self.cfg, num_pages, page_size, device=self.device))
+
+    def _indexer(self, caches):
+        """The model's ``indexer`` argument: None, or (idx_k, idx_s, rope)."""
+        return (caches[1], caches[2], self.idx_rope_cache) if self.use_nsa else None
 
     def prefill(self, params, caches, tokens, positions, q_lens, slot_loc):
-        (kv,) = caches
-        logits, kv = self._m.prefill(params, self.cfg, kv, tokens, positions, q_lens, slot_loc, self.rope_cache)
-        return logits, (kv,)
+        logits, kv = self._m.prefill(params, self.cfg, caches[0], tokens, positions, q_lens, slot_loc,
+                                     self.rope_cache, indexer=self._indexer(caches))
+        return logits, (kv, *caches[1:])
 
     def prefill_extend(self, params, caches, tokens, positions, q_lens, kv_lens, page_tables, slot_loc, *,
                        prefix_max: int):
-        (kv,) = caches
-        logits, kv = self._m.prefill_extend(params, self.cfg, kv, tokens, positions, q_lens, kv_lens, page_tables,
-                                            slot_loc, self.rope_cache, prefix_max=prefix_max)
-        return logits, (kv,)
+        logits, kv = self._m.prefill_extend(params, self.cfg, caches[0], tokens, positions, q_lens, kv_lens,
+                                            page_tables, slot_loc, self.rope_cache, prefix_max=prefix_max,
+                                            indexer=self._indexer(caches))
+        return logits, (kv, *caches[1:])
 
     def decode(self, params, caches, tokens, positions, page_tables, lengths, slot_loc):
-        (kv,) = caches
-        logits, kv = self._m.decode_step(params, self.cfg, kv, tokens, positions, page_tables, lengths, slot_loc,
-                                         self.rope_cache)
-        return logits, (kv,)
+        logits, kv = self._m.decode_step(params, self.cfg, caches[0], tokens, positions, page_tables, lengths,
+                                         slot_loc, self.rope_cache, indexer=self._indexer(caches))
+        return logits, (kv, *caches[1:])
 
     def prefill_packed(self, params, caches, tokens, positions, blk_seq, blk_q0, seq_meta, last_idx, slot_loc, *,
                        max_kvb: int):
-        """Several fresh prompts block-aligned packed into one launch."""
-        (kv,) = caches
-        logits, kv = self._m.prefill_packed(params, self.cfg, kv, None, None, tokens, positions, blk_seq, blk_q0,
-                                            seq_meta, last_idx, slot_loc, self.rope_cache, max_kvb=max_kvb)
-        return logits, (kv,)
+        """Several fresh prompts block-aligned packed into one launch (the
+        indexer keys stored too under NSA)."""
+        idx = caches[1:] if self.use_nsa else (None, None)
+        out = self._m.prefill_packed(params, self.cfg, caches[0], *idx, tokens, positions, blk_seq, blk_q0,
+                                     seq_meta, last_idx, slot_loc, self.rope_cache, max_kvb=max_kvb,
+                                     with_indexer=self.use_nsa, idx_rope_cache=self.idx_rope_cache)
+        return out[0], (out[1], *caches[1:])
 
 
 def adapter_for(cfg, device="cuda"):
     """The adapter for a config's type, the most specific first
     (``MixtralConfig`` is a ``LlamaConfig``); a DeepSeek config asks for the
-    decode mode it names (NSA or compression, which raise)."""
+    decode mode it names (NSA, or compression, which raises)."""
     if isinstance(cfg, deepseek.DeepseekConfig):
         return DeepseekAdapter(cfg, device, use_nsa=bool(cfg.nsa), use_compress=bool(cfg.compress))
     if isinstance(cfg, mixtral.MixtralConfig):

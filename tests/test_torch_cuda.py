@@ -5,7 +5,8 @@ padding rows, duplicate and dropped slots, extend offsets, non-causal
 attention, the base-2 lse and rows that see no key, packed prefill at block
 edges with padding blocks, widths that are not powers of two, quantized KV
 pools, and every option, row count, group size and ragged width of the
-W4A16 GEMM.
+W4A16 GEMM; the NSA indexer (K15) over key types, scales, head counts and
+lengths; the streaming MLA decode (K13b) and its dispatch.
 
 Needs a CUDA device: every test here is marked ``cuda`` and skips without
 one. On the card (tests/conftest.py imports JAX, which that machine need not
@@ -19,7 +20,7 @@ import pytest
 import torch
 
 from sgl_kernel_tpu_torch.ops import kvcache, norm, rope
-from sgl_kernel_tpu_torch.ops.attention import flash_packed, flash_prefill, paged_decode_dma
+from sgl_kernel_tpu_torch.ops.attention import flash_packed, flash_prefill, nsa, paged_decode_dma
 from sgl_kernel_tpu_torch.ops.gemm import w4a16
 from sgl_kernel_tpu_torch.utils import sm_count
 
@@ -624,8 +625,11 @@ def test_mla_decode_heads_and_splits(gen, h):
     ref = mla.mla_decode(*(t.cpu() for t in (qn, qp, pool[0], lens, table)), num_splits=2).cuda().float()
     tol = 2.0 ** -7 * ref.abs() + 2.0 ** -7 * ref.abs().amax(-1, keepdim=True)
     assert ((out - ref).abs() <= tol).all(), float(((out - ref).abs() / tol).max())
-    with pytest.raises(NotImplementedError):
-        mla.mla_decode(qn, qp, pool, lens, table, 0, engine="dma")
+    # engine="dma" takes K13b on this bf16 pool: against its twin
+    before = mla.mla_decode_dma.launches
+    out = mla.mla_decode(qn, qp, pool, lens, table, 0, engine="dma")
+    assert mla.mla_decode_dma.launches == before + 1
+    assert_elementwise(out, mla.mla_decode_dma_ref(qn, qp, pool, lens, table, 0))
     with pytest.raises(NotImplementedError):
         mla.mla_decode(qn.float(), qp.float(), pool, lens, table, 0)
 
@@ -715,3 +719,138 @@ def test_mla_decode_unsplit_grid(gen):
     ref, ref_lse = mla.mla_decode_ref(qn, qp, pool[0], lens, table, return_lse=True)
     assert_elementwise(out, ref)
     assert torch.allclose(lse, ref_lse, rtol=1e-5, atol=1e-4)
+
+
+def mqa_case(gen, lengths, page, h, key_dtype, spare_cols=2):
+    """Keys of ``lengths`` paged into a pool through a permuted table with
+    ``spare_cols`` padding columns (page 0), q [B, H, 128] and positive
+    head gates."""
+    b, d = len(lengths), 128
+    used = [-(-n // page) for n in lengths]
+    n_blocks = max(used) + spare_cols
+    n_pages = sum(used) + 1
+    perm = torch.randperm(n_pages - 1, generator=gen, device="cuda") + 1
+    table = torch.zeros((b, n_blocks), dtype=torch.int32, device="cuda")
+    at = 0
+    for i, n in enumerate(used):
+        table[i, :n] = perm[at: at + n]
+        at += n
+    keys = (torch.randn((n_pages, page, d), generator=gen, device="cuda") * 2).to(key_dtype)
+    q = randn(gen, b, h, d) * 0.3
+    w = torch.rand((b, h), generator=gen, device="cuda") + 0.05
+    scales = torch.rand((n_pages, page), generator=gen, device="cuda") + 0.5
+    return q, keys, w, scales, torch.tensor(lengths, dtype=torch.int32, device="cuda"), table
+
+
+def check_logits(out, ref):
+    """-inf at the same places; the finite logits elementwise (a row is one
+    sequence's logits)."""
+    assert torch.equal(torch.isneginf(out), torch.isneginf(ref)) and not torch.isnan(out).any()
+    fin = torch.isfinite(ref)
+    assert_elementwise(torch.where(fin, out, 0.0), torch.where(fin, ref, 0.0))
+
+
+@pytest.mark.parametrize("key_dtype", [torch.float8_e4m3fn, torch.float8_e5m2, torch.bfloat16])
+@pytest.mark.parametrize("scaled", [True, False])
+@pytest.mark.parametrize("h", [4, 40, 64, 128])
+def test_fp8_paged_mqa_logits(gen, key_dtype, scaled, h):
+    """K15: lengths 0 and 1, at and past page and 64-key tile edges, one
+    not a multiple of a block's span; padded table columns; the four head
+    tilings (16, 32, 64, 128 rows)."""
+    lengths = [0, 1, 64, 65, 1000, 333]
+    q, keys, w, scales, lens, table = mqa_case(gen, lengths, 64, h, key_dtype)
+    sc = scales if scaled else None
+    before = nsa.fp8_paged_mqa_logits.launches
+    out = nsa.fp8_paged_mqa_logits(q, keys, w, lens, table, sc)
+    assert nsa.fp8_paged_mqa_logits.launches == before + 1
+    assert out.shape == (len(lengths), table.shape[1] * 64) and out.dtype == torch.float32
+    check_logits(out, nsa.fp8_paged_mqa_logits_ref(q, keys, w, lens, table, sc))
+    assert torch.isneginf(out[0]).all() and torch.isfinite(out[1, :1]).all()
+
+
+@pytest.mark.parametrize("page", [1, 16, 64])
+def test_fp8_paged_mqa_logits_pages_weights_and_q(gen, page):
+    """Page sizes below, at and past a tile; [H] weights broadcast; fp8 q
+    (upcast exactly); a batch wide enough for the one-tile span; and the
+    inputs the kernel does not take raise."""
+    lengths = [1 + (97 * i) % 300 for i in range(40)]
+    q, keys, w, scales, lens, table = mqa_case(gen, lengths, page, 64, torch.float8_e4m3fn)
+    out = nsa.fp8_paged_mqa_logits(q, keys, w[0], lens, table, scales)
+    check_logits(out, nsa.fp8_paged_mqa_logits_ref(q, keys, w[0], lens, table, scales))
+    q8 = (q.float() * 8).to(torch.float8_e4m3fn)
+    check_logits(nsa.fp8_paged_mqa_logits(q8, keys, w, lens, table, scales),
+                 nsa.fp8_paged_mqa_logits_ref(q8, keys, w, lens, table, scales))
+    with pytest.raises(NotImplementedError):
+        nsa.fp8_paged_mqa_logits(q[..., :64].contiguous(), keys[..., :64].contiguous(), w, lens, table)
+    with pytest.raises(NotImplementedError):
+        nsa.fp8_paged_mqa_logits(q.float(), keys.float(), w, lens, table)
+    with pytest.raises(NotImplementedError):
+        qq = randn(gen, len(lengths), 129, 128)
+        nsa.fp8_paged_mqa_logits(qq, keys, torch.ones(129, device="cuda"), lens, table)
+
+
+@pytest.mark.parametrize("kind", ["e4m3", "e5m2"])
+def test_fp8_paged_mqa_logits_converts_every_code(gen, kind):
+    """Every finite fp8 code at one lane, a one-hot q of +1 and -1: the
+    logits are the codes' exact values (denormals not flushed)."""
+    dt = torch.float8_e4m3fn if kind == "e4m3" else torch.float8_e5m2
+    codes = torch.arange(256, dtype=torch.int32).to(torch.uint8).view(dt)
+    vals = codes.float()
+    codes, vals = codes[torch.isfinite(vals)], vals[torch.isfinite(vals)]
+    n = codes.numel()
+    pool = torch.zeros((-(-n // 16) * 16, 128), dtype=torch.uint8)
+    pool[:n, 7] = codes.view(torch.uint8)
+    keys = pool.view(dt).reshape(-1, 16, 128).cuda()
+    table = torch.arange(keys.shape[0], dtype=torch.int32, device="cuda")[None]
+    for sign in (1.0, -1.0):
+        q = torch.zeros((1, 1, 128), dtype=torch.bfloat16, device="cuda")
+        q[0, 0, 7] = sign
+        out = nsa.fp8_paged_mqa_logits(q, keys, torch.ones(1, device="cuda"),
+                                       torch.tensor([n], dtype=torch.int32, device="cuda"), table)
+        assert torch.equal(out[0, :n].cpu(), torch.clamp_min(sign * vals, 0.0))
+
+
+@pytest.mark.parametrize("dtype,width", [(torch.bfloat16, 576), (torch.bfloat16, 640), (torch.int8, 640),
+                                         (torch.float8_e4m3fn, 640), (torch.float8_e5m2, 640)])
+@pytest.mark.parametrize("page", [16, 64])
+def test_mla_decode_dma(gen, dtype, width, page):
+    """K13b (engine="dma") on the pools it takes: lengths 0, 1, at and
+    past page and tile edges; lse (-inf for the length-0 row)."""
+    lengths = [1, 0, page, page + 1, 3 * page - 1, 300]
+    pool, table, lens = mla_pool(gen, lengths, page, width, 3, dtype)
+    qn, qp = randn(gen, len(lengths), 16, 512), randn(gen, len(lengths), 16, 64)
+    scale = 0.01 if dtype == torch.int8 else 1 / 576 ** 0.5
+    before, before_a = mla.mla_decode_dma.launches, mla.mla_decode.launches
+    out, lse = mla.mla_decode(qn, qp, pool, lens, table, 2, sm_scale=scale, return_lse=True, engine="dma")
+    assert mla.mla_decode_dma.launches == before + 1 and mla.mla_decode.launches == before_a
+    ref, ref_lse = mla.mla_decode_dma_ref(qn, qp, pool, lens, table, 2, sm_scale=scale, return_lse=True)
+    valid = lens > 0
+    assert torch.isfinite(out).all() and not out[1].any() and torch.isneginf(lse[1]).all()
+    assert_elementwise(out, ref)
+    assert torch.allclose(lse[valid], ref_lse[valid], rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.parametrize("h", [2, 16, 40])
+def test_mla_decode_dma_dispatch_and_splits(gen, h):
+    """A one-byte 576-wide pool takes K13a under engine="dma" (JAX's rule);
+    num_splits=2 recurses through K13b, held to the same split form on the
+    CPU; an unstacked pool; the head counts around one 16-row tile."""
+    lengths = [5, 200, 64]
+    qn, qp = randn(gen, 3, h, 512), randn(gen, 3, h, 64)
+    pool8, table, lens = mla_pool(gen, lengths, 64, 576, 1, torch.float8_e4m3fn)
+    before, before_a = mla.mla_decode_dma.launches, mla.mla_decode.launches
+    out = mla.mla_decode(qn, qp, pool8[0], lens, table, engine="dma")
+    assert mla.mla_decode_dma.launches == before and mla.mla_decode.launches == before_a + 1
+    assert_elementwise(out, mla.mla_decode_ref(qn, qp, pool8[0], lens, table))
+    pool, table, lens = mla_pool(gen, lengths, 64, 576, 1, torch.bfloat16)
+    out = mla.mla_decode(qn, qp, pool[0], lens, table, engine="dma")
+    assert mla.mla_decode_dma.launches == before + 1
+    assert_elementwise(out, mla.mla_decode_dma_ref(qn, qp, pool[0], lens, table))
+    out = mla.mla_decode(qn, qp, pool[0], lens, table, num_splits=2, engine="dma").float()
+    ref = mla.mla_decode(*(t.cpu() for t in (qn, qp, pool[0], lens, table)), num_splits=2,
+                         engine="dma").cuda().float()
+    assert mla.mla_decode_dma.launches == before + 2
+    tol = 2.0 ** -7 * ref.abs() + 2.0 ** -7 * ref.abs().amax(-1, keepdim=True)  # as the K13a split test
+    assert ((out - ref).abs() <= tol).all(), float(((out - ref).abs() / tol).max())
+    with pytest.raises(NotImplementedError):
+        mla.mla_decode_dma(qn.float(), qp.float(), pool, lens, table, 0)

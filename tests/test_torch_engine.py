@@ -212,6 +212,37 @@ def test_deepseek_default_engine_matches_jax():
     assert tc.get("nonfinite_logits", 0) == 0
 
 
+def test_deepseek_nsa_engine_matches_jax():
+    """Both default engines on the tiny NSA model (float32, indexer 2 heads
+    of 32, top-k 8, so every prompt past 8 tokens decodes over a sparse
+    selection; cache tuple (latent, idx_k, idx_s)): the waves of the test
+    above. Identical greedy tokens, hit tokens and page accounting."""
+    jcfg, jparams, cfg, params = deepseek_pair(nsa=True, idx_dim=32, idx_heads=2, index_topk=8)
+    rng = np.random.default_rng(13)
+    kw = dict(max_batch=4, page_size=16, num_pages=48, prefill_chunk=32)
+    jeng = JaxEngine(jcfg, jparams, **kw)
+    teng = Engine(cfg, params, device="cpu", **kw)
+    assert teng.adapter.use_nsa and len(teng.caches) == 3 and teng.caches[1].dtype == torch.float8_e4m3fn
+    a = [rng.integers(1, cfg.vocab_size, n).tolist() for n in (20, 40, 9)]
+    b = [a[1][:32] + rng.integers(1, cfg.vocab_size, 10).tolist(),
+         a[0][:16] + rng.integers(1, cfg.vocab_size, 5).tolist(),
+         rng.integers(1, cfg.vocab_size, 70).tolist()]
+    for wave in (a, b):
+        for eng in (jeng, teng):
+            for p in wave:
+                eng.add_request(p, max_new_tokens=5)
+            eng.run_until_done()
+    assert sorted(jeng.finished) == sorted(teng.finished) == list(range(6))
+    for rid in jeng.finished:
+        assert teng.finished[rid].output == jeng.finished[rid].output, rid
+    jc, tc = jeng.metrics.counters, teng.metrics.counters
+    for key in ("prefix_cache_hit_tokens", "tokens_prefilled", "tokens_decoded", "requests_finished"):
+        assert tc.get(key) == jc.get(key), key
+    assert tc["prefix_cache_hit_tokens"] == 48 and tc.get("mixed_steps", 0) == 0
+    assert teng.allocator.free + teng.native.cached_pages == 47
+    assert tc.get("nonfinite_logits", 0) == 0
+
+
 def test_mixtral_default_engine_matches_jax():
     """Both default engines on the tiny Mixtral (float32; prefix cache,
     packed admission, prefill_chunk=32; the model has no mixed step, so

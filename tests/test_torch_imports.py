@@ -48,6 +48,8 @@ def test_entry_points_need_a_card_by_default():
         skt.Engine(skt.DeepseekConfig.tiny())
     with pytest.raises(RuntimeError, match="no CUDA device"):
         skt.Engine(skt.MixtralConfig.tiny())
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        skt.Engine(skt.DeepseekConfig.tiny(nsa=True, idx_dim=32))
 
 
 def test_unserved_engine_arguments_raise():
@@ -74,7 +76,7 @@ def test_kernel_wrappers_count_launches():
     assert set(skt.launch_counts()) == {"w4a16_gemm", "rmsnorm", "rope_decode_fused_qkv", "rope_decode_fused",
                                         "paged_attention_decode_dma", "store_cache_all_layers", "flash_attention",
                                         "flash_attention_packed", "w4a16_grouped_mm", "bf16_grouped_mm",
-                                        "mla_decode", "mla_qkv_prep"}
+                                        "mla_decode", "mla_decode_dma", "mla_qkv_prep", "fp8_paged_mqa_logits"}
     skt.reset_launch_counts()
     x = torch.randn(3, 64)
     skt.rmsnorm(x, torch.ones(64))  # CPU tensor: the plain twin, no launch
@@ -89,11 +91,12 @@ def test_kernel_sources_and_entry_points():
 
     stems = {p.stem for p in _build.sources()}
     assert stems == {"decode_attention", "flash_packed", "flash_prefill", "store_cache", "w4a16_gemm",
-                     "grouped_gemm", "bf16_grouped_gemm", "mla_decode"}
+                     "grouped_gemm", "bf16_grouped_gemm", "mla_decode", "mla_decode_dma", "mqa_logits"}
     entry = {"decode_attention": "skt_paged_decode", "flash_packed": "skt_flash_packed",
              "flash_prefill": "skt_flash_prefill", "store_cache": "skt_store_cache_all_layers",
              "w4a16_gemm": "skt_w4a16_gemm", "grouped_gemm": "skt_w4a16_grouped_mm",
-             "bf16_grouped_gemm": "skt_bf16_grouped_mm", "mla_decode": "skt_mla_decode"}
+             "bf16_grouped_gemm": "skt_bf16_grouped_mm", "mla_decode": "skt_mla_decode",
+             "mla_decode_dma": "skt_mla_decode_dma", "mqa_logits": "skt_fp8_paged_mqa_logits"}
     for src in _build.sources():
         text = src.read_text()
         assert f'extern "C" int {entry[src.stem]}(' in text
@@ -105,15 +108,22 @@ def test_kernel_sources_and_entry_points():
 
 
 def test_deepseek_adapter_serves_the_plain_mode_only():
-    """adapter_for picks the DeepSeek adapter by config type; the NSA and
-    compression modes it would ask for are not ported and raise."""
+    """adapter_for picks the DeepSeek adapter by config type and the decode
+    mode the config names: the plain mode over one latent pool, NSA over
+    (latent, fp8 indexer keys, their float32 scales); compression is not
+    ported and raises."""
     cfg = skt.DeepseekConfig.tiny()
     ad = skt.adapter_for(cfg, "cpu")
     assert isinstance(ad, skt.DeepseekAdapter) and ad.supports_extend and not hasattr(ad._m, "mixed_step")
     (pool,) = ad.make_caches(4, 16)
     assert pool.shape == (cfg.num_layers, 4, 16, 576)
-    for kw in (dict(nsa=True), dict(compress="c128")):
-        with pytest.raises(NotImplementedError):
-            skt.adapter_for(skt.DeepseekConfig.tiny(**kw), "cpu")
+    ncfg = skt.DeepseekConfig.tiny(nsa=True, idx_dim=32)
+    ad = skt.adapter_for(ncfg, "cpu")
+    assert ad.use_nsa and not ad.supports_spec and ad.idx_rope_cache.shape == (ncfg.max_position, 32)
+    pool, idx_k, idx_s = ad.make_caches(4, 16)
+    assert idx_k.shape == (ncfg.num_layers * 4 * 16, 32) and idx_k.dtype == torch.float8_e4m3fn
+    assert idx_s.shape == (ncfg.num_layers * 4 * 16,) and idx_s.dtype == torch.float32
     with pytest.raises(NotImplementedError):
-        skt.DeepseekAdapter(cfg, "cpu", use_nsa=True)
+        skt.adapter_for(skt.DeepseekConfig.tiny(compress="c128"), "cpu")
+    with pytest.raises(NotImplementedError):
+        skt.DeepseekAdapter(cfg, "cpu", use_compress=True)

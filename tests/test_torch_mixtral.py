@@ -6,7 +6,9 @@ on the K/V pools they leave.
 
 Configurations: the tiny model (4 experts, top-2) in float32, and in W4A16
 (the attention linears, the lm_head and both expert banks K-paired int4,
-group 32) with float32 activations.
+group 32) with float32 activations; and the float32 model with nonzero
+biases, the gpt-oss layout that reuses this skeleton (``o_bias``,
+``router_bias``, ``moe_b1``, ``moe_b2``), through all four programs.
 
 Tolerance: float32 on both sides and the same bytes in (the W4A16 codes
 too); the JAX side runs its Pallas kernels in interpret mode and the port
@@ -30,7 +32,7 @@ torch.set_num_threads(1)
 
 PAGE, PAGES = 16, 16
 TOL = 2e-5
-CONFIGS = {"f32": dict(), "w4a16": dict(quant="w4a16", group_size=32)}
+CONFIGS = {"f32": dict(), "w4a16": dict(quant="w4a16", group_size=32), "f32_biased": dict()}
 
 
 def i32(a):
@@ -47,6 +49,8 @@ class Pair:
         self.jcfg = jmix.MixtralConfig.tiny(**kw)
         self.tcfg = MixtralConfig.tiny(**kw)
         self.jparams = jmix.init_weights(self.jcfg, jax.random.PRNGKey(5))
+        if name.endswith("biased"):
+            add_biases(self.jparams, self.jcfg)
         self.tparams = params_from_numpy(jax.tree_util.tree_map(np.asarray, self.jparams), "cpu")
         self.jrope = jmix.build_rope_cache(self.jcfg)
         self.trope = tmix.build_rope_cache(self.tcfg, "cpu")
@@ -69,6 +73,18 @@ class Pair:
         for a, b in ((jl, tl), (np.asarray(self.jk), self.tk.numpy()), (np.asarray(self.jv), self.tv.numpy())):
             scale = max(1.0, float(np.abs(a).max()))
             assert np.abs(b - a).max() <= TOL * scale, (float(np.abs(b - a).max()), TOL * scale)
+
+
+def add_biases(params, cfg):
+    """Nonzero o, router and expert biases in the JAX tree's layout."""
+    rng = np.random.default_rng(3)
+    lw = params["layers"]
+    l, h, e = cfg.num_layers, cfg.hidden_size, cfg.num_experts
+    inter = lw["moe_w2"].shape[-2]
+    lw["o_bias"] = jnp.asarray(rng.standard_normal((l, h)) * 0.1, cfg.dtype)
+    lw["router_bias"] = jnp.asarray(rng.standard_normal((l, e)) * 0.5, jnp.float32)
+    lw["moe_b1"] = jnp.asarray(rng.standard_normal((l, e, 2 * inter)) * 0.1, jnp.float32)
+    lw["moe_b2"] = jnp.asarray(rng.standard_normal((l, e, h)) * 0.1, jnp.float32)
 
 
 @pytest.fixture(scope="module", params=list(CONFIGS))

@@ -1,7 +1,8 @@
 """The port's MLA operators against the JAX package's on the same inputs
 (numpy, from a seed): ``mla_decode`` (K13a's plain twin; the Pallas kernel
 in interpret mode) on bf16, int8 and fp8 e4m3 pools, with lse, with
-``num_splits``, stacked and 640 wide; ``mla_prefill`` (K7 at head dim 576)
+``num_splits``, stacked and 640 wide; K13b's twin (``engine="dma"``)
+against JAX's manual-DMA engine; ``mla_prefill`` (K7 at head dim 576)
 with extend offsets and lse; ``mla_qkv_prep`` (K14's twin); and
 ``store_cache_mla``.
 
@@ -113,13 +114,59 @@ def test_split_keys_policy():
 
 
 def test_mla_decode_raises():
+    """Unknown engines and pool widths raise; ``engine="dma"`` (K13b) runs
+    its twin on CPU tensors (lse -inf for a length-0 row) and takes a
+    one-byte 576-wide pool to K13a's twin, as JAX's dispatch does."""
     q = torch.zeros(1, 2, 512)
-    with pytest.raises(NotImplementedError):
-        mla.mla_decode(q, torch.zeros(1, 2, 64), torch.zeros(4, 16, 576), torch.ones(1, dtype=torch.int32),
-                       torch.zeros(1, 2, dtype=torch.int32), engine="dma")
+    args = (torch.ones(1, 2, 64), torch.ones(4, 16, 576), torch.zeros(1, dtype=torch.int32),
+            torch.zeros(1, 2, dtype=torch.int32))
+    with pytest.raises(ValueError):
+        mla.mla_decode(q, *args, engine="pallas")
     with pytest.raises(ValueError):
         mla.mla_decode(q, torch.zeros(1, 2, 64), torch.zeros(4, 16, 512), torch.ones(1, dtype=torch.int32),
                        torch.zeros(1, 2, dtype=torch.int32))
+    out, lse = mla.mla_decode(q, *args, engine="dma", return_lse=True)
+    assert not out.any() and torch.isneginf(lse).all()
+    out, lse = mla.mla_decode(q, args[0], args[1].to(torch.int8), *args[2:], engine="dma", return_lse=True)
+    assert not out.any() and torch.isfinite(lse).all()  # K13a's -1e30 * log2(e)
+    assert mla.mla_decode_dma.launches == 0 and mla.mla_decode.launches == 0
+
+
+@pytest.mark.parametrize("pool_dtype,q_dtype,width,splits", [
+    ("bf16", "bf16", 576, 1),
+    ("f32", "f32", 576, 1),
+    ("bf16", "bf16", 640, 1),
+    ("e4m3", "bf16", 640, 1),
+    ("int8", "f32", 640, 1),
+    ("bf16", "bf16", 576, 2),
+    ("e4m3", "bf16", 576, 1),  # a one-byte 576 pool: K13a on both sides
+])
+def test_mla_decode_dma_twin(pool_dtype, q_dtype, width, splits):
+    """``mla_decode(engine="dma")``: K13b's twin against JAX's manual-DMA
+    engine in interpret mode on a stacked pool, with lse; with splits, the
+    pseudo-sequences merged by lse (a length-0 row merges lses of -inf only:
+    NaN in JAX, o = 0 and lse -inf in the port, as unsplit). Tolerances as
+    test_mla_decode_twin."""
+    rng = np.random.default_rng(15)
+    lengths = [1, 0, 37, 16, 100]
+    page, h, layers = 16, 4, 2
+    pool, table = paged_latents(rng, lengths, page, width, layers, pool_dtype)
+    qdt = jnp.bfloat16 if q_dtype == "bf16" else jnp.float32
+    q_nope = jnp.asarray(rng.standard_normal((len(lengths), h, 512)) * 0.3, qdt)
+    q_pe = jnp.asarray(rng.standard_normal((len(lengths), h, 64)) * 0.3, qdt)
+    scale = 0.07 if pool_dtype in ("int8", "e4m3") else 1 / 576 ** 0.5
+    lens = np.array(lengths, np.int32)
+    kw = dict(sm_scale=scale, return_lse=True, num_splits=splits, engine="dma")
+    jo, jl = jmla.mla_decode(q_nope, q_pe, pool, jnp.asarray(lens), jnp.asarray(table), 1, **kw)
+    to, tl = mla.mla_decode(t_(q_nope), t_(q_pe), t_(pool), t_(lens), t_(table), 1, **kw)
+    valid = lens > 0
+    close(to[valid], np.asarray(jo)[valid], 2.0 ** -6 if q_dtype == "bf16" else 2e-5)
+    np.testing.assert_allclose(tl.numpy()[valid], np.asarray(jl)[valid], rtol=1e-5, atol=1e-4)
+    assert not to[1].any()
+    if splits == 1 and (pool_dtype in ("bf16", "f32") or width == 640):  # K13b: lse -inf on both sides
+        assert np.isneginf(tl.numpy()[1]).all() and np.isneginf(np.asarray(jl)[1]).all()
+    if splits > 1:
+        assert np.isneginf(tl.numpy()[1]).all() and np.isnan(np.asarray(jo, np.float32)[1]).all()
 
 
 @pytest.mark.parametrize("offsets", [False, True])
