@@ -80,8 +80,21 @@ if the logits miss the gate); (4) the NSA engine at full depth in waves A,
 B+C, the cold check, and wave D (4 fresh prompts of 6,144 tokens in
 1,024-token chunks, 32 decode tokens each over a sparse selection), and
 K13b's path, its op entry point over a 27-layer bf16 pool (no model calls
-it); (5) its decode profile at 16 rows of 6,144 tokens. Each phase prints
-its time ([time] lines).
+it); (5) its decode profile at 16 rows of 6,144 tokens. Then slice 7, the
+decode variants: (2) K10 (w4a16_gemm_dma) at the W4A16 Llama-3-8B decode
+GEMMs (M=16; gate_up also at M=1 and 32) beside K1 and
+torch._weight_int4pack_mm, K8 (paged_attention_decode) over head-major
+pools (bf16, e4m3 with scales), and K5 with layout="head", with the lse,
+split at choose_num_splits (B=16 and B=1 x 32,768) and with sinks, window
+128 and softcap 30; (3) card against CPU for gemm_impl="dma" at 2 layers
+(prefill, 4 decode steps); (4) the W4A16 engine with gemm_impl="dma" at 32
+layers on the W4A16 phase's weights, waves A and B+C and the cold check
+(K10 in every decode step, K1 at prefill and mixed steps), and K8's path,
+its op entry points over 32 head-major layers (store_cache_head_major,
+then paged_attention_decode, 8 steps), each output equal to K5's over the
+page-major transpose; (5) the dma engine's decode profile, K10's device
+ms a step against the pipeline engine's K1. Each phase prints its time
+([time] lines).
 
 Prints a JSON line of per-kernel numbers, then, last,
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -492,6 +505,23 @@ def int4pack_yardstick(torch, w, scales, group):
     return (lambda a: torch._weight_int4pack_mm(a, packed, group, sz)), None
 
 
+def int4pack_ms(torch, a0, w, scales, group):
+    """(ms, note) of the library yardstick on the bare GEMM a0 @ W, or
+    (None, reason). The library call is held to the plain version without
+    prologue or epilogue; tinygemm rounds each dequantized weight to bf16,
+    2^-9 relative, so 2^-6 of the output's scale."""
+    from sgl_kernel_tpu_torch.ops.gemm import w4a16
+
+    fn, note = int4pack_yardstick(torch, w, scales, group)
+    if fn is None:
+        return None, note
+    bare = w4a16.w4a16_gemm_ref(a0, w, scales, group_size=group).float()
+    lib_err = float((fn(a0).float() - bare).abs().max())
+    if lib_err > 2.0 ** -6 * float(bare.abs().max()):
+        return None, f"_weight_int4pack_mm disagrees with the plain GEMM by {lib_err:.4g}"
+    return time_ms(torch, lambda: fn(a0)), f"max_abs_err {lib_err:.4g}"
+
+
 def phase_w4a16(torch, skt):
     """K1 against its plain version at the W4A16 Llama-3-8B GEMMs: the five
     decode GEMMs of a step (M=16) with the prologue and epilogue each has on
@@ -540,21 +570,7 @@ def phase_w4a16(torch, skt):
         bms, bby = bound_ms(n_bytes, 2 * m * n * k, BF16_FLOPS)
         lib_ms, lib_note = None, "no library call for this format"
         if kw.get("fmt", "int4") == "int4" and "zeros" not in kw:
-            fn, lib_note = int4pack_yardstick(torch, w, scales, g)
-            if fn is not None:
-                # the library call is the bare GEMM: held to the plain
-                # version without prologue or epilogue; tinygemm rounds each
-                # dequantized weight to bf16, 2^-9 relative, so 2^-6 of the
-                # output's scale
-                a0 = a[:, :k].contiguous()
-                bare = w4a16.w4a16_gemm_ref(a0, w, scales, group_size=g).float()
-                lib = fn(a0).float()
-                lib_err = float((lib - bare).abs().max())
-                if lib_err <= 2.0 ** -6 * float(bare.abs().max()):
-                    lib_ms, lib_note = time_ms(torch, lambda: fn(a0)), f"max_abs_err {lib_err:.4g}"
-                else:
-                    lib_note = f"_weight_int4pack_mm disagrees with the plain GEMM by {lib_err:.4g}"
-                del bare, lib
+            lib_ms, lib_note = int4pack_ms(torch, a[:, :k].contiguous(), w, scales, g)
         rows[f"w4a16_gemm_{name}"] = dict(
             max_abs_err=err, ms=time_ms(torch, lambda: w4a16.w4a16_gemm(a, w, scales, **kw)),
             plain_ms=time_ms(torch, lambda: w4a16.w4a16_gemm_ref(a, w, scales, **kw), iters=5),
@@ -713,6 +729,7 @@ NEW_TOKENS = 32
 LLAMA_BF16 = ("rmsnorm", "rope_decode_fused_qkv", "paged_attention_decode_dma", "store_cache_all_layers",
               "flash_attention", "flash_attention_packed")
 LLAMA_W4 = LLAMA_BF16 + ("w4a16_gemm",)
+LLAMA_W4_DMA = LLAMA_W4 + ("w4a16_gemm_dma",)
 MIXTRAL_BF16 = ("rmsnorm", "rope_decode_fused", "paged_attention_decode_dma", "store_cache_all_layers",
                 "flash_attention", "flash_attention_packed", "bf16_grouped_mm")
 MIXTRAL_W4 = MIXTRAL_BF16[:-1] + ("w4a16_gemm", "w4a16_grouped_mm")
@@ -726,22 +743,23 @@ def random_prompt(torch, gen, vocab, n):
 
 
 def instrument(eng):
-    """Wrap one engine's programs to count K1 launches by regime (prefill
-    programs, decode step, mixed step), the calls of each prefill program
+    """Wrap one engine's programs to count K1 and K10 launches by regime
+    (prefill programs, decode step, mixed step), the calls of each prefill program
     and the prompt tokens that mixed steps carry, and to keep each
     request's first-token logits while ``stats["capture"]`` is set. Returns
     the stats dict."""
     import sgl_kernel_tpu_torch as skt
 
-    gemm = skt.KERNELS["w4a16_gemm"]
-    stats = dict(by_regime={"prefill": 0, "decode": 0, "mixed": 0}, calls={}, mixed_tokens=0, first={},
-                 capture=False)
+    gemm, gemm_dma = skt.KERNELS["w4a16_gemm"], skt.KERNELS["w4a16_gemm_dma"]
+    stats = dict(by_regime={"prefill": 0, "decode": 0, "mixed": 0}, dma_by_regime={"prefill": 0, "decode": 0, "mixed": 0},
+                 calls={}, mixed_tokens=0, first={}, capture=False)
 
     def counted(fn, regime, name=None):
         def call(*args, **kw):
-            before = gemm.launches
+            before, before_dma = gemm.launches, gemm_dma.launches
             out = fn(*args, **kw)
             stats["by_regime"][regime] += gemm.launches - before
+            stats["dma_by_regime"][regime] += gemm_dma.launches - before_dma
             if name is not None:
                 stats["calls"][name] = stats["calls"].get(name, 0) + 1
             return out
@@ -874,9 +892,16 @@ def phase_serve(torch, skt, cfg, label, kernels, n_a=16, n_b=12, wave_c=True, pa
         fail(f"serve {label}: wave C's prompt in chunks by {bc['program_calls']}, expected one prefill and "
              f"{n_b} + 3 extends")
     want = {"prefill", "decode"} | ({"mixed"} if wave_c and mixed else set())
-    if "w4a16_gemm" in kernels and not all(stats["by_regime"][r] > 0 for r in want):
+    if "w4a16_gemm_dma" in kernels:
+        # gemm_impl="dma": K10 takes every GEMM of M <= 32 rows (all of a
+        # decode step's), K1 the prefill programs' and mixed steps' layers
+        if (stats["dma_by_regime"]["decode"] <= 0 or stats["by_regime"]["decode"] != 0
+                or not all(stats["by_regime"][r] > 0 for r in want - {"decode"})):
+            fail(f"serve {label}: K1 launches by regime {stats['by_regime']}, K10 {stats['dma_by_regime']}")
+    elif "w4a16_gemm" in kernels and not all(stats["by_regime"][r] > 0 for r in want):
         fail(f"serve {label}: K1 launches by regime {stats['by_regime']}")
     res = dict(engine=label, waves=[a, bc], w4a16_by_regime=dict(stats["by_regime"]),
+               w4a16_dma_by_regime=dict(stats["dma_by_regime"]),
                launches={k: a["launches"][k] + bc["launches"][k] for k in a["launches"]})
     if cold:
         if routing is not None:
@@ -929,13 +954,19 @@ def cold_compare(torch, skt, cfg, label, eng, prompts, warm_rids, warm_first, ro
     return res
 
 
-def phase_profile(torch, eng, lens, label, top=12):
+# device time a step of the W4A16 GEMMs, by kernel-name fragment
+GEMM_GROUPS = {"K1 w4a16_gemm": ("w4a16_kernel", "split_reduce_kernel"),
+               "K10 w4a16_gemm_dma": ("gemm_dma_kernel", "k10::reduce_kernel")}
+
+
+def phase_profile(torch, eng, lens, label, top=12, groups=None):
     """Where a decode step's time goes: the serving engine of phase 4, 16
     prompts of ``lens`` admitted again (prompts past the engine's chunk are
     prefilled a chunk a step, all 16 side by side), then 4 decode-only
     scheduler steps traced with torch.profiler. Device-busy time is the
     union of the kernel intervals over the window (kernels of one stream do
-    not overlap)."""
+    not overlap). ``groups`` {label: name fragments} adds the device ms a
+    step of the kernels whose names hold one of the fragments."""
     steps = 4
     gen = torch.Generator().manual_seed(SEED + 3)
     for n in lens:
@@ -974,6 +1005,9 @@ def phase_profile(torch, eng, lens, label, top=12):
         device_busy_share=busy_us / 1e6 / wall if spans else None,
         kernel_launches_per_step=len(spans) / steps,
         kernels_ms_per_step={k[:80]: v / 1e3 / steps for k, v in top})
+    if groups:
+        res["group_ms_per_step"] = {g: sum(v for k, v in per_kernel.items() if any(f in k for f in frags)) / 1e3 / steps
+                                    for g, frags in groups.items()}
     log("[profile] " + json.dumps(res))
     return res
 
@@ -1948,6 +1982,233 @@ def path_mla_decode_dma(torch, skt):
     return res
 
 
+def phase_decode_variants(torch, skt):
+    """Slice 7's kernels against their plain versions. K10 (w4a16_gemm_dma)
+    at the W4A16 Llama-3-8B decode GEMMs (M=16, group 128: qkv, o with its
+    residual, gate_up, down on the gate / up slices of one [M, 2I] tensor
+    with silu_mul and a residual, the padded lm_head; gate_up also at M=1
+    and M=32), with K1's CUDA-graph time on the same call and
+    torch._weight_int4pack_mm beside each. The decode kernel at K5's shape
+    (B=16, 32 q / 8 kv heads of 128, page 64, contexts 1..1,056, 32-layer
+    pools, layer 31): K8 (paged_attention_decode) over head-major pools in
+    bf16 and in e4m3 with scales; K5 with layout="head" on the same pools;
+    K5 with return_lse; K5 split at choose_num_splits(B, ctx, 64, 16,
+    sm_count()) at B=16 and at B=1 x 32,768, beside the unsplit time; K5
+    with sinks, window 128 and softcap 30."""
+    from sgl_kernel_tpu_torch.ops.attention import paged_decode, paged_decode_dma
+    from sgl_kernel_tpu_torch.ops.gemm import w4a16, w4a16_dma
+    from sgl_kernel_tpu_torch.utils import sm_count
+
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 11)
+    bf = torch.bfloat16
+    n_sm = sm_count(0)
+    rows = {}
+
+    def randn(*shape, dtype=bf, scale=1.0):
+        return (torch.randn(shape, generator=gen, device=dev) * scale).to(dtype)
+
+    def report(name, row, dev_fn=None):
+        rows[name] = report_row(torch, name, row, dev_fn)
+
+    cfg = skt.LlamaConfig.llama3_8b(fused=True)
+    h, inter, nq, nkv, d = cfg.hidden_size, cfg.intermediate_size, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    g, vocab = cfg.group_size, -(-cfg.vocab_size // 2048) * 2048  # the lm_head's N padded as the model pads it
+    for name, m, n, k, opt in (("qkv", 16, (nq + 2 * nkv) * d, h, None), ("o", 16, h, nq * d, "residual"),
+                               ("gate_up", 16, 2 * inter, h, None), ("down", 16, h, inter, "silu_mul"),
+                               ("lm_head", 16, vocab, h, None), ("gate_up_m1", 1, 2 * inter, h, None),
+                               ("gate_up_m32", 32, 2 * inter, h, None)):
+        w, scales, _ = w4a16.quantize_w4(torch.randn((n, k), generator=gen, device=dev) * 0.02, group_size=g)
+        kw = dict(group_size=g)
+        if opt == "silu_mul":
+            gu = randn(m, 2 * k)
+            a = gu[:, :k]
+            kw.update(a2=gu[:, k:], prologue="silu_mul")
+        else:
+            a = randn(m, k)
+        if opt is not None:
+            kw["residual"] = randn(m, n)
+        fn = lambda: w4a16_dma.w4a16_gemm_dma(a, w, scales, **kw)
+        ref_fn = lambda: w4a16_dma.w4a16_gemm_dma_ref(a, w, scales, **kw)
+        before = w4a16_dma.w4a16_gemm_dma.launches
+        out = fn()
+        if w4a16_dma.w4a16_gemm_dma.launches != before + 1:
+            fail(f"w4a16_gemm_dma {name} did not launch K10")
+        err = check(f"w4a16_gemm_dma {name} [{m}, {n}, {k}]", [(out, ref_fn())])
+        # codes, scales, activations (a and a2), residual, the bf16 output
+        n_bytes = (w.numel() + 2 * scales.numel() + 2 * m * k * (2 if "a2" in kw else 1)
+                   + (2 * m * n if "residual" in kw else 0) + 2 * m * n)
+        bms, bby = bound_ms(n_bytes, 2 * m * n * k, BF16_FLOPS)
+        lib_ms, lib_note = int4pack_ms(torch, a.contiguous(), w, scales, g)
+        split, per, workers = w4a16_dma.plan(m, n, k, g, False, n_sm)
+        row = dict(max_abs_err=err, ms=time_ms(torch, fn), plain_ms=time_ms(torch, ref_fn, iters=3, warmup=1),
+                   library_ms=lib_ms, bound_ms=bms, bound_by=bby,
+                   library_note=f"(_weight_int4pack_mm, bare GEMM: {lib_note})",
+                   k1_graph_ms=graph_ms(torch, lambda: w4a16.w4a16_gemm(a, w, scales, **kw)),
+                   plan=dict(split=split, groups_per_split=per, workers=workers))
+        report(f"w4a16_gemm_dma_{name}", row, fn)
+        log(f"[kernel] w4a16_gemm_dma {name}: {100 * bms / row['graph_ms']:.1f} % of HBM on the device, "
+            f"K1 {100 * bms / row['k1_graph_ms']:.1f} % ({row['k1_graph_ms']:.4f} ms); plan {row['plan']}")
+        del w, scales, a, kw, out
+        torch.cuda.empty_cache()
+
+    # the decode kernel at K5's shape (phase 2's K5 rows): the pool holds
+    # length-1 tokens, the current token rides as the fresh row
+    n_layers = cfg.num_layers
+    b, page, layer = 16, 64, n_layers - 1
+    lengths_l = [1 + (1055 * i) // (b - 1) for i in range(b)]
+    table, n_used = paged_table(torch, gen, [n - 1 for n in lengths_l], page, cfg.max_position // page)
+    lengths = torch.tensor(lengths_l, dtype=torch.int32, device=dev)
+    shape = (n_layers, n_used + 1, nkv, page, d)
+    kp, vp = randn(*shape), randn(*shape)
+    kh, vh = kp.transpose(1, 2).contiguous(), vp.transpose(1, 2).contiguous()
+    q, fk, fv = randn(b, nq, d), randn(b, nkv, d), randn(b, nkv, d)
+    dkw = dict(layer_id=layer, fresh_k=fk, fresh_v=fv)
+    pool_tokens = sum(n - 1 for n in lengths_l)
+    small = (2 * b * nq * d + 2 * b * nkv * d) * 2 + n_used * 4 + b * 4  # q, out, fresh rows, table, lengths
+
+    def attn_row(name, fn, ref_fn, n_bytes, n_tok, what):
+        before = {f: f.launches for f in (paged_decode.paged_attention_decode,
+                                           paged_decode_dma.paged_attention_decode_dma)}
+        out = fn()
+        if sum(f.launches - n0 for f, n0 in before.items()) != 1:
+            fail(f"{name}: not one launch of the decode kernel")
+        ref = ref_fn()
+        pairs = list(zip(out, ref)) if isinstance(out, tuple) else [(out, ref)]
+        err = check(f"{name} [{what}]", pairs)
+        bms, bby = bound_ms(n_bytes, 4 * n_tok * nq * d, BF16_FLOPS)
+        row = dict(max_abs_err=err, ms=time_ms(torch, fn), plain_ms=time_ms(torch, ref_fn, iters=5),
+                   library_ms=None, library_note="(no PyTorch call attends over a paged pool)", bound_ms=bms,
+                   bound_by=bby)
+        report(name, row, fn)
+        return row
+
+    bf_bytes = 2 * pool_tokens * nkv * d * 2 + small
+    what = "B=16, ctx 1..1056, 32 layers"
+    attn_row("paged_attention_decode", lambda: paged_decode.paged_attention_decode(q, kh, vh, lengths, table, **dkw),
+             lambda: paged_decode.paged_attention_decode_ref(q, kh, vh, lengths, table, **dkw), bf_bytes,
+             sum(lengths_l), what + ", head-major bf16")
+    k8, v8 = (randn(*kh.shape, dtype=torch.float8_e4m3fn, scale=4.0) for _ in range(2))
+    fkw = dict(dkw, k_scale=0.5, v_scale=0.5)
+    attn_row("paged_attention_decode_e4m3",
+             lambda: paged_decode.paged_attention_decode(q, k8, v8, lengths, table, **fkw),
+             lambda: paged_decode.paged_attention_decode_ref(q, k8, v8, lengths, table, **fkw),
+             2 * pool_tokens * nkv * d + small, sum(lengths_l), what + ", head-major e4m3, scales 0.5")
+    del k8, v8
+    attn_row("paged_attention_decode_dma_head",
+             lambda: paged_decode_dma.paged_attention_decode_dma(q, kh, vh, lengths, table, layout="head", **dkw),
+             lambda: paged_decode_dma.paged_attention_decode_ref(q, kh, vh, lengths, table, layout="head", **dkw),
+             bf_bytes, sum(lengths_l), what + ', layout="head"')
+    del kh, vh
+    lkw = dict(dkw, return_lse=True)
+    attn_row("paged_attention_decode_dma_lse",
+             lambda: paged_decode_dma.paged_attention_decode_dma(q, kp, vp, lengths, table, **lkw),
+             lambda: paged_decode_dma.paged_attention_decode_ref(q, kp, vp, lengths, table, **lkw),
+             bf_bytes + b * nq * 4, sum(lengths_l), what + ", return_lse")
+    ns = paged_decode_dma.choose_num_splits(b, max(lengths_l), page, 16, num_cores=n_sm)
+    skw = dict(dkw, num_splits=ns, chunk_pages=16)
+    row = attn_row("paged_attention_decode_dma_split16",
+                   lambda: paged_decode_dma.paged_attention_decode_dma(q, kp, vp, lengths, table, **skw),
+                   lambda: paged_decode_dma.paged_attention_decode_ref(q, kp, vp, lengths, table, **skw),
+                   bf_bytes, sum(lengths_l), what + f", num_splits={ns}")
+    row.update(num_splits=ns, unsplit_graph_ms=graph_ms(
+        torch, lambda: paged_decode_dma.paged_attention_decode_dma(q, kp, vp, lengths, table, **dkw)))
+    # sinks, window 128, softcap 30: only the last 128 positions attend
+    sinks = torch.randn(nq, generator=gen, device=dev)
+    okw = dict(dkw, sliding_window=128, logit_soft_cap=30.0)
+    win_tokens = sum(min(n - 1, 127) for n in lengths_l)
+    attn_row("paged_attention_decode_dma_options",
+             lambda: paged_decode_dma.paged_attention_decode_dma(q, kp, vp, lengths, table, sinks, **okw),
+             lambda: paged_decode_dma.paged_attention_decode_ref(q, kp, vp, lengths, table, sinks, **okw),
+             2 * win_tokens * nkv * d * 2 + small + nq * 4, win_tokens + b, what + ", sinks, window 128, softcap 30")
+    del kp, vp
+    # B=1 x 32,768 tokens, one layer: the split's case
+    long_len = [32768]
+    table, n_used = paged_table(torch, gen, [long_len[0] - 1], page, long_len[0] // page)
+    lengths = torch.tensor(long_len, dtype=torch.int32, device=dev)
+    kp, vp = randn(1, n_used + 1, nkv, page, d), randn(1, n_used + 1, nkv, page, d)
+    q1, fk1, fv1 = q[:1].contiguous(), fk[:1].contiguous(), fv[:1].contiguous()
+    ns = paged_decode_dma.choose_num_splits(1, long_len[0], page, 16, num_cores=n_sm)
+    lkw = dict(fresh_k=fk1, fresh_v=fv1, num_splits=ns, chunk_pages=16)
+    n_bytes = 2 * (long_len[0] - 1) * nkv * d * 2 + (2 * nq * d + 2 * nkv * d) * 2 + n_used * 4 + 4
+    row = attn_row("paged_attention_decode_dma_split_32k",
+                   lambda: paged_decode_dma.paged_attention_decode_dma(q1, kp, vp, lengths, table, **lkw),
+                   lambda: paged_decode_dma.paged_attention_decode_ref(q1, kp, vp, lengths, table, **lkw),
+                   n_bytes, long_len[0], f"B=1 x 32,768, num_splits={ns}")
+    unsplit = lambda: paged_decode_dma.paged_attention_decode_dma(q1, kp, vp, lengths, table, fresh_k=fk1,
+                                                                  fresh_v=fv1)
+    check("paged_attention_decode_dma unsplit [B=1 x 32,768]",
+          [(unsplit(), paged_decode_dma.paged_attention_decode_ref(q1, kp, vp, lengths, table, fresh_k=fk1,
+                                                                   fresh_v=fv1))])
+    row.update(num_splits=ns, unsplit_ms=time_ms(torch, unsplit), unsplit_graph_ms=graph_ms(torch, unsplit))
+    log(f"[kernel] paged_attention_decode_dma B=1 x 32,768: {ns} splits {row['graph_ms']:.4f} ms against "
+        f"{row['unsplit_graph_ms']:.4f} unsplit (CUDA graph)")
+    del kp, vp
+    return rows
+
+
+def path_head_major_decode(torch, skt, steps=8):
+    """K8's path: no model calls paged_attention_decode, in the JAX package
+    either; its entry points are the ops. Driven as a user calls them: 32
+    layers of head-major pools at Llama-3-8B widths (8 kv heads of 128,
+    page 64), B=16 at contexts 1..1,056, ``steps`` decode steps; each layer
+    stores the step's K/V with store_cache_head_major, then attends with
+    paged_attention_decode (K8, layer_id). Counts set to 0 just before and
+    read just after: K8 launches once a layer and step. Gate: each output
+    equals K5's over the page-major transpose of the same layer's pools
+    (one kernel, other strides: bit for bit)."""
+    from sgl_kernel_tpu_torch.ops import kvcache
+    from sgl_kernel_tpu_torch.ops.attention import paged_decode, paged_decode_dma
+
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 12)
+    cfg = skt.LlamaConfig.llama3_8b(fused=True)
+    nq, nkv, d, n_layers = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, cfg.num_layers
+    b, page = 16, 64
+    lengths_l = [1 + (1055 * i) // (b - 1) for i in range(b)]
+    table, n_used = paged_table(torch, gen, [n + steps for n in lengths_l], page, cfg.max_position // page)
+    shape = (n_layers, nkv, n_used + 1, page, d)
+    kh = torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+    vh = torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+    lengths0 = torch.tensor(lengths_l, dtype=torch.int32, device=dev)
+    rows = torch.arange(b, device=dev)
+    worst, outs = 0.0, 0
+    torch.cuda.synchronize()
+    skt.reset_launch_counts()
+    t0 = time.perf_counter()
+    for step in range(steps):
+        lengths = lengths0 + step
+        pos = (lengths - 1).long()
+        slots = table[rows, pos // page].long() * page + pos % page
+        for lidx in range(n_layers):
+            q = torch.randn((b, nq, d), generator=gen, device=dev).to(torch.bfloat16)
+            k = torch.randn((b, nkv, d), generator=gen, device=dev).to(torch.bfloat16)
+            v = torch.randn((b, nkv, d), generator=gen, device=dev).to(torch.bfloat16)
+            kvcache.store_cache_head_major(k, v, kh[lidx], vh[lidx], slots)
+            out = paged_decode.paged_attention_decode(q, kh, vh, lengths, table, layer_id=lidx)
+            n8 = paged_decode.paged_attention_decode.launches
+            ref = paged_decode_dma.paged_attention_decode_dma(
+                q, kh[lidx].transpose(0, 1).contiguous(), vh[lidx].transpose(0, 1).contiguous(), lengths, table)
+            if paged_decode.paged_attention_decode.launches != n8 or not bool(torch.isfinite(out).all()):
+                fail("paged_attention_decode path: K8 launched by the gate, or a non-finite output")
+            worst = max(worst, float((out.float() - ref.float()).abs().max()))
+            outs += 1
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = skt.launch_counts()
+    # K5's launches are the gate's, not the path's
+    if counts["paged_attention_decode"] != steps * n_layers or counts["paged_attention_decode_dma"] != outs:
+        fail(f"paged_attention_decode path: launches {counts}")
+    if worst != 0.0:
+        fail(f"paged_attention_decode path: K8 differs from K5 over the page-major transpose by {worst}")
+    res = dict(layers=n_layers, batch=b, steps=steps, outputs=outs, max_diff_vs_k5_page_major=worst,
+               wall_ms=1e3 * wall, launches={"paged_attention_decode": counts["paged_attention_decode"]})
+    log("[path] paged_attention_decode over 32 head-major layers: " + json.dumps(res))
+    del kh, vh
+    free_memory(torch)
+    return res
+
+
 def main():
     import faulthandler
 
@@ -1993,13 +2254,18 @@ def main():
         rows.update(phase_moe_bf16_kernels(torch, skt))
         torch.cuda.empty_cache()
         rows.update(phase_nsa_kernels(torch, skt))
+        torch.cuda.empty_cache()
+        rows.update(phase_decode_variants(torch, skt))
     bf16_cfg = skt.LlamaConfig.llama3_8b(fused=True)
     w4_cfg = skt.LlamaConfig.llama3_8b(quant="w4a16", fused=True)
+    dma_cfg = dataclasses.replace(w4_cfg, gemm_impl="dma")
     with phase("3 parity llama"):
         parity = {label: phase_parity(torch, skt, c, label) for label, c in (("bf16", bf16_cfg), ("w4a16", w4_cfg))}
         # the fused=False layout (K2, separate q/k/v linears, K4) at decode
         parity["bf16-unfused"] = phase_parity(torch, skt, skt.LlamaConfig.llama3_8b(), "bf16-unfused",
                                               programs=("prefill", "decode"))
+        # gemm_impl="dma": K10 at every GEMM of M <= 32 rows
+        parity["w4a16-dma"] = phase_parity(torch, skt, dma_cfg, "w4a16-dma", programs=("prefill", "decode"))
     serve = {}
     with phase("4-5 serve llama bf16"):
         serve["bf16"], eng, lens = phase_serve(torch, skt, bf16_cfg, "bf16", LLAMA_BF16)
@@ -2008,7 +2274,7 @@ def main():
         free_memory(torch)
     with phase("4-5 serve llama w4a16"):
         serve["w4a16"], eng, lens = phase_serve(torch, skt, w4_cfg, "w4a16", LLAMA_W4)
-        profile["w4a16"] = phase_profile(torch, eng, lens, "w4a16")
+        profile["w4a16"] = phase_profile(torch, eng, lens, "w4a16", groups=GEMM_GROUPS)
         params = eng.params
         del eng
         free_memory(torch)
@@ -2019,6 +2285,19 @@ def main():
                                                     wave_c=False, params=params, cold=False)
         if eng.caches[0].dtype != torch.int8:
             fail(f"serve w4a16-int8kv: pools are {eng.caches[0].dtype}")
+        del eng
+        free_memory(torch)
+    with phase("4-5 serve llama w4a16-dma"):
+        # the same W4A16 weights with gemm_impl="dma": K10 decodes
+        serve["w4a16-dma"], eng, lens = phase_serve(torch, skt, dma_cfg, "w4a16-dma", LLAMA_W4_DMA, params=params)
+        profile["w4a16-dma"] = phase_profile(torch, eng, lens, "w4a16-dma", groups=GEMM_GROUPS)
+        for wave, (dw, pw) in enumerate(zip(serve["w4a16-dma"]["waves"], serve["w4a16"]["waves"])):
+            log(f"[serve] decode ms/step wave {'A' if wave == 0 else 'B+C'}: w4a16-dma {dw['decode_ms_step']:.2f} "
+                f"against w4a16 (pipeline) {pw['decode_ms_step']:.2f}")
+        log(f"[profile] decode step: w4a16-dma {profile['w4a16-dma']['step_ms']:.2f} ms, "
+            f"{profile['w4a16-dma']['kernel_launches_per_step']:.0f} launches, GEMMs "
+            f"{profile['w4a16-dma']['group_ms_per_step']} against w4a16 {profile['w4a16']['step_ms']:.2f} ms, "
+            f"{profile['w4a16']['kernel_launches_per_step']:.0f} launches, {profile['w4a16']['group_ms_per_step']}")
         del eng, params
         free_memory(torch)
 
@@ -2084,6 +2363,8 @@ def main():
         free_memory(torch)
     with phase("4 path mla_decode dma"):
         paths = {"mla_decode_dma": path_mla_decode_dma(torch, skt)}
+    with phase("4 path paged_attention_decode head-major"):
+        paths["paged_attention_decode"] = path_head_major_decode(torch, skt)
     with phase("4 serve mixtral bf16 8 layers"):
         # 8 of 32 layers: the full bf16 model (93.4 GB) does not fit in 80 GB
         serve["mixtral-bf16-8l"], eng, _ = phase_serve(
@@ -2121,14 +2402,18 @@ def main():
                            "sgl_kernel_tpu/ops/attention/mla.py:287", "mla_decode_dma_bf16"),
         "fp8_paged_mqa_logits": ("cuda", "sgl_kernel_tpu_torch/csrc/mqa_logits.cu",
                                  "sgl_kernel_tpu/ops/attention/nsa.py:141", "fp8_paged_mqa_logits_decode"),
+        "w4a16_gemm_dma": ("cuda", "sgl_kernel_tpu_torch/csrc/w4a16_gemm_dma.cu",
+                           "sgl_kernel_tpu/ops/gemm/w4a16_dma.py:170", "w4a16_gemm_dma_gate_up"),
+        "paged_attention_decode": ("cuda", "sgl_kernel_tpu_torch/csrc/decode_attention.cu",
+                                   "sgl_kernel_tpu/ops/attention/paged_decode.py:158", "paged_attention_decode"),
     }
     kernels = []
     # launches: the main paths' waves in phase 4, counted from 0 before each
-    # wave, summed over every engine, and K13b's op path
+    # wave, summed over every engine, and the op paths of K13b and K8
     for name, (route, src, repl, row) in meta.items():
         r = rows[row]
         kernels.append(dict(name=name, route=route, source=src, replaces=repl,
-                            launches=sum(res["launches"][name] for res in (*serve.values(), *paths.values())),
+                            launches=sum(res["launches"].get(name, 0) for res in (*serve.values(), *paths.values())),
                             max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
                             bound_by=r["bound_by"], library_ms=r["library_ms"]))
         if kernels[-1]["launches"] <= 0:
@@ -2140,7 +2425,11 @@ def main():
                  "bf16_grouped_mm_mixtral_decode_gate_up", "bf16_grouped_mm_mixtral_decode_down",
                  "bf16_grouped_mm_mixtral_prefill_gate_up", "fp8_paged_mqa_logits_decode_bf16",
                  "fp8_paged_mqa_logits_ctx8192", "fp8_paged_mqa_logits_ctx32768", "mla_decode_dma_bf16_640",
-                 "mla_decode_dma_e4m3_640"):
+                 "mla_decode_dma_e4m3_640", "w4a16_gemm_dma_qkv", "w4a16_gemm_dma_o", "w4a16_gemm_dma_down",
+                 "w4a16_gemm_dma_lm_head", "w4a16_gemm_dma_gate_up_m1", "w4a16_gemm_dma_gate_up_m32",
+                 "paged_attention_decode_e4m3", "paged_attention_decode_dma_head", "paged_attention_decode_dma_lse",
+                 "paged_attention_decode_dma_split16", "paged_attention_decode_dma_split_32k",
+                 "paged_attention_decode_dma_options"):
         log(f"[kernel] {name}: " + json.dumps(rows[name]))
     log(json.dumps({"card": card, "parity": parity, "serve": serve, "profile": profile, "paths": paths,
                     "phase_s": times}))

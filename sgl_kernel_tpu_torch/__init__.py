@@ -9,6 +9,8 @@ unless the caller passes ``device="cpu"``.
 
 Kernels ported so far (each wrapper counts its launches in ``.launches``):
   K1 w4a16_gemm, K5 paged_attention_decode_dma, K6 store_cache_all_layers,
+  K8 paged_attention_decode (K5's kernel over head-major pools), K10
+  w4a16_gemm_dma (``LlamaConfig(gemm_impl="dma")`` decode),
   K7 flash_attention and K9 flash_attention_packed (head dim 64, 128 and
   576), K11 w4a16_grouped_mm, K12 bf16_grouped_mm, K13a mla_decode, K13b
   mla_decode_dma (``mla_decode(engine="dma")``), K15 fp8_paged_mqa_logits
@@ -37,6 +39,7 @@ from .models.llama import (
 from .ops.attention import (
     apply_sinks,
     build_packed_metadata,
+    choose_num_splits,
     fast_topk,
     fast_topk_transform_fused,
     fast_topk_transform_ragged_fused,
@@ -52,13 +55,14 @@ from .ops.attention import (
     mla_decode,
     mla_decode_dma,
     mla_prefill,
+    paged_attention_decode,
     paged_attention_decode_dma,
     sparse_mla_decode,
     sparse_mla_prefill,
 )
-from .ops.gemm import dequant_w4, quantize_w4, w4a16_gemm
+from .ops.gemm import dequant_w4, quantize_w4, w4a16_gemm, w4a16_gemm_dma
 from .ops.hadamard import hadamard_transform
-from .ops.kvcache import store_cache_all_layers, store_cache_mla, store_cache_stacked
+from .ops.kvcache import store_cache_all_layers, store_cache_head_major, store_cache_mla, store_cache_stacked
 from .ops.moe import (
     MoeWeights,
     bf16_grouped_mm,
@@ -96,6 +100,7 @@ KERNELS = {
     "rope_decode_fused_qkv": rope_decode_fused_qkv,
     "rope_decode_fused": rope_decode_fused,
     "paged_attention_decode_dma": paged_attention_decode_dma,
+    "paged_attention_decode": paged_attention_decode,
     "store_cache_all_layers": store_cache_all_layers,
     "flash_attention": flash_attention,
     "flash_attention_packed": flash_attention_packed,
@@ -105,6 +110,7 @@ KERNELS = {
     "mla_decode_dma": mla_decode_dma,
     "mla_qkv_prep": mla_qkv_prep,
     "fp8_paged_mqa_logits": fp8_paged_mqa_logits,
+    "w4a16_gemm_dma": w4a16_gemm_dma,
 }
 
 

@@ -21,12 +21,13 @@ or fp8 with a per-tensor ``kv_scale``: stores quantize (``_kv_quant``) and
 decode attention folds the scale back in.
 
 Kernels on the path: W4A16 GEMM (K1, with the decode norms in its
-prologue), rmsnorm (K2), rope_decode_fused_qkv (K3; the ``fused=False``
+prologue; with ``gemm_impl="dma"`` the decode-bucket GEMMs, M <= 32, take
+K10 instead, after a standalone rmsnorm), rmsnorm (K2), rope_decode_fused_qkv (K3; the ``fused=False``
 decode step takes K2, the separate q/k/v linears and rope_decode_fused, K4),
 paged decode attention (K5), the all-layers KV store (K6), flash prefill
 (K7, with its base-2 lse on the extend passes), packed flash prefill (K9).
 The bf16 linears are plain ``torch.matmul``, as the JAX model leaves them to
-XLA. Not ported: ``gemm_impl="dma"`` decode (K10), which raises.
+XLA.
 """
 
 from __future__ import annotations
@@ -38,6 +39,7 @@ import torch
 
 from ..ops.attention import flash_attention, flash_attention_packed, merge_state, paged_attention_decode_dma
 from ..ops.gemm.w4a16 import quantize_w4, w4a16_gemm
+from ..ops.gemm.w4a16_dma import w4a16_gemm_dma
 from ..ops.kvcache import store_cache_all_layers, store_cache_stacked
 from ..ops.norm import rmsnorm
 from ..ops.rope import compute_cos_sin_cache, rope_decode_fused, rope_decode_fused_qkv, rotary_embedding
@@ -67,8 +69,8 @@ class LlamaConfig:
     group_size: int = 128
     # q/k/v and gate/up as single fused projections (the serving layout)
     fused: bool = False
-    # W4A16 decode GEMM: "pipeline" (K1) or "dma" (K10, not ported: its
-    # decode raises); prefill always takes K1
+    # W4A16 decode GEMM (M <= 32): "pipeline" (K1) or "dma" (K10, streamed
+    # weights); prefill always takes K1
     gemm_impl: str = "pipeline"
     # KV pool dtype: None (the model dtype), torch.int8, torch.float8_e4m3fn
     # or torch.float8_e5m2
@@ -200,10 +202,10 @@ def _quantize_layers(layers, cfg: LlamaConfig):
 
 
 def _w4_kernel_for(cfg: LlamaConfig, m: int):
-    """The W4A16 GEMM for M rows: K1, or K10 for decode with
-    ``gemm_impl="dma"``, which is not ported."""
+    """The W4A16 GEMM for M rows: K10 for the decode bucket (M <= 32) with
+    ``gemm_impl="dma"``, else K1 (llama.py:181-186)."""
     if cfg.gemm_impl == "dma" and m <= 32:
-        raise NotImplementedError("gemm_impl='dma': the DMA decode GEMM (K10) is not ported yet")
+        return w4a16_gemm_dma
     return w4a16_gemm
 
 
@@ -212,15 +214,18 @@ def _linear(x, w, cfg: LlamaConfig, residual=None, layer_id=None, norm=None, bia
     ``layer_id``), rounded to the model dtype; ``norm`` is an rmsnorm weight
     applied to x first; ``residual`` and ``bias`` are added after. A
     quantized ``w`` ({"packed", "scales"}) runs the W4A16 GEMM, with the
-    norm in its prologue and the residual added before its one rounding."""
+    norm in K1's prologue and the residual added before its one rounding;
+    every other path (K10, which has no norm prologue, and the bf16 matmul)
+    applies the standalone rmsnorm first (llama.py:201-205)."""
+    kern = _w4_kernel_for(cfg, x.shape[0]) if isinstance(w, dict) else None
+    if norm is not None and kern is not w4a16_gemm:
+        x = rmsnorm(x, norm[layer_id] if layer_id is not None else norm, cfg.rms_eps)
+        norm = None
     if isinstance(w, dict):
         kw = {} if norm is None else {"norm_weight": norm, "norm_eps": cfg.rms_eps}
-        out = _w4_kernel_for(cfg, x.shape[0])(
-            x, w["packed"], w["scales"], residual=residual, layer_id=layer_id,
-            group_size=cfg.group_size, out_dtype=cfg.dtype, **kw)
+        out = kern(x, w["packed"], w["scales"], residual=residual, layer_id=layer_id,
+                   group_size=cfg.group_size, out_dtype=cfg.dtype, **kw)
     else:
-        if norm is not None:
-            x = rmsnorm(x, norm[layer_id] if layer_id is not None else norm, cfg.rms_eps)
         wl = w[layer_id] if layer_id is not None else w
         out = torch.matmul(x, wl.t()).to(cfg.dtype)
         if residual is not None:
@@ -268,10 +273,13 @@ def _mlp(h2, weights, cfg, residual=None, layer_id=None, norm=None):
     w = weights["down"]
     if cfg.fused:
         gu = _linear(h2, weights["gate_up"], cfg, layer_id=layer_id, norm=norm)
-        # the fused gate_up output feeds the down GEMM's silu prologue
-        # directly when the down proj's packed K is the true intermediate
-        # size (a zero-padded K cannot pad the interleaved [M, 2I] array)
-        if isinstance(w, dict) and gu.shape[-1] // 2 == w["packed"].shape[-2] * 2:
+        # the fused gate_up output feeds K1's silu prologue directly when
+        # K1 is the down GEMM for these rows and the down proj's packed K is
+        # the true intermediate size (a zero-padded K cannot pad the
+        # interleaved [M, 2I] array); K10 takes the gate and up slices
+        # (llama.py:274-299)
+        if (isinstance(w, dict) and _w4_kernel_for(cfg, gu.shape[0]) is w4a16_gemm
+                and gu.shape[-1] // 2 == w["packed"].shape[-2] * 2):
             return w4a16_gemm(gu, w["packed"], w["scales"], residual=residual, layer_id=layer_id,
                               prologue="silu_mul", fused_gate_up=True, group_size=cfg.group_size,
                               out_dtype=cfg.dtype)

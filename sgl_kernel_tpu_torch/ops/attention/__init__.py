@@ -1,5 +1,5 @@
 """Attention operators: flash prefill (K7), packed flash prefill (K9), paged
-decode (K5), MLA decode (K13a, and K13b for engine="dma") and prefill, state
+decode over page-major (K5) and head-major (K8) pools, MLA decode (K13a, and K13b for engine="dma") and prefill, state
 merge, and the NSA indexer (K15), its top-k and sparse MLA."""
 
 from .flash_packed import (
@@ -26,4 +26,5 @@ from .nsa import (
     sparse_mla_decode,
     sparse_mla_prefill,
 )
-from .paged_decode_dma import paged_attention_decode_dma, paged_attention_decode_ref
+from .paged_decode import paged_attention_decode
+from .paged_decode_dma import choose_num_splits, paged_attention_decode_dma, paged_attention_decode_ref

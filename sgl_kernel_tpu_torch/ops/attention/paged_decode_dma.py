@@ -4,11 +4,15 @@
 ``csrc/decode_attention.cu``, replacing the Pallas
 ``paged_attention_decode_dma``
 (sgl_kernel_tpu/ops/attention/paged_decode_dma.py:306, pallas_call at
-:461). ``paged_attention_decode_ref`` is its plain PyTorch twin and covers the
-JAX contract over page-major pools (sinks, window, softcap, k/v scales,
-lse); the kernel takes bf16, int8, fp8 e4m3 and e5m2 pools with per-tensor
-k/v scales, the form the serving path uses, and raises on the rest. The name keeps the JAX module's: the kernel streams pages, but
-no longer by manual DMA.
+:461). ``paged_attention_decode_ref`` is its plain PyTorch twin. Both take
+the JAX contract: page-major ``[L, P, Hkv, page, D]`` or head-major
+``[L, Hkv, P, page, D]`` pools (``layout``), sinks, sliding window, soft
+cap, per-tensor k/v scales, the base-2 lse and split-KV (``num_splits``
+over chunks of ``chunk_pages`` pages, merged by ``merge_states``). The
+kernel takes bf16 q and bf16, int8, fp8 e4m3 and e5m2 pools and raises on
+the rest. The same kernel serves K8 (``paged_decode.py``) over head-major
+pools. The name keeps the JAX module's: the kernel streams pages, but no
+longer by manual DMA.
 """
 
 from __future__ import annotations
@@ -20,8 +24,41 @@ import torch
 
 from ... import _build
 from ...utils import cdiv
+from .merge_state import merge_states
 
 LOG2E = 1.4426950408889634
+
+
+def choose_num_splits(batch: int, max_context: int, page: int, chunk_pages: int,
+                      num_cores: int = 1) -> int:
+    """Split-KV factor (JAX paged_decode_dma.py:285-298): splits only pay
+    when the batch leaves compute units idle, here the card's SMs (pass
+    ``utils.sm_count()`` as ``num_cores``)."""
+    if num_cores <= 1 or batch >= num_cores:
+        return 1
+    n_chunks = cdiv(max_context, page * chunk_pages)
+    return max(1, min(num_cores // batch, n_chunks // 2))
+
+
+def split_geometry(n_blocks: int, page: int, hkv: int, chunk_pages: int, num_splits: int):
+    """(splits, pool tokens a split) as the JAX kernel cuts them
+    (paged_decode_dma.py:354-384): chunks of ``cpp`` pages, capped so a
+    chunk's K/V stays ~8K rows, the table padded to whole chunks, each
+    split ``cdiv(n_chunks, splits)`` chunks."""
+    n_blocks = max(n_blocks, 1)
+    span_tokens = max(page, 1024 * 8 // max(hkv, 1))
+    cpp = min(chunk_pages, n_blocks, max(1, span_tokens // page))
+    n_chunks = cdiv(n_blocks, cpp)
+    splits = max(1, min(num_splits, n_chunks))
+    return splits, cdiv(n_chunks, splits) * cpp * page
+
+
+def _layer_view(pages, layer_id, layout):
+    """One layer of a pool, page-major [P, Hkv, page, D] (a view)."""
+    if pages.ndim == 4:
+        pages = pages[None]
+    p = pages[0 if layer_id is None else int(layer_id)]
+    return p.transpose(0, 1) if layout == "head" else p
 
 
 def paged_attention_decode_ref(q, k_pages, v_pages, lengths, page_table, sinks=None,
@@ -29,21 +66,27 @@ def paged_attention_decode_ref(q, k_pages, v_pages, lengths, page_table, sinks=N
                                fresh_v=None, *, sm_scale: Optional[float] = None,
                                sliding_window: Optional[int] = None,
                                logit_soft_cap: Optional[float] = None,
-                               return_lse: bool = False):
+                               return_lse: bool = False, chunk_pages: int = 16,
+                               num_splits: int = 1, layout: str = "page"):
     """Plain PyTorch twin of ``paged_attention_decode_dma`` (gathers the
     pages the longest sequence uses, dense f32 scores). Pool values convert
     exactly to float32; the per-tensor scales round where the JAX function
     rounds (paged_decode_dma.py:392-405, :498-499): q * k_scale and
     fresh_k / k_scale, fresh_v / v_scale to the input dtypes, the output
-    times v_scale again to q's dtype."""
+    times v_scale again to q's dtype. With splits, each split's partial is
+    normalized and rounded to q's dtype, the fresh row and the sinks join
+    the last split, and ``merge_states`` combines them (:432, :488-);
+    a row with no pool token and no fresh row gives o = 0, lse = -inf
+    (JAX's merge gives NaN there). A sink joins the softmax as a logit with
+    no value: the same as JAX's ``l + exp(sink - m)``, finite where m is."""
+    if layout not in ("page", "head"):
+        raise ValueError(f"paged_attention_decode: layout must be 'page' or 'head', got {layout!r}")
     b, hq, d = q.shape
-    if k_pages.ndim == 4:
-        k_pages, v_pages = k_pages[None], v_pages[None]
-    lid = 0 if layer_id is None else int(layer_id)
-    kp, vp = k_pages[lid], v_pages[lid]
+    kp, vp = _layer_view(k_pages, layer_id, layout), _layer_view(v_pages, layer_id, layout)
     n_pages, hkv, page, _ = kp.shape
     group = hq // hkv
     scale = sm_scale if sm_scale is not None else 1.0 / d ** 0.5
+    splits, split_tokens = split_geometry(page_table.shape[1], page, hkv, chunk_pages, num_splits)
     lengths = lengths.to(q.device).long()
     limit = lengths - 1 if fresh_k is not None else lengths
     nb = min(page_table.shape[1], max(1, cdiv(int(limit.max().clamp_min(0)), page)))
@@ -64,34 +107,118 @@ def paged_attention_decode_ref(q, k_pages, v_pages, lengths, page_table, sinks=N
     mask = pos[None, :] < limit[:, None]
     if sliding_window is not None:
         mask = mask & (pos[None, :] > (lengths - 1 - sliding_window)[:, None])
+    split_of = pos // split_tokens
     if fresh_k is not None:
         sf = torch.einsum("bhgd,bhd->bhg", qh, fresh_k.reshape(b, hkv, d).float()) * scale
         s = torch.cat([s, sf[..., None]], dim=-1)
         vg = torch.cat([vg, fresh_v.reshape(b, hkv, 1, d).float()], dim=2)
         mask = torch.cat([mask, torch.ones((b, 1), dtype=torch.bool, device=q.device)], dim=1)
+        split_of = torch.cat([split_of, torch.full((1,), splits - 1, device=q.device)])
     if logit_soft_cap is not None:
         s = logit_soft_cap * torch.tanh(s / logit_soft_cap)
-    s = s.masked_fill(~mask[:, None, None, :], float("-inf"))
-    m = s.amax(dim=-1, keepdim=True).clamp_min(-1e30)
-    p = torch.exp(s - m)
-    l = p.sum(dim=-1, keepdim=True)
-    if sinks is not None:
-        l = l + torch.exp(sinks.float().to(q.device).reshape(1, hkv, group, 1) - m)
-    o = torch.einsum("bhgt,bhtd->bhgd", p, vg)
-    o = torch.where(l == 0, torch.zeros_like(o), o / l)
-    out = o.reshape(b, hq, d).to(q.dtype)
+    sink = sinks.float().to(q.device).reshape(1, hkv, group, 1) if sinks is not None else None
+    parts_o, parts_lse = [], []
+    for i in range(splits):
+        mi = mask & (split_of == i)[None, :]
+        si = s.masked_fill(~mi[:, None, None, :], float("-inf"))
+        m = si.amax(dim=-1, keepdim=True).clamp_min(-1e30)
+        if sink is not None and i == splits - 1:
+            m = torch.maximum(m, sink)
+        p = torch.exp(si - m)
+        l = p.sum(dim=-1, keepdim=True)
+        if sink is not None and i == splits - 1:
+            l = l + torch.exp(sink - m)
+        o = torch.einsum("bhgt,bhtd->bhgd", p, vg)
+        o = torch.where(l == 0, torch.zeros_like(o), o / l)
+        lse = torch.where(l == 0, torch.full_like(l, float("-inf")), (m + torch.log(l)) * LOG2E)
+        parts_o.append(o.reshape(b, hq, d).to(q.dtype))
+        parts_lse.append(lse.reshape(b, hq))
+    if splits == 1:
+        out, lse = parts_o[0], parts_lse[0]
+    else:
+        out, lse = _merge_splits(torch.stack(parts_o), torch.stack(parts_lse), q.dtype)
     if v_scale is not None:
         out = (out.float() * float(v_scale)).to(q.dtype)
-    if return_lse:
-        lse = (m + torch.log(l.clamp_min(1e-38))) * LOG2E
-        lse = torch.where(l == 0, torch.full_like(lse, float("-inf")), lse)
-        return out, lse.reshape(b, hq)
-    return out
+    return (out, lse) if return_lse else out
 
 
-_ARGS = (ctypes.c_void_p,) * 8 + (ctypes.c_int,) * 9 + (ctypes.c_float,) * 3 + (ctypes.c_void_p,)
+def _merge_splits(o_parts, lse_parts, dtype):
+    """Split partials [S, B, Hq, D] / [S, B, Hq] -> (o in ``dtype``, lse),
+    with o = 0 and lse = -inf where every split is empty."""
+    o, lse = merge_states(o_parts.float(), lse_parts)
+    empty = torch.isneginf(lse_parts.amax(dim=0))
+    o = o.masked_fill(empty[..., None], 0.0)
+    lse = lse.masked_fill(empty, float("-inf"))
+    return o.to(dtype), lse
+
+
+_ARGS = ((ctypes.c_void_p,) * 10 + (ctypes.c_int,) * 7 + (ctypes.c_longlong,) * 3 + (ctypes.c_int,) * 4
+         + (ctypes.c_float,) * 5 + (ctypes.c_void_p,))
 # pool dtypes of the kernel (csrc/decode_attention.cu)
 _POOL_TYPES = {torch.bfloat16: 0, torch.int8: 1, torch.float8_e4m3fn: 2, torch.float8_e5m2: 3}
+
+
+def launch_decode(name, q, k_pages, v_pages, lengths, page_table, sinks, k_scale, v_scale, layer_id,
+                  fresh_k, fresh_v, *, sm_scale, sliding_window, logit_soft_cap, return_lse, chunk_pages,
+                  num_splits, layout):
+    """Checks and one launch of the decode kernel on CUDA tensors (K5 and
+    K8 both come here); the caller counts the launch."""
+    if layout not in ("page", "head"):
+        raise ValueError(f"{name}: layout must be 'page' or 'head', got {layout!r}")
+    if k_pages.ndim == 4:
+        k_pages, v_pages = k_pages[None], v_pages[None]
+    b, hq, d = q.shape
+    if layout == "head":
+        _, hkv, n_pages, page, _ = k_pages.shape
+        page_stride, head_stride = page * d, n_pages * page * d
+    else:
+        _, n_pages, hkv, page, _ = k_pages.shape
+        page_stride, head_stride = hkv * page * d, page * d
+    group = hq // hkv
+    if hq % hkv or group not in (1, 2, 4, 8) or d not in (64, 128, 256) or k_pages.shape[-1] != d:
+        raise ValueError(f"{name}: unsupported q {tuple(q.shape)} pools {tuple(k_pages.shape)}")
+    if q.dtype != torch.bfloat16 or k_pages.dtype != v_pages.dtype or k_pages.dtype not in _POOL_TYPES:
+        raise NotImplementedError(f"{name}: the CUDA kernel takes bf16 q and bf16, int8, float8_e4m3fn "
+                                  "or float8_e5m2 pools")
+    if not (k_pages.is_contiguous() and v_pages.is_contiguous()) or k_pages.shape != v_pages.shape:
+        raise ValueError(f"{name}: pools must be contiguous and of one shape")
+    lid = 0 if layer_id is None else int(layer_id)
+    if fresh_k is not None:
+        fk = fresh_k.reshape(b, hkv, d).to(torch.bfloat16).contiguous()
+        fv = fresh_v.reshape(b, hkv, d).to(torch.bfloat16).contiguous()
+        fk_ptr, fv_ptr = fk.data_ptr(), fv.data_ptr()
+    else:
+        fk_ptr = fv_ptr = None
+    sk = sinks.float().reshape(hq).contiguous() if sinks is not None else None
+    q = q.contiguous()
+    lens = lengths.to(device=q.device, dtype=torch.int32).contiguous()
+    table = page_table.to(device=q.device, dtype=torch.int32)
+    if table.shape[1] == 0:  # nothing in the pool yet: one padding column (JAX :345-350)
+        table = torch.zeros((b, 1), dtype=torch.int32, device=q.device)
+    table = table.contiguous()
+    splits, split_tokens = split_geometry(table.shape[1], page, hkv, chunk_pages, num_splits)
+    out = torch.empty((splits, b, hq, d), dtype=q.dtype, device=q.device)
+    lse = (torch.empty((splits, b, hq), dtype=torch.float32, device=q.device)
+           if return_lse or splits > 1 else None)
+    scale = sm_scale if sm_scale is not None else 1.0 / d ** 0.5
+    vs = 1.0 if v_scale is None else float(v_scale)
+    ptr = lambda t: t.data_ptr() if t is not None else None
+    fn = _build.bind("decode_attention", "skt_paged_decode", _ARGS)
+    _build.check(fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), fk_ptr, fv_ptr, ptr(sk),
+                    lens.data_ptr(), table.data_ptr(), out.data_ptr(), ptr(lse), b, hkv, page, table.shape[1],
+                    d, group, _POOL_TYPES[k_pages.dtype], k_pages[0].numel(), page_stride, head_stride, lid,
+                    splits, split_tokens, -1 if sliding_window is None else int(sliding_window), scale,
+                    0.0 if logit_soft_cap is None else float(logit_soft_cap),
+                    1.0 if k_scale is None else float(k_scale), vs, vs if splits == 1 else 1.0,
+                    _build.stream_ptr(q.device)), name)
+    if splits == 1:
+        out, lse = out[0], (lse[0] if lse is not None else None)
+    else:
+        # the combine stays plain torch on the device, as JAX's XLA merge (:488-)
+        out, lse = _merge_splits(out, lse, q.dtype)
+        if v_scale is not None:
+            out = (out.float() * vs).to(q.dtype)
+    return (out, lse) if return_lse else out
 
 
 def paged_attention_decode_dma(q, k_pages, v_pages, lengths, page_table, sinks=None,
@@ -102,61 +229,34 @@ def paged_attention_decode_dma(q, k_pages, v_pages, lengths, page_table, sinks=N
                                return_lse: bool = False, chunk_pages: int = 16,
                                num_splits: int = 1, layout: str = "page"):
     """One-token decode attention over paged pools. q [B, Hq, D]; pools
-    [L, P, Hkv, page, D] (or [P, Hkv, page, D]); lengths [B] include the
-    current token; page_table [B, n_blocks]. With fresh_k/fresh_v [B, Hkv, D]
-    the pool holds length-1 tokens and the fresh row is attended last.
-    ``k_scale``/``v_scale`` are per-tensor scales of quantized pools (floats).
-    CUDA tensors go through the K5 kernel, which takes bf16 q, page-major
-    pools of bf16, int8, fp8 e4m3 or e5m2, head_dim 64/128/256, group
-    1/2/4/8, and no sinks, window, softcap or lse yet.
+    [L, P, Hkv, page, D] (``layout="page"``) or [L, Hkv, P, page, D]
+    (``layout="head"``), or either without L; lengths [B] include the
+    current token; page_table [B, n_blocks]. With fresh_k/fresh_v
+    [B, Hkv, D] the pool holds length-1 tokens and the fresh row is attended
+    last. ``sinks`` [Hq] are natural-log logits in the denominator;
+    ``sliding_window`` keeps pool positions > length-1-window;
+    ``logit_soft_cap`` caps every score; ``k_scale``/``v_scale`` are
+    per-tensor scales of quantized pools (floats); ``return_lse`` also
+    returns the base-2 lse [B, Hq] (f32).
 
-    ``chunk_pages``, ``num_splits`` and ``layout`` are contract-only: they
-    keep the JAX signature. ``chunk_pages`` sized the TPU kernel's DMA
-    refills and has no counterpart; split-KV (``num_splits > 1``) and the
-    head-major ``layout="head"`` are not ported and raise."""
-    if layout != "page":
-        raise NotImplementedError("paged_attention_decode_dma: only the page-major layout is ported")
+    ``num_splits`` splits the KV of each sequence into that many ranges of
+    whole chunks of ``chunk_pages`` pages (fewer if the table has fewer
+    chunks, as in JAX); each split is its own block on the card, and the
+    partials, rounded to q's dtype, are merged by ``merge_states``
+    (``choose_num_splits`` picks a factor). With ``num_splits=1``
+    ``chunk_pages`` has no effect: it sized the TPU kernel's DMA refills.
+    CUDA tensors go through the K5 kernel, which takes bf16 q, pools of
+    bf16, int8, fp8 e4m3 or e5m2, head_dim 64/128/256 and group 1/2/4/8."""
     if q.device.type != "cuda":
         return paged_attention_decode_ref(
             q, k_pages, v_pages, lengths, page_table, sinks, k_scale, v_scale, layer_id,
             fresh_k, fresh_v, sm_scale=sm_scale, sliding_window=sliding_window,
-            logit_soft_cap=logit_soft_cap, return_lse=return_lse)
-    if (sinks is not None or sliding_window is not None or logit_soft_cap is not None or return_lse
-            or num_splits != 1):
-        raise NotImplementedError(
-            "paged_attention_decode_dma: the CUDA kernel takes no sinks, window, softcap, lse or "
-            "splits yet")
-    if k_pages.ndim == 4:
-        k_pages, v_pages = k_pages[None], v_pages[None]
-    b, hq, d = q.shape
-    _, n_pages, hkv, page, _ = k_pages.shape
-    group = hq // hkv
-    if hq % hkv or group not in (1, 2, 4, 8) or d not in (64, 128, 256) or k_pages.shape[-1] != d:
-        raise ValueError(f"paged_attention_decode_dma: unsupported q {tuple(q.shape)} pools {tuple(k_pages.shape)}")
-    if q.dtype != torch.bfloat16 or k_pages.dtype != v_pages.dtype or k_pages.dtype not in _POOL_TYPES:
-        raise NotImplementedError("paged_attention_decode_dma: the CUDA kernel takes bf16 q and "
-                                  "bf16, int8, float8_e4m3fn or float8_e5m2 pools")
-    if not (k_pages.is_contiguous() and v_pages.is_contiguous()):
-        raise ValueError("paged_attention_decode_dma: pools must be contiguous")
-    lid = 0 if layer_id is None else int(layer_id)
-    if fresh_k is not None:
-        fk = fresh_k.reshape(b, hkv, d).to(torch.bfloat16).contiguous()
-        fv = fresh_v.reshape(b, hkv, d).to(torch.bfloat16).contiguous()
-        fk_ptr, fv_ptr = fk.data_ptr(), fv.data_ptr()
-    else:
-        fk_ptr = fv_ptr = None
-    q = q.contiguous()
-    lens = lengths.to(device=q.device, dtype=torch.int32).contiguous()
-    table = page_table.to(device=q.device, dtype=torch.int32).contiguous()
-    out = torch.empty_like(q)
-    scale = sm_scale if sm_scale is not None else 1.0 / d ** 0.5
-    fn = _build.bind("decode_attention", "skt_paged_decode", _ARGS)
-    _build.check(fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), fk_ptr, fv_ptr,
-                    lens.data_ptr(), table.data_ptr(), out.data_ptr(), b, n_pages, hkv, page,
-                    table.shape[1], d, group, lid, _POOL_TYPES[k_pages.dtype], scale,
-                    1.0 if k_scale is None else float(k_scale), 1.0 if v_scale is None else float(v_scale),
-                    _build.stream_ptr(q.device)),
-                 "paged_attention_decode_dma")
+            logit_soft_cap=logit_soft_cap, return_lse=return_lse, chunk_pages=chunk_pages,
+            num_splits=num_splits, layout=layout)
+    out = launch_decode("paged_attention_decode_dma", q, k_pages, v_pages, lengths, page_table, sinks,
+                        k_scale, v_scale, layer_id, fresh_k, fresh_v, sm_scale=sm_scale,
+                        sliding_window=sliding_window, logit_soft_cap=logit_soft_cap,
+                        return_lse=return_lse, chunk_pages=chunk_pages, num_splits=num_splits, layout=layout)
     paged_attention_decode_dma.launches += 1
     return out
 

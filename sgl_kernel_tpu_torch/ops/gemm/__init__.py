@@ -1,4 +1,5 @@
-"""GEMMs of the port: the W4A16 dequant-fused GEMM (K1) and its layouts."""
+"""GEMMs of the port: the W4A16 dequant-fused GEMM (K1), its decode-bucket
+form with streamed weights (K10), and their layouts."""
 
 from .w4a16 import (
     awq_to_tpu_layout,
@@ -11,3 +12,4 @@ from .w4a16 import (
     w4a16_gemm,
     w4a16_gemm_ref,
 )
+from .w4a16_dma import w4a16_gemm_dma, w4a16_gemm_dma_ref

@@ -160,40 +160,41 @@ def dequant_w4(w, scales, zeros=None, *, group_size: int = 128, fmt: str = "int4
 
 
 def _operands(a, w, scales, zeros, bias, a2, residual, layer_id, norm_weight, *, group_size,
-              fmt, prologue, fused_gate_up):
-    """Check the JAX contract (w4a16.py:355-411) and select the layer.
+              fmt, prologue, fused_gate_up, name="w4a16_gemm"):
+    """Check the JAX contract (w4a16.py:355-411) and select the layer
+    (``name`` heads the errors).
     Returns (a, a2, w, scales, zeros, bias, norm_weight, k, k_pad), where
     for ``fused_gate_up`` a and a2 are the gate and up halves (views)."""
     if fmt not in ("int4", "mxfp4"):
-        raise ValueError(f"w4a16_gemm: fmt must be 'int4' or 'mxfp4', got {fmt!r}")
+        raise ValueError(f"{name}: fmt must be 'int4' or 'mxfp4', got {fmt!r}")
     if prologue not in (None, "silu_mul"):
-        raise ValueError(f"w4a16_gemm: unknown prologue {prologue!r}")
+        raise ValueError(f"{name}: unknown prologue {prologue!r}")
     m, k = a.shape
     if fused_gate_up:
         if a2 is not None or prologue != "silu_mul" or k % 2:
-            raise ValueError("w4a16_gemm: fused_gate_up takes one [M, 2K] a and prologue='silu_mul'")
+            raise ValueError(f"{name}: fused_gate_up takes one [M, 2K] a and prologue='silu_mul'")
         k //= 2
         a, a2 = a[:, :k], a[:, k:]
     elif (a2 is not None) != (prologue == "silu_mul"):
-        raise ValueError("w4a16_gemm: prologue='silu_mul' requires a2 (or fused_gate_up)")
+        raise ValueError(f"{name}: prologue='silu_mul' requires a2 (or fused_gate_up)")
     if norm_weight is not None and (prologue is not None or a2 is not None):
-        raise ValueError("w4a16_gemm: norm_weight is its own prologue")
+        raise ValueError(f"{name}: norm_weight is its own prologue")
     stacked = layer_id is not None
     k_pad = w.shape[-2] * 2
     if (fused_gate_up or norm_weight is not None) and k_pad != k:
-        raise ValueError(f"w4a16_gemm: fused_gate_up and norm_weight need a group-multiple K ({k} vs {k_pad})")
+        raise ValueError(f"{name}: fused_gate_up and norm_weight need a group-multiple K ({k} vs {k_pad})")
     if k_pad != k and not k < k_pad <= round_up(k, GROUPS_PER_KTILE * group_size):
-        raise ValueError(f"w4a16_gemm: activations of K={k} for packed K={k_pad}")
+        raise ValueError(f"{name}: activations of K={k} for packed K={k_pad}")
     n = w.shape[-1]
     want_w = ((w.shape[0],) if stacked else ()) + (k_pad // 2, n)
     want_s = want_w[:-2] + (k_pad // group_size, n)
     if tuple(w.shape) != want_w or w.dtype != torch.uint8 or tuple(scales.shape) != want_s:
-        raise ValueError(f"w4a16_gemm: w {tuple(w.shape)} {w.dtype}, scales {tuple(scales.shape)} "
+        raise ValueError(f"{name}: w {tuple(w.shape)} {w.dtype}, scales {tuple(scales.shape)} "
                          f"for K={k_pad}, group {group_size}")
     if zeros is not None and zeros.shape != scales.shape:
-        raise ValueError(f"w4a16_gemm: zeros {tuple(zeros.shape)} vs scales {tuple(scales.shape)}")
+        raise ValueError(f"{name}: zeros {tuple(zeros.shape)} vs scales {tuple(scales.shape)}")
     if residual is not None and tuple(residual.shape) != (m, n):
-        raise ValueError(f"w4a16_gemm: residual {tuple(residual.shape)} for out {(m, n)}")
+        raise ValueError(f"{name}: residual {tuple(residual.shape)} for out {(m, n)}")
     if stacked:
         lid = int(layer_id)
         w, scales = w[lid], scales[lid]
@@ -203,7 +204,7 @@ def _operands(a, w, scales, zeros, bias, a2, residual, layer_id, norm_weight, *,
         if norm_weight is not None and norm_weight.ndim == 2:
             norm_weight = norm_weight[lid]
     if norm_weight is not None and norm_weight.reshape(-1).shape[0] != k:
-        raise ValueError(f"w4a16_gemm: norm_weight {tuple(norm_weight.shape)} for K={k}")
+        raise ValueError(f"{name}: norm_weight {tuple(norm_weight.shape)} for K={k}")
     return a, a2, w, scales, zeros, bias, norm_weight, k, k_pad
 
 

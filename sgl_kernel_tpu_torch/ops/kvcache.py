@@ -9,7 +9,9 @@ PLACE (where the JAX model donates them) and return them.
 ``csrc/store_cache.cu``, replacing the Pallas ``store_cache_all_layers``
 (sgl_kernel_tpu/ops/kvcache.py:193, pallas_call at :209);
 ``store_cache_all_layers_ref`` is its plain twin. The other stores are plain
-PyTorch ``index_put_``.
+PyTorch ``index_put_``, as the JAX package leaves them to XLA's scatter:
+``store_cache_head_major`` fills the head-major pools [H, P, page, D] of
+``paged_attention_decode`` (K8).
 """
 
 from __future__ import annotations
@@ -73,10 +75,47 @@ def store_cache_mla(kv, pool, loc):
     ``index_put_`` serves. A slot written twice by kept rows has no defined
     winner, as in XLA's scatter; the serving path never writes one twice."""
     p, page, d = pool.shape
-    flat = pool.view(p * page, d)
     rows = loc.to(device=pool.device, dtype=torch.long).reshape(-1)
+    rows = torch.where((rows >= 0) & (rows < p * page), rows, -1)
+    _put_rows(pool.view(p * page, d), rows, kv.reshape(rows.shape[0], d))
+    return pool
+
+
+def _put_rows(flat, rows, vals):
+    """flat[rows] = vals, in place, for rows >= 0, with no wait for the
+    host: a dropped row (-1) is redirected to the call's last kept row with
+    that row's value (or, when nothing is kept, rewrites row 0 with
+    itself), so one ``index_put_`` serves."""
     if rows.numel() == 0:
-        return pool
+        return
+    # the rows move as integers of the pool's width (fp8 has no where/index_put)
+    bits = {1: torch.uint8, 2: torch.int16, 4: torch.int32}[flat.element_size()]
+    vals = vals.to(flat.dtype).view(bits)
+    flat = flat.view(bits)
+    keep = rows >= 0
+    # one-element index_select, not t[0-d tensor], which reads the index on the host
+    last = torch.where(keep, torch.arange(rows.shape[0], device=rows.device), -1).max().clamp_min(0).reshape(1)
+    any_kept = keep.any()
+    fb_row = torch.where(any_kept, rows.index_select(0, last), 0)
+    fb_val = torch.where(any_kept, vals.index_select(0, last), flat.index_select(0, fb_row))
+    flat.index_put_((torch.where(keep, rows, fb_row),), torch.where(keep[:, None], vals, fb_val))
+
+
+def store_cache_head_major(k, v, k_pool, v_pool, loc):
+    """Head-major store (kvcache.py:71-81, a plain XLA scatter in JAX): k/v
+    [T, H, D] into pools [H, P, page, D] (the layout of
+    ``paged_attention_decode``, K8) at flat slots ``loc`` [T], in place, cast
+    to the pools' dtype; slots < 0 or past the pool are dropped. A layer of
+    a stacked [L, H, P, page, D] pool is passed as ``pool[layer]``. A slot
+    written twice has no defined winner, as in XLA's scatter. Returns
+    (k_pool, v_pool)."""
+    h, p, page, d = k_pool.shape
+    loc = loc.to(device=k_pool.device, dtype=torch.long).reshape(-1)
+    heads = (torch.arange(h, device=k_pool.device) * (p * page))[None, :]
+    rows = torch.where(((loc >= 0) & (loc < p * page))[:, None], loc[:, None] + heads, -1).reshape(-1)
+    _put_rows(k_pool.view(h * p * page, d), rows, k.reshape(-1, d))
+    _put_rows(v_pool.view(h * p * page, d), rows, v.reshape(-1, d))
+    return k_pool, v_pool
     # the rows move as integers of the pool's width (fp8 has no where/index_put)
     bits = {1: torch.uint8, 2: torch.int16, 4: torch.int32}[pool.element_size()]
     vals = kv.reshape(rows.shape[0], d).to(pool.dtype).view(bits)

@@ -1,5 +1,6 @@
-"""Parity of the port's attention operators (K5 paged decode, K7 flash
-prefill, the base-2 state merge) with the JAX package: the same
+"""Parity of the port's attention operators (K5 paged decode with its
+options, splits and both pool layouts, K7 flash prefill, the base-2 state
+merge) with the JAX package: the same
 numpy-seeded bytes through the Pallas kernels in interpret mode and through
 the port's plain PyTorch twins on the CPU."""
 
@@ -99,23 +100,105 @@ def test_paged_decode_options_lse(rng):
     close(rl, ol, **F32)
 
 
+def head_major(x):
+    """Page-major pools [L, P, Hkv, page, D] -> the same pools head-major
+    [L, Hkv, P, page, D] (the JAX array and the CPU tensor)."""
+    xj, xt = x
+    return jnp.swapaxes(xj, 1, 2), xt.transpose(1, 2).contiguous()
+
+
 @pytest.mark.parametrize("num_splits", [1, 2])
 def test_paged_decode_contract_only_args(rng, num_splits):
-    """chunk_pages and num_splits keep the JAX signature: the JAX kernel's
-    split-KV gives the plain twin's result; the head-major layout is not
-    ported and raises."""
+    """chunk_pages, num_splits and layout: the JAX kernel's split-KV over
+    one-page chunks is the twin's split (partials rounded to q's dtype,
+    merged), and the head-major layout over the same pools gives JAX's
+    head-major result."""
     b, hq, hkv, d, page = 2, 4, 2, 32, 16
     lengths = [70, 9]
-    table, [(kj, kt), (vj, vt), (qj, qt), (fkj, fkt), (fvj, fvt)] = paged_case(rng, b, hq, hkv, d, page, lengths)
+    table, [k, v, (qj, qt), (fkj, fkt), (fvj, fvt)] = paged_case(rng, b, hq, hkv, d, page, lengths)
     lens = np.array(lengths, np.int32)
     kw = dict(chunk_pages=1, num_splits=num_splits)
-    ref = jdec.paged_attention_decode_dma(qj, kj, vj, jnp.asarray(lens), jnp.asarray(table),
-                                          fresh_k=fkj, fresh_v=fvj, **kw)
-    out = tatt.paged_attention_decode_dma(qt, kt, vt, torch.from_numpy(lens), torch.from_numpy(table),
-                                          fresh_k=fkt, fresh_v=fvt, **kw)
-    close(ref, out, **F32)
-    with pytest.raises(NotImplementedError):
-        tatt.paged_attention_decode_dma(qt, kt, vt, torch.from_numpy(lens), torch.from_numpy(table), layout="head")
+    for layout, (kj, kt), (vj, vt) in (("page", k, v), ("head", head_major(k), head_major(v))):
+        ref = jdec.paged_attention_decode_dma(qj, kj, vj, jnp.asarray(lens), jnp.asarray(table),
+                                              fresh_k=fkj, fresh_v=fvj, layout=layout, **kw)
+        out = tatt.paged_attention_decode_dma(qt, kt, vt, torch.from_numpy(lens), torch.from_numpy(table),
+                                              fresh_k=fkt, fresh_v=fvt, layout=layout, **kw)
+        close(ref, out, **F32)
+
+
+@pytest.mark.parametrize("jdt", [jnp.float32, jnp.bfloat16])
+@pytest.mark.parametrize("fresh", [True, False])
+@pytest.mark.parametrize("num_splits", [2, 3])
+def test_paged_decode_splits(rng, num_splits, fresh, jdt):
+    """Split-KV with one-page chunks, with the lse: each split's partial is
+    rounded to q's dtype, the fresh row joins the last split, and
+    merge_states combines them (paged_decode_dma.py:383-384, :488-). A
+    sequence shorter than a split's start leaves that split empty."""
+    b, hq, hkv, d, page = 3, 8, 2, 32, 16
+    lengths = [70, 9, 41]
+    table, [(kj, kt), (vj, vt), (qj, qt), (fkj, fkt), (fvj, fvt)] = paged_case(rng, b, hq, hkv, d, page, lengths,
+                                                                               jdt=jdt)
+    lens = np.array(lengths, np.int32)
+    kw = dict(chunk_pages=1, num_splits=num_splits, return_lse=True, layer_id=1)
+    fj = dict(fresh_k=fkj, fresh_v=fvj) if fresh else {}
+    ft = dict(fresh_k=fkt, fresh_v=fvt) if fresh else {}
+    ro, rl = jdec.paged_attention_decode_dma(qj, kj, vj, jnp.asarray(lens), jnp.asarray(table), **fj, **kw)
+    oo, ol = tatt.paged_attention_decode_dma(qt, kt, vt, torch.from_numpy(lens), torch.from_numpy(table), **ft, **kw)
+    assert oo.dtype == qt.dtype and ol.dtype == torch.float32
+    close(ro, oo, **(F32 if jdt == jnp.float32 else BF16))
+    close(rl, ol, **(F32 if jdt == jnp.float32 else BF16))
+
+
+@pytest.mark.parametrize("num_splits", [1, 3])
+@pytest.mark.parametrize("layout", ["page", "head"])
+def test_paged_decode_options_layouts(rng, layout, num_splits):
+    """Sinks, window, softcap and the lse together, over both layouts and
+    under a split: the sinks join the last split's denominator."""
+    b, hq, hkv, d, page = 3, 8, 4, 32, 16
+    lengths = [70, 9, 33]
+    table, [k, v, (qj, qt), (fkj, fkt), (fvj, fvt)] = paged_case(rng, b, hq, hkv, d, page, lengths)
+    if layout == "head":
+        k, v = head_major(k), head_major(v)
+    (kj, kt), (vj, vt) = k, v
+    lens = np.array(lengths, np.int32)
+    sinks = rng.standard_normal(hq).astype(np.float32)
+    kw = dict(sliding_window=24, logit_soft_cap=5.0, return_lse=True, layout=layout, chunk_pages=1,
+              num_splits=num_splits)
+    ro, rl = jdec.paged_attention_decode_dma(qj, kj, vj, jnp.asarray(lens), jnp.asarray(table), jnp.asarray(sinks),
+                                             fresh_k=fkj, fresh_v=fvj, **kw)
+    oo, ol = tatt.paged_attention_decode_dma(qt, kt, vt, torch.from_numpy(lens), torch.from_numpy(table),
+                                             torch.from_numpy(sinks), fresh_k=fkt, fresh_v=fvt, **kw)
+    close(ro, oo, **F32)
+    close(rl, ol, **F32)
+
+
+def test_paged_decode_split_empty_row(rng):
+    """A padding row (length 0) under a split: with no fresh row every
+    split is empty and the port gives o = 0, lse = -inf (JAX's merge gives
+    NaN there); with a fresh row it attends only that row, as unsplit."""
+    b, hq, hkv, d, page = 2, 4, 2, 32, 16
+    lengths = [70, 0]
+    table, [(_, kt), (_, vt), (_, qt), (_, fkt), (_, fvt)] = paged_case(rng, b, hq, hkv, d, page, lengths)
+    lens = torch.tensor(lengths, dtype=torch.int32)
+    kw = dict(chunk_pages=1, num_splits=3, return_lse=True)
+    o, lse = tatt.paged_attention_decode_dma(qt, kt, vt, lens, torch.from_numpy(table), **kw)
+    assert torch.all(o[1] == 0) and torch.all(torch.isneginf(lse[1])) and torch.isfinite(o[0]).all()
+    o, lse = tatt.paged_attention_decode_dma(qt, kt, vt, lens, torch.from_numpy(table), fresh_k=fkt, fresh_v=fvt,
+                                             **kw)
+    np.testing.assert_allclose(o[1].numpy(), fvt[1].repeat_interleave(hq // hkv, dim=0).numpy(), rtol=1e-6,
+                               atol=1e-6)
+    assert torch.isfinite(lse[1]).all()
+
+
+def test_choose_num_splits():
+    """The split heuristic, copied: equal to JAX's over a grid."""
+    for batch in (1, 2, 7, 16, 64, 132, 200):
+        for ctx in (1, 64, 1000, 8192, 32768):
+            for page in (16, 64):
+                for cpp in (1, 4, 16):
+                    for cores in (1, 2, 8, 132):
+                        assert (tatt.choose_num_splits(batch, ctx, page, cpp, num_cores=cores)
+                                == jdec.choose_num_splits(batch, ctx, page, cpp, num_cores=cores))
 
 
 @pytest.mark.parametrize("hq,hkv", [(4, 2), (4, 1), (4, 4)])

@@ -4,8 +4,9 @@ chip_smoke.py do not reach: other head dims and GQA groups, page sizes,
 padding rows, duplicate and dropped slots, extend offsets, non-causal
 attention, the base-2 lse and rows that see no key, packed prefill at block
 edges with padding blocks, widths that are not powers of two, quantized KV
-pools, and every option, row count, group size and ragged width of the
-W4A16 GEMM; the NSA indexer (K15) over key types, scales, head counts and
+pools, head-major pools (K8), split-KV, sinks, window, soft cap and the
+lse of the decode, and every option, row count, group size and ragged width
+of the W4A16 GEMMs (K1 and the decode-bucket K10); the NSA indexer (K15) over key types, scales, head counts and
 lengths; the streaming MLA decode (K13b) and its dispatch.
 
 Needs a CUDA device: every test here is marked ``cuda`` and skips without
@@ -20,8 +21,8 @@ import pytest
 import torch
 
 from sgl_kernel_tpu_torch.ops import kvcache, norm, rope
-from sgl_kernel_tpu_torch.ops.attention import flash_packed, flash_prefill, nsa, paged_decode_dma
-from sgl_kernel_tpu_torch.ops.gemm import w4a16
+from sgl_kernel_tpu_torch.ops.attention import flash_packed, flash_prefill, nsa, paged_decode, paged_decode_dma
+from sgl_kernel_tpu_torch.ops.gemm import w4a16, w4a16_dma
 from sgl_kernel_tpu_torch.utils import sm_count
 
 pytestmark = pytest.mark.cuda
@@ -127,13 +128,122 @@ def test_paged_decode(gen, hq, hkv, d, page, fresh):
 
 
 def test_paged_decode_unstacked_pools_and_raises(gen):
+    """Unstacked pools; the options (window, softcap, lse, splits) run the
+    kernel; what it does not take raises."""
     table, lens, kp, vp, q, fk, fv = paged_case(gen, 2, 8, 2, 128, 64, [70, 5], n_layers=1)
     out = paged_decode_dma.paged_attention_decode_dma(q, kp[0], vp[0], lens, table, fresh_k=fk, fresh_v=fv)
     ref = paged_decode_dma.paged_attention_decode_ref(q, kp[0], vp[0], lens, table, fresh_k=fk, fresh_v=fv)
     assert_kernel_close(out, ref)
-    for kw in (dict(sliding_window=8), dict(logit_soft_cap=5.0), dict(return_lse=True), dict(num_splits=2)):
-        with pytest.raises(NotImplementedError):
-            paged_decode_dma.paged_attention_decode_dma(q, kp, vp, lens, table, **kw)
+    for kw in (dict(sliding_window=8), dict(logit_soft_cap=5.0), dict(num_splits=2, chunk_pages=1)):
+        out = paged_decode_dma.paged_attention_decode_dma(q, kp, vp, lens, table, **kw)
+        assert_kernel_close(out, paged_decode_dma.paged_attention_decode_ref(q, kp, vp, lens, table, **kw))
+    o, lse = paged_decode_dma.paged_attention_decode_dma(q, kp, vp, lens, table, return_lse=True)
+    ro, rl = paged_decode_dma.paged_attention_decode_ref(q, kp, vp, lens, table, return_lse=True)
+    assert_kernel_close(o, ro)
+    assert_lse_close(lse, rl)
+    with pytest.raises(NotImplementedError):  # float32 q
+        paged_decode_dma.paged_attention_decode_dma(q.float(), kp, vp, lens, table)
+    with pytest.raises(ValueError):  # head dim 96
+        paged_decode_dma.paged_attention_decode_dma(q[..., :96].contiguous(), kp[..., :96].contiguous(),
+                                                    vp[..., :96].contiguous(), lens, table)
+    with pytest.raises(ValueError):
+        paged_decode_dma.paged_attention_decode_dma(q, kp, vp, lens, table, layout="ragged")
+
+
+def assert_lse_close(lse, ref):
+    """Base-2 lse: -inf where the twin has -inf, else within 1e-4 (float32
+    sums in another order)."""
+    inf = torch.isneginf(ref)
+    assert torch.equal(torch.isneginf(lse), inf)
+    assert float((lse[~inf] - ref[~inf]).abs().max().nan_to_num(0.0)) <= 1e-4
+
+
+def head_major(pool):
+    """[L, P, Hkv, page, D] -> the same pool head-major [L, Hkv, P, page, D]."""
+    return pool.transpose(1, 2).contiguous()
+
+
+@pytest.mark.parametrize("layout", ["page", "head"])
+@pytest.mark.parametrize("fresh", [True, False])
+@pytest.mark.parametrize("splits", [2, 3, 0])
+def test_paged_decode_splits(gen, layout, fresh, splits):
+    """Split-KV on the card: each split a block, partials rounded to bf16
+    and merged; length-0 rows (o = 0, lse -inf without a fresh row; only the
+    fresh row with one) and a row shorter than a split. splits=0 takes
+    choose_num_splits at the card's SM count (B=4, a 4,096-token row)."""
+    hq, hkv, d, page = 32, 8, 128, 64
+    lengths = [0, 4096, 70, 3]
+    b = len(lengths)
+    table, lens, kp, vp, q, fk, fv = paged_case(gen, b, hq, hkv, d, page, lengths, n_layers=2)
+    if layout == "head":
+        kp, vp = head_major(kp), head_major(vp)
+    n = splits or paged_decode_dma.choose_num_splits(b, max(lengths), page, 1, num_cores=sm_count(0))
+    assert n > 1
+    kw = dict(layer_id=1, num_splits=n, chunk_pages=1, return_lse=True, layout=layout)
+    if fresh:
+        kw.update(fresh_k=fk, fresh_v=fv)
+    o, lse = paged_decode_dma.paged_attention_decode_dma(q, kp, vp, lens, table, **kw)
+    ro, rl = paged_decode_dma.paged_attention_decode_ref(q, kp, vp, lens, table, **kw)
+    assert torch.isfinite(o).all()
+    assert_kernel_close(o, ro)
+    assert_lse_close(lse, rl)
+    if fresh:
+        assert torch.equal(o[0], fv[0].repeat_interleave(hq // hkv, dim=0))
+    else:
+        assert not o[0].any() and torch.isneginf(lse[0]).all()
+
+
+@pytest.mark.parametrize("splits", [1, 3])
+@pytest.mark.parametrize("window", [16, 100000])
+def test_paged_decode_sinks_window_softcap(gen, splits, window):
+    """Sinks with the lse (the sink joins the last split), a window shorter
+    and one longer than every context, the soft cap, GQA group 4."""
+    hq, hkv, d, page = 16, 4, 128, 16
+    lengths = [300, 1, 45]
+    table, lens, kp, vp, q, fk, fv = paged_case(gen, 3, hq, hkv, d, page, lengths, n_layers=1)
+    sinks = torch.randn(hq, generator=gen, device="cuda")
+    kw = dict(sliding_window=window, logit_soft_cap=30.0, return_lse=True, num_splits=splits, chunk_pages=1,
+              fresh_k=fk, fresh_v=fv)
+    o, lse = paged_decode_dma.paged_attention_decode_dma(q, kp, vp, lens, table, sinks, **kw)
+    ro, rl = paged_decode_dma.paged_attention_decode_ref(q, kp, vp, lens, table, sinks, **kw)
+    assert_kernel_close(o, ro)
+    assert_lse_close(lse, rl)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float8_e4m3fn])
+@pytest.mark.parametrize("hq,hkv,d", [(32, 8, 128), (8, 8, 64), (16, 2, 256)])
+def test_paged_attention_decode_head_major(gen, dtype, hq, hkv, d):
+    """K8 against its twin over stacked head-major pools, with scales for
+    fp8, and against K5 over the page-major transpose: one kernel, the same
+    bits. Its launches count apart from K5's."""
+    lengths = [1, 0, 37, 200]
+    table, lens, kp, vp, q, fk, fv = paged_case(gen, 4, hq, hkv, d, 16, lengths, n_layers=3)
+    kh, vh = head_major(kp).to(dtype), head_major(vp).to(dtype)
+    kw = dict(layer_id=2, fresh_k=fk, fresh_v=fv, return_lse=True)
+    if dtype != torch.bfloat16:
+        kw.update(k_scale=0.5, v_scale=0.25)
+    before5, before8 = paged_decode_dma.paged_attention_decode_dma.launches, paged_decode.paged_attention_decode.launches
+    o, lse = paged_decode.paged_attention_decode(q, kh, vh, lens, table, **kw)
+    assert paged_decode.paged_attention_decode.launches == before8 + 1
+    ro, rl = paged_decode.paged_attention_decode_ref(q, kh, vh, lens, table, **kw)
+    assert_kernel_close(o, ro)
+    assert_lse_close(lse, rl)
+    o5, l5 = paged_decode_dma.paged_attention_decode_dma(q, kh.transpose(1, 2).contiguous(),
+                                                         vh.transpose(1, 2).contiguous(), lens, table, **kw)
+    assert paged_decode_dma.paged_attention_decode_dma.launches == before5 + 1
+    assert torch.equal(o, o5) and torch.equal(lse, l5)
+
+
+def test_store_cache_head_major(gen):
+    """The head-major store on the card equals it on the CPU (a copy)."""
+    h, p, page, d = 8, 6, 16, 128
+    kp, vp = randn(gen, 2, h, p, page, d), randn(gen, 2, h, p, page, d)
+    k, v = randn(gen, 5, h, d), randn(gen, 5, h, d)
+    loc = torch.tensor([3, -1, 40, p * page, 95], dtype=torch.int32, device="cuda")
+    kc, vc = kp.cpu(), vp.cpu()
+    kvcache.store_cache_head_major(k, v, kp[1], vp[1], loc)
+    kvcache.store_cache_head_major(k.cpu(), v.cpu(), kc[1], vc[1], loc.cpu())
+    assert torch.equal(kp.cpu(), kc) and torch.equal(vp.cpu(), vc)
 
 
 @pytest.mark.parametrize("page", [16, 64])
@@ -409,6 +519,64 @@ def test_w4a16_unsupported_raise(gen):
     a, w, s, _ = w4_case(gen, 8, 256, 512, 256)
     with pytest.raises(NotImplementedError):
         w4a16.w4a16_gemm(a, w, s, group_size=256)
+
+
+def check_w4_dma(a, w, s, kw):
+    before = w4a16_dma.w4a16_gemm_dma.launches
+    out = w4a16_dma.w4a16_gemm_dma(a, w, s, **kw)
+    assert w4a16_dma.w4a16_gemm_dma.launches == before + 1
+    ref = w4a16_dma.w4a16_gemm_dma_ref(a, w, s, **kw)
+    assert out.dtype == ref.dtype and out.shape == ref.shape
+    assert torch.isfinite(out).all()
+    assert_elementwise(out, ref)
+
+
+@pytest.mark.parametrize("option", ["mxfp4", "mxfp4_zeros", "zeros", "bias", "a2_silu", "residual", "layer_id",
+                                    "f32_out"])
+@pytest.mark.parametrize("m", [1, 17, 32])
+def test_w4a16_dma_options(gen, option, m):
+    """K10: every option of its contract at 1, 17 and 32 rows (both row
+    tiles); the residual is its own tensor, aliasing nothing."""
+    check_w4_dma(*w4_case(gen, m, 384, 512, 32 if option.startswith("mxfp4") else 64, option))
+
+
+@pytest.mark.parametrize("gs", [32, 64, 128])
+@pytest.mark.parametrize("fmt", ["int4", "mxfp4"])
+@pytest.mark.parametrize("n,k", [(4144, 1152), (208, 4096), (256, 14336)])
+def test_w4a16_dma_shapes(gen, gs, fmt, n, k):
+    """N not a multiple of the 128-column tile (the last tile's copies are
+    shorter), K not a multiple of the 256-row ring stage (a stage of fewer
+    groups), a long K split across blocks and summed by the second pass;
+    each group size, both formats."""
+    a, w, s, kw = w4_case(gen, 16, n, k, gs, "mxfp4" if fmt == "mxfp4" else "residual")
+    kw["bias"] = randn(gen, n, dtype=torch.float32)
+    check_w4_dma(a, w, s, kw)
+
+
+def test_w4a16_dma_gate_up_slices(gen):
+    """The model's down GEMM: gate and up as column slices of one [M, 2I]
+    tensor (row stride 2I), silu_mul, a residual; stacked weights."""
+    m, i, n = 16, 1024, 512
+    gu = randn(gen, m, 2 * i)
+    a, w, s, kw = w4_case(gen, m, n, i, 128, "layer_id")
+    kw.update(a2=gu[:, i:], prologue="silu_mul", residual=randn(gen, m, n))
+    check_w4_dma(gu[:, :i], w, s, kw)
+
+
+def test_w4a16_dma_unsupported_raise(gen):
+    a, w, s, kw = w4_case(gen, 8, 256, 512, 64)
+    with pytest.raises(NotImplementedError):
+        w4a16_dma.w4a16_gemm_dma(a.float(), w, s, **kw)
+    with pytest.raises(NotImplementedError):
+        w4a16_dma.w4a16_gemm_dma(a, w, s, out_dtype=torch.float16, **kw)
+    a2, w2, s2, kw2 = w4_case(gen, 8, 200, 512, 64)
+    with pytest.raises(NotImplementedError):  # N % 16
+        w4a16_dma.w4a16_gemm_dma(a2, w2, s2, **kw2)
+    a3, w3, s3, _ = w4_case(gen, 8, 256, 512, 256)
+    with pytest.raises(NotImplementedError):
+        w4a16_dma.w4a16_gemm_dma(a3, w3, s3, group_size=256)
+    with pytest.raises(ValueError):  # the decode bucket only
+        w4a16_dma.w4a16_gemm_dma(randn(gen, 33, 512), w, s, **kw)
 
 
 # ---------------------------------------------------------------------------

@@ -97,6 +97,36 @@ def test_engine_w4a16_greedy_outputs_identical(kv):
         assert tfin[rid].output == jfin[rid].output, rid
 
 
+def test_default_engine_w4a16_dma_matches_jax():
+    """The W4A16 model with gemm_impl="dma" (K10 for every GEMM of M <= 32
+    rows, after a standalone rmsnorm; K1 above) through both default
+    engines: prefix cache, packed admission, an extend on a hit and a
+    chunked prompt in mixed steps. LlamaAdapter and Engine take the config
+    unchanged; tokens and cache accounting must be identical."""
+    kw_cfg = dict(quant="w4a16", group_size=32, fused=True, gemm_impl="dma")
+    jcfg = jllama.LlamaConfig.tiny(**kw_cfg)
+    jparams = jllama.init_weights(jcfg, jax.random.PRNGKey(17))
+    rng = np.random.default_rng(8)
+    kw = dict(max_batch=4, page_size=16, num_pages=64, prefill_chunk=32)
+    jeng = JaxEngine(jcfg, jparams, **kw)
+    teng = Engine(LlamaConfig.tiny(**kw_cfg), params_from_numpy(jax.tree_util.tree_map(np.asarray, jparams), "cpu"),
+                  device="cpu", **kw)
+    a = [rng.integers(1, jcfg.vocab_size, n).tolist() for n in (20, 40, 9)]
+    b = [a[1][:32] + rng.integers(1, jcfg.vocab_size, 10).tolist(), rng.integers(1, jcfg.vocab_size, 70).tolist()]
+    for wave in (a, b):
+        for eng in (jeng, teng):
+            for p in wave:
+                eng.add_request(p, max_new_tokens=6)
+            eng.run_until_done()
+    assert sorted(jeng.finished) == sorted(teng.finished) == list(range(5))
+    for rid in jeng.finished:
+        assert teng.finished[rid].output == jeng.finished[rid].output, rid
+    jc, tc = jeng.metrics.counters, teng.metrics.counters
+    for key in ("prefix_cache_hit_tokens", "mixed_steps", "tokens_prefilled", "tokens_decoded"):
+        assert tc.get(key) == jc.get(key), key
+    assert tc["prefix_cache_hit_tokens"] == 32 and tc["mixed_steps"] >= 1
+
+
 @pytest.mark.parametrize("num_pages", [64, 10])
 def test_default_engine_matches_jax(num_pages):
     """Both default engines (prefix cache on, packed admission, mixed steps)

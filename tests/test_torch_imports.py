@@ -76,7 +76,8 @@ def test_kernel_wrappers_count_launches():
     assert set(skt.launch_counts()) == {"w4a16_gemm", "rmsnorm", "rope_decode_fused_qkv", "rope_decode_fused",
                                         "paged_attention_decode_dma", "store_cache_all_layers", "flash_attention",
                                         "flash_attention_packed", "w4a16_grouped_mm", "bf16_grouped_mm",
-                                        "mla_decode", "mla_decode_dma", "mla_qkv_prep", "fp8_paged_mqa_logits"}
+                                        "mla_decode", "mla_decode_dma", "mla_qkv_prep", "fp8_paged_mqa_logits",
+                                        "w4a16_gemm_dma", "paged_attention_decode"}
     skt.reset_launch_counts()
     x = torch.randn(3, 64)
     skt.rmsnorm(x, torch.ones(64))  # CPU tensor: the plain twin, no launch
@@ -91,12 +92,14 @@ def test_kernel_sources_and_entry_points():
 
     stems = {p.stem for p in _build.sources()}
     assert stems == {"decode_attention", "flash_packed", "flash_prefill", "store_cache", "w4a16_gemm",
-                     "grouped_gemm", "bf16_grouped_gemm", "mla_decode", "mla_decode_dma", "mqa_logits"}
+                     "grouped_gemm", "bf16_grouped_gemm", "mla_decode", "mla_decode_dma", "mqa_logits",
+                     "w4a16_gemm_dma"}
     entry = {"decode_attention": "skt_paged_decode", "flash_packed": "skt_flash_packed",
              "flash_prefill": "skt_flash_prefill", "store_cache": "skt_store_cache_all_layers",
              "w4a16_gemm": "skt_w4a16_gemm", "grouped_gemm": "skt_w4a16_grouped_mm",
              "bf16_grouped_gemm": "skt_bf16_grouped_mm", "mla_decode": "skt_mla_decode",
-             "mla_decode_dma": "skt_mla_decode_dma", "mqa_logits": "skt_fp8_paged_mqa_logits"}
+             "mla_decode_dma": "skt_mla_decode_dma", "mqa_logits": "skt_fp8_paged_mqa_logits",
+             "w4a16_gemm_dma": "skt_w4a16_gemm_dma"}
     for src in _build.sources():
         text = src.read_text()
         assert f'extern "C" int {entry[src.stem]}(' in text

@@ -100,3 +100,29 @@ def test_stores_on_one_byte_pools(rng, kind):
                             kpt, vpt, torch.from_numpy(loc[::-1].copy()), 1)
     for a, b in ((rk, kpt), (rv, vpt)):
         np.testing.assert_array_equal(np.asarray(a).view(np.uint8), b.view(torch.uint8).numpy())
+
+
+@pytest.mark.parametrize("jdt", [jnp.float32, jnp.bfloat16])
+def test_store_cache_head_major(rng, jdt):
+    """The head-major store of K8's pools [H, P, page, D]: valid slots, a
+    dropped -1 and an out-of-range slot, bit for bit against JAX's scatter;
+    a layer of stacked pools updates in place."""
+    h, p, page, d = 2, 4, 16, 32
+    kp = jnp.asarray(rng.standard_normal((h, p, page, d)).astype(np.float32), jdt)
+    vp = jnp.asarray(rng.standard_normal((h, p, page, d)).astype(np.float32), jdt)
+    loc = np.array([5, -1, p * page, 2 * page + 3, p * page - 1], np.int32)
+    k = jnp.asarray(rng.standard_normal((5, h, d)).astype(np.float32), jdt)
+    v = jnp.asarray(rng.standard_normal((5, h, d)).astype(np.float32), jdt)
+    rk, rv = jkv.store_cache_head_major(k, v, kp, vp, jnp.asarray(loc))
+    stacked_k = torch.stack([tensor_from_numpy(np.asarray(kp), "cpu")] * 2)
+    stacked_v = torch.stack([tensor_from_numpy(np.asarray(vp), "cpu")] * 2)
+    ok, ov = tkv.store_cache_head_major(tensor_from_numpy(np.asarray(k), "cpu"), tensor_from_numpy(np.asarray(v), "cpu"),
+                                        stacked_k[1], stacked_v[1], torch.from_numpy(loc))
+    assert ok.data_ptr() == stacked_k[1].data_ptr()  # in place
+    same(rk, stacked_k[1])
+    same(rv, stacked_v[1])
+    same(kp, stacked_k[0])  # the other layer untouched
+    # nothing kept: the pools do not change
+    tkv.store_cache_head_major(tensor_from_numpy(np.asarray(k), "cpu")[:2], tensor_from_numpy(np.asarray(v), "cpu")[:2],
+                               stacked_k[0], stacked_v[0], torch.tensor([-1, p * page], dtype=torch.int32))
+    same(kp, stacked_k[0])

@@ -126,17 +126,14 @@ def test_params_from_numpy_bf16_bytes():
 def test_unported_options_raise():
     with pytest.raises(NotImplementedError):
         tllama.LlamaConfig.tiny(quant="w8a8")
-    # K10, the DMA decode GEMM, is not ported: its decode raises, prefill runs K1
+    # K10, the DMA decode GEMM, runs the decode bucket (M <= 32); prefill
+    # rows take K1. Its decode step is held to JAX's gemm_impl="dma" below.
     dma = tllama.LlamaConfig.tiny(quant="w4a16", group_size=32, fused=True, gemm_impl="dma")
     assert tllama._w4_kernel_for(dma, 64) is tllama.w4a16_gemm
-    with pytest.raises(NotImplementedError):
-        tllama._w4_kernel_for(dma, 16)
-    params = tllama.init_weights(dma, 0, device="cpu")
-    k, v = tllama.make_caches(dma, 4, 16, device="cpu")
-    with pytest.raises(NotImplementedError):
-        tllama.decode_step(params, dma, k, v, *(torch.zeros(1, dtype=torch.int32) for _ in range(2)),
-                           torch.zeros((1, 4), dtype=torch.int32), torch.ones(1, dtype=torch.int32),
-                           torch.zeros(1, dtype=torch.int32), tllama.build_rope_cache(dma, "cpu"))
+    assert tllama._w4_kernel_for(dma, 16) is tllama.w4a16_gemm_dma
+    jl, tl, _, _ = run_both("f32", [5], n_decode=1, **W4, gemm_impl="dma")
+    for a, b in zip(jl, tl):
+        np.testing.assert_allclose(a, b, rtol=1e-4, atol=1e-4)
     with pytest.raises(ValueError):  # int8 pools need a scale
         tllama.make_caches(tllama.LlamaConfig.tiny(kv_dtype=torch.int8), 4, 16, device="cpu")
     # the fused=False decode step runs since K4 was ported: held to JAX in
@@ -195,20 +192,22 @@ def test_sample_tokens_distribution():
 W4 = dict(quant="w4a16", group_size=32)
 
 
-def test_w4a16_prefill_decode_f32():
+def test_w4a16_prefill_decode_f32(gemm_impl="pipeline"):
     """W4A16 weights quantized by the JAX init, carried across: the packed
-    codes are the same bytes, so only f32 summation order differs."""
-    jl, tl, (jk, jv), (tk, tv) = run_both("f32", [5, 23], n_decode=4, **W4)
+    codes are the same bytes, so only f32 summation order differs. With
+    gemm_impl="dma" the decode GEMMs (and the prefill's lm_head rows) take
+    K10 after a standalone rmsnorm on both sides."""
+    jl, tl, (jk, jv), (tk, tv) = run_both("f32", [5, 23], n_decode=4, **W4, gemm_impl=gemm_impl)
     for a, b in zip(jl, tl):
         np.testing.assert_allclose(a, b, rtol=1e-4, atol=1e-4)
         np.testing.assert_array_equal(a.argmax(-1), b.argmax(-1))
     np.testing.assert_allclose(np.asarray(jk), tk.numpy(), rtol=1e-4, atol=1e-4)
 
 
-def test_w4a16_prefill_decode_bf16():
+def test_w4a16_prefill_decode_bf16(gemm_impl="pipeline"):
     # as the bf16 model: bf16 rounding after every GEMM and the Pallas
     # attention's bf16 probabilities drift the logits by a few bf16 ulps
-    jl, tl, _, _ = run_both("bf16", [9, 30], n_decode=3, **W4)
+    jl, tl, _, _ = run_both("bf16", [9, 30], n_decode=3, **W4, gemm_impl=gemm_impl)
     for a, b in zip(jl, tl):
         np.testing.assert_allclose(a, b, rtol=0.05, atol=0.05)
 
@@ -276,6 +275,14 @@ def test_kv_quant_dequant(rng, kv_dtype, scale):
     else:
         assert xq_t.dtype == torch.bfloat16  # no scale: the store casts
     assert tllama._kv_att_kwargs(tcfg) == ({} if scale is None else {"k_scale": scale, "v_scale": scale})
+
+
+def test_w4a16_dma_prefill_decode_f32():
+    test_w4a16_prefill_decode_f32(gemm_impl="dma")
+
+
+def test_w4a16_dma_prefill_decode_bf16():
+    test_w4a16_prefill_decode_bf16(gemm_impl="dma")
 
 
 def run_admission_paths(dtype, **cfg_kw):
@@ -360,10 +367,12 @@ def test_admission_paths_bf16():
         np.testing.assert_allclose(a, b, rtol=0.05, atol=0.05)
 
 
-def test_admission_paths_w4a16():
+def test_admission_paths_w4a16(gemm_impl="pipeline"):
     """W4A16 weights quantized by the JAX init, float32 activations: the
-    packed codes are the same bytes, so only summation order differs."""
-    jl, tl, (jk, _), (tk, _) = run_admission_paths("f32", **W4)
+    packed codes are the same bytes, so only summation order differs. With
+    gemm_impl="dma" the packed prefill's and the extend's lm_head rows and
+    the mixed step's rows (M <= 32) take K10."""
+    jl, tl, (jk, _), (tk, _) = run_admission_paths("f32", **W4, gemm_impl=gemm_impl)
     for a, b in zip(jl, tl):
         np.testing.assert_allclose(a, b, rtol=1e-4, atol=1e-4)
         np.testing.assert_array_equal(a.argmax(-1), b.argmax(-1))
@@ -389,3 +398,49 @@ def test_extend_num_logits_raises():
     with pytest.raises(NotImplementedError):
         tllama.prefill_extend(None, cfg, None, None, torch.zeros((1, 4), dtype=torch.int32), None, None, None,
                               None, None, None, prefix_max=16, num_logits=2)
+
+
+def test_dma_decode_takes_k10_with_standalone_norm(monkeypatch):
+    """The decode step with gemm_impl="dma" follows JAX's routing
+    (llama.py:181-205, :274-299): every GEMM of M <= 32 rows is K10, which
+    has no norm prologue, so the norms run standalone (K2) before it, and
+    the down GEMM takes the gate and up slices as K10's a2 instead of K1's
+    fused_gate_up shortcut."""
+    cfg = tllama.LlamaConfig.tiny(quant="w4a16", group_size=32, fused=True, gemm_impl="dma")
+    calls = {"k1": [], "k10": [], "norm": 0}
+    k1, k10, norm = tllama.w4a16_gemm, tllama.w4a16_gemm_dma, tllama.rmsnorm
+
+    def rec(name, fn):
+        def call(a, *args, **kw):
+            calls[name].append((a.shape[0], kw.get("prologue"), kw.get("a2") is not None, "norm_weight" in kw))
+            return fn(a, *args, **kw)
+        return call
+
+    def rec_norm(*args, **kw):
+        calls["norm"] += 1
+        return norm(*args, **kw)
+
+    # _w4_kernel_for returns these module globals, so the routing sees the wrappers
+    monkeypatch.setattr(tllama, "w4a16_gemm", rec("k1", k1))
+    monkeypatch.setattr(tllama, "w4a16_gemm_dma", rec("k10", k10))
+    monkeypatch.setattr(tllama, "rmsnorm", rec_norm)
+    params = tllama.init_weights(cfg, 0, device="cpu")
+    k, v = tllama.make_caches(cfg, 4, 16, device="cpu")
+    b = 2
+    logits, _, _ = tllama.decode_step(params, cfg, k, v, torch.tensor([3, 5], dtype=torch.int32),
+                                      torch.tensor([0, 0], dtype=torch.int32), torch.zeros((b, 4), dtype=torch.int32),
+                                      torch.ones(b, dtype=torch.int32), torch.tensor([0, 16], dtype=torch.int32),
+                                      tllama.build_rope_cache(cfg, "cpu"))
+    assert torch.isfinite(logits).all()
+    assert calls["k1"] == []
+    # per layer: qkv, o, gate_up, down (silu_mul with a2); then the lm_head
+    assert len(calls["k10"]) == 4 * cfg.num_layers + 1
+    assert all(not nw for *_, nw in calls["k10"])
+    downs = [c for c in calls["k10"] if c[1] == "silu_mul"]
+    assert len(downs) == cfg.num_layers and all(a2 for _, _, a2, _ in downs)
+    # input norm, post norm per layer, and the final norm
+    assert calls["norm"] == 2 * cfg.num_layers + 1
+
+
+def test_admission_paths_w4a16_dma():
+    test_admission_paths_w4a16(gemm_impl="dma")
