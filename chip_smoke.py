@@ -93,8 +93,21 @@ layers on the W4A16 phase's weights, waves A and B+C and the cold check
 its op entry points over 32 head-major layers (store_cache_head_major,
 then paged_attention_decode, 8 steps), each output equal to K5's over the
 page-major transpose; (5) the dma engine's decode profile, K10's device
-ms a step against the pipeline engine's K1. Each phase prints its time
-([time] lines).
+ms a step against the pipeline engine's K1. Then slice 8, the last four
+kernels: (2) K17 (fp8_blockwise_scaled_mm) at DeepSeek-V3's dense fp8 GEMMs
+(shared-expert gate_up and down, o_proj; M=16 and 1,024; compact and
+prepared scales), K18 (fp8_blockwise_scaled_grouped_mm) over DeepSeek-V3's
+256 routed e4m3 experts at a B=16 decode and a 1,024-token prefill, K19
+(qserve_w4a8_per_group_gemm) at Llama-3-8B's four GEMMs (M=16 and 1,024)
+and K16 (sparse_attn_func) at Llama-3-8B's attention widths at S=4,096 and
+32,768 (and softcap 30 with the lse), each beside its library yardstick
+(torch._scaled_mm, torch._scaled_grouped_mm, torch._int_mm, SDPA); (4) their
+op paths, no model calling them: sparse_attn_varlen_func on two prompts of
+16,384 and 8,192 tokens from build_vertical_slash_indexes' estimate, a
+DeepSeek-V3 fp8 MoE layer's GEMMs (K17, K18) over 4 layers, a W4A8
+Llama-3-8B decode through 8 layers' linear layers (K19 and the per-channel
+GEMM) and w4a8_grouped_mm on K11 at DeepSeek-V3's routed widths. Each phase
+prints its time ([time] lines).
 
 Prints a JSON line of per-kernel numbers, then, last,
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -106,6 +119,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import gc
 import itertools
 import json
@@ -117,6 +131,8 @@ from pathlib import Path
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM memory rate (NVIDIA data sheet)
 BF16_FLOPS = 989e12         # dense bf16 tensor-core peak
+FP8_FLOPS = 1979e12         # dense fp8 tensor-core peak (H100 SXM data sheet)
+INT8_OPS = 1979e12          # dense int8 tensor-core peak (H100 SXM data sheet)
 F32_FLOPS = 67e12           # float32 outside the tensor cores
 SEED = 20261016
 DEVICE = "cuda"
@@ -196,6 +212,21 @@ def check(name, pairs):
     log(f"[kernel] {name}: max_abs_err={err:.6g} worst err/tol={ratio:.4g}")
     if not ratio <= 1.0:
         fail(f"{name} disagrees with its plain version: err/tol {ratio} > 1")
+    return err
+
+
+def check_lse(name, lse, ref):
+    """K16's natural-log lse, which both sides compute in float32: the same
+    -inf rows, and |lse - ref| <= 1e-5 |ref| + 1e-4 on the finite ones."""
+    if not bool((lse.isneginf() == ref.isneginf()).all()):
+        fail(f"{name}: the lse's -inf rows differ from the plain version's")
+    fin = ref.isfinite()
+    diff = (lse[fin] - ref[fin]).abs()
+    err = float(diff.max()) if diff.numel() else 0.0
+    ratio = float((diff / (1e-5 * ref[fin].abs() + 1e-4)).max()) if diff.numel() else 0.0
+    log(f"[kernel] {name} lse: max_abs_err={err:.6g} worst err/tol={ratio:.4g}")
+    if not ratio <= 1.0:
+        fail(f"{name}: the lse disagrees with its plain version: err/tol {ratio} > 1")
     return err
 
 
@@ -2209,6 +2240,556 @@ def path_head_major_decode(torch, skt, steps=8):
     return res
 
 
+# ---------------------------------------------------------------------------
+# Slice 8: K16-K19 and their op paths
+# ---------------------------------------------------------------------------
+
+# DeepSeek-V3's widths (hidden 7168, moe_intermediate 2048, 256 routed
+# experts, top-8, one shared expert, 128 heads x 128 v_head_dim)
+V3 = dict(hidden=7168, inter=2048, experts=256, topk=8, o_in=128 * 128)
+# K16's cases: (label, S, NV, NS); Llama-3-8B's 32 heads of 128
+VS_CASES = (("4k", 4096, 256, 8), ("32k", 32768, 1000, 64))
+VS_VARLEN = (16384, 8192)  # the varlen path's two sequences
+QSERVE_M = (16, 1024)
+
+
+def once_ms(torch, fn):
+    """(result, ms) of one call timed with CUDA events: the plain versions
+    too slow to repeat (float32 products at prefill widths)."""
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def e4m3_codes(torch, gen, *shape):
+    """Uniform random e4m3 bytes, the two NaN codes (0x7f, 0xff) left out:
+    values over e4m3's whole range, subnormals included."""
+    u = torch.randint(0, 254, shape, generator=gen, device=DEVICE, dtype=torch.uint8)
+    u.add_((u >= 0x7F).to(torch.uint8))
+    return u.view(torch.float8_e4m3fn)
+
+
+def fp8_library(torch, a, b):
+    """torch._scaled_mm on the same e4m3 operands, B column-major (copied
+    outside the timed call): with 1x128 / 128x128 block scales where this
+    torch takes them on the card, else row-wise scales, the fp8 tensor-core
+    yardstick at the same shape. Returns (fn, note)."""
+    m, k = a.shape
+    n = b.shape[1]
+    bt = b.t().contiguous().t()
+    dev = a.device
+    notes = []
+    for form, sa, sb in (("1x128 / 128x128 block scales", torch.ones((m, k // 128), device=dev),
+                          torch.ones((k // 128, n // 128), device=dev)),
+                         ("row-wise scales", torch.ones((m, 1), device=dev), torch.ones((1, n), device=dev))):
+        fn = functools.partial(torch._scaled_mm, a, bt, scale_a=sa, scale_b=sb, out_dtype=torch.bfloat16)
+        try:
+            fn()
+        except Exception as e:  # this torch refuses this scaling on the card
+            notes.append(f"{form} refused: {str(e).splitlines()[0][:100]}")
+            continue
+        return fn, "; ".join(notes + [f"torch._scaled_mm with {form}"])
+    return None, "; ".join(notes)
+
+
+def phase_slice8_kernels(torch, skt):
+    """Slice 8's kernels against their plain versions. K17 at DeepSeek-V3's
+    dense fp8 GEMMs (shared-expert gate_up [M, 4096, 7168] and down [M, 7168,
+    2048], o_proj [M, 7168, 16384]) at M=16 and 1,024, gate_up M=16 also on
+    prepared scales; K18 over DeepSeek-V3's routed banks (256 experts, gate_up
+    [256, 7168, 4096] and down [256, 2048, 7168] e4m3, 11.3 GB) at a B=16
+    decode (top-8, bm 16, gate_up and down) and a 1,024-token prefill (bm
+    128, gate_up), rows aligned by moe_align_block_size; K19 at Llama-3-8B's
+    GEMMs (qkv, o, gate_up, down; group 128) at M=16 and 1,024 on the
+    progressive-quant operands of tests/test_gemm.py:278-292; K16 at
+    Llama-3-8B's attention widths (32 heads of 128, bf16, causal, bm 64, bn
+    128) at S=4,096 (NV 256, NS 8) and S=32,768 (NV 1,000, NS 64), schedules
+    from convert_vertical_slash_indexes on sorted random columns and
+    distances, and at 4,096 with softcap 30 and the lse. Library yardsticks:
+    torch._scaled_mm (K17), torch._scaled_grouped_mm (K18), torch._int_mm on
+    the dequantized int8 weights (K19), SDPA causal over the same dense
+    q / k / v (K16)."""
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 13)
+    rows = {}
+
+    def report(name, row, dev_fn=None):
+        rows[name] = report_row(torch, name, row, dev_fn)
+
+    def scales(*shape):
+        return torch.rand(shape, generator=gen, device=dev) * 1e-2 + 1e-3
+
+    for part in (kernels_k17, kernels_k18, kernels_k19, kernels_k16):
+        part(torch, skt, gen, scales, report)
+        free_memory(torch)
+    return rows
+
+
+def kernels_k17(torch, skt, gen, scales, report):
+    from sgl_kernel_tpu_torch.ops.gemm import blockwise_fp8 as bw
+
+    for m in (16, 1024):
+        for label, n, k in (("gate_up", 2 * V3["inter"], V3["hidden"]), ("down", V3["hidden"], V3["inter"]),
+                            ("o_proj", V3["hidden"], V3["o_in"])):
+            a, b = e4m3_codes(torch, gen, m, k), e4m3_codes(torch, gen, k, n)
+            sa, sb = scales(m, k // 128), scales(k // 128, n // 128)
+            forms = [("", sb)]
+            if (m, label) == (16, "gate_up"):
+                forms.append(("_prepared", bw.prepare_blockwise_scales(sb)))
+            lib_fn, lib_note = fp8_library(torch, a, b)
+            for suffix, sbx in forms:
+                fn = functools.partial(bw.fp8_blockwise_scaled_mm, a, b, sa, sbx)
+                ref, plain = once_ms(torch, functools.partial(bw.fp8_blockwise_scaled_mm_ref, a, b, sa, sbx))
+                err = check(f"fp8_blockwise_scaled_mm {label} [{m}, {n}, {k}]{suffix}", [(fn(), ref)])
+                del ref
+                bms, bby = bound_ms(m * k + k * n + 4 * (sa.numel() + sbx.numel()) + 2 * m * n, 2 * m * n * k,
+                                    FP8_FLOPS)
+                report(f"fp8_blockwise_scaled_mm_{label}_m{m}{suffix}", dict(
+                    max_abs_err=err, ms=time_ms(torch, fn), plain_ms=plain,
+                    library_ms=None if lib_fn is None else time_ms(torch, lib_fn), library_note=lib_note,
+                    bound_ms=bms, bound_by=bby), fn if m == 16 else None)
+            del a, b, lib_fn
+
+
+def kernels_k18(torch, skt, gen, scales, report):
+    from sgl_kernel_tpu_torch.ops import moe
+    from sgl_kernel_tpu_torch.ops.gemm import blockwise_fp8 as bw
+
+    dev = torch.device(DEVICE)
+    bf, f8 = torch.bfloat16, torch.float8_e4m3fn
+    e, topk, h, inter = V3["experts"], V3["topk"], V3["hidden"], V3["inter"]
+    w13, s13 = e4m3_codes(torch, gen, e, h, 2 * inter), scales(e, h // 128, 2 * inter // 128)
+    w2, s2 = e4m3_codes(torch, gen, e, inter, h), scales(e, inter // 128, h // 128)
+    w13_t = None  # the column-major copy of the yardstick, made once
+    for t, bm, label in ((16, 16, "decode"), (1024, 128, "prefill")):
+        tw, tids = moe.topk_softmax(torch.randn((t, e), generator=gen, device=dev), topk)
+        al = moe.moe_align_block_size(tids, tw, e, bm)
+        cap, eids = al.token_ids.shape[0], al.block_expert_ids
+        hit = int(torch.unique(eids).numel())
+        x = moe.scatter_tokens_to_experts(e4m3_codes(torch, gen, t, h).view(torch.uint8), al).view(f8)
+        xs = moe.scatter_tokens_to_experts(scales(t, h // 128), al)
+        steps = [("gate_up", x, xs, w13, s13)]
+        if label == "decode":
+            steps.append(("down", e4m3_codes(torch, gen, cap, inter), scales(cap, inter // 128), w2, s2))
+        for name, a, sa, w, sw in steps:
+            k, n = a.shape[1], w.shape[-1]
+            fn = functools.partial(bw.fp8_blockwise_scaled_grouped_mm, a, w, sa, sw, eids, bm=bm)
+            ref, plain = once_ms(torch, functools.partial(bw.fp8_blockwise_scaled_grouped_mm_ref, a, w, sa, sw, eids,
+                                                          bm=bm))
+            err = check(f"fp8_blockwise_scaled_grouped_mm {label} {name} [cap {cap}, bm {bm}, {hit} experts]",
+                        [(fn(), ref)])
+            del ref
+            lib_fn, lib_note = None, "torch._scaled_grouped_mm is timed at gate_up only"
+            if name == "gate_up":
+                if not hasattr(torch, "_scaled_grouped_mm"):
+                    lib_note = "this torch has no torch._scaled_grouped_mm"
+                else:
+                    if w13_t is None:
+                        w13_t = w13.transpose(-2, -1).contiguous().transpose(-2, -1)
+                    offs = torch.cumsum(al.padded_group_sizes, 0).to(torch.int32)
+                    lib_fn = functools.partial(torch._scaled_grouped_mm, a, w13_t, torch.ones(cap, device=dev),
+                                               torch.ones((e, n), device=dev), offs=offs, out_dtype=bf)
+                    try:
+                        lib_fn()
+                        lib_note = "torch._scaled_grouped_mm, row-wise scales, the valid rows"
+                    except Exception as ex:  # this torch refuses the call on the card
+                        lib_fn, lib_note = None, f"torch._scaled_grouped_mm refused: {str(ex).splitlines()[0][:100]}"
+            n_bytes = hit * (k * n + 4 * sw[0].numel()) + cap * (k + 4 * (k // 128) + 2 * n) + 4 * eids.numel()
+            bms, bby = bound_ms(n_bytes, 2 * cap * n * k, FP8_FLOPS)
+            report(f"fp8_blockwise_scaled_grouped_mm_{label}_{name}", dict(
+                max_abs_err=err, ms=time_ms(torch, fn, iters=5 if label == "prefill" else 20), plain_ms=plain,
+                library_ms=None if lib_fn is None else time_ms(torch, lib_fn, iters=5), library_note=lib_note,
+                bound_ms=bms, bound_by=bby, experts_hit=hit, rows=cap), fn if label == "decode" else None)
+
+
+def kernels_k19(torch, skt, gen, scales, report):
+    from sgl_kernel_tpu_torch.ops.gemm import qserve
+
+    F = torch.nn.functional
+    dev = torch.device(DEVICE)
+    cfg = skt.LlamaConfig.llama3_8b()
+    hd, g = cfg.hidden_size, 128
+    gemms = (("qkv", (cfg.num_heads + 2 * cfg.num_kv_heads) * cfg.head_dim, hd), ("o", hd, cfg.num_heads * cfg.head_dim),
+             ("gate_up", 2 * cfg.intermediate_size, hd), ("down", hd, cfg.intermediate_size))
+    for label, n, k in gemms:
+        codes, zs2, s2i, ws, w8 = qserve_weights(torch, gen, n, k, g)
+        w8_t = w8.t()
+        for m in QSERVE_M:
+            aq = torch.randint(-128, 128, (m, k), generator=gen, device=dev, dtype=torch.int8)
+            as_ = (torch.rand(m, generator=gen, device=dev) * 0.01 + 1e-3).half()
+            args = (aq, codes, zs2, s2i, ws, as_)
+            fn = functools.partial(qserve.qserve_w4a8_per_group_gemm, *args)
+            ref, plain = once_ms(torch, functools.partial(qserve.qserve_w4a8_per_group_gemm_ref, *args))
+            err = check(f"qserve_w4a8_per_group_gemm {label} [{m}, {n}, {k}]", [(fn(), ref)])
+            del ref
+            a_lib = F.pad(aq, (0, 0, 0, max(0, 17 - m)))  # torch._int_mm wants more than 16 rows
+            lib_fn = functools.partial(torch._int_mm, a_lib, w8_t)
+            n_bytes = m * k + n * k + n * (k // g) * (1 + 4) + 2 * (m + n) + 2 * m * n
+            bms, bby = bound_ms(n_bytes, 2 * m * n * k, INT8_OPS)
+            report(f"qserve_w4a8_per_group_gemm_{label}_m{m}", dict(
+                max_abs_err=err, ms=time_ms(torch, fn), plain_ms=plain, library_ms=time_ms(torch, lib_fn),
+                library_note=f"torch._int_mm on the int8 W8 (A padded to {a_lib.shape[0]} rows)", bound_ms=bms,
+                bound_by=bby), fn if m == 16 else None)
+        del codes, w8, w8_t
+
+
+def kernels_k16(torch, skt, gen, scales, report):
+    import numpy as np
+
+    from sgl_kernel_tpu_torch.ops.attention import sparse_vs
+
+    F = torch.nn.functional
+    dev = torch.device(DEVICE)
+    bf = torch.bfloat16
+    cfg = skt.LlamaConfig.llama3_8b()
+    nh, d = cfg.num_heads, cfg.head_dim
+    rng = np.random.default_rng(SEED)
+    for label, s, nv, ns in VS_CASES:
+        q, k, v = (torch.randn((1, s, nh, d), generator=gen, device=dev).to(bf) for _ in range(3))
+        vert = np.sort(np.stack([rng.choice(s, nv, replace=False) for _ in range(nh)]), -1)[None]
+        slash = np.sort(np.stack([rng.choice(s, ns, replace=False) for _ in range(nh)]), -1)[None, :, ::-1]
+        slash = np.ascontiguousarray(slash)
+        t0 = time.perf_counter()
+        sched = sparse_vs.convert_vertical_slash_indexes([s], [s], vert, slash, s, 64, 128)
+        conv_s = time.perf_counter() - t0
+        pairs = vs_pairs(sched, s, 64, 128)
+        sched_t = [torch.from_numpy(x).to(dev) for x in sched]
+        variants = [("", {})] + ([("_softcap_lse", dict(softcap=30.0, return_lse=True))] if label == "4k" else [])
+        for suffix, kw in variants:
+            fn = functools.partial(sparse_vs.sparse_attn_func, q, k, v, *sched_t, **kw)
+            ref, plain = once_ms(torch, functools.partial(sparse_vs.sparse_attn_func_ref, q, k, v, *sched_t, **kw))
+            out = fn()
+            name = f"sparse_attn_func S={s} NV={nv} NS={ns}{suffix} [{nh} heads of {d}]"
+            if kw.get("return_lse"):
+                err = max(check(name, [(out[0], ref[0])]), check_lse(name, out[1], ref[1]))
+            else:
+                err = check(name, [(out, ref)])
+            del ref, out
+            n_bytes = 2 * s * nh * d * 2 * 2 + sum(x.nbytes for x in sched) + (4 * nh * s if kw else 0)
+            bms, bby = bound_ms(n_bytes, 4 * d * pairs, BF16_FLOPS)
+            qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+            lib_fn = functools.partial(F.scaled_dot_product_attention, qt, kt, vt, is_causal=True)
+            report(f"sparse_attn_func_{label}{suffix}", dict(
+                max_abs_err=err, ms=time_ms(torch, fn, iters=5), plain_ms=plain,
+                library_ms=time_ms(torch, lib_fn, iters=5),
+                library_note="SDPA causal over the same dense q / k / v: the attention it thins", bound_ms=bms,
+                bound_by=bby, schedule_s=conv_s, visible_pairs=pairs,
+                dense_pairs=nh * s * (s + 1) // 2))
+        del q, k, v, sched_t
+
+
+def qserve_weights(torch, gen, n, k, g):
+    """One [N, K] weight quantized as tests/test_gemm.py:278-292 does it:
+    int8 per channel (|q| <= 119), then 4-bit groups of ``g`` with a scale
+    s2 and a zero z. Returns (codes uint8, zeros_x_s2 float32, s2 int8,
+    per-channel scales f16, the int8 W8 = (code - z) * s2)."""
+    w = torch.randn((n, k), generator=gen, device=DEVICE) * 0.01
+    chn = w.abs().amax(-1, keepdim=True) / 119
+    bi8 = torch.clamp(torch.round(w / chn), -119, 119).reshape(n, k // g, g)
+    del w
+    s2 = torch.clamp(torch.round((bi8.amax(-1) - bi8.amin(-1)) / 15), min=1.0)
+    z2 = -torch.round(bi8.amin(-1) / s2)
+    codes = torch.clamp(torch.round(bi8 / s2[..., None]) + z2[..., None], 0, 15)
+    del bi8
+    w8 = ((codes - z2[..., None]) * s2[..., None]).clamp(-127, 127).reshape(n, k).to(torch.int8)
+    return codes.reshape(n, k).to(torch.uint8), z2 * s2, s2.to(torch.int8), chn[:, 0].half(), w8
+
+
+def vs_pairs(sched, s, bm, bn):
+    """(query, key) pairs K16's schedule asks for, counted per row: each
+    counted column c visible to the rows r >= c of its row block, each slash
+    block's keys k < S visible to the rows r >= k (causal). Duplicates count,
+    as the kernel computes them."""
+    import numpy as np
+
+    bc, bo, cc, ci = sched
+    _, _, r, nv = ci.shape
+    row0 = (np.arange(r) * bm)[None, None, :, None]
+    row_end = np.minimum(row0 + bm, s)
+    live = np.arange(nv)[None, None, None, :] < cc[..., None]
+    cols = np.where(live, np.maximum(0, row_end - np.maximum(ci, row0)), 0).sum()
+    ns = bo.shape[-1]
+    slot = np.arange(ns)[None, None, None, :] < bc[..., None]
+    blocks = 0
+    for i in range(bm):  # row row0 + i sees keys o .. min(o + bn, S, row + 1) - 1
+        row = row0 + i
+        seen = np.clip(np.minimum(np.minimum(bo + bn, s), row + 1) - bo, 0, bn)
+        blocks += np.where(slot & (row < s), seen, 0).sum()
+    return int(cols + blocks)
+
+
+def path_sparse_attn_varlen(torch, skt):
+    """K16's path: no model calls it, in the JAX package either; its entry
+    points are the ops. Driven as a user calls them: two prompts of 16,384
+    and 8,192 tokens at Llama-3-8B's widths (32 query heads over 8 kv heads
+    of 128), the index sets estimated by build_vertical_slash_indexes from
+    each prompt's last 64 queries (NV 1,000, NS 64), the schedule from
+    convert_vertical_slash_indexes (bm 64, bn 64), then
+    sparse_attn_varlen_func (causal). Counts set to 0 just before and read
+    just after: K16 launches once. Gate: the second prompt's rows, and the
+    first 4,096 of the first prompt's, against the plain version on their own
+    schedule."""
+    import numpy as np
+
+    from sgl_kernel_tpu_torch.ops.attention import sparse_vs
+
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 14)
+    cfg = skt.LlamaConfig.llama3_8b()
+    nh, nkv, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    lens = list(VS_VARLEN)
+    nv, ns = min(1000, min(lens)), min(64, min(lens))
+    total = sum(lens)
+    q = torch.randn((total, nh, d), generator=gen, device=dev).to(torch.bfloat16)
+    k = torch.randn((total, nkv, d), generator=gen, device=dev).to(torch.bfloat16)
+    v = torch.randn((total, nkv, d), generator=gen, device=dev).to(torch.bfloat16)
+    cu = np.concatenate([[0], np.cumsum(lens)])
+    torch.cuda.synchronize()
+    skt.reset_launch_counts()
+    t0 = time.perf_counter()
+    verts, slashes = [], []
+    for i in range(len(lens)):  # the estimator scores each prompt's last 64 queries (kv heads repeated)
+        qs, ks = q[cu[i]: cu[i + 1]][None], k[cu[i]: cu[i + 1]][None].repeat_interleave(nh // nkv, dim=2)
+        vi, si = sparse_vs.build_vertical_slash_indexes(qs, ks, nv, ns)
+        verts.append(torch.sort(vi, -1).values.cpu().numpy())
+        slashes.append(torch.sort(si, -1, descending=True).values.cpu().numpy())
+    vert, slash = np.stack(verts), np.stack(slashes)
+    sched = sparse_vs.convert_vertical_slash_indexes(lens, lens, vert, slash, max(lens), 64, 64)
+    out, lse = sparse_vs.sparse_attn_varlen_func(q, k, v, *sched, cu, cu, max(lens), max(lens), causal=True,
+                                                 return_softmax_lse=True)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = skt.launch_counts()
+    if counts["sparse_attn_func"] != 1 or out.shape != (total, nh, d) or lse.shape != (nh, total):
+        fail(f"sparse_attn_varlen_func path: launches {counts}, out {tuple(out.shape)}, lse {tuple(lse.shape)}")
+    if not bool(torch.isfinite(out.float()).all()):
+        fail("sparse_attn_varlen_func path: non-finite output")
+    # the gate: prompt 2 whole, and prompt 1's first 4,096 rows (causal: they
+    # see only its first 4,096 keys), each through the plain version on its
+    # rows of the schedule
+    err = 0.0
+    for i, n in ((1, lens[1]), (0, min(lens[0], 4096))):
+        rows = -(-n // 64)
+        one = [torch.from_numpy(np.ascontiguousarray(x[i: i + 1, :, :rows])).to(dev) for x in sched]
+        sl = slice(int(cu[i]), int(cu[i]) + n)
+        ref, ref_lse = sparse_vs.sparse_attn_func_ref(q[sl][None], k[sl][None], v[sl][None], *one,
+                                                      block_size_N=64, return_lse=True)
+        name = f"sparse_attn_varlen_func path, prompt {i + 1} rows 0..{n} against the plain version"
+        err = max(err, check(name, [(out[sl], ref[0])]), check_lse(name, lse[:, sl], ref_lse[0]))
+        del ref, ref_lse
+    res = dict(prompts=lens, heads=[nh, nkv], nv=nv, ns=ns, max_abs_err=err, wall_ms=1e3 * wall,
+               blocks=int(sched[0].sum()), columns=int(sched[2].sum()),
+               launches={"sparse_attn_func": counts["sparse_attn_func"]})
+    log("[path] sparse_attn_varlen_func: " + json.dumps(res))
+    del q, k, v, out
+    free_memory(torch)
+    return res
+
+
+def per_block_fp8(torch, x):
+    """bf16 rows [T, K] -> (e4m3 [T, K], scales [T, K/128]): DeepSeek-V3's
+    1x128 activation quantization (amax / 448 a block)."""
+    t, k = x.shape
+    xb = x.float().reshape(t, k // 128, 128)
+    s = torch.clamp_min(xb.abs().amax(-1) / 448.0, 1e-12)
+    return (xb / s[..., None]).clamp(-448, 448).reshape(t, k).to(torch.float8_e4m3fn), s
+
+
+def path_blockwise_fp8(torch, skt, layers=4):
+    """K17's and K18's path: no model calls them, in the JAX package either;
+    their entry points are the ops. Driven as a user calls them, a
+    DeepSeek-V3 fp8 MoE layer's GEMMs at a B=16 decode, ``layers`` times
+    over one set of weights: o_proj [16384 -> 7168] (K17), the shared
+    expert's gate_up and down (K17), the routed experts' gate_up and down
+    over 256 experts, top-8, bm 16 (K18), activations quantized 1x128
+    between them. Counts set to 0 just before and read just after: K17
+    three and K18 two launches a layer. Gate: the first layer's routed
+    output against the plain versions."""
+    from sgl_kernel_tpu_torch.ops import moe
+    from sgl_kernel_tpu_torch.ops.activation import silu_and_mul
+    from sgl_kernel_tpu_torch.ops.gemm import blockwise_fp8 as bw
+
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 15)
+    e, topk, h, inter, o_in = V3["experts"], V3["topk"], V3["hidden"], V3["inter"], V3["o_in"]
+    t, bm = 16, 16
+
+    def scales(*shape):
+        return torch.rand(shape, generator=gen, device=dev) * 2e-3 + 1e-4
+
+    w_o, s_o = e4m3_codes(torch, gen, o_in, h), scales(o_in // 128, h // 128)
+    w_sgu, s_sgu = e4m3_codes(torch, gen, h, 2 * inter), scales(h // 128, 2 * inter // 128)
+    w_sd, s_sd = e4m3_codes(torch, gen, inter, h), scales(inter // 128, h // 128)
+    w13, s13 = e4m3_codes(torch, gen, e, h, 2 * inter), scales(e, h // 128, 2 * inter // 128)
+    w2, s2 = e4m3_codes(torch, gen, e, inter, h), scales(e, inter // 128, h // 128)
+    attn = torch.randn((layers, t, o_in), generator=gen, device=dev).to(torch.bfloat16)
+    logits = torch.randn((layers, t, e), generator=gen, device=dev)
+    torch.cuda.synchronize()
+    skt.reset_launch_counts()
+    t0 = time.perf_counter()
+    outs, first = [], None
+    for lidx in range(layers):
+        a, sa = per_block_fp8(torch, attn[lidx])
+        hidden = bw.fp8_blockwise_scaled_mm(a, w_o, sa, s_o)
+        x, sx = per_block_fp8(torch, hidden)
+        shared = silu_and_mul(bw.fp8_blockwise_scaled_mm(x, w_sgu, sx, s_sgu))
+        ys, sys_ = per_block_fp8(torch, shared)
+        shared = bw.fp8_blockwise_scaled_mm(ys, w_sd, sys_, s_sd)
+        tw, tids = moe.topk_softmax(logits[lidx], topk, renormalize=True)
+        al = moe.moe_align_block_size(tids, tw, e, bm)
+        xr = moe.scatter_tokens_to_experts(x.view(torch.uint8), al).view(torch.float8_e4m3fn)
+        sr = moe.scatter_tokens_to_experts(sx, al)
+        gu = bw.fp8_blockwise_scaled_grouped_mm(xr, w13, sr, s13, al.block_expert_ids, bm=bm)
+        y, sy = per_block_fp8(torch, silu_and_mul(gu))
+        down = bw.fp8_blockwise_scaled_grouped_mm(y, w2, sy, s2, al.block_expert_ids, bm=bm)
+        outs.append(moe.apply_shuffle_mul_sum(down, al, t) + shared)
+        if lidx == 0:
+            first = (xr, sr, y, sy, al.block_expert_ids, gu, down)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = skt.launch_counts()
+    if counts["fp8_blockwise_scaled_mm"] != 3 * layers or counts["fp8_blockwise_scaled_grouped_mm"] != 2 * layers:
+        fail(f"blockwise fp8 path: launches {counts}")
+    if not all(bool(torch.isfinite(o.float()).all()) for o in outs):
+        fail("blockwise fp8 path: non-finite output")
+    xr, sr, y, sy, eids, gu, down = first
+    err = check("blockwise fp8 path, layer 0's routed gate_up and down against the plain version",
+                [(gu, bw.fp8_blockwise_scaled_grouped_mm_ref(xr, w13, sr, s13, eids, bm=bm)),
+                 (down, bw.fp8_blockwise_scaled_grouped_mm_ref(y, w2, sy, s2, eids, bm=bm))])
+    res = dict(layers=layers, batch=t, max_abs_err=err, wall_ms=1e3 * wall,
+               launches={n: counts[n] for n in ("fp8_blockwise_scaled_mm", "fp8_blockwise_scaled_grouped_mm")})
+    log("[path] blockwise fp8 DeepSeek-V3 MoE layer: " + json.dumps(res))
+    del w_o, w_sgu, w_sd, w13, w2, first
+    free_memory(torch)
+    return res
+
+
+def quant_rows_int8(torch, x):
+    """Per-token int8: (A_q [M, K], scales [M] f16, per-token sums of x)."""
+    xf = x.float()
+    s = torch.clamp_min(xf.abs().amax(-1) / 127.0, 1e-8)
+    return torch.clamp(torch.round(xf / s[:, None]), -128, 127).to(torch.int8), s.half(), xf.sum(-1)
+
+
+def path_qserve(torch, skt, layers=8):
+    """K19's path: no model calls the QServe GEMMs, in the JAX package either;
+    their entry points are the ops. Driven as a user calls them, a W4A8
+    Llama-3-8B decode (M=16) through ``layers`` layers' linear layers on
+    their own weights (qkv, o, gate_up, down: per-group, group 128;
+    activations quantized per token between them), and the per-channel
+    GEMM (qserve_w4a8_per_chn_gemm) on each layer's gate_up codes. Counts
+    set to 0 just before and read just after: K19 four launches a layer.
+    Gate: layer 0's gate_up against the plain version."""
+    from sgl_kernel_tpu_torch.ops.activation import silu_and_mul
+    from sgl_kernel_tpu_torch.ops.gemm import qserve
+
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 16)
+    cfg = skt.LlamaConfig.llama3_8b()
+    hd, g, m = cfg.hidden_size, 128, 16
+    dims = dict(qkv=((cfg.num_heads + 2 * cfg.num_kv_heads) * cfg.head_dim, hd), o=(hd, cfg.num_heads * cfg.head_dim),
+                gate_up=(2 * cfg.intermediate_size, hd), down=(hd, cfg.intermediate_size))
+    weights = [{name: qserve_weights(torch, gen, n, k, g)[:4] for name, (n, k) in dims.items()}
+               for _ in range(layers)]
+    x = torch.randn((m, hd), generator=gen, device=dev).to(torch.bfloat16)
+    torch.cuda.synchronize()
+    skt.reset_launch_counts()
+    t0 = time.perf_counter()
+    gate = None
+    for lidx, lw in enumerate(weights):
+        def linear(name, inp):
+            aq, asc, _ = quant_rows_int8(torch, inp)
+            return qserve.qserve_w4a8_per_group_gemm(aq, *lw[name], asc, out_dtype=torch.bfloat16), aq, asc
+
+        qkv, _, _ = linear("qkv", x)
+        attn = qkv[:, : cfg.num_heads * cfg.head_dim]  # attention itself is not this path's
+        o, _, _ = linear("o", attn)
+        hid = x + o
+        gu, aq, asc = linear("gate_up", hid)
+        codes, zs2, s2, ws = lw["gate_up"]
+        per_chn = qserve.qserve_w4a8_per_chn_gemm(aq, codes, ws, asc, ws.float() * 8.0, quant_rows_int8(torch, hid)[2],
+                                                  out_dtype=torch.bfloat16)
+        down, _, _ = linear("down", silu_and_mul(gu))
+        x = hid + down
+        if lidx == 0:
+            gate = (aq, asc, gu, per_chn)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = skt.launch_counts()
+    if counts["qserve_w4a8_per_group_gemm"] != 4 * layers:
+        fail(f"qserve path: launches {counts}")
+    if not bool(torch.isfinite(x.float()).all()) or not bool(torch.isfinite(gate[3].float()).all()):
+        fail("qserve path: non-finite output")
+    aq, asc, gu, _ = gate
+    err = check("qserve path, layer 0's gate_up against the plain version",
+                [(gu, qserve.qserve_w4a8_per_group_gemm_ref(aq, *weights[0]["gate_up"], asc,
+                                                            out_dtype=torch.bfloat16))])
+    res = dict(layers=layers, batch=m, max_abs_err=err, wall_ms=1e3 * wall,
+               launches={"qserve_w4a8_per_group_gemm": counts["qserve_w4a8_per_group_gemm"]})
+    log("[path] QServe W4A8 Llama-3-8B layers: " + json.dumps(res))
+    del weights
+    free_memory(torch)
+    return res
+
+
+def path_w4a8_grouped(torch, skt, layers=4):
+    """w4a8_grouped_mm's path (K11 underneath; no model calls it, in JAX
+    either): DeepSeek-V3's routed gate_up widths (256 experts, packed int4
+    [256, 3584, 4096], per-channel scales and zeros), a B=16 decode, top-8,
+    bm 16, ``layers`` times over one bank. Counts set to 0 just before and
+    read just after: K11 once a layer. Gate: the first 4 valid blocks'
+    rows against the dequantized weights in float32."""
+    from sgl_kernel_tpu_torch.ops import moe
+    from sgl_kernel_tpu_torch.ops.gemm.w4a16 import unpack_w4_tpu
+
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 17)
+    e, topk, k, n, t, bm = V3["experts"], V3["topk"], V3["hidden"], 2 * V3["inter"], 16, 16
+    w = torch.randint(0, 256, (e, k // 2, n), generator=gen, device=dev, dtype=torch.uint8)
+    s1 = torch.rand((e, n), generator=gen, device=dev) * 0.02 + 0.01
+    zs = torch.rand((e, n), generator=gen, device=dev) * 0.05
+    torch.cuda.synchronize()
+    skt.reset_launch_counts()
+    t0 = time.perf_counter()
+    outs = []
+    for _ in range(layers):
+        tw, tids = moe.topk_softmax(torch.randn((t, e), generator=gen, device=dev), topk, renormalize=True)
+        al = moe.moe_align_block_size(tids, tw, e, bm)
+        xq, xs, _ = quant_rows_int8(torch, torch.randn((t, k), generator=gen, device=dev))
+        x = moe.scatter_tokens_to_experts(xq, al)
+        x_scales = moe.scatter_tokens_to_experts(xs.float()[:, None], al)[:, 0]
+        out = moe.w4a8_grouped_mm(x, x_scales, w, s1, al.block_expert_ids, zs, bm=bm, out_dtype=torch.float32)
+        outs.append((out, x, x_scales, al))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = skt.launch_counts()
+    if counts["w4a16_grouped_mm"] != layers:
+        fail(f"w4a8_grouped_mm path: launches {counts}")
+    out, x, x_scales, al = outs[0]
+    if not bool(torch.isfinite(out).all()):
+        fail("w4a8_grouped_mm path: non-finite output")
+    pairs = []
+    for blk in range(4):
+        ex = int(al.block_expert_ids[blk])
+        rows = slice(blk * bm, (blk + 1) * bm)
+        codes = unpack_w4_tpu(w[ex]).float()  # [K, N] nibbles, two's complement
+        codes = torch.where(codes > 7, codes - 16, codes)
+        xf = x[rows].float()
+        ref = ((xf @ codes) * s1[ex] - xf.sum(-1, keepdim=True) * zs[ex]) * x_scales[rows, None]
+        pairs.append((out[rows], ref))
+    err = check("w4a8_grouped_mm path, 4 valid blocks against the dequantized weights", pairs)
+    res = dict(layers=layers, batch=t, max_abs_err=err, wall_ms=1e3 * wall,
+               launches={"w4a16_grouped_mm": counts["w4a16_grouped_mm"]})
+    log("[path] w4a8_grouped_mm on K11: " + json.dumps(res))
+    del w, outs
+    free_memory(torch)
+    return res
+
+
 def main():
     import faulthandler
 
@@ -2256,6 +2837,8 @@ def main():
         rows.update(phase_nsa_kernels(torch, skt))
         torch.cuda.empty_cache()
         rows.update(phase_decode_variants(torch, skt))
+        free_memory(torch)
+        rows.update(phase_slice8_kernels(torch, skt))
     bf16_cfg = skt.LlamaConfig.llama3_8b(fused=True)
     w4_cfg = skt.LlamaConfig.llama3_8b(quant="w4a16", fused=True)
     dma_cfg = dataclasses.replace(w4_cfg, gemm_impl="dma")
@@ -2372,6 +2955,15 @@ def main():
             n_b=4, wave_c=False, cold=False, mixed=False)
         del eng
         free_memory(torch)
+    # slice 8's paths: the ops a user calls (no model calls them, in JAX either)
+    with phase("4 path sparse_attn_varlen_func"):
+        paths["sparse_attn_varlen_func"] = path_sparse_attn_varlen(torch, skt)
+    with phase("4 path blockwise fp8"):
+        paths["fp8_blockwise"] = path_blockwise_fp8(torch, skt)
+    with phase("4 path qserve"):
+        paths["qserve"] = path_qserve(torch, skt)
+    with phase("4 path w4a8_grouped_mm"):
+        paths["w4a8_grouped_mm"] = path_w4a8_grouped(torch, skt)
 
     meta = {
         "w4a16_gemm": ("cuda", "sgl_kernel_tpu_torch/csrc/w4a16_gemm.cu", "sgl_kernel_tpu/ops/gemm/w4a16.py:301",
@@ -2406,10 +2998,21 @@ def main():
                            "sgl_kernel_tpu/ops/gemm/w4a16_dma.py:170", "w4a16_gemm_dma_gate_up"),
         "paged_attention_decode": ("cuda", "sgl_kernel_tpu_torch/csrc/decode_attention.cu",
                                    "sgl_kernel_tpu/ops/attention/paged_decode.py:158", "paged_attention_decode"),
+        "sparse_attn_func": ("cuda", "sgl_kernel_tpu_torch/csrc/sparse_vs.cu",
+                             "sgl_kernel_tpu/ops/attention/sparse_vs.py:351", "sparse_attn_func_32k"),
+        "fp8_blockwise_scaled_mm": ("cuda", "sgl_kernel_tpu_torch/csrc/blockwise_fp8.cu",
+                                    "sgl_kernel_tpu/ops/gemm/blockwise_fp8.py:268",
+                                    "fp8_blockwise_scaled_mm_gate_up_m16"),
+        "fp8_blockwise_scaled_grouped_mm": ("cuda", "sgl_kernel_tpu_torch/csrc/blockwise_fp8.cu",
+                                            "sgl_kernel_tpu/ops/gemm/blockwise_fp8.py:362",
+                                            "fp8_blockwise_scaled_grouped_mm_decode_gate_up"),
+        "qserve_w4a8_per_group_gemm": ("cuda", "sgl_kernel_tpu_torch/csrc/qserve_gemm.cu",
+                                       "sgl_kernel_tpu/ops/gemm/qserve.py:61", "qserve_w4a8_per_group_gemm_gate_up_m16"),
     }
     kernels = []
     # launches: the main paths' waves in phase 4, counted from 0 before each
-    # wave, summed over every engine, and the op paths of K13b and K8
+    # wave, summed over every engine, and the op paths (K13b, K8, K16-K19, K11
+    # under w4a8_grouped_mm)
     for name, (route, src, repl, row) in meta.items():
         r = rows[row]
         kernels.append(dict(name=name, route=route, source=src, replaces=repl,
@@ -2429,7 +3032,8 @@ def main():
                  "w4a16_gemm_dma_lm_head", "w4a16_gemm_dma_gate_up_m1", "w4a16_gemm_dma_gate_up_m32",
                  "paged_attention_decode_e4m3", "paged_attention_decode_dma_head", "paged_attention_decode_dma_lse",
                  "paged_attention_decode_dma_split16", "paged_attention_decode_dma_split_32k",
-                 "paged_attention_decode_dma_options"):
+                 "paged_attention_decode_dma_options", *sorted(n for n in rows if n.startswith(
+                     ("fp8_blockwise", "qserve", "sparse_attn")))):
         log(f"[kernel] {name}: " + json.dumps(rows[name]))
     log(json.dumps({"card": card, "parity": parity, "serve": serve, "profile": profile, "paths": paths,
                     "phase_s": times}))

@@ -15,7 +15,11 @@ Kernels ported so far (each wrapper counts its launches in ``.launches``):
   576), K11 w4a16_grouped_mm, K12 bf16_grouped_mm, K13a mla_decode, K13b
   mla_decode_dma (``mla_decode(engine="dma")``), K15 fp8_paged_mqa_logits
   (CUDA C++); K2 rmsnorm, K3 rope_decode_fused_qkv, K4 rope_decode_fused,
-  K14 mla_qkv_prep (Triton). Models: Llama (``LlamaConfig``), Mixtral
+  K14 mla_qkv_prep (Triton); K16 sparse_attn_func (vertical + slash sparse
+  prefill), K17 fp8_blockwise_scaled_mm, K18 fp8_blockwise_scaled_grouped_mm
+  and K19 qserve_w4a8_per_group_gemm (CUDA C++), with the op surface around
+  them (the schedule builders, the INT8 / FP8 / NVFP4 GEMMs, the per-channel
+  QServe GEMM and w4a8_grouped_mm on K11). Models: Llama (``LlamaConfig``), Mixtral
   (``MixtralConfig``, module ``models.mixtral``) and DeepSeek MLA + MoE
   (``DeepseekConfig``, module ``models.deepseek``), with NSA sparse decode
   (``nsa=True``). The serving engine's radix prefix cache is host C++
@@ -39,7 +43,10 @@ from .models.llama import (
 from .ops.attention import (
     apply_sinks,
     build_packed_metadata,
+    build_vertical_slash_indexes,
     choose_num_splits,
+    convert_vertical_slash_indexes,
+    convert_vertical_slash_indexes_mergehead,
     fast_topk,
     fast_topk_transform_fused,
     fast_topk_transform_ragged_fused,
@@ -57,10 +64,34 @@ from .ops.attention import (
     mla_prefill,
     paged_attention_decode,
     paged_attention_decode_dma,
+    sparse_attention_vertical_slash,
+    sparse_attn_func,
+    sparse_attn_varlen_func,
     sparse_mla_decode,
     sparse_mla_prefill,
 )
-from .ops.gemm import dequant_w4, quantize_w4, w4a16_gemm, w4a16_gemm_dma
+from .ops.gemm import (
+    awq_to_tpu_layout,
+    bmm_fp8,
+    dequant_w4,
+    dsv3_fused_a_gemm,
+    dsv3_router_gemm,
+    fp4_group_mm,
+    fp4_scaled_mm,
+    fp8_blockwise_scaled_grouped_mm,
+    fp8_blockwise_scaled_mm,
+    fp8_scaled_mm,
+    gptq_to_tpu_layout,
+    int8_scaled_mm,
+    prepare_blockwise_scales,
+    qserve_w4a8_per_chn_gemm,
+    qserve_w4a8_per_group_gemm,
+    quantize_w4,
+    scaled_fp4_experts_quant,
+    scaled_fp4_quant,
+    w4a16_gemm,
+    w4a16_gemm_dma,
+)
 from .ops.hadamard import hadamard_transform
 from .ops.kvcache import store_cache_all_layers, store_cache_head_major, store_cache_mla, store_cache_stacked
 from .ops.moe import (
@@ -72,6 +103,7 @@ from .ops.moe import (
     ragged_grouped_mm,
     topk_softmax,
     w4a16_grouped_mm,
+    w4a8_grouped_mm,
 )
 from .ops.norm import fused_add_rmsnorm, gemma_fused_add_rmsnorm, gemma_rmsnorm, rmsnorm
 from .ops.quant import per_token_quant_fp8
@@ -111,6 +143,10 @@ KERNELS = {
     "mla_qkv_prep": mla_qkv_prep,
     "fp8_paged_mqa_logits": fp8_paged_mqa_logits,
     "w4a16_gemm_dma": w4a16_gemm_dma,
+    "sparse_attn_func": sparse_attn_func,
+    "fp8_blockwise_scaled_mm": fp8_blockwise_scaled_mm,
+    "fp8_blockwise_scaled_grouped_mm": fp8_blockwise_scaled_grouped_mm,
+    "qserve_w4a8_per_group_gemm": qserve_w4a8_per_group_gemm,
 }
 
 

@@ -37,43 +37,10 @@
 namespace {
 
 using skt::bf16;
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-
-// 16 bytes global -> shared; src_bytes 0 writes zeros and reads nothing
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(smem)), "l"(gmem),
-               "r"(src_bytes));
-}
-
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(p)));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(p)));
-}
-
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
+using skt::cp_async16;
+using skt::cp_async_commit;
+using skt::cp_async_wait;
+using skt::mma_bf16;
 
 struct Params {
   const bf16* x;          // [M, lda]
@@ -123,14 +90,14 @@ __global__ void __launch_bounds__(Tile<BM, BN, BK, WM, WN, S>::kThreads)
       const int r = c / (BK / 8), kc = (c % (BK / 8)) * 8;
       const bool ok = m0 + r < p.M && k0 + kc < p.K;
       const bf16* src = ok ? p.x + (long long)(m0 + r) * p.lda + k0 + kc : p.x;
-      cp_async16(a_dst + r * A_LD + kc, src, ok ? 16 : 0);
+      cp_async16(a_dst + r * A_LD + kc, src, ok);
     }
     bf16* b_dst = sb + stage * T::B_ELEMS;
     for (int c = tid; c < BK * (BN / 8); c += T::kThreads) {
       const int r = c / (BN / 8), nc = (c % (BN / 8)) * 8;
       const bool ok = k0 + r < p.K && n0 + nc < p.N;
       const bf16* src = ok ? wb + (long long)(k0 + r) * p.N + n0 + nc : wb;
-      cp_async16(b_dst + r * B_LD + nc, src, ok ? 16 : 0);
+      cp_async16(b_dst + r * B_LD + nc, src, ok);
     }
   };
 
@@ -163,11 +130,11 @@ __global__ void __launch_bounds__(Tile<BM, BN, BK, WM, WN, S>::kThreads)
       uint32_t af[MT][4];
 #pragma unroll
       for (int i = 0; i < MT; ++i)
-        ldmatrix_x4(af[i], a_t + (wm * MT * 16 + i * 16 + lrow) * A_LD + ks * 16 + lcol);
+        skt::ldsm_x4(af[i], a_t + (wm * MT * 16 + i * 16 + lrow) * A_LD + ks * 16 + lcol);
 #pragma unroll
       for (int j2 = 0; j2 < NT / 2; ++j2) {
         uint32_t bf[4];  // b0, b1 of n8 tile 2 j2, then of 2 j2 + 1
-        ldmatrix_x4_trans(bf, b_t + (ks * 16 + lrow) * B_LD + wn * NT * 8 + j2 * 16 + lcol);
+        skt::ldsm_x4_trans(bf, b_t + (ks * 16 + lrow) * B_LD + wn * NT * 8 + j2 * 16 + lcol);
 #pragma unroll
         for (int i = 0; i < MT; ++i) {
           mma_bf16(acc[i][2 * j2], af[i], bf[0], bf[1]);

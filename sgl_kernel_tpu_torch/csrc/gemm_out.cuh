@@ -1,0 +1,46 @@
+// Output stores and the split-K reduction of the GEMMs with a bf16 / f16 /
+// float32 output: K17 / K18 (blockwise_fp8.cu) and K19 (qserve_gemm.cu).
+#pragma once
+
+#include <cuda_fp16.h>
+
+#include "common.cuh"
+
+namespace skt {
+
+// output element kinds of the GEMMs
+enum { kOutBf16 = 0, kOutF16 = 1, kOutF32 = 2 };
+
+// four consecutive outputs at out[idx..idx+3] (idx a multiple of 4)
+__device__ __forceinline__ void store4(void* out, int kind, long long idx, float v0, float v1, float v2, float v3) {
+  if (kind == kOutF32) {
+    *reinterpret_cast<float4*>(reinterpret_cast<float*>(out) + idx) = make_float4(v0, v1, v2, v3);
+  } else if (kind == kOutF16) {
+    __half2* p = reinterpret_cast<__half2*>(reinterpret_cast<__half*>(out) + idx);
+    p[0] = __floats2half2_rn(v0, v1);
+    p[1] = __floats2half2_rn(v2, v3);
+  } else {
+    __nv_bfloat162* p = reinterpret_cast<__nv_bfloat162*>(reinterpret_cast<bf16*>(out) + idx);
+    p[0] = __floats2bfloat162_rn(v0, v1);
+    p[1] = __floats2bfloat162_rn(v2, v3);
+  }
+}
+
+__device__ __forceinline__ void store1(void* out, int kind, long long idx, float v) {
+  if (kind == kOutF32) reinterpret_cast<float*>(out)[idx] = v;
+  else if (kind == kOutF16) reinterpret_cast<__half*>(out)[idx] = __float2half_rn(v);
+  else reinterpret_cast<bf16*>(out)[idx] = __float2bfloat16(v);
+}
+
+// second pass of split-K: out[i] = sum over the splits of partial[s][i], in
+// split order, rounded once
+__global__ void split_k_reduce(const float* __restrict__ partial, void* out, int kind, long long total, int split) {
+  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < total;
+       i += (long long)gridDim.x * blockDim.x) {
+    float v = 0.f;
+    for (int s = 0; s < split; ++s) v += partial[s * total + i];
+    store1(out, kind, i, v);
+  }
+}
+
+}  // namespace skt

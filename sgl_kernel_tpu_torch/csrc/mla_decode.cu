@@ -82,10 +82,11 @@ __global__ void __launch_bounds__(skt::kMlaThreads) mla_decode_kernel(
         const int r = c / CH, ch = c % CH, key = j0 + r;
         const bool ok = key < n;
         const long long row = ok ? layer_rows + (long long)pt[key / page] * page + key % page : 0;
-        skt::mla_cp_async16(sm.k + r * skt::kMlaRow + ch * 8,
-                            reinterpret_cast<const bf16*>(pool) + row * width + ch * 8, ok);
+        skt::cp_async16(sm.k + r * skt::kMlaRow + ch * 8,
+                        reinterpret_cast<const bf16*>(pool) + row * width + ch * 8, ok);
       }
-      skt::mla_cp_async_wait_all();
+      skt::cp_async_commit();
+      skt::cp_async_wait<0>();
     } else {
       constexpr int CH = skt::kMlaD / 16;  // 16-byte pieces of a 1-byte row
       for (int c = tid; c < skt::kMlaBN * CH; c += skt::kMlaThreads) {

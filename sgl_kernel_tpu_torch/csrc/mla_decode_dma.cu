@@ -73,9 +73,9 @@ __global__ void __launch_bounds__(skt::kMlaThreads) mla_decode_dma_kernel(
       const unsigned char* src = reinterpret_cast<const unsigned char*>(pool) + (row * width) * sizeof(T) + ch * 16;
       void* dst = sizeof(T) == 2 ? (void*)(stage_rows[s] + r * skt::kMlaRow + ch * 8)
                                  : (void*)(ring + (size_t)s * skt::kMlaBN * kRawRow + r * kRawRow + ch * 16);
-      skt::mla_cp_async16(dst, src, ok);
+      skt::cp_async16(dst, src, ok);
     }
-    asm volatile("cp.async.commit_group;\n" ::);
+    skt::cp_async_commit();
   };
 
   skt::MlaState<512> st;
@@ -85,9 +85,9 @@ __global__ void __launch_bounds__(skt::kMlaThreads) mla_decode_dma_kernel(
   for (int i = 0; i < n_tiles; ++i) {
     if (i + 1 < n_tiles) {
       fetch(i + 1, (i + 1) & 1);  // its stage was last read by tile i - 1, which ended with a barrier
-      asm volatile("cp.async.wait_group 1;\n" ::);
+      skt::cp_async_wait<1>();
     } else {
-      asm volatile("cp.async.wait_group 0;\n" ::);
+      skt::cp_async_wait<0>();
     }
     __syncthreads();
     if constexpr (sizeof(T) == 2) {

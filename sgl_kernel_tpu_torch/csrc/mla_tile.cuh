@@ -35,35 +35,6 @@ constexpr int kMlaWarps = 8;
 constexpr int kMlaThreads = 32 * kMlaWarps;
 constexpr int kMlaPRow = kMlaBN + 8;  // P row stride (bf16)
 
-__device__ __forceinline__ uint32_t mla_ld32(const bf16* p) { return *reinterpret_cast<const uint32_t*>(p); }
-
-__device__ __forceinline__ void mla_mma(float (&d)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// B fragment (k16 x n8) of a row-major [k][n] tile: rows k0..k0+15, columns
-// n0..n0+7; lanes 0-15 give the row addresses
-__device__ __forceinline__ void mla_ldsm_trans(uint32_t& b0, uint32_t& b1, const bf16* row_ptr) {
-  const uint32_t addr = (uint32_t)__cvta_generic_to_shared(row_ptr);
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0,%1}, [%2];\n"
-               : "=r"(b0), "=r"(b1)
-               : "r"(addr));
-}
-
-__device__ __forceinline__ void mla_cp_async16(void* smem, const void* gmem, bool valid) {
-  const uint32_t dst = (uint32_t)__cvta_generic_to_shared(smem);
-  const int n = valid ? 16 : 0;  // 0 source bytes: the 16 bytes are zero-filled
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(gmem), "r"(n));
-}
-
-__device__ __forceinline__ void mla_cp_async_wait_all() {
-  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::);
-}
-
 // Shared memory of a block, carved from one dynamic buffer.
 template <bool SEP_V>
 struct MlaSmem {
@@ -116,11 +87,11 @@ __device__ __forceinline__ void mla_tile(MlaState<DV>& st, const MlaSmem<SEP_V>&
 #pragma unroll 6
     for (int kk = 0; kk < kMlaD / 16; ++kk) {
       uint32_t a[4];
-      a[0] = mla_ld32(qa + kk * 16);
-      a[1] = mla_ld32(qa + 8 * kMlaRow + kk * 16);
-      a[2] = mla_ld32(qa + kk * 16 + 8);
-      a[3] = mla_ld32(qa + 8 * kMlaRow + kk * 16 + 8);
-      mla_mma(c, a, mla_ld32(kb + kk * 16), mla_ld32(kb + kk * 16 + 8));
+      a[0] = ld32(qa + kk * 16);
+      a[1] = ld32(qa + 8 * kMlaRow + kk * 16);
+      a[2] = ld32(qa + kk * 16 + 8);
+      a[3] = ld32(qa + 8 * kMlaRow + kk * 16 + 8);
+      mma_bf16(c, a, ld32(kb + kk * 16), ld32(kb + kk * 16 + 8));
     }
   }
   // c[0], c[1]: row g, keys 8w + 2t, +1; c[2], c[3]: row g + 8
@@ -188,17 +159,17 @@ __device__ __forceinline__ void mla_tile(MlaState<DV>& st, const MlaSmem<SEP_V>&
   for (int kk = 0; kk < kMlaBN / 16; ++kk) {
     uint32_t ah[4], al[4];
     const int o0 = g * kMlaPRow + kk * 16 + 2 * t, o1 = o0 + 8 * kMlaPRow;
-    ah[0] = mla_ld32(sm.p_hi + o0), ah[1] = mla_ld32(sm.p_hi + o1);
-    ah[2] = mla_ld32(sm.p_hi + o0 + 8), ah[3] = mla_ld32(sm.p_hi + o1 + 8);
-    al[0] = mla_ld32(sm.p_lo + o0), al[1] = mla_ld32(sm.p_lo + o1);
-    al[2] = mla_ld32(sm.p_lo + o0 + 8), al[3] = mla_ld32(sm.p_lo + o1 + 8);
+    ah[0] = ld32(sm.p_hi + o0), ah[1] = ld32(sm.p_hi + o1);
+    ah[2] = ld32(sm.p_hi + o0 + 8), ah[3] = ld32(sm.p_hi + o1 + 8);
+    al[0] = ld32(sm.p_lo + o0), al[1] = ld32(sm.p_lo + o1);
+    al[2] = ld32(sm.p_lo + o0 + 8), al[3] = ld32(sm.p_lo + o1 + 8);
     const bf16* vrow = sm.v + (kk * 16 + (lane & 15)) * kMlaRow + warp * NT * 8;
 #pragma unroll
     for (int n = 0; n < NT; ++n) {
       uint32_t b0, b1;
-      mla_ldsm_trans(b0, b1, vrow + n * 8);
-      mla_mma(st.acc[n], ah, b0, b1);
-      mla_mma(st.acc[n], al, b0, b1);
+      ldsm_x2_trans(b0, b1, vrow + n * 8);
+      mma_bf16(st.acc[n], ah, b0, b1);
+      mma_bf16(st.acc[n], al, b0, b1);
     }
   }
   __syncthreads();
@@ -265,10 +236,11 @@ __device__ __forceinline__ void mla_flash_rows(unsigned char* smem, QRow q_row, 
       const int r = c / CH, ch = c % CH;
       const bool ok = j0 + r < kv_len;
       const long long off = (ok ? (long long)(j0 + r) * kv_stride : 0) + ch * 8;
-      mla_cp_async16(sm.k + r * kMlaRow + ch * 8, k + off, ok);
-      mla_cp_async16(sm.v + r * kMlaRow + ch * 8, v + off, ok);
+      cp_async16(sm.k + r * kMlaRow + ch * 8, k + off, ok);
+      cp_async16(sm.v + r * kMlaRow + ch * 8, v + off, ok);
     }
-    mla_cp_async_wait_all();
+    cp_async_commit();
+    cp_async_wait<0>();
     __syncthreads();
     mla_tile<kMlaD, true>(st, sm, scale_log2, [&](int row, int key) {
       const int c = j0 + key;

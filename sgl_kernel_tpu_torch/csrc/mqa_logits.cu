@@ -32,27 +32,15 @@
 namespace {
 
 using skt::bf16;
+using skt::cp_async16;
+using skt::ld32;
+using skt::mma_bf16;
 using skt::to_bf16x16;
 
 constexpr int kD = 128;           // indexer head dim
 constexpr int kRow = kD + 8;      // shared-memory row stride (bf16): rows 4 banks apart
 constexpr int kBN = 64;           // keys of a tile
 constexpr int kThreads = 256;     // eight warps, one n8 slice of the tile each
-
-__device__ __forceinline__ uint32_t ld32(const bf16* p) { return *reinterpret_cast<const uint32_t*>(p); }
-
-__device__ __forceinline__ void mma16816(float (&d)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool valid) {
-  const uint32_t dst = (uint32_t)__cvta_generic_to_shared(smem);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(gmem), "r"(valid ? 16 : 0));
-}
 
 // MT m16 tiles of heads (H <= 16 * MT); keys of type T
 template <typename T, int MT>
@@ -93,7 +81,8 @@ __global__ void __launch_bounds__(kThreads) mqa_logits_kernel(
         const long long row = ok ? (long long)pt[key / page] * page + key % page : 0;
         cp_async16(sk + r * kRow + ch * 8, reinterpret_cast<const bf16*>(keys) + row * kD + ch * 8, ok);
       }
-      asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::);
+      skt::cp_async_commit();
+      skt::cp_async_wait<0>();
     } else {
       constexpr int CH = kD / 16;  // 16-byte pieces of a one-byte row
       for (int c = tid; c < kBN * CH; c += kThreads) {
@@ -126,7 +115,7 @@ __global__ void __launch_bounds__(kThreads) mqa_logits_kernel(
       for (int m = 0; m < MT; ++m) {
         const bf16* qa = sq + (16 * m + g) * kRow + 2 * t + kk * 16;
         const uint32_t a[4] = {ld32(qa), ld32(qa + 8 * kRow), ld32(qa + 8), ld32(qa + 8 * kRow + 8)};
-        mma16816(c[m], a, b0, b1);
+        mma_bf16(c[m], a, b0, b1);
       }
     }
     // c[m][0], c[m][1]: head 16m + g, keys 2t, 2t + 1 of the slice; c[m][2], c[m][3]: head 16m + g + 8

@@ -90,16 +90,16 @@ __host__ __device__ constexpr int smem_bytes(int rows, int per) {
 }
 
 __device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(count) : "memory");
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count) : "memory");
 }
 
 __device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(bytes)
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(bytes)
                : "memory");
 }
 
 __device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_addr(bar)) : "memory");
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
 }
 
 // until the phase of parity `parity` has completed; a wait that never ends
@@ -112,7 +112,7 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
     asm volatile(
         "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n selp.u32 %0, 1, 0, p;\n}\n"
         : "=r"(done)
-        : "r"(smem_addr(bar)), "r"(parity)
+        : "r"(smem_u32(bar)), "r"(parity)
         : "memory");
   }
 }
@@ -122,8 +122,8 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
 __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* tm, int c0, int c1, uint64_t* bar) {
   asm volatile(
       "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, {%2, %3}], [%4];\n" ::"r"(
-          smem_addr(dst)),
-      "l"(reinterpret_cast<uint64_t>(tm)), "r"(c0), "r"(c1), "r"(smem_addr(bar))
+          smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(tm)), "r"(c0), "r"(c1), "r"(smem_u32(bar))
       : "memory");
 }
 
@@ -155,7 +155,7 @@ __global__ void __launch_bounds__(kThreads, 1) gemm_dma_kernel(const __grid_cons
   constexpr int MP = 16 * MT;
   constexpr int GPC = KC / G;  // groups of a stage
   extern __shared__ __align__(1024) uint8_t smem_raw[];
-  uint8_t* smem = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   const int per = p.groups_per_split;
   const int KR = per * G, AST = KR + 8;  // staged K range, its row stride (bf16)
   bf16* act = reinterpret_cast<bf16*>(smem + L::RING);

@@ -11,6 +11,11 @@
 namespace {
 
 using skt::bf16;
+using skt::cp_async16;
+using skt::cp_async_commit;
+using skt::cp_async_wait;
+using skt::mma_bf16;
+using skt::smem_u32;
 
 constexpr int kThreads = 128;  // four warps
 
@@ -40,30 +45,6 @@ struct Params {
   int block_rows;
   long long w_estride, s_estride;
 };
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(smem)), "l"(gmem));
-}
-
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
 
 // The nibbles at bits 0-3 and 16-19 of v -> two bf16 (low half first).
 // int4: bf16 0x4300 is 128.0 with a mantissa unit of 1, so 0x4300 | u is

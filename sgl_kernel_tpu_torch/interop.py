@@ -4,7 +4,9 @@ The JAX package's parameter pytree, with every leaf turned into a numpy
 array by the caller (``np.asarray`` on the JAX side), becomes the port's
 nested dict of tensors by a copy. bfloat16 and fp8 (e4m3fn, e5m2) arrays
 move through a same-width unsigned integer view, matched by the dtype's
-name, so no extension of numpy's types is needed here.
+name, so no extension of numpy's types is needed here. 4-bit integer arrays
+(``uint4`` / ``int4``, one value a byte) become one code a byte: uint8 codes
+0..15 and int8 values -8..7.
 """
 
 from __future__ import annotations
@@ -23,8 +25,14 @@ _VIEWED = {
 }
 
 
+# 4-bit integers, one a byte: name -> the byte type holding the same values
+_NIBBLE = {"uint4": np.uint8, "int4": np.int8}
+
+
 def tensor_from_numpy(arr, device="cuda") -> torch.Tensor:
     arr = np.array(arr)  # a writable, contiguous copy
+    if arr.dtype.name in _NIBBLE:
+        arr = arr.astype(_NIBBLE[arr.dtype.name])
     if arr.dtype.name in _VIEWED:
         view, dtype = _VIEWED[arr.dtype.name]
         t = torch.from_numpy(arr.view(view)).view(dtype)

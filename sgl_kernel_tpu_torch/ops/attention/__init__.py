@@ -1,6 +1,8 @@
 """Attention operators: flash prefill (K7), packed flash prefill (K9), paged
-decode over page-major (K5) and head-major (K8) pools, MLA decode (K13a, and K13b for engine="dma") and prefill, state
-merge, and the NSA indexer (K15), its top-k and sparse MLA."""
+decode over page-major (K5) and head-major (K8) pools, MLA decode (K13a, and
+K13b for engine="dma") and prefill, state merge, the NSA indexer (K15), its
+top-k and sparse MLA, and vertical + slash sparse prefill (K16) with its
+schedule builders."""
 
 from .flash_packed import (
     build_packed_metadata,
@@ -28,3 +30,12 @@ from .nsa import (
 )
 from .paged_decode import paged_attention_decode
 from .paged_decode_dma import choose_num_splits, paged_attention_decode_dma, paged_attention_decode_ref
+from .sparse_vs import (
+    build_vertical_slash_indexes,
+    convert_vertical_slash_indexes,
+    convert_vertical_slash_indexes_mergehead,
+    sparse_attention_vertical_slash,
+    sparse_attn_func,
+    sparse_attn_func_ref,
+    sparse_attn_varlen_func,
+)

@@ -1,4 +1,5 @@
-"""MoE stack: routing, alignment, grouped GEMMs (K11, K12), fused_experts."""
+"""MoE stack: routing, alignment, grouped GEMMs (K11, K12, and the W4A8 form on
+K11), fused_experts."""
 
 from .align import (  # noqa: F401
     MoeAlignment,
@@ -14,5 +15,6 @@ from .grouped_gemm import (  # noqa: F401
     ragged_grouped_mm,
     w4a16_grouped_mm,
     w4a16_grouped_mm_ref,
+    w4a8_grouped_mm,
 )
 from .routing import biased_topk, topk_softmax  # noqa: F401

@@ -274,3 +274,36 @@ def bf16_grouped_mm(x_sorted, w, block_expert_ids, layer_id=None, num_valid_bloc
 
 
 bf16_grouped_mm.launches = 0
+
+
+def w4a8_grouped_mm(x_q, x_scales, w, w_scales, block_expert_ids, w_szeros=None, x_sums=None, *, bm: int = 128,
+                    bn: Optional[int] = None, bk: Optional[int] = None, out_dtype=torch.bfloat16):
+    """Block-aligned grouped W4A8 GEMM for MoE (grouped_gemm.py:479-527): int8
+    activations against int4 expert weights, per-channel weight scales,
+    per-token activation scales, optional zeros by the rank-1 sum
+    correction. x_q [cap, K] int8 (expert-sorted, block-aligned); x_scales
+    [cap]; w [E, K//2, N] packed int4 (``pack_w4_tpu``); w_scales [E, N];
+    w_szeros [E, N] = zero * s1 or None. ``x_sums`` is accepted and unused,
+    as in JAX (the zero term sums x_q itself). Returns [cap, N] in
+    ``out_dtype``.
+
+    As in JAX, not a kernel of its own: K11 (``w4a16_grouped_mm``, every row
+    block) takes the int8 codes as bf16 (exact) against unit per-channel
+    scales, so its float32 sums are the exact integer products; the
+    per-channel scales, the zero term and the token scales follow in float32:
+    out = (acc * s1 - sum_k(x) * zs) * x_scale, the JAX sum up to the order
+    of its float32 additions. The K11 kernel on the card takes bm of 16 to
+    128 (the twin any bm) and K a multiple of 32; ``bn`` and ``bk`` are
+    contract-only."""
+    cap, k = x_q.shape
+    e, n = w.shape[0], w.shape[2]
+    group = next((g for g in (128, 64, 32) if k % g == 0), k)
+    ones = torch.ones((e, 1, n), dtype=torch.bfloat16, device=x_q.device)
+    acc = w4a16_grouped_mm(x_q.to(torch.bfloat16), w, ones, block_expert_ids, group_size=group, bm=bm,
+                           out_dtype=torch.float32, per_channel=True)
+    eids = block_expert_ids.to(device=x_q.device, dtype=torch.long)
+    out = acc.view(cap // bm, bm, n) * w_scales.float()[eids][:, None, :]
+    if w_szeros is not None:
+        asum = x_q.float().sum(-1).view(cap // bm, bm, 1)
+        out = out - asum * w_szeros.float()[eids][:, None, :]
+    return (out.view(cap, n) * x_scales.float()[:, None]).to(out_dtype)

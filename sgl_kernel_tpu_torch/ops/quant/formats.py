@@ -1,7 +1,8 @@
-"""4-bit nibble packing and the AWQ int32 packing order.
+"""E2M1 (fp4) codes, 4-bit nibble packing and the AWQ int32 packing order.
 
 Plain PyTorch copies of the parts of sgl_kernel_tpu/ops/quant/formats.py
-(:101-135) that the W4A16 layout converters need; same bytes out.
+(:37-68, :101-135) that the W4A16 layout converters and the NVFP4 GEMMs
+need; same bytes out.
 """
 
 from __future__ import annotations
@@ -10,6 +11,28 @@ import torch
 
 # logical[k] = nibble[AWQ_ORDER[k]] within one int32 word
 AWQ_ORDER = (0, 4, 1, 5, 2, 6, 3, 7)
+
+# value of each 3-bit e2m1 magnitude code (the sign is bit 3)
+E2M1_VALUES = (0.0, 0.5, 1.0, 1.5, 2.0, 3.0, 4.0, 6.0)
+E2M1_MAX = 6.0
+
+
+def e2m1_encode(x: torch.Tensor) -> torch.Tensor:
+    """Round to the nearest E2M1 code (uint8 0..15, sign in bit 3), ties to
+    even: a magnitude counts the decision boundaries it passes, "<=" at an
+    even target and "<" at an odd one (formats.py:37-57)."""
+    a = x.abs()
+    code = ((a > 0.25).to(torch.uint8) + (a >= 0.75).to(torch.uint8) + (a > 1.25).to(torch.uint8)
+            + (a >= 1.75).to(torch.uint8) + (a > 2.5).to(torch.uint8) + (a >= 3.5).to(torch.uint8)
+            + (a > 5.0).to(torch.uint8))
+    return ((x < 0.0).to(torch.uint8) << 3) | code
+
+
+def e2m1_decode(code: torch.Tensor) -> torch.Tensor:
+    """E2M1 codes (the low 4 bits) -> float32 values."""
+    c = code.to(torch.int64) & 0xF
+    mag = torch.tensor(E2M1_VALUES, dtype=torch.float32, device=code.device)[c & 0x7]
+    return torch.where((c >> 3) != 0, -mag, mag)
 
 
 def pack_int4(codes: torch.Tensor) -> torch.Tensor:

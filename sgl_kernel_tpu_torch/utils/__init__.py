@@ -1,4 +1,5 @@
-"""Shared helpers: alignment arithmetic and device selection.
+"""Shared helpers: alignment arithmetic, device selection and the launch
+planning shared by the split-K GEMM kernels.
 
 The port's entry points run on the card unless the caller asks for the
 CPU; ``resolve_device`` is the one place that decision is made.
@@ -43,3 +44,21 @@ def resolve_device(device="cuda") -> torch.device:
 def sm_count(index: int = 0) -> int:
     """Streaming multiprocessors of CUDA device ``index`` (launch planning)."""
     return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+# output element kinds of the split-K GEMM kernels (csrc/gemm_out.cuh)
+OUT_KIND = {torch.bfloat16: 0, torch.float16: 1, torch.float32: 2}
+
+
+def row_tile(m: int) -> int:
+    """Rows of a split-K GEMM block for M rows: 16, 32, 64 or 128."""
+    return 16 if m <= 16 else (32 if m <= 32 else (64 if m <= 64 else 128))
+
+
+def split_k_plan(tiles: int, n_groups: int, n_sm: int):
+    """(split, groups_per_split): K splits over blocks in whole 128-deep
+    groups when the output tiles cannot give each SM two blocks."""
+    if tiles >= n_sm:
+        return 1, n_groups
+    per = cdiv(n_groups, min(n_groups, cdiv(2 * n_sm, tiles)))
+    return cdiv(n_groups, per), per

@@ -7,7 +7,13 @@ edges with padding blocks, widths that are not powers of two, quantized KV
 pools, head-major pools (K8), split-KV, sinks, window, soft cap and the
 lse of the decode, and every option, row count, group size and ragged width
 of the W4A16 GEMMs (K1 and the decode-bucket K10); the NSA indexer (K15) over key types, scales, head counts and
-lengths; the streaming MLA decode (K13b) and its dispatch.
+lengths; the streaming MLA decode (K13b) and its dispatch; the blockwise-fp8
+GEMMs (K17, K18: row tiles, split K, compact and prepared scales, every
+e4m3 code), the QServe per-group GEMM (K19: groups, ragged M / N / K, scale
+types), the vertical + slash sparse prefill (K16: head dims, bn, GQA,
+causal, soft cap, lse, empty rows, blocks past S, kv lengths) and the
+library GEMMs around them (int8 / fp8 scaled_mm, the per-channel QServe GEMM,
+w4a8_grouped_mm on K11).
 
 Needs a CUDA device: every test here is marked ``cuda`` and skips without
 one. On the card (tests/conftest.py imports JAX, which that machine need not
@@ -21,9 +27,11 @@ import pytest
 import torch
 
 from sgl_kernel_tpu_torch.ops import kvcache, norm, rope
-from sgl_kernel_tpu_torch.ops.attention import flash_packed, flash_prefill, nsa, paged_decode, paged_decode_dma
-from sgl_kernel_tpu_torch.ops.gemm import w4a16, w4a16_dma
-from sgl_kernel_tpu_torch.utils import sm_count
+from sgl_kernel_tpu_torch.ops import moe
+from sgl_kernel_tpu_torch.ops.attention import (flash_packed, flash_prefill, nsa, paged_decode, paged_decode_dma,
+                                               sparse_vs)
+from sgl_kernel_tpu_torch.ops.gemm import blockwise_fp8, qserve, scaled_mm, w4a16, w4a16_dma
+from sgl_kernel_tpu_torch.utils import sm_count, split_k_plan
 
 pytestmark = pytest.mark.cuda
 
@@ -1022,3 +1030,290 @@ def test_mla_decode_dma_dispatch_and_splits(gen, h):
     assert ((out - ref).abs() <= tol).all(), float(((out - ref).abs() / tol).max())
     with pytest.raises(NotImplementedError):
         mla.mla_decode_dma(qn.float(), qp.float(), pool, lens, table, 0)
+
+
+# ---------------------------------------------------------------------------
+# Slice 8: K16-K19 and the library GEMMs around them
+# ---------------------------------------------------------------------------
+
+
+def assert_out_close(out, ref, rel=None):
+    """One output rounding apart: 2^-7 (bf16) or 2^-10 (f16) of the row's
+    largest |ref|, per element (``rel`` for float32 outputs)."""
+    rel = rel if rel is not None else {torch.bfloat16: 2.0 ** -7, torch.float16: 2.0 ** -10}[out.dtype]
+    ref = ref.float()
+    tol = rel * ref.abs().amax(-1, keepdim=True)
+    err = (out.float() - ref).abs()
+    assert (err <= tol).all(), float((err / tol).max())
+
+
+FP8_MMA_REL = 2.0 ** -10  # float32 outputs of the e4m3 mma, of the row's largest |ref|
+
+
+def fp8_case(gen, m, k, n, e=None):
+    """Production-scaled blockwise operands: codes spread over e4m3's range,
+    1x128 activation and 128x128 weight scales."""
+    lead = () if e is None else (e,)
+    a = (torch.randn((m, k), generator=gen, device="cuda") * 100).clamp(-448, 448).to(torch.float8_e4m3fn)
+    b = (torch.randn((*lead, k, n), generator=gen, device="cuda") * 100).clamp(-448, 448).to(torch.float8_e4m3fn)
+    sa = torch.rand((m, k // 128), generator=gen, device="cuda") * 1e-3 + 1e-4
+    sb = torch.rand((*lead, k // 128, n // 128), generator=gen, device="cuda") * 1e-3 + 1e-4
+    return a, b, sa, sb
+
+
+@pytest.mark.parametrize("m", [1, 16, 17, 33, 100, 256])
+@pytest.mark.parametrize("k,n", [(256, 256), (1024, 384)])
+@pytest.mark.parametrize("prepared", [False, True])
+def test_fp8_blockwise_scaled_mm(gen, m, k, n, prepared):
+    """K17 over its four row tiles, split K (few output tiles) and not, both
+    scale forms, the three output types."""
+    a, b, sa, sb = fp8_case(gen, m, k, n)
+    sbx = blockwise_fp8.prepare_blockwise_scales(sb) if prepared else sb
+    for dt in (torch.bfloat16, torch.float16, torch.float32):
+        before = blockwise_fp8.fp8_blockwise_scaled_mm.launches
+        out = blockwise_fp8.fp8_blockwise_scaled_mm(a, b, sa, sbx, dt)
+        assert blockwise_fp8.fp8_blockwise_scaled_mm.launches == before + 1 and out.dtype == dt
+        ref = blockwise_fp8.fp8_blockwise_scaled_mm_ref(a, b, sa, sb, dt)
+        # the fp8 mma's own sums of 128 products may carry fewer bits than float32
+        assert_out_close(out, ref, FP8_MMA_REL if dt == torch.float32 else None)
+
+
+def test_fp8_blockwise_split_k_and_raises(gen):
+    """One output tile over K=4096 splits K 32 ways; a bf16 A raises on the
+    card (the twin takes it)."""
+    a, b, sa, sb = fp8_case(gen, 3, 4096, 128)
+    out = blockwise_fp8.fp8_blockwise_scaled_mm(a, b, sa, sb, torch.float32)
+    ref = blockwise_fp8.fp8_blockwise_scaled_mm_ref(a, b, sa, sb, torch.float32)
+    assert_out_close(out, ref, FP8_MMA_REL)
+    assert split_k_plan(1, 32, 132)[0] > 1
+    with pytest.raises(NotImplementedError):
+        blockwise_fp8.fp8_blockwise_scaled_mm(a.to(torch.bfloat16), b, sa, sb)
+    with pytest.raises(ValueError):
+        blockwise_fp8.fp8_blockwise_scaled_mm(a, b, sa[:, :3], sb)
+
+
+def test_fp8_blockwise_every_code_exact(gen):
+    """Every finite e4m3 code, subnormals included, through the kernel times
+    an identity B with unit scales: the float32 outputs are the codes'
+    exact values."""
+    codes = torch.arange(256, dtype=torch.int32, device="cuda").to(torch.uint8)
+    codes[(codes == 0x7F) | (codes == 0xFF)] = 0  # the two NaN bytes
+    a = codes.view(torch.float8_e4m3fn).reshape(2, 128)
+    b = torch.eye(128, device="cuda").to(torch.float8_e4m3fn)
+    ones = torch.ones((2, 1), device="cuda"), torch.ones((1, 1), device="cuda")
+    out = blockwise_fp8.fp8_blockwise_scaled_mm(a, b, *ones, torch.float32)
+    assert torch.equal(out, a.float())
+
+
+@pytest.mark.parametrize("bm", [16, 32, 64, 128])
+@pytest.mark.parametrize("prepared", [False, True])
+def test_fp8_blockwise_scaled_grouped_mm(gen, bm, prepared):
+    """K18: 5 row blocks over 4 experts (one expert unused, one twice apart),
+    every block computed, bf16 and float32 outputs; bm 8 and a bf16 A raise
+    on the card."""
+    e, k, n = 4, 256, 384
+    eids = torch.tensor([2, 0, 0, 3, 2], dtype=torch.int32, device="cuda")
+    a, b, sa, sb = fp8_case(gen, 5 * bm, k, n, e)
+    sbx = blockwise_fp8.prepare_blockwise_scales(sb) if prepared else sb
+    for dt in (torch.bfloat16, torch.float32):
+        before = blockwise_fp8.fp8_blockwise_scaled_grouped_mm.launches
+        out = blockwise_fp8.fp8_blockwise_scaled_grouped_mm(a, b, sa, sbx, eids, dt, bm=bm)
+        assert blockwise_fp8.fp8_blockwise_scaled_grouped_mm.launches == before + 1 and out.dtype == dt
+        ref = blockwise_fp8.fp8_blockwise_scaled_grouped_mm_ref(a, b, sa, sb, eids, dt, bm=bm)
+        assert_out_close(out, ref, FP8_MMA_REL if dt == torch.float32 else None)
+    with pytest.raises(NotImplementedError):
+        blockwise_fp8.fp8_blockwise_scaled_grouped_mm(a, b, sa, sb, eids.repeat_interleave(bm // 8), bm=8)
+    with pytest.raises(NotImplementedError):
+        blockwise_fp8.fp8_blockwise_scaled_grouped_mm(a.to(torch.bfloat16), b, sa, sb, eids, bm=bm)
+
+
+def test_empty_calls_launch_nothing(gen):
+    """M = 0 (and an empty sparse batch) returns an empty output and leaves
+    each wrapper's launch count as it was."""
+    a, b, sa, sb = fp8_case(gen, 0, 256, 256)
+    calls = [(blockwise_fp8.fp8_blockwise_scaled_mm, lambda: blockwise_fp8.fp8_blockwise_scaled_mm(a, b, sa, sb))]
+    _, bg, _, sbg = fp8_case(gen, 1, 256, 256, 2)
+    eids = torch.zeros(0, dtype=torch.int32, device="cuda")
+    calls.append((blockwise_fp8.fp8_blockwise_scaled_grouped_mm,
+                  lambda: blockwise_fp8.fp8_blockwise_scaled_grouped_mm(a, bg, sa, sbg, eids, bm=16)))
+    qa, qw, qz, qs, qws, qas = qserve_case(gen, 1, 256, 512, 128)
+    calls.append((qserve.qserve_w4a8_per_group_gemm,
+                  lambda: qserve.qserve_w4a8_per_group_gemm(qa[:0], qw, qz, qs, qws, qas[:0])))
+    q, k, v, sched = vs_case(gen, 1, 128, 4, 4, 128, 8, 2, 128, True)
+    calls.append((sparse_vs.sparse_attn_func,
+                  lambda: sparse_vs.sparse_attn_func(q[:0], k[:0], v[:0], *(x[:0] for x in sched))))
+    for fn, call in calls:
+        before = fn.launches
+        out = call()
+        assert out.numel() == 0 and fn.launches == before, fn.__name__
+
+
+def qserve_case(gen, m, n, k, g, zs_int8=False):
+    """The progressive-quant operands of a per-group QServe call."""
+    a = torch.randint(-128, 128, (m, k), generator=gen, device="cuda", dtype=torch.int32).to(torch.int8)
+    w = torch.randint(0, 16, (n, k), generator=gen, device="cuda", dtype=torch.int32).to(torch.uint8)
+    s2 = torch.randint(1, 17, (n, k // g), generator=gen, device="cuda", dtype=torch.int32).to(torch.int8)
+    z = torch.randint(0, 16, (n, k // g), generator=gen, device="cuda", dtype=torch.int32)
+    zs2 = (z * s2.int()).clamp(-128, 127).to(torch.int8) if zs_int8 else (z * s2.int()).float()
+    ws = (torch.rand(n, generator=gen, device="cuda") * 0.01 + 0.001).half()
+    as_ = (torch.rand(m, generator=gen, device="cuda") * 0.01 + 0.001).half()
+    return a, w, zs2, s2, ws, as_
+
+
+@pytest.mark.parametrize("m", [1, 16, 33, 130])
+@pytest.mark.parametrize("n,k,g", [(256, 512, 128), (200, 1376, 32), (128, 384, 64)])
+@pytest.mark.parametrize("out_dtype", [torch.float16, torch.bfloat16, torch.float32])
+def test_qserve_w4a8_per_group(gen, m, n, k, g, out_dtype):
+    """K19 over its row tiles, a ragged N and a K that is not a multiple of
+    the 128-deep k-tile, groups 32/64/128, the three output types."""
+    args = qserve_case(gen, m, n, k, g)
+    before = qserve.qserve_w4a8_per_group_gemm.launches
+    out = qserve.qserve_w4a8_per_group_gemm(*args, group_size=g, out_dtype=out_dtype)
+    assert qserve.qserve_w4a8_per_group_gemm.launches == before + 1 and out.dtype == out_dtype
+    ref = qserve.qserve_w4a8_per_group_gemm_ref(*args, group_size=g, out_dtype=out_dtype)
+    assert_out_close(out, ref, 1e-5 if out_dtype == torch.float32 else None)
+
+
+def test_qserve_w4a8_scale_types_and_raises(gen):
+    """int8 zeros_x_s2 and float32 scales take the same path; a group of 16
+    raises on the card; the per-channel GEMM's int8 product is exact at
+    M 1 and 16 (torch._int_mm wants more than 16 rows: padded)."""
+    a, w, zs2, s2, ws, as_ = qserve_case(gen, 16, 256, 512, 128, zs_int8=True)
+    out = qserve.qserve_w4a8_per_group_gemm(a, w, zs2, s2.float(), ws.float(), as_, out_dtype=torch.float32)
+    ref = qserve.qserve_w4a8_per_group_gemm_ref(a, w, zs2, s2, ws, as_, out_dtype=torch.float32)
+    assert_out_close(out, ref, 1e-5)
+    with pytest.raises(NotImplementedError):
+        qserve.qserve_w4a8_per_group_gemm(a, w, zs2.repeat(1, 8), s2.repeat(1, 8), ws, as_, group_size=16)
+    for m in (1, 16):
+        sums = torch.randn(m, generator=gen, device="cuda")
+        szeros = torch.randn(256, generator=gen, device="cuda")
+        out = qserve.qserve_w4a8_per_chn_gemm(a[:m], w, ws, as_[:m], szeros, sums, out_dtype=torch.float32)
+        cpu = qserve.qserve_w4a8_per_chn_gemm(*(t.cpu() for t in (a[:m], w, ws, as_[:m], szeros, sums)),
+                                              out_dtype=torch.float32)
+        assert torch.allclose(out.cpu(), cpu, rtol=1e-6, atol=1e-6)
+
+
+def test_scaled_mm_library_paths(gen):
+    """int8 (exact, M 1 / 16 / 40, K and N off the multiples of 8) and fp8
+    (K off 16) scaled matmuls and bmm_fp8 on the card equal the CPU path."""
+    for m, k, n in ((1, 60, 36), (16, 64, 32), (40, 256, 200)):
+        a = torch.randint(-128, 128, (m, k), generator=gen, device="cuda", dtype=torch.int32).to(torch.int8)
+        b = torch.randint(-128, 128, (k, n), generator=gen, device="cuda", dtype=torch.int32).to(torch.int8)
+        assert torch.equal(scaled_mm.int_mm_exact(a, b).cpu(), scaled_mm.int_mm_exact(a.cpu(), b.cpu()))
+        sa, sb = torch.rand(m, device="cuda"), torch.rand(n, device="cuda")
+        out = scaled_mm.int8_scaled_mm(a, b, sa, sb, torch.float32)
+        ref = scaled_mm.int8_scaled_mm(a.cpu(), b.cpu(), sa.cpu(), sb.cpu(), torch.float32)
+        assert torch.allclose(out.cpu(), ref, rtol=1e-6)
+    def fp8_close(out, ref):  # cuBLAS's fp8 sums may carry fewer bits than float32
+        assert out.shape == ref.shape
+        assert float((out.cpu() - ref).abs().max()) <= 2.0 ** -10 * float(ref.abs().max())
+
+    a = torch.randn((5, 200), generator=gen, device="cuda").to(torch.float8_e4m3fn)
+    b = torch.randn((200, 48), generator=gen, device="cuda").to(torch.float8_e4m3fn)
+    sa = torch.rand(5, device="cuda")
+    fp8_close(scaled_mm.fp8_scaled_mm(a, b, sa, 0.5, torch.float32),
+              scaled_mm.fp8_scaled_mm(a.cpu(), b.cpu(), sa.cpu(), 0.5, torch.float32))
+    ab = torch.randn((3, 8, 128), generator=gen, device="cuda").to(torch.float8_e4m3fn)
+    bb = torch.randn((3, 128, 64), generator=gen, device="cuda").to(torch.float8_e4m3fn)
+    fp8_close(scaled_mm.bmm_fp8(ab, bb, 0.5, 2.0, torch.float32),
+              scaled_mm.bmm_fp8(ab.cpu(), bb.cpu(), 0.5, 2.0, torch.float32))
+
+
+def test_w4a8_grouped_mm_on_k11(gen):
+    """w4a8_grouped_mm on the card (K11 at bm 16, every block) equals its CPU
+    path (K11's twin); bm 8 raises on the card."""
+    e, k, n, bm = 3, 512, 256, 16
+    eids = torch.tensor([0, 2, 2, 1], dtype=torch.int32, device="cuda")
+    x = torch.randint(-100, 100, (4 * bm, k), generator=gen, device="cuda", dtype=torch.int32).to(torch.int8)
+    xs = torch.rand(4 * bm, generator=gen, device="cuda") * 0.01
+    w = torch.randint(0, 256, (e, k // 2, n), generator=gen, device="cuda", dtype=torch.int32).to(torch.uint8)
+    s1 = torch.rand((e, n), generator=gen, device="cuda") * 0.02 + 0.01
+    zs = torch.rand((e, n), generator=gen, device="cuda") * 0.1
+    before = moe.w4a16_grouped_mm.launches
+    out = moe.w4a8_grouped_mm(x, xs, w, s1, eids, zs, bm=bm, out_dtype=torch.float32)
+    assert moe.w4a16_grouped_mm.launches == before + 1
+    ref = moe.w4a8_grouped_mm(*(t.cpu() for t in (x, xs, w, s1, eids, zs)), bm=bm, out_dtype=torch.float32)
+    assert torch.allclose(out.cpu(), ref, rtol=1e-5, atol=1e-5 * float(ref.abs().max()))
+    with pytest.raises(NotImplementedError):
+        moe.w4a8_grouped_mm(x, xs, w, s1, eids.repeat_interleave(2), bm=8)
+
+
+def vs_case(gen, b, s, h, hk, d, nv, ns, bn, causal, seed=0):
+    """q / k / v and a schedule from convert_vertical_slash_indexes on sorted
+    random columns and distances (distinct per head)."""
+    rng = np.random.default_rng(seed)
+    q, k, v = randn(gen, b, s, h, d), randn(gen, b, s, hk, d), randn(gen, b, s, hk, d)
+    v_idx = np.sort(np.stack([[rng.choice(s, nv, replace=False) for _ in range(h)] for _ in range(b)]), -1)
+    s_idx = np.sort(np.stack([[rng.choice(s, ns, replace=False) for _ in range(h)] for _ in range(b)]), -1)[..., ::-1]
+    sched = sparse_vs.convert_vertical_slash_indexes([s] * b, [s] * b, v_idx, np.ascontiguousarray(s_idx), s, 64,
+                                                     bn, causal)
+    return q, k, v, [torch.from_numpy(x).cuda() for x in sched]
+
+
+def assert_vs_close(res, ref):
+    (out, lse), (ro, rl) = res, ref
+    assert_elementwise(out, ro)
+    assert torch.equal(torch.isneginf(lse), torch.isneginf(rl))
+    fin = torch.isfinite(rl)
+    assert torch.allclose(lse[fin], rl[fin], rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("bn", [64, 128])
+@pytest.mark.parametrize("s,hk", [(256, 4), (200, 2)])
+@pytest.mark.parametrize("causal", [True, False])
+def test_sparse_attn_func(gen, d, bn, s, hk, causal):
+    """K16 against its twin on the same schedule: head dims, bn 64 / 128,
+    GQA, a length that is not a multiple of 64 or of bn (blocks past S),
+    causal or not, with the lse."""
+    q, k, v, sched = vs_case(gen, 2, s, 4, hk, d, 24, 6, bn, causal)
+    kw = dict(block_size_N=bn, causal=causal, return_lse=True)
+    before = sparse_vs.sparse_attn_func.launches
+    res = sparse_vs.sparse_attn_func(q, k, v, *sched, **kw)
+    assert sparse_vs.sparse_attn_func.launches == before + 1
+    assert_vs_close(res, sparse_vs.sparse_attn_func_ref(q, k, v, *sched, **kw))
+
+
+def test_sparse_attn_func_edges(gen):
+    """Empty rows (o 0, lse -inf), duplicate keys (a column inside a selected
+    block, a block listed twice), column padding past column_count, soft cap,
+    kv lengths below S, and the raises (float32, head dim 96, bm 128)."""
+    q, k, v, (bc, bo, cc, ci) = vs_case(gen, 2, 256, 4, 4, 128, 16, 4, 128, True, seed=1)
+    bc[0, 0, 1] = 0
+    cc[0, 0, 1] = 0  # row block 1 of (0, 0) sees nothing
+    bc[1, 2, 3] = 2
+    bo[1, 2, 3, :2] = 128  # one block twice
+    ci[1, 2, 3, 0] = 130  # and a column inside it
+    cc[1, 2, 3] = max(int(cc[1, 2, 3]), 1)
+    ci[0, 1, :, 10:] = 7  # past column_count: never counted
+    kw = dict(softcap=30.0, return_lse=True, kv_lens=torch.tensor([256, 150], dtype=torch.int32))
+    res = sparse_vs.sparse_attn_func(q, k, v, bc, bo, cc, ci, **kw)
+    ref = sparse_vs.sparse_attn_func_ref(q, k, v, bc, bo, cc, ci, **kw)
+    assert_vs_close(res, ref)
+    assert not res[0][0, 64:128, 0].any() and torch.isneginf(res[1][0, 0, 64:128]).all()
+    for bad in (dict(q=q.float(), k=k.float(), v=v.float()), dict(q=q[..., :96], k=k[..., :96], v=v[..., :96])):
+        args = {**dict(q=q, k=k, v=v), **bad}
+        with pytest.raises(NotImplementedError):
+            sparse_vs.sparse_attn_func(args["q"], args["k"], args["v"], bc, bo, cc, ci)
+    with pytest.raises(NotImplementedError):
+        sparse_vs.sparse_attn_func(q, k, v, bc[:, :, :2], bo[:, :, :2], cc[:, :, :2], ci[:, :, :2],
+                                   block_size_M=128)
+
+
+def test_sparse_attn_varlen_gqa(gen):
+    """The varlen wrapper on the card (two sequences, 8 query heads over 2
+    kv heads, bn 64, causal, lse) against its CPU path."""
+    lens = [200, 96]
+    cu = np.concatenate([[0], np.cumsum(lens)])
+    t = int(cu[-1])
+    q, k, v = randn(gen, t, 8, 128), randn(gen, t, 2, 128), randn(gen, t, 2, 128)
+    rng = np.random.default_rng(3)
+    v_idx = np.sort(rng.integers(0, 96, (2, 8, 8)), -1)
+    s_idx = np.sort(rng.choice(96, (2, 8, 4)), -1)[..., ::-1]
+    sched = sparse_vs.convert_vertical_slash_indexes(lens, lens, v_idx, np.ascontiguousarray(s_idx), 200, 64, 64)
+    args = (*sched, cu, cu, 200, 200)
+    kw = dict(causal=True, return_softmax_lse=True)
+    out, lse = sparse_vs.sparse_attn_varlen_func(q, k, v, *args, **kw)
+    ref, rlse = sparse_vs.sparse_attn_varlen_func(q.cpu(), k.cpu(), v.cpu(), *args, **kw)
+    assert out.shape == (t, 8, 128) and lse.shape == (8, t)
+    assert_vs_close((out.cpu(), lse.cpu()), (ref, rlse))

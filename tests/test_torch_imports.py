@@ -77,7 +77,9 @@ def test_kernel_wrappers_count_launches():
                                         "paged_attention_decode_dma", "store_cache_all_layers", "flash_attention",
                                         "flash_attention_packed", "w4a16_grouped_mm", "bf16_grouped_mm",
                                         "mla_decode", "mla_decode_dma", "mla_qkv_prep", "fp8_paged_mqa_logits",
-                                        "w4a16_gemm_dma", "paged_attention_decode"}
+                                        "w4a16_gemm_dma", "paged_attention_decode", "sparse_attn_func",
+                                        "fp8_blockwise_scaled_mm", "fp8_blockwise_scaled_grouped_mm",
+                                        "qserve_w4a8_per_group_gemm"}
     skt.reset_launch_counts()
     x = torch.randn(3, 64)
     skt.rmsnorm(x, torch.ones(64))  # CPU tensor: the plain twin, no launch
@@ -93,13 +95,14 @@ def test_kernel_sources_and_entry_points():
     stems = {p.stem for p in _build.sources()}
     assert stems == {"decode_attention", "flash_packed", "flash_prefill", "store_cache", "w4a16_gemm",
                      "grouped_gemm", "bf16_grouped_gemm", "mla_decode", "mla_decode_dma", "mqa_logits",
-                     "w4a16_gemm_dma"}
+                     "w4a16_gemm_dma", "blockwise_fp8", "qserve_gemm", "sparse_vs"}
     entry = {"decode_attention": "skt_paged_decode", "flash_packed": "skt_flash_packed",
              "flash_prefill": "skt_flash_prefill", "store_cache": "skt_store_cache_all_layers",
              "w4a16_gemm": "skt_w4a16_gemm", "grouped_gemm": "skt_w4a16_grouped_mm",
              "bf16_grouped_gemm": "skt_bf16_grouped_mm", "mla_decode": "skt_mla_decode",
              "mla_decode_dma": "skt_mla_decode_dma", "mqa_logits": "skt_fp8_paged_mqa_logits",
-             "w4a16_gemm_dma": "skt_w4a16_gemm_dma"}
+             "w4a16_gemm_dma": "skt_w4a16_gemm_dma", "blockwise_fp8": "skt_fp8_blockwise_mm",
+             "qserve_gemm": "skt_qserve_w4a8_per_group", "sparse_vs": "skt_sparse_attn"}
     for src in _build.sources():
         text = src.read_text()
         assert f'extern "C" int {entry[src.stem]}(' in text
@@ -130,3 +133,30 @@ def test_deepseek_adapter_serves_the_plain_mode_only():
         skt.adapter_for(skt.DeepseekConfig.tiny(compress="c128"), "cpu")
     with pytest.raises(NotImplementedError):
         skt.DeepseekAdapter(cfg, "cpu", use_compress=True)
+
+
+def test_slice8_exports_and_cpu_dispatch():
+    """The names the JAX package exports from sparse_vs, gemm and
+    moe.w4a8_grouped_mm are here; K16-K19's wrappers take their twins on CPU
+    tensors without counting a launch."""
+    names = ("build_vertical_slash_indexes", "convert_vertical_slash_indexes",
+             "convert_vertical_slash_indexes_mergehead", "sparse_attention_vertical_slash", "sparse_attn_func",
+             "sparse_attn_varlen_func", "awq_to_tpu_layout", "bmm_fp8", "fp4_group_mm", "fp4_scaled_mm",
+             "fp8_blockwise_scaled_grouped_mm", "fp8_blockwise_scaled_mm", "prepare_blockwise_scales",
+             "gptq_to_tpu_layout", "scaled_fp4_experts_quant", "scaled_fp4_quant", "fp8_scaled_mm", "int8_scaled_mm",
+             "qserve_w4a8_per_chn_gemm", "qserve_w4a8_per_group_gemm", "quantize_w4", "w4a16_gemm",
+             "w4a8_grouped_mm", "dsv3_router_gemm", "dsv3_fused_a_gemm")
+    assert not [n for n in names if not callable(getattr(skt, n, None))]
+    skt.reset_launch_counts()
+    f8 = torch.float8_e4m3fn
+    a, b = torch.ones(2, 128).to(f8), torch.ones(128, 128).to(f8)
+    skt.fp8_blockwise_scaled_mm(a, b, torch.ones(2, 1), torch.ones(1, 1))
+    skt.fp8_blockwise_scaled_grouped_mm(torch.ones(16, 128).to(f8), b[None], torch.ones(16, 1), torch.ones(1, 1, 1),
+                                        torch.zeros(1, dtype=torch.int32), bm=16)
+    skt.qserve_w4a8_per_group_gemm(torch.ones(2, 128, dtype=torch.int8), torch.ones(8, 128, dtype=torch.uint8),
+                                   torch.zeros(8, 1), torch.ones(8, 1, dtype=torch.int8), torch.ones(8), torch.ones(2))
+    q = torch.randn(1, 64, 2, 64)
+    z = torch.zeros(1, 2, 1, dtype=torch.int32)
+    skt.sparse_attn_func(q, q, q, z, torch.zeros(1, 2, 1, 1, dtype=torch.int32), z,
+                         torch.zeros(1, 2, 1, 1, dtype=torch.int32))
+    assert all(n == 0 for n in skt.launch_counts().values())

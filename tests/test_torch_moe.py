@@ -277,3 +277,31 @@ def test_activations(name):
     x = (rng.standard_normal((6, 32)) * 4).astype(np.float32)
     # float32 on both sides; erf / tanh are other implementations: 1e-5 of the scale
     close(activation.ACTIVATIONS[name](t_(x)), JACT[name](jnp.asarray(x)), 1e-5)
+
+
+@pytest.mark.parametrize("zeros", [False, True])
+@pytest.mark.parametrize("bm", [8, 16])
+def test_w4a8_grouped_mm(zeros, bm):
+    """w4a8_grouped_mm (K11 with unit per-channel scales, then the scale,
+    zero and token epilogue) against JAX's on tests/test_moe.py's case:
+    unsigned codes stored shifted, per-channel s1, bm 8 (the twin takes any
+    bm; the card's K11 raises for it) and 16, with and without zeros.
+    Tolerance: float32 sums in another order, 2e-5 of the scale."""
+    rng = np.random.default_rng(21 + bm)
+    e, n, k = 2, 128, 256
+    cap = 3 * bm
+    eids = np.array([0, 1, 1], np.int32)
+    codes = rng.integers(0, 16, (e, n, k)).astype(np.uint8)
+    signed = ((codes.astype(np.int32) - 8) & 0xF).astype(np.uint8)
+    packed = np.stack([np.asarray(jw4.pack_w4_tpu(jnp.asarray(signed[i].T))) for i in range(e)])
+    s1 = (rng.random((e, n)) * 0.02 + 0.01).astype(np.float32)
+    szeros = (rng.random((e, n)) * 0.05).astype(np.float32) if zeros else None
+    x = rng.integers(-100, 100, (cap, k)).astype(np.int8)
+    xs = (rng.random(cap) * 0.01 + 0.005).astype(np.float32)
+    ref = jmoe.w4a8_grouped_mm(jnp.asarray(x), jnp.asarray(xs), jnp.asarray(packed), jnp.asarray(s1),
+                               jnp.asarray(eids), None if szeros is None else jnp.asarray(szeros), bm=bm, bn=128,
+                               out_dtype=jnp.float32)
+    out = tmoe.w4a8_grouped_mm(t_(x), t_(xs), t_(packed), t_(s1), t_(eids), None if szeros is None else t_(szeros),
+                               bm=bm, out_dtype=torch.float32)
+    close(out, ref, 2e-5)
+    assert tmoe.w4a8_grouped_mm(t_(x), t_(xs), t_(packed), t_(s1), t_(eids), bm=bm).dtype == torch.bfloat16
