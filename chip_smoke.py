@@ -17,7 +17,10 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
              prefill ones, an mxfp4 and a zeros+bias case; decode attention
              (K5) on int8 and fp8 e4m3 pools too; packed prefill (K9) at the
              packed shape of phase 4's 16 prompts, with lse; K7's two
-             extend passes with lse (512 tokens over a 512-token prefix).
+             extend passes with lse (512 tokens over a 512-token prefix,
+             and wave C's 1,024 over 3,072). K7 / K9 rows add CUDA-graph
+             device ms and TFLOP/s beside SDPA's; K2 its and F.rms_norm's
+             device ms.
   3. parity  Llama-3-8B widths cut to 2 layers, weights from one CPU seed,
              bf16 and W4A16: the same prefill and 4 decode steps, then a
              packed prefill, an extend and a mixed step, on the card and
@@ -272,12 +275,13 @@ def phase_kernels(torch, skt):
         out, ref = norm.rmsnorm(x, w, cfg.rms_eps), norm.rmsnorm_ref(x, w, cfg.rms_eps)
         err = check(f"rmsnorm[{r},{h}]", [(out, ref)])
         bms, bby = bound_ms(2 * r * h * 2 + h * 2, 4 * r * h, F32_FLOPS)
+        fn, lib = (lambda: norm.rmsnorm(x, w, cfg.rms_eps)), (lambda: F.rms_norm(x, (h,), w, cfg.rms_eps))
+        # event ms of a Triton launch read its host launcher; graph ms the device
         rows[f"rmsnorm_{r}"] = dict(
-            max_abs_err=err,
-            ms=time_ms(torch, lambda: norm.rmsnorm(x, w, cfg.rms_eps)),
+            max_abs_err=err, ms=time_ms(torch, fn),
             plain_ms=time_ms(torch, lambda: norm.rmsnorm_ref(x, w, cfg.rms_eps)),
-            library_ms=time_ms(torch, lambda: F.rms_norm(x, (h,), w, cfg.rms_eps)),
-            bound_ms=bms, bound_by=bby)
+            library_ms=time_ms(torch, lib), bound_ms=bms, bound_by=bby,
+            graph_ms=graph_ms(torch, fn), library_graph_ms=graph_ms(torch, lib))
 
     # K3 rope_decode_fused_qkv at B=16
     b = 16
@@ -394,17 +398,37 @@ def phase_kernels(torch, skt):
     n_bytes = (q_len * (nq + 2 * nkv) * d + s * nq * d) * 2
     bms, bby = bound_ms(n_bytes, 4 * d * nq * q_len * (q_len + 1) // 2, BF16_FLOPS)
     qt, kt, vt = (x[:, :q_len].transpose(1, 2).contiguous() for x in (q, k, v))
-    rows["flash_attention"] = dict(
-        max_abs_err=err, ms=time_ms(torch, lambda: flash_prefill.flash_attention(q, k, v, ql, ql, causal=True)),
+    fn = functools.partial(flash_prefill.flash_attention, q, k, v, ql, ql, causal=True)
+    lib = functools.partial(F.scaled_dot_product_attention, qt, kt, vt, is_causal=True, enable_gqa=True)
+    rows["flash_attention"] = device_rate(torch, dict(
+        max_abs_err=err, ms=time_ms(torch, fn),
         plain_ms=time_ms(torch, lambda: flash_prefill.flash_attention_ref(q, k, v, ql, ql, causal=True), iters=5),
-        library_ms=time_ms(torch, lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)),
-        bound_ms=bms, bound_by=bby)
+        library_ms=time_ms(torch, lib), bound_ms=bms, bound_by=bby), fn, 4 * d * nq * q_len * (q_len + 1) // 2, lib)
     rows.update(packed_and_extend_rows(torch, skt, gen, randn, cfg))
     for name, r in rows.items():
         lib = "null" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
-        log(f"[kernel] {name}: ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} library_ms={lib} "
+        dev_t = "".join(f" {key}={r[key]:.4f}" for key in ("graph_ms", "library_graph_ms", "tflops", "library_tflops")
+                        if r.get(key) is not None)
+        log(f"[kernel] {name}: ms={r['ms']:.4f}{dev_t} plain_ms={r['plain_ms']:.4f} library_ms={lib} "
             f"bound_ms={r['bound_ms']:.4f} ({r['bound_by']})")
     return rows
+
+
+def device_rate(torch, row, fn, n_ops, lib=None):
+    """Add the CUDA-graph device ms of ``fn`` and the TFLOP/s it achieves on
+    the ``n_ops`` the work needs; with ``lib`` (the library yardstick) its
+    graph ms and TFLOP/s too, or the reason it could not be captured."""
+    row["graph_ms"] = graph_ms(torch, fn)
+    row["tflops"] = n_ops / row["graph_ms"] / 1e9
+    if lib is not None:
+        try:
+            row["library_graph_ms"] = graph_ms(torch, lib)
+            row["library_tflops"] = n_ops / row["library_graph_ms"] / 1e9
+        except Exception as e:  # the yardstick is not capturable in this torch
+            torch.cuda.synchronize()
+            row["library_graph_ms"] = None
+            row["library_graph_note"] = f"not captured: {type(e).__name__}: {str(e).splitlines()[0][:100]}"
+    return row
 
 
 def serve_lens(n_req):
@@ -446,7 +470,8 @@ def packed_library(torch, F, q, k, v, lens, tok0, ref, scale=None):
 def packed_and_extend_rows(torch, skt, gen, randn, cfg):
     """K9 at the packed shape of phase 4's wave A (16 prompts of 16..1024
     tokens, block 256, 64 blocks of which 24 pad), with lse; K7's two
-    extend passes with lse, 512 fresh tokens over a 512-token prefix."""
+    extend passes with lse, 512 fresh tokens over a 512-token prefix and
+    wave C's 1,024-token chunk over a 3,072-token prefix."""
     from sgl_kernel_tpu_torch.ops.attention import flash_packed, flash_prefill, merge_state
     from sgl_kernel_tpu_torch.serving.engine import packed_layout
 
@@ -474,17 +499,30 @@ def packed_and_extend_rows(torch, skt, gen, randn, cfg):
     n_ops = 4 * nq * d * sum(n * (n + 1) // 2 for n in lens)
     bms, bby = bound_ms(n_bytes, n_ops, BF16_FLOPS)
     lib_fn, lib_note = packed_library(torch, F, q, k, v, lens, tok0, ref)
-    rows["flash_attention_packed"] = dict(
-        max_abs_err=err, ms=time_ms(torch, lambda: flash_packed.flash_attention_packed(q, k, v, *ints, **kw)),
+    fn = functools.partial(flash_packed.flash_attention_packed, q, k, v, *ints, **kw)
+    rows["flash_attention_packed"] = device_rate(torch, dict(
+        max_abs_err=err, ms=time_ms(torch, fn),
         plain_ms=time_ms(torch, lambda: flash_packed.flash_attention_packed_ref(q, k, v, *ints, **kw), iters=3),
         library_ms=None if lib_fn is None else time_ms(torch, lib_fn), bound_ms=bms, bound_by=bby,
-        library_note=lib_note)
+        library_note=lib_note), fn, n_ops)
     log(f"[kernel] flash_attention_packed library: {lib_note}")
     del q, k, v, out, ref, lse, ref_lse
+    rows["flash_attention_lse"] = extend_row(torch, gen, randn, cfg, 512, 512)
+    rows["flash_attention_extend_c"] = extend_row(torch, gen, randn, cfg, 1024, 3072)
+    return rows
 
-    # K7's extend passes (llama._extend_attention): the fresh rows causal at
-    # global offsets, then the prefix fully visible, each with its lse
-    s = pre = 512
+
+def extend_row(torch, gen, randn, cfg, s, pre):
+    """K7's two extend passes (llama._extend_attention) with lse, s fresh
+    tokens over a pre-token prefix: the fresh rows causal at global offsets,
+    then the prefix fully visible; the yardstick is one SDPA over prefix +
+    fresh keys with the extend mask (the merged output; SDPA returns no
+    lse)."""
+    from sgl_kernel_tpu_torch.ops.attention import flash_prefill, merge_state
+
+    F = torch.nn.functional
+    dev = torch.device(DEVICE)
+    nq, nkv, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     q, k1, v1 = randn(1, s, nq, d), randn(1, s, nkv, d), randn(1, s, nkv, d)
     k2, v2 = randn(1, pre, nkv, d), randn(1, pre, nkv, d)
     ql = torch.tensor([s], dtype=torch.int32, device=dev)
@@ -496,27 +534,25 @@ def packed_and_extend_rows(torch, skt, gen, randn, cfg):
                 + fn(q, k2, v2, ql, pl_, None, pl_, zero, causal=True, return_lse=True))
 
     got, want = passes(flash_prefill.flash_attention), passes(flash_prefill.flash_attention_ref)
-    err = check("flash_attention lse, extend 512 over 512", list(zip(got, want)))
+    err = check(f"flash_attention lse, extend {s} over {pre}", list(zip(got, want)))
+    del want
     n_bytes = (s * nq * d + 2 * (s + pre) * nkv * d) * 2 + 2 * (s * nq * d * 2 + nq * s * 4)
-    bms, bby = bound_ms(n_bytes, 4 * nq * d * (s * (s + 1) // 2 + s * pre), BF16_FLOPS)
-    # yardstick: one SDPA over prefix + fresh keys with the extend mask
-    # (the merged output; SDPA returns no lse)
+    n_ops = 4 * nq * d * (s * (s + 1) // 2 + s * pre)
+    bms, bby = bound_ms(n_bytes, n_ops, BF16_FLOPS)
     qt = q.transpose(1, 2)
     kt, vt = (torch.cat([a, b], 1).transpose(1, 2) for a, b in ((k2, k1), (v2, v1)))
     mask = torch.arange(pre + s, device=dev)[None, :] <= (pre + torch.arange(s, device=dev))[:, None]
     o1, l1, o2, l2 = got
     merged, _ = merge_state(o1[0], l1[0].t(), o2[0], l2[0].t())
-    lib = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask, enable_gqa=True).transpose(1, 2)[0]
-    lib_err = float((lib.float() - merged.float()).abs().max())
-    log(f"[kernel] flash_attention lse library (SDPA with the extend mask vs merged passes): max_abs_err {lib_err:.4g}")
-    rows["flash_attention_lse"] = dict(
-        max_abs_err=err, ms=time_ms(torch, lambda: passes(flash_prefill.flash_attention)),
-        plain_ms=time_ms(torch, lambda: passes(flash_prefill.flash_attention_ref), iters=5),
-        library_ms=time_ms(torch, lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
-                                                                          enable_gqa=True)),
-        bound_ms=bms, bound_by=bby)
-    return rows
-
+    lib = functools.partial(F.scaled_dot_product_attention, qt, kt, vt, attn_mask=mask, enable_gqa=True)
+    lib_err = float((lib().transpose(1, 2)[0].float() - merged.float()).abs().max())
+    log(f"[kernel] flash_attention lse {s} over {pre} library (SDPA with the extend mask vs merged passes): "
+        f"max_abs_err {lib_err:.4g}")
+    fn = functools.partial(passes, flash_prefill.flash_attention)
+    return device_rate(torch, dict(
+        max_abs_err=err, ms=time_ms(torch, fn),
+        plain_ms=time_ms(torch, lambda: passes(flash_prefill.flash_attention_ref), iters=3 if pre > 512 else 5),
+        library_ms=time_ms(torch, lib), bound_ms=bms, bound_by=bby), fn, n_ops, lib)
 
 def int4pack_yardstick(torch, w, scales, group):
     """torch._weight_int4pack_mm (tinygemm) over the same int4 weights: the
@@ -2364,7 +2400,7 @@ def kernels_k18(torch, skt, gen, scales, report):
     e, topk, h, inter = V3["experts"], V3["topk"], V3["hidden"], V3["inter"]
     w13, s13 = e4m3_codes(torch, gen, e, h, 2 * inter), scales(e, h // 128, 2 * inter // 128)
     w2, s2 = e4m3_codes(torch, gen, e, inter, h), scales(e, inter // 128, h // 128)
-    w13_t = None  # the column-major copy of the yardstick, made once
+    col_major = {}  # the yardstick's column-major copy of each bank, made once
     for t, bm, label in ((16, 16, "decode"), (1024, 128, "prefill")):
         tw, tids = moe.topk_softmax(torch.randn((t, e), generator=gen, device=dev), topk)
         al = moe.moe_align_block_size(tids, tw, e, bm)
@@ -2383,21 +2419,18 @@ def kernels_k18(torch, skt, gen, scales, report):
             err = check(f"fp8_blockwise_scaled_grouped_mm {label} {name} [cap {cap}, bm {bm}, {hit} experts]",
                         [(fn(), ref)])
             del ref
-            lib_fn, lib_note = None, "torch._scaled_grouped_mm is timed at gate_up only"
-            if name == "gate_up":
-                if not hasattr(torch, "_scaled_grouped_mm"):
-                    lib_note = "this torch has no torch._scaled_grouped_mm"
-                else:
-                    if w13_t is None:
-                        w13_t = w13.transpose(-2, -1).contiguous().transpose(-2, -1)
-                    offs = torch.cumsum(al.padded_group_sizes, 0).to(torch.int32)
-                    lib_fn = functools.partial(torch._scaled_grouped_mm, a, w13_t, torch.ones(cap, device=dev),
-                                               torch.ones((e, n), device=dev), offs=offs, out_dtype=bf)
-                    try:
-                        lib_fn()
-                        lib_note = "torch._scaled_grouped_mm, row-wise scales, the valid rows"
-                    except Exception as ex:  # this torch refuses the call on the card
-                        lib_fn, lib_note = None, f"torch._scaled_grouped_mm refused: {str(ex).splitlines()[0][:100]}"
+            lib_fn, lib_note = None, "this torch has no torch._scaled_grouped_mm"
+            if hasattr(torch, "_scaled_grouped_mm"):
+                if name not in col_major:
+                    col_major[name] = w.transpose(-2, -1).contiguous().transpose(-2, -1)
+                offs = torch.cumsum(al.padded_group_sizes, 0).to(torch.int32)
+                lib_fn = functools.partial(torch._scaled_grouped_mm, a, col_major[name], torch.ones(cap, device=dev),
+                                           torch.ones((e, n), device=dev), offs=offs, out_dtype=bf)
+                try:
+                    lib_fn()
+                    lib_note = "torch._scaled_grouped_mm, row-wise scales, the valid rows"
+                except Exception as ex:  # this torch refuses the call on the card
+                    lib_fn, lib_note = None, f"torch._scaled_grouped_mm refused: {str(ex).splitlines()[0][:100]}"
             n_bytes = hit * (k * n + 4 * sw[0].numel()) + cap * (k + 4 * (k // 128) + 2 * n) + 4 * eids.numel()
             bms, bby = bound_ms(n_bytes, 2 * cap * n * k, FP8_FLOPS)
             report(f"fp8_blockwise_scaled_grouped_mm_{label}_{name}", dict(
@@ -3022,7 +3055,8 @@ def main():
         if kernels[-1]["launches"] <= 0:
             fail(f"{name}: no launch in the served waves")
     log("[kernel] rmsnorm at [1024, 4096]: " + json.dumps(rows["rmsnorm_1024"]))
-    for name in ("paged_attention_decode_dma_int8", "paged_attention_decode_dma_e4m3", "flash_attention_lse",
+    for name in ("rmsnorm_16", "flash_attention", "flash_attention_packed", "flash_attention_extend_c",
+                 "paged_attention_decode_dma_int8", "paged_attention_decode_dma_e4m3", "flash_attention_lse",
                  "w4a16_grouped_mm_decode_down", "w4a16_grouped_mm_prefill_gate_up", "mla_decode", "mla_decode_e4m3",
                  "flash_attention_576_lse", "flash_attention_packed_576", "bf16_grouped_mm_deepseek_decode_down",
                  "bf16_grouped_mm_mixtral_decode_gate_up", "bf16_grouped_mm_mixtral_decode_down",

@@ -133,4 +133,87 @@ __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
+// ---- Hopper warpgroup MMA (wgmma) over 128-byte-swizzled shared memory ----
+//
+// A swizzled tile is [rows][64] bf16: rows of 128 bytes, 16-byte chunk c of
+// row r stored at chunk c ^ (r % 8). The hardware applies the XOR to address
+// bits 4-6 from bits 7-9, so a tile starts on a 1024-byte boundary. A wider
+// matrix is a row of such tiles.
+
+// byte offset of 16-byte chunk c16 (0..7) of row r in a swizzled tile
+__device__ __forceinline__ uint32_t sw128(int r, int c16) { return (uint32_t)(r * 128 + ((c16 ^ (r & 7)) << 4)); }
+
+// shared-memory matrix descriptor with the 128-byte swizzle: start address,
+// leading and stride byte offsets (each in 16-byte units, 14 bits)
+__device__ __forceinline__ uint64_t wgmma_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)((lbo & 0x3FFFF) >> 4) << 16) |
+         ((uint64_t)((sbo & 0x3FFFF) >> 4) << 32) | (1ull << 62);
+}
+
+// orders register and shared-memory accesses before the next wgmma
+__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wgmma_commit() { asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory"); }
+
+// wait until at most N committed wgmma groups are still in flight
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// makes this thread's shared-memory writes (st.shared, cp.async) visible to
+// the async proxy that wgmma reads through
+__device__ __forceinline__ void fence_proxy_async() { asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory"); }
+
+// keeps the compiler from moving accesses of registers that an asynchronous
+// wgmma reads or writes across this point (call after wgmma_wait)
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
+}
+
+#define SKT_ACC32(d)                                                                                          \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), \
+      "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]),  \
+      "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), \
+      "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+
+// d (64 x 64, float32) = (scale_d ? d : 0) + A (64 x 16) * B (16 x 64), bf16,
+// A and B from shared memory, both K-major (B stored [n][k]). Thread i of the
+// warpgroup holds rows 16 (i / 32) + (i % 32) / 4 (+8) of d: d[4j + e] at
+// column 8j + 2 (i % 4) + (e & 1), the lower row for e < 2.
+__device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32], uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : SKT_ACC32(d)
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// d += A (64 x 16) * B (16 x 64): A from registers in mma.sync's m16k16 A
+// fragment layout, warp w holding rows 16w..16w+15 (which is d's layout with
+// column pairs packed by pack_bf16x2); B from shared memory, N-major (stored
+// [k][n], the transpose-B form).
+__device__ __forceinline__ void wgmma_m64n64k16_rs_tb(float (&d)[32], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : SKT_ACC32(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+#undef SKT_ACC32
+
 }  // namespace skt

@@ -15,16 +15,18 @@
 // o = 0 and the twin's lse, -1e30 * log2(e), and reads nothing.
 //
 // Bound: operations, 4 * Hq * D * sum_i len_i (len_i + 1) / 2 at the bf16
-// tensor-core peak for a causal self-attention batch. Design: the 256-token
-// alignment stays the contract, not the tile. One block of 128 threads per
-// (64-row q tile, q head) reads its sequence id and offsets from the
-// metadata itself (there is no scalar prefetch) and runs the tile loop of
-// flash_tile.cuh, shared with K7, over that sequence's keys up to the
-// tile's causal limit: the work follows each sequence's length, and
+// tensor-core peak (989 TFLOP/s) for a causal self-attention batch. Design:
+// the 256-token alignment stays the contract, not the tile. One warpgroup of
+// 128 threads per (q head, 64-row q tile) reads its sequence id and offsets
+// from the metadata itself (there is no scalar prefetch) and runs the wgmma
+// tile of flash_tile.cuh, shared with K7, over that sequence's keys up to
+// the tile's causal limit: the work follows each sequence's length, and
 // max_kvb (a power-of-two pad in the engine) only caps it as the TPU grid's
-// kv extent does. The TPU kernel's clamped index maps, which made skipped
-// steps re-fetch nothing, have no counterpart: skipped tiles are never
-// visited.
+// kv extent does. blockIdx.x is the head and blockIdx.y the packed tile in
+// reverse, so each sequence's last tiles (the most keys) start first, over
+// every head. The TPU kernel's clamped index maps, which made skipped steps
+// re-fetch nothing, have no counterpart: skipped tiles are never visited,
+// and key rows past kv_len are never read.
 //
 // Head dim 576 (DeepSeek MLA packed prefill, deepseek.py:444-459: q
 // [TP, 16, 576] against one latent K/V head) takes K7's 576 tile
@@ -45,10 +47,12 @@ __global__ void __launch_bounds__(skt::kFlashThreads) packed_kernel(
     const int* __restrict__ blk_q0, const int* __restrict__ seq_meta,
     bf16* __restrict__ out, float* __restrict__ lse, int tp, int block,
     int n_q_heads, int n_kv_heads, int max_kvb, int causal, float scale_log2) {
+  extern __shared__ __align__(16) unsigned char smem[];
   const int tiles = block / skt::kFlashBQ;
-  const int nb = blockIdx.x / tiles;
-  const int sub = (blockIdx.x % tiles) * skt::kFlashBQ;
-  const int h = blockIdx.y;
+  const int h = blockIdx.x;
+  const int by = gridDim.y - 1 - blockIdx.y;  // a sequence's last tiles (the most keys) first
+  const int nb = by / tiles;
+  const int sub = (by % tiles) * skt::kFlashBQ;
   const int hk = h / (n_q_heads / n_kv_heads);
 
   const int* meta = seq_meta + blk_seq[nb] * 6;
@@ -63,7 +67,7 @@ __global__ void __launch_bounds__(skt::kFlashThreads) packed_kernel(
   const long long row0 = (long long)nb * block + sub;  // packed row of the tile
   const long long q_off = row0 * q_row_stride + (long long)h * D;
   const long long kv_off = (long long)meta[4] * block * kv_row_stride + (long long)hk * D;
-  skt::flash_rows<D>(q + q_off, q_row_stride, k + kv_off, v + kv_off, kv_row_stride, out + q_off,
+  skt::flash_rows<D>(smem, q + q_off, q_row_stride, k + kv_off, v + kv_off, kv_row_stride, out + q_off,
                      lse == nullptr ? nullptr : lse + (long long)h * tp + row0,
                      skt::kFlashBQ, q_len - q0, kv_len, q_start + q0, kv_start, causal, scale_log2);
 }
@@ -106,6 +110,21 @@ __global__ void __launch_bounds__(skt::kMlaThreads) packed576_kernel(
       scale_log2);
 }
 
+template <int D>
+int launch_packed(cudaStream_t st, const bf16* q, const bf16* k, const bf16* v, const int* blk_seq,
+                  const int* blk_q0, const int* seq_meta, bf16* out, float* lse, int nqb, int block, int n_q_heads,
+                  int n_kv_heads, int max_kvb, int causal, float scale_log2) {
+  constexpr size_t bytes = skt::FlashSmem<D>::kBytes;
+  cudaError_t err = cudaFuncSetAttribute(packed_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err != cudaSuccess) return (int)err;
+  // heads fastest: blocks start in order, so each sequence's long tiles start together over every head
+  dim3 grid(n_q_heads, nqb * (block / skt::kFlashBQ));
+  packed_kernel<D><<<grid, skt::kFlashThreads, bytes, st>>>(q, k, v, blk_seq, blk_q0, seq_meta, out, lse,
+                                                            nqb * block, block, n_q_heads, n_kv_heads, max_kvb,
+                                                            causal, scale_log2);
+  return (int)cudaSuccess;
+}
+
 }  // namespace
 
 // Supported: head_dim 64, 128 or 576 (576: Hq / Hkv dividing 16 or a
@@ -116,17 +135,19 @@ extern "C" int skt_flash_packed(
     const void* seq_meta, void* out, void* lse, int nqb, int block, int n_q_heads,
     int n_kv_heads, int head_dim, int max_kvb, int causal, float sm_scale, void* stream) {
   if (block % skt::kFlashBQ != 0) return (int)cudaErrorInvalidValue;
-  dim3 grid(nqb * (block / skt::kFlashBQ), n_q_heads);
   const int tp = nqb * block;
   const float sl = sm_scale * skt::kLog2e;
   cudaStream_t st = (cudaStream_t)stream;
   switch (head_dim) {
     case 64:
-      packed_kernel<64><<<grid, skt::kFlashThreads, 0, st>>>((const bf16*)q, (const bf16*)k, (const bf16*)v, (const int*)blk_seq, (const int*)blk_q0, (const int*)seq_meta, (bf16*)out, (float*)lse, tp, block, n_q_heads, n_kv_heads, max_kvb, causal, sl);
+    case 128: {
+      auto launch = head_dim == 64 ? launch_packed<64> : launch_packed<128>;
+      const int err = launch(st, (const bf16*)q, (const bf16*)k, (const bf16*)v, (const int*)blk_seq,
+                             (const int*)blk_q0, (const int*)seq_meta, (bf16*)out, (float*)lse, nqb, block, n_q_heads,
+                             n_kv_heads, max_kvb, causal, sl);
+      if (err != 0) return err;
       break;
-    case 128:
-      packed_kernel<128><<<grid, skt::kFlashThreads, 0, st>>>((const bf16*)q, (const bf16*)k, (const bf16*)v, (const int*)blk_seq, (const int*)blk_q0, (const int*)seq_meta, (bf16*)out, (float*)lse, tp, block, n_q_heads, n_kv_heads, max_kvb, causal, sl);
-      break;
+    }
     case 576: {
       const int group = n_q_heads / n_kv_heads;
       if (skt::kMlaRows % group && group % skt::kMlaRows) return (int)cudaErrorInvalidValue;

@@ -13,11 +13,19 @@
 // that sees no key), other padding rows get the formula's value; all stay
 // finite. A row that sees no key gets o = 0 and the twin's lse, -1e30 * log2(e).
 //
-// Bound: operations. At the main path's S=1024 causal prefill with 32 heads
-// of 128 the kernel does ~9 GFLOP per layer against ~17 MB of q/k/v/o, far
-// past the ridge. One block of 128 threads per (q tile of 64 rows, q head,
-// sequence) runs the tile loop of flash_tile.cuh, shared with K9. The TPU
-// kernel's head-major transpose is not needed: the kernel reads the
+// Bound: operations, 4 * Hq * D per visible (query, key) pair at the bf16
+// tensor-core peak (989 TFLOP/s): at the main path's S=1024 causal prefill
+// with 32 heads of 128, ~8.2 GFLOP against ~17 MB of q/k/v/o, far past the
+// ridge. Design, D = 64 and 128: one warpgroup of 128 threads per (q head,
+// 64-row q tile, sequence) runs the wgmma tile of flash_tile.cuh, shared
+// with K9: S = q K^T and O += P V on wgmma m64n64k16 from 128-byte-swizzled
+// shared memory, K/V in two cp.async slots of 64-key tiles, the mask built
+// only on the tiles that need it. Causal balance: blockIdx.x is the head
+// and blockIdx.y the q tile in reverse, so blocks start with the tiles
+// that have the most keys, over every head, and the short ones fill the
+// tail (longest first; running two tiles T-1-x and x a block evened the
+// work but measured slower wherever the grid runs more than one wave).
+// The TPU kernel's head-major transpose is not needed: the kernel reads the
 // [B, S, H, D] layout with strides.
 //
 // Head dim 576 (DeepSeek MLA prefill: q [B, S, 16, 576], one latent K/V
@@ -41,8 +49,9 @@ __global__ void __launch_bounds__(skt::kFlashThreads) flash_kernel(
     const bf16* __restrict__ v, const int* __restrict__ lens,
     bf16* __restrict__ out, float* __restrict__ lse, int sq, int skv,
     int n_q_heads, int n_kv_heads, int causal, float scale_log2) {
-  const int q0 = blockIdx.x * skt::kFlashBQ;
-  const int h = blockIdx.y;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int h = blockIdx.x;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * skt::kFlashBQ;  // the tiles with the most keys first
   const int b = blockIdx.z;
   const int hk = h / (n_q_heads / n_kv_heads);
 
@@ -58,7 +67,7 @@ __global__ void __launch_bounds__(skt::kFlashThreads) flash_kernel(
   const int rows = min(skt::kFlashBQ, sq - q0);
   // padding rows of a tile that starts before q_len attend like valid rows
   const int see_rows = q0 < q_len ? rows : 0;
-  skt::flash_rows<D>(q + q_off, q_row_stride, k + kv_off, v + kv_off, kv_row_stride, out + q_off,
+  skt::flash_rows<D>(smem, q + q_off, q_row_stride, k + kv_off, v + kv_off, kv_row_stride, out + q_off,
                      lse == nullptr ? nullptr : lse + ((long long)b * n_q_heads + h) * sq + q0,
                      rows, see_rows, kv_len, q_start + q0, kv_start, causal, scale_log2);
 }
@@ -100,6 +109,20 @@ __global__ void __launch_bounds__(skt::kMlaThreads) flash576_kernel(
       scale_log2);
 }
 
+template <int D>
+int launch_flash(cudaStream_t st, const bf16* q, const bf16* k, const bf16* v, const int* lens, bf16* out,
+                 float* lse, int batch, int sq, int skv, int n_q_heads, int n_kv_heads, int causal,
+                 float scale_log2) {
+  constexpr size_t bytes = skt::FlashSmem<D>::kBytes;
+  cudaError_t err = cudaFuncSetAttribute(flash_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err != cudaSuccess) return (int)err;
+  // heads fastest: blocks start in order, so the grid runs longest-first over every head
+  dim3 grid(n_q_heads, (sq + skt::kFlashBQ - 1) / skt::kFlashBQ, batch);
+  flash_kernel<D><<<grid, skt::kFlashThreads, bytes, st>>>(q, k, v, lens, out, lse, sq, skv, n_q_heads, n_kv_heads,
+                                                           causal, scale_log2);
+  return (int)cudaSuccess;
+}
+
 }  // namespace
 
 // Supported: head_dim 64, 128 or 576 (576: Hq / Hkv dividing 16 or a
@@ -108,16 +131,17 @@ extern "C" int skt_flash_prefill(
     const void* q, const void* k, const void* v, const void* lens, void* out, void* lse,
     int batch, int sq, int skv, int n_q_heads, int n_kv_heads, int head_dim,
     int causal, float sm_scale, void* stream) {
-  dim3 grid((sq + skt::kFlashBQ - 1) / skt::kFlashBQ, n_q_heads, batch);
   const float sl = sm_scale * skt::kLog2e;
   cudaStream_t st = (cudaStream_t)stream;
   switch (head_dim) {
     case 64:
-      flash_kernel<64><<<grid, skt::kFlashThreads, 0, st>>>((const bf16*)q, (const bf16*)k, (const bf16*)v, (const int*)lens, (bf16*)out, (float*)lse, sq, skv, n_q_heads, n_kv_heads, causal, sl);
+    case 128: {
+      auto launch = head_dim == 64 ? launch_flash<64> : launch_flash<128>;
+      const int err = launch(st, (const bf16*)q, (const bf16*)k, (const bf16*)v, (const int*)lens, (bf16*)out,
+                             (float*)lse, batch, sq, skv, n_q_heads, n_kv_heads, causal, sl);
+      if (err != 0) return err;
       break;
-    case 128:
-      flash_kernel<128><<<grid, skt::kFlashThreads, 0, st>>>((const bf16*)q, (const bf16*)k, (const bf16*)v, (const int*)lens, (bf16*)out, (float*)lse, sq, skv, n_q_heads, n_kv_heads, causal, sl);
-      break;
+    }
     case 576: {
       const int group = n_q_heads / n_kv_heads;
       if (skt::kMlaRows % group && group % skt::kMlaRows) return (int)cudaErrorInvalidValue;

@@ -1,35 +1,80 @@
-// The flash-attention tile loop shared by K7 (flash_prefill.cu) and K9
-// (flash_packed.cu): one block of 128 threads computes up to 64 query rows
-// of one head against the key rows it may see. The two kernels differ only
-// in how a block finds its rows (a padded [B, S, H, D] batch, or
-// block-aligned packed tokens with per-block metadata).
+// The flash-attention tile shared by K7 (flash_prefill.cu) and K9
+// (flash_packed.cu) at head dims 64 and 128: one warpgroup (4 warps, 128
+// threads) computes 64 query rows of one head against the key rows they may
+// see, on Hopper's warpgroup MMA (wgmma) with float32 accumulators. The two
+// kernels differ only in how a block finds its rows (a padded [B, S, H, D]
+// batch, or block-aligned packed tokens with per-block metadata).
 //
-// Design (first version, no tensor cores): q and each 32-row K/V tile sit
-// in shared memory as bf16, q and K transposed so that a thread's four
-// query rows and four key columns are each one 8-byte read without bank
-// conflicts. Each thread computes a 4x4 block of scores in f32, takes the
-// row max and sum over the 8 lanes that share its rows, and keeps a 4-row
-// by D/8-column slice of the output accumulator in registers; the
-// probability tile passes through shared memory (rows padded to 33 floats)
-// into the P.V product. Softmax runs in the log2 domain. KV tiles past the
-// last causal position are skipped, and key rows past kv_len are neither
-// read nor attended. The output is rounded to bf16 once, after the last
-// tile. Later work: mma.sync/wgmma tiles and a TMA-fed pipeline.
+// Shared memory (dynamic, FlashSmem<D>::kBytes): the q tile and two slots
+// each of K and V tiles, 64 keys a tile, every tile [64][D] bf16 stored as
+// D/64 swizzled [64][64] sub-tiles (common.cuh), so wgmma reads them without
+// bank conflicts through matrix descriptors. At D=128 that is 16 KB +
+// 2 x 2 x 16 KB: two blocks fit an SM. Tiles are filled by cp.async, whose
+// zero-fill keeps every key row at or past kv_len unread, and zero in
+// shared memory (so 0 x NaN never reaches P V).
+//
+// Key tile j: S = q K_j^T is D/16 wgmma m64n64k16 with both operands in
+// shared memory (K stored [key][d] is the K-major B). Each thread then holds
+// 2 rows x 16 keys of S in registers; softmax runs on them in the log2
+// domain (scale folded into scale_log2), the row max reduced over the 4
+// lanes that share a row, the row sums per-thread partials until the end.
+// Only a tile that needs the mask builds it: the one that holds kv_len and,
+// causal, those past row 0's position. O += P V is wgmma with A = P from
+// registers (the S accumulator packed into bf16 pairs is wgmma's register-A
+// layout) and B = the V tile read N-major (the transpose-B form), one n64
+// slice of the output a sub-tile. Tile j+1 loads into the other slots
+// meanwhile. Issuing S_{j+1} beside P_j V_j, so that the softmax runs while
+// the product is in flight (FlashAttention-3's intra-warpgroup overlap),
+// measured slower on the H100 than this order with two blocks an SM.
+//
+// Numbers. Scores are exact bf16 products summed in float32. P enters P V
+// as two bf16 terms, p = hi + lo (hi = bf16(p), lo = bf16(p - hi)), two
+// wgmmas each, so P is carried to ~2^-16 and the result matches a float32
+// P V, as in mla_tile.cuh; the TPU kernel rounds P to bf16 once
+// (flash_prefill.py:63-64), which the plain twins do not copy. The output is
+// rounded to bf16 once, after the last tile.
 #pragma once
 
 #include "common.cuh"
 
 namespace skt {
 
-constexpr int kFlashBQ = 64;
-constexpr int kFlashBK = 32;
-constexpr int kFlashThreads = 128;
+constexpr int kFlashBQ = 64;        // query rows of a block: wgmma's M
+constexpr int kFlashBK = 64;        // keys of a K/V tile
+constexpr int kFlashThreads = 128;  // one warpgroup
+constexpr int kFlashStages = 2;     // slots each of K and V tiles
 // base-2 lse of a row that sees no key: the plain versions clamp the
 // running max at -1e30 (natural log) and the sum at 1e-38, so
 // (-1e30 + ln 1e-38) * log2(e), which is -1e30 * log2(e) in float32. Finite,
 // so merging two such rows gives weights of 1 and a zero row, never NaN.
 constexpr float kEmptyLse = -1e30f * kLog2e;
 
+// Dynamic shared memory of a block: q, then the stages' K and V tiles, and
+// 1 KB of slack to start the first tile on a 1024-byte boundary.
+template <int D>
+struct FlashSmem {
+  static_assert(D == 64 || D == 128, "the wgmma flash tile takes head dims 64 and 128");
+  static constexpr int kSub = 64 * 128;              // bytes of one swizzled [64][64] sub-tile
+  static constexpr int kTile = (D / 64) * kSub;      // bytes of a [64][D] tile
+  static constexpr size_t kBytes = (size_t)kTile * (1 + 2 * kFlashStages) + 1024;
+};
+
+// Rows [0, 64) of a bf16 array (row stride `stride` elements) into a
+// swizzled [64][D] tile by cp.async; rows at or past n_valid are written as
+// zeros and not read.
+template <int D>
+__device__ __forceinline__ void flash_load_tile(unsigned char* tile, const bf16* __restrict__ src, long long stride,
+                                                int n_valid) {
+  constexpr int CH = D / 8;  // 16-byte chunks of a row
+#pragma unroll
+  for (int it = 0; it < 64 * CH / kFlashThreads; ++it) {
+    const int e = it * kFlashThreads + threadIdx.x, r = e / CH, ch = e % CH;
+    const bool ok = r < n_valid;
+    cp_async16(tile + (ch / 8) * FlashSmem<D>::kSub + sw128(r, ch % 8), src + (ok ? r * stride : 0) + ch * 8, ok);
+  }
+}
+
+// smem: the block's dynamic shared memory (FlashSmem<D>::kBytes).
 // q: row 0 of the tile (row stride q_stride elements); k/v: key row 0
 // (stride kv_stride); out: output row 0 (stride q_stride); lse: the tile's
 // row-0 lse entry, rows contiguous, or nullptr.
@@ -38,145 +83,169 @@ constexpr float kEmptyLse = -1e30f * kLog2e;
 // kEmptyLse. kv_len: key rows c < kv_len may be seen. q_pos0 / kv_pos0:
 // global positions of query row 0 / key row 0 for the causal mask.
 template <int D>
-__device__ __forceinline__ void flash_rows(
-    const bf16* __restrict__ q, long long q_stride, const bf16* __restrict__ k,
-    const bf16* __restrict__ v, long long kv_stride, bf16* __restrict__ out,
-    float* __restrict__ lse, int rows, int see_rows, int kv_len, int q_pos0,
-    int kv_pos0, int causal, float scale_log2) {
-  constexpr int BQ = kFlashBQ, BK = kFlashBK, kThreads = kFlashThreads;
-  constexpr int DC = D / 8;  // output columns per thread
-  __shared__ __align__(16) bf16 qT[D][BQ];
-  __shared__ __align__(16) bf16 kT[D][BK];
-  __shared__ __align__(16) bf16 vs[BK][D];
-  __shared__ float ps[BQ][BK + 1];
-
-  const int tid = threadIdx.x;
-  const int rg = tid / 8;  // rows rg*4 .. rg*4+3
-  const int cg = tid % 8;  // score cols cg*4 .. +3, output cols cg*DC .. +DC-1
+__device__ __forceinline__ void flash_rows(unsigned char* smem, const bf16* __restrict__ q, long long q_stride,
+                                           const bf16* __restrict__ k, const bf16* __restrict__ v,
+                                           long long kv_stride, bf16* __restrict__ out, float* __restrict__ lse,
+                                           int rows, int see_rows, int kv_len, int q_pos0, int kv_pos0, int causal,
+                                           float scale_log2) {
+  constexpr int BK = kFlashBK;
+  constexpr int NS = D / 64;  // 64-column sub-tiles of a row; n64 slices of the output
+  constexpr int KT = FlashSmem<D>::kTile, SUB = FlashSmem<D>::kSub;
+  unsigned char* sq = smem + ((1024u - (smem_u32(smem) & 1023u)) & 1023u);
+  const uint32_t q_addr = smem_u32(sq);
+  const int lane = threadIdx.x % 32, t = lane % 4;
+  const int r0 = (threadIdx.x / 32) * 16 + lane / 4;  // the thread's rows: r0 and r0 + 8
   see_rows = min(see_rows, rows);
-
-  float o[4][DC];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int c = 0; c < DC; ++c) o[i][c] = 0.f;
-  float m[4], l[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = kMaxInit;
-    l[i] = 0.f;
-  }
 
   // visible keys for this tile: the last row that sees keys sets the causal limit
   int kv_end = see_rows > 0 ? kv_len : 0;
   if (causal && kv_end > 0) kv_end = min(kv_end, max(0, q_pos0 + see_rows - 1 - kv_pos0 + 1));
+  const int n_tiles = (kv_end + BK - 1) / BK;
 
-  if (kv_end > 0) {
-    // q tile -> qT[d][r] (8 bf16 per thread-step)
-    for (int e = tid; e < BQ * D / 8; e += kThreads) {
-      const int r = e / (D / 8), d0 = (e % (D / 8)) * 8;
-      uint4 raw = make_uint4(0, 0, 0, 0);
-      if (r < rows) raw = *reinterpret_cast<const uint4*>(q + r * q_stride + d0);
-      const bf16* hv = reinterpret_cast<const bf16*>(&raw);
+  // smem: q | K slots 0, 1 | V slots 0, 1; tile j in slots j % 2
+  auto k_slot = [&](int j) { return sq + KT * (1 + (j & 1)); };
+  auto v_slot = [&](int j) { return sq + KT * (3 + (j & 1)); };
+
+  float o[NS][32];
 #pragma unroll
-      for (int j = 0; j < 8; ++j) qT[d0 + j][r] = hv[j];
-    }
+  for (int n = 0; n < NS; ++n)
+#pragma unroll
+    for (int e = 0; e < 32; ++e) o[n][e] = 0.f;
+  float m[2] = {kMaxInit, kMaxInit}, l[2] = {0.f, 0.f};
+
+  if (n_tiles > 0) {
+    flash_load_tile<D>(sq, q, q_stride, rows);
+    flash_load_tile<D>(k_slot(0), k, kv_stride, kv_len);
+    flash_load_tile<D>(v_slot(0), v, kv_stride, kv_len);
+    cp_async_commit();
   }
-
-  for (int j0 = 0; j0 < kv_end; j0 += BK) {
-    __syncthreads();  // previous tile's readers are done
-    for (int e = tid; e < BK * D / 8; e += kThreads) {
-      const int r = e / (D / 8), d0 = (e % (D / 8)) * 8;
-      uint4 kraw = make_uint4(0, 0, 0, 0), vraw = make_uint4(0, 0, 0, 0);
-      if (j0 + r < kv_len) {
-        kraw = *reinterpret_cast<const uint4*>(k + (j0 + r) * kv_stride + d0);
-        vraw = *reinterpret_cast<const uint4*>(v + (j0 + r) * kv_stride + d0);
-      }
-      const bf16* hk8 = reinterpret_cast<const bf16*>(&kraw);
-#pragma unroll
-      for (int j = 0; j < 8; ++j) kT[d0 + j][r] = hk8[j];
-      *reinterpret_cast<uint4*>(&vs[r][d0]) = vraw;
+  for (int j = 0; j < n_tiles; ++j) {
+    const int j0 = j * BK;
+    if (j + 1 < n_tiles) {  // the next tile into the other slots
+      const long long off = (long long)(j0 + BK) * kv_stride;
+      flash_load_tile<D>(k_slot(j + 1), k + off, kv_stride, kv_len - j0 - BK);
+      flash_load_tile<D>(v_slot(j + 1), v + off, kv_stride, kv_len - j0 - BK);
     }
+    cp_async_commit();
+    cp_async_wait<1>();  // tile j (and q) landed
+    fence_proxy_async();
     __syncthreads();
 
-    float s[4][4];
+    // S = q K_j^T, both operands K-major in shared memory
+    const uint32_t k_addr = smem_u32(k_slot(j)), v_addr = smem_u32(v_slot(j));
+    float s[32];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int e = 0; e < 32; ++e) s[e] = 0.f;
+    fence_regs(s);
+    wgmma_fence();
 #pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-#pragma unroll 8
-    for (int d = 0; d < D; ++d) {
-      float qv[4], kv[4];
-      load_bf16<4>(&qT[d][rg * 4], qv);
-      load_bf16<4>(&kT[d][cg * 4], kv);
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] += qv[i] * kv[j];
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const uint32_t off = (kk / 4) * SUB + (kk % 4) * 32;  // 16 columns: 32 bytes along the row
+      wgmma_m64n64k16_ss(s, wgmma_desc(q_addr + off, 16, 1024), wgmma_desc(k_addr + off, 16, 1024), kk > 0);
     }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(s);
 
+    // s[4c + e]: row r0 + 8 (e >> 1), key j0 + 8c + 2t + (e & 1). The mask
+    // only where the tile holds kv_len or (causal) keys past row 0's position
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = rg * 4 + i;
-      const int qpos = q_pos0 + r;
+    for (int e = 0; e < 32; ++e) s[e] *= scale_log2;
+    if (j0 + BK > kv_len || (causal && kv_pos0 + j0 + BK - 1 > q_pos0)) {
+#pragma unroll
+      for (int e = 0; e < 32; ++e) {
+        const int row = r0 + ((e >> 1) & 1) * 8, col = j0 + (e >> 2) * 8 + 2 * t + (e & 1);
+        if (!(col < kv_len && (!causal || kv_pos0 + col <= q_pos0 + row))) s[e] = __int_as_float(0xff800000);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
       float mx = kMaxInit;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int col = j0 + cg * 4 + j;
-        const bool ok = col < kv_len && r < see_rows && (!causal || kv_pos0 + col <= qpos);
-        s[i][j] = ok ? s[i][j] * scale_log2 : __int_as_float(0xff800000);  // -inf
-        mx = fmaxf(mx, s[i][j]);
-      }
-#pragma unroll
-      for (int off = 1; off < 8; off <<= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+      for (int c = 0; c < 8; ++c) mx = fmaxf(mx, fmaxf(s[4 * c + 2 * i], s[4 * c + 2 * i + 1]));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
       const float m_new = fmaxf(m[i], mx);
       const float alpha = exp2f(m[i] - m_new);
+      m[i] = m_new;
       float rs = 0.f;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float p = exp2f(s[i][j] - m_new);
-        ps[r][cg * 4 + j] = p;
-        rs += p;
+      for (int c = 0; c < 8; ++c) {
+        s[4 * c + 2 * i] = exp2f(s[4 * c + 2 * i] - m_new);
+        s[4 * c + 2 * i + 1] = exp2f(s[4 * c + 2 * i + 1] - m_new);
+        rs += s[4 * c + 2 * i] + s[4 * c + 2 * i + 1];
       }
-#pragma unroll
-      for (int off = 1; off < 8; off <<= 1) rs += __shfl_xor_sync(0xffffffffu, rs, off);
       l[i] = l[i] * alpha + rs;
-      m[i] = m_new;
 #pragma unroll
-      for (int c = 0; c < DC; ++c) o[i][c] *= alpha;
+      for (int n = 0; n < NS; ++n)
+#pragma unroll
+        for (int c = 0; c < 8; ++c) {
+          o[n][4 * c + 2 * i] *= alpha;
+          o[n][4 * c + 2 * i + 1] *= alpha;
+        }
     }
-    __syncthreads();
 
-#pragma unroll 4
-    for (int j = 0; j < BK; ++j) {
-      float pv[4];
+    // P as A fragments of the four k16 steps, keys 16kk..16kk+15: {s[8kk],
+    // s[8kk+1]}, {s[8kk+2], s[8kk+3]} (row + 8), {s[8kk+4], s[8kk+5]} (keys
+    // + 8), {s[8kk+6], s[8kk+7]}; hi = bf16(p), lo = bf16(p - hi)
+    uint32_t ph[4][4], pl[4][4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) pv[i] = ps[rg * 4 + i][j];
+    for (int kk = 0; kk < 4; ++kk)
 #pragma unroll
-      for (int c8 = 0; c8 < DC; c8 += 8) {
-        float vv[8];
-        load_bf16<8>(&vs[j][cg * DC + c8], vv);
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int c = 0; c < 8; ++c) o[i][c8 + c] += pv[i] * vv[c];
+      for (int i = 0; i < 4; ++i) {
+        const float x0 = s[8 * kk + 2 * i], x1 = s[8 * kk + 2 * i + 1];
+        ph[kk][i] = pack_bf16x2(x0, x1);
+        const __nv_bfloat162 h = *reinterpret_cast<const __nv_bfloat162*>(&ph[kk][i]);
+        pl[kk][i] = pack_bf16x2(x0 - __low2float(h), x1 - __high2float(h));
       }
+
+    // O += P V_j: 16 keys a step (two 8-row groups of the tile, 2 KB), one
+    // n64 slice of the output a 64-column sub-tile, the hi and the lo term
+#pragma unroll
+    for (int n = 0; n < NS; ++n) fence_regs(o[n]);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      fence_regs(ph[kk]);
+      fence_regs(pl[kk]);
     }
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int n = 0; n < NS; ++n) {
+        const uint64_t dv = wgmma_desc(v_addr + n * SUB + kk * 2048, SUB, 1024);
+        wgmma_m64n64k16_rs_tb(o[n], ph[kk], dv);
+        wgmma_m64n64k16_rs_tb(o[n], pl[kk], dv);
+      }
+    wgmma_commit();
+    wgmma_wait<0>();
+#pragma unroll
+    for (int n = 0; n < NS; ++n) fence_regs(o[n]);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      fence_regs(ph[kk]);
+      fence_regs(pl[kk]);
+    }
+    __syncthreads();  // these slots may be refilled
   }
 
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = rg * 4 + i;
+  for (int i = 0; i < 2; ++i) {
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+    const int r = r0 + 8 * i;
     if (r >= rows) continue;
-    const float inv = l[i] == 0.f ? 0.f : 1.f / l[i];
+    const bool seen = r < see_rows && l[i] != 0.f;
+    const float inv = seen ? 1.f / l[i] : 0.f;
+    bf16* orow = out + r * q_stride + 2 * t;
 #pragma unroll
-    for (int c8 = 0; c8 < DC; c8 += 8) {
-      float ov[8];
+    for (int n = 0; n < NS; ++n)
 #pragma unroll
-      for (int c = 0; c < 8; ++c) ov[c] = o[i][c8 + c] * inv;
-      store_bf16<8>(out + r * q_stride + cg * DC + c8, ov);
-    }
-    if (lse != nullptr && cg == 0) lse[r] = l[i] == 0.f ? kEmptyLse : m[i] + log2f(l[i]);
+      for (int c = 0; c < 8; ++c) {
+        const float a = seen ? o[n][4 * c + 2 * i] * inv : 0.f, b = seen ? o[n][4 * c + 2 * i + 1] * inv : 0.f;
+        *reinterpret_cast<uint32_t*>(orow + n * 64 + c * 8) = pack_bf16x2(a, b);
+      }
+    if (lse != nullptr && t == 0) lse[r] = seen ? m[i] + log2f(l[i]) : kEmptyLse;
   }
 }
 

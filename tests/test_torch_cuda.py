@@ -1,6 +1,8 @@
 """The port's hand-written kernels against their plain PyTorch twins on the
 card, over the options and edge cases the serving path's shapes in
-chip_smoke.py do not reach: other head dims and GQA groups, page sizes,
+chip_smoke.py do not reach: the wgmma flash tile of K7 / K9 at the 64-row
+and 64-key tile edges, at S = 4,096 and with NaN in every row it must not
+read; other head dims and GQA groups, page sizes,
 padding rows, duplicate and dropped slots, extend offsets, non-causal
 attention, the base-2 lse and rows that see no key, packed prefill at block
 edges with padding blocks, widths that are not powers of two, quantized KV
@@ -343,11 +345,12 @@ def packed_inputs(gen, lens, hq, hkv, d, n_pad_blocks=0, block=256):
     return (randn(gen, tp, hq, d), randn(gen, tp, hkv, d), randn(gen, tp, hkv, d)), ints, meta
 
 
-def check_packed(qkv, ints, meta, lens, max_kvb, hq):
+def check_packed(qkv, ints, meta, lens, max_kvb, hq, block=256):
     before = flash_packed.flash_attention_packed.launches
-    out, lse = flash_packed.flash_attention_packed(*qkv, *ints, max_kvb=max_kvb, return_lse=True)
+    out, lse = flash_packed.flash_attention_packed(*qkv, *ints, max_kvb=max_kvb, return_lse=True, block=block)
     assert flash_packed.flash_attention_packed.launches == before + 1
-    ref, ref_lse = flash_packed.flash_attention_packed_ref(*qkv, *ints, max_kvb=max_kvb, return_lse=True)
+    ref, ref_lse = flash_packed.flash_attention_packed_ref(*qkv, *ints, max_kvb=max_kvb, return_lse=True,
+                                                           block=block)
     assert lse.shape == (hq, qkv[0].shape[0]) and torch.isfinite(out).all() and torch.isfinite(lse).all()
     for t0, n in zip(meta["seq_tok0"].tolist(), lens):
         assert_elementwise(out[t0: t0 + n], ref[t0: t0 + n])
@@ -395,6 +398,107 @@ def test_packed_extend_offsets_and_raises(gen):
             flash_packed.flash_attention_packed(q, k, v, *ints, max_kvb=meta["max_kvb"], **kw)
         with pytest.raises(NotImplementedError):
             flash_prefill.flash_attention(q[None], k[None], v[None], **kw)
+
+
+def check_flash(q, k, v, lens, causal):
+    """K7 with lse against the twin on each sequence's valid rows; returns
+    the kernel's (out, lse)."""
+    ql, kl, qs, ks = lens
+    before = flash_prefill.flash_attention.launches
+    out, lse = flash_prefill.flash_attention(q, k, v, ql, kl, None, qs, ks, causal=causal, return_lse=True)
+    assert flash_prefill.flash_attention.launches == before + 1
+    ref, ref_lse = flash_prefill.flash_attention_ref(q, k, v, ql, kl, None, qs, ks, causal=causal, return_lse=True)
+    assert torch.isfinite(out).all() and torch.isfinite(lse).all()
+    for i, n in enumerate(ql.tolist()):
+        assert_elementwise(out[i, :n], ref[i, :n])
+        assert_elementwise(lse[i, :, :n], ref_lse[i, :, :n])
+    return out, lse
+
+
+def int_lens(*rows):
+    return [torch.tensor(r, dtype=torch.int32, device="cuda") for r in rows]
+
+
+@pytest.mark.parametrize("n", [1, 63, 64, 65, 127, 128, 129])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("hq,hkv", [(8, 8), (8, 2), (8, 1)])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_tile_lengths(gen, n, d, hq, hkv, causal):
+    """The wgmma tile at the 64-row / 64-key tile edges: sequence 0 attends
+    n queries over n keys, sequence 1 n queries as the last n of n + 70 keys
+    (Sq != Skv), sequence 2 n queries over a 1-key prefix at explicit
+    offsets; GQA groups 1, 4 and 8."""
+    sq, skv = n + 3, n + 70
+    q, k, v = randn(gen, 3, sq, hq, d), randn(gen, 3, skv, hkv, d), randn(gen, 3, skv, hkv, d)
+    lens = int_lens([n, n, n], [n, n + 70, 1], [0, 70, 5], [0, 0, 5])
+    check_flash(q, k, v, lens, causal)
+
+
+@pytest.mark.parametrize("block", [64, 192, 256])
+def test_packed_block_sizes(gen, block):
+    """K9 at packed blocks of 1, 3 and 4 q tiles, 64 heads, a ragged batch
+    and padding blocks."""
+    lens = [block + 5, 3 * block, 17, 2 * block - 1]
+    qkv, ints, meta = packed_inputs(gen, lens, 64, 8, 128, n_pad_blocks=2, block=block)
+    check_packed(qkv, ints, meta, lens, meta["max_kvb"], 64, block=block)
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_tile_long(gen, d, causal):
+    """S = 4,096 (64 key tiles through the two-stage ring) beside a
+    sequence of 4,000 queries over 4,095 keys."""
+    s = 4096
+    q, k, v = randn(gen, 2, s, 8, d), randn(gen, 2, s, 2, d), randn(gen, 2, s, 2, d)
+    check_flash(q, k, v, int_lens([s, 4000], [s, 4095], [0, 95], [0, 0]), causal)
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_keys_past_kv_len_unread(gen, d, causal):
+    """k / v rows at or past kv_len filled with NaN give the same output and
+    lse, bit for bit, as those rows zeroed: the tile neither reads nor
+    attends them (the extend's prefix pass, an edge tile, a 1-key prefix,
+    an empty one)."""
+    sq, skv = 100, 300
+    q, k, v = randn(gen, 4, sq, 8, d), randn(gen, 4, skv, 2, d), randn(gen, 4, skv, 2, d)
+    lens = int_lens([100, 100, 70, 33], [256, 130, 1, 0], [256, 130, 1, 0], [0, 0, 0, 0])
+    filled = []
+    for fill in (0.0, float("nan")):
+        kf, vf = k.clone(), v.clone()
+        for i, n in enumerate(lens[1].tolist()):
+            kf[i, n:], vf[i, n:] = fill, fill
+        filled.append((kf, vf))
+    out0, lse0 = check_flash(q, *filled[0], lens, causal)
+    # the twin's 0 * NaN would poison its own rows, so the NaN call is held
+    # to the zero-filled one
+    out1, lse1 = flash_prefill.flash_attention(q, *filled[1], *lens[:2], None, *lens[2:], causal=causal,
+                                               return_lse=True)
+    assert torch.equal(out0, out1) and torch.equal(lse0, lse1)
+    assert not out1[3].any() and is_empty_lse(lse1[3])
+
+
+@pytest.mark.parametrize("d", [64, 128])
+def test_packed_padding_unread(gen, d):
+    """K9 over the engine's layout with every padding row (past a
+    sequence's length, in q, k and v) and every padding block filled with
+    NaN: the output and lse equal, bit for bit, those with zeros there."""
+    lens = [16, 300, 1, 777, 65]
+    qkv, ints, meta = packed_inputs(gen, lens, 16, 4, d, n_pad_blocks=3)
+    valid = torch.zeros(qkv[0].shape[0], dtype=torch.bool, device="cuda")
+    for t0, n in zip(meta["seq_tok0"].tolist(), lens):
+        valid[t0: t0 + n] = True
+    runs = []
+    for fill in (0.0, float("nan")):
+        filled = [x.clone() for x in qkv]
+        for x in filled:
+            x[~valid] = fill
+        before = flash_packed.flash_attention_packed.launches
+        runs.append(flash_packed.flash_attention_packed(*filled, *ints, max_kvb=8, return_lse=True))
+        assert flash_packed.flash_attention_packed.launches == before + 1
+    (out0, lse0), (out1, lse1) = runs
+    assert torch.equal(out0, out1) and torch.equal(lse0, lse1)
+    check_packed(qkv, ints, meta, lens, 8, 16)
 
 
 @pytest.mark.parametrize("dtype", [torch.int8, torch.float8_e4m3fn, torch.float8_e5m2])
