@@ -243,7 +243,7 @@ def phase_build(skt_build, native):
     log(f"[build] {len(skt_build.sources())} sources and {lib.name} in {build_s:.2f} s (compiled: {sorted(logs)})")
     for stem, text in sorted(logs.items()):
         for line in text.splitlines():
-            if "registers" in line or "spill" in line or "error" in line.lower():
+            if "registers" in line or "spill" in line or "error" in line.lower() or "Performance Loss" in line:
                 log(f"[build] {stem}: {line.strip()}")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60)
@@ -377,12 +377,47 @@ def phase_kernels(torch, skt):
                 + (torch.arange(n_layers, device=dev) * 1024 * nkv * page)[:, None, None]).reshape(-1)
     flat_k, flat_v = kp.view(-1, d), vp.view(-1, d)
     ka_v, va_v = ka[:, :valid].reshape(-1, d), va[:, :valid].reshape(-1, d)
+    fn = lambda: kvcache.store_cache_all_layers(ka, va, kp, vp, slots)
+    lib = lambda: (flat_k.index_copy_(0, rows_ids, ka_v), flat_v.index_copy_(0, rows_ids, va_v))
     rows["store_cache_all_layers"] = dict(
-        max_abs_err=err, ms=time_ms(torch, lambda: kvcache.store_cache_all_layers(ka, va, kp, vp, slots)),
+        max_abs_err=err, ms=time_ms(torch, fn),
         plain_ms=time_ms(torch, lambda: kvcache.store_cache_all_layers_ref(ka, va, kp, vp, slots)),
-        library_ms=time_ms(torch, lambda: (flat_k.index_copy_(0, rows_ids, ka_v), flat_v.index_copy_(0, rows_ids, va_v))),
-        bound_ms=bms, bound_by=bby)
-    del kp, vp, flat_k, flat_v
+        library_ms=time_ms(torch, lib), bound_ms=bms, bound_by=bby, graph_ms=graph_ms(torch, fn),
+        library_graph_ms=graph_ms(torch, lib))
+    # K6 at a Llama mixed step's T = 1,040 (16 decode rows and a 1,024-token
+    # chunk) into the same pools: distinct slots but a repeated one and two
+    # dropped (-1), as a step's padding rows are
+    t_mix = b + 1024
+    slots = torch.randperm(1024 * page, generator=gen, device=dev)[:t_mix].to(torch.int32)
+    slots[7] = slots[900]
+    slots[-2:] = -1
+    ka, va = randn(n_layers, t_mix, nkv, d), randn(n_layers, t_mix, nkv, d)
+    kp2, vp2 = kp.clone(), vp.clone()
+    kvcache.store_cache_all_layers(ka, va, kp, vp, slots)
+    kvcache.store_cache_all_layers_ref(ka, va, kp2, vp2, slots)
+    err = max(max_err(torch, kp, kp2), max_err(torch, vp, vp2))
+    same = torch.equal(kp, kp2) and torch.equal(vp, vp2)
+    log(f"[kernel] store_cache_all_layers[{n_layers}, {t_mix}]: max_abs_err={err:.6g} bit-equal={same} (must be)")
+    if not same:
+        fail(f"store_cache_all_layers at T = {t_mix} differs from its plain version: {err}")
+    del kp2, vp2
+    keep = torch.ones(t_mix, dtype=torch.bool, device=dev)
+    keep[7] = False  # token 7's rows lose to token 900's (one slot)
+    keep[-2:] = False
+    valid = int(keep.sum())
+    n_bytes = 2 * 2 * n_layers * valid * nkv * d * 2 + t_mix * 4
+    bms, bby = bound_ms(n_bytes, 0, BF16_FLOPS)
+    rows_ids = (kvcache._page_major_slots(slots[keep], 1024, nkv, page)[None]
+                + (torch.arange(n_layers, device=dev) * 1024 * nkv * page)[:, None, None]).reshape(-1)
+    ka_v, va_v = ka[:, keep].reshape(-1, d), va[:, keep].reshape(-1, d)
+    fn = lambda: kvcache.store_cache_all_layers(ka, va, kp, vp, slots)
+    lib = lambda: (flat_k.index_copy_(0, rows_ids, ka_v), flat_v.index_copy_(0, rows_ids, va_v))
+    rows["store_cache_all_layers_mixed"] = dict(
+        max_abs_err=err, ms=time_ms(torch, fn),
+        plain_ms=time_ms(torch, lambda: kvcache.store_cache_all_layers_ref(ka, va, kp, vp, slots), iters=3),
+        library_ms=time_ms(torch, lib), bound_ms=bms, bound_by=bby, graph_ms=graph_ms(torch, fn),
+        library_graph_ms=graph_ms(torch, lib))
+    del kp, vp, flat_k, flat_v, ka, va, ka_v, va_v
 
     # K7 flash prefill: one prompt of 1000 tokens in its 1024 bucket, causal
     s, q_len = 1024, 1000
@@ -573,20 +608,22 @@ def int4pack_yardstick(torch, w, scales, group):
 
 
 def int4pack_ms(torch, a0, w, scales, group):
-    """(ms, note) of the library yardstick on the bare GEMM a0 @ W, or
-    (None, reason). The library call is held to the plain version without
-    prologue or epilogue; tinygemm rounds each dequantized weight to bf16,
-    2^-9 relative, so 2^-6 of the output's scale."""
+    """(event ms, CUDA-graph ms, note) of the library yardstick on the bare
+    GEMM a0 @ W, or (None, None, reason). The library call is held to the
+    plain version without prologue or epilogue; tinygemm rounds each
+    dequantized weight to bf16, 2^-9 relative, so 2^-6 of the output's
+    scale."""
     from sgl_kernel_tpu_torch.ops.gemm import w4a16
 
     fn, note = int4pack_yardstick(torch, w, scales, group)
     if fn is None:
-        return None, note
+        return None, None, note
     bare = w4a16.w4a16_gemm_ref(a0, w, scales, group_size=group).float()
     lib_err = float((fn(a0).float() - bare).abs().max())
     if lib_err > 2.0 ** -6 * float(bare.abs().max()):
-        return None, f"_weight_int4pack_mm disagrees with the plain GEMM by {lib_err:.4g}"
-    return time_ms(torch, lambda: fn(a0)), f"max_abs_err {lib_err:.4g}"
+        return None, None, f"_weight_int4pack_mm disagrees with the plain GEMM by {lib_err:.4g}"
+    call = lambda: fn(a0)
+    return time_ms(torch, call), graph_ms(torch, call), f"max_abs_err {lib_err:.4g}"
 
 
 def phase_w4a16(torch, skt):
@@ -635,17 +672,17 @@ def phase_w4a16(torch, skt):
                    + (2 * k if opt == "norm" else 0) + (2 * m * n if "residual" in kw else 0)
                    + (4 * n if "bias" in kw else 0) + 2 * m * n)
         bms, bby = bound_ms(n_bytes, 2 * m * n * k, BF16_FLOPS)
-        lib_ms, lib_note = None, "no library call for this format"
+        lib_ms, lib_graph, lib_note = None, None, "no library call for this format"
         if kw.get("fmt", "int4") == "int4" and "zeros" not in kw:
-            lib_ms, lib_note = int4pack_ms(torch, a[:, :k].contiguous(), w, scales, g)
+            lib_ms, lib_graph, lib_note = int4pack_ms(torch, a[:, :k].contiguous(), w, scales, g)
         rows[f"w4a16_gemm_{name}"] = dict(
             max_abs_err=err, ms=time_ms(torch, lambda: w4a16.w4a16_gemm(a, w, scales, **kw)),
             plain_ms=time_ms(torch, lambda: w4a16.w4a16_gemm_ref(a, w, scales, **kw), iters=5),
-            library_ms=lib_ms, bound_ms=bms, bound_by=bby)
+            library_ms=lib_ms, bound_ms=bms, bound_by=bby,
+            graph_ms=graph_ms(torch, lambda: w4a16.w4a16_gemm(a, w, scales, **kw)), library_graph_ms=lib_graph)
         r = rows[f"w4a16_gemm_{name}"]
-        lib = "null" if lib_ms is None else f"{lib_ms:.4f}"
-        dev_ms = graph_ms(torch, lambda: w4a16.w4a16_gemm(a, w, scales, **kw))
-        log(f"[kernel] w4a16_gemm {name} [{m}, {n}, {k}]: ms={r['ms']:.4f} graph_ms={dev_ms:.4f} "
+        lib = "null" if lib_ms is None else f"{lib_ms:.4f} [{lib_graph:.4f}]"
+        log(f"[kernel] w4a16_gemm {name} [{m}, {n}, {k}]: ms={r['ms']:.4f} graph_ms={r['graph_ms']:.4f} "
             f"plain_ms={r['plain_ms']:.4f} library_ms={lib} ({lib_note}) bound_ms={bms:.4f} ({bby})")
         del a, w, scales, kw
         torch.cuda.empty_cache()
@@ -1166,7 +1203,8 @@ def report_row(torch, name, row, dev_fn=None):
     lib = "null" if row["library_ms"] is None else f"{row['library_ms']:.4f}"
     if dev_fn is not None:
         row["graph_ms"] = graph_ms(torch, dev_fn)
-    extra = f" graph_ms={row['graph_ms']:.4f}" if dev_fn is not None else ""
+    extra = "".join(f" {key}={row[key]:.4f}" for key in ("graph_ms", "library_graph_ms", "tflops", "library_tflops")
+                    if row.get(key) is not None)
     log(f"[kernel] {name}: ms={row['ms']:.4f}{extra} plain_ms={row['plain_ms']:.4f} library_ms={lib} "
         f"bound_ms={row['bound_ms']:.4f} ({row['bound_by']}) {row.get('library_note', '')}")
     return row
@@ -1373,8 +1411,10 @@ def phase_moe_bf16_kernels(torch, skt):
     """K4 rope_decode_fused at Mixtral-8x7B's decode shape and K12
     bf16_grouped_mm at the bf16 MoE paths' shapes, against their plain
     versions: DeepSeek-V2-Lite's B=16 decode (64 experts, top-6, stacked
-    banks, layer 1 of 2), Mixtral-8x7B's B=16 decode (8 experts, top-2, an
-    unstacked bank) and a 1,024-token Mixtral prefill at bm 128."""
+    banks, layer 1 of 2) and wave A's 16,384-row packed prefill at bm 128,
+    Mixtral-8x7B's B=16 decode (8 experts, top-2, an unstacked bank) and a
+    1,024-token Mixtral prefill at bm 128. Each K12 row has CUDA-graph ms
+    and TFLOP/s beside torch._grouped_mm's from the same call."""
     from sgl_kernel_tpu_torch.ops import moe, rope
     from sgl_kernel_tpu_torch.ops.activation import silu_and_mul
 
@@ -1429,21 +1469,27 @@ def phase_moe_bf16_kernels(torch, skt):
             bms, bby = bound_ms(n_bytes, 2 * pairs * kk * n, BF16_FLOPS)
             wl = w[lid] if lid is not None else w
             lib_fn, lib_note = grouped_mm_yardstick(torch, a, wl, al, nv * bm, ref)
+            del out, ref
             call = lambda: moe.bf16_grouped_mm(*args, bm=bm)
-            report(f"bf16_grouped_mm_{label}_{name}", dict(
+            # device ms and TFLOP/s of the kernel and of torch._grouped_mm
+            # from CUDA graphs, beside the event ms of one call each
+            row = device_rate(torch, dict(
                 max_abs_err=err, ms=time_ms(torch, call),
                 plain_ms=time_ms(torch, lambda: moe.bf16_grouped_mm_ref(*args, bm=bm), iters=3, warmup=1),
                 library_ms=None if lib_fn is None else time_ms(torch, lib_fn), library_note=lib_note,
-                bound_ms=bms, bound_by=bby, valid_blocks=nv, experts_hit=hit, bm=bm), call)
-            del out, ref
+                bound_ms=bms, bound_by=bby, valid_blocks=nv, experts_hit=hit, bm=bm), call, 2 * pairs * kk * n, lib_fn)
+            report(f"bf16_grouped_mm_{label}_{name}", row)
 
     dcfg = v2_lite_cfg(torch, skt, quant=None)
     e, h, inter = dcfg.num_experts, dcfg.hidden_size, dcfg.moe_intermediate
     w1 = randn(2, e, h, 2 * inter, scale=h ** -0.5)
     w2 = randn(2, e, inter, h, scale=inter ** -0.5)
-    grouped("deepseek_decode", 16, e, dcfg.num_experts_per_tok, w1, w2, 1,
-            lambda lg: moe.biased_topk(lg, torch.zeros(e, device=dev), dcfg.num_experts_per_tok, renormalize=True,
-                                       apply_routed_scaling_factor_on_output=True))
+    biased = lambda lg: moe.biased_topk(lg, torch.zeros(e, device=dev), dcfg.num_experts_per_tok, renormalize=True,
+                                        apply_routed_scaling_factor_on_output=True)
+    grouped("deepseek_decode", 16, e, dcfg.num_experts_per_tok, w1, w2, 1, biased)
+    # wave A's packed launch: 16,384 rows, top-6 of 64, bm 128 (the
+    # wgmma tile), gate_up then down on its silu_and_mul
+    grouped("deepseek_wave_a", 16384, e, dcfg.num_experts_per_tok, w1, w2, 1, biased)
     del w1, w2
     torch.cuda.empty_cache()
     e, h, inter = mcfg.num_experts, mcfg.hidden_size, mcfg.intermediate_size
@@ -2106,10 +2152,10 @@ def phase_decode_variants(torch, skt):
         n_bytes = (w.numel() + 2 * scales.numel() + 2 * m * k * (2 if "a2" in kw else 1)
                    + (2 * m * n if "residual" in kw else 0) + 2 * m * n)
         bms, bby = bound_ms(n_bytes, 2 * m * n * k, BF16_FLOPS)
-        lib_ms, lib_note = int4pack_ms(torch, a.contiguous(), w, scales, g)
+        lib_ms, lib_graph, lib_note = int4pack_ms(torch, a.contiguous(), w, scales, g)
         split, per, workers = w4a16_dma.plan(m, n, k, g, False, n_sm)
         row = dict(max_abs_err=err, ms=time_ms(torch, fn), plain_ms=time_ms(torch, ref_fn, iters=3, warmup=1),
-                   library_ms=lib_ms, bound_ms=bms, bound_by=bby,
+                   library_ms=lib_ms, library_graph_ms=lib_graph, bound_ms=bms, bound_by=bby,
                    library_note=f"(_weight_int4pack_mm, bare GEMM: {lib_note})",
                    k1_graph_ms=graph_ms(torch, lambda: w4a16.w4a16_gemm(a, w, scales, **kw)),
                    plan=dict(split=split, groups_per_split=per, workers=workers))
@@ -3060,7 +3106,10 @@ def main():
                  "w4a16_grouped_mm_decode_down", "w4a16_grouped_mm_prefill_gate_up", "mla_decode", "mla_decode_e4m3",
                  "flash_attention_576_lse", "flash_attention_packed_576", "bf16_grouped_mm_deepseek_decode_down",
                  "bf16_grouped_mm_mixtral_decode_gate_up", "bf16_grouped_mm_mixtral_decode_down",
-                 "bf16_grouped_mm_mixtral_prefill_gate_up", "fp8_paged_mqa_logits_decode_bf16",
+                 "bf16_grouped_mm_mixtral_prefill_gate_up", "bf16_grouped_mm_deepseek_decode_gate_up",
+                 "bf16_grouped_mm_deepseek_wave_a_gate_up", "bf16_grouped_mm_deepseek_wave_a_down",
+                 "store_cache_all_layers", "store_cache_all_layers_mixed", "w4a16_gemm_qkv", "w4a16_gemm_o",
+                 "w4a16_gemm_down", "fp8_paged_mqa_logits_decode_bf16",
                  "fp8_paged_mqa_logits_ctx8192", "fp8_paged_mqa_logits_ctx32768", "mla_decode_dma_bf16_640",
                  "mla_decode_dma_e4m3_640", "w4a16_gemm_dma_qkv", "w4a16_gemm_dma_o", "w4a16_gemm_dma_down",
                  "w4a16_gemm_dma_lm_head", "w4a16_gemm_dma_gate_up_m1", "w4a16_gemm_dma_gate_up_m32",

@@ -164,6 +164,51 @@ __device__ __forceinline__ void wgmma_wait() {
 // the async proxy that wgmma reads through
 __device__ __forceinline__ void fence_proxy_async() { asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory"); }
 
+// ---- mbarriers and TMA (a producer filling a ring of stages) ----
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count) : "memory");
+}
+
+// makes the initialised barriers visible to every thread and to the async proxy
+__device__ __forceinline__ void mbar_init_fence() { asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory"); }
+
+// one arrival that also expects `bytes` of asynchronous copies (TMA) in this phase
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
+}
+
+// until the phase of parity `parity` has completed; a wait that never ends
+// (a fault in a ring's bookkeeping) traps after ~2^24 polls, which the
+// launch then reports, rather than hanging the card
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done = 0;
+  for (uint32_t polls = 0; !done; ++polls) {
+    if (polls == (1u << 24)) __trap();
+    asm volatile(
+        "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_u32(bar)), "r"(parity)
+        : "memory");
+  }
+}
+
+// the box of a 3-D tensor map `tm` (a CUtensorMap in kernel parameters) at
+// coordinates (c0, c1, c2), innermost first, into shared memory, completing
+// on `bar`; past the tensor's edges the box is filled with zeros
+__device__ __forceinline__ void tma_load_3d(void* dst, const void* tm, int c0, int c1, int c2, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, {%2, %3, %4}], [%5];\n" ::
+          "r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(tm)), "r"(c0), "r"(c1), "r"(c2), "r"(smem_u32(bar))
+      : "memory");
+}
+
 // keeps the compiler from moving accesses of registers that an asynchronous
 // wgmma reads or writes across this point (call after wgmma_wait)
 template <int N>
@@ -214,6 +259,39 @@ __device__ __forceinline__ void wgmma_m64n64k16_rs_tb(float (&d)[32], const uint
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+#define SKT_F8(d, o)                                                                                          \
+  "+f"(d[o]), "+f"(d[o + 1]), "+f"(d[o + 2]), "+f"(d[o + 3]), "+f"(d[o + 4]), "+f"(d[o + 5]), "+f"(d[o + 6]), \
+      "+f"(d[o + 7])
+#define SKT_ACC128(d)                                                                                         \
+  SKT_F8(d, 0), SKT_F8(d, 8), SKT_F8(d, 16), SKT_F8(d, 24), SKT_F8(d, 32), SKT_F8(d, 40), SKT_F8(d, 48),       \
+      SKT_F8(d, 56), SKT_F8(d, 64), SKT_F8(d, 72), SKT_F8(d, 80), SKT_F8(d, 88), SKT_F8(d, 96), SKT_F8(d, 104), \
+      SKT_F8(d, 112), SKT_F8(d, 120)
+
+// d (64 x 256, float32) += A (64 x 16) * B (16 x 256), bf16, both from
+// shared memory: A K-major (stored [m][k]), B N-major (stored [k][n], the
+// transpose-B form). For B as a row of four swizzled [rows][64] sub-tiles
+// (a [K][N] bank tile), the descriptor's leading byte offset steps from one
+// 64-column sub-tile to the next and its stride byte offset from one 8-row
+// group of k to the next (1024 B). d's layout is the n64 one's with 32
+// column groups: d[4j + e] at column 8j + 2 (i % 4) + (e & 1).
+__device__ __forceinline__ void wgmma_m64n256k16_ss_tb(float (&d)[128], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, "
+      "%21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, "
+      "%59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, "
+      "%78, %79, %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, "
+      "%97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, %112, "
+      "%113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, "
+      "%128, %129, p, 1, 1, 0, 1;\n}\n"
+      : SKT_ACC128(d)
+      : "l"(da), "l"(db), "r"(1));
+}
+
+#undef SKT_ACC128
+#undef SKT_F8
 #undef SKT_ACC32
 
 }  // namespace skt

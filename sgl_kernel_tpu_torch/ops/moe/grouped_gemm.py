@@ -217,7 +217,8 @@ def bf16_grouped_mm_ref(x_sorted, w, block_expert_ids, layer_id=None, num_valid_
     return out
 
 
-_BF16_ARGS = (ctypes.c_void_p,) * 5 + (ctypes.c_int,) * 5 + (ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p)
+_BF16_ARGS = (ctypes.c_void_p,) * 5 + (ctypes.c_int,) * 5 + (ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+                                                             ctypes.c_void_p)
 
 
 @functools.cache
@@ -267,7 +268,7 @@ def bf16_grouped_mm(x_sorted, w, block_expert_ids, layer_id=None, num_valid_bloc
     nv = num_valid_blocks if num_valid_blocks is not None else cap // bm
     nv = torch.as_tensor(nv, dtype=torch.int32, device=x.device).reshape(())
     _build.check(_bf16_entry()(x.data_ptr(), wl.data_ptr(), eids.data_ptr(), nv.data_ptr(), out.data_ptr(), cap, n,
-                               k, x.stride(0), bm, wl[0].numel(), int(out_dtype == torch.float32),
+                               k, x.stride(0), bm, wl[0].numel(), wl.shape[0], int(out_dtype == torch.float32),
                                _build.stream_ptr(x.device)), "bf16_grouped_mm")
     bf16_grouped_mm.launches += 1
     return out

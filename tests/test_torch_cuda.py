@@ -2,7 +2,11 @@
 card, over the options and edge cases the serving path's shapes in
 chip_smoke.py do not reach: the wgmma flash tile of K7 / K9 at the 64-row
 and 64-key tile edges, at S = 4,096 and with NaN in every row it must not
-read; other head dims and GQA groups, page sizes,
+read; K12's wgmma tile (bm 64 / 128) over expert runs of 1, 2 and 9 row
+blocks, interleaved experts, model widths, the stacked bank's last layer
+and expert, and NaN in the padding rows it must not read; K6's parallel
+copy bit for bit against the in-order twin at 1, 16, 64 (over 8 slots) and
+1,040 tokens; other head dims and GQA groups, page sizes,
 padding rows, duplicate and dropped slots, extend offsets, non-causal
 attention, the base-2 lse and rows that see no key, packed prefill at block
 edges with padding blocks, widths that are not powers of two, quantized KV
@@ -269,6 +273,36 @@ def test_store_cache_all_layers(gen, page, dtype, d):
     kvcache.store_cache_all_layers_ref(ka, va, kp2, vp2, loc)
     assert torch.equal(kp, kp2) and torch.equal(vp, vp2)
     assert torch.equal(kp[:, 0, :, 5], ka[:, 4])
+
+
+@pytest.mark.parametrize("t,n_slots", [(1, 64), (16, 64), (64, 8), (1040, 700)])
+@pytest.mark.parametrize("dtype,d", [(torch.bfloat16, 128), (torch.float32, 64), (torch.int8, 128)])
+def test_store_cache_all_layers_parallel(gen, t, n_slots, dtype, d):
+    """K6's parallel copy bit for bit equal to the in-order twin: one token;
+    a decode step; 64 tokens over 8 slots (every slot written several
+    times); a mixed step's 1,040 tokens with duplicates, -1 and
+    out-of-range slots; bf16, float32 and 1-byte rows."""
+    l, p, h, page = 4, 64, 2, 16
+    def draw(*shape):
+        if dtype == torch.int8:
+            return torch.randint(-128, 128, shape, generator=gen, device="cuda", dtype=torch.int8)
+        return randn(gen, *shape, dtype=dtype)
+    kp, vp = draw(l, p, h, page, d), draw(l, p, h, page, d)
+    kp2, vp2 = kp.clone(), vp.clone()
+    loc = torch.randint(0, n_slots, (t,), generator=gen, device="cuda", dtype=torch.int32)
+    drop = torch.rand(t, generator=gen, device="cuda")
+    loc[drop < 0.05] = -1
+    loc[(drop >= 0.05) & (drop < 0.08)] = p * page
+    ka, va = draw(l, t, h, d), draw(l, t, h, d)
+    kvcache.store_cache_all_layers(ka, va, kp, vp, loc)
+    kvcache.store_cache_all_layers_ref(ka, va, kp2, vp2, loc)
+    assert torch.equal(kp, kp2) and torch.equal(vp, vp2)
+    # the last token holding a valid slot is the one that landed there
+    lc = loc.tolist()
+    last = max((i for i, s in enumerate(lc) if 0 <= s < p * page), default=None)
+    if last is not None:
+        s = lc[last]
+        assert torch.equal(vp[:, s // page, :, s % page], va[:, last])
 
 
 @pytest.mark.parametrize("hq,hkv,d", [(32, 8, 128), (4, 4, 64), (8, 1, 128)])
@@ -805,6 +839,66 @@ def test_grouped_bf16_model_widths(gen, model, k, n, e):
     eids[:] = torch.tensor([1, 1, 0, 0], dtype=torch.int32)
     out = moe.bf16_grouped_mm(x, w, eids, None, 3, bm=16)
     assert_elementwise(out[:48], moe.bf16_grouped_mm_ref(x, w, eids, None, 3, bm=16)[:48])
+
+
+# expert runs of 1, 2 and 9 consecutive row blocks (a raster group is 8 row
+# tiles, so the run of 9 spans two), and an expert that comes back after
+# others (interleaved)
+WG_RUNS = [(3, 1), (0, 2), (4, 9), (1, 1), (0, 1), (2, 3)]
+
+
+@pytest.mark.parametrize("bm", [64, 128])
+@pytest.mark.parametrize("valid", [0, 5, 17])
+def test_grouped_bf16_wgmma_runs(gen, bm, valid):
+    """K12's wgmma tile (bm 64 and 128) and its expert-aware raster: expert
+    runs of 1, 2 and 9 blocks, interleaved experts, 0, some and all of the
+    17 blocks valid; N 384 is three 128-wide column tiles."""
+    eids = torch.tensor([e for e, n in WG_RUNS for _ in range(n)], dtype=torch.int32, device="cuda")
+    x, w, _ = bf16_grouped_inputs(gen, bm=bm, blocks=eids.numel(), k=512, n=384)
+    nvt = torch.tensor(valid, dtype=torch.int32, device="cuda")
+    out = moe.bf16_grouped_mm(x, w, eids, None, nvt, bm=bm)
+    assert_elementwise(out[: valid * bm], moe.bf16_grouped_mm_ref(x, w, eids, None, nvt, bm=bm)[: valid * bm])
+
+
+@pytest.mark.parametrize("bm", [64, 128])
+@pytest.mark.parametrize("model,k,n,e", [("deepseek_gate_up", 2048, 2816, 4), ("deepseek_down", 1408, 2048, 4),
+                                         ("mixtral_gate_up", 4096, 28672, 2), ("mixtral_down", 14336, 4096, 2)])
+def test_grouped_bf16_model_widths_wgmma(gen, bm, model, k, n, e):
+    """The wgmma tile at DeepSeek-V2-Lite's and Mixtral-8x7B's expert widths:
+    three valid blocks, two of them one expert's run, one padding block."""
+    x, w, eids = bf16_grouped_inputs(gen, bm=bm, blocks=4, k=k, n=n, e=e)
+    eids[:] = torch.tensor([1, 1, 0, 0], dtype=torch.int32)
+    out = moe.bf16_grouped_mm(x, w, eids, None, 3, bm=bm)
+    assert_elementwise(out[: 3 * bm], moe.bf16_grouped_mm_ref(x, w, eids, None, 3, bm=bm)[: 3 * bm])
+
+
+@pytest.mark.parametrize("bm", [64, 128])
+@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
+def test_grouped_bf16_stacked_last_expert(gen, bm, out_dtype):
+    """The stacked bank's last layer and last expert (the pointer offsets at
+    their largest), a K / N tail, bf16 and float32 output."""
+    x, w, eids = bf16_grouped_inputs(gen, bm=bm, blocks=3, k=264, n=200, e=7, layers=3)
+    eids[:] = torch.tensor([6, 6, 0], dtype=torch.int32)
+    out = moe.bf16_grouped_mm(x, w, eids, 2, 3, bm=bm, out_dtype=out_dtype)
+    ref = moe.bf16_grouped_mm_ref(x, w, eids, 2, 3, bm=bm, out_dtype=out_dtype)
+    assert out.dtype == out_dtype
+    if out_dtype == torch.float32:  # sums of the same bf16 products in another order
+        assert float((out - ref).abs().max()) <= 1e-5 * max(1.0, float(ref.abs().max()))
+    else:
+        assert_elementwise(out, ref)
+
+
+@pytest.mark.parametrize("bm", [16, 32, 64, 128])
+def test_grouped_bf16_padding_unread(gen, bm):
+    """Rows past num_valid * bm are never read: filled with NaN, the valid
+    rows come out bit for bit as with zeros there."""
+    x, w, eids = bf16_grouped_inputs(gen, bm=bm, blocks=6, k=384, n=256)
+    x[4 * bm:] = 0
+    out = moe.bf16_grouped_mm(x, w, eids, None, 4, bm=bm)
+    x[4 * bm:] = float("nan")
+    out_nan = moe.bf16_grouped_mm(x, w, eids, None, 4, bm=bm)
+    assert torch.equal(out[: 4 * bm], out_nan[: 4 * bm])
+    assert_elementwise(out[: 4 * bm], moe.bf16_grouped_mm_ref(x, w, eids, None, 4, bm=bm)[: 4 * bm])
 
 
 @pytest.mark.parametrize("t", [5, 70])
