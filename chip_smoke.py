@@ -198,6 +198,9 @@ def max_err(torch, a, b):
     return float((a.float() - b.float()).abs().max())
 
 
+WORST = {"ratio": 0.0, "name": None}  # the worst err/tol of every check() gate in the run
+
+
 def check(name, pairs):
     """Element-wise: |out - ref| <= 2^-7 |ref| + 2^-12 max|ref row|.
     Kernel and plain version both compute in float32 and round once to
@@ -213,9 +216,21 @@ def check(name, pairs):
         err = max(err, float(diff.max()))
         ratio = max(ratio, float((diff / tol).nan_to_num(0.0, posinf=float("inf")).max()))
     log(f"[kernel] {name}: max_abs_err={err:.6g} worst err/tol={ratio:.4g}")
+    if ratio > WORST["ratio"]:
+        WORST.update(ratio=ratio, name=name)
     if not ratio <= 1.0:
         fail(f"{name} disagrees with its plain version: err/tol {ratio} > 1")
     return err
+
+
+def check_repeat(name, fn, first):
+    """The bit-equality gate of the kernels that merge partials across
+    blocks (K1's split-K, K5's spans): a second call gives the same bits."""
+    again = fn()
+    pairs = list(zip(first, again)) if isinstance(first, tuple) else [(first, again)]
+    if not all(a.shape == b.shape and a.equal(b) for a, b in pairs):
+        fail(f"{name}: two calls differ")
+    log(f"[kernel] {name}: two calls bit-equal")
 
 
 def check_lse(name, lse, ref):
@@ -320,14 +335,15 @@ def phase_kernels(torch, skt):
     out = paged_decode_dma.paged_attention_decode_dma(q, kp, vp, lengths, table, **dkw)
     ref = paged_decode_dma.paged_attention_decode_ref(q, kp, vp, lengths, table, **dkw)
     err = check("paged_attention_decode_dma[16, ctx 1..1056]", [(out, ref)])
+    k5 = lambda: paged_decode_dma.paged_attention_decode_dma(q, kp, vp, lengths, table, **dkw)
+    check_repeat("paged_attention_decode_dma[16, ctx 1..1056]", k5, out)
     pool_tokens = sum(n - 1 for n in lengths_l)
     n_bytes = 2 * pool_tokens * nkv * d * 2 + (2 * b * nq * d + 2 * b * nkv * d) * 2 + sum(n_used) * 4 + b * 4
     bms, bby = bound_ms(n_bytes, 4 * sum(lengths_l) * nq * d, BF16_FLOPS)
-    rows["paged_attention_decode_dma"] = dict(
-        max_abs_err=err,
-        ms=time_ms(torch, lambda: paged_decode_dma.paged_attention_decode_dma(q, kp, vp, lengths, table, **dkw)),
+    rows["paged_attention_decode_dma"] = report_row(torch, "paged_attention_decode_dma[16, ctx 1..1056]", dict(
+        max_abs_err=err, ms=time_ms(torch, k5),
         plain_ms=time_ms(torch, lambda: paged_decode_dma.paged_attention_decode_ref(q, kp, vp, lengths, table, **dkw)),
-        library_ms=None, bound_ms=bms, bound_by=bby)
+        library_ms=None, bound_ms=bms, bound_by=bby), k5)
     # the same attention over 1-byte pools with per-tensor scales (int8 at
     # the engine's kv_scale 1/16, fp8 e4m3 at 0.5): a 1-byte row halves
     # the pool bytes
@@ -341,14 +357,15 @@ def phase_kernels(torch, skt):
         out = paged_decode_dma.paged_attention_decode_dma(q, kq, vq, lengths, table, **qkw)
         ref = paged_decode_dma.paged_attention_decode_ref(q, kq, vq, lengths, table, **qkw)
         err = check(f"paged_attention_decode_dma {kind} pools", [(out, ref)])
+        k5q = lambda: paged_decode_dma.paged_attention_decode_dma(q, kq, vq, lengths, table, **qkw)
+        check_repeat(f"paged_attention_decode_dma {kind} pools", k5q, out)
         q_bytes = 2 * pool_tokens * nkv * d + (2 * b * nq * d + 2 * b * nkv * d) * 2 + sum(n_used) * 4 + b * 4
         bms, bby = bound_ms(q_bytes, 4 * sum(lengths_l) * nq * d, BF16_FLOPS)
-        rows[f"paged_attention_decode_dma_{kind}"] = dict(
-            max_abs_err=err,
-            ms=time_ms(torch, lambda: paged_decode_dma.paged_attention_decode_dma(q, kq, vq, lengths, table, **qkw)),
+        rows[f"paged_attention_decode_dma_{kind}"] = report_row(torch, f"paged_attention_decode_dma {kind}", dict(
+            max_abs_err=err, ms=time_ms(torch, k5q),
             plain_ms=time_ms(torch, lambda: paged_decode_dma.paged_attention_decode_ref(q, kq, vq, lengths, table,
                                                                                         **qkw)),
-            library_ms=None, bound_ms=bms, bound_by=bby)
+            library_ms=None, bound_ms=bms, bound_by=bby), k5q)
         del kq, vq
     del kp, vp
 
@@ -626,6 +643,38 @@ def int4pack_ms(torch, a0, w, scales, group):
     return time_ms(torch, call), graph_ms(torch, call), f"max_abs_err {lib_err:.4g}"
 
 
+def kernels_per_call(torch, fn, calls=4):
+    """K1's kernels in one decode call, from a torch.profiler trace of
+    ``calls`` calls: its rows pass, then the decode GEMM, which programmatic
+    dependent launch lets start before the rows pass ends (``overlap_us`` >
+    0: the GEMM began that long before the rows pass finished; the profiler
+    serialises kernels, so a trace may show none). The trace may miss its
+    first kernel, so it is read from the first rows pass on. Fails on any
+    other sequence."""
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    evts = sorted((e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA),
+                  key=lambda e: e.time_range.start)
+    names = [e.name for e in evts]
+    first = next((i for i, n in enumerate(names) if "act_rows_kernel" in n), len(names))
+    seq = evts[first:]
+    pairs = len(seq) // 2
+    ok = (len(seq) % 2 == 0 and pairs >= calls - 1
+          and all("act_rows_kernel" in seq[2 * i].name and "w4a16_decode_kernel" in seq[2 * i + 1].name
+                  for i in range(pairs)))
+    if not ok:
+        fail(f"w4a16_gemm: each decode call must be the rows pass and the decode kernel, got {names}")
+    res = dict(kernels_per_call=2, calls_traced=pairs,
+               overlap_us=max(seq[2 * i].time_range.end - seq[2 * i + 1].time_range.start for i in range(pairs)))
+    log(f"[kernel] w4a16_gemm kernels a decode call: {json.dumps(res)}")
+    return res
+
+
 def phase_w4a16(torch, skt):
     """K1 against its plain version at the W4A16 Llama-3-8B GEMMs: the five
     decode GEMMs of a step (M=16) with the prologue and epilogue each has on
@@ -665,6 +714,8 @@ def phase_w4a16(torch, skt):
         out = w4a16.w4a16_gemm(a, w, scales, **kw)
         ref = w4a16.w4a16_gemm_ref(a, w, scales, **kw)
         err = check(f"w4a16_gemm {name} [{m}, {n}, {k}]", [(out, ref)])
+        check_repeat(f"w4a16_gemm {name}", lambda: w4a16.w4a16_gemm(a, w, scales, **kw), out)
+        per_call = kernels_per_call(torch, lambda: w4a16.w4a16_gemm(a, w, scales, **kw)) if m <= 32 else None
         del out, ref
         # bytes the call must move: codes, scales (and zeros), activations,
         # norm weight, residual, bias, the bf16 output
@@ -679,7 +730,8 @@ def phase_w4a16(torch, skt):
             max_abs_err=err, ms=time_ms(torch, lambda: w4a16.w4a16_gemm(a, w, scales, **kw)),
             plain_ms=time_ms(torch, lambda: w4a16.w4a16_gemm_ref(a, w, scales, **kw), iters=5),
             library_ms=lib_ms, bound_ms=bms, bound_by=bby,
-            graph_ms=graph_ms(torch, lambda: w4a16.w4a16_gemm(a, w, scales, **kw)), library_graph_ms=lib_graph)
+            graph_ms=graph_ms(torch, lambda: w4a16.w4a16_gemm(a, w, scales, **kw)), library_graph_ms=lib_graph,
+            kernels_per_call=per_call)
         r = rows[f"w4a16_gemm_{name}"]
         lib = "null" if lib_ms is None else f"{lib_ms:.4f} [{lib_graph:.4f}]"
         log(f"[kernel] w4a16_gemm {name} [{m}, {n}, {k}]: ms={r['ms']:.4f} graph_ms={r['graph_ms']:.4f} "
@@ -1059,8 +1111,10 @@ def cold_compare(torch, skt, cfg, label, eng, prompts, warm_rids, warm_first, ro
 
 
 # device time a step of the W4A16 GEMMs, by kernel-name fragment
-GEMM_GROUPS = {"K1 w4a16_gemm": ("w4a16_kernel", "split_reduce_kernel"),
-               "K10 w4a16_gemm_dma": ("gemm_dma_kernel", "k10::reduce_kernel")}
+GEMM_GROUPS = {"K1 w4a16_gemm": ("w4a16_kernel", "split_reduce_kernel", "row_prologue_kernel",
+                                  "w4a16_decode_kernel", "act_rows_kernel"),
+               "K10 w4a16_gemm_dma": ("gemm_dma_kernel", "k10::reduce_kernel"),
+               "K5 paged_attention_decode_dma": ("::decode_kernel<",)}
 
 
 def phase_profile(torch, eng, lens, label, top=12, groups=None):
@@ -2189,6 +2243,7 @@ def phase_decode_variants(torch, skt):
         ref = ref_fn()
         pairs = list(zip(out, ref)) if isinstance(out, tuple) else [(out, ref)]
         err = check(f"{name} [{what}]", pairs)
+        check_repeat(name, fn, out)
         bms, bby = bound_ms(n_bytes, 4 * n_tok * nq * d, BF16_FLOPS)
         row = dict(max_abs_err=err, ms=time_ms(torch, fn), plain_ms=time_ms(torch, ref_fn, iters=5),
                    library_ms=None, library_note="(no PyTorch call attends over a paged pool)", bound_ms=bms,
@@ -2234,6 +2289,19 @@ def phase_decode_variants(torch, skt):
              lambda: paged_decode_dma.paged_attention_decode_dma(q, kp, vp, lengths, table, sinks, **okw),
              lambda: paged_decode_dma.paged_attention_decode_ref(q, kp, vp, lengths, table, sinks, **okw),
              2 * win_tokens * nkv * d * 2 + small + nq * 4, win_tokens + b, what + ", sinks, window 128, softcap 30")
+    del kp, vp
+    # B=16 x 8,192, one layer: the long-context decode users see (537 MB of K/V)
+    long_b = [8192] * b
+    table, n_used = paged_table(torch, gen, [n - 1 for n in long_b], page, 8192 // page)
+    lengths = torch.tensor(long_b, dtype=torch.int32, device=dev)
+    kp, vp = randn(1, n_used + 1, nkv, page, d), randn(1, n_used + 1, nkv, page, d)
+    lkw = dict(fresh_k=fk, fresh_v=fv)
+    n_tok = sum(n - 1 for n in long_b)
+    attn_row("paged_attention_decode_dma_ctx8192",
+             lambda: paged_decode_dma.paged_attention_decode_dma(q, kp, vp, lengths, table, **lkw),
+             lambda: paged_decode_dma.paged_attention_decode_ref(q, kp, vp, lengths, table, **lkw),
+             2 * n_tok * nkv * d * 2 + (2 * b * nq * d + 2 * b * nkv * d) * 2 + n_used * 4 + b * 4, sum(long_b),
+             "B=16 x 8,192")
     del kp, vp
     # B=1 x 32,768 tokens, one layer: the split's case
     long_len = [32768]
@@ -2931,7 +2999,7 @@ def main():
     serve = {}
     with phase("4-5 serve llama bf16"):
         serve["bf16"], eng, lens = phase_serve(torch, skt, bf16_cfg, "bf16", LLAMA_BF16)
-        profile = {"bf16": phase_profile(torch, eng, lens, "bf16")}
+        profile = {"bf16": phase_profile(torch, eng, lens, "bf16", groups=GEMM_GROUPS)}
         del eng
         free_memory(torch)
     with phase("4-5 serve llama w4a16"):
@@ -2998,7 +3066,7 @@ def main():
     with phase("4-5 serve mixtral w4a16"):
         serve["mixtral-w4a16"], eng, lens = phase_serve(torch, skt, mx_w4_cfg, "mixtral-w4a16", MIXTRAL_W4,
                                                         mixed=False)
-        profile["mixtral-w4a16"] = phase_profile(torch, eng, lens, "mixtral-w4a16")
+        profile["mixtral-w4a16"] = phase_profile(torch, eng, lens, "mixtral-w4a16", groups=GEMM_GROUPS)
         del eng
         free_memory(torch)
     with phase("4-5 serve deepseek bf16"):
@@ -3045,7 +3113,7 @@ def main():
         paths["w4a8_grouped_mm"] = path_w4a8_grouped(torch, skt)
 
     meta = {
-        "w4a16_gemm": ("cuda", "sgl_kernel_tpu_torch/csrc/w4a16_gemm.cu", "sgl_kernel_tpu/ops/gemm/w4a16.py:301",
+        "w4a16_gemm": ("cuda", "sgl_kernel_tpu_torch/csrc/w4a16_decode.cu", "sgl_kernel_tpu/ops/gemm/w4a16.py:301",
                        "w4a16_gemm_gate_up"),
         "rmsnorm": ("triton", "sgl_kernel_tpu_torch/ops/norm.py", "sgl_kernel_tpu/ops/norm.py:40", "rmsnorm_16"),
         "rope_decode_fused_qkv": ("triton", "sgl_kernel_tpu_torch/ops/rope.py", "sgl_kernel_tpu/ops/rope.py:228",
@@ -3115,11 +3183,13 @@ def main():
                  "w4a16_gemm_dma_lm_head", "w4a16_gemm_dma_gate_up_m1", "w4a16_gemm_dma_gate_up_m32",
                  "paged_attention_decode_e4m3", "paged_attention_decode_dma_head", "paged_attention_decode_dma_lse",
                  "paged_attention_decode_dma_split16", "paged_attention_decode_dma_split_32k",
+                 "paged_attention_decode_dma_ctx8192", "paged_attention_decode_dma", "w4a16_gemm_lm_head",
                  "paged_attention_decode_dma_options", *sorted(n for n in rows if n.startswith(
                      ("fp8_blockwise", "qserve", "sparse_attn")))):
         log(f"[kernel] {name}: " + json.dumps(rows[name]))
     log(json.dumps({"card": card, "parity": parity, "serve": serve, "profile": profile, "paths": paths,
                     "phase_s": times}))
+    log(f"[kernel] worst err/tol over every gate: {WORST['ratio']:.4g} ({WORST['name']})")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -209,6 +209,21 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const void* tm, int c0, i
       : "memory");
 }
 
+// the box of a 2-D tensor map at (c0, c1), innermost first (tma_map.cuh)
+__device__ __forceinline__ void tma_load_2d(void* dst, const void* tm, int c0, int c1, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, {%2, %3}], [%4];\n" ::
+          "r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(tm)), "r"(c0), "r"(c1), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// a barrier among the first `threads` threads of the block (warps that do
+// not take part, such as a producer, never wait on it); id 0 is __syncthreads'
+__device__ __forceinline__ void named_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
 // keeps the compiler from moving accesses of registers that an asynchronous
 // wgmma reads or writes across this point (call after wgmma_wait)
 template <int N>

@@ -48,10 +48,11 @@ def paged_attention_decode(q, k_pages, v_pages, lengths, page_table, sinks=None,
     lse [B, Hq] with ``return_lse``).
 
     ``pages_per_step`` keeps the JAX signature only: it sized the TPU
-    kernel's grid step, and the card's kernel walks each sequence's pages
-    in one block. CUDA tensors go through the K5/K8 kernel, which takes bf16
-    q, pools of bf16, int8, fp8 e4m3 or e5m2, head_dim 64/128/256 and group
-    1/2/4/8."""
+    kernel's grid step, and the card's kernel cuts the pages into units of
+    64 tokens spread over the SMs. CUDA tensors go through the K5/K8 kernel,
+    which takes bf16 q, pools of bf16, int8, fp8 e4m3 or e5m2, head_dim
+    64/128/256, group 1/2/4/8 and pages of a multiple of 8 tokens that
+    divides 64 or is a multiple of 64."""
     if q.device.type != "cuda":
         return paged_attention_decode_ref(
             q, k_pages, v_pages, lengths, page_table, sinks, k_scale, v_scale, layer_id, fresh_k,

@@ -23,7 +23,7 @@ from typing import Optional
 import torch
 
 from ... import _build
-from ...utils import cdiv
+from ...utils import cdiv, kept_buffer, sm_count
 from .merge_state import merge_states
 
 LOG2E = 1.4426950408889634
@@ -51,6 +51,46 @@ def split_geometry(n_blocks: int, page: int, hkv: int, chunk_pages: int, num_spl
     n_chunks = cdiv(n_blocks, cpp)
     splits = max(1, min(num_splits, n_chunks))
     return splits, cdiv(n_chunks, splits) * cpp * page
+
+
+UNIT_TOKENS = 64  # pool tokens of one unit of the card's kernel (csrc/decode_attention.cu, kTok)
+
+
+def work_units(lengths, n_blocks: int, page: int, num_splits: int, split_tokens: int, *, hkv: int,
+               grid: int, fresh: bool = True, window: Optional[int] = None):
+    """The card kernel's division of work, in plain Python (the kernel
+    computes it on the device from the lengths): item (split s, sequence b)
+    covers pool tokens [lo, hi) in units of 64 aligned tokens (one empty
+    unit when hi <= lo); unit u = Hkv * pre[i] + h * n_i + j over items i,
+    heads h and units j; of the ``grid`` blocks the first g = min(grid, U)
+    take [U c / g, U (c + 1) / g) each, the rest nothing. Returns (units,
+    blocks, runs): units[i] = (lo, hi, j0, n); blocks[c] = (u0, u1);
+    runs[(i, h)] = (first block, last block, [the partial slot of each
+    contributing block]): a run one block holds whole needs no slot, else
+    slot 0 where the run is the block's first and 1 where it is its last."""
+    if num_splits <= 1:
+        split_tokens = 1 << 30
+    units, pre = [], [0]
+    for s in range(num_splits):
+        for length in lengths:
+            n = max(0, min(length - 1 if fresh else length, n_blocks * page))
+            lo = max(s * split_tokens, length - window if window is not None else 0)
+            hi = min(n, (s + 1) * split_tokens)
+            j0, cnt = (lo // UNIT_TOKENS, cdiv(hi, UNIT_TOKENS) - lo // UNIT_TOKENS) if hi > lo else (0, 1)
+            units.append((lo, hi, j0, cnt))
+            pre.append(pre[-1] + cnt)
+    total = hkv * pre[-1]
+    grid = min(grid, total)
+    blocks = [(total * c // grid, total * (c + 1) // grid) for c in range(grid)]
+    block_of = lambda u: ((u + 1) * grid + total - 1) // total - 1
+    runs = {}
+    for i, (_, _, _, cnt) in enumerate(units):
+        for h in range(hkv):
+            us = hkv * pre[i] + h * cnt
+            cf, cl = block_of(us), block_of(us + cnt - 1)
+            slots = [] if cf == cl else [1 if c == cf and blocks[c][0] < us else 0 for c in range(cf, cl + 1)]
+            runs[(i, h)] = (cf, cl, slots)
+    return units, blocks, runs
 
 
 def _layer_view(pages, layer_id, layout):
@@ -152,8 +192,11 @@ def _merge_splits(o_parts, lse_parts, dtype):
     return o.to(dtype), lse
 
 
-_ARGS = ((ctypes.c_void_p,) * 10 + (ctypes.c_int,) * 7 + (ctypes.c_longlong,) * 3 + (ctypes.c_int,) * 4
-         + (ctypes.c_float,) * 5 + (ctypes.c_void_p,))
+_ARGS = ((ctypes.c_void_p,) * 12 + (ctypes.c_int,) * 7 + (ctypes.c_longlong,) * 4 + (ctypes.c_int,) * 4
+         + (ctypes.c_float,) * 5 + (ctypes.c_int, ctypes.c_void_p))
+# blocks an SM the kernel's partials workspace is sized for (the grid is
+# at most this many blocks an SM)
+_BLOCKS_PER_SM = 4
 # pool dtypes of the kernel (csrc/decode_attention.cu)
 _POOL_TYPES = {torch.bfloat16: 0, torch.int8: 1, torch.float8_e4m3fn: 2, torch.float8_e5m2: 3}
 
@@ -196,8 +239,14 @@ def launch_decode(name, q, k_pages, v_pages, lengths, page_table, sinks, k_scale
     if table.shape[1] == 0:  # nothing in the pool yet: one padding column (JAX :345-350)
         table = torch.zeros((b, 1), dtype=torch.int32, device=q.device)
     table = table.contiguous()
+    if page % 8 or (page % 64 and 64 % page):
+        raise NotImplementedError(f"{name}: the CUDA kernel takes pages of a multiple of 8 tokens that divides 64 "
+                                  f"or is a multiple of 64, not {page}")
     splits, split_tokens = split_geometry(table.shape[1], page, hkv, chunk_pages, num_splits)
     out = torch.empty((splits, b, hq, d), dtype=q.dtype, device=q.device)
+    ws_blocks = _BLOCKS_PER_SM * sm_count(q.device.index or 0)
+    ws = torch.empty((ws_blocks * 2 * (group * d + 2 * group),), dtype=torch.float32, device=q.device)
+    counters = kept_buffer("paged_decode_counters", q.device, splits * b * hkv, torch.int32)
     lse = (torch.empty((splits, b, hq), dtype=torch.float32, device=q.device)
            if return_lse or splits > 1 else None)
     scale = sm_scale if sm_scale is not None else 1.0 / d ** 0.5
@@ -205,11 +254,12 @@ def launch_decode(name, q, k_pages, v_pages, lengths, page_table, sinks, k_scale
     ptr = lambda t: t.data_ptr() if t is not None else None
     fn = _build.bind("decode_attention", "skt_paged_decode", _ARGS)
     _build.check(fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), fk_ptr, fv_ptr, ptr(sk),
-                    lens.data_ptr(), table.data_ptr(), out.data_ptr(), ptr(lse), b, hkv, page, table.shape[1],
-                    d, group, _POOL_TYPES[k_pages.dtype], k_pages[0].numel(), page_stride, head_stride, lid,
-                    splits, split_tokens, -1 if sliding_window is None else int(sliding_window), scale,
+                    lens.data_ptr(), table.data_ptr(), out.data_ptr(), ptr(lse), ws.data_ptr(),
+                    counters.data_ptr(), b, hkv, page, table.shape[1], d, group, _POOL_TYPES[k_pages.dtype],
+                    k_pages.numel() // d, k_pages[0].numel(), page_stride, head_stride, lid, splits,
+                    split_tokens, -1 if sliding_window is None else int(sliding_window), scale,
                     0.0 if logit_soft_cap is None else float(logit_soft_cap),
-                    1.0 if k_scale is None else float(k_scale), vs, vs if splits == 1 else 1.0,
+                    1.0 if k_scale is None else float(k_scale), vs, vs if splits == 1 else 1.0, ws_blocks,
                     _build.stream_ptr(q.device)), name)
     if splits == 1:
         out, lse = out[0], (lse[0] if lse is not None else None)
@@ -241,12 +291,14 @@ def paged_attention_decode_dma(q, k_pages, v_pages, lengths, page_table, sinks=N
 
     ``num_splits`` splits the KV of each sequence into that many ranges of
     whole chunks of ``chunk_pages`` pages (fewer if the table has fewer
-    chunks, as in JAX); each split is its own block on the card, and the
-    partials, rounded to q's dtype, are merged by ``merge_states``
-    (``choose_num_splits`` picks a factor). With ``num_splits=1``
-    ``chunk_pages`` has no effect: it sized the TPU kernel's DMA refills.
+    chunks, as in JAX); the partials, rounded to q's dtype, are merged by
+    ``merge_states`` (``choose_num_splits`` picks a factor). With
+    ``num_splits=1`` ``chunk_pages`` has no effect: it sized the TPU
+    kernel's DMA refills. The card's kernel spreads every sequence over
+    the SMs whatever ``num_splits`` is, and merges those spans itself.
     CUDA tensors go through the K5 kernel, which takes bf16 q, pools of
-    bf16, int8, fp8 e4m3 or e5m2, head_dim 64/128/256 and group 1/2/4/8."""
+    bf16, int8, fp8 e4m3 or e5m2, head_dim 64/128/256, group 1/2/4/8 and
+    pages of a multiple of 8 tokens that divides 64 or is a multiple of 64."""
     if q.device.type != "cuda":
         return paged_attention_decode_ref(
             q, k_pages, v_pages, lengths, page_table, sinks, k_scale, v_scale, layer_id,

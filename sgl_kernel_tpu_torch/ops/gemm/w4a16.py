@@ -1,8 +1,10 @@
 """W4A16 GEMM (int4 / MXFP4 weights, 16-bit activations) and its layouts.
 
-``w4a16_gemm`` is kernel K1, CUDA C++ in ``csrc/w4a16_gemm.cu``, replacing
-the Pallas ``w4a16_gemm`` (sgl_kernel_tpu/ops/gemm/w4a16.py:301,
-pallas_call at :539 and :551). ``w4a16_gemm_ref`` is its plain PyTorch twin
+``w4a16_gemm`` is kernel K1, CUDA C++ replacing the Pallas ``w4a16_gemm``
+(sgl_kernel_tpu/ops/gemm/w4a16.py:301, pallas_call at :539 and :551):
+decode rows (M <= 32) on ``csrc/w4a16_decode.cu``, prefill rows (and decode
+weights whose rows TMA cannot map, N % 16 != 0) on ``csrc/w4a16_gemm.cu``.
+``w4a16_gemm_ref`` is its plain PyTorch twin
 (dequantize, then one f32 product per scale group, chunked over N so a
 lm_head-sized call stays a few hundred MB on the CPU).
 
@@ -26,7 +28,7 @@ import torch
 import torch.nn.functional as F
 
 from ... import _build
-from ...utils import cdiv, round_up, sm_count
+from ...utils import cdiv, kept_buffer, round_up, sm_count
 from ..quant.formats import awq_unpack_int32, unpack_int4
 
 GROUPS_PER_KTILE = 8  # quantize_w4 pads a ragged K to a multiple of 8 groups
@@ -258,13 +260,15 @@ def w4a16_gemm_ref(a, w, scales, zeros=None, bias=None, a2=None, residual=None, 
 
 # kernel tiles (csrc/w4a16_gemm.cu): (rows, columns) of a block
 _TILES = {0: (16, 128), 1: (32, 128), 2: (64, 64)}
+# the decode kernel (csrc/w4a16_decode.cu): columns of a tile, k of a stage
+_DEC_BN, _DEC_KB = 128, 256
 
 
-def plan(m: int, n: int, k_pad: int, group_size: int, n_sm: int = 132):
-    """(tile, split, groups_per_split) of a launch. Decode rows (M <= 32)
-    take a 16- or 32-row tile, prefill a 64 x 64 one. When the output tiles
-    cannot give each SM two blocks, K splits across blocks in whole scale
-    groups (the TPU walks K inside one grid step, w4a16.py:445)."""
+def _tile_plan(m: int, n: int, k_pad: int, group_size: int, n_sm: int):
+    """(tile, split, groups_per_split) of a ``w4a16_gemm.cu`` launch: the
+    prefill tile, or a decode tile for weights TMA cannot map. When the
+    output tiles cannot give each SM two blocks, K splits across blocks in
+    whole scale groups (the TPU walks K inside one grid step, w4a16.py:445)."""
     tile = (0 if m <= 16 else 1) if _m_bucket(m) == 0 else 2
     bm, bn = _TILES[tile]
     tiles = cdiv(m, bm) * cdiv(n, bn)
@@ -274,12 +278,32 @@ def plan(m: int, n: int, k_pad: int, group_size: int, n_sm: int = 132):
     return tile, cdiv(n_groups, per), per
 
 
+def plan(m: int, n: int, k_pad: int, group_size: int, n_sm: int = 132):
+    """(tile, split, per) of a launch. Prefill rows (M > 32) take the
+    64 x 64 tile of ``_tile_plan`` (split and per: K's splits and groups a
+    split). Decode rows take the decode kernel (tile 0: M <= 16, tile 1:
+    M <= 32), whose work is the (128-column tile, 256-deep k block) stages;
+    split is its blocks (two an SM, at most one a stage) and per the most
+    stages a block takes, each block an equal share (stream-K)."""
+    if _m_bucket(m) != 0:
+        return _tile_plan(m, n, k_pad, group_size, n_sm)
+    stages = cdiv(n, _DEC_BN) * cdiv(k_pad, _DEC_KB)
+    blocks = min(2 * n_sm, stages)
+    return (0 if m <= 16 else 1), blocks, cdiv(stages, blocks)
+
+
 _ARGS = (ctypes.c_void_p,) * 12 + (ctypes.c_int,) * 15 + (ctypes.c_float, ctypes.c_void_p)
+_DEC_ARGS = (ctypes.c_void_p,) * 13 + (ctypes.c_int,) * 12 + (ctypes.c_float, ctypes.c_void_p)
 
 
 @functools.cache
 def _entry():
     return _build.bind("w4a16_gemm", "skt_w4a16_gemm", _ARGS)
+
+
+@functools.cache
+def _decode_entry():
+    return _build.bind("w4a16_decode", "skt_w4a16_decode", _DEC_ARGS)
 
 
 def w4a16_gemm(a, w, scales, zeros=None, bias=None, a2=None, residual=None, layer_id=None,
@@ -327,9 +351,31 @@ def w4a16_gemm(a, w, scales, zeros=None, bias=None, a2=None, residual=None, laye
     w_, s_, z_, res = dense(w_), dense(s_), dense(z_), dense(residual)
     b_ = b_.float().contiguous() if b_ is not None else None
     nw_ = dense(nw_.reshape(-1)) if nw_ is not None else None
-    tile, split, per = plan(m, n, k_pad, group_size, sm_count(a.device.index or 0))
+    n_sm = sm_count(a.device.index or 0)
     out = torch.empty((m, n), dtype=out_dtype, device=a.device)
     prologue_id = 1 if nw_ is not None else (2 if a2_ is not None else 0)
+    lda, lda2 = a_.stride(0), (a2_.stride(0) if a2_ is not None else 0)
+    ptr = lambda t: t.data_ptr() if t is not None else None
+    aligned = lambda *ts: all(t is None or t.data_ptr() % 16 == 0 for t in ts)
+    vec_a = aligned(a_, a2_, nw_) and lda % 8 == 0 and lda2 % 8 == 0
+    vec_w = n % 16 == 0 and aligned(w_, s_, z_)
+    if _m_bucket(m) == 0 and vec_w:  # the decode kernel: TMA maps the weight, scale and zero rows
+        if not aligned(b_, res):  # its epilogue reads 4 columns at once
+            b_, res = (t.clone() if t is not None else None for t in (b_, res))
+        tile, blocks, _ = plan(m, n, k_pad, group_size, n_sm)
+        mp = 16 if m <= 16 else 32
+        partial = torch.empty((blocks * 2 * mp * _DEC_BN,), dtype=torch.float32, device=a.device)
+        act = kept_buffer("w4a16_act", a.device, m * k_pad, bf)
+        asum = kept_buffer("w4a16_asum", a.device, (k_pad // group_size) * 32, torch.float32)
+        counters = kept_buffer("w4a16_counters", a.device, cdiv(n, _DEC_BN), torch.int32)
+        _build.check(_decode_entry()(
+            ptr(a_), ptr(a2_), ptr(nw_), ptr(act), ptr(asum), ptr(w_), ptr(s_), ptr(z_), ptr(b_), ptr(res),
+            ptr(out), ptr(partial), ptr(counters), m, n, k_pad, k, lda, lda2, group_size, blocks, prologue_id,
+            int(fmt == "mxfp4"), int(out_dtype == torch.float32), int(vec_a), norm_eps,
+            _build.stream_ptr(a.device)), "w4a16_gemm")
+        w4a16_gemm.launches += 1
+        return out
+    tile, split, per = _tile_plan(m, n, k_pad, group_size, n_sm)
     # one float32 workspace: the split-K partials, then the norm's row factors
     ws = None
     if split > 1 or nw_ is not None:
@@ -338,11 +384,6 @@ def w4a16_gemm(a, w, scales, zeros=None, bias=None, a2=None, residual=None, laye
     rms = ws[ws.shape[0] - m:] if nw_ is not None else None
     # the prefill tile reads the prologue's rows from a first pass
     act_ws = torch.empty((m, k), dtype=bf, device=a.device) if prologue_id and tile == 2 else None
-    lda, lda2 = a_.stride(0), (a2_.stride(0) if a2_ is not None else 0)
-    ptr = lambda t: t.data_ptr() if t is not None else None
-    aligned = lambda *ts: all(t is None or t.data_ptr() % 16 == 0 for t in ts)
-    vec_a = aligned(a_, a2_, nw_) and lda % 8 == 0 and lda2 % 8 == 0
-    vec_w = n % 16 == 0 and aligned(w_, s_, z_)
     _build.check(_entry()(ptr(a_), ptr(a2_), ptr(nw_), ptr(rms), ptr(act_ws), ptr(w_), ptr(s_), ptr(z_), ptr(b_), ptr(res),
                     ptr(out), ptr(partial), m, n, k_pad, k, lda, lda2, group_size, tile, split, per,
                     prologue_id, int(fmt == "mxfp4"), int(out_dtype == torch.float32), int(vec_a),

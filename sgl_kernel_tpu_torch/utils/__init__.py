@@ -40,6 +40,22 @@ def resolve_device(device="cuda") -> torch.device:
     return dev
 
 
+_kept = {}
+
+
+def kept_buffer(kind: str, device, n: int, dtype) -> torch.Tensor:
+    """A device buffer a kernel keeps across calls, one per (kind, device),
+    at least ``n`` long and zero when first made: split counters that every
+    launch leaves at zero, and workspaces each call rewrites before it reads
+    them. Made once, so a captured CUDA graph keeps pointing at it and a TMA
+    map of it is encoded once; a larger request makes a new buffer and keeps
+    the old one alive for graphs captured on it."""
+    have = _kept.get((kind, device))
+    if have is None or have[-1].numel() < n:
+        _kept[(kind, device)] = (have or []) + [torch.zeros(max(n, 4096), dtype=dtype, device=device)]
+    return _kept[(kind, device)][-1]
+
+
 @functools.cache
 def sm_count(index: int = 0) -> int:
     """Streaming multiprocessors of CUDA device ``index`` (launch planning)."""

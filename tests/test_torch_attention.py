@@ -325,3 +325,53 @@ def test_fp8_codes_convert_exactly(kind):
     carried = tensor_from_numpy(np.asarray(jnp.asarray(codes).view(jdt)), "cpu")
     assert carried.dtype == tdt
     np.testing.assert_array_equal(carried.view(torch.uint8).numpy(), codes)
+
+
+@pytest.mark.parametrize("grid", [1, 7, 132, 396, 528])
+@pytest.mark.parametrize("case", [
+    # lengths, table width, page, splits, window
+    ([1 + (1055 * i) // 15 for i in range(16)], 128, 64, 1, None),  # the engine's ragged B=16
+    ([32768], 512, 64, 16, None),                                       # B=1 x 32,768 split 16 ways
+    ([0, 1, 63, 64, 65, 1056, 32768], 513, 64, 1, None),                # empty, page edges, long
+    ([5, 300, 70, 1], 20, 16, 3, 100),                                  # 16-token pages, splits, window
+    ([129, 2000], 16, 128, 2, None),                                    # pages of 128, capped by the table
+])
+def test_decode_work_units_cover_each_token_once(case, grid):
+    """The card kernel's division of work (``work_units`` mirrors what the
+    kernel computes on the device): the blocks' unit ranges tile all units
+    in order; every (split, sequence, head) run's units cover its pool
+    tokens [lo, hi) once, each unit inside one 64-token chunk; the blocks
+    that share a run are the ones whose ranges meet it, and their partial
+    slots never collide (a block's first shared run in slot 0, its last in
+    slot 1)."""
+    lengths, n_blocks, page, splits, window = case
+    hkv = 2
+    ns, st = tatt.paged_decode_dma.split_geometry(n_blocks, page, hkv, 1, splits)
+    units, blocks, runs = tatt.paged_decode_dma.work_units(lengths, n_blocks, page, ns, st, hkv=hkv, grid=grid,
+                                                           window=window)
+    total = hkv * sum(u[3] for u in units)
+    assert len(blocks) == min(grid, total)
+    assert blocks[0][0] == 0 and blocks[-1][1] == total
+    assert all(c0 < c1 for c0, c1 in blocks)  # no block without a unit: each one counts as a contributor
+    assert all(blocks[c][1] == blocks[c + 1][0] for c in range(len(blocks) - 1))
+    used = {}
+    u = 0
+    for i, (lo, hi, j0, n) in enumerate(units):
+        s, b = divmod(i, len(lengths))
+        n_tok = max(0, min(lengths[b] - 1, n_blocks * page))
+        want = set(range(max(s * st if ns > 1 else 0, lengths[b] - window if window else 0),
+                         min(n_tok, (s + 1) * st if ns > 1 else n_tok)))
+        for h in range(hkv):
+            covered = []
+            for j in range(n):
+                c0, c1 = (j0 + j) * 64, (j0 + j + 1) * 64
+                covered += range(max(lo, c0), min(hi, c1))
+            assert sorted(covered) == sorted(want)
+            cf, cl, slots = runs[(i, h)]
+            owners = [c for c in range(len(blocks)) if blocks[c][0] < u + n and blocks[c][1] > u]
+            assert owners == list(range(cf, cl + 1))
+            for c, slot in zip(range(cf, cl + 1), slots):
+                assert (c, slot) not in used
+                used[(c, slot)] = (i, h)
+            u += n
+    assert u == total

@@ -1515,3 +1515,214 @@ def test_sparse_attn_varlen_gqa(gen):
     ref, rlse = sparse_vs.sparse_attn_varlen_func(q.cpu(), k.cpu(), v.cpu(), *args, **kw)
     assert out.shape == (t, 8, 128) and lse.shape == (8, t)
     assert_vs_close((out.cpu(), lse.cpu()), (ref, rlse))
+
+
+# ---- K5 / K8 on the split-over-SMs tile, K1's decode kernel ----
+
+EDGE_LENGTHS = [0, 1, 63, 64, 65, 1056, 32768]  # empty, page edges, the main path's longest, a long context
+QUANT = {torch.int8: (1 / 16, 1 / 16), torch.float8_e4m3fn: (0.5, 0.25), torch.float8_e5m2: (0.5, 2.0)}
+
+
+def edge_pools(gen, hq, hkv, d, page, dtype, layout, n_layers=1):
+    """One batch of EDGE_LENGTHS over pools of ``dtype`` (1-byte pools hold
+    random codes of every magnitude), page-major or head-major."""
+    table, lens, kp, vp, q, fk, fv = paged_case(gen, len(EDGE_LENGTHS), hq, hkv, d, page, EDGE_LENGTHS, n_layers)
+    if dtype == torch.int8:
+        kp, vp = ((x * 40).clamp(-127, 127).to(dtype) for x in (kp, vp))
+    elif dtype != torch.bfloat16:
+        kp, vp = ((x * 8).to(dtype) for x in (kp, vp))
+    if layout == "head":
+        kp, vp = head_major(kp), head_major(vp)
+    return table, lens, kp, vp, q, fk, fv
+
+
+def decode_call(q, kp, vp, lens, table, layout, **kw):
+    if layout == "head_k8":
+        return paged_decode.paged_attention_decode(q, kp, vp, lens, table, **kw)
+    return paged_decode_dma.paged_attention_decode_dma(q, kp, vp, lens, table, layout=layout, **kw)
+
+
+def decode_ref(q, kp, vp, lens, table, layout, **kw):
+    if layout == "head_k8":
+        return paged_decode.paged_attention_decode_ref(q, kp, vp, lens, table, **kw)
+    return paged_decode_dma.paged_attention_decode_ref(q, kp, vp, lens, table, layout=layout, **kw)
+
+
+@pytest.mark.parametrize("layout", ["page", "head", "head_k8"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.int8, torch.float8_e4m3fn, torch.float8_e5m2])
+@pytest.mark.parametrize("d", [64, 128, 256])
+@pytest.mark.parametrize("group", [1, 2, 4, 8])
+def test_decode_edge_lengths(gen, group, d, dtype, layout):
+    """Lengths 0, 1, 63, 64, 65, 1,056 and 32,768 in one batch, every GQA
+    group, head dim, pool type and layout (K8 through its own entry), with
+    the fresh row and the lse; two calls give the same bits."""
+    hkv = 2
+    table, lens, kp, vp, q, fk, fv = edge_pools(gen, hkv * group, hkv, d, 64, dtype,
+                                                "page" if layout == "page" else "head")
+    kw = dict(fresh_k=fk, fresh_v=fv, return_lse=True)
+    if dtype != torch.bfloat16:
+        kw.update(k_scale=QUANT[dtype][0], v_scale=QUANT[dtype][1])
+    o, lse = decode_call(q, kp, vp, lens, table, layout, **kw)
+    ro, rl = decode_ref(q, kp, vp, lens, table, layout, **kw)
+    assert torch.isfinite(o).all()
+    assert_kernel_close(o, ro)
+    assert_lse_close(lse, rl)
+    o2, lse2 = decode_call(q, kp, vp, lens, table, layout, **kw)
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
+
+
+@pytest.mark.parametrize("page", [16, 64, 128])
+@pytest.mark.parametrize("fresh", [True, False])
+def test_decode_edge_lengths_pages(gen, page, fresh):
+    """The edge batch at pages of 16 (a unit is four pages), 64 and 128
+    (two units a page), with and without the fresh row."""
+    table, lens, kp, vp, q, fk, fv = edge_pools(gen, 32, 8, 128, page, torch.bfloat16, "page", n_layers=2)
+    kw = dict(layer_id=1, return_lse=True)
+    if fresh:
+        kw.update(fresh_k=fk, fresh_v=fv)
+    o, lse = paged_decode_dma.paged_attention_decode_dma(q, kp, vp, lens, table, **kw)
+    ro, rl = paged_decode_dma.paged_attention_decode_ref(q, kp, vp, lens, table, **kw)
+    assert_kernel_close(o, ro)
+    assert_lse_close(lse, rl)
+    if not fresh:
+        assert not o[0].any() and torch.isneginf(lse[0]).all()
+
+
+@pytest.mark.parametrize("splits", [1, 4, 16])
+@pytest.mark.parametrize("window", [None, 100, 5000])
+@pytest.mark.parametrize("cap", [None, 30.0])
+def test_decode_edge_lengths_options(gen, splits, window, cap):
+    """Sinks, the window (shorter than some contexts, longer than others),
+    the soft cap and the lse over the edge batch, unsplit and split (the
+    caller's splits, merged by the wrapper)."""
+    hq, hkv = 16, 4
+    table, lens, kp, vp, q, fk, fv = edge_pools(gen, hq, hkv, 128, 64, torch.bfloat16, "page")
+    sinks = torch.randn(hq, generator=gen, device="cuda")
+    kw = dict(fresh_k=fk, fresh_v=fv, return_lse=True, num_splits=splits, chunk_pages=1, sliding_window=window,
+              logit_soft_cap=cap)
+    o, lse = paged_decode_dma.paged_attention_decode_dma(q, kp, vp, lens, table, sinks, **kw)
+    ro, rl = paged_decode_dma.paged_attention_decode_ref(q, kp, vp, lens, table, sinks, **kw)
+    assert_kernel_close(o, ro)
+    assert_lse_close(lse, rl)
+    o2, lse2 = paged_decode_dma.paged_attention_decode_dma(q, kp, vp, lens, table, sinks, **kw)
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
+
+
+@pytest.mark.parametrize("splits", [1, 3])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float8_e4m3fn])
+@pytest.mark.parametrize("layout", ["page", "head"])
+@pytest.mark.parametrize("page", [16, 64])
+def test_decode_nan_past_lengths_unread(gen, splits, dtype, layout, page):
+    """NaN in every pool row past each length, in the pages the unused
+    table columns point at and in the pool's padding page: o and the lse
+    are the same bits as over the clean pools."""
+    hq, hkv, d = 16, 4, 128
+    table, lens, kp, vp, q, fk, fv = edge_pools(gen, hq, hkv, d, page, dtype, "page")
+    n_blocks = table.shape[1]
+    spare = kp.shape[1] - 1  # pages the batch does not use
+    kw = dict(fresh_k=fk, fresh_v=fv, return_lse=True, num_splits=splits, chunk_pages=1)
+    if dtype != torch.bfloat16:
+        kw.update(k_scale=0.5, v_scale=0.25)
+    clean = [x.clone() for x in (kp, vp)]
+    nan = float("nan")
+    dirty_table = table.clone()
+    for x in (kp, vp):
+        x[:, 0] = nan  # the padding page unused table columns hold
+    for b, n in enumerate(EDGE_LENGTHS):
+        pool_tok = max(0, n - 1)
+        used = -(-pool_tok // page)
+        if pool_tok % page:
+            for x in (kp, vp):
+                x[:, table[b, used - 1], :, pool_tok % page:] = nan
+        dirty_table[b, used:] = torch.randint(0, spare + 1, (n_blocks - used,), generator=gen, device="cuda")
+    if layout == "head":
+        kp, vp = head_major(kp), head_major(vp)
+        clean = [head_major(x) for x in clean]
+    o, lse = paged_decode_dma.paged_attention_decode_dma(q, *clean, lens, table, layout=layout, **kw)
+    # unused columns may now name any page, including ones another sequence uses (which are finite)
+    for x in (kp, vp):
+        (x[:, :, 0] if layout == "head" else x[:, 0]).fill_(nan)
+    o2, lse2 = paged_decode_dma.paged_attention_decode_dma(q, kp, vp, lens, dirty_table, layout=layout, **kw)
+    assert torch.isfinite(o).all()
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
+
+
+W4_DECODE_OPTIONS = ["mxfp4", "mxfp4_zeros", "zeros", "bias", "a2_silu", "fused_gate_up", "residual", "norm",
+                     "norm_stacked", "layer_id", "padded_k", "f32_out"]
+
+
+@pytest.mark.parametrize("m", list(range(1, 33)))
+@pytest.mark.parametrize("gs", [32, 64, 128])
+def test_w4a16_decode_rows(gen, m, gs):
+    """K1's decode kernel at every row count 1..32 (both activation tiles)
+    and group size, with the norm prologue (the rows pass ahead of it)."""
+    check_w4(*w4_case(gen, m, 384, 1024, gs, "norm"))
+
+
+@pytest.mark.parametrize("option", W4_DECODE_OPTIONS)
+@pytest.mark.parametrize("m", [1, 9, 32])
+def test_w4a16_decode_options(gen, option, m):
+    """Every prologue and option of the contract on the decode kernel."""
+    check_w4(*w4_case(gen, m, 384, 512, 32 if option.startswith("mxfp4") else 64, option))
+
+
+@pytest.mark.parametrize("n,k,gs,option", [
+    (28672, 1280, 128, "residual"),  # 224 x 5 stages over 264 blocks: tiles shared by 1-2 blocks
+    (28672, 1152, 128, "zeros"),     # the last k block half past K (TMA reads zeros)
+    (256, 8192, 64, "norm"),         # 2 column tiles of 32 stages: 32 blocks a tile
+    (4096, 14336, 128, "a2_silu"),   # the down GEMM's shape: 32 x 56 stages, 7 a block
+    (384, 1024, 64, "bias"),         # fewer stages (12) than blocks: one stage a block
+    (200, 512, 64, "zeros"),         # N % 16 != 0: w4a16_gemm.cu's decode tile takes it
+    (1000, 1024, 32, "norm"),
+])
+def test_w4a16_decode_splits(gen, n, k, gs, option):
+    """The decode kernel's stream-K division: tiles shared by several
+    blocks (the last to arrive sums their partials), a last k block past K,
+    whole tiles stored at once; ragged N."""
+    check_w4(*w4_case(gen, 16, n, k, gs, option))
+
+
+@pytest.mark.parametrize("option", ["norm", "residual"])
+def test_w4a16_decode_repeatable_and_graph(gen, option):
+    """Two calls, and a CUDA graph of the call replayed twice, give the
+    same bits: the split counters are left at zero by every launch (a
+    stale counter would sum a partial twice or skip the epilogue)."""
+    a, w, s, kw = w4_case(gen, 16, 4096, 4096, 128, option)
+    tile, blocks, per = w4a16.plan(16, 4096, 4096, 128, sm_count(0))
+    assert 32 * 16 % blocks  # 512 stages over the blocks: some tiles are shared
+    first = w4a16.w4a16_gemm(a, w, s, **kw)
+    assert torch.equal(first, w4a16.w4a16_gemm(a, w, s, **kw))
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        w4a16.w4a16_gemm(a, w, s, **kw)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = w4a16.w4a16_gemm(a, w, s, **kw)
+    for _ in range(2):
+        out.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, first)
+
+
+def test_decode_repeatable_in_graph(gen):
+    """K5 in a CUDA graph replayed twice: the same bits as the eager call
+    (its merge counters are left at zero by every launch)."""
+    table, lens, kp, vp, q, fk, fv = edge_pools(gen, 32, 8, 128, 64, torch.bfloat16, "page")
+    kw = dict(fresh_k=fk, fresh_v=fv, return_lse=True)
+    first = paged_decode_dma.paged_attention_decode_dma(q, kp, vp, lens, table, **kw)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        paged_decode_dma.paged_attention_decode_dma(q, kp, vp, lens, table, **kw)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = paged_decode_dma.paged_attention_decode_dma(q, kp, vp, lens, table, **kw)
+    for _ in range(2):
+        out[0].zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out[0], first[0]) and torch.equal(out[1], first[1])

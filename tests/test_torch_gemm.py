@@ -244,15 +244,36 @@ def test_w4a16_contract_errors(rng):
 
 
 @pytest.mark.parametrize("m,n,k,expect", [
-    (16, 6144, 4096, (0, 6, 6)),      # qkv decode: 48 column tiles, 32 groups -> 6 splits
-    (16, 4096, 14336, (0, 9, 13)),    # down decode: 112 groups
-    (32, 28672, 4096, (1, 2, 16)),    # gate_up decode, 32-row tile
-    (16, 129024, 4096, (0, 1, 32)),   # lm_head: 1008 tiles, no split
-    (1024, 28672, 4096, (2, 1, 32)),  # prefill tile
+    (16, 6144, 4096, (0, 264, 3)),      # qkv decode: 48 column tiles x 16 k blocks over 264 blocks
+    (16, 4096, 14336, (0, 264, 7)),     # down decode: 32 x 56 stages
+    (32, 28672, 4096, (1, 264, 14)),    # gate_up decode, 32 rows: 224 x 16 stages
+    (16, 129024, 4096, (0, 264, 62)),   # lm_head: 1008 x 16 stages
+    (1024, 28672, 4096, (2, 1, 32)),    # prefill tile
 ])
 def test_w4a16_launch_plan(m, n, k, expect):
-    """Decode shapes split K in whole groups until every SM has two blocks;
-    the splits cover every group once."""
+    """Decode: two blocks an SM take equal shares of the (128-column tile,
+    256-deep k block) stages, which they cover once. Prefill: K splits in
+    whole groups, covering every group once."""
     tile, split, per = tw.plan(m, n, k, 128, n_sm=132)
     assert (tile, split, per) == expect
-    assert (split - 1) * per < k // 128 <= split * per
+    if tile == 2:
+        assert (split - 1) * per < k // 128 <= split * per
+    else:
+        stages = -(-n // 128) * (k // 256)
+        assert split * (per - 1) < stages <= split * per
+
+
+@pytest.mark.parametrize("m", [1, 16, 17, 32])
+@pytest.mark.parametrize("n", [16, 1000 * 16, 6144, 28672, 129024])
+@pytest.mark.parametrize("k,g", [(256, 32), (1152, 128), (4096, 64), (14336, 128), (96, 32)])
+def test_w4a16_decode_plan_covers_k(m, n, k, g):
+    """Every decode plan: the blocks' equal shares of the (tile, k block)
+    stages cover each stage once (a K short of a k block still takes one),
+    at most one block a stage and two an SM, no share more than one stage
+    above another."""
+    tile, blocks, per = tw.plan(m, n, k, g, n_sm=132)
+    assert tile == (0 if m <= 16 else 1)
+    stages = -(-n // 128) * -(-k // 256)
+    assert blocks == min(264, stages)
+    shares = [stages * (b + 1) // blocks - stages * b // blocks for b in range(blocks)]
+    assert sum(shares) == stages and min(shares) >= 1 and max(shares) == per <= min(shares) + 1
