@@ -109,8 +109,14 @@ op paths, no model calling them: sparse_attn_varlen_func on two prompts of
 16,384 and 8,192 tokens from build_vertical_slash_indexes' estimate, a
 DeepSeek-V3 fp8 MoE layer's GEMMs (K17, K18) over 4 layers, a W4A8
 Llama-3-8B decode through 8 layers' linear layers (K19 and the per-channel
-GEMM) and w4a8_grouped_mm on K11 at DeepSeek-V3's routed widths. Each phase
-prints its time ([time] lines).
+GEMM) and w4a8_grouped_mm on K11 at DeepSeek-V3's routed widths. Slice 12
+(K10 and K11 at decode on one W4A16 streaming core): K11 also at
+Mixtral-8x7B's B=16 decode (top-2 of 8 experts, bm 16: gate_up and down);
+cold device ms beside the warm ones for K11's decode rows, K10's five M=16
+rows (K1 on the same cold bank in turns) and K1's five decode rows, each
+call cycling the layers of a stacked bank of >= 150 MB (three times L2);
+two calls bit-equal for K11 decode and K10. Each phase prints its time
+([time] lines).
 
 Prints a JSON line of per-kernel numbers, then, last,
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -185,6 +191,40 @@ def graph_ms(torch, fn, reps=20):
         for _ in range(reps):
             fn()
     return time_ms(torch, graph.replay, iters=5, warmup=1) / reps
+
+
+COLD_BYTES = 150e6  # a stacked bank three times the 50 MB L2: a call cycling its layers finds them cold
+
+
+def cold_graph_ms(torch, fn, layers, reps=24):
+    """Device time of one call with its weights cold: ``reps`` calls
+    captured in a CUDA graph and replayed, call i on layer i % ``layers``
+    of a stacked bank of at least COLD_BYTES (``fn(layer_id)``), so each
+    call's weights left L2 since their last use, as in a model's step."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for lid in range(layers):
+            fn(lid)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for i in range(reps):
+            fn(i % layers)
+    return time_ms(torch, graph.replay, iters=5, warmup=1) / reps
+
+
+def cold_bank(torch, gen, lead, k, n, g, dev):
+    """Random int4 codes [L, *lead, K/2, N] and bf16 scales [L, *lead, K/G,
+    N] of ``L`` layers, the fewest whose codes reach COLD_BYTES (timing
+    only: the checks run on quantized weights)."""
+    per = k // 2 * n
+    for e in lead:
+        per *= e
+    layers = max(2, -(-int(COLD_BYTES) // per))
+    w = torch.randint(0, 256, (layers, *lead, k // 2, n), generator=gen, device=dev, dtype=torch.int32).to(torch.uint8)
+    scales = (0.005 + 0.01 * torch.rand((layers, *lead, k // g, n), generator=gen, device=dev)).to(torch.bfloat16)
+    return w, scales, layers
 
 
 def free_memory(torch):
@@ -308,10 +348,13 @@ def phase_kernels(torch, skt):
     ref = rope.rope_decode_fused_qkv_ref(pos, qkv, cache, **kw)
     err = check("rope_decode_fused_qkv[16]", list(zip(out, ref)))
     bms, bby = bound_ms(2 * b * (nq + 2 * nkv) * d * 2 + b * d * 4 + b * 4, 6 * b * (nq + nkv) * d, F32_FLOPS)
+    k3 = lambda: rope.rope_decode_fused_qkv(pos, qkv, cache, **kw)
     rows["rope_decode_fused_qkv"] = dict(
-        max_abs_err=err, ms=time_ms(torch, lambda: rope.rope_decode_fused_qkv(pos, qkv, cache, **kw)),
+        max_abs_err=err, ms=time_ms(torch, k3), graph_ms=graph_ms(torch, k3),
         plain_ms=time_ms(torch, lambda: rope.rope_decode_fused_qkv_ref(pos, qkv, cache, **kw)),
         library_ms=None, bound_ms=bms, bound_by=bby)
+    log(f"[kernel] rope_decode_fused_qkv [16]: ms={rows['rope_decode_fused_qkv']['ms']:.4f} "
+        f"graph_ms={rows['rope_decode_fused_qkv']['graph_ms']:.4f} bound_ms={bms:.4f}")
 
     # K5 decode attention: B=16, ragged contexts 1..1056 (lengths count the
     # current token, which rides as the fresh row), page 64, 32-layer pools,
@@ -733,8 +776,15 @@ def phase_w4a16(torch, skt):
             graph_ms=graph_ms(torch, lambda: w4a16.w4a16_gemm(a, w, scales, **kw)), library_graph_ms=lib_graph,
             kernels_per_call=per_call)
         r = rows[f"w4a16_gemm_{name}"]
+        if m == 16 and name in ("qkv", "o", "gate_up", "down", "lm_head"):  # the step's GEMMs with cold weights
+            wc, sc_, layers = cold_bank(torch, gen, (), k, n, g, dev)
+            r["cold_graph_ms"] = cold_graph_ms(torch, lambda lid: w4a16.w4a16_gemm(a, wc, sc_, layer_id=lid, **kw),
+                                               layers)
+            r["cold_layers"] = layers
+            del wc, sc_
         lib = "null" if lib_ms is None else f"{lib_ms:.4f} [{lib_graph:.4f}]"
-        log(f"[kernel] w4a16_gemm {name} [{m}, {n}, {k}]: ms={r['ms']:.4f} graph_ms={r['graph_ms']:.4f} "
+        cold = f" cold_graph_ms={r['cold_graph_ms']:.4f}" if "cold_graph_ms" in r else ""
+        log(f"[kernel] w4a16_gemm {name} [{m}, {n}, {k}]: ms={r['ms']:.4f} graph_ms={r['graph_ms']:.4f}{cold} "
             f"plain_ms={r['plain_ms']:.4f} library_ms={lib} ({lib_note}) bound_ms={bms:.4f} ({bby})")
         del a, w, scales, kw
         torch.cuda.empty_cache()
@@ -1113,7 +1163,7 @@ def cold_compare(torch, skt, cfg, label, eng, prompts, warm_rids, warm_first, ro
 # device time a step of the W4A16 GEMMs, by kernel-name fragment
 GEMM_GROUPS = {"K1 w4a16_gemm": ("w4a16_kernel", "split_reduce_kernel", "row_prologue_kernel",
                                   "w4a16_decode_kernel", "act_rows_kernel"),
-               "K10 w4a16_gemm_dma": ("gemm_dma_kernel", "k10::reduce_kernel"),
+               "K10 / K11 streaming core": ("w4s::stream_kernel", "w4s::rows_kernel"),
                "K5 paged_attention_decode_dma": ("::decode_kernel<",)}
 
 
@@ -1264,6 +1314,72 @@ def report_row(torch, name, row, dev_fn=None):
     return row
 
 
+def grouped_w4_row(torch, moe, name, a, w, sc, al, bm, pairs, g, decode):
+    """K11 (w4a16_grouped_mm) on layer 1 of the stacked bank ``w`` against
+    its plain version, over the valid rows of the alignment ``al``; at
+    decode also two calls bit-equal and the cold device time, the calls
+    cycling the bank's layers (K11 reads only the experts its rows hit)."""
+    nv = int(al.num_valid_blocks)
+    hit = int((al.group_sizes > 0).sum())
+    kw = dict(bm=bm)
+    args = (a, w, sc, al.block_expert_ids, None, 1, al.num_valid_blocks)
+    fn = lambda: moe.w4a16_grouped_mm(*args, **kw)
+    out = fn()
+    ref = moe.w4a16_grouped_mm_ref(*args, **kw)
+    err = check(f"{name} [cap {a.shape[0]}, bm {bm}, {nv} valid blocks, {hit} experts]",
+                [(out[: nv * bm], ref[: nv * bm])])
+    k, n = a.shape[1], w.shape[-1]
+    n_bytes = hit * (k // 2 * n + 2 * (k // g) * n) + pairs * (k + n) * 2 + 4 * (al.block_expert_ids.numel() + 1)
+    bms, bby = bound_ms(n_bytes, 2 * pairs * k * n, BF16_FLOPS)
+    row = dict(max_abs_err=err, ms=time_ms(torch, fn),
+               plain_ms=time_ms(torch, lambda: moe.w4a16_grouped_mm_ref(*args, **kw), iters=2, warmup=1),
+               library_ms=None, library_note="no PyTorch call computes a grouped int4 GEMM",
+               bound_ms=bms, bound_by=bby, valid_blocks=nv, experts_hit=hit)
+    if decode:
+        check_repeat(name, lambda: moe.w4a16_grouped_mm(*args, **kw)[: nv * bm], out[: nv * bm])
+        row["cold_graph_ms"] = cold_graph_ms(torch, lambda lid: moe.w4a16_grouped_mm(
+            a, w, sc, al.block_expert_ids, None, lid, al.num_valid_blocks, **kw), w.shape[0])
+    row = report_row(torch, name.replace(" ", "_"), row, fn if decode else None)
+    if decode:
+        log(f"[kernel] {name}: cold {row['cold_graph_ms']:.4f} ms, warm {row['graph_ms']:.4f}, bound {bms:.4f} "
+            f"({100 * bms / row['cold_graph_ms']:.1f} % cold)")
+    return row
+
+
+def phase_mixtral_w4_kernels(torch, skt):
+    """K11 at Mixtral-8x7B's W4A16 decode (16 tokens, top-2 of 8 experts, bm
+    16, group 128): gate_up [K 4,096 -> N 28,672] and down [14,336 -> 4,096]
+    on two stacked layers of random codes (0.94 and 0.47 GB), warm and cold."""
+    from sgl_kernel_tpu_torch.ops import moe
+    from sgl_kernel_tpu_torch.ops.activation import silu_and_mul
+
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 12)
+    bf = torch.bfloat16
+    cfg = skt.MixtralConfig.mixtral_8x7b(quant="w4a16")
+    h, e, k_top, inter, g, t, bm = cfg.hidden_size, cfg.num_experts, cfg.top_k, \
+        cfg.intermediate_size, 128, 16, 16
+
+    def bank(k, n):
+        w = torch.randint(0, 256, (2, e, k // 2, n), generator=gen, device=dev, dtype=torch.int32).to(torch.uint8)
+        return w, (0.002 + 0.004 * torch.rand((2, e, k // g, n), generator=gen, device=dev)).to(bf)
+
+    tw, tids = moe.topk_softmax(torch.randn((t, e), generator=gen, device=dev), k_top, renormalize=True)
+    al = moe.moe_align_block_size(tids, tw, e, bm)
+    x = moe.scatter_tokens_to_experts(torch.randn((t, h), generator=gen, device=dev).to(bf), al)
+    rows = {}
+    w1, s1 = bank(h, 2 * inter)
+    rows["w4a16_grouped_mm_mixtral_decode_gate_up"] = grouped_w4_row(
+        torch, moe, "w4a16_grouped_mm mixtral decode gate_up", x, w1, s1, al, bm, t * k_top, g, True)
+    a2 = silu_and_mul(moe.w4a16_grouped_mm(x, w1, s1, al.block_expert_ids, None, 1, al.num_valid_blocks, bm=bm))
+    del w1, s1
+    w2, s2 = bank(inter, h)
+    rows["w4a16_grouped_mm_mixtral_decode_down"] = grouped_w4_row(
+        torch, moe, "w4a16_grouped_mm mixtral decode down", a2, w2, s2, al, bm, t * k_top, g, True)
+    del w2, s2
+    return rows
+
+
 def phase_deepseek_kernels(torch, skt):
     """K11, K13a, K14 and K7 / K9 at 576 against their plain versions at the
     V2-Lite path's shapes."""
@@ -1299,30 +1415,14 @@ def phase_deepseek_kernels(torch, skt):
         tw, tids = moe.biased_topk(torch.randn((t, e), generator=gen, device=dev), torch.zeros(e, device=dev), k_top,
                                    renormalize=True, apply_routed_scaling_factor_on_output=True)
         al = moe.moe_align_block_size(tids, tw, e, bm)
-        nv = int(al.num_valid_blocks)
-        hit = int((al.group_sizes > 0).sum())
         x = moe.scatter_tokens_to_experts(randn(t, h), al)
-        pairs = t * k_top
         steps = [("gate_up", x, w1, s1)]
         if label == "decode":
             steps.append(("down", silu_and_mul(moe.w4a16_grouped_mm(x, w1, s1, al.block_expert_ids, None, 1,
                                                                     al.num_valid_blocks, bm=bm)), w2, s2))
         for name, a, w, sc in steps:
-            kw = dict(bm=bm)
-            args = (a, w, sc, al.block_expert_ids, None, 1, al.num_valid_blocks)
-            out = moe.w4a16_grouped_mm(*args, **kw)
-            ref = moe.w4a16_grouped_mm_ref(*args, **kw)
-            err = check(f"w4a16_grouped_mm {label} {name} [cap {a.shape[0]}, bm {bm}, {nv} valid blocks, "
-                        f"{hit} experts]", [(out[: nv * bm], ref[: nv * bm])])
-            k, n = a.shape[1], w.shape[-1]
-            n_bytes = hit * (k // 2 * n + 2 * (k // g) * n) + pairs * (k + n) * 2 + 4 * (al.block_expert_ids.numel() + 1)
-            bms, bby = bound_ms(n_bytes, 2 * pairs * k * n, BF16_FLOPS)
-            report(f"w4a16_grouped_mm_{label}_{name}", dict(
-                max_abs_err=err, ms=time_ms(torch, lambda: moe.w4a16_grouped_mm(*args, **kw)),
-                plain_ms=time_ms(torch, lambda: moe.w4a16_grouped_mm_ref(*args, **kw), iters=2, warmup=1),
-                library_ms=None, library_note="no PyTorch call computes a grouped int4 GEMM",
-                bound_ms=bms, bound_by=bby, valid_blocks=nv, experts_hit=hit),
-                (lambda: moe.w4a16_grouped_mm(*args, **kw)) if label == "decode" else None)
+            rows[f"w4a16_grouped_mm_{label}_{name}"] = grouped_w4_row(
+                torch, moe, f"w4a16_grouped_mm {label} {name}", a, w, sc, al, bm, t * k_top, g, label == "decode")
     del w1, s1, w2, s2
 
     # K13a: B=16, contexts 1..1056 (the current token included), page 64,
@@ -2206,16 +2306,27 @@ def phase_decode_variants(torch, skt):
         n_bytes = (w.numel() + 2 * scales.numel() + 2 * m * k * (2 if "a2" in kw else 1)
                    + (2 * m * n if "residual" in kw else 0) + 2 * m * n)
         bms, bby = bound_ms(n_bytes, 2 * m * n * k, BF16_FLOPS)
+        check_repeat(f"w4a16_gemm_dma {name}", fn, out)
         lib_ms, lib_graph, lib_note = int4pack_ms(torch, a.contiguous(), w, scales, g)
-        split, per, workers = w4a16_dma.plan(m, n, k, g, False, n_sm)
+        blocks, tiles, n_kb = w4a16_dma.plan(m, n, k, n_sm)
         row = dict(max_abs_err=err, ms=time_ms(torch, fn), plain_ms=time_ms(torch, ref_fn, iters=3, warmup=1),
                    library_ms=lib_ms, library_graph_ms=lib_graph, bound_ms=bms, bound_by=bby,
                    library_note=f"(_weight_int4pack_mm, bare GEMM: {lib_note})",
                    k1_graph_ms=graph_ms(torch, lambda: w4a16.w4a16_gemm(a, w, scales, **kw)),
-                   plan=dict(split=split, groups_per_split=per, workers=workers))
+                   plan=dict(blocks=blocks, tiles=tiles, k_blocks=n_kb))
+        if m == 16:  # K10 and K1 on one bank of cold weights, in turns
+            wc, sc_, layers = cold_bank(torch, gen, (), k, n, g, dev)
+            k10_cold = lambda lid: w4a16_dma.w4a16_gemm_dma(a, wc, sc_, layer_id=lid, **kw)
+            k1_cold = lambda lid: w4a16.w4a16_gemm(a, wc, sc_, layer_id=lid, **kw)
+            times = [cold_graph_ms(torch, f, layers) for f in (k10_cold, k1_cold, k1_cold, k10_cold)]
+            row.update(cold_graph_ms=min(times[0], times[3]), k1_cold_graph_ms=min(times[1], times[2]),
+                       cold_layers=layers)
+            del wc, sc_
         report(f"w4a16_gemm_dma_{name}", row, fn)
+        cold = (f"; cold {row['cold_graph_ms']:.4f} ms against K1's {row['k1_cold_graph_ms']:.4f}"
+                if "cold_graph_ms" in row else "")
         log(f"[kernel] w4a16_gemm_dma {name}: {100 * bms / row['graph_ms']:.1f} % of HBM on the device, "
-            f"K1 {100 * bms / row['k1_graph_ms']:.1f} % ({row['k1_graph_ms']:.4f} ms); plan {row['plan']}")
+            f"K1 {100 * bms / row['k1_graph_ms']:.1f} % ({row['k1_graph_ms']:.4f} ms){cold}; plan {row['plan']}")
         del w, scales, a, kw, out
         torch.cuda.empty_cache()
 
@@ -2979,6 +3090,8 @@ def main():
         torch.cuda.empty_cache()
         rows.update(phase_deepseek_kernels(torch, skt))
         torch.cuda.empty_cache()
+        rows.update(phase_mixtral_w4_kernels(torch, skt))
+        torch.cuda.empty_cache()
         rows.update(phase_moe_bf16_kernels(torch, skt))
         torch.cuda.empty_cache()
         rows.update(phase_nsa_kernels(torch, skt))
@@ -3053,7 +3166,7 @@ def main():
                                                               mixed=False)
         if eng.caches[0].dtype != torch.int8:
             fail(f"serve deepseek: the latent pool is {eng.caches[0].dtype}")
-        profile["deepseek-w4a16-int8"] = phase_profile(torch, eng, lens, "deepseek-w4a16-int8")
+        profile["deepseek-w4a16-int8"] = phase_profile(torch, eng, lens, "deepseek-w4a16-int8", groups=GEMM_GROUPS)
         del eng
         free_memory(torch)
 
@@ -3129,7 +3242,7 @@ def main():
                             "sgl_kernel_tpu/ops/attention/flash_prefill.py:165", "flash_attention"),
         "flash_attention_packed": ("cuda", "sgl_kernel_tpu_torch/csrc/flash_packed.cu",
                                    "sgl_kernel_tpu/ops/attention/flash_packed.py:195", "flash_attention_packed"),
-        "w4a16_grouped_mm": ("cuda", "sgl_kernel_tpu_torch/csrc/grouped_gemm.cu",
+        "w4a16_grouped_mm": ("cuda", "sgl_kernel_tpu_torch/csrc/w4a16_grouped_decode.cu",
                              "sgl_kernel_tpu/ops/moe/grouped_gemm.py:259", "w4a16_grouped_mm_decode_gate_up"),
         "bf16_grouped_mm": ("cuda", "sgl_kernel_tpu_torch/csrc/bf16_grouped_gemm.cu",
                             "sgl_kernel_tpu/ops/moe/grouped_gemm.py:107", "bf16_grouped_mm_deepseek_decode_gate_up"),
@@ -3169,9 +3282,11 @@ def main():
         if kernels[-1]["launches"] <= 0:
             fail(f"{name}: no launch in the served waves")
     log("[kernel] rmsnorm at [1024, 4096]: " + json.dumps(rows["rmsnorm_1024"]))
-    for name in ("rmsnorm_16", "flash_attention", "flash_attention_packed", "flash_attention_extend_c",
+    for name in ("rmsnorm_16", "rope_decode_fused_qkv", "flash_attention", "flash_attention_packed", "flash_attention_extend_c",
                  "paged_attention_decode_dma_int8", "paged_attention_decode_dma_e4m3", "flash_attention_lse",
-                 "w4a16_grouped_mm_decode_down", "w4a16_grouped_mm_prefill_gate_up", "mla_decode", "mla_decode_e4m3",
+                 "w4a16_grouped_mm_decode_gate_up", "w4a16_grouped_mm_decode_down",
+                 "w4a16_grouped_mm_mixtral_decode_gate_up", "w4a16_grouped_mm_mixtral_decode_down",
+                 "w4a16_grouped_mm_prefill_gate_up", "w4a16_gemm_dma_gate_up", "w4a16_gemm_gate_up", "mla_decode", "mla_decode_e4m3",
                  "flash_attention_576_lse", "flash_attention_packed_576", "bf16_grouped_mm_deepseek_decode_down",
                  "bf16_grouped_mm_mixtral_decode_gate_up", "bf16_grouped_mm_mixtral_decode_down",
                  "bf16_grouped_mm_mixtral_prefill_gate_up", "bf16_grouped_mm_deepseek_decode_gate_up",

@@ -209,6 +209,16 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const void* tm, int c0, i
       : "memory");
 }
 
+// the box of a 4-D tensor map at (c0, c1, c2, c3), innermost first
+__device__ __forceinline__ void tma_load_4d(void* dst, const void* tm, int c0, int c1, int c2, int c3,
+                                            uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, {%2, %3, %4, %5}], "
+      "[%6];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(tm)), "r"(c0), "r"(c1), "r"(c2), "r"(c3), "r"(smem_u32(bar))
+      : "memory");
+}
+
 // the box of a 2-D tensor map at (c0, c1), innermost first (tma_map.cuh)
 __device__ __forceinline__ void tma_load_2d(void* dst, const void* tm, int c0, int c1, uint64_t* bar) {
   asm volatile(

@@ -375,21 +375,34 @@ def w4a16_gemm(a, w, scales, zeros=None, bias=None, a2=None, residual=None, laye
             _build.stream_ptr(a.device)), "w4a16_gemm")
         w4a16_gemm.launches += 1
         return out
-    tile, split, per = _tile_plan(m, n, k_pad, group_size, n_sm)
+    _tile_launch(a_, a2_, nw_, w_, s_, z_, b_, res, out, k_pad, k, group_size=group_size, fmt=fmt,
+                 norm_eps=norm_eps, vec_a=vec_a, vec_w=vec_w, name="w4a16_gemm")
+    w4a16_gemm.launches += 1
+    return out
+
+
+def _tile_launch(a_, a2_, nw_, w_, s_, z_, b_, res, out, k_pad, k, *, group_size, fmt, norm_eps, vec_a, vec_w,
+                 name):
+    """One launch of the tile kernel (``csrc/w4a16_gemm.cu``) on checked, dense
+    operands: the prefill tile, or a decode tile for weights TMA cannot map
+    (K1 and K10)."""
+    m, n = a_.shape[0], w_.shape[-1]
+    tile, split, per = _tile_plan(m, n, k_pad, group_size, sm_count(a_.device.index or 0))
     # one float32 workspace: the split-K partials, then the norm's row factors
     ws = None
     if split > 1 or nw_ is not None:
-        ws = torch.empty(((split if split > 1 else 0) * m * n + m,), dtype=torch.float32, device=a.device)
+        ws = torch.empty(((split if split > 1 else 0) * m * n + m,), dtype=torch.float32, device=a_.device)
     partial = ws if split > 1 else None
     rms = ws[ws.shape[0] - m:] if nw_ is not None else None
+    prologue_id = 1 if nw_ is not None else (2 if a2_ is not None else 0)
     # the prefill tile reads the prologue's rows from a first pass
-    act_ws = torch.empty((m, k), dtype=bf, device=a.device) if prologue_id and tile == 2 else None
-    _build.check(_entry()(ptr(a_), ptr(a2_), ptr(nw_), ptr(rms), ptr(act_ws), ptr(w_), ptr(s_), ptr(z_), ptr(b_), ptr(res),
-                    ptr(out), ptr(partial), m, n, k_pad, k, lda, lda2, group_size, tile, split, per,
-                    prologue_id, int(fmt == "mxfp4"), int(out_dtype == torch.float32), int(vec_a),
-                    int(vec_w), norm_eps, _build.stream_ptr(a.device)), "w4a16_gemm")
-    w4a16_gemm.launches += 1
-    return out
+    act_ws = torch.empty((m, k), dtype=torch.bfloat16, device=a_.device) if prologue_id and tile == 2 else None
+    ptr = lambda t: t.data_ptr() if t is not None else None
+    _build.check(_entry()(ptr(a_), ptr(a2_), ptr(nw_), ptr(rms), ptr(act_ws), ptr(w_), ptr(s_), ptr(z_), ptr(b_),
+                          ptr(res), ptr(out), ptr(partial), m, n, k_pad, k, a_.stride(0),
+                          a2_.stride(0) if a2_ is not None else 0, group_size, tile, split, per, prologue_id,
+                          int(fmt == "mxfp4"), int(out.dtype == torch.float32), int(vec_a), int(vec_w), norm_eps,
+                          _build.stream_ptr(a_.device)), name)
 
 
 w4a16_gemm.launches = 0

@@ -1,10 +1,14 @@
 """Grouped (per-expert) GEMMs over expert-sorted, block-aligned rows.
 
-``w4a16_grouped_mm`` is kernel K11, CUDA C++ in ``csrc/grouped_gemm.cu`` on
-K1's tile code, replacing the Pallas ``w4a16_grouped_mm``
-(sgl_kernel_tpu/ops/moe/grouped_gemm.py:259, pallas_call at :419).
-``w4a16_grouped_mm_ref`` is its plain twin: K1's twin (ops/gemm/w4a16.py)
-per valid row block, so the two differ only by summation order.
+``w4a16_grouped_mm`` is kernel K11, replacing the Pallas
+``w4a16_grouped_mm`` (sgl_kernel_tpu/ops/moe/grouped_gemm.py:259,
+pallas_call at :419): at bm 16 / 32 (decode) the W4A16 streaming core
+(``csrc/w4a16_grouped_decode.cu``, ``ops/gemm/w4a16_stream.py``), its units
+counted on the device from ``num_valid_blocks``; at bm 64 / 128, for
+per-channel scales and for banks TMA cannot map, CUDA C++ in
+``csrc/grouped_gemm.cu`` on K1's tile code. ``w4a16_grouped_mm_ref`` is its
+plain twin: K1's twin (ops/gemm/w4a16.py) per valid row block, so the two
+differ only by summation order.
 
 ``bf16_grouped_mm`` is kernel K12, CUDA C++ in ``csrc/bf16_grouped_gemm.cu``,
 replacing the Pallas ``bf16_grouped_mm`` (grouped_gemm.py:107, pallas_call
@@ -28,8 +32,9 @@ from typing import Optional
 import torch
 
 from ... import _build
+from ..gemm import w4a16_stream
 from ..gemm.w4a16 import GROUPS_PER_KTILE, _gemm_ref
-from ...utils import round_up
+from ...utils import round_up, sm_count
 
 
 def _valid_blocks(num_valid_blocks, n_blocks: int) -> int:
@@ -108,9 +113,17 @@ _ARGS = ((ctypes.c_void_p,) * 7 + (ctypes.c_int,) * 8 + (ctypes.c_longlong,) * 2
          + (ctypes.c_void_p,))
 
 
+_DEC_ARGS = (ctypes.c_void_p,) * 11 + (ctypes.c_int,) * 14 + (ctypes.c_void_p,)
+
+
 @functools.cache
 def _entry():
     return _build.bind("grouped_gemm", "skt_w4a16_grouped_mm", _ARGS)
+
+
+@functools.cache
+def _decode_entry():
+    return _build.bind("w4a16_grouped_decode", "skt_w4a16_grouped_decode", _DEC_ARGS)
 
 
 def w4a16_grouped_mm(x_sorted, w, scales, block_expert_ids, zeros=None, layer_id=None, num_valid_blocks=None, *,
@@ -127,9 +140,12 @@ def w4a16_grouped_mm(x_sorted, w, scales, block_expert_ids, zeros=None, layer_id
 
     CUDA tensors go through the K11 kernel, which takes bf16 activations,
     scales and zeros, groups of 32, 64 or 128, bm of 16, 32, 64 or 128 and
-    a bf16 or float32 output; it reads num_valid_blocks on the device.
-    ``bn``, ``bk`` and ``gmode`` are contract-only: they chose the TPU
-    kernel's tiles and per-group decode schedule."""
+    a bf16 or float32 output; it reads num_valid_blocks on the device. bm
+    16 / 32 take the streaming core where TMA maps the bank (N % 16 == 0,
+    dense, 16-byte aligned) and the scales are per group; the rest the
+    tile kernel of ``csrc/grouped_gemm.cu``. ``bn``, ``bk`` and ``gmode``
+    are contract-only: they chose the TPU kernel's tiles and per-group
+    decode schedule."""
     if fmt not in ("int4", "mxfp4"):
         raise ValueError(f"w4a16_grouped_mm: fmt must be 'int4' or 'mxfp4', got {fmt!r}")
     if x_sorted.device.type != "cuda":
@@ -151,8 +167,6 @@ def w4a16_grouped_mm(x_sorted, w, scales, block_expert_ids, zeros=None, layer_id
     if cap == 0:
         return out
     x = x_sorted if x_sorted.stride(1) == 1 else x_sorted.contiguous()
-    w_, s_ = w_.contiguous(), s_.contiguous()
-    z_ = None if z_ is None else z_.contiguous()
     eids = block_expert_ids.to(device=x.device, dtype=torch.int32).contiguous()
     if eids.shape[0] != cap // bm:
         raise ValueError(f"w4a16_grouped_mm: {eids.shape[0]} block expert ids for {cap // bm} blocks")
@@ -160,6 +174,22 @@ def w4a16_grouped_mm(x_sorted, w, scales, block_expert_ids, zeros=None, layer_id
     nv = torch.as_tensor(nv, dtype=torch.int32, device=x.device).reshape(())
     ptr = lambda t: t.data_ptr() if t is not None else None
     vec_a = x.data_ptr() % 16 == 0 and x.stride(0) % 8 == 0
+    banks = (w, scales, zeros)  # as they lie: [L, E, ...] with the layer a coordinate, or [E, ...]
+    if bm in (16, 32) and not per_channel and w4a16_stream.mappable(n, *banks):
+        layers, experts, layer = (w.shape[0], w.shape[1], int(layer_id)) if layer_id is not None else (1, w.shape[0], 0)
+        n_sm = sm_count(x.device.index or 0)
+        blocks = w4a16_stream.grid(n_sm)
+        act, asum, partial, counters = w4a16_stream.workspaces(x.device, cap, k_pad, group_size, bm,
+                                                               (cap // bm) * w4a16_stream.tiles(n), blocks)
+        _build.check(_decode_entry()(ptr(x), ptr(w), ptr(scales), ptr(zeros), ptr(eids), ptr(nv), ptr(out),
+                                     ptr(act), ptr(asum), ptr(partial), ptr(counters), cap, n, k_pad, k, x.stride(0),
+                                     layers, experts, layer, group_size, bm, blocks, int(fmt == "mxfp4"),
+                                     int(out_dtype == torch.float32), int(vec_a), _build.stream_ptr(x.device)),
+                     "w4a16_grouped_mm")
+        w4a16_grouped_mm.launches += 1
+        return out
+    w_, s_ = w_.contiguous(), s_.contiguous()
+    z_ = None if z_ is None else z_.contiguous()
     vec_w = n % 16 == 0 and all(t is None or t.data_ptr() % 16 == 0 for t in (w_, s_, z_))
     _build.check(_entry()(ptr(x), ptr(w_), ptr(s_), ptr(z_), ptr(eids), ptr(nv), ptr(out), cap, n, k_pad, k,
                           x.stride(0), group_size, _tile(bm), bm, w_[0].numel(), s_[0].numel(),

@@ -715,14 +715,62 @@ def test_w4a16_dma_unsupported_raise(gen):
         w4a16_dma.w4a16_gemm_dma(a.float(), w, s, **kw)
     with pytest.raises(NotImplementedError):
         w4a16_dma.w4a16_gemm_dma(a, w, s, out_dtype=torch.float16, **kw)
-    a2, w2, s2, kw2 = w4_case(gen, 8, 200, 512, 64)
-    with pytest.raises(NotImplementedError):  # N % 16
-        w4a16_dma.w4a16_gemm_dma(a2, w2, s2, **kw2)
+    a2, w2, s2, kw2 = w4_case(gen, 8, 200, 512, 64)  # N % 16: the tile kernel takes it, no raise
+    check_w4_dma(a2, w2, s2, kw2)
     a3, w3, s3, _ = w4_case(gen, 8, 256, 512, 256)
     with pytest.raises(NotImplementedError):
         w4a16_dma.w4a16_gemm_dma(a3, w3, s3, group_size=256)
     with pytest.raises(ValueError):  # the decode bucket only
         w4a16_dma.w4a16_gemm_dma(randn(gen, 33, 512), w, s, **kw)
+
+
+@pytest.mark.parametrize("option", [None, "a2_silu", "zeros", "bias", "residual", "mxfp4", "mxfp4_zeros",
+                                    "layer_id", "f32_out"])
+@pytest.mark.parametrize("gs", [32, 64, 128])
+@pytest.mark.parametrize("m", [1, 2, 7, 16, 17, 31, 32])
+def test_w4a16_dma_stream_core(gen, m, gs, option):
+    """K10 on the streaming core: every row count of the decode bucket (both
+    row tiles, 16 and 32), each group size, every prologue and option; N of
+    two 256-column tiles and a 16-column one, K of 640: two 256-deep k blocks and a half one."""
+    check_w4_dma(*w4_case(gen, m, 528, 640, gs, option))
+
+
+@pytest.mark.parametrize("n", [200, 1000])
+def test_w4a16_dma_ragged_n_takes_tile(gen, n):
+    """N % 16 != 0, and weights that are a strided view: TMA cannot map the
+    rows, so the tile kernel of w4a16_gemm.cu computes K10's function (one launch, the same
+    contract), with silu_mul and a residual."""
+    m, k = 16, 512
+    a, w, s, kw = w4_case(gen, m, n, k, 64, "residual")
+    kw.update(a2=randn(gen, m, k), prologue="silu_mul")
+    check_w4_dma(a, w, s, kw)
+    wide, sw, _ = w4a16.quantize_w4(torch.randn((2 * n, k), generator=gen, device="cuda") * 0.05, group_size=64)
+    kw["residual"] = randn(gen, m, n)
+    check_w4_dma(a, wide[:, ::2], sw[:, ::2], kw)
+
+
+@pytest.mark.parametrize("m", [1, 16, 32])
+def test_w4a16_dma_repeat_and_graph(gen, m):
+    """Shared tiles are summed in block order by the last block to arrive:
+    two calls give the same bits, and a CUDA graph replay gives the eager
+    call's bits (gate_up-like: 112 tiles x 16 k blocks over the grid)."""
+    a, w, s, kw = w4_case(gen, m, 28672, 4096, 128, "residual")
+    fn = lambda: w4a16_dma.w4a16_gemm_dma(a, w, s, **kw)
+    first = fn()
+    assert torch.equal(first, fn())
+    assert_elementwise(first, w4a16_dma.w4a16_gemm_dma_ref(a, w, s, **kw))
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fn()
+    for _ in range(3):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, first)
 
 
 # ---------------------------------------------------------------------------
@@ -789,6 +837,133 @@ def test_grouped_w4a16_options(gen, option):
     ref = moe.w4a16_grouped_mm_ref(x, wl, sl, eids, zl, lid, nv, **kw)
     assert out.dtype == ref.dtype
     assert_elementwise(out[: 5 * 16], ref[: 5 * 16])
+
+
+DECODE_EIDS = [0, 0, 3, 3, 3, 5, 1]  # neighbouring blocks of one expert, and a lone one
+
+
+@pytest.mark.parametrize("bm", [16, 32])
+@pytest.mark.parametrize("valid", [0, 1, 7])
+@pytest.mark.parametrize("gs,fmt,zeros", [(32, "int4", False), (64, "int4", True), (128, "int4", False),
+                                          (128, "int4", True), (32, "mxfp4", False), (64, "mxfp4", True)])
+@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("layer", ["first", "last"])
+def test_grouped_decode_core(gen, bm, valid, gs, fmt, zeros, out_dtype, layer):
+    """K11 at bm 16 / 32 on the streaming core: 0, 1 and every block valid
+    (the count read on the device), an expert repeated over neighbouring
+    blocks, each group, int4 and mxfp4 with and without zeros, bf16 and
+    float32 out, layer 0 and L-1 of a stacked bank; NaN in the rows of the
+    padding blocks reaches no valid row; two calls give the same bits."""
+    blocks, layers = len(DECODE_EIDS), 3
+    x, w, s, z, _ = grouped_inputs(gen, bm=bm, blocks=blocks, k=640, n=528, gs=gs, e=6, layers=layers, fmt=fmt,
+                                   zeros=zeros)
+    eids = torch.tensor(DECODE_EIDS, dtype=torch.int32, device="cuda")
+    x[valid * bm:] = float("nan")
+    nvt = torch.tensor(valid, dtype=torch.int32, device="cuda")
+    lid = 0 if layer == "first" else layers - 1
+    kw = dict(bm=bm, group_size=gs, fmt=fmt, out_dtype=out_dtype)
+    fn = lambda: moe.w4a16_grouped_mm(x, w, s, eids, z, lid, nvt, **kw)
+    before = moe.w4a16_grouped_mm.launches
+    out = fn()
+    assert moe.w4a16_grouped_mm.launches == before + 1
+    ref = moe.w4a16_grouped_mm_ref(x, w, s, eids, z, lid, nvt, **kw)
+    assert out.dtype == out_dtype
+    rows = valid * bm
+    assert torch.isfinite(out[:rows]).all()
+    assert_elementwise(out[:rows], ref[:rows])
+    assert torch.equal(fn()[:rows], out[:rows])
+
+
+@pytest.mark.parametrize("bm", [16, 32])
+def test_grouped_decode_graph_num_valid(gen, bm):
+    """One CUDA graph captured once and replayed as num_valid_blocks changes
+    in the same tensor: each replay computes the blocks the count names and
+    equals the eager call at that count bit for bit."""
+    blocks = len(DECODE_EIDS)
+    x, w, s, _, _ = grouped_inputs(gen, bm=bm, blocks=blocks, k=1408, n=2048, gs=128, e=6)
+    eids = torch.tensor(DECODE_EIDS, dtype=torch.int32, device="cuda")
+    nvt = torch.tensor(blocks, dtype=torch.int32, device="cuda")
+    fn = lambda: moe.w4a16_grouped_mm(x, w, s, eids, None, 1, nvt, bm=bm)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fn()
+    for nv in (5, 1, 7, 0, 3):
+        nvt.fill_(nv)
+        graph.replay()
+        torch.cuda.synchronize()
+        rows = nv * bm
+        eager = fn()
+        assert torch.equal(out[:rows], eager[:rows])
+        assert_elementwise(out[:rows], moe.w4a16_grouped_mm_ref(x, w, s, eids, None, 1, nvt, bm=bm)[:rows])
+
+
+def test_grouped_decode_whole_tiles_graph(gen):
+    """V2-Lite's down widths (K 1,408, N 2,048: 8 tiles of 6 k blocks a row
+    block) at up to 66 valid row blocks: one captured graph replayed at 66,
+    40, 20 and 9 valid blocks, where the device's rule switches between
+    every tile whole (66, 40) and stream-K with shared tiles (20, 9); each
+    replay equals the eager call bit for bit and agrees with the twin."""
+    blocks = 66
+    x, w, s, _, eids = grouped_inputs(gen, bm=16, blocks=blocks, k=1408, n=2048, gs=128, e=8)
+    eids = torch.sort(eids).values
+    nvt = torch.tensor(blocks, dtype=torch.int32, device="cuda")
+    fn = lambda: moe.w4a16_grouped_mm(x, w, s, eids, None, 1, nvt, bm=16)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fn()
+    for nv in (66, 40, 20, 9):
+        nvt.fill_(nv)
+        graph.replay()
+        torch.cuda.synchronize()
+        rows = nv * 16
+        assert torch.equal(out[:rows], fn()[:rows])
+        assert_elementwise(out[:rows], moe.w4a16_grouped_mm_ref(x, w, s, eids, None, 1, nvt, bm=16)[:rows])
+
+
+def test_w4a16_dma_whole_tiles(gen):
+    """K10 over 264 column tiles of 2 k blocks: every block takes whole
+    tiles (no shared tile, no merge), with bias and residual; two calls
+    give the same bits."""
+    a, w, s, kw = w4_case(gen, 16, 264 * 256, 512, 128, "residual")
+    kw["bias"] = randn(gen, 264 * 256, dtype=torch.float32)
+    check_w4_dma(a, w, s, kw)
+    assert torch.equal(w4a16_dma.w4a16_gemm_dma(a, w, s, **kw), w4a16_dma.w4a16_gemm_dma(a, w, s, **kw))
+
+
+def test_grouped_decode_routes_by_shape(gen, monkeypatch):
+    """bm 16 / 32 over a mappable bank run the streaming core; bm 64, a bank
+    TMA cannot map (N % 16 != 0) and per-channel scales (w4a8_grouped_mm's
+    form) run the tile kernel; each launches K11 once and agrees with the twin."""
+    from sgl_kernel_tpu_torch.ops.moe import grouped_gemm
+
+    taken = []
+    for name in ("_entry", "_decode_entry"):
+        real = getattr(grouped_gemm, name)
+        monkeypatch.setattr(grouped_gemm, name, lambda real=real, name=name: (
+            lambda *a: taken.append(name) or real()(*a)))
+    nvt = torch.tensor(4, dtype=torch.int32, device="cuda")
+    for n, bm, per_channel, route in ((256, 16, False, "_decode_entry"), (256, 32, False, "_decode_entry"),
+                                      (256, 64, False, "_entry"), (200, 16, False, "_entry"),
+                                      (256, 16, True, "_entry")):
+        x, w, s, _, eids = grouped_inputs(gen, bm=bm, blocks=4, k=512, n=n, gs=128, e=4)
+        if per_channel:
+            args, kw = (x, w[1], s[1][:, :1].contiguous(), eids, None, None, nvt), dict(bm=bm, per_channel=True)
+        else:
+            args, kw = (x, w, s, eids, None, 1, nvt), dict(bm=bm)
+        before = moe.w4a16_grouped_mm.launches
+        out = moe.w4a16_grouped_mm(*args, **kw)
+        assert moe.w4a16_grouped_mm.launches == before + 1 and taken[-1] == route
+        assert_elementwise(out, moe.w4a16_grouped_mm_ref(*args, **kw))
 
 
 def bf16_grouped_inputs(gen, *, bm, blocks, k, n, e=5, layers=None):

@@ -12,6 +12,7 @@ from sgl_kernel_tpu.ops.gemm import w4a16 as jw
 from sgl_kernel_tpu.ops.gemm import w4a16_dma as jdma
 from sgl_kernel_tpu_torch.interop import tensor_from_numpy
 from sgl_kernel_tpu_torch.ops.gemm import w4a16_dma as tdma
+from sgl_kernel_tpu_torch.ops.gemm import w4a16_stream
 
 torch.set_num_threads(1)
 
@@ -119,18 +120,58 @@ def test_w4a16_gemm_dma_contract_errors(rng):
 
 
 @pytest.mark.parametrize("m,n,k,g,zeros,expect", [
-    (16, 6144, 4096, 128, False, (2, 16, 48)),     # qkv: 48 tiles, split to fill the SMs
-    (16, 4096, 4096, 128, False, (4, 8, 32)),      # o
-    (16, 28672, 4096, 128, False, (1, 32, 132)),   # gate_up: 224 tiles over 132 blocks
-    (16, 4096, 14336, 128, False, (4, 28, 32)),    # down: 112 groups
-    (32, 28672, 4096, 128, False, (2, 16, 66)),    # 32 rows: half the K range fits
-    (16, 4096, 4096, 32, True, (4, 32, 32)),       # group 32 with zeros
+    (16, 6144, 4096, 128, False, (132, 24, 16)),     # qkv: 384 units over 132 blocks
+    (16, 4096, 4096, 128, False, (132, 16, 16)),     # o: 256 units
+    (16, 28672, 4096, 128, False, (132, 112, 16)),   # gate_up: 1,792 units
+    (16, 4096, 14336, 128, False, (132, 16, 56)),    # down: 896 units, a tile shared by ~8 blocks
+    (32, 28672, 4096, 128, False, (132, 112, 16)),   # 32 rows: the same units, twice the rows a unit
+    (16, 4096, 4096, 32, True, (132, 16, 16)),       # group 32 with zeros: eight scale groups a unit
 ])
 def test_w4a16_gemm_dma_launch_plan(m, n, k, g, zeros, expect):
-    """K splits in whole groups until a block's staged activations fit its
-    shared memory and the blocks fill the SMs; the splits cover every group
-    once; no block asks for more than 227 KB."""
-    split, per, workers = tdma.plan(m, n, k, g, zeros, n_sm=132)
-    assert (split, per, workers) == expect
-    assert (split - 1) * per < k // g <= split * per
-    assert tdma.smem_bytes(16 if m <= 16 else 32, per, g, zeros) <= tdma.SMEM_LIMIT
+    """The grid comes from the SM count alone (one block an SM); the units
+    are (256-column tile, 256-deep k block); every unit is taken by one
+    block, in the kernel's order: whole tiles where that is within half a
+    tile of stream-K's longest share (gate_up: 112 tiles of 16 k blocks on
+    132 blocks), else an equal share (+-1) in tile-major order, so a tile is
+    shared by at most the blocks whose shares meet in it."""
+    blocks, tiles, n_kb = tdma.plan(m, n, k, n_sm=132)
+    assert (blocks, tiles, n_kb) == expect
+    shares = w4a16_stream.work_units(1, tiles, n_kb, blocks)
+    units = [u for share in shares for u in share]
+    assert sorted(units) == [(t, kb) for t in range(tiles) for kb in range(n_kb)]
+    sizes = [len(share) for share in shares]
+    assert max(sizes) <= -(-tiles * n_kb // blocks) + n_kb // 2
+    assert all(share == sorted(share) for share in shares)
+
+
+@pytest.mark.parametrize("n_rb,tiles,n_kb", [(1, 1, 1), (1, 3, 5), (1, 112, 32), (1, 504, 32), (1, 16, 112)])
+@pytest.mark.parametrize("blocks", [1, 7, 264])
+@pytest.mark.parametrize("order", [w4a16_stream.ORDER_TILE, w4a16_stream.ORDER_KSYNC, w4a16_stream.ORDER_AUTO])
+def test_w4a16_stream_unit_share(n_rb, tiles, n_kb, blocks, order):
+    """The core's division of the work (``Share`` in csrc/w4a16_stream.cuh):
+    every (tile, k block) taken exactly once whatever the grid; a block's
+    rounds are whole tiles b, b + blocks, ..; the rest is one contiguous
+    tile-major run a block. Tile-major and k-sync shares are equal within
+    one unit; the automatic order is either tile-major's or all whole
+    tiles, then no block longer than tile-major's longest by more than
+    half a tile's units."""
+    shares = w4a16_stream.work_units(n_rb, tiles, n_kb, blocks, order)
+    assert len(shares) == blocks
+    units = [u for share in shares for u in share]
+    assert sorted(units) == [(t, kb) for t in range(n_rb * tiles) for kb in range(n_kb)]
+    sizes = [len(share) for share in shares]
+    tile_major = w4a16_stream.work_units(n_rb, tiles, n_kb, blocks, w4a16_stream.ORDER_TILE)
+    whole = order == w4a16_stream.ORDER_AUTO and shares != tile_major
+    if whole:
+        assert max(sizes) <= max(len(s) for s in tile_major) + n_kb // 2
+    else:
+        assert max(sizes) - min(sizes) <= 1
+    tt = n_rb * tiles
+    rounds = tt // blocks if order == w4a16_stream.ORDER_KSYNC or whole else 0
+    for b, share in enumerate(shares):
+        n_whole = rounds + (1 if whole and b < tt % blocks else 0)
+        head, tail = share[: n_whole * n_kb], share[n_whole * n_kb:]
+        assert head == [(r * blocks + b, kb) for r in range(n_whole) for kb in range(n_kb)]
+        assert not (whole and tail)
+        flat = [t * n_kb + kb for t, kb in tail]
+        assert flat == list(range(flat[0], flat[0] + len(flat))) if flat else True

@@ -23,6 +23,7 @@ from sgl_kernel_tpu.ops.gemm import w4a16 as jw4
 from sgl_kernel_tpu_torch import tensor_from_numpy
 from sgl_kernel_tpu_torch.ops import activation
 from sgl_kernel_tpu_torch.ops import moe as tmoe
+from sgl_kernel_tpu_torch.ops.gemm import w4a16_stream
 
 torch.set_num_threads(1)
 
@@ -135,6 +136,24 @@ def test_w4a16_grouped_mm_padded_k_and_per_channel():
     out = tmoe.w4a16_grouped_mm(t_(x), t_(w), t_(s1), t_(eids), group_size=128, bm=16, out_dtype=torch.float32,
                                 per_channel=True)
     close(out, ref, 2e-5)
+
+
+@pytest.mark.parametrize("valid", [0, 1, 5, 8, 66])
+@pytest.mark.parametrize("blocks", [1, 13, 132, 264])
+@pytest.mark.parametrize("order", [w4a16_stream.ORDER_TILE, w4a16_stream.ORDER_KSYNC, w4a16_stream.ORDER_AUTO])
+def test_w4a16_grouped_decode_unit_share(valid, blocks, order):
+    """K11 at decode counts its units on the device from num_valid_blocks:
+    (valid row block, 256-column tile, 256-deep k block). For any valid
+    count, grid and order, every unit of the valid row blocks is taken
+    exactly once and no unit of a padding block is; tile-major and k-sync
+    shares differ by at most one unit, the automatic order's by at most one
+    tile (Mixtral's down widths: 16 tiles, 56 k blocks)."""
+    tiles, n_kb = w4a16_stream.tiles(4096), w4a16_stream.k_blocks(14336)
+    shares = w4a16_stream.work_units(valid, tiles, n_kb, blocks, order)
+    units = [u for share in shares for u in share]
+    assert sorted(units) == [(t, kb) for t in range(valid * tiles) for kb in range(n_kb)]
+    sizes = [len(share) for share in shares]
+    assert max(sizes) - min(sizes) <= (n_kb if order == w4a16_stream.ORDER_AUTO else 1)
 
 
 def test_bf16_grouped_mm_twin():
