@@ -47,7 +47,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
 Then the same phases for the DeepSeek path (DeepSeek-V2-Lite widths, W4A16,
 int8 latent pool): (2) the grouped W4A16 GEMM (K11) at the B=16 decode's
 gate_up and down and at a 1,024-token prefill, MLA decode (K13a) at B=16
-over contexts 1..1056 on bf16, int8 and e4m3 pools, the MLA qkv prep (K14)
+over contexts 1..1056 on bf16, int8 and e4m3 pools (and the slice 13 rows
+below), the MLA qkv prep (K14)
 at 16 tokens, and K7 / K9 at head dim 576 (the extend passes, wave A's
 packing); (3) card against CPU at V2-Lite widths cut to 2 layers (layer 0
 dense, layer 1 MoE), bf16 and int8 latent: prefill, 4 decode steps,
@@ -115,8 +116,15 @@ Mixtral-8x7B's B=16 decode (top-2 of 8 experts, bm 16: gate_up and down);
 cold device ms beside the warm ones for K11's decode rows, K10's five M=16
 rows (K1 on the same cold bank in turns) and K1's five decode rows, each
 call cycling the layers of a stacked bank of >= 150 MB (three times L2);
-two calls bit-equal for K11 decode and K10. Each phase prints its time
-([time] lines).
+two calls bit-equal for K11 decode and K10. Slice 13 (K13a and K15
+redesigned for Hopper decode): K13a also at NSA's sparse shape (B=16 x
+2,048 rows of a flat pool viewed as one-row pages, int8 and bf16) and at
+B=16 x 8,192 (bf16, dense pages); cold device ms beside the warm ones for
+every K13a and K15 row (calls cycling the layers of a >= 150 MB stacked
+pool, or the parts of a flat one); two calls bit-equal for every K13a and
+K15 row; the launch floor (one empty kernel, torch.cuda._sleep(0), a
+CUDA-graph node); the DeepSeek and NSA profiles' K13a and K15 device ms and
+launches a step. Each phase prints its time ([time] lines).
 
 Prints a JSON line of per-kernel numbers, then, last,
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -191,6 +199,12 @@ def graph_ms(torch, fn, reps=20):
         for _ in range(reps):
             fn()
     return time_ms(torch, graph.replay, iters=5, warmup=1) / reps
+
+
+def launch_floor_ms(torch):
+    """The device time of one empty kernel (torch.cuda._sleep(0)) as a
+    CUDA-graph node: the least any kernel of a captured step costs."""
+    return graph_ms(torch, lambda: torch.cuda._sleep(0), reps=100)
 
 
 COLD_BYTES = 150e6  # a stacked bank three times the 50 MB L2: a call cycling its layers finds them cold
@@ -1165,6 +1179,8 @@ GEMM_GROUPS = {"K1 w4a16_gemm": ("w4a16_kernel", "split_reduce_kernel", "row_pro
                                   "w4a16_decode_kernel", "act_rows_kernel"),
                "K10 / K11 streaming core": ("w4s::stream_kernel", "w4s::rows_kernel"),
                "K5 paged_attention_decode_dma": ("::decode_kernel<",)}
+# the DeepSeek decode attention: K13a and the NSA indexer's K15
+MLA_GROUPS = {"K13a mla_decode": ("mla_decode_kernel",), "K15 fp8_paged_mqa_logits": ("mqa_logits_kernel",)}
 
 
 def phase_profile(torch, eng, lens, label, top=12, groups=None):
@@ -1173,8 +1189,9 @@ def phase_profile(torch, eng, lens, label, top=12, groups=None):
     prefilled a chunk a step, all 16 side by side), then 4 decode-only
     scheduler steps traced with torch.profiler. Device-busy time is the
     union of the kernel intervals over the window (kernels of one stream do
-    not overlap). ``groups`` {label: name fragments} adds the device ms a
-    step of the kernels whose names hold one of the fragments."""
+    not overlap). ``groups`` {label: name fragments} adds the device ms and
+    the launches a step of the kernels whose names hold one of the
+    fragments."""
     steps = 4
     gen = torch.Generator().manual_seed(SEED + 3)
     for n in lens:
@@ -1195,13 +1212,14 @@ def phase_profile(torch, eng, lens, label, top=12, groups=None):
     eng.run_until_done()
     # device kernels only: the CPU-side op rows of the trace carry their
     # kernels' time again
-    spans, per_kernel = [], {}
+    spans, per_kernel, n_kernel = [], {}, {}
     for evt in prof.events():
         if evt.device_type != torch.autograd.DeviceType.CUDA:
             continue
         start, end = evt.time_range.start, evt.time_range.end
         spans.append((start, end))
         per_kernel[evt.name] = per_kernel.get(evt.name, 0.0) + (end - start)
+        n_kernel[evt.name] = n_kernel.get(evt.name, 0) + 1
     busy_us, last = 0.0, float("-inf")
     for start, end in sorted(spans):
         busy_us += max(0.0, end - max(start, last))
@@ -1216,6 +1234,8 @@ def phase_profile(torch, eng, lens, label, top=12, groups=None):
     if groups:
         res["group_ms_per_step"] = {g: sum(v for k, v in per_kernel.items() if any(f in k for f in frags)) / 1e3 / steps
                                     for g, frags in groups.items()}
+        res["group_launches_per_step"] = {g: sum(v for k, v in n_kernel.items() if any(f in k for f in frags)) / steps
+                                          for g, frags in groups.items()}
     log("[profile] " + json.dumps(res))
     return res
 
@@ -1307,8 +1327,8 @@ def report_row(torch, name, row, dev_fn=None):
     lib = "null" if row["library_ms"] is None else f"{row['library_ms']:.4f}"
     if dev_fn is not None:
         row["graph_ms"] = graph_ms(torch, dev_fn)
-    extra = "".join(f" {key}={row[key]:.4f}" for key in ("graph_ms", "library_graph_ms", "tflops", "library_tflops")
-                    if row.get(key) is not None)
+    extra = "".join(f" {key}={row[key]:.4f}" for key in ("graph_ms", "cold_ms", "library_graph_ms", "tflops",
+                                                          "library_tflops") if row.get(key) is not None)
     log(f"[kernel] {name}: ms={row['ms']:.4f}{extra} plain_ms={row['plain_ms']:.4f} library_ms={lib} "
         f"bound_ms={row['bound_ms']:.4f} ({row['bound_by']}) {row.get('library_note', '')}")
     return row
@@ -1426,7 +1446,8 @@ def phase_deepseek_kernels(torch, skt):
     del w1, s1, w2, s2
 
     # K13a: B=16, contexts 1..1056 (the current token included), page 64,
-    # 128-entry page tables, a two-layer pool (layer 1), bf16 / int8 / e4m3
+    # 128-entry page tables, bf16 / int8 / e4m3 pools stacked to at least
+    # COLD_BYTES: the warm rows read layer 1, the cold rows cycle the layers
     b, page, nh = 16, 64, cfg.num_heads
     lengths_l = [1 + (1055 * i) // (b - 1) for i in range(b)]
     n_used = [-(-n // page) for n in lengths_l]
@@ -1439,26 +1460,71 @@ def phase_deepseek_kernels(torch, skt):
         at += n
     lengths = torch.tensor(lengths_l, dtype=torch.int32, device=dev)
     qn, qp = randn(b, nh, 512, scale=0.3), randn(b, nh, 64, scale=0.3)
-    shape = (2, n_pages, page, 576)
     sm = 1.0 / (cfg.qk_nope_dim + 64) ** 0.5
-    for kind, dt, scale in (("bf16", bf, None), ("int8", torch.int8, 1 / 16), ("e4m3", torch.float8_e4m3fn, 0.5)):
+
+    def latent_pool(shape, dt):
         if dt == torch.int8:
-            pool = torch.randint(-127, 128, shape, generator=gen, device=dev, dtype=torch.int32).to(dt)
-        else:
-            pool = randn(*shape, dtype=dt, scale=1.0 if dt == bf else 2.0)
+            return torch.randint(-127, 128, shape, generator=gen, device=dev, dtype=torch.int32).to(dt)
+        return randn(*shape, dtype=dt, scale=1.0 if dt == bf else 2.0)
+
+    def mla_row(name, fn, ref_fn, n_rows, elem, n_table, cold):
+        """K13a against its plain version, two calls bit-equal, and its row:
+        each selected pool row read once, q, o, lse and the table entries
+        used; ``cold`` the cold device ms."""
+        out, lse = fn()
+        ref, ref_lse = ref_fn()
+        err = check(name, [(out, ref), (lse, ref_lse)])
+        check_repeat(name, fn, (out, lse))
+        n_bytes = n_rows * 576 * elem + b * nh * (576 + 512) * 2 + b * nh * 4 + n_table * 4
+        bms, bby = bound_ms(n_bytes, 2 * nh * (576 + 512) * n_rows, BF16_FLOPS)
+        return dict(max_abs_err=err, ms=time_ms(torch, fn), plain_ms=time_ms(torch, ref_fn, iters=5, warmup=1),
+                    library_ms=None, library_note="no PyTorch call attends over a paged pool", bound_ms=bms,
+                    bound_by=bby, cold_ms=cold)
+
+    for kind, dt, scale in (("bf16", bf, None), ("int8", torch.int8, 1 / 16), ("e4m3", torch.float8_e4m3fn, 0.5)):
+        layers = max(2, -(-int(COLD_BYTES) // (n_pages * page * 576 * dt.itemsize)))
+        pool = latent_pool((layers, n_pages, page, 576), dt)
         kw = dict(sm_scale=sm * (scale or 1.0), return_lse=True)
         fn = lambda: mla.mla_decode(qn, qp, pool, lengths, table, 1, **kw)
-        out, lse = fn()
-        ref, ref_lse = mla.mla_decode_ref(qn, qp, pool, lengths, table, 1, **kw)
-        err = check(f"mla_decode {kind} pool [16, ctx 1..1056]", [(out, ref), (lse, ref_lse)])
-        n_bytes = sum(lengths_l) * 576 * pool.element_size() + b * nh * (576 + 512) * 2 + b * nh * 4 + sum(n_used) * 4
-        bms, bby = bound_ms(n_bytes, 2 * nh * (576 + 512) * sum(lengths_l), BF16_FLOPS)
-        report("mla_decode" + ("" if kind == "bf16" else f"_{kind}"), dict(
-            max_abs_err=err, ms=time_ms(torch, fn),
-            plain_ms=time_ms(torch, lambda: mla.mla_decode_ref(qn, qp, pool, lengths, table, 1, **kw)),
-            library_ms=None, library_note="no PyTorch call attends over a paged pool", bound_ms=bms, bound_by=bby),
-            fn)
+        cold = cold_graph_ms(torch, lambda lid: mla.mla_decode(qn, qp, pool, lengths, table, lid, **kw), layers,
+                             reps=max(24, layers))
+        report("mla_decode" + ("" if kind == "bf16" else f"_{kind}"), mla_row(
+            f"mla_decode {kind} pool [16, ctx 1..1056]", fn,
+            lambda: mla.mla_decode_ref(qn, qp, pool, lengths, table, 1, **kw), sum(lengths_l), dt.itemsize,
+            sum(n_used), cold), fn)
         del pool
+    # NSA's sparse shape (sparse_mla_decode's call): each sequence attends
+    # 2,048 rows selected from a flat latent pool viewed as one-row pages,
+    # int8 (the NSA engine's latent) and bf16; the cold rows select from the
+    # other parts of a pool of at least COLD_BYTES
+    sel = b * 2048
+    lens_sel = torch.full((b,), 2048, dtype=torch.int32, device=dev)
+    for kind, dt, scale in (("int8", torch.int8, 1 / 16), ("bf16", bf, None)):
+        layers = max(2, -(-int(COLD_BYTES) // (sel * 576 * dt.itemsize)))
+        rows_pool = latent_pool((layers * sel, 1, 576), dt)
+        tables = [(torch.randperm(sel, generator=gen, device=dev).to(torch.int32) + i * sel).reshape(b, 2048)
+                  for i in range(layers)]
+        kw = dict(sm_scale=sm * (scale or 1.0), return_lse=True)
+        fn = lambda: mla.mla_decode(qn, qp, rows_pool, lens_sel, tables[0], **kw)
+        cold = cold_graph_ms(torch, lambda i: mla.mla_decode(qn, qp, rows_pool, lens_sel, tables[i], **kw), layers,
+                             reps=max(24, layers))
+        report(f"mla_decode_nsa_{kind}", mla_row(
+            f"mla_decode NSA {kind} [16 x 2,048 one-row pages]", fn,
+            lambda: mla.mla_decode_ref(qn, qp, rows_pool, lens_sel, tables[0], **kw), sel, dt.itemsize, sel, cold),
+            fn)
+        del rows_pool, tables
+    # B=16 x 8,192 on dense bf16 pages of 64: 151 MB a call, three L2s, so
+    # every call is cold
+    table8, used8 = paged_table(torch, gen, [8192] * b, page, 8192 // page)
+    pool8 = latent_pool((1, used8 + 1, page, 576), bf)
+    lens8 = torch.full((b,), 8192, dtype=torch.int32, device=dev)
+    kw = dict(sm_scale=sm, return_lse=True)
+    fn = lambda: mla.mla_decode(qn, qp, pool8, lens8, table8, 0, **kw)
+    row = mla_row("mla_decode bf16 pool [16 x 8,192]", fn,
+                  lambda: mla.mla_decode_ref(qn, qp, pool8, lens8, table8, 0, **kw), b * 8192, 2, used8, None)
+    report("mla_decode_ctx8192", row, fn)
+    row["cold_ms"] = row["graph_ms"]
+    del pool8
 
     # K14: 16 decode tokens, layer 26 of the stacked norm weight
     t, dn = 16, cfg.qk_nope_dim
@@ -1937,29 +2003,40 @@ def phase_nsa_kernels(torch, skt):
                                              ("decode_bf16", decode_lens, cfg.max_position // page, bf),
                                              ("ctx8192", [8192] * b, 8192 // page, torch.float8_e4m3fn),
                                              ("ctx32768", [32768], 32768 // page, torch.float8_e4m3fn)):
+        # keys and scales stacked over layers to at least COLD_BYTES, as the
+        # engine's indexer pool is (layer-offset page ids): the warm rows read
+        # layer 0, the cold rows cycle the layers
         table, n_used = paged_table(torch, gen, lengths_l, page, n_cols)
-        bb = len(lengths_l)
-        keys = (torch.randn((n_used + 1, page, d), generator=gen, device=dev) * 2).to(key_dt)
-        scales = None if key_dt == bf else torch.rand((n_used + 1, page), generator=gen, device=dev) * 0.01 + 1e-3
+        bb, n_pages = len(lengths_l), n_used + 1
+        per_layer = n_used * page * (d * key_dt.itemsize + (4 if key_dt != bf else 0))
+        layers = max(2, -(-int(COLD_BYTES) // per_layer))
+        keys = (torch.randn((layers * n_pages, page, d), generator=gen, device=dev) * 2).to(key_dt)
+        scales = (None if key_dt == bf else
+                  torch.rand((layers * n_pages, page), generator=gen, device=dev) * 0.01 + 1e-3)
         q = (torch.randn((bb, h, d), generator=gen, device=dev) * 0.5).to(bf)
         w = torch.sigmoid(torch.randn((bb, h), generator=gen, device=dev))  # the engine's head gates
         lengths = torch.tensor(lengths_l, dtype=torch.int32, device=dev)
+        tables = [table + i * n_pages for i in range(layers)]
         fn = lambda: nsa.fp8_paged_mqa_logits(q, keys, w, lengths, table, scales)
         ref_fn = lambda: nsa.fp8_paged_mqa_logits_ref(q, keys, w, lengths, table, scales)
-        err = check_logits(f"fp8_paged_mqa_logits {label} [B {bb}, {h} heads of {d}, {keys.dtype}, "
-                           f"{'scaled' if scales is not None else 'no scales'}]", fn(), ref_fn())
+        name = (f"fp8_paged_mqa_logits {label} [B {bb}, {h} heads of {d}, {keys.dtype}, "
+                f"{'scaled' if scales is not None else 'no scales'}]")
+        out = fn()
+        err = check_logits(name, out, ref_fn())
+        check_repeat(name, fn, out)
         n_tok = sum(lengths_l)
         # each cached key (and its scale) read once, q, the gates and the used
         # table entries once; every logit written once, -inf past the length too
         n_bytes = (n_tok * (d * keys.element_size() + (4 if scales is not None else 0)) + bb * h * (d * 2 + 4)
                    + n_used * 4 + bb * 4 + bb * n_cols * page * 4)
         bms, bby = bound_ms(n_bytes, 2 * h * d * n_tok, BF16_FLOPS)
+        cold = cold_graph_ms(torch, lambda i: nsa.fp8_paged_mqa_logits(q, keys, w, lengths, tables[i], scales), layers,
+                             reps=max(24, layers))
         report(f"fp8_paged_mqa_logits_{label}", dict(
             max_abs_err=err, ms=time_ms(torch, fn), plain_ms=time_ms(torch, ref_fn, iters=3, warmup=1),
             library_ms=None, library_note="no PyTorch call computes a paged, relu-weighted head reduction",
-            bound_ms=bms, bound_by=bby, span_tiles=nsa.span_tiles_for(bb, n_cols * page, torch.cuda.get_device_properties(
-                0).multi_processor_count)), fn)
-        del keys
+            bound_ms=bms, bound_by=bby, cold_ms=cold), fn)
+        del keys, scales, tables
 
     # K13b at K13a's shapes: B=16, contexts 1..1056, 16 heads, page 64,
     # 128-entry tables, a two-layer pool (layer 1)
@@ -3099,6 +3176,8 @@ def main():
         rows.update(phase_decode_variants(torch, skt))
         free_memory(torch)
         rows.update(phase_slice8_kernels(torch, skt))
+        floor = launch_floor_ms(torch)
+        log(f"[kernel] launch floor (an empty kernel's CUDA-graph node): {floor:.4f} ms")
     bf16_cfg = skt.LlamaConfig.llama3_8b(fused=True)
     w4_cfg = skt.LlamaConfig.llama3_8b(quant="w4a16", fused=True)
     dma_cfg = dataclasses.replace(w4_cfg, gemm_impl="dma")
@@ -3166,7 +3245,8 @@ def main():
                                                               mixed=False)
         if eng.caches[0].dtype != torch.int8:
             fail(f"serve deepseek: the latent pool is {eng.caches[0].dtype}")
-        profile["deepseek-w4a16-int8"] = phase_profile(torch, eng, lens, "deepseek-w4a16-int8", groups=GEMM_GROUPS)
+        profile["deepseek-w4a16-int8"] = phase_profile(torch, eng, lens, "deepseek-w4a16-int8",
+                                                       groups={**GEMM_GROUPS, **MLA_GROUPS})
         del eng
         free_memory(torch)
 
@@ -3185,7 +3265,7 @@ def main():
     with phase("4-5 serve deepseek bf16"):
         serve["deepseek-bf16"], eng, lens = phase_serve(torch, skt, ds_bf16_cfg, "deepseek-bf16", DEEPSEEK_BF16,
                                                         mixed=False)
-        profile["deepseek-bf16"] = phase_profile(torch, eng, lens, "deepseek-bf16")
+        profile["deepseek-bf16"] = phase_profile(torch, eng, lens, "deepseek-bf16", groups=MLA_GROUPS)
         del eng
         free_memory(torch)
     # the NSA path: V2-Lite widths, W4A16, int8 latent, the indexer at
@@ -3201,9 +3281,14 @@ def main():
         serve["deepseek-nsa"], eng, _ = phase_serve(
             torch, skt, ds_nsa_cfg, "deepseek-nsa", DEEPSEEK_NSA, mixed=False, num_pages=1664,
             after=lambda eng, stats, res: wave_d(torch, skt, eng, stats, res, "deepseek-nsa"))
-        profile["deepseek-nsa"] = phase_profile(torch, eng, [NSA_PROMPT] * 16, "deepseek-nsa", top=24)
+        profile["deepseek-nsa"] = phase_profile(torch, eng, [NSA_PROMPT] * 16, "deepseek-nsa", top=24,
+                                                groups={**GEMM_GROUPS, **MLA_GROUPS})
         del eng
         free_memory(torch)
+    for eng_label in ("deepseek-w4a16-int8", "deepseek-bf16", "deepseek-nsa"):
+        pr = profile[eng_label]
+        log(f"[profile] {eng_label} decode step: K13a / K15 device ms {json.dumps(pr['group_ms_per_step'])}, "
+            f"launches {json.dumps(pr['group_launches_per_step'])}")
     with phase("4 path mla_decode dma"):
         paths = {"mla_decode_dma": path_mla_decode_dma(torch, skt)}
     with phase("4 path paged_attention_decode head-major"):
@@ -3287,6 +3372,8 @@ def main():
                  "w4a16_grouped_mm_decode_gate_up", "w4a16_grouped_mm_decode_down",
                  "w4a16_grouped_mm_mixtral_decode_gate_up", "w4a16_grouped_mm_mixtral_decode_down",
                  "w4a16_grouped_mm_prefill_gate_up", "w4a16_gemm_dma_gate_up", "w4a16_gemm_gate_up", "mla_decode", "mla_decode_e4m3",
+                 "mla_decode_int8", "mla_decode_nsa_int8", "mla_decode_nsa_bf16", "mla_decode_ctx8192",
+                 "fp8_paged_mqa_logits_decode",
                  "flash_attention_576_lse", "flash_attention_packed_576", "bf16_grouped_mm_deepseek_decode_down",
                  "bf16_grouped_mm_mixtral_decode_gate_up", "bf16_grouped_mm_mixtral_decode_down",
                  "bf16_grouped_mm_mixtral_prefill_gate_up", "bf16_grouped_mm_deepseek_decode_gate_up",
@@ -3303,7 +3390,7 @@ def main():
                      ("fp8_blockwise", "qserve", "sparse_attn")))):
         log(f"[kernel] {name}: " + json.dumps(rows[name]))
     log(json.dumps({"card": card, "parity": parity, "serve": serve, "profile": profile, "paths": paths,
-                    "phase_s": times}))
+                    "launch_floor_ms": floor, "phase_s": times}))
     log(f"[kernel] worst err/tol over every gate: {WORST['ratio']:.4g} ({WORST['name']})")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -54,6 +54,42 @@ __device__ __forceinline__ void to_bf16x16(const __nv_fp8_e5m2* b, bf16* out) {
   for (int i = 0; i < 16; ++i) out[i] = __float2bfloat16(float(b[i]));
 }
 
+// 8 one-byte codes -> 8 fp16, exactly (every int8 and fp8 value is a half).
+// int8 x: with its sign bit flipped, the byte under 0x64 is the half
+// 1024 + (x + 128), and one packed subtraction of 1152 leaves x: a byte
+// permute and a half2 subtraction a pair. fp8: a pair an instruction.
+__device__ __forceinline__ uint4 f16x8_of(const int8_t* p) {
+  const uint2 raw = *reinterpret_cast<const uint2*>(p);
+  const uint32_t lo = raw.x ^ 0x80808080u, hi = raw.y ^ 0x80808080u;
+  const __half2 bias = __halves2half2(__ushort_as_half(0x6480), __ushort_as_half(0x6480));  // 1152
+  uint4 v;
+  uint32_t* w = reinterpret_cast<uint32_t*>(&v);
+  const uint32_t pairs[4] = {__byte_perm(lo, 0x64646464u, 0x5140), __byte_perm(lo, 0x64646464u, 0x7362),
+                             __byte_perm(hi, 0x64646464u, 0x5140), __byte_perm(hi, 0x64646464u, 0x7362)};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const __half2 h = __hsub2(*reinterpret_cast<const __half2*>(&pairs[i]), bias);
+    w[i] = *reinterpret_cast<const uint32_t*>(&h);
+  }
+  return v;
+}
+
+__device__ __forceinline__ uint4 f16x8_of_fp8(const void* p, __nv_fp8_interpretation_t kind) {
+  const uint2 raw = *reinterpret_cast<const uint2*>(p);
+  const __nv_fp8x2_storage_t* c = reinterpret_cast<const __nv_fp8x2_storage_t*>(&raw);
+  uint4 v;
+  uint32_t* w = reinterpret_cast<uint32_t*>(&v);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const __half2_raw h = __nv_cvt_fp8x2_to_halfraw2(c[i], kind);
+    w[i] = (uint32_t)h.x | ((uint32_t)h.y << 16);
+  }
+  return v;
+}
+
+__device__ __forceinline__ uint4 f16x8_of(const __nv_fp8_e4m3* p) { return f16x8_of_fp8(p, __NV_E4M3); }
+__device__ __forceinline__ uint4 f16x8_of(const __nv_fp8_e5m2* p) { return f16x8_of_fp8(p, __NV_E5M2); }
+
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
@@ -114,6 +150,15 @@ __device__ __forceinline__ void ldsm_x2_trans(uint32_t& b0, uint32_t& b1, const 
 __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
   asm volatile(
       "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// the same with fp16 operands
+__device__ __forceinline__ void mma_f16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
       "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
@@ -228,6 +273,27 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const void* tm, int c0, i
       : "memory");
 }
 
+// `bytes` contiguous bytes global -> shared by the bulk-copy engine,
+// completing on `bar` (dst, src and bytes multiples of 16)
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::"r"(
+          smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// 4 bytes global -> shared by cp.async (ca)
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(smem_u32(smem)), "l"(gmem) : "memory");
+}
+
+// an arrival on `bar` once this thread's earlier cp.async copies have
+// landed; it counts toward the barrier's expected arrivals (noinc)
+__device__ __forceinline__ void cp_async_mbar_arrive(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(smem_u32(bar)) : "memory");
+}
+
 // a barrier among the first `threads` threads of the block (warps that do
 // not take part, such as a producer, never wait on it); id 0 is __syncthreads'
 __device__ __forceinline__ void named_sync(int id, int threads) {
@@ -282,6 +348,32 @@ __device__ __forceinline__ void wgmma_m64n64k16_rs_tb(float (&d)[32], const uint
       "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
       : SKT_ACC32(d)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d (64 x 64, float32) = (scale_d ? d : 0) + A (64 x 16) * B (16 x 64), A
+// from registers in mma.sync's m16k16 A fragment layout (warp w holding rows
+// 16w..16w+15), B from shared memory K-major (stored [n][k]); fp16 operands
+// with F16, else bf16.
+template <bool F16>
+__device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[32], const uint32_t (&a)[4], uint64_t db, int scale_d) {
+  if constexpr (F16)
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.f16.f16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+        "{%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+        : SKT_ACC32(d)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+  else
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+        "{%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+        : SKT_ACC32(d)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
 }
 
 #define SKT_F8(d, o)                                                                                          \

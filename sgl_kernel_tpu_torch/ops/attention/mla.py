@@ -7,7 +7,10 @@ q_pe] per head; a cache row is [kv_c | k_pe]; pools [L, P, page, 576], or
 
 ``mla_decode`` is kernel K13a, CUDA C++ in ``csrc/mla_decode.cu``,
 replacing the Pallas ``mla_decode`` (sgl_kernel_tpu/ops/attention/mla.py:375,
-pallas_call at :474); ``mla_decode_ref`` is its plain twin. ``num_splits``
+pallas_call at :474); ``mla_decode_ref`` is its plain twin. The kernel
+divides its work on the device from the lengths (one launch a call; a run
+several blocks share is merged by the last of them); ``work_units`` is that
+division in plain Python. ``num_splits``
 is the JAX formulation (mla.py:403-426): each (sequence, split) becomes a
 pseudo-sequence over its share of the pages, and ``merge_states`` joins the
 partial outputs by their base-2 lse.
@@ -34,7 +37,7 @@ import torch
 import torch.nn.functional as F
 
 from ... import _build
-from ...utils import sm_count
+from ...utils import kept_buffer, sm_count
 from .flash_prefill import LOG2E, flash_attention
 from .merge_state import merge_states
 
@@ -79,22 +82,50 @@ def mla_decode_ref(q_nope, q_pe, kv_cache, lengths, page_table, layer_id=None, *
     return out
 
 
-_ARGS = (ctypes.c_void_p,) * 8 + (ctypes.c_int,) * 9 + (ctypes.c_float, ctypes.c_void_p)
+_ARGS = (ctypes.c_void_p,) * 8 + (ctypes.c_int,) * 8 + (ctypes.c_float, ctypes.c_int, ctypes.c_void_p)
 # pool dtypes of the kernel (csrc/mla_decode.cu)
 _POOL_TYPES = {torch.bfloat16: 0, torch.int8: 1, torch.float8_e4m3fn: 2, torch.float8_e5m2: 3}
-# keys per block when the grid splits sequences: two 64-row tiles
-_SPLIT_KEYS = 128
+UNIT_TOKENS = 64  # pool tokens of one unit of the card's kernel (csrc/mla_decode.cu, kTok)
+HEAD_GROUP = 16  # query heads of a unit: the rows of one m16 MMA tile
+MIN_SHARE = 2  # units a block of the card's kernel takes at least (csrc/mla_decode.cu, kMinShare)
+_PART = HEAD_GROUP * D_LATENT + HEAD_GROUP  # floats of a block's partial (o, lse)
+_BLOCKS_PER_SM = 1  # the kernel's shared memory holds one block an SM
+_MAX_BATCH = 2048  # sequences a launch takes (the kernel keeps their prefix in shared memory)
 
 
-def split_keys_for(batch: int, heads: int, capacity: int, n_sm: int) -> int:
-    """Keys per block of the kernel's own split (0: none): split when one
-    block per (head group, sequence) leaves SMs idle and a sequence can hold
-    more than one span. The lengths stay on the device, so the split follows
-    the page tables' capacity; a span past a sequence's length costs one
-    block that returns at once."""
-    if batch * -(-heads // 16) >= n_sm or capacity <= _SPLIT_KEYS:
-        return 0
-    return _SPLIT_KEYS
+def work_units(lengths, n_blocks: int, page: int, heads: int, grid: int):
+    """The card kernel's division of work, in plain Python (the kernel
+    computes it on the device from the lengths): sequence b holds n_b =
+    min(max(length, 0), n_blocks * page) pool tokens in ceil(n_b / 64) units
+    of 64 aligned tokens (one empty unit when n_b = 0), for each of
+    G = ceil(heads / 16) head groups; unit u = G * pre[b] + h * n_units + j
+    over sequences b, groups h and units j; of the ``grid`` blocks the first
+    g = min(grid, ceil(U / 2)) take [U c / g, U (c + 1) / g) each (at least
+    two units when there are two), the rest nothing.
+    Returns (units, blocks, runs): units[b] = (n_b, n_units); blocks[c] =
+    (u0, u1); runs[(b, h)] = (first block, last block, [the partial slot of
+    each contributing block]): a run one block holds whole needs no slot,
+    else slot 0 where the run is the block's first and 1 where it is its
+    last."""
+    groups = -(-heads // HEAD_GROUP)
+    units, pre = [], [0]
+    for length in lengths:
+        n = max(0, min(int(length), n_blocks * page))
+        cnt = -(-n // UNIT_TOKENS) if n > 0 else 1
+        units.append((n, cnt))
+        pre.append(pre[-1] + cnt)
+    total = groups * pre[-1]
+    grid = min(grid, -(-total // MIN_SHARE))
+    blocks = [(total * c // grid, total * (c + 1) // grid) for c in range(grid)]
+    block_of = lambda u: ((u + 1) * grid + total - 1) // total - 1
+    runs = {}
+    for b, (_, cnt) in enumerate(units):
+        for h in range(groups):
+            us = groups * pre[b] + h * cnt
+            cf, cl = block_of(us), block_of(us + cnt - 1)
+            slots = [] if cf == cl else [1 if c == cf and blocks[c][0] < us else 0 for c in range(cf, cl + 1)]
+            runs[(b, h)] = (cf, cl, slots)
+    return units, blocks, runs
 
 
 def _decode_kernel(q_nope, q_pe, kv_cache, lengths, page_table, layer_id, sm_scale, return_lse):
@@ -107,24 +138,26 @@ def _decode_kernel(q_nope, q_pe, kv_cache, lengths, page_table, layer_id, sm_sca
     pool = kv_cache if layer_id is not None else kv_cache[None]
     lid = 0 if layer_id is None else int(layer_id)
     _, n_pages, page, width = pool.shape
+    dev = q_nope.device
     q = torch.cat([q_nope, q_pe], dim=-1).contiguous()
-    lens = lengths.to(device=q.device, dtype=torch.int32).contiguous()
-    table = page_table.to(device=q.device, dtype=torch.int32).contiguous()
-    out = torch.empty((b, h, D_LATENT), dtype=q.dtype, device=q.device)
-    lse = torch.empty((b, h), dtype=torch.float32, device=q.device) if return_lse else None
-    cap = table.shape[1] * page
-    split = split_keys_for(b, h, cap, sm_count(q.device.index or 0))
-    part_o = part_lse = None
-    if split:
-        n_splits = -(-cap // split)
-        part_o = torch.empty((b, n_splits, h, D_LATENT), dtype=torch.float32, device=q.device)
-        part_lse = torch.empty((b, n_splits, h), dtype=torch.float32, device=q.device)
-    ptr = lambda t: None if t is None else t.data_ptr()
+    lens = lengths.to(device=dev, dtype=torch.int32).contiguous()
+    table = page_table.to(device=dev, dtype=torch.int32)
+    if table.shape[1] == 0:  # nothing in the pool: one padding column, no token reads it
+        table = torch.zeros((b, 1), dtype=torch.int32, device=dev)
+    table = table.contiguous()
+    out = torch.empty((b, h, D_LATENT), dtype=q.dtype, device=dev)
+    lse = torch.empty((b, h), dtype=torch.float32, device=dev) if return_lse else None
+    ws_blocks = _BLOCKS_PER_SM * sm_count(dev.index or 0)
+    ws = kept_buffer("mla_decode_ws", dev, ws_blocks * 2 * _PART, torch.float32)
+    counters = kept_buffer("mla_decode_counters", dev, min(b, _MAX_BATCH) * -(-h // HEAD_GROUP), torch.int32)
     fn = _build.bind("mla_decode", "skt_mla_decode", _ARGS)
-    _build.check(fn(q.data_ptr(), pool.data_ptr(), lens.data_ptr(), table.data_ptr(), out.data_ptr(), ptr(lse),
-                    ptr(part_o), ptr(part_lse), b, h, n_pages, page, width, table.shape[1], lid,
-                    _POOL_TYPES[kv_cache.dtype], split, sm_scale, _build.stream_ptr(q.device)), "mla_decode")
-    mla_decode.launches += 1
+    for s0 in range(0, b, _MAX_BATCH):  # one launch for every decode batch; a long prefill's rows in chunks
+        n = min(b, s0 + _MAX_BATCH) - s0
+        _build.check(fn(q[s0:].data_ptr(), pool.data_ptr(), lens[s0:].data_ptr(), table[s0:].data_ptr(),
+                        out[s0:].data_ptr(), None if lse is None else lse[s0:].data_ptr(), ws.data_ptr(),
+                        counters.data_ptr(), n, h, n_pages, page, width, table.shape[1], lid,
+                        _POOL_TYPES[kv_cache.dtype], sm_scale, ws_blocks, _build.stream_ptr(dev)), "mla_decode")
+        mla_decode.launches += 1
     return (out, lse) if return_lse else out
 
 

@@ -8,8 +8,11 @@ attends only to those latent rows (``sparse_mla_decode``).
 ``fp8_paged_mqa_logits`` is kernel K15, CUDA C++ in ``csrc/mqa_logits.cu``,
 replacing the Pallas ``fp8_paged_mqa_logits`` (nsa.py:141, pallas_call at
 :222); ``fp8_paged_mqa_logits_ref`` is its plain twin. fp8 values convert
-to bf16 exactly, denormals included, where the JAX ``_upcast``
-(paged_decode_dma.py:41-70) flushes them to zero.
+exactly (the twin to bf16, the kernel to fp16 with q as fp16, which holds
+every bf16 q of magnitude 2^-14 to 65,504), denormals included, where the
+JAX ``_upcast`` (paged_decode_dma.py:41-70) flushes them to zero. The
+kernel divides its work on the device from the lengths; ``work_units`` is
+that division in plain Python.
 
 ``sparse_mla_decode`` needs no kernel of its own and no copy of the selected
 rows: the flat latent pool is viewed as pages of one row, [S, 1, 576], so
@@ -31,7 +34,6 @@ from typing import Optional
 import torch
 
 from ... import _build
-from ...utils import sm_count
 from ..hadamard import hadamard_transform
 from ..kvcache import store_cache_mla
 from ..norm import rmsnorm
@@ -70,18 +72,24 @@ def fp8_paged_mqa_logits_ref(q, kv_pages, weights, lengths, page_table, kv_scale
     return torch.where(pos < lengths.to(q.device)[:, None], logits, float("-inf"))
 
 
-_ARGS = (ctypes.c_void_p,) * 7 + (ctypes.c_int,) * 7 + (ctypes.c_void_p,)
+_ARGS = (ctypes.c_void_p,) * 7 + (ctypes.c_int,) * 6 + (ctypes.c_void_p,)
 _KEY_TYPES = {torch.bfloat16: 0, torch.float8_e4m3fn: 2, torch.float8_e5m2: 3}
-_TILE = 64  # keys of one MMA tile in the kernel
+UNIT_KEYS = 64  # keys of one unit of the card's kernel (csrc/mqa_logits.cu, kTok)
+_MAX_BATCH = 4096  # sequences a launch takes (the kernel keeps their prefix in shared memory)
 
 
-def span_tiles_for(batch: int, capacity: int, n_sm: int) -> int:
-    """64-key tiles a block walks: enough blocks for ~4 a SM, at most 8
-    tiles (512 keys) a block, so each block stages q once for several
-    tiles. The lengths stay on the device, so the plan follows the tables'
-    capacity; a block past a sequence's length only writes -inf."""
-    tiles = -(-capacity // _TILE)
-    return max(1, min(8, batch * tiles // (4 * n_sm)))
+def work_units(lengths, n_blocks: int, page: int, grid: int):
+    """The card kernel's division of work, in plain Python (the kernel
+    computes it on the device from the lengths): sequence b holds n_b =
+    min(max(length, 0), n_blocks * page) keys in ceil(n_b / 64) units of 64
+    (none when n_b = 0); unit u = pre[b] + j; of the ``grid`` blocks the
+    first g = min(grid, U) take [U c / g, U (c + 1) / g) each, the rest
+    nothing. Returns (units, blocks): units[b] = (n_b, n_units); blocks[c] =
+    (u0, u1)."""
+    units = [(n, -(-n // UNIT_KEYS)) for n in (max(0, min(int(x), n_blocks * page)) for x in lengths)]
+    total = sum(cnt for _, cnt in units)
+    grid = min(grid, total)
+    return units, [(total * c // grid, total * (c + 1) // grid) for c in range(grid)]
 
 
 def fp8_paged_mqa_logits(q, kv_pages, weights, lengths, page_table, kv_scales=None, *, chunk_pages: int = 16):
@@ -114,12 +122,14 @@ def fp8_paged_mqa_logits(q, kv_pages, weights, lengths, page_table, kv_scales=No
     table = page_table.to(device=dev, dtype=torch.int32).contiguous()
     n_blocks = table.shape[1]
     out = torch.empty((b, n_blocks * page), dtype=torch.float32, device=dev)
-    span = span_tiles_for(b, n_blocks * page, sm_count(dev.index or 0))
     fn = _build.bind("mqa_logits", "skt_fp8_paged_mqa_logits", _ARGS)
-    _build.check(fn(qb.data_ptr(), kv_pages.data_ptr(), w.data_ptr(), None if scales is None else scales.data_ptr(),
-                    lens.data_ptr(), table.data_ptr(), out.data_ptr(), b, h, n_pages, page, n_blocks,
-                    _KEY_TYPES[kv_pages.dtype], span, _build.stream_ptr(dev)), "fp8_paged_mqa_logits")
-    fp8_paged_mqa_logits.launches += 1
+    for s0 in range(0, b, _MAX_BATCH):  # one launch for every decode batch
+        n = min(b, s0 + _MAX_BATCH) - s0
+        _build.check(fn(qb[s0:].data_ptr(), kv_pages.data_ptr(), w[s0:].data_ptr(),
+                        None if scales is None else scales.data_ptr(), lens[s0:].data_ptr(), table[s0:].data_ptr(),
+                        out[s0:].data_ptr(), n, h, n_pages, page, n_blocks, _KEY_TYPES[kv_pages.dtype],
+                        _build.stream_ptr(dev)), "fp8_paged_mqa_logits")
+        fp8_paged_mqa_logits.launches += 1
     return out
 
 
@@ -198,8 +208,9 @@ def sparse_mla_decode(q_nope, q_pe, kv_pool_flat, slot_indices, *, sm_scale: Opt
     merge. Returns [B, H, 512] in q's dtype (+ base-2 lse [B, H]).
 
     Each pool runs K13a over the pool viewed as one-row pages, the slots as
-    the page table, so no row is copied. ``page`` sizes the TPU's gathered
-    pseudo-pool and has no meaning here."""
+    the page table, so no row is copied; the kernel divides its work by the
+    selection counts (on the device), not by the table's width. ``page``
+    sizes the TPU's gathered pseudo-pool and has no meaning here."""
     scale = sm_scale if sm_scale is not None else 1.0 / D_CKV ** 0.5
     dev = q_nope.device
 

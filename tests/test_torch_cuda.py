@@ -1256,18 +1256,111 @@ def test_packed_576_group16(gen, n):
 
 
 def test_mla_decode_unsplit_grid(gen):
-    """A batch that fills the card with one block per sequence takes the
-    kernel's one-pass form (no split, no merge); a smaller one splits
-    (test_mla_decode above)."""
+    """A batch of 140 sequences, more runs than the card has SMs: the grid is
+    the card's own (sm_count blocks, whatever the batch), most runs are
+    whole in one block and the rest are merged by the last block to arrive
+    (work_units' division), all against the twin."""
     lengths = [1 + (37 * i) % 200 for i in range(140)]
     pool, table, lens = mla_pool(gen, lengths, 16, 576, 1, torch.bfloat16)
-    assert mla.split_keys_for(140, 16, table.shape[1] * 16, sm_count(0)) == 0
-    assert mla.split_keys_for(6, 16, table.shape[1] * 16, sm_count(0)) > 0
+    _, blocks, runs = mla.work_units(lengths, table.shape[1], 16, 16, sm_count(0))
+    assert len(blocks) == sm_count(0)
+    assert any(cf == cl for cf, cl, _ in runs.values()) and any(cf != cl for cf, cl, _ in runs.values())
     qn, qp = randn(gen, 140, 16, 512), randn(gen, 140, 16, 64)
     out, lse = mla.mla_decode(qn, qp, pool[0], lens, table, return_lse=True)
     ref, ref_lse = mla.mla_decode_ref(qn, qp, pool[0], lens, table, return_lse=True)
     assert_elementwise(out, ref)
     assert torch.allclose(lse, ref_lse, rtol=1e-5, atol=1e-4)
+
+
+def uncovered_rows(table, lengths, page, n_pages):
+    """[n_pages * page] True at every pool row no sequence's length covers
+    (the rest of each last page, the pages no table holds)."""
+    keep = torch.zeros(n_pages * page, dtype=torch.bool, device="cuda")
+    for i, n in enumerate(lengths):
+        t = torch.arange(n, device="cuda")
+        keep[table[i, t // page].long() * page + t % page] = True
+    return ~keep
+
+
+def with_nan(x, rows):
+    """A copy of ``x`` with NaN bits (int8: 127) in every row (its leading
+    dims flattened to rows' length) where ``rows`` is set."""
+    view, nan = {1: (torch.uint8, 0x7F), 2: (torch.int16, 0x7FC0), 4: (torch.int32, 0x7FC00000)}[x.element_size()]
+    y = x.clone()
+    y.view(view).view(rows.shape[0], -1)[rows] = nan
+    return y
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.int8, torch.float8_e4m3fn])
+@pytest.mark.parametrize("page,width", [(1, 576), (1, 640), (16, 576), (64, 640), (128, 576)])
+def test_mla_decode_nan_past_lengths(gen, dtype, page, width):
+    """One-row pages (NSA's view of the pool), 640-wide rows and pages of 16,
+    64 and 128: NaN in every row past the lengths, in the pages no table
+    holds and in the pad lanes of a 640-wide pool changes nothing, bit for
+    bit; against the twin on the clean pool."""
+    lengths = [1, 0, 63, 64, 65, 300]
+    pool, table, lens = mla_pool(gen, lengths, page, width, 2, dtype)
+    qn, qp = randn(gen, len(lengths), 16, 512), randn(gen, len(lengths), 16, 64)
+    kw = dict(sm_scale=0.01 if dtype == torch.int8 else 1 / 576 ** 0.5, return_lse=True)
+    out, lse = mla.mla_decode(qn, qp, pool, lens, table, 1, **kw)
+    ref, ref_lse = mla.mla_decode_ref(qn, qp, pool, lens, table, 1, **kw)
+    assert_elementwise(out, ref)
+    assert torch.allclose(lse, ref_lse, rtol=1e-5, atol=1e-4)
+    dirty = pool.clone()
+    dirty[1] = with_nan(pool[1], uncovered_rows(table, lengths, page, pool.shape[1]))
+    if width == 640:
+        dirty[..., 576:] = with_nan(dirty[..., 576:].contiguous(), torch.ones(1, dtype=torch.bool, device="cuda"))
+    out2, lse2 = mla.mla_decode(qn, qp, dirty, lens, table, 1, **kw)
+    assert torch.equal(out2, out) and torch.equal(lse2, lse)
+
+
+@pytest.mark.parametrize("h", [1, 16, 32, 128])
+@pytest.mark.parametrize("page", [1, 64])
+def test_mla_decode_heads_bit_equal(gen, h, page):
+    """H of 1, 16, 32 and 128 (one to eight head groups; DeepSeek-V3 has
+    128) over B=16 contexts 1..1,056 on pages of 64 and on one-row pages:
+    against the twin, and two calls bit-equal."""
+    lengths = [1 + (1055 * i) // 15 for i in range(16)]
+    pool, table, lens = mla_pool(gen, lengths, page, 576, 1, torch.bfloat16)
+    qn, qp = randn(gen, 16, h, 512), randn(gen, 16, h, 64)
+    out, lse = mla.mla_decode(qn, qp, pool, lens, table, 0, return_lse=True)
+    ref, ref_lse = mla.mla_decode_ref(qn, qp, pool, lens, table, 0, return_lse=True)
+    assert_elementwise(out, ref)
+    assert torch.allclose(lse, ref_lse, rtol=1e-5, atol=1e-4)
+    out2, lse2 = mla.mla_decode(qn, qp, pool, lens, table, 0, return_lse=True)
+    assert torch.equal(out2, out) and torch.equal(lse2, lse)
+
+
+def replay_as_lengths_change(fn, lens, new_lengths):
+    """One CUDA graph of ``fn`` captured once, replayed after each list of
+    ``new_lengths`` is written into ``lens`` in place; yields (replayed,
+    eager) outputs."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fn()
+    for new in new_lengths:
+        lens.copy_(torch.tensor(new, dtype=torch.int32))
+        graph.replay()
+        torch.cuda.synchronize()
+        yield out, fn()
+
+
+def test_mla_decode_graph_lengths(gen):
+    """A captured graph replayed as the lengths change in place (longer,
+    shorter, zero, all one) equals the eager call at those lengths bit for
+    bit: the division of work is made on the device at every launch."""
+    lengths = [1 + (1055 * i) // 15 for i in range(16)]
+    pool, table, lens = mla_pool(gen, lengths, 64, 576, 2, torch.int8)
+    qn, qp = randn(gen, 16, 16, 512), randn(gen, 16, 16, 64)
+    fn = lambda: mla.mla_decode(qn, qp, pool, lens, table, 1, sm_scale=0.01, return_lse=True)
+    news = [[n + 1 for n in lengths], lengths[::-1], [0] * 8 + lengths[8:], [1] * 16]
+    for (out, lse), (eager, eager_lse) in replay_as_lengths_change(fn, lens, news):
+        assert torch.equal(out, eager) and torch.equal(lse, eager_lse)
 
 
 def mqa_case(gen, lengths, page, h, key_dtype, spare_cols=2):
@@ -1357,6 +1450,34 @@ def test_fp8_paged_mqa_logits_converts_every_code(gen, kind):
         out = nsa.fp8_paged_mqa_logits(q, keys, torch.ones(1, device="cuda"),
                                        torch.tensor([n], dtype=torch.int32, device="cuda"), table)
         assert torch.equal(out[0, :n].cpu(), torch.clamp_min(sign * vals, 0.0))
+
+
+@pytest.mark.parametrize("h", [1, 16, 64, 65, 128])
+@pytest.mark.parametrize("key_dtype,page", [(torch.float8_e4m3fn, 64), (torch.bfloat16, 64), (torch.float8_e5m2, 1)])
+def test_fp8_paged_mqa_logits_heads_nan_bit_equal(gen, h, key_dtype, page):
+    """H of 1, 16, 64, 65 and 128 (one or two 64-head tiles): against the
+    twin, two calls bit-equal, and NaN in every key row and scale past the
+    lengths (and in the padding page) changes nothing, bit for bit."""
+    lengths = [0, 1, 64, 65, 1000, 333]
+    q, keys, w, scales, lens, table = mqa_case(gen, lengths, page, h, key_dtype)
+    out = nsa.fp8_paged_mqa_logits(q, keys, w, lens, table, scales)
+    check_logits(out, nsa.fp8_paged_mqa_logits_ref(q, keys, w, lens, table, scales))
+    assert torch.equal(nsa.fp8_paged_mqa_logits(q, keys, w, lens, table, scales), out)
+    rows = uncovered_rows(table, lengths, page, keys.shape[0])
+    out2 = nsa.fp8_paged_mqa_logits(q, with_nan(keys, rows), w, lens, table, with_nan(scales, rows))
+    assert torch.equal(out2, out)
+
+
+def test_fp8_paged_mqa_logits_graph_lengths(gen):
+    """The engine's decode shape (64 heads, B=16, contexts 1..1,056, tables
+    of 8,192 tokens): a captured graph replayed as the lengths change in
+    place equals the eager call bit for bit, the -inf tail included."""
+    lengths = [1 + (1055 * i) // 15 for i in range(16)]
+    q, keys, w, scales, lens, table = mqa_case(gen, lengths, 64, 64, torch.float8_e4m3fn, spare_cols=100)
+    fn = lambda: nsa.fp8_paged_mqa_logits(q, keys, w, lens, table, scales)
+    news = [[n + 64 for n in lengths], lengths[::-1], [0] * 8 + lengths[8:], [1] * 16]
+    for out, eager in replay_as_lengths_change(fn, lens, news):
+        assert torch.equal(out, eager)
 
 
 @pytest.mark.parametrize("dtype,width", [(torch.bfloat16, 576), (torch.bfloat16, 640), (torch.int8, 640),

@@ -103,14 +103,45 @@ def test_mla_decode_twin(pool_dtype, q_dtype, width, splits):
         close(to1, jo1, 2.0 ** -6 if q_dtype == "bf16" else 2e-5)
 
 
-def test_split_keys_policy():
-    """K13a splits a sequence's keys over blocks only when one block per
-    (head group, sequence) would leave SMs idle and the tables hold more
-    than one span."""
-    assert mla.split_keys_for(16, 16, 8192, 132) == 128
-    assert mla.split_keys_for(16, 16, 128, 132) == 0
-    assert mla.split_keys_for(132, 16, 8192, 132) == 0
-    assert mla.split_keys_for(8, 128, 8192, 132) == 128  # 8 groups of 16 heads a sequence
+@pytest.mark.parametrize("page", [1, 16, 64, 128])
+@pytest.mark.parametrize("grid", [1, 2, 17, 132, 264])
+@pytest.mark.parametrize("heads", [1, 16, 40])
+def test_mla_decode_work_units(page, grid, heads):
+    """K13a's division of work (``work_units`` mirrors what the kernel
+    computes on the device from the lengths): the blocks' shares tile all
+    units in order over min(grid, ceil(units / 2)) blocks (two units a block
+    where the grid allows) and differ by at most one unit; every (sequence, head
+    group, 64-token unit) is covered exactly once and a run's units cover its
+    tokens [0, min(length, capacity)) once (a length-0 run: one empty unit);
+    the blocks that share a run are the ones whose shares meet it, and their
+    partial slots never collide."""
+    n_blocks = -(-130 // page)  # a table of 130 tokens or just over
+    cap = n_blocks * page
+    lengths = [0, 1, 63, 64, 65, cap, cap + 77]  # the last two: the table's capacity and beyond it
+    units, blocks, runs = mla.work_units(lengths, n_blocks, page, heads, grid)
+    groups = -(-heads // 16)
+    total = groups * sum(cnt for _, cnt in units)
+    sizes = [u1 - u0 for u0, u1 in blocks]
+    assert len(blocks) == min(grid, -(-total // 2)) and min(sizes) >= 1 and max(sizes) - min(sizes) <= 1
+    assert blocks[0][0] == 0 and blocks[-1][1] == total
+    assert all(blocks[c][1] == blocks[c + 1][0] for c in range(len(blocks) - 1))
+    order = [(b, h, j) for b, (_, cnt) in enumerate(units) for h in range(groups) for j in range(cnt)]
+    assert len(order) == total and len(set(order)) == total  # each (sequence, group, unit) once
+    used, u = set(), 0
+    for b, (n, cnt) in enumerate(units):
+        assert n == max(0, min(lengths[b], cap)) and cnt == (max(1, -(-n // 64)))
+        covered = [t for j in range(cnt) for t in range(j * 64, min(n, j * 64 + 64))]
+        assert covered == list(range(n))
+        for h in range(groups):
+            cf, cl, slots = runs[(b, h)]
+            owners = [c for c, (u0, u1) in enumerate(blocks) if u0 < u + cnt and u1 > u]
+            assert owners == list(range(cf, cl + 1))
+            assert len(slots) == (0 if cf == cl else cl - cf + 1)
+            for c, slot in zip(range(cf, cl + 1), slots):
+                assert (c, slot) not in used
+                used.add((c, slot))
+            u += cnt
+    assert u == total
 
 
 def test_mla_decode_raises():

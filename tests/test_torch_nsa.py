@@ -116,6 +116,36 @@ def test_k15_twin(kind, scaled, h):
     assert nsa.fp8_paged_mqa_logits.launches == 0  # CPU tensors: the twin
 
 
+@pytest.mark.parametrize("page", [1, 16, 64, 128])
+@pytest.mark.parametrize("grid", [1, 2, 17, 132, 264])
+def test_k15_work_units(page, grid):
+    """K15's division of work (``work_units`` mirrors what the kernel
+    computes on the device from the lengths): the blocks' shares tile all
+    units in order and differ by at most one unit; every (sequence, 64-key
+    unit) is covered exactly once, and a sequence's units cover its keys
+    [0, min(length, capacity)) once (none at length 0: its row is all -inf,
+    written by the kernel's tail pass)."""
+    n_blocks = -(-130 // page)  # a table of 130 tokens or just over
+    cap = n_blocks * page
+    lengths = [0, 1, 63, 64, 65, cap, cap + 77]  # the last two: the table's capacity and beyond it
+    units, blocks = nsa.work_units(lengths, n_blocks, page, grid)
+    total = sum(cnt for _, cnt in units)
+    sizes = [u1 - u0 for u0, u1 in blocks]
+    assert len(blocks) == min(grid, total) and min(sizes) >= 1 and max(sizes) - min(sizes) <= 1
+    assert blocks[0][0] == 0 and blocks[-1][1] == total
+    assert all(blocks[c][1] == blocks[c + 1][0] for c in range(len(blocks) - 1))
+    seen = []
+    for (u0, u1) in blocks:
+        for u in range(u0, u1):  # unit u -> (sequence, unit of the sequence), as the kernel walks them
+            b = max(i for i in range(len(units)) if sum(c for _, c in units[:i]) <= u and units[i][1] > 0)
+            seen.append((b, u - sum(c for _, c in units[:b])))
+    assert len(seen) == len(set(seen)) == total
+    for b, (n, cnt) in enumerate(units):
+        assert n == max(0, min(lengths[b], cap)) and cnt == -(-n // 64)
+        keys = [t for (bb, j) in seen if bb == b for t in range(j * 64, min(n, j * 64 + 64))]
+        assert sorted(keys) == list(range(n))
+
+
 @pytest.mark.parametrize("kind", ["e4m3", "e5m2"])
 def test_k15_fp8_keys_convert_exactly(kind):
     """Every finite fp8 code, denormals included, scored by a one-hot q of

@@ -1,39 +1,77 @@
-"""Device time of the decode kernels K5 and K1 for the port found at ROOT.
+"""Device time of the decode kernels K5, K1, K13a and K15 for the port found at ROOT.
 
 Times, with CUDA graphs (chip_smoke.py's method: the calls captured and
-replayed, so the host launch path is not measured), K5 at B=16 over
-contexts 1..1,056 (32-layer pools, 128-column tables, fresh rows), at
-B=16 x 8,192 and at B=1 x 32,768 (16 splits and unsplit), and K1 at the
-five W4A16 Llama-3-8B decode GEMMs (M=16, group 128: qkv and gate_up with
-the norm, o with a residual, down on the gate / up halves with silu and a
-residual, lm_head with the norm). Inputs come from a fixed seed, so two
-trees see the same data. To compare two trees on one card, run them in
-turns in one call (old, new, new, old):
+replayed, so the host launch path is not measured):
+- k5: K5 at B=16 over contexts 1..1,056 (32-layer pools, 128-column tables,
+  fresh rows), at B=16 x 8,192 and at B=1 x 32,768 (16 splits and unsplit);
+- k1: K1 at the five W4A16 Llama-3-8B decode GEMMs (M=16, group 128: qkv
+  and gate_up with the norm, o with a residual, down on the gate / up halves
+  with silu and a residual, lm_head with the norm);
+- k13a: K13a at DeepSeek-V2-Lite's decode (16 heads, B=16, contexts
+  1..1,056, page 64, 128-column tables; bf16, int8 and e4m3 pools), at
+  NSA's sparse shape (B=16 x 2,048 rows selected from the pool viewed as
+  one-row pages; int8 and bf16) and at B=16 x 8,192 (bf16, dense pages);
+- k15: K15 at the NSA indexer's decode (64 heads of 128, B=16, contexts
+  1..1,056, 8,192-token tables, e4m3 keys with scales; and bf16 keys), at
+  B=16 x 8,192 and at B=1 x 32,768;
+- floor: one empty kernel (``torch.cuda._sleep(0)``) a graph node, the
+  least a kernel of the decode step costs on the device.
+K13a and K15 rows are timed warm (the same inputs call after call) and cold
+(``_cold`` rows: the calls cycle the layers of a stacked pool, or the rows
+selected from it, of at least 150 MB, three times the L2, so each call
+reads its rows from device memory as a model's step does). Inputs come
+from a fixed seed, so two trees see the same data. To compare two trees on
+one card, run them in turns in one call (old, new, new, old):
 
-    python tools/decode_ab.py OLD_TREE; python tools/decode_ab.py .
+    python tools/decode_ab.py OLD_TREE k13a,k15,floor; python tools/decode_ab.py . k13a,k15,floor
 
-Prints the card's name and power limit, then one JSON line of ms.
+The second argument picks the groups (all four and the floor by default).
+Only the sources the groups use are compiled. Prints the card's name and
+power limit, then one JSON line of ms.
 """
 
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
 from pathlib import Path
 
+GROUPS = ("k5", "k1", "k13a", "k15", "floor")
+SOURCES = {"k5": ("decode_attention",), "k1": ("w4a16_decode", "w4a16_gemm"), "k13a": ("mla_decode",),
+           "k15": ("mqa_logits",), "floor": ()}
+COLD_BYTES = 150e6  # three times the 50 MB L2
 
-def main(root: Path) -> None:
+
+def build(_build, stems):
+    """Compile the named sources of the tree (those not built yet), side by side."""
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    jobs = []
+    for stem in stems:
+        out = _build._lib_path(_build.CSRC / f"{stem}.cu")
+        if not out.exists():
+            tmp = out.with_suffix(f".{os.getpid()}.tmp")
+            jobs.append((out, tmp, _build._start(_build.CSRC / f"{stem}.cu", tmp)))
+    for out, tmp, proc in jobs:
+        text, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed:\n{text}")
+        os.replace(tmp, out)
+
+
+def main(root: Path, groups) -> None:
     sys.path.insert(0, str(root))
     import torch
 
     import sgl_kernel_tpu_torch as skt
     from sgl_kernel_tpu_torch import _build
+    from sgl_kernel_tpu_torch.ops.attention import mla, nsa
     from sgl_kernel_tpu_torch.ops.attention import paged_decode_dma as pd
     from sgl_kernel_tpu_torch.ops.gemm import w4a16
 
     assert Path(skt.__file__).resolve().parent.parent == root.resolve(), skt.__file__
-    _build.build_all()
+    build(_build, [s for g in groups for s in SOURCES[g]])
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True)
     print(smi.stdout.strip().splitlines()[0], flush=True)
@@ -41,13 +79,7 @@ def main(root: Path) -> None:
     gen = torch.Generator(device=dev).manual_seed(20261017)
     bf = torch.bfloat16
 
-    def graph_ms(fn, reps=20):
-        fn()
-        torch.cuda.synchronize()
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
-            for _ in range(reps):
-                fn()
+    def replay_ms(graph, reps):
         graph.replay()
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         torch.cuda.synchronize()
@@ -58,46 +90,142 @@ def main(root: Path) -> None:
         torch.cuda.synchronize()
         return start.elapsed_time(end) / 5 / reps
 
-    def randn(*shape):
-        return torch.randn(shape, generator=gen, device=dev).to(bf)
+    def graph_ms(fn, reps=20):
+        fn()
+        torch.cuda.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            for _ in range(reps):
+                fn()
+        return replay_ms(graph, reps)
 
-    res = {"root": str(root)}
-    for name, lengths, cols, layers, splits in (
-            ("k5_ragged", [1 + (1055 * i) // 15 for i in range(16)], 128, 32, 1),
-            ("k5_ctx8192", [8192] * 16, 128, 1, 1), ("k5_32k_split16", [32768], 512, 1, 16),
-            ("k5_32k_unsplit", [32768], 512, 1, 1)):
-        used = [-(-(n - 1) // 64) for n in lengths]
+    def cold_ms(fn, layers):
+        """fn(i) reads layer i's rows; a graph of max(24, layers) calls, call i
+        on layer i % layers, so no call finds its rows in L2."""
+        reps = max(24, layers)
+        for i in range(layers):
+            fn(i)
+        torch.cuda.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            for i in range(reps):
+                fn(i % layers)
+        return replay_ms(graph, reps)
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen, device=dev) * scale).to(bf)
+
+    def paged(lengths, page, cols):
+        """A table of ``cols`` columns holding each length's pages from a
+        permutation of pages 1..; returns (table, pages used)."""
+        used = [-(-n // page) for n in lengths]
         table = torch.zeros((len(lengths), cols), dtype=torch.int32, device=dev)
         perm = torch.randperm(sum(used), generator=gen, device=dev).to(torch.int32) + 1
         at = 0
         for i, n in enumerate(used):
             table[i, :n] = perm[at: at + n]
             at += n
-        kp, vp = randn(layers, sum(used) + 1, 8, 64, 128), randn(layers, sum(used) + 1, 8, 64, 128)
-        b = len(lengths)
-        q, fk, fv = randn(b, 32, 128), randn(b, 8, 128), randn(b, 8, 128)
-        lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
-        kw = dict(layer_id=layers - 1, fresh_k=fk, fresh_v=fv, num_splits=splits, chunk_pages=16)
-        res[name] = graph_ms(lambda: pd.paged_attention_decode_dma(q, kp, vp, lens, table, **kw))
-        del kp, vp
+        return table, sum(used)
+
+    ragged = [1 + (1055 * i) // 15 for i in range(16)]
+    res = {"root": str(root)}
+    if "k5" in groups:
+        for name, lengths, cols, layers, splits in (
+                ("k5_ragged", ragged, 128, 32, 1), ("k5_ctx8192", [8192] * 16, 128, 1, 1),
+                ("k5_32k_split16", [32768], 512, 1, 16), ("k5_32k_unsplit", [32768], 512, 1, 1)):
+            table, n_used = paged([n - 1 for n in lengths], 64, cols)
+            kp, vp = randn(layers, n_used + 1, 8, 64, 128), randn(layers, n_used + 1, 8, 64, 128)
+            b = len(lengths)
+            q, fk, fv = randn(b, 32, 128), randn(b, 8, 128), randn(b, 8, 128)
+            lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
+            kw = dict(layer_id=layers - 1, fresh_k=fk, fresh_v=fv, num_splits=splits, chunk_pages=16)
+            res[name] = graph_ms(lambda: pd.paged_attention_decode_dma(q, kp, vp, lens, table, **kw))
+            del kp, vp
+            torch.cuda.empty_cache()
+    if "k1" in groups:
+        for name, n, k, opt in (("k1_qkv", 6144, 4096, "norm"), ("k1_o", 4096, 4096, "residual"),
+                                ("k1_gate_up", 28672, 4096, "norm"), ("k1_down", 4096, 14336, "fused"),
+                                ("k1_lm_head", 129024, 4096, "norm")):
+            w, s, _ = w4a16.quantize_w4(torch.randn((n, k), generator=gen, device=dev) * 0.02, group_size=128)
+            a = randn(16, 2 * k if opt == "fused" else k)
+            kw = dict(group_size=128)
+            if opt == "norm":
+                kw["norm_weight"] = randn(k)
+            elif opt == "residual":
+                kw["residual"] = randn(16, n)
+            else:
+                kw.update(prologue="silu_mul", fused_gate_up=True, residual=randn(16, n))
+            res[name] = graph_ms(lambda: w4a16.w4a16_gemm(a, w, s, **kw))
+            del w, s, a
+            torch.cuda.empty_cache()
+    if "k13a" in groups:
+        sm = 1.0 / 192 ** 0.5  # V2-Lite's qk_nope 128 + rope 64
+        qn, qp = randn(16, 16, 512, scale=0.3), randn(16, 16, 64, scale=0.3)
+
+        def pool_of(shape, dt):
+            if dt == torch.int8:
+                return torch.randint(-127, 128, shape, generator=gen, device=dev, dtype=torch.int32).to(dt)
+            return randn(*shape, scale=1.0 if dt == bf else 2.0).to(dt)
+
+        table, n_used = paged(ragged, 64, 128)
+        lens = torch.tensor(ragged, dtype=torch.int32, device=dev)
+        for kind, dt in (("bf16", bf), ("int8", torch.int8), ("e4m3", torch.float8_e4m3fn)):
+            layers = max(2, -(-int(COLD_BYTES) // (n_used * 64 * 576 * dt.itemsize)))
+            pool = pool_of((layers, n_used + 1, 64, 576), dt)
+            kw = dict(sm_scale=sm, return_lse=True)
+            res[f"k13a_{kind}"] = graph_ms(lambda: mla.mla_decode(qn, qp, pool, lens, table, 1, **kw))
+            res[f"k13a_{kind}_cold"] = cold_ms(lambda i: mla.mla_decode(qn, qp, pool, lens, table, i, **kw), layers)
+            del pool
+            torch.cuda.empty_cache()
+        # NSA: each sequence's 2,048 selected rows of a flat pool of one-row
+        # pages; the cold rows select from another part of a pool of >= 150 MB
+        sel = 16 * 2048
+        lens = torch.full((16,), 2048, dtype=torch.int32, device=dev)
+        for kind, dt in (("int8", torch.int8), ("bf16", bf)):
+            layers = max(2, -(-int(COLD_BYTES) // (sel * 576 * dt.itemsize)))
+            rows = pool_of((layers * sel, 1, 576), dt)
+            tables = [(torch.randperm(sel, generator=gen, device=dev).to(torch.int32) + i * sel).reshape(16, 2048)
+                      for i in range(layers)]
+            kw = dict(sm_scale=sm, return_lse=True)
+            res[f"k13a_nsa_{kind}"] = graph_ms(lambda: mla.mla_decode(qn, qp, rows, lens, tables[0], **kw))
+            res[f"k13a_nsa_{kind}_cold"] = cold_ms(lambda i: mla.mla_decode(qn, qp, rows, lens, tables[i], **kw),
+                                                   layers)
+            del rows, tables
+            torch.cuda.empty_cache()
+        # B=16 x 8,192, bf16, dense pages of 64: 151 MB a call, three L2s
+        table, n_used = paged([8192] * 16, 64, 128)
+        pool = pool_of((1, n_used + 1, 64, 576), bf)
+        lens = torch.full((16,), 8192, dtype=torch.int32, device=dev)
+        res["k13a_ctx8192_bf16"] = graph_ms(lambda: mla.mla_decode(qn, qp, pool, lens, table, 0, sm_scale=sm))
+        del pool
         torch.cuda.empty_cache()
-    for name, n, k, opt in (("k1_qkv", 6144, 4096, "norm"), ("k1_o", 4096, 4096, "residual"),
-                            ("k1_gate_up", 28672, 4096, "norm"), ("k1_down", 4096, 14336, "fused"),
-                            ("k1_lm_head", 129024, 4096, "norm")):
-        w, s, _ = w4a16.quantize_w4(torch.randn((n, k), generator=gen, device=dev) * 0.02, group_size=128)
-        a = randn(16, 2 * k if opt == "fused" else k)
-        kw = dict(group_size=128)
-        if opt == "norm":
-            kw["norm_weight"] = randn(k)
-        elif opt == "residual":
-            kw["residual"] = randn(16, n)
-        else:
-            kw.update(prologue="silu_mul", fused_gate_up=True, residual=randn(16, n))
-        res[name] = graph_ms(lambda: w4a16.w4a16_gemm(a, w, s, **kw))
-        del w, s, a
-        torch.cuda.empty_cache()
+    if "k15" in groups:
+        for name, lengths, cols, kdt in (("k15_decode", ragged, 128, torch.float8_e4m3fn),
+                                         ("k15_decode_bf16", ragged, 128, bf),
+                                         ("k15_ctx8192", [8192] * 16, 128, torch.float8_e4m3fn),
+                                         ("k15_32k", [32768], 512, torch.float8_e4m3fn)):
+            table, n_used = paged(lengths, 64, cols)
+            per = n_used * 64 * (128 * kdt.itemsize + (4 if kdt != bf else 0))
+            layers = max(2, -(-int(COLD_BYTES) // per))
+            n_pages = n_used + 1
+            keys = (torch.randn((layers * n_pages, 64, 128), generator=gen, device=dev) * 2).to(kdt)
+            scales = (None if kdt == bf else
+                      torch.rand((layers * n_pages, 64), generator=gen, device=dev) * 0.01 + 1e-3)
+            b = len(lengths)
+            q = randn(b, 64, 128, scale=0.5)
+            w = torch.sigmoid(torch.randn((b, 64), generator=gen, device=dev))
+            lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
+            tables = [table + i * n_pages for i in range(layers)]
+            res[name] = graph_ms(lambda: nsa.fp8_paged_mqa_logits(q, keys, w, lens, tables[0], scales))
+            res[f"{name}_cold"] = cold_ms(lambda i: nsa.fp8_paged_mqa_logits(q, keys, w, lens, tables[i], scales),
+                                          layers)
+            del keys, scales, tables
+            torch.cuda.empty_cache()
+    if "floor" in groups:
+        res["floor_empty_kernel"] = graph_ms(lambda: torch.cuda._sleep(0), reps=100)
     print(json.dumps(res), flush=True)
 
 
 if __name__ == "__main__":
-    main(Path(sys.argv[1]) if len(sys.argv) > 1 else Path("."))
+    main(Path(sys.argv[1]) if len(sys.argv) > 1 else Path("."),
+         sys.argv[2].split(",") if len(sys.argv) > 2 else GROUPS)
