@@ -124,7 +124,12 @@ every K13a and K15 row (calls cycling the layers of a >= 150 MB stacked
 pool, or the parts of a flat one); two calls bit-equal for every K13a and
 K15 row; the launch floor (one empty kernel, torch.cuda._sleep(0), a
 CUDA-graph node); the DeepSeek and NSA profiles' K13a and K15 device ms and
-launches a step. Each phase prints its time ([time] lines).
+launches a step. Slice 14 (K16 on the wgmma flash tile with a producer
+warp; K13b on K13a's kernel): K16's rows give TFLOP/s on the schedule's
+visible pairs beside SDPA's on the dense causal pairs, and the varlen path
+K16's device ms (CUDA events around its call in one more run); K13b's
+rows give K13a's CUDA-graph ms on the same shape and pool beside their
+own. Each phase prints its time ([time] lines).
 
 Prints a JSON line of per-kernel numbers, then, last,
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -732,6 +737,32 @@ def kernels_per_call(torch, fn, calls=4):
     return res
 
 
+def inner_call_ms(torch, module, attr, fn):
+    """(device ms, calls) of the calls that one call of ``fn`` makes to
+    ``module.attr`` (a kernel's wrapper), CUDA events recorded on the stream
+    around each: the kernel's device time inside a path whose other work
+    (gathers, copies) runs on the same stream."""
+    real, spans = getattr(module, attr), []
+
+    def timed(*args, **kw):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = real(*args, **kw)
+        end.record()
+        spans.append((start, end))
+        return out
+
+    timed.launches = real.launches  # the wrapper counts on its module-level name, now this one
+    setattr(module, attr, timed)
+    try:
+        fn()
+    finally:
+        setattr(module, attr, real)
+        real.launches = timed.launches
+    torch.cuda.synchronize()
+    return sum(start.elapsed_time(end) for start, end in spans), len(spans)
+
+
 def phase_w4a16(torch, skt):
     """K1 against its plain version at the W4A16 Llama-3-8B GEMMs: the five
     decode GEMMs of a step (M=16) with the prologue and epilogue each has on
@@ -1328,7 +1359,7 @@ def report_row(torch, name, row, dev_fn=None):
     if dev_fn is not None:
         row["graph_ms"] = graph_ms(torch, dev_fn)
     extra = "".join(f" {key}={row[key]:.4f}" for key in ("graph_ms", "cold_ms", "library_graph_ms", "tflops",
-                                                          "library_tflops") if row.get(key) is not None)
+                                                          "library_tflops", "k13a_graph_ms") if row.get(key) is not None)
     log(f"[kernel] {name}: ms={row['ms']:.4f}{extra} plain_ms={row['plain_ms']:.4f} library_ms={lib} "
         f"bound_ms={row['bound_ms']:.4f} ({row['bound_by']}) {row.get('library_note', '')}")
     return row
@@ -2063,9 +2094,11 @@ def phase_nsa_kernels(torch, skt):
         n_bytes = (sum(decode_lens) * 576 * pool.element_size() + b * nh * (576 + 512) * 2 + b * nh * 4
                    + n_used * 4 + b * 4)
         bms, bby = bound_ms(n_bytes, 2 * nh * (576 + 512) * sum(decode_lens), BF16_FLOPS)
+        k13a_fn = lambda: mla.mla_decode(qn, qp, pool, lengths, table, 1, **kw)
         report(f"mla_decode_dma_{kind}", dict(
             max_abs_err=err, ms=time_ms(torch, fn), plain_ms=time_ms(torch, ref_fn), library_ms=None,
-            library_note="no PyTorch call attends over a paged pool", bound_ms=bms, bound_by=bby), fn)
+            library_note="no PyTorch call attends over a paged pool", bound_ms=bms, bound_by=bby,
+            k13a_graph_ms=graph_ms(torch, k13a_fn)), fn)
         del pool
     return rows
 
@@ -2808,12 +2841,13 @@ def kernels_k16(torch, skt, gen, scales, report):
             bms, bby = bound_ms(n_bytes, 4 * d * pairs, BF16_FLOPS)
             qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
             lib_fn = functools.partial(F.scaled_dot_product_attention, qt, kt, vt, is_causal=True)
+            ms, lib_ms = time_ms(torch, fn, iters=5), time_ms(torch, lib_fn, iters=5)
+            dense = nh * s * (s + 1) // 2
             report(f"sparse_attn_func_{label}{suffix}", dict(
-                max_abs_err=err, ms=time_ms(torch, fn, iters=5), plain_ms=plain,
-                library_ms=time_ms(torch, lib_fn, iters=5),
+                max_abs_err=err, ms=ms, plain_ms=plain, library_ms=lib_ms,
                 library_note="SDPA causal over the same dense q / k / v: the attention it thins", bound_ms=bms,
-                bound_by=bby, schedule_s=conv_s, visible_pairs=pairs,
-                dense_pairs=nh * s * (s + 1) // 2))
+                bound_by=bby, schedule_s=conv_s, visible_pairs=pairs, dense_pairs=dense,
+                tflops=4 * d * pairs / ms / 1e9, library_tflops=4 * d * dense / lib_ms / 1e9))
         del q, k, v, sched_t
 
 
@@ -2916,8 +2950,14 @@ def path_sparse_attn_varlen(torch, skt):
         name = f"sparse_attn_varlen_func path, prompt {i + 1} rows 0..{n} against the plain version"
         err = max(err, check(name, [(out[sl], ref[0])]), check_lse(name, lse[:, sl], ref_lse[0]))
         del ref, ref_lse
+    # K16's device ms in the path: one more call (after the counts were read)
+    # with events around its sparse_attn_func call
+    k16_ms, k16_n = inner_call_ms(torch, sparse_vs, "sparse_attn_func", lambda: sparse_vs.sparse_attn_varlen_func(
+        q, k, v, *sched, cu, cu, max(lens), max(lens), causal=True, return_softmax_lse=True))
+    if k16_n != 1:
+        fail(f"sparse_attn_varlen_func path: {k16_n} calls of sparse_attn_func, not 1")
     res = dict(prompts=lens, heads=[nh, nkv], nv=nv, ns=ns, max_abs_err=err, wall_ms=1e3 * wall,
-               blocks=int(sched[0].sum()), columns=int(sched[2].sum()),
+               k16_device_ms=k16_ms, blocks=int(sched[0].sum()), columns=int(sched[2].sum()),
                launches={"sparse_attn_func": counts["sparse_attn_func"]})
     log("[path] sparse_attn_varlen_func: " + json.dumps(res))
     del q, k, v, out
@@ -3335,7 +3375,7 @@ def main():
                        "mla_decode_int8"),
         "mla_qkv_prep": ("triton", "sgl_kernel_tpu_torch/ops/rope.py", "sgl_kernel_tpu/ops/rope.py:295",
                          "mla_qkv_prep"),
-        "mla_decode_dma": ("cuda", "sgl_kernel_tpu_torch/csrc/mla_decode_dma.cu",
+        "mla_decode_dma": ("cuda", "sgl_kernel_tpu_torch/csrc/mla_decode.cu",
                            "sgl_kernel_tpu/ops/attention/mla.py:287", "mla_decode_dma_bf16"),
         "fp8_paged_mqa_logits": ("cuda", "sgl_kernel_tpu_torch/csrc/mqa_logits.cu",
                                  "sgl_kernel_tpu/ops/attention/nsa.py:141", "fp8_paged_mqa_logits_decode"),

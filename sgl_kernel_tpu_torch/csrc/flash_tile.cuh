@@ -3,7 +3,9 @@
 // threads) computes 64 query rows of one head against the key rows they may
 // see, on Hopper's warpgroup MMA (wgmma) with float32 accumulators. The two
 // kernels differ only in how a block finds its rows (a padded [B, S, H, D]
-// batch, or block-aligned packed tokens with per-block metadata).
+// batch, or block-aligned packed tokens with per-block metadata). Its steps
+// (flash_scores, flash_softmax_pv, flash_store over a FlashAcc) are also
+// K16's tile (sparse_vs.cu), there fed by a producer warp.
 //
 // Shared memory (dynamic, FlashSmem<D>::kBytes): the q tile and two slots
 // each of K and V tiles, 64 keys a tile, every tile [64][D] bf16 stored as
@@ -74,6 +76,189 @@ __device__ __forceinline__ void flash_load_tile(unsigned char* tile, const bf16*
   }
 }
 
+// The running state of one 64-row tile: each thread's slice of O (rows r0
+// and r0 + 8, one n64 slice a 64-column sub-tile of the output; o[n][4c + e]
+// at column 64n + 8c + 2t + (e & 1), the lower row for e < 2), and the two
+// rows' running max (log2 domain) and partial sums.
+template <int D>
+struct FlashAcc {
+  float o[D / 64][32];
+  float m[2], l[2];
+  __device__ __forceinline__ void init() {
+#pragma unroll
+    for (int n = 0; n < D / 64; ++n)
+#pragma unroll
+      for (int e = 0; e < 32; ++e) o[n][e] = 0.f;
+    m[0] = m[1] = kMaxInit;
+    l[0] = l[1] = 0.f;
+  }
+};
+
+// S = q K^T for one 64-key tile, both operands K-major swizzled [64][D]
+// tiles in shared memory. s[4c + e]: row r0 + 8 ((e >> 1) & 1), key 8c +
+// 2t + (e & 1).
+template <int D>
+__device__ __forceinline__ void flash_scores(float (&s)[32], uint32_t q_addr, uint32_t k_addr) {
+  constexpr int SUB = FlashSmem<D>::kSub;
+#pragma unroll
+  for (int e = 0; e < 32; ++e) s[e] = 0.f;
+  fence_regs(s);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const uint32_t off = (kk / 4) * SUB + (kk % 4) * 32;  // 16 columns: 32 bytes along the row
+    wgmma_m64n64k16_ss(s, wgmma_desc(q_addr + off, 16, 1024), wgmma_desc(k_addr + off, 16, 1024), kk > 0);
+  }
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_regs(s);
+}
+
+// The same with q as wgmma's register A: qf[kk] holds columns 16kk .. 16kk +
+// 15 of the thread's rows (flash_q_frags), so only K is read from shared
+// memory.
+template <int D>
+__device__ __forceinline__ void flash_scores(float (&s)[32], uint32_t (&qf)[D / 16][4], uint32_t k_addr) {
+  constexpr int SUB = FlashSmem<D>::kSub;
+#pragma unroll
+  for (int e = 0; e < 32; ++e) s[e] = 0.f;
+  fence_regs(s);
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) fence_regs(qf[kk]);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk)
+    wgmma_m64n64k16_rs<false>(s, qf[kk], wgmma_desc(k_addr + (kk / 4) * SUB + (kk % 4) * 32, 16, 1024), kk > 0);
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_regs(s);
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) fence_regs(qf[kk]);
+}
+
+// wgmma's register A fragments of a swizzled [64][D] q tile (warp w: rows
+// 16w .. 16w + 15), by ldmatrix
+template <int D>
+__device__ __forceinline__ void flash_q_frags(uint32_t (&qf)[D / 16][4], const unsigned char* tile) {
+  const int lane = threadIdx.x % 32;
+  const int r = (threadIdx.x / 32 % 4) * 16 + (lane & 7) + 8 * ((lane >> 3) & 1);
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const int c16 = 2 * kk + (lane >> 4);  // 16-byte chunk of the row
+    ldsm_x4(qf[kk], tile + (c16 / 8) * FlashSmem<D>::kSub + sw128(r, c16 % 8));
+  }
+}
+
+// One key tile into the running state: s holds its scores in the log2
+// domain, -inf where masked. Online softmax (row max over the 4 lanes that
+// share a row, partial sums per thread), then O += P V with P from
+// registers in two bf16 terms and the V tile (swizzled [64][D] at v_addr)
+// read N-major. Returns once the products are done: the V tile may then be
+// refilled.
+template <int D>
+__device__ __forceinline__ void flash_softmax_pv(FlashAcc<D>& a, float (&s)[32], uint32_t v_addr) {
+  constexpr int NS = D / 64, SUB = FlashSmem<D>::kSub;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    float mx = kMaxInit;
+#pragma unroll
+    for (int c = 0; c < 8; ++c) mx = fmaxf(mx, fmaxf(s[4 * c + 2 * i], s[4 * c + 2 * i + 1]));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+    const float m_new = fmaxf(a.m[i], mx);
+    const float alpha = exp2f(a.m[i] - m_new);
+    a.m[i] = m_new;
+    float rs = 0.f;
+#pragma unroll
+    for (int c = 0; c < 8; ++c) {
+      s[4 * c + 2 * i] = exp2f(s[4 * c + 2 * i] - m_new);
+      s[4 * c + 2 * i + 1] = exp2f(s[4 * c + 2 * i + 1] - m_new);
+      rs += s[4 * c + 2 * i] + s[4 * c + 2 * i + 1];
+    }
+    a.l[i] = a.l[i] * alpha + rs;
+#pragma unroll
+    for (int n = 0; n < NS; ++n)
+#pragma unroll
+      for (int c = 0; c < 8; ++c) {
+        a.o[n][4 * c + 2 * i] *= alpha;
+        a.o[n][4 * c + 2 * i + 1] *= alpha;
+      }
+  }
+
+  // P as A fragments of the four k16 steps, keys 16kk..16kk+15: {s[8kk],
+  // s[8kk+1]}, {s[8kk+2], s[8kk+3]} (row + 8), {s[8kk+4], s[8kk+5]} (keys
+  // + 8), {s[8kk+6], s[8kk+7]}; hi = bf16(p), lo = bf16(p - hi)
+  uint32_t ph[4][4], pl[4][4];
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float x0 = s[8 * kk + 2 * i], x1 = s[8 * kk + 2 * i + 1];
+      ph[kk][i] = pack_bf16x2(x0, x1);
+      const __nv_bfloat162 h = *reinterpret_cast<const __nv_bfloat162*>(&ph[kk][i]);
+      pl[kk][i] = pack_bf16x2(x0 - __low2float(h), x1 - __high2float(h));
+    }
+
+  // O += P V: 16 keys a step (two 8-row groups of the tile, 2 KB), one n64
+  // slice of the output a 64-column sub-tile, the hi and the lo term
+#pragma unroll
+  for (int n = 0; n < NS; ++n) fence_regs(a.o[n]);
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    fence_regs(ph[kk]);
+    fence_regs(pl[kk]);
+  }
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int n = 0; n < NS; ++n) {
+      const uint64_t dv = wgmma_desc(v_addr + n * SUB + kk * 2048, SUB, 1024);
+      wgmma_m64n64k16_rs_tb(a.o[n], ph[kk], dv);
+      wgmma_m64n64k16_rs_tb(a.o[n], pl[kk], dv);
+    }
+  wgmma_commit();
+  wgmma_wait<0>();
+#pragma unroll
+  for (int n = 0; n < NS; ++n) fence_regs(a.o[n]);
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    fence_regs(ph[kk]);
+    fence_regs(pl[kk]);
+  }
+}
+
+// The tile's rows out: out and lse at row 0 (out's row stride q_stride, lse
+// rows contiguous, lse may be null); rows r < rows are written, those r <
+// see_rows with a nonzero sum as O / l and lse (m + log2 l) * lse_scale, the
+// others as zeros and empty_lse.
+template <int D>
+__device__ __forceinline__ void flash_store(FlashAcc<D>& a, bf16* __restrict__ out, long long q_stride,
+                                            float* __restrict__ lse, int rows, int see_rows, float lse_scale,
+                                            float empty_lse) {
+  constexpr int NS = D / 64;
+  const int lane = threadIdx.x % 32, t = lane % 4;
+  const int r0 = (threadIdx.x / 32 % 4) * 16 + lane / 4;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    a.l[i] += __shfl_xor_sync(0xffffffffu, a.l[i], 1);
+    a.l[i] += __shfl_xor_sync(0xffffffffu, a.l[i], 2);
+    const int r = r0 + 8 * i;
+    if (r >= rows) continue;
+    const bool seen = r < see_rows && a.l[i] != 0.f;
+    const float inv = seen ? 1.f / a.l[i] : 0.f;
+    bf16* orow = out + r * q_stride + 2 * t;
+#pragma unroll
+    for (int n = 0; n < NS; ++n)
+#pragma unroll
+      for (int c = 0; c < 8; ++c) {
+        const float x = seen ? a.o[n][4 * c + 2 * i] * inv : 0.f, y = seen ? a.o[n][4 * c + 2 * i + 1] * inv : 0.f;
+        *reinterpret_cast<uint32_t*>(orow + n * 64 + c * 8) = pack_bf16x2(x, y);
+      }
+    if (lse != nullptr && t == 0) lse[r] = seen ? (a.m[i] + log2f(a.l[i])) * lse_scale : empty_lse;
+  }
+}
+
 // smem: the block's dynamic shared memory (FlashSmem<D>::kBytes).
 // q: row 0 of the tile (row stride q_stride elements); k/v: key row 0
 // (stride kv_stride); out: output row 0 (stride q_stride); lse: the tile's
@@ -89,8 +274,7 @@ __device__ __forceinline__ void flash_rows(unsigned char* smem, const bf16* __re
                                            int rows, int see_rows, int kv_len, int q_pos0, int kv_pos0, int causal,
                                            float scale_log2) {
   constexpr int BK = kFlashBK;
-  constexpr int NS = D / 64;  // 64-column sub-tiles of a row; n64 slices of the output
-  constexpr int KT = FlashSmem<D>::kTile, SUB = FlashSmem<D>::kSub;
+  constexpr int KT = FlashSmem<D>::kTile;
   unsigned char* sq = smem + ((1024u - (smem_u32(smem) & 1023u)) & 1023u);
   const uint32_t q_addr = smem_u32(sq);
   const int lane = threadIdx.x % 32, t = lane % 4;
@@ -106,12 +290,8 @@ __device__ __forceinline__ void flash_rows(unsigned char* smem, const bf16* __re
   auto k_slot = [&](int j) { return sq + KT * (1 + (j & 1)); };
   auto v_slot = [&](int j) { return sq + KT * (3 + (j & 1)); };
 
-  float o[NS][32];
-#pragma unroll
-  for (int n = 0; n < NS; ++n)
-#pragma unroll
-    for (int e = 0; e < 32; ++e) o[n][e] = 0.f;
-  float m[2] = {kMaxInit, kMaxInit}, l[2] = {0.f, 0.f};
+  FlashAcc<D> acc;
+  acc.init();
 
   if (n_tiles > 0) {
     flash_load_tile<D>(sq, q, q_stride, rows);
@@ -131,24 +311,10 @@ __device__ __forceinline__ void flash_rows(unsigned char* smem, const bf16* __re
     fence_proxy_async();
     __syncthreads();
 
-    // S = q K_j^T, both operands K-major in shared memory
-    const uint32_t k_addr = smem_u32(k_slot(j)), v_addr = smem_u32(v_slot(j));
     float s[32];
-#pragma unroll
-    for (int e = 0; e < 32; ++e) s[e] = 0.f;
-    fence_regs(s);
-    wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      const uint32_t off = (kk / 4) * SUB + (kk % 4) * 32;  // 16 columns: 32 bytes along the row
-      wgmma_m64n64k16_ss(s, wgmma_desc(q_addr + off, 16, 1024), wgmma_desc(k_addr + off, 16, 1024), kk > 0);
-    }
-    wgmma_commit();
-    wgmma_wait<0>();
-    fence_regs(s);
+    flash_scores<D>(s, q_addr, smem_u32(k_slot(j)));
 
-    // s[4c + e]: row r0 + 8 (e >> 1), key j0 + 8c + 2t + (e & 1). The mask
-    // only where the tile holds kv_len or (causal) keys past row 0's position
+    // The mask only where the tile holds kv_len or (causal) keys past row 0's position
 #pragma unroll
     for (int e = 0; e < 32; ++e) s[e] *= scale_log2;
     if (j0 + BK > kv_len || (causal && kv_pos0 + j0 + BK - 1 > q_pos0)) {
@@ -158,95 +324,10 @@ __device__ __forceinline__ void flash_rows(unsigned char* smem, const bf16* __re
         if (!(col < kv_len && (!causal || kv_pos0 + col <= q_pos0 + row))) s[e] = __int_as_float(0xff800000);
       }
     }
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      float mx = kMaxInit;
-#pragma unroll
-      for (int c = 0; c < 8; ++c) mx = fmaxf(mx, fmaxf(s[4 * c + 2 * i], s[4 * c + 2 * i + 1]));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-      const float m_new = fmaxf(m[i], mx);
-      const float alpha = exp2f(m[i] - m_new);
-      m[i] = m_new;
-      float rs = 0.f;
-#pragma unroll
-      for (int c = 0; c < 8; ++c) {
-        s[4 * c + 2 * i] = exp2f(s[4 * c + 2 * i] - m_new);
-        s[4 * c + 2 * i + 1] = exp2f(s[4 * c + 2 * i + 1] - m_new);
-        rs += s[4 * c + 2 * i] + s[4 * c + 2 * i + 1];
-      }
-      l[i] = l[i] * alpha + rs;
-#pragma unroll
-      for (int n = 0; n < NS; ++n)
-#pragma unroll
-        for (int c = 0; c < 8; ++c) {
-          o[n][4 * c + 2 * i] *= alpha;
-          o[n][4 * c + 2 * i + 1] *= alpha;
-        }
-    }
-
-    // P as A fragments of the four k16 steps, keys 16kk..16kk+15: {s[8kk],
-    // s[8kk+1]}, {s[8kk+2], s[8kk+3]} (row + 8), {s[8kk+4], s[8kk+5]} (keys
-    // + 8), {s[8kk+6], s[8kk+7]}; hi = bf16(p), lo = bf16(p - hi)
-    uint32_t ph[4][4], pl[4][4];
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float x0 = s[8 * kk + 2 * i], x1 = s[8 * kk + 2 * i + 1];
-        ph[kk][i] = pack_bf16x2(x0, x1);
-        const __nv_bfloat162 h = *reinterpret_cast<const __nv_bfloat162*>(&ph[kk][i]);
-        pl[kk][i] = pack_bf16x2(x0 - __low2float(h), x1 - __high2float(h));
-      }
-
-    // O += P V_j: 16 keys a step (two 8-row groups of the tile, 2 KB), one
-    // n64 slice of the output a 64-column sub-tile, the hi and the lo term
-#pragma unroll
-    for (int n = 0; n < NS; ++n) fence_regs(o[n]);
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      fence_regs(ph[kk]);
-      fence_regs(pl[kk]);
-    }
-    wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk)
-#pragma unroll
-      for (int n = 0; n < NS; ++n) {
-        const uint64_t dv = wgmma_desc(v_addr + n * SUB + kk * 2048, SUB, 1024);
-        wgmma_m64n64k16_rs_tb(o[n], ph[kk], dv);
-        wgmma_m64n64k16_rs_tb(o[n], pl[kk], dv);
-      }
-    wgmma_commit();
-    wgmma_wait<0>();
-#pragma unroll
-    for (int n = 0; n < NS; ++n) fence_regs(o[n]);
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      fence_regs(ph[kk]);
-      fence_regs(pl[kk]);
-    }
+    flash_softmax_pv<D>(acc, s, smem_u32(v_slot(j)));
     __syncthreads();  // these slots may be refilled
   }
-
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
-    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
-    const int r = r0 + 8 * i;
-    if (r >= rows) continue;
-    const bool seen = r < see_rows && l[i] != 0.f;
-    const float inv = seen ? 1.f / l[i] : 0.f;
-    bf16* orow = out + r * q_stride + 2 * t;
-#pragma unroll
-    for (int n = 0; n < NS; ++n)
-#pragma unroll
-      for (int c = 0; c < 8; ++c) {
-        const float a = seen ? o[n][4 * c + 2 * i] * inv : 0.f, b = seen ? o[n][4 * c + 2 * i + 1] * inv : 0.f;
-        *reinterpret_cast<uint32_t*>(orow + n * 64 + c * 8) = pack_bf16x2(a, b);
-      }
-    if (lse != nullptr && t == 0) lse[r] = seen ? m[i] + log2f(l[i]) : kEmptyLse;
-  }
+  flash_store<D>(acc, out, q_stride, lse, rows, see_rows, 1.f, kEmptyLse);
 }
 
 }  // namespace skt

@@ -9,8 +9,12 @@
 // table [B, n_blocks]; lengths [B] (the tokens of each sequence in the pool,
 // the current one included). out [B, H, 512] bf16; lse [B, H] float32 base 2
 // when its pointer is not null. A sequence of length 0 gives o = 0 and lse
-// -1e30 * log2(e) (the K7 convention). The pad lanes of a 640-wide pool are
-// not read. A latent scale enters only folded into sm_scale, by the caller.
+// -1e30 * log2(e) (the K7 convention), or -inf with empty_inf (a uniform
+// flag: K13b, mla_decode(engine="dma"), replacing _mla_decode_dma at
+// mla.py:287, pallas_call at :321, launches this kernel with it, as the
+// TPU's dma engine gives -inf there, mla.py:275). The pad lanes of a
+// 640-wide pool are not read. A latent scale enters only folded into
+// sm_scale, by the caller.
 //
 // Numbers. bf16 pools: scores from exact bf16 products summed in float32, P
 // in two bf16 terms (~2^-16), so the result matches a float32 P.V. 1-byte
@@ -53,6 +57,8 @@
 
 #include <cuda_fp8.h>
 
+#include <limits>
+
 #include "mla_tile.cuh"
 #include "tma_map.cuh"
 
@@ -84,6 +90,7 @@ struct Args {
   int batch, n_heads, n_groups, page, width, n_blocks;
   long long layer_rows;  // pool rows before the layer's
   float scale_log2;
+  float empty_lse;  // the lse of a length-0 sequence
 };
 
 template <typename T>
@@ -485,10 +492,10 @@ __global__ void __launch_bounds__(kThreads, 1) mla_decode_kernel(const Args a) {
     const long long us = (long long)groups * pre[b] + (long long)c.h * n_i;  // the run's units [us, us + n_i)
     const long long cf = block_of(us), cl = block_of(us + n_i - 1);
     const long long row0 = (long long)b * a.n_heads + h0;
-    if (cf == cl) {
+    if (cf == cl) {  // (a length-0 sequence's one empty unit always is)
       skt::mla_store<kDV>(
           st, n_rows, [&](int row) { return a.out + (row0 + row) * kDV; },
-          [&](int row) { return a.lse == nullptr ? nullptr : a.lse + row0 + row; });
+          [&](int row) { return a.lse == nullptr ? nullptr : a.lse + row0 + row; }, a.empty_lse);
       continue;  // the next run starts with a barrier (q), or the loop ends
     }
     // Several blocks share the run: this block's partial (its first shared
@@ -534,17 +541,19 @@ cudaError_t launch(const Args& a, int ws_blocks, cudaStream_t stream) {
 // pool [n_layers][n_pages][page][width] 16-byte aligned; lse may be null.
 // ws holds ws_blocks x 2 x (16 x 512 + 16) floats; counters batch x
 // ceil(n_heads / 16) ints, zero before the first call (every call leaves
-// them zero). batch <= 2048 (the prefix lives in shared memory).
+// them zero). batch <= 2048 (the prefix lives in shared memory). empty_inf:
+// a length-0 sequence's lse is -inf, else -1e30 * log2(e).
 extern "C" int skt_mla_decode(const void* q, const void* pool, const void* lengths, const void* table, void* out,
                               void* lse, void* ws, void* counters, int batch, int n_heads, int n_pages, int page,
-                              int width, int n_blocks, int layer, int pool_type, float sm_scale, int ws_blocks,
-                              void* stream) {
+                              int width, int n_blocks, int layer, int pool_type, float sm_scale, int empty_inf,
+                              int ws_blocks, void* stream) {
   if ((width != 576 && width != 640) || batch > 2048 || n_heads < 1 || page < 1 || n_blocks < 1 || ws_blocks < 1)
     return (int)cudaErrorInvalidValue;
   if (batch == 0) return (int)cudaSuccess;
   const Args a{(const bf16*)q, (const uint8_t*)pool, (const int*)lengths, (const int*)table, (bf16*)out,
                (float*)lse, (float*)ws, (int*)counters, batch, n_heads, (n_heads + kMlaRows - 1) / kMlaRows, page,
-               width, n_blocks, (long long)layer * n_pages * page, sm_scale * skt::kLog2e};
+               width, n_blocks, (long long)layer * n_pages * page, sm_scale * skt::kLog2e,
+               empty_inf ? -std::numeric_limits<float>::infinity() : -1e30f * skt::kLog2e};
   const cudaStream_t st = (cudaStream_t)stream;
   switch (pool_type) {
     case 0: return (int)launch<bf16>(a, ws_blocks, st);

@@ -15,39 +15,71 @@
 //
 // Bound: operations. At Llama-3-8B's widths (32 heads of 128) and S=32,768
 // with NV=1,000 and NS=64, each row block attends to ~1,000 columns and up
-// to 64 blocks of 128 keys.
+// to 64 blocks of 128 keys: 5.5e9 visible pairs, 2.8e12 flops. Each 64-key
+// tile's K and V (32 KB) serve only the block's 64 query rows (the schedule
+// is per head), so the tiles also stream ~44 GB from L2 at that size.
 //
-// Design: one block of four warps per (row block, head, sequence); warp w
-// owns query rows 16w .. 16w+15, whose bf16 fragments it keeps in registers.
-// The block's keys come as tiles of 64: first the column tiles (64 of
-// column_index each, read straight from k and v by cp.async, one 16-byte
-// piece a thread at a time, never gathered into a copy), then the slash
-// blocks, split into 64-key halves when bn = 128. Tiles stream through a
-// double buffer: the next live tile's copies are in flight while the current
-// one is computed. A tile of keys past the causal limit or past kv_len is
-// skipped, and no key at or past kv_len is ever read (the TPU pads k and v to
-// a multiple of bn instead). Each tile is two mma.sync m16n8k16 passes with
-// float32 accumulators: S = Q K^T (K's rows are k-contiguous for the mma's
-// column operand as they lie), the masks on each key's column id, an online
-// softmax in the log2 domain, then O += P V with V's fragments from
-// ldmatrix.trans. P enters P.V as two bf16 terms (p = hi + lo), so it is
-// carried to ~2^-16, as in mla_tile.cuh; the TPU rounds P to the input type.
+// Design: one block per (row block, head, sequence): one consumer warpgroup
+// (warps 0-3) runs the wgmma flash tile of flash_tile.cuh over the block's
+// key tiles of 64 (the columns, 64 of column_index a tile, then the slash
+// blocks split into 64-key halves when bn = 128), and one producer warp
+// (warp 4) fills a ring of stages (three at D=128, six at D=64) behind
+// mbarriers. Ring entry 0 of a block carries its q tile; each later entry
+// one key tile's K and V, swizzled [64][D], with the tile's 64 column ids
+// and flags beside them (a header in shared memory). A slash tile that lies
+// wholly inside [0, kv_len) comes as D/64 2-D TMA boxes each of K and V
+// (one lane, behind its expect_tx); the column tiles, a gather, and a slash
+// tile that reaches past kv_len come by 16-byte cp.async pieces, two rows an
+// instruction at D=128, zero-filled and not read for a key at or past
+// kv_len or before 0. The producer never waits for its own copies: each
+// lane arrives once its header stores are done and once more when its
+// cp.async copies land (cp.async.mbarrier.arrive.noinc), so the ring is
+// full ahead of the consumers; they make each landed stage visible to
+// wgmma's async proxy with a fence (its cp.async writes are the generic
+// proxy's). At D=128 q goes from its
+// stage into registers as wgmma's A (S = q K^T then reads only K from
+// shared memory); at D=64 q stays in a tile of its own (S from two shared operands: the
+// register form gave wrong sums from the second key tile on at this width
+// on the H100, a fault not understood, so it is not used there). A tile
+// needs the mask only where one of its keys is missing (a slot past
+// column_count, an id past kv_len) or, causal, its largest key passes the
+// block's first row; a slash tile starting at or past the block's last
+// visible key is not fetched. The soft cap is a template parameter: tanh
+// from one exp2 and one reciprocal (~1e-7 absolute, where tanhf costs about
+// twenty instructions a score; tanh.approx's 2^-11 would break the lse's
+// 1e-5). Balance: blocks run in (sequence, kv head) order, within each the
+// row blocks from the last (the most keys) to the first and the heads of
+// the kv group side by side, so the blocks resident at a time read one kv
+// head's keys, which fit in L2, and the light row blocks fill each head's
+// tail (ops/attention/sparse_vs.py work_order). Two blocks fit an SM.
+// Numbers: scores are exact bf16 products summed in float32, P enters P V
+// in two bf16 terms (flash_tile.cuh), the output is rounded once.
 
-#include "common.cuh"
+#include "flash_tile.cuh"
+#include "tma_map.cuh"
 
 namespace {
 
 using skt::bf16;
 
-constexpr int kRows = 64;     // query rows of a block (block_size_M)
-constexpr int kKeys = 64;     // keys of a tile
-constexpr int kThreads = 128;
+constexpr int kRows = skt::kFlashBQ;            // query rows of a block (block_size_M)
+constexpr int kKeys = skt::kFlashBK;            // keys of a tile
+constexpr int kCThreads = skt::kFlashThreads;   // one consumer warpgroup
+constexpr int kThreads = kCThreads + 32;        // and one producer warp
+constexpr int kHdr = kKeys + 2;                 // a stage's column ids (-1: none), its mask flag, a pad
 
 template <int D>
 struct Smem {
-  static constexpr int LD = D + 8;  // bf16 per row: rows 4 banks apart
-  static constexpr int kTile = kKeys * LD;
-  static constexpr size_t kBytes = 2 * (size_t)(kRows * LD + 4 * kTile) + 2 * kKeys * sizeof(int);
+  static constexpr int kTile = skt::FlashSmem<D>::kTile;  // a swizzled [64][D] tile
+  // D=128: q in registers (wgmma's A), taken from entry 0's stage; D=64: q
+  // in a tile of its own for the block's life (S from two shared operands)
+  static constexpr bool kQRegs = D == 128;
+  static constexpr int kQ = kQRegs ? 0 : kTile;
+  static constexpr int kStage = 2 * kTile;  // K, then V (entry 0: q in K's place at D=128)
+  static constexpr int kStages = D == 64 ? 6 : 3;
+  // 1 KB of slack to start on a 1024-byte boundary, q, the ring, its
+  // barriers, the stages' headers
+  static constexpr size_t kBytes = 1024 + kQ + (size_t)kStages * kStage + 2 * kStages * 8 + kStages * kHdr * 4;
 };
 
 struct Params {
@@ -55,225 +87,240 @@ struct Params {
   const int *block_count, *block_offset, *column_count, *column_index, *kv_lens;
   bf16* out;
   float* lse;
-  int B, S, H, Hk, NS, NV, bn, causal;
+  int B, S, H, Hk, R, NS, NV, bn, causal;
   float sm_scale, softcap;
 };
 
-// (p0, p1) -> bf16 pairs hi = bf16(p) and lo = bf16(p - hi)
-__device__ __forceinline__ void split_bf16(float p0, float p1, uint32_t& hi, uint32_t& lo) {
-  const float h0 = __bfloat162float(__float2bfloat16(p0)), h1 = __bfloat162float(__float2bfloat16(p1));
-  hi = skt::pack_bf16x2(h0, h1);
-  lo = skt::pack_bf16x2(p0 - h0, p1 - h1);
+struct alignas(64) KArgs {
+  // k and v as [B * S rows][Hk * D], boxes of 64 columns (128 bytes) x 64
+  // rows, 128-byte swizzle: a slash tile's half of a head's row
+  CUtensorMap tk, tv;
+  Params p;
+};
+
+// tanh(x) = 1 - 2 / (e^(2x) + 1): saturates to +-1, ~1e-7 absolute
+__device__ __forceinline__ float tanh_exp2(float x) {
+  return 1.f - __fdividef(2.f, exp2f(x * (2.f * skt::kLog2e)) + 1.f);
 }
 
-template <int D>
-__global__ void __launch_bounds__(kThreads) sparse_vs_kernel(const Params p) {
-  using SM = Smem<D>;
-  constexpr int LD = SM::LD, KT = D / 16, DT = D / 8, CH = D / 8;
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* sq = reinterpret_cast<bf16*>(smem);       // [kRows][LD]
-  bf16* sk = sq + kRows * LD;                      // [2][kKeys][LD]
-  bf16* sv = sk + 2 * SM::kTile;                   // [2][kKeys][LD]
-  int* scid = reinterpret_cast<int*>(sv + 2 * SM::kTile);  // [2][kKeys] column id of each key, -1 none
-
-  const int r = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const int hk = h / (p.H / p.Hk);
-  const int row0 = r * kRows;
-  const long long sched = ((long long)b * p.H + h) * gridDim.x + r;
-  const int nb = min(p.block_count[sched], p.NS), cc = min(p.column_count[sched], p.NV);
-  const int* offs = p.block_offset + sched * p.NS;
-  const int* cols = p.column_index + sched * p.NV;
-  const int kvl = min(p.kv_lens[b], p.S);
-  // keys at or past kv_end are masked for every row of the block
-  const int kv_end = p.causal ? min(kvl, min(row0 + kRows, p.S)) : kvl;
-  const int halves = p.bn / kKeys;
-  const int n_ct = (cc + kKeys - 1) / kKeys;
-  const int n_tiles = n_ct + nb * halves;
-
+template <int D, bool SOFTCAP>
+__global__ void __launch_bounds__(kThreads, 2) sparse_vs_kernel(const __grid_constant__ KArgs ka) {
+  const Params& p = ka.p;
+  using L = Smem<D>;
+  constexpr int S = L::kStages, CH = D / 8, SUB = skt::FlashSmem<D>::kSub;
+  constexpr int KPI = 32 / CH;  // rows a copy instruction of the producer warp takes
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* sq = smem_raw + ((1024u - (skt::smem_u32(smem_raw) & 1023u)) & 1023u);
+  unsigned char* ring = sq + L::kQ;  // D=128: q lands in stage 0
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + S * L::kStage);
+  uint64_t* empty = full + S;
+  int* hdr = reinterpret_cast<int*>(empty + S);  // [S][kHdr]
+  // the block's (sequence, head, row block): sparse_vs.py work_order
+  const int G = p.H / p.Hk, gi = blockIdx.x % G, ri = blockIdx.x / G % p.R, hk = blockIdx.x / G / p.R % p.Hk;
+  const int b = blockIdx.x / G / p.R / p.Hk, h = hk * G + gi, row0 = (p.R - 1 - ri) * kRows;
   const long long q_stride = (long long)p.H * D, kv_stride = (long long)p.Hk * D;
-  const bf16* qb = p.q + (long long)b * p.S * q_stride + (long long)h * D;
-  const bf16* kb = p.k + (long long)b * p.S * kv_stride + (long long)hk * D;
-  const bf16* vb = p.v + (long long)b * p.S * kv_stride + (long long)hk * D;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
 
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32, g = lane >> 2, t = lane & 3;
-
-  // first key column of a slash tile (column tiles are always live)
-  auto tile_col0 = [&](int i) {
-    const int j = i - n_ct;
-    return offs[j / halves] + (j % halves) * kKeys;
-  };
-  auto next_live = [&](int i) {
-    while (i < n_tiles && i >= n_ct && tile_col0(i) >= kv_end) ++i;
-    return i;
-  };
-  auto load_tile = [&](int i, int stage) {
-    bf16* kd = sk + stage * SM::kTile;
-    bf16* vd = sv + stage * SM::kTile;
-    int* cd = scid + stage * kKeys;
-    const int base = i < n_ct ? 0 : tile_col0(i);
-    for (int c = tid; c < kKeys * CH; c += kThreads) {
-      const int j = c / CH, ch = (c % CH) * 8;
-      int col;
-      if (i < n_ct) {
-        const int slot = i * kKeys + j;
-        col = slot < cc ? cols[slot] : -1;
-      } else {
-        col = base + j;
-      }
-      const bool ok = col >= 0 && col < kvl;
-      const long long off = ok ? (long long)col * kv_stride + ch : 0;
-      skt::cp_async16(kd + j * LD + ch, kb + off, ok);
-      skt::cp_async16(vd + j * LD + ch, vb + off, ok);
-      if (ch == 0) cd[j] = ok ? col : -1;
+  if (tid == 0) {
+    for (int s = 0; s < S; ++s) {
+      // each producer lane twice: once its header stores are done (a
+      // release), once its copies have landed (cp.async's own arrival)
+      skt::mbar_init(&full[s], 64);
+      skt::mbar_init(&empty[s], 4);  // each consumer warp, once it is done with the stage
     }
-  };
-
-  // q rows -> shared -> each warp's A fragments
-  for (int c = tid; c < kRows * CH; c += kThreads) {
-    const int i = c / CH, ch = (c % CH) * 8;
-    const bool ok = row0 + i < p.S;
-    skt::cp_async16(sq + i * LD + ch, ok ? qb + (long long)(row0 + i) * q_stride + ch : qb, ok);
+    skt::mbar_init_fence();
   }
-  skt::cp_async_commit();
-  int cur = next_live(0);
-  if (cur < n_tiles) load_tile(cur, 0);
-  skt::cp_async_commit();
-  skt::cp_async_wait<1>();  // q has landed (the first tile may still be in flight)
   __syncthreads();
-  uint32_t qf[KT][4];
-  {
-    const bf16* q0 = sq + (warp * 16 + g) * LD + 2 * t;
-#pragma unroll
-    for (int kk = 0; kk < KT; ++kk) {
-      qf[kk][0] = skt::ld32(q0 + kk * 16);
-      qf[kk][1] = skt::ld32(q0 + 8 * LD + kk * 16);
-      qf[kk][2] = skt::ld32(q0 + kk * 16 + 8);
-      qf[kk][3] = skt::ld32(q0 + 8 * LD + kk * 16 + 8);
-    }
-  }
 
-  float o[DT][4];
+  if (warp == 4) {
+    // Producer: entry 0 is q (its header's flag: the number of key tiles),
+    // then the column tiles, then the live slash tiles.
+    int e = 0;  // entries issued
+    auto stage = [&]() {  // entry e's stage, once the consumers are done with it
+      const int s = e % S;
+      if (e >= S) skt::mbar_wait(&empty[s], ((e / S) - 1) & 1);
+      return s;
+    };
+    auto publish = [&](int s) {  // the lane's header stores and copies of entry e are issued
+      skt::mbar_arrive(&full[s]);
+      skt::cp_async_mbar_arrive(&full[s]);
+      ++e;
+    };
+    const long long sched = ((long long)b * p.H + h) * p.R + p.R - 1 - ri;
+    const int nb = max(0, min(p.block_count[sched], p.NS)), cc = max(0, min(p.column_count[sched], p.NV));
+    const int* offs = p.block_offset + sched * p.NS;
+    const int* cols = p.column_index + sched * p.NV;
+    const int kvl = min(p.kv_lens[b], p.S);
+    // keys at or past kv_end are masked for every row of the block
+    const int kv_end = p.causal ? min(kvl, min(row0 + kRows, p.S)) : kvl;
+    const int halves = p.bn / kKeys, n_ct = (cc + kKeys - 1) / kKeys;
+    {  // the q tile (rows past S as zeros), copied while the tiles are counted
+      const bf16* qb = p.q + ((long long)b * p.S + row0) * q_stride + (long long)h * D;
 #pragma unroll
-  for (int n = 0; n < DT; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
-  float m[2] = {skt::kMaxInit, skt::kMaxInit}, l[2] = {0.f, 0.f};
-  const int my_row[2] = {row0 + warp * 16 + g, row0 + warp * 16 + g + 8};
-
-  int stage = 0;
-  while (cur < n_tiles) {
-    const int nxt = next_live(cur + 1);
-    if (nxt < n_tiles) load_tile(nxt, stage ^ 1);
-    skt::cp_async_commit();
-    skt::cp_async_wait<1>();  // tile cur has landed
-    __syncthreads();
-    const bf16* ks = sk + stage * SM::kTile;
-    const bf16* vs = sv + stage * SM::kTile;
-    const int* cid = scid + stage * kKeys;
-
-    float s[kKeys / 8][4];
-#pragma unroll
-    for (int nt = 0; nt < kKeys / 8; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[nt][e] = 0.f;
-      const bf16* krow = ks + (nt * 8 + g) * LD + 2 * t;
-#pragma unroll
-      for (int kk = 0; kk < KT; ++kk)
-        skt::mma_bf16(s[nt], qf[kk], skt::ld32(krow + kk * 16), skt::ld32(krow + kk * 16 + 8));
-    }
-    float mx[2] = {skt::kMaxInit, skt::kMaxInit};
-#pragma unroll
-    for (int nt = 0; nt < kKeys / 8; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = cid[nt * 8 + 2 * t + (e & 1)];
-        const int row = my_row[e >> 1];
-        float x = s[nt][e] * p.sm_scale;
-        if (p.softcap > 0.f) x = p.softcap * tanhf(x / p.softcap);
-        const bool vis = col >= 0 && row < p.S && (!p.causal || col <= row);
-        x = vis ? x * skt::kLog2e : __int_as_float(0xff800000);  // -inf
-        s[nt][e] = x;
-        mx[e >> 1] = fmaxf(mx[e >> 1], x);
+      for (int i = 0; i < kRows / KPI; ++i) {
+        const int j = i * KPI + lane / CH, ch = lane % CH;
+        const bool ok = row0 + j < p.S;
+        skt::cp_async16(sq + (ch / 8) * SUB + skt::sw128(j, ch % 8), qb + (ok ? j * q_stride + ch * 8 : 0), ok);
       }
-    float alpha[2];
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
-      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
-      const float m_new = fmaxf(m[i], mx[i]);
-      alpha[i] = exp2f(m[i] - m_new);
-      m[i] = m_new;
-      l[i] *= alpha[i];
+      int n_live = 0;
+      for (int j = lane; j < nb; j += 32)
+        for (int hh = 0; hh < halves; ++hh) n_live += offs[j] + hh * kKeys < kv_end;
+      n_live = __reduce_add_sync(0xffffffffu, n_live);
+      if (lane == 0) hdr[kKeys] = n_ct + n_live;
+      publish(stage());  // entry 0: stage 0, never waited for
     }
+    const bf16* kb = p.k + (long long)b * p.S * kv_stride + (long long)hk * D;
+    const bf16* vb = p.v + (long long)b * p.S * kv_stride + (long long)hk * D;
+    // a key tile: lane holds the ids of keys lane and lane + 32 (-1: none)
+    auto fill = [&](int ca, int cb, int flag) {
+      const int s = stage();
+      int* hd = hdr + s * kHdr;
+      hd[lane] = ca;
+      hd[lane + 32] = cb;
+      if (lane == 0) hd[kKeys] = flag;
+      unsigned char* kt = ring + s * L::kStage;
 #pragma unroll
-    for (int n = 0; n < DT; ++n) {
-      o[n][0] *= alpha[0];
-      o[n][1] *= alpha[0];
-      o[n][2] *= alpha[1];
-      o[n][3] *= alpha[1];
+      for (int i = 0; i < kKeys / KPI; ++i) {
+        const int j = i * KPI + lane / CH, ch = lane % CH;
+        const int col = __shfl_sync(0xffffffffu, i * KPI < 32 ? ca : cb, j % 32);
+        const bool ok = col >= 0;
+        const long long off = ok ? (long long)col * kv_stride + ch * 8 : 0;
+        const uint32_t d = (ch / 8) * SUB + skt::sw128(j, ch % 8);
+        skt::cp_async16(kt + d, kb + off, ok);
+        skt::cp_async16(kt + L::kTile + d, vb + off, ok);
+      }
+      publish(s);
+    };
+    for (int t = 0; t < n_ct; ++t) {
+      const int s0 = t * kKeys + lane, s1 = s0 + 32;
+      int ca = s0 < cc ? cols[s0] : -1, cb = s1 < cc ? cols[s1] : -1;
+      ca = ca < kvl ? ca : -1;
+      cb = cb < kvl ? cb : -1;
+      const int mx = __reduce_max_sync(0xffffffffu, max(ca, cb));
+      const bool missing = __any_sync(0xffffffffu, ca < 0 || cb < 0);
+      fill(ca, cb, missing || (p.causal && mx > row0));
     }
-    // O += P V over four 16-key steps; P as hi + lo bf16 A fragments
+    // a slash tile wholly inside [0, kv_len): D / 64 TMA boxes each of K and
+    // V, issued by lane 0 behind its expect_tx
+    auto fill_box = [&](int c0) {
+      const int s = stage();
+      int* hd = hdr + s * kHdr;
+      hd[lane] = c0 + lane;
+      hd[lane + 32] = c0 + lane + 32;
+      unsigned char* kt = ring + s * L::kStage;
+      if (lane == 0) {
+        hd[kKeys] = p.causal && c0 + kKeys - 1 > row0;
+        skt::mbar_expect_tx(&full[s], 2 * L::kTile);
+        const int row = b * p.S + c0;
 #pragma unroll
-    for (int kk = 0; kk < kKeys / 16; ++kk) {
-      float pv[2][4];
-#pragma unroll
-      for (int half = 0; half < 2; ++half)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          pv[half][e] = exp2f(s[2 * kk + half][e] - m[e >> 1]);
-          l[e >> 1] += pv[half][e];
+        for (int x = 0; x < D / 64; ++x) {
+          skt::tma_load_2d(kt + x * SUB, &ka.tk, hk * D + 64 * x, row, &full[s]);
+          skt::tma_load_2d(kt + L::kTile + x * SUB, &ka.tv, hk * D + 64 * x, row, &full[s]);
         }
-      // a0: row g keys 2t, 2t+1 (tile 2kk's c0, c1); a1: row g+8 (c2, c3); a2 / a3: tile 2kk+1
-      uint32_t ah[4], al[4];
-#pragma unroll
-      for (int a = 0; a < 4; ++a) split_bf16(pv[a >> 1][2 * (a & 1)], pv[a >> 1][2 * (a & 1) + 1], ah[a], al[a]);
-      const bf16* vrow = vs + (kk * 16 + (lane & 15)) * LD + (lane >> 4) * 8;
-#pragma unroll
-      for (int n2 = 0; n2 < DT / 2; ++n2) {
-        uint32_t bv[4];
-        skt::ldsm_x4_trans(bv, vrow + n2 * 16);
-        skt::mma_bf16(o[2 * n2], ah, bv[0], bv[1]);
-        skt::mma_bf16(o[2 * n2], al, bv[0], bv[1]);
-        skt::mma_bf16(o[2 * n2 + 1], ah, bv[2], bv[3]);
-        skt::mma_bf16(o[2 * n2 + 1], al, bv[2], bv[3]);
+      } else {
+        skt::mbar_arrive(&full[s]);
+      }
+      skt::cp_async_mbar_arrive(&full[s]);
+      ++e;
+    };
+    for (int j = 0; j < nb; ++j) {
+      const int o = offs[j];
+      for (int hh = 0; hh < halves; ++hh) {
+        const int c0 = o + hh * kKeys;
+        if (c0 >= kv_end) continue;
+        if (c0 >= 0 && c0 + kKeys <= kvl) {
+          fill_box(c0);
+          continue;
+        }
+        // a tile past kv_len (or before 0): cp.async, zero-filled past the edge
+        const int ca = c0 + lane, cb = c0 + lane + 32;
+        fill(ca >= 0 && ca < kvl ? ca : -1, cb >= 0 && cb < kvl ? cb : -1, 1);
       }
     }
-    __syncthreads();  // every warp is done with this stage before it is refilled
-    cur = nxt;
-    stage ^= 1;
+    skt::cp_async_wait<0>();  // no copy outlives the block
+    return;
   }
-  skt::cp_async_wait<0>();
 
+  // Consumers: q into registers, then each key tile through the flash tile.
+  const int t = lane % 4;
+  const int rows[2] = {row0 + warp * 16 + lane / 4, row0 + warp * 16 + lane / 4 + 8};
+  int e = 0;  // entries taken
+  auto take = [&]() {  // the next entry's stage, once its header and copies have landed
+    const int s = e % S;
+    skt::mbar_wait(&full[s], (e / S) & 1);
+    skt::fence_proxy_async();  // its cp.async writes (generic proxy), to wgmma's async proxy
+    ++e;
+    return s;
+  };
+  auto release = [&](int s) {
+    __syncwarp();
+    if (lane == 0) skt::mbar_arrive(&empty[s]);
+  };
+  uint32_t qf[D / 16][4];
+  skt::FlashAcc<D> acc;
+  acc.init();
+  take();
+  const int n_tiles = hdr[kKeys];
+  if (L::kQRegs && n_tiles > 0) skt::flash_q_frags<D>(qf, sq);
+  release(0);
+  const float scale_log2 = p.sm_scale * skt::kLog2e, cap_in = p.sm_scale / p.softcap,
+              cap_out = p.softcap * skt::kLog2e;
+  for (int i = 0; i < n_tiles; ++i) {
+    const int s = take();
+    const unsigned char* kt = ring + s * L::kStage;
+    const int* hd = hdr + s * kHdr;
+    float sc[32];
+    if constexpr (L::kQRegs) skt::flash_scores<D>(sc, qf, skt::smem_u32(kt));
+    else skt::flash_scores<D>(sc, skt::smem_u32(sq), skt::smem_u32(kt));
+    // sc[4c + x]: row rows[(x >> 1) & 1], key 8c + 2t + (x & 1)
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
-    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
-    const int row = my_row[i];
-    if (row >= p.S) continue;
-    const float inv = l[i] > 0.f ? 1.f / l[i] : 0.f;
-    bf16* orow = p.out + ((long long)b * p.S + row) * q_stride + (long long)h * D;
+    for (int x = 0; x < 32; ++x) {
+      if constexpr (SOFTCAP) sc[x] = cap_out * tanh_exp2(sc[x] * cap_in);
+      else sc[x] *= scale_log2;
+    }
+    if (hd[kKeys]) {
 #pragma unroll
-    for (int n = 0; n < DT; ++n)
-      *reinterpret_cast<__nv_bfloat162*>(orow + n * 8 + 2 * t) =
-          __floats2bfloat162_rn(o[n][2 * i] * inv, o[n][2 * i + 1] * inv);
-    if (p.lse != nullptr && t == 0)
-      p.lse[((long long)b * p.H + h) * p.S + row] =
-          l[i] > 0.f ? m[i] * 0.69314718055994531f + logf(l[i]) : __int_as_float(0xff800000);
+      for (int c = 0; c < 8; ++c) {
+        const int2 col = *reinterpret_cast<const int2*>(hd + 8 * c + 2 * t);
+#pragma unroll
+        for (int x = 0; x < 4; ++x) {
+          const int cx = (x & 1) ? col.y : col.x;
+          if (cx < 0 || (p.causal && cx > rows[x >> 1])) sc[4 * c + x] = __int_as_float(0xff800000);  // -inf
+        }
+      }
+    }
+    skt::flash_softmax_pv<D>(acc, sc, skt::smem_u32(kt + L::kTile));
+    release(s);
   }
+  const int n_rows = min(kRows, p.S - row0);
+  skt::flash_store<D>(acc, p.out + ((long long)b * p.S + row0) * q_stride + (long long)h * D, q_stride,
+                      p.lse == nullptr ? nullptr : p.lse + ((long long)b * p.H + h) * p.S + row0, n_rows,
+                      n_rows, 0.69314718055994531f, __int_as_float(0xff800000));
 }
 
-template <int D>
-cudaError_t launch(const Params& p, int n_row_blocks, cudaStream_t st) {
+template <int D, bool SOFTCAP>
+cudaError_t launch(const Params& p, cudaStream_t st) {
   constexpr size_t bytes = Smem<D>::kBytes;
+  KArgs ka;
+  ka.p = p;
+  const long long rows = (long long)p.B * p.S, cols = (long long)p.Hk * D;
+  if (!skt::map_2d(&ka.tk, p.k, 2, rows, cols, cols, 64, kKeys, true) ||
+      !skt::map_2d(&ka.tv, p.v, 2, rows, cols, cols, 64, kKeys, true))
+    return cudaErrorInvalidValue;
   static bool attr_set = false;  // dynamic shared memory above 48 KB needs the opt-in once
   if (!attr_set) {
-    const cudaError_t err = cudaFuncSetAttribute(sparse_vs_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                                 (int)bytes);
+    const cudaError_t err = cudaFuncSetAttribute(sparse_vs_kernel<D, SOFTCAP>,
+                                                 cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
     if (err != cudaSuccess) return err;
     attr_set = true;
   }
-  sparse_vs_kernel<D><<<dim3(n_row_blocks, p.H, p.B), kThreads, bytes, st>>>(p);
+  sparse_vs_kernel<D, SOFTCAP><<<(unsigned)((long long)p.B * p.H * p.R), kThreads, bytes, st>>>(ka);
   return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch_d(const Params& p, cudaStream_t st) {
+  return p.softcap > 0.f ? launch<D, true>(p, st) : launch<D, false>(p, st);
 }
 
 }  // namespace
@@ -294,13 +341,12 @@ extern "C" int skt_sparse_attn(const void* q, const void* k, const void* v, cons
   p.column_count = (const int*)column_count, p.column_index = (const int*)column_index;
   p.kv_lens = (const int*)kv_lens;
   p.out = (bf16*)out, p.lse = (float*)lse;
-  p.B = B, p.S = S, p.H = H, p.Hk = Hk, p.NS = NS, p.NV = NV, p.bn = bn, p.causal = causal;
-  p.sm_scale = sm_scale, p.softcap = softcap;
-  const int n_row_blocks = (S + kRows - 1) / kRows;
+  p.B = B, p.S = S, p.H = H, p.Hk = Hk, p.R = (S + kRows - 1) / kRows, p.NS = NS, p.NV = NV, p.bn = bn;
+  p.causal = causal, p.sm_scale = sm_scale, p.softcap = softcap;
   cudaStream_t st = (cudaStream_t)stream;
   switch (D) {
-    case 64: return (int)launch<64>(p, n_row_blocks, st);
-    case 128: return (int)launch<128>(p, n_row_blocks, st);
+    case 64: return (int)launch_d<64>(p, st);
+    case 128: return (int)launch_d<128>(p, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -15,13 +15,14 @@ is the JAX formulation (mla.py:403-426): each (sequence, split) becomes a
 pseudo-sequence over its share of the pages, and ``merge_states`` joins the
 partial outputs by their base-2 lse.
 
-``engine="dma"`` takes K13b, ``mla_decode_dma`` (CUDA C++ in
-``csrc/mla_decode_dma.cu``, replacing the Pallas ``_mla_decode_dma``,
-mla.py:287, pallas_call at :321), by JAX's rule (mla.py:451): for pools of
-2 bytes or more and for 640-wide pools; a one-byte 576-wide pool takes K13a.
-K13b computes K13a's function in one block per (sequence, 16 heads) with the
-keys streamed through a two-stage ring; a length-0 row's lse is -inf there
-(K13a: -1e30 * log2(e)), as on the TPU. ``mla_decode_dma_ref`` is its twin.
+``engine="dma"`` takes K13b, ``mla_decode_dma`` (replacing the Pallas
+``_mla_decode_dma``, mla.py:287, pallas_call at :321), by JAX's rule
+(mla.py:451): for pools of 2 bytes or more and for 640-wide pools; a
+one-byte 576-wide pool takes K13a. K13b computes K13a's function and
+launches K13a's kernel (``csrc/mla_decode.cu``) with one flag set: a
+length-0 row's lse is -inf, as on the TPU (K13a: -1e30 * log2(e)). Its
+launches count on ``mla_decode_dma``, not on ``mla_decode``.
+``mla_decode_dma_ref`` is its twin.
 
 ``mla_prefill`` is the flash prefill (K7) over the latent as one MQA head,
 V zero-padded from 512 to 576 lanes and sliced back, as JAX does
@@ -82,7 +83,7 @@ def mla_decode_ref(q_nope, q_pe, kv_cache, lengths, page_table, layer_id=None, *
     return out
 
 
-_ARGS = (ctypes.c_void_p,) * 8 + (ctypes.c_int,) * 8 + (ctypes.c_float, ctypes.c_int, ctypes.c_void_p)
+_ARGS = (ctypes.c_void_p,) * 8 + (ctypes.c_int,) * 8 + (ctypes.c_float,) + (ctypes.c_int,) * 2 + (ctypes.c_void_p,)
 # pool dtypes of the kernel (csrc/mla_decode.cu)
 _POOL_TYPES = {torch.bfloat16: 0, torch.int8: 1, torch.float8_e4m3fn: 2, torch.float8_e5m2: 3}
 UNIT_TOKENS = 64  # pool tokens of one unit of the card's kernel (csrc/mla_decode.cu, kTok)
@@ -128,13 +129,16 @@ def work_units(lengths, n_blocks: int, page: int, heads: int, grid: int):
     return units, blocks, runs
 
 
-def _decode_kernel(q_nope, q_pe, kv_cache, lengths, page_table, layer_id, sm_scale, return_lse):
+def _decode_kernel(q_nope, q_pe, kv_cache, lengths, page_table, layer_id, sm_scale, return_lse, wrapper):
+    """K13a's kernel, for ``wrapper`` (``mla_decode``, or K13b's
+    ``mla_decode_dma``, whose length-0 rows get lse -inf), counted on it."""
     b, h, _ = q_nope.shape
+    name = wrapper.__name__
     if q_nope.dtype != torch.bfloat16 or q_pe.dtype != torch.bfloat16 or kv_cache.dtype not in _POOL_TYPES:
-        raise NotImplementedError("mla_decode: the CUDA kernel takes bf16 q and bf16, int8, float8_e4m3fn or "
+        raise NotImplementedError(f"{name}: the CUDA kernel takes bf16 q and bf16, int8, float8_e4m3fn or "
                                   "float8_e5m2 pools")
     if not kv_cache.is_contiguous():
-        raise ValueError("mla_decode: the pool must be contiguous")
+        raise ValueError(f"{name}: the pool must be contiguous")
     pool = kv_cache if layer_id is not None else kv_cache[None]
     lid = 0 if layer_id is None else int(layer_id)
     _, n_pages, page, width = pool.shape
@@ -156,8 +160,9 @@ def _decode_kernel(q_nope, q_pe, kv_cache, lengths, page_table, layer_id, sm_sca
         _build.check(fn(q[s0:].data_ptr(), pool.data_ptr(), lens[s0:].data_ptr(), table[s0:].data_ptr(),
                         out[s0:].data_ptr(), None if lse is None else lse[s0:].data_ptr(), ws.data_ptr(),
                         counters.data_ptr(), n, h, n_pages, page, width, table.shape[1], lid,
-                        _POOL_TYPES[kv_cache.dtype], sm_scale, ws_blocks, _build.stream_ptr(dev)), "mla_decode")
-        mla_decode.launches += 1
+                        _POOL_TYPES[kv_cache.dtype], sm_scale, int(wrapper is mla_decode_dma), ws_blocks,
+                        _build.stream_ptr(dev)), name)
+        wrapper.launches += 1
     return (out, lse) if return_lse else out
 
 
@@ -172,39 +177,18 @@ def mla_decode_dma_ref(q_nope, q_pe, kv_cache, lengths, page_table, layer_id=Non
     return out, torch.where(lengths.to(lse.device)[:, None] > 0, lse, float("-inf"))
 
 
-_DMA_ARGS = (ctypes.c_void_p,) * 6 + (ctypes.c_int,) * 8 + (ctypes.c_float, ctypes.c_void_p)
-
-
 def mla_decode_dma(q_nope, q_pe, kv_cache, lengths, page_table, layer_id=None, *, sm_scale: Optional[float] = None,
                    return_lse: bool = False):
     """K13b, the streaming MLA decode (``mla_decode(engine="dma")``): the
-    arguments and result of ``mla_decode``. CUDA tensors take bf16 q and
-    bf16 or one-byte (int8, fp8 e4m3, e5m2) pools; CPU tensors the twin."""
+    arguments and result of ``mla_decode``, a length-0 row's lse -inf. CUDA
+    tensors take bf16 q and bf16 or one-byte (int8, fp8 e4m3, e5m2) pools,
+    through K13a's kernel; CPU tensors the twin."""
     _check(q_nope, q_pe, kv_cache)
     scale = sm_scale if sm_scale is not None else 1.0 / D_CKV ** 0.5
     if q_nope.device.type != "cuda":
         return mla_decode_dma_ref(q_nope, q_pe, kv_cache, lengths, page_table, layer_id, sm_scale=scale,
                                   return_lse=return_lse)
-    if q_nope.dtype != torch.bfloat16 or q_pe.dtype != torch.bfloat16 or kv_cache.dtype not in _POOL_TYPES:
-        raise NotImplementedError("mla_decode_dma: the CUDA kernel takes bf16 q and bf16, int8, float8_e4m3fn or "
-                                  "float8_e5m2 pools")
-    if not kv_cache.is_contiguous():
-        raise ValueError("mla_decode_dma: the pool must be contiguous")
-    b, h, _ = q_nope.shape
-    pool = kv_cache if layer_id is not None else kv_cache[None]
-    _, n_pages, page, width = pool.shape
-    q = torch.cat([q_nope, q_pe], dim=-1).contiguous()
-    lens = lengths.to(device=q.device, dtype=torch.int32).contiguous()
-    table = page_table.to(device=q.device, dtype=torch.int32).contiguous()
-    out = torch.empty((b, h, D_LATENT), dtype=q.dtype, device=q.device)
-    lse = torch.empty((b, h), dtype=torch.float32, device=q.device) if return_lse else None
-    fn = _build.bind("mla_decode_dma", "skt_mla_decode_dma", _DMA_ARGS)
-    _build.check(fn(q.data_ptr(), pool.data_ptr(), lens.data_ptr(), table.data_ptr(), out.data_ptr(),
-                    None if lse is None else lse.data_ptr(), b, h, n_pages, page, width, table.shape[1],
-                    0 if layer_id is None else int(layer_id), _POOL_TYPES[kv_cache.dtype], scale,
-                    _build.stream_ptr(q.device)), "mla_decode_dma")
-    mla_decode_dma.launches += 1
-    return (out, lse) if return_lse else out
+    return _decode_kernel(q_nope, q_pe, kv_cache, lengths, page_table, layer_id, scale, return_lse, mla_decode_dma)
 
 
 mla_decode_dma.launches = 0
@@ -250,7 +234,7 @@ def mla_decode(q_nope, q_pe, kv_cache, lengths, page_table, layer_id=None, *, sm
     if q_nope.device.type != "cuda":
         return mla_decode_ref(q_nope, q_pe, kv_cache, lengths, page_table, layer_id, sm_scale=scale,
                               return_lse=return_lse)
-    return _decode_kernel(q_nope, q_pe, kv_cache, lengths, page_table, layer_id, scale, return_lse)
+    return _decode_kernel(q_nope, q_pe, kv_cache, lengths, page_table, layer_id, scale, return_lse, mla_decode)
 
 
 mla_decode.launches = 0

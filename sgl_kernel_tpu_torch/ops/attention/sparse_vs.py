@@ -4,10 +4,13 @@ The port of sgl_kernel_tpu/ops/attention/sparse_vs.py. Attention is kept to
 a per-head set of *vertical* columns (always-attended keys) and *slash*
 diagonals (fixed distances behind each query).
 
-``sparse_attn_func`` is kernel K16, CUDA C++ in ``csrc/sparse_vs.cu``,
+``sparse_attn_func`` is kernel K16, CUDA C++ in ``csrc/sparse_vs.cu`` (the
+wgmma flash tile of ``csrc/flash_tile.cuh`` fed by a producer warp),
 replacing the Pallas ``sparse_attn_func`` (sparse_vs.py:351, kernel
 ``_bs_kernel`` :240, pallas_call at :417); ``sparse_attn_func_ref`` is its
-plain twin, which follows the same block schedule (not the dense mask). Per
+plain twin, which follows the same block schedule (not the dense mask);
+``work_order`` is the order in which the kernel's blocks take the (sequence,
+head, row block) items. Per
 (sequence, head, row block of ``block_size_M`` queries) they attend, with one
 online softmax, to (1) the exact vertical columns ``column_index[:cc]`` and
 (2) every key of the ``block_count`` slash blocks of ``block_size_N`` keys
@@ -252,6 +255,19 @@ def sparse_attn_func_ref(q, k, v, block_count, block_offset, column_count, colum
     return (out, lse) if return_lse else out
 
 
+def work_order(batch: int, heads: int, kv_heads: int, row_blocks: int):
+    """The (sequence, head, row block) item of each of the card kernel's
+    blocks, in block order (the kernel derives it from its block index):
+    sequences in turn, within each the kv heads in turn, within each the row
+    blocks from the last (under causal masking the one with the most keys)
+    to the first, and for each row block the kv head's query heads side by
+    side. The blocks resident at a time then read one kv head's keys, and
+    each kv head's light row blocks come last."""
+    group = heads // kv_heads
+    return [(b, hk * group + g, row_blocks - 1 - rr) for b in range(batch) for hk in range(kv_heads)
+            for rr in range(row_blocks) for g in range(group)]
+
+
 _ARGS = (ctypes.c_void_p,) * 10 + (ctypes.c_int,) * 9 + (ctypes.c_float,) * 2 + (ctypes.c_void_p,)
 
 
@@ -269,10 +285,10 @@ def sparse_attn_func(q, k, v, block_count, block_offset, column_count, column_in
     ceil(S / block_size_M); kv_lens [B] optional (default S; at most S).
     Returns out [B, S, H, D] (+ lse [B, H, S] float32, natural log).
 
-    CUDA tensors go through the K16 kernel, which takes bf16 q/k/v (float16
-    and float32 raise), head dim 64 or 128, block_size_M 64 and
-    block_size_N 64 or 128; it reads the columns and blocks straight from k
-    and v (no gathered copy) and never past a sequence's kv length."""
+    CUDA tensors go through the K16 kernel (one launch), which takes bf16
+    q/k/v (float16 and float32 raise), head dim 64 or 128, block_size_M 64
+    and block_size_N 64 or 128; it reads the columns and blocks straight
+    from k and v (no gathered copy) and never past a sequence's kv length."""
     if q.device.type != "cuda":
         return sparse_attn_func_ref(q, k, v, block_count, block_offset, column_count, column_index,
                                     block_size_M=block_size_M, block_size_N=block_size_N, causal=causal,

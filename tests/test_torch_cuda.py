@@ -13,11 +13,16 @@ edges with padding blocks, widths that are not powers of two, quantized KV
 pools, head-major pools (K8), split-KV, sinks, window, soft cap and the
 lse of the decode, and every option, row count, group size and ragged width
 of the W4A16 GEMMs (K1 and the decode-bucket K10); the NSA indexer (K15) over key types, scales, head counts and
-lengths; the streaming MLA decode (K13b) and its dispatch; the blockwise-fp8
+lengths; the streaming MLA decode (K13b, on K13a's kernel: length-0 rows
+with lse -inf over every pool type and width, lse on and off, splits) and
+its dispatch; the blockwise-fp8
 GEMMs (K17, K18: row tiles, split K, compact and prepared scales, every
 e4m3 code), the QServe per-group GEMM (K19: groups, ragged M / N / K, scale
-types), the vertical + slash sparse prefill (K16: head dims, bn, GQA,
-causal, soft cap, lse, empty rows, blocks past S, kv lengths) and the
+types), the vertical + slash sparse prefill (K16's wgmma tile: head dims,
+bn, GQA 4:1, causal, soft cap, lse, empty rows, blocks past S, kv lengths,
+a column inside a slash block, ids at and past kv_len, NaN past kv_len
+unread, B = 2 through the varlen wrapper, one launch a call and two calls
+bit-equal) and the
 library GEMMs around them (int8 / fp8 scaled_mm, the per-channel QServe GEMM,
 w4a8_grouped_mm on K11).
 
@@ -1526,6 +1531,52 @@ def test_mla_decode_dma_dispatch_and_splits(gen, h):
         mla.mla_decode_dma(qn.float(), qp.float(), pool, lens, table, 0)
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.int8, torch.float8_e4m3fn, torch.float8_e5m2])
+@pytest.mark.parametrize("width", [576, 640])
+@pytest.mark.parametrize("return_lse", [True, False])
+def test_mla_decode_dma_empty_rows(gen, dtype, width, return_lse):
+    """K13b on K13a's kernel (mla_decode_dma called directly, so 1-byte
+    576-wide pools too): length-0 rows give o = 0 and lse -inf, the others
+    match the twin; layer_id 1 of a stacked pool; lse on and off; K13b's
+    launch count moves and K13a's does not."""
+    lengths = [0, 5, 0, 130, 64]
+    pool, table, lens = mla_pool(gen, lengths, 64, width, 2, dtype)
+    qn, qp = randn(gen, len(lengths), 16, 512), randn(gen, len(lengths), 16, 64)
+    kw = dict(sm_scale=0.01 if dtype == torch.int8 else 1 / 576 ** 0.5, return_lse=return_lse)
+    before, before_a = mla.mla_decode_dma.launches, mla.mla_decode.launches
+    res = mla.mla_decode_dma(qn, qp, pool, lens, table, 1, **kw)
+    assert mla.mla_decode_dma.launches == before + 1 and mla.mla_decode.launches == before_a
+    ref = mla.mla_decode_dma_ref(qn, qp, pool, lens, table, 1, **kw)
+    out, r_out = (res[0], ref[0]) if return_lse else (res, ref)
+    assert not out[0].any() and not out[2].any() and torch.isfinite(out).all()
+    assert_elementwise(out, r_out)
+    if return_lse:
+        lse, r_lse = res[1], ref[1]
+        valid = lens > 0
+        assert torch.isneginf(lse[~valid]).all() and torch.isfinite(lse[valid]).all()
+        assert torch.allclose(lse[valid], r_lse[valid], rtol=1e-5, atol=1e-4)
+
+
+def test_mla_decode_dma_splits_empty_rows(gen):
+    """num_splits=2 under engine="dma" on a bf16 pool: one K13b launch for
+    the pseudo-sequences, none of K13a; length-0 rows stay o = 0, lse -inf;
+    the rest against the same split form on the CPU."""
+    lengths = [0, 200, 64, 0, 1]
+    pool, table, lens = mla_pool(gen, lengths, 64, 576, 2, torch.bfloat16)
+    qn, qp = randn(gen, len(lengths), 16, 512), randn(gen, len(lengths), 16, 64)
+    before, before_a = mla.mla_decode_dma.launches, mla.mla_decode.launches
+    out, lse = mla.mla_decode(qn, qp, pool, lens, table, 1, num_splits=2, engine="dma", return_lse=True)
+    assert mla.mla_decode_dma.launches == before + 1 and mla.mla_decode.launches == before_a
+    ref, ref_lse = mla.mla_decode(*(t.cpu() for t in (qn, qp, pool, lens, table)), 1, num_splits=2, engine="dma",
+                                  return_lse=True)
+    assert not out[0].any() and not out[3].any() and torch.isneginf(lse[[0, 3]]).all()
+    o, r = out.float().cpu(), ref.float()
+    tol = 2.0 ** -7 * r.abs() + 2.0 ** -7 * r.abs().amax(-1, keepdim=True)  # as the K13a split test
+    assert ((o - r).abs() <= tol).all(), float(((o - r).abs() / tol).max())
+    valid = lens.cpu() > 0
+    assert torch.allclose(lse.cpu()[valid], ref_lse[valid], rtol=1e-5, atol=1e-4)
+
+
 # ---------------------------------------------------------------------------
 # Slice 8: K16-K19 and the library GEMMs around them
 # ---------------------------------------------------------------------------
@@ -1810,6 +1861,87 @@ def test_sparse_attn_varlen_gqa(gen):
     out, lse = sparse_vs.sparse_attn_varlen_func(q, k, v, *args, **kw)
     ref, rlse = sparse_vs.sparse_attn_varlen_func(q.cpu(), k.cpu(), v.cpu(), *args, **kw)
     assert out.shape == (t, 8, 128) and lse.shape == (8, t)
+    assert_vs_close((out.cpu(), lse.cpu()), (ref, rlse))
+
+
+def sparse_call(q, k, v, sched, **kw):
+    """One K16 call: exactly one launch, and a second call bit-equal."""
+    before = sparse_vs.sparse_attn_func.launches
+    res = sparse_vs.sparse_attn_func(q, k, v, *sched, **kw)
+    assert sparse_vs.sparse_attn_func.launches == before + 1
+    again = sparse_vs.sparse_attn_func(q, k, v, *sched, **kw)
+    pairs = zip(res, again) if isinstance(res, tuple) else [(res, again)]
+    assert all(torch.equal(a, b) for a, b in pairs)
+    return res
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("bn", [64, 128])
+@pytest.mark.parametrize("softcap", [0.0, 30.0])
+@pytest.mark.parametrize("causal", [True, False])
+def test_sparse_attn_wgmma_gqa4_kv_lens(gen, d, bn, softcap, causal):
+    """K16's wgmma tile: GQA 4:1 (8 heads over 2), S = 333 (not a multiple of
+    64 or 128), kv lengths 333 and 250, soft cap or not, with the lse; one
+    launch a call, two calls bit-equal."""
+    q, k, v, sched = vs_case(gen, 2, 333, 8, 2, d, 40, 6, bn, causal, seed=5)
+    kw = dict(block_size_N=bn, causal=causal, softcap=softcap, return_lse=True,
+              kv_lens=torch.tensor([333, 250], dtype=torch.int32))
+    res = sparse_call(q, k, v, sched, **kw)
+    assert_vs_close(res, sparse_vs.sparse_attn_func_ref(q, k, v, *sched, **kw))
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("bn", [64, 128])
+def test_sparse_attn_wgmma_edge_keys(gen, d, bn):
+    """A row block whose every key lies past the diagonal (o 0, lse -inf); a
+    column that also lies in one of the row block's slash blocks (it counts
+    twice); column ids at and past kv_len and below 0; NaN in every k / v row
+    at or past kv_len changes nothing, bit for bit (those rows are not read)."""
+    q, k, v, (bc, bo, cc, ci) = vs_case(gen, 2, 256, 4, 4, d, 16, 4, bn, True, seed=7)
+    kvl = torch.tensor([256, 150], dtype=torch.int32)
+    # (0, 0) row block 2 (rows 128..191): columns past its last row only, no block
+    bc[0, 0, 2] = 0
+    cc[0, 0, 2] = 3
+    ci[0, 0, 2, :3] = torch.tensor([192, 200, 255])
+    # (1, 1) row block 1 (rows 64..127): one block at 0 and column 5 inside it
+    bc[1, 1, 1] = 1
+    bo[1, 1, 1, 0] = 0
+    cc[1, 1, 1] = 2
+    ci[1, 1, 1, :2] = torch.tensor([5, 70])
+    # (1, 2) row block 3 (rows 192..255, kv_len 150): ids below, at and past kv_len, and -1
+    cc[1, 2, 3] = 5
+    ci[1, 2, 3, :5] = torch.tensor([149, 150, 200, -1, 3])
+    kw = dict(block_size_N=bn, return_lse=True, kv_lens=kvl)
+    out, lse = sparse_call(q, k, v, (bc, bo, cc, ci), **kw)
+    assert_vs_close((out, lse), sparse_vs.sparse_attn_func_ref(q, k, v, bc, bo, cc, ci, **kw))
+    assert not out[0, 128:192, 0].any() and torch.isneginf(lse[0, 0, 128:192]).all()
+    past = torch.zeros(2, 256, dtype=torch.bool, device="cuda")
+    past[1, 150:] = True
+    k2, v2 = (with_nan(x.reshape(512, -1), past.reshape(-1)).reshape(x.shape) for x in (k, v))
+    out2, lse2 = sparse_vs.sparse_attn_func(q, k2, v2, bc, bo, cc, ci, **kw)
+    assert torch.equal(out2, out) and torch.equal(lse2, lse)
+
+
+@pytest.mark.parametrize("bn", [64, 128])
+@pytest.mark.parametrize("softcap", [0.0, 30.0])
+def test_sparse_attn_varlen_b2_wgmma(gen, bn, softcap):
+    """B = 2 through sparse_attn_varlen_func (prompts of 300 and 130 tokens,
+    GQA 4:1, head dim 64, causal, lse, soft cap or not) against its CPU
+    path, one K16 launch."""
+    lens = [300, 130]
+    cu = np.concatenate([[0], np.cumsum(lens)])
+    t = int(cu[-1])
+    q, k, v = randn(gen, t, 8, 64), randn(gen, t, 2, 64), randn(gen, t, 2, 64)
+    rng = np.random.default_rng(11)
+    v_idx = np.sort(rng.integers(0, 130, (2, 8, 24)), -1)
+    s_idx = np.sort(rng.choice(130, (2, 8, 6)), -1)[..., ::-1]
+    sched = sparse_vs.convert_vertical_slash_indexes(lens, lens, v_idx, np.ascontiguousarray(s_idx), 300, 64, bn)
+    args = (*sched, cu, cu, 300, 300)
+    kw = dict(causal=True, softcap=softcap, return_softmax_lse=True, block_size_N=bn)
+    before = sparse_vs.sparse_attn_func.launches
+    out, lse = sparse_vs.sparse_attn_varlen_func(q, k, v, *args, **kw)
+    assert sparse_vs.sparse_attn_func.launches == before + 1
+    ref, rlse = sparse_vs.sparse_attn_varlen_func(q.cpu(), k.cpu(), v.cpu(), *args, **kw)
     assert_vs_close((out.cpu(), lse.cpu()), (ref, rlse))
 
 

@@ -199,3 +199,20 @@ def test_build_vertical_slash_indexes_as_sets():
     for hh in range(h):
         assert set(tv[hh].tolist()) == set(np.asarray(jv)[hh].tolist())
         assert set(ts[hh].tolist()) == set(np.asarray(js)[hh].tolist())
+
+
+@pytest.mark.parametrize("batch,heads,kv_heads,row_blocks", [(1, 32, 8, 64), (2, 4, 4, 5), (3, 8, 2, 1), (2, 6, 1, 7)])
+def test_k16_work_order(batch, heads, kv_heads, row_blocks):
+    """K16's block order (the kernel derives it from the block index) against
+    a brute-force order: every (sequence, head, row block) item once; the
+    blocks of one (sequence, kv head) contiguous, in (sequence, kv head)
+    order; within them row blocks from the last to the first, the kv head's
+    query heads side by side for each."""
+    order = sparse_vs.work_order(batch, heads, kv_heads, row_blocks)
+    group = heads // kv_heads
+    assert sorted(order) == [(b, h, r) for b in range(batch) for h in range(heads) for r in range(row_blocks)]
+    brute = sorted(order, key=lambda it: (it[0], it[1] // group, -it[2], it[1] % group))
+    assert order == brute
+    span = group * row_blocks
+    for i in range(0, len(order), span):
+        assert len({(b, h // group) for b, h, _ in order[i: i + span]}) == 1

@@ -1,4 +1,5 @@
-"""Device time of the decode kernels K5, K1, K13a and K15 for the port found at ROOT.
+"""Device time of the decode kernels K5, K1, K13a, K13b and K15, and of one
+prefill kernel, K16, for the port found at ROOT.
 
 Times, with CUDA graphs (chip_smoke.py's method: the calls captured and
 replayed, so the host launch path is not measured):
@@ -14,6 +15,16 @@ replayed, so the host launch path is not measured):
 - k15: K15 at the NSA indexer's decode (64 heads of 128, B=16, contexts
   1..1,056, 8,192-token tables, e4m3 keys with scales; and bf16 keys), at
   B=16 x 8,192 and at B=1 x 32,768;
+- k13b: K13b (``mla_decode(engine="dma")``) at K13a's decode shape (16
+  heads, B=16, contexts 1..1,056, page 64, 128-column tables, layer 1 of a
+  two-layer pool, lse) on a bf16 pool, a 640-wide bf16 pool and a 640-wide
+  e4m3 pool, each beside K13a's own call on the same pool (``_k13a`` rows);
+- k16: K16 (``sparse_attn_func``, the vertical + slash sparse prefill) at
+  Llama-3-8B's attention widths (32 heads of 128, causal, bm 64, bn 128) at
+  S=4,096 (NV 256, NS 8; plain and with soft cap 30 + lse) and S=32,768 (NV
+  1,000, NS 64), schedules from convert_vertical_slash_indexes on sorted
+  random columns and distances, each beside dense causal SDPA on the same
+  q / k / v (``_sdpa`` rows, CUDA-event ms);
 - floor: one empty kernel (``torch.cuda._sleep(0)``) a graph node, the
   least a kernel of the decode step costs on the device.
 K13a and K15 rows are timed warm (the same inputs call after call) and cold
@@ -25,7 +36,7 @@ one card, run them in turns in one call (old, new, new, old):
 
     python tools/decode_ab.py OLD_TREE k13a,k15,floor; python tools/decode_ab.py . k13a,k15,floor
 
-The second argument picks the groups (all four and the floor by default).
+The second argument picks the groups (all of them by default).
 Only the sources the groups use are compiled. Prints the card's name and
 power limit, then one JSON line of ms.
 """
@@ -38,9 +49,11 @@ import subprocess
 import sys
 from pathlib import Path
 
-GROUPS = ("k5", "k1", "k13a", "k15", "floor")
+GROUPS = ("k5", "k1", "k13a", "k13b", "k15", "k16", "floor")
+# the sources a group may launch (those a tree lacks are skipped: K13b had a
+# source of its own before it moved onto K13a's kernel)
 SOURCES = {"k5": ("decode_attention",), "k1": ("w4a16_decode", "w4a16_gemm"), "k13a": ("mla_decode",),
-           "k15": ("mqa_logits",), "floor": ()}
+           "k13b": ("mla_decode", "mla_decode_dma"), "k15": ("mqa_logits",), "k16": ("sparse_vs",), "floor": ()}
 COLD_BYTES = 150e6  # three times the 50 MB L2
 
 
@@ -48,7 +61,9 @@ def build(_build, stems):
     """Compile the named sources of the tree (those not built yet), side by side."""
     _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     jobs = []
-    for stem in stems:
+    for stem in dict.fromkeys(stems):
+        if not (_build.CSRC / f"{stem}.cu").exists():
+            continue
         out = _build._lib_path(_build.CSRC / f"{stem}.cu")
         if not out.exists():
             tmp = out.with_suffix(f".{os.getpid()}.tmp")
@@ -62,11 +77,12 @@ def build(_build, stems):
 
 def main(root: Path, groups) -> None:
     sys.path.insert(0, str(root))
+    import numpy as np
     import torch
 
     import sgl_kernel_tpu_torch as skt
     from sgl_kernel_tpu_torch import _build
-    from sgl_kernel_tpu_torch.ops.attention import mla, nsa
+    from sgl_kernel_tpu_torch.ops.attention import mla, nsa, sparse_vs
     from sgl_kernel_tpu_torch.ops.attention import paged_decode_dma as pd
     from sgl_kernel_tpu_torch.ops.gemm import w4a16
 
@@ -98,6 +114,19 @@ def main(root: Path, groups) -> None:
             for _ in range(reps):
                 fn()
         return replay_ms(graph, reps)
+
+    def event_ms(fn, iters):
+        """CUDA-event ms a call over back-to-back calls (a call that cannot be
+        captured, or one far longer than its launch path)."""
+        fn()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / iters
 
     def cold_ms(fn, layers):
         """fn(i) reads layer i's rows; a graph of max(24, layers) calls, call i
@@ -199,6 +228,40 @@ def main(root: Path, groups) -> None:
         res["k13a_ctx8192_bf16"] = graph_ms(lambda: mla.mla_decode(qn, qp, pool, lens, table, 0, sm_scale=sm))
         del pool
         torch.cuda.empty_cache()
+    if "k13b" in groups:
+        sm = 1.0 / 192 ** 0.5
+        qn, qp = randn(16, 16, 512, scale=0.3), randn(16, 16, 64, scale=0.3)
+        table, n_used = paged(ragged, 64, 128)
+        lens = torch.tensor(ragged, dtype=torch.int32, device=dev)
+        for kind, dt, width, scale in (("bf16", bf, 576, 1.0), ("bf16_640", bf, 640, 1.0),
+                                       ("e4m3_640", torch.float8_e4m3fn, 640, 0.5)):
+            pool = torch.randn((2, n_used + 1, 64, width), generator=gen, device=dev) * (1.0 if dt == bf else 2.0)
+            pool[..., 576:] = 0
+            pool = pool.to(dt)
+            kw = dict(sm_scale=sm * scale, return_lse=True)
+            res[f"k13b_{kind}"] = graph_ms(lambda: mla.mla_decode(qn, qp, pool, lens, table, 1, engine="dma", **kw))
+            res[f"k13b_{kind}_k13a"] = graph_ms(lambda: mla.mla_decode(qn, qp, pool, lens, table, 1, **kw))
+            del pool
+            torch.cuda.empty_cache()
+    if "k16" in groups:
+        rng = np.random.default_rng(20261017)
+        for name, s, nv, ns, kw in (("k16_4k", 4096, 256, 8, {}),
+                                    ("k16_4k_softcap_lse", 4096, 256, 8, dict(softcap=30.0, return_lse=True)),
+                                    ("k16_32k", 32768, 1000, 64, {})):
+            q, k, v = (randn(1, s, 32, 128) for _ in range(3))
+            vert = np.sort(np.stack([rng.choice(s, nv, replace=False) for _ in range(32)]), -1)[None]
+            slash = np.ascontiguousarray(
+                np.sort(np.stack([rng.choice(s, ns, replace=False) for _ in range(32)]), -1)[None, :, ::-1])
+            sched = [torch.from_numpy(x).to(dev) for x in
+                     sparse_vs.convert_vertical_slash_indexes([s], [s], vert, slash, s, 64, 128)]
+            iters = 5 if s > 8192 else 20
+            res[name] = graph_ms(lambda: sparse_vs.sparse_attn_func(q, k, v, *sched, **kw), reps=iters)
+            if not kw:
+                qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+                res[f"{name}_sdpa"] = event_ms(
+                    lambda: torch.nn.functional.scaled_dot_product_attention(qt, kt, vt, is_causal=True), iters)
+            del q, k, v, sched
+            torch.cuda.empty_cache()
     if "k15" in groups:
         for name, lengths, cols, kdt in (("k15_decode", ragged, 128, torch.float8_e4m3fn),
                                          ("k15_decode_bf16", ragged, 128, bf),
