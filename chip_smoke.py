@@ -1352,13 +1352,22 @@ def mixtral_step_bytes(cfg, batch=16, ctx=1024):
     return cfg.num_layers * layer + lin(vocab, h), pool_bytes, hit
 
 
-def report_row(torch, name, row, dev_fn=None):
+def report_row(torch, name, row, dev_fn=None, work=None):
     """Log one kernel's row; with ``dev_fn`` (a call of the kernel) add its
-    CUDA-graph device time as ``graph_ms``. Returns the row."""
+    CUDA-graph device time as ``graph_ms``; with ``work`` (the operations
+    and bytes the call needs) the TFLOP/s and GB/s it achieves on its device
+    time (graph ms where taken, else event ms) and the library's TFLOP/s.
+    Returns the row."""
     lib = "null" if row["library_ms"] is None else f"{row['library_ms']:.4f}"
     if dev_fn is not None:
         row["graph_ms"] = graph_ms(torch, dev_fn)
-    extra = "".join(f" {key}={row[key]:.4f}" for key in ("graph_ms", "cold_ms", "library_graph_ms", "tflops",
+    if work is not None:
+        n_ops, n_bytes = work
+        t = row.get("graph_ms") or row["ms"]
+        row.update(tflops=n_ops / t / 1e9, gbs=n_bytes / t / 1e6)
+        if row["library_ms"] is not None:
+            row["library_tflops"] = n_ops / row["library_ms"] / 1e9
+    extra = "".join(f" {key}={row[key]:.4f}" for key in ("graph_ms", "cold_ms", "library_graph_ms", "tflops", "gbs",
                                                           "library_tflops", "k13a_graph_ms") if row.get(key) is not None)
     log(f"[kernel] {name}: ms={row['ms']:.4f}{extra} plain_ms={row['plain_ms']:.4f} library_ms={lib} "
         f"bound_ms={row['bound_ms']:.4f} ({row['bound_by']}) {row.get('library_note', '')}")
@@ -1454,8 +1463,8 @@ def phase_deepseek_kernels(torch, skt):
         w = torch.randint(0, 256, (2, e, k // 2, n), generator=gen, device=dev, dtype=torch.int32).to(torch.uint8)
         return w, (0.005 + 0.015 * torch.rand((2, e, k // g, n), generator=gen, device=dev)).to(bf)
 
-    def report(name, row, dev_fn=None):
-        rows[name] = report_row(torch, name, row, dev_fn)
+    def report(name, row, dev_fn=None, work=None):
+        rows[name] = report_row(torch, name, row, dev_fn, work)
 
     # K11: tokens routed by biased top-k on random logits, aligned, through
     # gate_up [K 2048 -> N 2816] and down [1408 -> 2048]
@@ -1678,8 +1687,8 @@ def phase_moe_bf16_kernels(torch, skt):
     def randn(*shape, scale=1.0):
         return (torch.randn(shape, generator=gen, device=dev) * scale).to(bf)
 
-    def report(name, row, dev_fn=None):
-        rows[name] = report_row(torch, name, row, dev_fn)
+    def report(name, row, dev_fn=None, work=None):
+        rows[name] = report_row(torch, name, row, dev_fn, work)
 
     # K4 at B=16, 32 q and 8 kv heads of 128, positions across the 8,192 cache
     b, nq, nkv, d = 16, mcfg.num_heads, mcfg.num_kv_heads, mcfg.head_dim
@@ -2026,8 +2035,8 @@ def phase_nsa_kernels(torch, skt):
     h, d, page, b = cfg.idx_heads, cfg.idx_dim, 64, 16
     rows = {}
 
-    def report(name, row, dev_fn=None):
-        rows[name] = report_row(torch, name, row, dev_fn)
+    def report(name, row, dev_fn=None, work=None):
+        rows[name] = report_row(torch, name, row, dev_fn, work)
 
     decode_lens = [1 + (1055 * i) // (b - 1) for i in range(b)]
     for label, lengths_l, n_cols, key_dt in (("decode", decode_lens, cfg.max_position // page, torch.float8_e4m3fn),
@@ -2385,8 +2394,8 @@ def phase_decode_variants(torch, skt):
     def randn(*shape, dtype=bf, scale=1.0):
         return (torch.randn(shape, generator=gen, device=dev) * scale).to(dtype)
 
-    def report(name, row, dev_fn=None):
-        rows[name] = report_row(torch, name, row, dev_fn)
+    def report(name, row, dev_fn=None, work=None):
+        rows[name] = report_row(torch, name, row, dev_fn, work)
 
     cfg = skt.LlamaConfig.llama3_8b(fused=True)
     h, inter, nq, nkv, d = cfg.hidden_size, cfg.intermediate_size, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
@@ -2673,8 +2682,10 @@ def phase_slice8_kernels(torch, skt):
     2048], o_proj [M, 7168, 16384]) at M=16 and 1,024, gate_up M=16 also on
     prepared scales; K18 over DeepSeek-V3's routed banks (256 experts, gate_up
     [256, 7168, 4096] and down [256, 2048, 7168] e4m3, 11.3 GB) at a B=16
-    decode (top-8, bm 16, gate_up and down) and a 1,024-token prefill (bm
-    128, gate_up), rows aligned by moe_align_block_size; K19 at Llama-3-8B's
+    decode (top-8, bm 16) and a 1,024-token prefill (bm 128), gate_up and
+    down each, rows aligned by moe_align_block_size (K17's and K18's rows
+    with the TFLOP/s and GB/s of their device time and the library's
+    TFLOP/s); K19 at Llama-3-8B's
     GEMMs (qkv, o, gate_up, down; group 128) at M=16 and 1,024 on the
     progressive-quant operands of tests/test_gemm.py:278-292; K16 at
     Llama-3-8B's attention widths (32 heads of 128, bf16, causal, bm 64, bn
@@ -2688,8 +2699,8 @@ def phase_slice8_kernels(torch, skt):
     gen = torch.Generator(device=dev).manual_seed(SEED + 13)
     rows = {}
 
-    def report(name, row, dev_fn=None):
-        rows[name] = report_row(torch, name, row, dev_fn)
+    def report(name, row, dev_fn=None, work=None):
+        rows[name] = report_row(torch, name, row, dev_fn, work)
 
     def scales(*shape):
         return torch.rand(shape, generator=gen, device=dev) * 1e-2 + 1e-3
@@ -2717,12 +2728,12 @@ def kernels_k17(torch, skt, gen, scales, report):
                 ref, plain = once_ms(torch, functools.partial(bw.fp8_blockwise_scaled_mm_ref, a, b, sa, sbx))
                 err = check(f"fp8_blockwise_scaled_mm {label} [{m}, {n}, {k}]{suffix}", [(fn(), ref)])
                 del ref
-                bms, bby = bound_ms(m * k + k * n + 4 * (sa.numel() + sbx.numel()) + 2 * m * n, 2 * m * n * k,
-                                    FP8_FLOPS)
+                n_bytes = m * k + k * n + 4 * (sa.numel() + sbx.numel()) + 2 * m * n
+                bms, bby = bound_ms(n_bytes, 2 * m * n * k, FP8_FLOPS)
                 report(f"fp8_blockwise_scaled_mm_{label}_m{m}{suffix}", dict(
                     max_abs_err=err, ms=time_ms(torch, fn), plain_ms=plain,
                     library_ms=None if lib_fn is None else time_ms(torch, lib_fn), library_note=lib_note,
-                    bound_ms=bms, bound_by=bby), fn if m == 16 else None)
+                    bound_ms=bms, bound_by=bby), fn if m == 16 else None, (2 * m * n * k, n_bytes))
             del a, b, lib_fn
 
 
@@ -2743,9 +2754,8 @@ def kernels_k18(torch, skt, gen, scales, report):
         hit = int(torch.unique(eids).numel())
         x = moe.scatter_tokens_to_experts(e4m3_codes(torch, gen, t, h).view(torch.uint8), al).view(f8)
         xs = moe.scatter_tokens_to_experts(scales(t, h // 128), al)
-        steps = [("gate_up", x, xs, w13, s13)]
-        if label == "decode":
-            steps.append(("down", e4m3_codes(torch, gen, cap, inter), scales(cap, inter // 128), w2, s2))
+        steps = [("gate_up", x, xs, w13, s13),
+                 ("down", e4m3_codes(torch, gen, cap, inter), scales(cap, inter // 128), w2, s2)]
         for name, a, sa, w, sw in steps:
             k, n = a.shape[1], w.shape[-1]
             fn = functools.partial(bw.fp8_blockwise_scaled_grouped_mm, a, w, sa, sw, eids, bm=bm)
@@ -2771,7 +2781,8 @@ def kernels_k18(torch, skt, gen, scales, report):
             report(f"fp8_blockwise_scaled_grouped_mm_{label}_{name}", dict(
                 max_abs_err=err, ms=time_ms(torch, fn, iters=5 if label == "prefill" else 20), plain_ms=plain,
                 library_ms=None if lib_fn is None else time_ms(torch, lib_fn, iters=5), library_note=lib_note,
-                bound_ms=bms, bound_by=bby, experts_hit=hit, rows=cap), fn if label == "decode" else None)
+                bound_ms=bms, bound_by=bby, experts_hit=hit, rows=cap), fn if label == "decode" else None,
+                (2 * cap * n * k, n_bytes))
 
 
 def kernels_k19(torch, skt, gen, scales, report):

@@ -164,15 +164,6 @@ __device__ __forceinline__ void mma_f16(float (&d)[4], const uint32_t (&a)[4], u
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// d += a (16 x 32, row) * b (32 x 8, col), e4m3 in, float32 accumulators
-__device__ __forceinline__ void mma_e4m3(float (&d)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.f32.e4m3.e4m3.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
 __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
@@ -407,6 +398,74 @@ __device__ __forceinline__ void wgmma_m64n256k16_ss_tb(float (&d)[128], uint64_t
       : "l"(da), "l"(db), "r"(1));
 }
 
+#define SKT_ACC8(d) SKT_F8(d, 0)
+#define SKT_ACC16(d) SKT_F8(d, 0), SKT_F8(d, 8)
+#define SKT_ACC64(d)                                                                                          \
+  SKT_F8(d, 0), SKT_F8(d, 8), SKT_F8(d, 16), SKT_F8(d, 24), SKT_F8(d, 32), SKT_F8(d, 40), SKT_F8(d, 48),       \
+      SKT_F8(d, 56)
+
+// d (64 x N, float32) = (scale_d ? d : 0) + A (64 x 32) * B (32 x N), e4m3
+// operands (fp8 wgmma takes both K-major; it has no transpose forms). A from
+// registers in mma.sync's m16n8k32 A fragment layout, warp w holding rows
+// 16w..16w+15: a[0] row g, k 4t..4t+3; a[1] row g+8, the same k; a[2] and
+// a[3] the same rows at k 16 + 4t.. (g = lane / 4, t = lane % 4). B from
+// shared memory K-major (stored [n][k]). d's layout is the n64 one's with
+// N / 8 column groups: d[4j + e] at row 16w + g + 8 (e >> 1), column 8j +
+// 2t + (e & 1).
+template <int N>
+__device__ __forceinline__ void wgmma_e4m3_rs(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t db, int scale_d);
+
+template <>
+__device__ __forceinline__ void wgmma_e4m3_rs<16>(float (&d)[8], const uint32_t (&a)[4], uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k32.f32.e4m3.e4m3 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, {%8, %9, %10, %11}, %12, p, 1, 1;\n}\n"
+      : SKT_ACC8(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_e4m3_rs<32>(float (&d)[16], const uint32_t (&a)[4], uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k32.f32.e4m3.e4m3 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+      : SKT_ACC16(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_e4m3_rs<64>(float (&d)[32], const uint32_t (&a)[4], uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k32.f32.e4m3.e4m3 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : SKT_ACC32(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_e4m3_rs<128>(float (&d)[64], const uint32_t (&a)[4], uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.f32.e4m3.e4m3 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+      : SKT_ACC64(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+#undef SKT_ACC64
+#undef SKT_ACC16
+#undef SKT_ACC8
 #undef SKT_ACC128
 #undef SKT_F8
 #undef SKT_ACC32

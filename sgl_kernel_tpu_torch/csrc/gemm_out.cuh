@@ -1,5 +1,5 @@
-// Output stores and the split-K reduction of the GEMMs with a bf16 / f16 /
-// float32 output: K17 / K18 (blockwise_fp8.cu) and K19 (qserve_gemm.cu).
+// Output stores of the GEMMs with a bf16 / f16 / float32 output, K17 / K18
+// (blockwise_fp8.cu) and K19 (qserve_gemm.cu), and K19's split-K reduction.
 #pragma once
 
 #include <cuda_fp16.h>
@@ -11,19 +11,14 @@ namespace skt {
 // output element kinds of the GEMMs
 enum { kOutBf16 = 0, kOutF16 = 1, kOutF32 = 2 };
 
-// four consecutive outputs at out[idx..idx+3] (idx a multiple of 4)
-__device__ __forceinline__ void store4(void* out, int kind, long long idx, float v0, float v1, float v2, float v3) {
-  if (kind == kOutF32) {
-    *reinterpret_cast<float4*>(reinterpret_cast<float*>(out) + idx) = make_float4(v0, v1, v2, v3);
-  } else if (kind == kOutF16) {
-    __half2* p = reinterpret_cast<__half2*>(reinterpret_cast<__half*>(out) + idx);
-    p[0] = __floats2half2_rn(v0, v1);
-    p[1] = __floats2half2_rn(v2, v3);
-  } else {
-    __nv_bfloat162* p = reinterpret_cast<__nv_bfloat162*>(reinterpret_cast<bf16*>(out) + idx);
-    p[0] = __floats2bfloat162_rn(v0, v1);
-    p[1] = __floats2bfloat162_rn(v2, v3);
-  }
+// two consecutive outputs at out[idx], out[idx + 1] (idx even)
+__device__ __forceinline__ void store2(void* out, int kind, long long idx, float v0, float v1) {
+  if (kind == kOutF32)
+    *reinterpret_cast<float2*>(reinterpret_cast<float*>(out) + idx) = make_float2(v0, v1);
+  else if (kind == kOutF16)
+    *reinterpret_cast<__half2*>(reinterpret_cast<__half*>(out) + idx) = __floats2half2_rn(v0, v1);
+  else
+    *reinterpret_cast<__nv_bfloat162*>(reinterpret_cast<bf16*>(out) + idx) = __floats2bfloat162_rn(v0, v1);
 }
 
 __device__ __forceinline__ void store1(void* out, int kind, long long idx, float v) {

@@ -8,11 +8,15 @@ pallas_call at :403). ``*_ref`` are their plain twins. The function:
 
     out[m, n] = sum_g sa[m, g] * sb[g, n // 128] * (A[m, g-th 128] @ B[g-th 128, n])
 
-The kernel multiplies the e4m3 operands natively on the tensor cores
-(mma.sync m16n8k32 e4m3, float32 accumulation) one 128-deep scale group at a
-time, and promotes each group's partial into a float32 accumulator with its
-two scales (DeepSeek's per-128 promotion). It converts every e4m3 code
-exactly, subnormals included; JAX flushes subnormals, reads the NaN bytes as
+The kernel multiplies the e4m3 operands natively on Hopper's warpgroup
+MMA (wgmma e4m3, float32 accumulation), computing the tile transposed (the
+weights as wgmma's M, from registers; the activation rows as its N), one
+128-deep scale group at a time, and promotes each k32 step's partial into
+a float32 accumulator with the group's two scales (DeepSeek's promotion,
+every 32 k rather than 128: on the card a longer partial loses bits).
+Blocks follow ``work_order``'s raster, and K splits over blocks by
+``split_plan`` in the same launch. It converts every e4m3 code exactly,
+subnormals included; JAX flushes subnormals, reads the NaN bytes as
 +-480 and rounds a * sa to bf16 before its dot (blockwise_fp8.py:46-52,
 :189): on normal codes the two differ by that bf16 rounding only.
 
@@ -31,10 +35,11 @@ from typing import Optional
 import torch
 
 from ... import _build
-from ...utils import OUT_KIND, cdiv, row_tile, sm_count, split_k_plan
+from ...utils import OUT_KIND, cdiv, kept_buffer, row_tile, sm_count
 
 BLOCK = 128
 REBIAS = 2.0 ** 120  # the TPU's e4m3 -> bf16 exponent rebias, carried by prepared scales
+RASTER_ROWS = 8  # row tiles a raster group walks down each column tile (csrc/blockwise_fp8.cu)
 
 def prepare_blockwise_scales(scales_b, *, rebias: bool = True):
     """[.., K/128, N/128] float32 -> [.., K/128, N] float32 scale rows, each
@@ -121,7 +126,35 @@ def _grouped_check(a, b, scales_a, expert_ids, bm: int):
     return expert_ids
 
 
-_ARGS = ((ctypes.c_void_p,) * 7 + (ctypes.c_int,) * 4 + (ctypes.c_longlong,) * 2 + (ctypes.c_int,) * 2
+def tile_cols(block_rows: int) -> int:
+    """Columns of the kernel's tile for a row tile: 256 (four consumer
+    warpgroups) at 16 / 32 rows, 128 (two) at 64 / 128."""
+    return 256 if block_rows <= 32 else 128
+
+
+def work_order(m_tiles: int, n_tiles: int):
+    """The kernel's raster: the (row tile, column tile) of each block index.
+    Groups of RASTER_ROWS row tiles walk down each column tile in turn, so
+    the row tiles of one expert (consecutive in the sorted rows) read each
+    slice of its bank at about the same time."""
+    order = []
+    for first in range(0, m_tiles, RASTER_ROWS):
+        rows = min(RASTER_ROWS, m_tiles - first)
+        order += [(first + i % rows, i // rows) for i in range(rows * n_tiles)]
+    return order
+
+
+def split_plan(tiles: int, n_groups: int, n_sm: int):
+    """(split, groups_per_split): with fewer tiles than SMs, K splits over
+    blocks in whole 128-deep groups so the blocks fill the SMs once (a block
+    an SM: its ring takes most of the shared memory); every split non-empty."""
+    if tiles >= n_sm:
+        return 1, n_groups
+    per = cdiv(n_groups, max(1, min(n_groups, n_sm // tiles)))
+    return cdiv(n_groups, per), per
+
+
+_ARGS = ((ctypes.c_void_p,) * 8 + (ctypes.c_int,) * 4 + (ctypes.c_longlong,) + (ctypes.c_int,) * 2
          + (ctypes.c_float,) + (ctypes.c_int,) * 5 + (ctypes.c_void_p,))
 
 
@@ -132,22 +165,27 @@ def _entry():
 
 def _launch(a, b, sa, sb, div, mul, eids, out_dtype, block_rows: int):
     """One launch of the kernel over A [M, K] and B [K, N] (or the bank [E,
-    K, N] with ``eids``, one expert a row block of ``block_rows``)."""
+    K, N] with ``eids``, one expert a row block of ``block_rows``); a split
+    K's partials and arrival counters live in kept buffers, so a call
+    allocates nothing but its output and can be captured in a CUDA graph."""
     m, k = a.shape
     n = b.shape[-1]
-    out = torch.empty((m, n), dtype=out_dtype, device=a.device)
+    dev = a.device
+    out = torch.empty((m, n), dtype=out_dtype, device=dev)
     a = a.contiguous()
     b, sa, sb = b.contiguous(), sa.float().contiguous(), sb.contiguous()
-    n_groups = k // BLOCK
-    tiles = (n // BLOCK) * cdiv(m, block_rows)
-    split, per = split_k_plan(tiles, n_groups, sm_count(a.device.index or 0))
-    partial = torch.empty((split, m, n), dtype=torch.float32, device=a.device) if split > 1 else None
+    tiles = cdiv(n, tile_cols(block_rows)) * cdiv(m, block_rows)
+    split, per = split_plan(tiles, k // BLOCK, sm_count(dev.index or 0))
+    ws = counters = None
+    if split > 1:
+        ws = kept_buffer("fp8_blockwise_ws", dev, split * m * n, torch.float32)
+        counters = kept_buffer("fp8_blockwise_counters", dev, tiles, torch.int32)
     ptr = lambda t: t.data_ptr() if t is not None else None
     grouped = eids is not None
-    _build.check(_entry()(ptr(a), ptr(b), ptr(sa), ptr(sb), ptr(eids), ptr(out), ptr(partial), m, n, k,
-                          a.stride(0), b[0].numel() if grouped else 0, sb[0].numel() if grouped else 0,
-                          sb.shape[-1], div, mul, block_rows, b.shape[0] if grouped else 1, OUT_KIND[out_dtype],
-                          split, per, _build.stream_ptr(a.device)), "fp8_blockwise_scaled_mm")
+    _build.check(_entry()(ptr(a), ptr(b), ptr(sa), ptr(sb), ptr(eids), ptr(out), ptr(ws), ptr(counters), m, n, k,
+                          a.stride(0), sb[0].numel() if grouped else 0, sb.shape[-1], div, mul, block_rows,
+                          b.shape[0] if grouped else 1, OUT_KIND[out_dtype], split, per, _build.stream_ptr(dev)),
+                 "fp8_blockwise_scaled_mm")
     return out
 
 
@@ -197,7 +235,7 @@ def fp8_blockwise_scaled_grouped_mm(a, b, scales_a, scales_b, expert_ids, out_dt
     (there is no valid-block count). Returns [M, N] in ``out_dtype``.
 
     CUDA tensors go through the K18 kernel (K17's tile with the expert read
-    per row block), which takes float8_e4m3fn A and B and bm of 16, 32, 64
+    per row block, the tile's rows being the alignment block), which takes float8_e4m3fn A and B and bm of 16, 32, 64
     or 128. ``bn``, ``bk``, ``decode`` and ``gmode`` are contract-only."""
     if a.device.type != "cuda":
         return fp8_blockwise_scaled_grouped_mm_ref(a, b, scales_a, scales_b, expert_ids, out_dtype, bm=bm)

@@ -134,3 +134,36 @@ def test_contract_errors():
         bw.fp8_blockwise_scaled_grouped_mm(t_(aq), t_(bq), t_(sa), t_(sb), torch.zeros(32, dtype=torch.int32), bm=16)
     with pytest.raises(ValueError):
         bw.fp8_blockwise_scaled_mm(t_(aq), t_(bq[0]), t_(sa), t_(sb[0][:1]))
+
+
+@pytest.mark.parametrize("m_tiles,n_tiles", [(1, 1), (1, 28), (8, 32), (13, 2), (318, 32), (128, 16)])
+def test_kernel_work_order(m_tiles, n_tiles):
+    """The K17 / K18 kernel's raster (it derives it from the block index)
+    against a brute-force order: every (row tile, column tile) once; groups
+    of 8 row tiles in order, each walking its column tiles in turn with the
+    group's row tiles side by side."""
+    order = bw.work_order(m_tiles, n_tiles)
+    assert sorted(order) == [(mt, nt) for mt in range(m_tiles) for nt in range(n_tiles)]
+    assert order == sorted(order, key=lambda it: (it[0] // bw.RASTER_ROWS, it[1], it[0]))
+
+
+@pytest.mark.parametrize("tiles,n_groups", [(16, 56), (28, 128), (28, 16), (1, 32), (10, 2), (66, 56), (67, 56),
+                                            (131, 8), (132, 56), (2048, 56), (3, 1)])
+def test_kernel_split_plan(tiles, n_groups):
+    """The split over K: whole groups, every split non-empty, the blocks
+    within the 132 SMs, and no split once the tiles fill more than half of
+    them;
+    the largest split of those whose blocks fit (a brute-force search)."""
+    split, per = bw.split_plan(tiles, n_groups, 132)
+    assert split * per >= n_groups and (split - 1) * per < n_groups
+    assert split == 1 or tiles * split <= 132
+    if 2 * tiles > 132:
+        assert split == 1
+    fits = [s for s in range(1, n_groups + 1) if tiles * s <= 132 or s == 1]
+    assert split == -(-n_groups // -(-n_groups // max(fits)))
+
+
+def test_kernel_tile_columns():
+    """Row tiles 16 / 32 take 256 columns (two 128-byte boxes a k-row), 64 /
+    128 take 128."""
+    assert [bw.tile_cols(bm) for bm in (16, 32, 64, 128)] == [256, 256, 128, 128]

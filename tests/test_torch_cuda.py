@@ -42,7 +42,7 @@ from sgl_kernel_tpu_torch.ops import moe
 from sgl_kernel_tpu_torch.ops.attention import (flash_packed, flash_prefill, nsa, paged_decode, paged_decode_dma,
                                                sparse_vs)
 from sgl_kernel_tpu_torch.ops.gemm import blockwise_fp8, qserve, scaled_mm, w4a16, w4a16_dma
-from sgl_kernel_tpu_torch.utils import sm_count, split_k_plan
+from sgl_kernel_tpu_torch.utils import sm_count
 
 pytestmark = pytest.mark.cuda
 
@@ -1606,12 +1606,14 @@ def fp8_case(gen, m, k, n, e=None):
     return a, b, sa, sb
 
 
-@pytest.mark.parametrize("m", [1, 16, 17, 33, 100, 256])
-@pytest.mark.parametrize("k,n", [(256, 256), (1024, 384)])
+@pytest.mark.parametrize("m", [1, 16, 17, 32, 33, 64, 100, 128, 256, 1024])
+@pytest.mark.parametrize("k,n", [(128, 384), (256, 256), (1024, 384), (256, 512)])
 @pytest.mark.parametrize("prepared", [False, True])
 def test_fp8_blockwise_scaled_mm(gen, m, k, n, prepared):
-    """K17 over its four row tiles, split K (few output tiles) and not, both
-    scale forms, the three output types."""
+    """K17 over its four row tiles (a partial last tile at 1, 17, 33 and
+    100 rows), one group (K 128), N a multiple of 128 but not of the 256
+    columns of the 16 / 32-row tiles (384), split K (few output tiles) and
+    not, both scale forms, the three output types."""
     a, b, sa, sb = fp8_case(gen, m, k, n)
     sbx = blockwise_fp8.prepare_blockwise_scales(sb) if prepared else sb
     for dt in (torch.bfloat16, torch.float16, torch.float32):
@@ -1624,28 +1626,29 @@ def test_fp8_blockwise_scaled_mm(gen, m, k, n, prepared):
 
 
 def test_fp8_blockwise_split_k_and_raises(gen):
-    """One output tile over K=4096 splits K 32 ways; a bf16 A raises on the
-    card (the twin takes it)."""
+    """One output tile over K=4096 splits K 32 ways, summed in the same
+    launch; a bf16 A raises on the card (the twin takes it)."""
     a, b, sa, sb = fp8_case(gen, 3, 4096, 128)
     out = blockwise_fp8.fp8_blockwise_scaled_mm(a, b, sa, sb, torch.float32)
     ref = blockwise_fp8.fp8_blockwise_scaled_mm_ref(a, b, sa, sb, torch.float32)
     assert_out_close(out, ref, FP8_MMA_REL)
-    assert split_k_plan(1, 32, 132)[0] > 1
+    assert blockwise_fp8.split_plan(1, 32, sm_count())[0] == 32
     with pytest.raises(NotImplementedError):
         blockwise_fp8.fp8_blockwise_scaled_mm(a.to(torch.bfloat16), b, sa, sb)
     with pytest.raises(ValueError):
         blockwise_fp8.fp8_blockwise_scaled_mm(a, b, sa[:, :3], sb)
 
 
-def test_fp8_blockwise_every_code_exact(gen):
+@pytest.mark.parametrize("rows", [2, 256])
+def test_fp8_blockwise_every_code_exact(gen, rows):
     """Every finite e4m3 code, subnormals included, through the kernel times
-    an identity B with unit scales: the float32 outputs are the codes'
-    exact values."""
+    an identity B with unit scales, on the 16-row tile and the 128-row one:
+    the float32 outputs are the codes' exact values."""
     codes = torch.arange(256, dtype=torch.int32, device="cuda").to(torch.uint8)
     codes[(codes == 0x7F) | (codes == 0xFF)] = 0  # the two NaN bytes
-    a = codes.view(torch.float8_e4m3fn).reshape(2, 128)
+    a = codes.view(torch.float8_e4m3fn).reshape(2, 128).repeat(rows // 2, 1)
     b = torch.eye(128, device="cuda").to(torch.float8_e4m3fn)
-    ones = torch.ones((2, 1), device="cuda"), torch.ones((1, 1), device="cuda")
+    ones = torch.ones((rows, 1), device="cuda"), torch.ones((1, 1), device="cuda")
     out = blockwise_fp8.fp8_blockwise_scaled_mm(a, b, *ones, torch.float32)
     assert torch.equal(out, a.float())
 
@@ -1653,14 +1656,15 @@ def test_fp8_blockwise_every_code_exact(gen):
 @pytest.mark.parametrize("bm", [16, 32, 64, 128])
 @pytest.mark.parametrize("prepared", [False, True])
 def test_fp8_blockwise_scaled_grouped_mm(gen, bm, prepared):
-    """K18: 5 row blocks over 4 experts (one expert unused, one twice apart),
-    every block computed, bf16 and float32 outputs; bm 8 and a bf16 A raise
-    on the card."""
+    """K18: 7 row blocks over 4 experts (expert 1 unused, 2 used twice apart,
+    the two trailing blocks pinned to the last valid expert as alignment
+    pads them), every block computed, the three output types; bm 8 and a
+    bf16 A raise on the card."""
     e, k, n = 4, 256, 384
-    eids = torch.tensor([2, 0, 0, 3, 2], dtype=torch.int32, device="cuda")
-    a, b, sa, sb = fp8_case(gen, 5 * bm, k, n, e)
+    eids = torch.tensor([2, 0, 0, 3, 2, 2, 2], dtype=torch.int32, device="cuda")
+    a, b, sa, sb = fp8_case(gen, 7 * bm, k, n, e)
     sbx = blockwise_fp8.prepare_blockwise_scales(sb) if prepared else sb
-    for dt in (torch.bfloat16, torch.float32):
+    for dt in (torch.bfloat16, torch.float16, torch.float32):
         before = blockwise_fp8.fp8_blockwise_scaled_grouped_mm.launches
         out = blockwise_fp8.fp8_blockwise_scaled_grouped_mm(a, b, sa, sbx, eids, dt, bm=bm)
         assert blockwise_fp8.fp8_blockwise_scaled_grouped_mm.launches == before + 1 and out.dtype == dt
@@ -1670,6 +1674,84 @@ def test_fp8_blockwise_scaled_grouped_mm(gen, bm, prepared):
         blockwise_fp8.fp8_blockwise_scaled_grouped_mm(a, b, sa, sb, eids.repeat_interleave(bm // 8), bm=8)
     with pytest.raises(NotImplementedError):
         blockwise_fp8.fp8_blockwise_scaled_grouped_mm(a.to(torch.bfloat16), b, sa, sb, eids, bm=bm)
+
+
+@pytest.mark.parametrize("bm", [16, 128])
+def test_fp8_blockwise_grouped_ids_out_of_range(gen, bm):
+    """An expert id below 0 reads expert 0 and one at or past E the last
+    expert, bit for bit as the clamped ids do (never past the bank)."""
+    e, k, n = 3, 256, 256
+    a, b, sa, sb = fp8_case(gen, 4 * bm, k, n, e)
+    wild = torch.tensor([-3, 1, 3, 9], dtype=torch.int32, device="cuda")
+    out = blockwise_fp8.fp8_blockwise_scaled_grouped_mm(a, b, sa, sb, wild, torch.float32, bm=bm)
+    near = wild.clamp(0, e - 1)
+    assert torch.equal(out, blockwise_fp8.fp8_blockwise_scaled_grouped_mm(a, b, sa, sb, near, torch.float32, bm=bm))
+    ref = blockwise_fp8.fp8_blockwise_scaled_grouped_mm_ref(a, b, sa, sb, near, torch.float32, bm=bm)
+    assert_out_close(out, ref, FP8_MMA_REL)
+
+
+def fp8_calls(gen, case):
+    """(call, plain twin, (A, its scales)) of a K17 or K18 call: K17 at M=16
+    over 4,096 x 1,024 (4 tiles, K split 32 ways) and at M=1,024 over 1,024 x
+    2,048 (128 tiles, no split); K18 at bm 16 over 6 experts (24 tiles, K
+    split 4 ways)."""
+    if case == "k18":
+        a, b, sa, sb = fp8_case(gen, 4 * 16, 1024, 1536, 6)
+        eids = torch.tensor([5, 0, 2, 2], dtype=torch.int32, device="cuda")
+        return (lambda: blockwise_fp8.fp8_blockwise_scaled_grouped_mm(a, b, sa, sb, eids, bm=16),
+                lambda: blockwise_fp8.fp8_blockwise_scaled_grouped_mm_ref(a, b, sa, sb, eids, bm=16), (a, sa))
+    m, k, n = (16, 4096, 1024) if case == "k17_split" else (1024, 1024, 2048)
+    a, b, sa, sb = fp8_case(gen, m, k, n)
+    return (lambda: blockwise_fp8.fp8_blockwise_scaled_mm(a, b, sa, sb),
+            lambda: blockwise_fp8.fp8_blockwise_scaled_mm_ref(a, b, sa, sb), (a, sa))
+
+
+@pytest.mark.parametrize("case", ["k17_split", "k17", "k18"])
+def test_fp8_blockwise_one_launch_a_call(gen, case):
+    """Each call is one device launch, split K included (a torch.profiler
+    trace of four calls holds only the kernel; the trace may miss the first)."""
+    fn, _, _ = fp8_calls(gen, case)
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(4):
+            fn()
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert len(names) in (3, 4) and all("blockwise_fp8_kernel" in n for n in names), names
+
+
+@pytest.mark.parametrize("case", ["k17_split", "k17", "k18"])
+def test_fp8_blockwise_bit_equal_and_graph(gen, case):
+    """Two calls give the same bits (split partials are summed in split
+    order by the last block); a captured CUDA graph replays them, again
+    after the inputs change in place (the kept counters are back at zero
+    after every launch)."""
+    fn, ref_fn, (a, sa) = fp8_calls(gen, case)
+    first = fn()
+    assert torch.equal(first, fn())
+    assert_out_close(first, ref_fn())
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fn()
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, first)
+    a2, _, sa2, _ = fp8_case(gen, *a.shape, 128)
+    a.copy_(a2)
+    sa.copy_(sa2)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert not torch.equal(out, first)
+    assert torch.equal(out, fn())
+    assert_out_close(out, ref_fn())
 
 
 def test_empty_calls_launch_nothing(gen):

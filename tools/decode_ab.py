@@ -1,5 +1,6 @@
-"""Device time of the decode kernels K5, K1, K13a, K13b and K15, and of one
-prefill kernel, K16, for the port found at ROOT.
+"""Device time of the decode kernels K5, K1, K13a, K13b and K15, of one
+prefill kernel, K16, and of the blockwise-fp8 GEMMs K17 and K18, for the
+port found at ROOT.
 
 Times, with CUDA graphs (chip_smoke.py's method: the calls captured and
 replayed, so the host launch path is not measured):
@@ -25,6 +26,17 @@ replayed, so the host launch path is not measured):
   1,000, NS 64), schedules from convert_vertical_slash_indexes on sorted
   random columns and distances, each beside dense causal SDPA on the same
   q / k / v (``_sdpa`` rows, CUDA-event ms);
+- k17: K17 (``fp8_blockwise_scaled_mm``) at DeepSeek-V3's dense fp8 GEMMs
+  (shared-expert gate_up [M, 7168 -> 4096], down [M, 2048 -> 7168], o_proj
+  [M, 16384 -> 7168]; compact 128x128 scales) at M=16 (CUDA-graph ms) and
+  M=1,024 (CUDA-event ms, each beside row-wise ``torch._scaled_mm`` on the
+  same operands, ``_scaled_mm`` rows);
+- k18: K18 (``fp8_blockwise_scaled_grouped_mm``) over DeepSeek-V3's routed
+  banks (256 experts, gate_up [256, 7168, 4096], down [256, 2048, 7168]) at
+  a B=16 decode (top-8, bm 16; CUDA-graph ms) and a 1,024-token prefill
+  (bm 128; CUDA-event ms beside row-wise ``torch._scaled_grouped_mm`` on the
+  valid rows, ``_scaled_grouped_mm`` rows), rows aligned by
+  moe_align_block_size;
 - floor: one empty kernel (``torch.cuda._sleep(0)``) a graph node, the
   least a kernel of the decode step costs on the device.
 K13a and K15 rows are timed warm (the same inputs call after call) and cold
@@ -49,11 +61,12 @@ import subprocess
 import sys
 from pathlib import Path
 
-GROUPS = ("k5", "k1", "k13a", "k13b", "k15", "k16", "floor")
+GROUPS = ("k5", "k1", "k13a", "k13b", "k15", "k16", "k17", "k18", "floor")
 # the sources a group may launch (those a tree lacks are skipped: K13b had a
 # source of its own before it moved onto K13a's kernel)
 SOURCES = {"k5": ("decode_attention",), "k1": ("w4a16_decode", "w4a16_gemm"), "k13a": ("mla_decode",),
-           "k13b": ("mla_decode", "mla_decode_dma"), "k15": ("mqa_logits",), "k16": ("sparse_vs",), "floor": ()}
+           "k13b": ("mla_decode", "mla_decode_dma"), "k15": ("mqa_logits",), "k16": ("sparse_vs",),
+           "k17": ("blockwise_fp8",), "k18": ("blockwise_fp8",), "floor": ()}
 COLD_BYTES = 150e6  # three times the 50 MB L2
 
 
@@ -82,8 +95,10 @@ def main(root: Path, groups) -> None:
 
     import sgl_kernel_tpu_torch as skt
     from sgl_kernel_tpu_torch import _build
+    from sgl_kernel_tpu_torch.ops import moe
     from sgl_kernel_tpu_torch.ops.attention import mla, nsa, sparse_vs
     from sgl_kernel_tpu_torch.ops.attention import paged_decode_dma as pd
+    from sgl_kernel_tpu_torch.ops.gemm import blockwise_fp8 as bw
     from sgl_kernel_tpu_torch.ops.gemm import w4a16
 
     assert Path(skt.__file__).resolve().parent.parent == root.resolve(), skt.__file__
@@ -284,6 +299,58 @@ def main(root: Path, groups) -> None:
                                           layers)
             del keys, scales, tables
             torch.cuda.empty_cache()
+    def e4m3(*shape):
+        """Uniform random e4m3 bytes but the two NaN codes."""
+        u = torch.randint(0, 254, shape, generator=gen, device=dev, dtype=torch.uint8)
+        u.add_((u >= 0x7F).to(torch.uint8))
+        return u.view(torch.float8_e4m3fn)
+
+    def scales(*shape):
+        return torch.rand(shape, generator=gen, device=dev) * 1e-2 + 1e-3
+
+    if "k17" in groups:
+        for label, n, k in (("gate_up", 4096, 7168), ("down", 7168, 2048), ("o_proj", 7168, 16384)):
+            b, sb = e4m3(k, n), scales(k // 128, n // 128)
+            bt = b.t().contiguous().t()  # the library's column-major B, made outside the timed calls
+            for m in (16, 1024):
+                a, sa = e4m3(m, k), scales(m, k // 128)
+                fn = lambda: bw.fp8_blockwise_scaled_mm(a, b, sa, sb)
+                if m == 16:
+                    res[f"k17_{label}_m16"] = graph_ms(fn)
+                    continue
+                res[f"k17_{label}_m1024"] = event_ms(fn, 20)
+                ones_a, ones_b = torch.ones((m, 1), device=dev), torch.ones((1, n), device=dev)
+                res[f"k17_{label}_m1024_scaled_mm"] = event_ms(
+                    lambda: torch._scaled_mm(a, bt, scale_a=ones_a, scale_b=ones_b, out_dtype=bf), 20)
+            del b, bt
+            torch.cuda.empty_cache()
+    if "k18" in groups:
+        e, h, inter = 256, 7168, 2048
+        banks = {"gate_up": (e4m3(e, h, 2 * inter), scales(e, h // 128, 2 * inter // 128)),
+                 "down": (e4m3(e, inter, h), scales(e, inter // 128, h // 128))}
+        for t, bm, label in ((16, 16, "decode"), (1024, 128, "prefill")):
+            tw, tids = moe.topk_softmax(torch.randn((t, e), generator=gen, device=dev), 8)
+            al = moe.moe_align_block_size(tids, tw, e, bm)
+            cap, eids = al.token_ids.shape[0], al.block_expert_ids
+            offs = torch.cumsum(al.padded_group_sizes, 0).to(torch.int32)
+            for name, (w, sw) in banks.items():
+                k, n = w.shape[1], w.shape[2]
+                a, sa = e4m3(cap, k), scales(cap, k // 128)
+                fn = lambda: bw.fp8_blockwise_scaled_grouped_mm(a, w, sa, sw, eids, bm=bm)
+                if label == "decode":
+                    res[f"k18_decode_{name}"] = graph_ms(fn)
+                    continue
+                res[f"k18_prefill_{name}"] = event_ms(fn, 5)
+                if hasattr(torch, "_scaled_grouped_mm"):
+                    wt = w.transpose(-2, -1).contiguous().transpose(-2, -1)
+                    ones_a, ones_b = torch.ones(cap, device=dev), torch.ones((e, n), device=dev)
+                    res[f"k18_prefill_{name}_scaled_grouped_mm"] = event_ms(
+                        lambda: torch._scaled_grouped_mm(a, wt, ones_a, ones_b, offs=offs, out_dtype=bf), 5)
+                    del wt
+                torch.cuda.empty_cache()
+            res[f"k18_{label}_rows"], res[f"k18_{label}_experts_hit"] = cap, int(torch.unique(eids).numel())
+        del banks
+        torch.cuda.empty_cache()
     if "floor" in groups:
         res["floor_empty_kernel"] = graph_ms(lambda: torch.cuda._sleep(0), reps=100)
     print(json.dumps(res), flush=True)
