@@ -129,7 +129,13 @@ warp; K13b on K13a's kernel): K16's rows give TFLOP/s on the schedule's
 visible pairs beside SDPA's on the dense causal pairs, and the varlen path
 K16's device ms (CUDA events around its call in one more run); K13b's
 rows give K13a's CUDA-graph ms on the same shape and pool beside their
-own. Each phase prints its time ([time] lines).
+own. Slice 16 (K19 on an int8 wgmma tile): K19's rows give CUDA-graph ms
+at M=16 and 1,024 beside the event ms, their TOP/s and GB/s, and the route
+its blocks took; QServe-made weights must keep every block of the eight
+rows and of the op path's 32 calls on the int8 route (the kernel's
+exact-route counter unmoved). The kernels line splits K7's and K9's
+launches by head dim (576 apart from 64 / 128). Each phase prints its time
+([time] lines).
 
 Prints a JSON line of per-kernel numbers, then, last,
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -1060,7 +1066,7 @@ def run_wave(torch, skt, eng, stats, label, wave, prompts, sampled=(), expect=()
     fin = eng.run_until_done()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    counts = skt.launch_counts()
+    counts = {**skt.launch_counts(), **skt.head_dim_launch_counts()}
     for rid in rids:
         out = fin[rid].output if rid in fin else None
         if out is None or len(out) != NEW_TOKENS or not all(0 <= t < eng.cfg.vocab_size for t in out):
@@ -2796,6 +2802,8 @@ def kernels_k19(torch, skt, gen, scales, report):
              ("gate_up", 2 * cfg.intermediate_size, hd), ("down", hd, cfg.intermediate_size))
     for label, n, k in gemms:
         codes, zs2, s2i, ws, w8 = qserve_weights(torch, gen, n, k, g)
+        if not qserve.w8_int8_exact(codes, zs2, s2i, g):
+            fail(f"qserve {label}: QServe-made W8 outside int8")
         w8_t = w8.t()
         for m in QSERVE_M:
             aq = torch.randint(-128, 128, (m, k), generator=gen, device=dev, dtype=torch.int8)
@@ -2803,7 +2811,12 @@ def kernels_k19(torch, skt, gen, scales, report):
             args = (aq, codes, zs2, s2i, ws, as_)
             fn = functools.partial(qserve.qserve_w4a8_per_group_gemm, *args)
             ref, plain = once_ms(torch, functools.partial(qserve.qserve_w4a8_per_group_gemm_ref, *args))
+            before = qserve.exact_route_blocks(aq.device)
             err = check(f"qserve_w4a8_per_group_gemm {label} [{m}, {n}, {k}]", [(fn(), ref)])
+            exact = qserve.exact_route_blocks(aq.device) - before
+            if exact:
+                fail(f"qserve_w4a8_per_group_gemm {label} [{m}, {n}, {k}]: {exact} blocks took the exact route "
+                     "on QServe-made weights")
             del ref
             a_lib = F.pad(aq, (0, 0, 0, max(0, 17 - m)))  # torch._int_mm wants more than 16 rows
             lib_fn = functools.partial(torch._int_mm, a_lib, w8_t)
@@ -2812,7 +2825,8 @@ def kernels_k19(torch, skt, gen, scales, report):
             report(f"qserve_w4a8_per_group_gemm_{label}_m{m}", dict(
                 max_abs_err=err, ms=time_ms(torch, fn), plain_ms=plain, library_ms=time_ms(torch, lib_fn),
                 library_note=f"torch._int_mm on the int8 W8 (A padded to {a_lib.shape[0]} rows)", bound_ms=bms,
-                bound_by=bby), fn if m == 16 else None)
+                bound_by=bby, exact_route_blocks=exact, w8_route="exact" if exact else "int8"), fn,
+                (2 * m * n * k, n_bytes))
         del codes, w8, w8_t
 
 
@@ -2863,20 +2877,16 @@ def kernels_k16(torch, skt, gen, scales, report):
 
 
 def qserve_weights(torch, gen, n, k, g):
-    """One [N, K] weight quantized as tests/test_gemm.py:278-292 does it:
-    int8 per channel (|q| <= 119), then 4-bit groups of ``g`` with a scale
-    s2 and a zero z. Returns (codes uint8, zeros_x_s2 float32, s2 int8,
-    per-channel scales f16, the int8 W8 = (code - z) * s2)."""
-    w = torch.randn((n, k), generator=gen, device=DEVICE) * 0.01
-    chn = w.abs().amax(-1, keepdim=True) / 119
-    bi8 = torch.clamp(torch.round(w / chn), -119, 119).reshape(n, k // g, g)
-    del w
-    s2 = torch.clamp(torch.round((bi8.amax(-1) - bi8.amin(-1)) / 15), min=1.0)
-    z2 = -torch.round(bi8.amin(-1) / s2)
-    codes = torch.clamp(torch.round(bi8 / s2[..., None]) + z2[..., None], 0, 15)
-    del bi8
-    w8 = ((codes - z2[..., None]) * s2[..., None]).clamp(-127, 127).reshape(n, k).to(torch.int8)
-    return codes.reshape(n, k).to(torch.uint8), z2 * s2, s2.to(torch.int8), chn[:, 0].half(), w8
+    """One random [N, K] weight quantized as QServe does
+    (``qserve.qserve_quantize``: int8 per channel, |q| <= 119, then 4-bit
+    groups of ``g`` with an integer scale s2 and zero z). Returns (codes
+    uint8, zeros_x_s2 float32, s2 int8, per-channel scales f16, the int8 W8
+    = code * s2 - zs2)."""
+    from sgl_kernel_tpu_torch.ops.gemm import qserve
+
+    codes, zs2, s2, chn = qserve.qserve_quantize(torch.randn((n, k), generator=gen, device=DEVICE) * 0.01, g)
+    w8 = qserve.dequant_w8(codes, zs2, s2, g).to(torch.int8)
+    return codes, zs2, s2, chn.half(), w8
 
 
 def vs_pairs(sched, s, bm, bn):
@@ -3082,6 +3092,7 @@ def path_qserve(torch, skt, layers=8):
     weights = [{name: qserve_weights(torch, gen, n, k, g)[:4] for name, (n, k) in dims.items()}
                for _ in range(layers)]
     x = torch.randn((m, hd), generator=gen, device=dev).to(torch.bfloat16)
+    exact0 = qserve.exact_route_blocks(x.device)
     torch.cuda.synchronize()
     skt.reset_launch_counts()
     t0 = time.perf_counter()
@@ -3108,13 +3119,16 @@ def path_qserve(torch, skt, layers=8):
     counts = skt.launch_counts()
     if counts["qserve_w4a8_per_group_gemm"] != 4 * layers:
         fail(f"qserve path: launches {counts}")
+    exact = qserve.exact_route_blocks(x.device) - exact0
+    if exact:
+        fail(f"qserve path: {exact} blocks took the exact route on QServe-made weights")
     if not bool(torch.isfinite(x.float()).all()) or not bool(torch.isfinite(gate[3].float()).all()):
         fail("qserve path: non-finite output")
     aq, asc, gu, _ = gate
     err = check("qserve path, layer 0's gate_up against the plain version",
                 [(gu, qserve.qserve_w4a8_per_group_gemm_ref(aq, *weights[0]["gate_up"], asc,
                                                             out_dtype=torch.bfloat16))])
-    res = dict(layers=layers, batch=m, max_abs_err=err, wall_ms=1e3 * wall,
+    res = dict(layers=layers, batch=m, max_abs_err=err, wall_ms=1e3 * wall, exact_route_blocks=exact,
                launches={"qserve_w4a8_per_group_gemm": counts["qserve_w4a8_per_group_gemm"]})
     log("[path] QServe W4A8 Llama-3-8B layers: " + json.dumps(res))
     del weights
@@ -3415,6 +3429,9 @@ def main():
                             launches=sum(res["launches"].get(name, 0) for res in (*serve.values(), *paths.values())),
                             max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
                             bound_by=r["bound_by"], library_ms=r["library_ms"]))
+        if name in ("flash_attention", "flash_attention_packed"):  # K7 / K9 at head dim 576 apart
+            at576 = sum(res["launches"].get(f"{name}_576", 0) for res in (*serve.values(), *paths.values()))
+            kernels[-1]["launches_by_head_dim"] = {"64/128": kernels[-1]["launches"] - at576, "576": at576}
         if kernels[-1]["launches"] <= 0:
             fail(f"{name}: no launch in the served waves")
     log("[kernel] rmsnorm at [1024, 4096]: " + json.dumps(rows["rmsnorm_1024"]))

@@ -153,7 +153,17 @@ KERNELS = {
 def reset_launch_counts():
     for fn in KERNELS.values():
         fn.launches = 0
+    for fn in (flash_attention, flash_attention_packed):
+        fn.launches_576 = 0
 
 
 def launch_counts():
     return {name: fn.launches for name, fn in KERNELS.items()}
+
+
+def head_dim_launch_counts():
+    """K7 / K9 launches at head dim 576 (``mla_tile.cuh``), counted apart
+    from their launches at 64 / 128 (``flash_tile.cuh``), which are the
+    rest of ``launch_counts()``'s."""
+    return {"flash_attention_576": flash_attention.launches_576,
+            "flash_attention_packed_576": flash_attention_packed.launches_576}

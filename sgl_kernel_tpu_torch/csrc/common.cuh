@@ -291,6 +291,17 @@ __device__ __forceinline__ void named_sync(int id, int threads) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
 
+// the same barrier, returning whether `pred` held for any of those threads
+__device__ __forceinline__ bool named_sync_or(int id, int threads, bool pred) {
+  uint32_t any;
+  asm volatile(
+      "{\n .reg .pred p, q;\n setp.ne.b32 p, %1, 0;\n bar.red.or.pred q, %2, %3, p;\n selp.u32 %0, 1, 0, q;\n}\n"
+      : "=r"(any)
+      : "r"((uint32_t)pred), "r"(id), "r"(threads)
+      : "memory");
+  return any != 0;
+}
+
 // keeps the compiler from moving accesses of registers that an asynchronous
 // wgmma reads or writes across this point (call after wgmma_wait)
 template <int N>
@@ -463,6 +474,69 @@ __device__ __forceinline__ void wgmma_e4m3_rs<128>(float (&d)[64], const uint32_
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
 }
 
+#define SKT_R8(d, o)                                                                                          \
+  "+r"(d[o]), "+r"(d[o + 1]), "+r"(d[o + 2]), "+r"(d[o + 3]), "+r"(d[o + 4]), "+r"(d[o + 5]), "+r"(d[o + 6]), \
+      "+r"(d[o + 7])
+
+// d (64 x N, int32) = (scale_d ? d : 0) + A (64 x 32) * B (32 x N), s8
+// operands, both K-major: A from registers in the m16n8k32 fragment layout
+// of wgmma_e4m3_rs (warp w rows 16w..16w+15; a[0] row g, k 4t..4t+3; a[1]
+// row g+8; a[2], a[3] the same rows at k 16 + 4t..), B from shared memory
+// K-major (stored [n][k]). d's layout is wgmma_e4m3_rs's; the sums are
+// exact int32.
+template <int N>
+__device__ __forceinline__ void wgmma_s8_rs(uint32_t (&d)[N / 2], const uint32_t (&a)[4], uint64_t db, int scale_d);
+
+template <>
+__device__ __forceinline__ void wgmma_s8_rs<16>(uint32_t (&d)[8], const uint32_t (&a)[4], uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, {%8, %9, %10, %11}, %12, p;\n}\n"
+      : SKT_R8(d, 0)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_s8_rs<32>(uint32_t (&d)[16], const uint32_t (&a)[4], uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+      "}, {%16, %17, %18, %19}, %20, p;\n}\n"
+      : SKT_R8(d, 0), SKT_R8(d, 8)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_s8_rs<64>(uint32_t (&d)[32], const uint32_t (&a)[4], uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p;\n}\n"
+      : SKT_R8(d, 0), SKT_R8(d, 8), SKT_R8(d, 16), SKT_R8(d, 24)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_s8_rs<128>(uint32_t (&d)[64], const uint32_t (&a)[4], uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p;\n}\n"
+      : SKT_R8(d, 0), SKT_R8(d, 8), SKT_R8(d, 16), SKT_R8(d, 24), SKT_R8(d, 32), SKT_R8(d, 40), SKT_R8(d, 48),
+        SKT_R8(d, 56)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+#undef SKT_R8
 #undef SKT_ACC64
 #undef SKT_ACC16
 #undef SKT_ACC8

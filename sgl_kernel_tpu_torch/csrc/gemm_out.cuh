@@ -1,5 +1,6 @@
 // Output stores of the GEMMs with a bf16 / f16 / float32 output, K17 / K18
-// (blockwise_fp8.cu) and K19 (qserve_gemm.cu), and K19's split-K reduction.
+// (blockwise_fp8.cu) and K19 (qserve_gemm.cu); both sum a split K's
+// partials in the same launch.
 #pragma once
 
 #include <cuda_fp16.h>
@@ -25,17 +26,6 @@ __device__ __forceinline__ void store1(void* out, int kind, long long idx, float
   if (kind == kOutF32) reinterpret_cast<float*>(out)[idx] = v;
   else if (kind == kOutF16) reinterpret_cast<__half*>(out)[idx] = __float2half_rn(v);
   else reinterpret_cast<bf16*>(out)[idx] = __float2bfloat16(v);
-}
-
-// second pass of split-K: out[i] = sum over the splits of partial[s][i], in
-// split order, rounded once
-__global__ void split_k_reduce(const float* __restrict__ partial, void* out, int kind, long long total, int split) {
-  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < total;
-       i += (long long)gridDim.x * blockDim.x) {
-    float v = 0.f;
-    for (int s = 0; s < split; ++s) v += partial[s * total + i];
-    store1(out, kind, i, v);
-  }
 }
 
 }  // namespace skt

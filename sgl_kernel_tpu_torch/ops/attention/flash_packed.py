@@ -197,7 +197,9 @@ def flash_attention_packed(q, k, v, blk_seq, blk_q0, seq_meta, *, max_kvb: int, 
                     int(causal), scale, _build.stream_ptr(q.device)),
                  "flash_attention_packed")
     flash_attention_packed.launches += 1
+    flash_attention_packed.launches_576 += d == 576  # the 576-wide tile (mla_tile.cuh), counted apart
     return (out, lse) if return_lse else out
 
 
 flash_attention_packed.launches = 0
+flash_attention_packed.launches_576 = 0

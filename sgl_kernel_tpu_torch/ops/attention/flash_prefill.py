@@ -111,7 +111,9 @@ def flash_attention(q, k, v, q_lens=None, kv_lens=None, sinks=None, q_start=None
                     _build.stream_ptr(q.device)),
                  "flash_attention")
     flash_attention.launches += 1
+    flash_attention.launches_576 += d == 576  # the 576-wide tile (mla_tile.cuh), counted apart
     return (out, lse) if return_lse else out
 
 
 flash_attention.launches = 0
+flash_attention.launches_576 = 0

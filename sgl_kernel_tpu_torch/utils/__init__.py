@@ -49,7 +49,16 @@ def kept_buffer(kind: str, device, n: int, dtype) -> torch.Tensor:
     launch leaves at zero, and workspaces each call rewrites before it reads
     them. Made once, so a captured CUDA graph keeps pointing at it and a TMA
     map of it is encoded once; a larger request makes a new buffer and keeps
-    the old one alive for graphs captured on it."""
+    the old one alive for graphs captured on it.
+
+    ``device`` may be a name or a device without an index (``"cuda"``): it
+    is keyed as the device it means, so every spelling of one card finds the
+    same buffer. One buffer serves every stream of its device: calls of a
+    kernel that keeps one must be ordered (one stream, or streams joined by
+    events), never in flight together."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
     have = _kept.get((kind, device))
     if have is None or have[-1].numel() < n:
         _kept[(kind, device)] = (have or []) + [torch.zeros(max(n, 4096), dtype=dtype, device=device)]
@@ -69,12 +78,3 @@ OUT_KIND = {torch.bfloat16: 0, torch.float16: 1, torch.float32: 2}
 def row_tile(m: int) -> int:
     """Rows of a split-K GEMM block for M rows: 16, 32, 64 or 128."""
     return 16 if m <= 16 else (32 if m <= 32 else (64 if m <= 64 else 128))
-
-
-def split_k_plan(tiles: int, n_groups: int, n_sm: int):
-    """(split, groups_per_split): K splits over blocks in whole 128-deep
-    groups when the output tiles cannot give each SM two blocks."""
-    if tiles >= n_sm:
-        return 1, n_groups
-    per = cdiv(n_groups, min(n_groups, cdiv(2 * n_sm, tiles)))
-    return cdiv(n_groups, per), per

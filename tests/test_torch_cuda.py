@@ -18,7 +18,9 @@ with lse -inf over every pool type and width, lse on and off, splits) and
 its dispatch; the blockwise-fp8
 GEMMs (K17, K18: row tiles, split K, compact and prepared scales, every
 e4m3 code), the QServe per-group GEMM (K19: groups, ragged M / N / K, scale
-types), the vertical + slash sparse prefill (K16's wgmma tile: head dims,
+types; the int8 route bit for bit on QServe-made weights, the exact route
+where W8 leaves int8 or K reaches 2^17, split plans, one launch a call and
+graph replay), K7 / K9's launches counted by head dim, the vertical + slash sparse prefill (K16's wgmma tile: head dims,
 bn, GQA 4:1, causal, soft cap, lse, empty rows, blocks past S, kv lengths,
 a column inside a slash block, ids at and past kv_len, NaN past kv_len
 unread, B = 2 through the varlen wrapper, one launch a call and two calls
@@ -42,7 +44,7 @@ from sgl_kernel_tpu_torch.ops import moe
 from sgl_kernel_tpu_torch.ops.attention import (flash_packed, flash_prefill, nsa, paged_decode, paged_decode_dma,
                                                sparse_vs)
 from sgl_kernel_tpu_torch.ops.gemm import blockwise_fp8, qserve, scaled_mm, w4a16, w4a16_dma
-from sgl_kernel_tpu_torch.utils import sm_count
+from sgl_kernel_tpu_torch.utils import row_tile, sm_count
 
 pytestmark = pytest.mark.cuda
 
@@ -1818,6 +1820,235 @@ def test_qserve_w4a8_scale_types_and_raises(gen):
         cpu = qserve.qserve_w4a8_per_chn_gemm(*(t.cpu() for t in (a[:m], w, ws, as_[:m], szeros, sums)),
                                               out_dtype=torch.float32)
         assert torch.allclose(out.cpu(), cpu, rtol=1e-6, atol=1e-6)
+
+
+def qserve_made(gen, m, n, k, g):
+    """Operands quantized as QServe does (``qserve.qserve_quantize``: int8
+    per channel, |q| <= 119, then 4-bit groups of g with an integer scale
+    s2 and zero z); int8 activations and f16 per-token / per-channel
+    scales. Every W8 is an int8."""
+    codes, zs2, s2, chn = qserve.qserve_quantize(torch.randn((n, k), generator=gen, device="cuda") * 0.01, g)
+    a = torch.randint(-128, 128, (m, k), generator=gen, device="cuda", dtype=torch.int32).to(torch.int8)
+    as_ = (torch.rand(m, generator=gen, device="cuda") * 0.01 + 0.001).half()
+    return a, codes, zs2, s2, chn.half(), as_
+
+
+def qserve_exact_blocks():
+    return qserve.exact_route_blocks(torch.device("cuda", torch.cuda.current_device()))
+
+
+# K19's int8 route against its plain twin. The kernel sums the int8
+# products exactly in int32; the twin sums the same integer products in
+# float32, which is exact while its partial sums stay below 2^24 (here
+# |sum| < 2^21, asserted), and both apply the scales with the same float32
+# operations in the same order: the outputs are equal bit for bit.
+QSERVE_INT8_CASES = [(g, k) for g in (128, 64, 32) for k in (512, 4096)] + [(32, 1376)]
+
+
+@pytest.mark.parametrize("m", [1, 16, 17, 33, 130, 1024])
+@pytest.mark.parametrize("g,k", QSERVE_INT8_CASES)
+def test_qserve_int8_route(gen, m, g, k):
+    """QServe-made operands at groups 128 / 64 / 32 and K 512 / 4,096 (1,376
+    = 43 x 32 at group 32): every block takes the int8 route (the exact-route
+    counter stays) and the f16 output equals the twin's bit for bit."""
+    args = qserve_made(gen, m, 256, k, g)
+    assert qserve.w8_int8_exact(*args[1:4], g)
+    before = qserve_exact_blocks()
+    out = qserve.qserve_w4a8_per_group_gemm(*args, group_size=g)
+    ref = qserve.qserve_w4a8_per_group_gemm_ref(*args, group_size=g)
+    w8 = qserve.dequant_w8(*args[1:4], g).float()
+    assert float((args[0].float() @ w8.T).abs().max()) < 2 ** 21
+    assert qserve_exact_blocks() == before
+    assert torch.equal(out, ref)
+
+
+@pytest.mark.parametrize("dt", [torch.int8, torch.float16, torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("m", [16, 130])
+def test_qserve_scale_dtypes(gen, dt, m):
+    """s2 and zeros_x_s2 in each type the kernel reads (the per-token and
+    per-channel scales too, f16 where the type is int8) hold the same
+    integers: the int8 route, and bits equal to the twin's."""
+    a, w, zs2, s2, ws, as_ = qserve_made(gen, m, 384, 1024, 128)
+    sd = dt if dt != torch.int8 else torch.float16
+    args = (a, w, zs2.to(dt), s2.to(dt), ws.to(sd), as_.to(sd))
+    assert torch.equal(zs2.to(dt).float(), zs2)
+    before = qserve_exact_blocks()
+    out = qserve.qserve_w4a8_per_group_gemm(*args, out_dtype=torch.float32)
+    assert qserve_exact_blocks() == before
+    assert torch.equal(out, qserve.qserve_w4a8_per_group_gemm_ref(*args, out_dtype=torch.float32))
+
+
+def qserve_off_int8(gen, case, m, n, k, g):
+    """Operands whose W8 are not all int8: ``pm240``, codes and zeros drawn
+    in 0..15 with s2 in 1..16 (W8 to +-240); ``fractional``, QServe-made
+    with s2 + 0.25 as float32; ``mixed``, QServe-made but for one weight
+    row's first group (s2 16, zero 0: W8 to 240), so only the blocks
+    holding it leave the int8 route."""
+    if case == "pm240":
+        return qserve_case(gen, m, n, k, g)
+    a, w, zs2, s2, ws, as_ = qserve_made(gen, m, n, k, g)
+    if case == "fractional":
+        return a, w, zs2, s2.float() + 0.25, ws, as_
+    w[5, :g] = 15
+    s2[5, 0], zs2[5, 0] = 16, 0.0
+    return a, w, zs2, s2, ws, as_
+
+
+@pytest.mark.parametrize("case", ["pm240", "fractional", "mixed"])
+@pytest.mark.parametrize("m,n,k,g", [(16, 256, 4096, 128), (130, 200, 1376, 32), (1024, 2304, 256, 64)])
+def test_qserve_exact_route(gen, case, m, n, k, g):
+    """Blocks holding a W8 that is not an int8 take the exact route (the
+    counter rises; with ``mixed`` not every block does) and still meet the
+    float32 bound of test_qserve_w4a8_per_group, split K (the first two
+    shapes, the int32 and float32 partials of one tile summed together
+    under ``mixed``) or not (the third)."""
+    args = qserve_off_int8(gen, case, m, n, k, g)
+    assert not qserve.w8_int8_exact(*args[1:4], g)
+    before = qserve_exact_blocks()
+    out = qserve.qserve_w4a8_per_group_gemm(*args, group_size=g, out_dtype=torch.float32)
+    taken = qserve_exact_blocks() - before
+    blocks = -(-n // 128) * -(-m // row_tile(m))
+    assert taken > 0 and (case != "mixed" or taken < blocks), taken
+    assert_out_close(out, qserve.qserve_w4a8_per_group_gemm_ref(*args, group_size=g, out_dtype=torch.float32),
+                     1e-5)
+
+
+def test_qserve_exact_route_past_int32_k(gen):
+    """K = 2^17: an int32 sum of K products could overflow, so every block
+    takes the exact route even on int8-exact weights."""
+    args = qserve_made(gen, 3, 128, 1 << 17, 128)
+    before = qserve_exact_blocks()
+    out = qserve.qserve_w4a8_per_group_gemm(*args, out_dtype=torch.float32)
+    assert qserve_exact_blocks() > before
+    assert_out_close(out, qserve.qserve_w4a8_per_group_gemm_ref(*args, out_dtype=torch.float32), 1e-5)
+
+
+def qserve_calls(gen, case):
+    """(call, operands) of a K19 call: M=16 over 1,024 x 4,096 (8 tiles, K
+    split), M=1,024 over 2,304 x 512 (144 tiles, no split), and the exact
+    route at M=16 with K split."""
+    if case == "exact":
+        args = qserve_case(gen, 16, 256, 512, 128)
+    else:
+        args = qserve_made(gen, *((16, 1024, 4096) if case == "split" else (1024, 2304, 512)), 128)
+    return (lambda: qserve.qserve_w4a8_per_group_gemm(*args)), args
+
+
+@pytest.mark.parametrize("case", ["split", "whole", "exact"])
+def test_qserve_one_launch_a_call(gen, case):
+    """Each call is one device launch, split K and the exact route included
+    (a torch.profiler trace of four calls holds only the kernel; the trace
+    may miss the first)."""
+    fn, _ = qserve_calls(gen, case)
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(4):
+            fn()
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert len(names) in (3, 4) and all("qserve_kernel" in n for n in names), names
+
+
+@pytest.mark.parametrize("case", ["split", "whole"])
+def test_qserve_bit_equal_and_graph(gen, case):
+    """On the int8 route two calls give the same bits, and so do two split
+    plans (the int32 partials sum exactly); a captured CUDA graph replays
+    them, again after the inputs change in place (the kept counters are back
+    at zero after every launch)."""
+    fn, args = qserve_calls(gen, case)
+    first = fn()
+    assert torch.equal(first, fn())
+    a, w = args[:2]
+    n_k = -(-a.shape[1] // qserve.TILE_K)
+    for per in (n_k, 1, -(-n_k // 3)):  # k-tiles a split
+        out = torch.empty_like(first)
+        qserve._launch(a, w, args[3], args[2], args[4], args[5], out, 128, (-(-n_k // per), per))
+        assert torch.equal(out, first), per
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fn()
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, first)
+    a2, _, _, _, _, as2 = qserve_made(gen, a.shape[0], 128, a.shape[1], 128)
+    a.copy_(a2)
+    args[5].copy_(as2)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert not torch.equal(out, first)
+    assert torch.equal(out, fn())
+    assert torch.equal(out, qserve.qserve_w4a8_per_group_gemm_ref(*args))
+
+
+def test_qserve_exact_counter_by_any_device_name(gen):
+    """The exact-route counter the kernel adds to is the one a reader finds
+    under any name of the card: "cuda", torch.device("cuda") without an
+    index, or with it (chip_smoke.py reads it the first way)."""
+    names = ("cuda", torch.device("cuda"), torch.device("cuda", torch.cuda.current_device()))
+    args = qserve_case(gen, 16, 256, 512, 128)
+    assert not qserve.w8_int8_exact(*args[1:4])
+    before = [qserve.exact_route_blocks(d) for d in names]
+    qserve.qserve_w4a8_per_group_gemm(*args)
+    after = [qserve.exact_route_blocks(d) for d in names]
+    assert len(set(before)) == 1 and len(set(after)) == 1 and after[0] > before[0], (before, after)
+
+
+@pytest.mark.parametrize("rows", [16, 32, 64, 128])
+def test_qserve_split_plan_tile_is_the_kernels(gen, rows):
+    """The host's split plan counts the kernel's own tile: its weight rows,
+    its stage depth and the blocks an SM holds at each row tile."""
+    assert qserve.kernel_tile(rows) == (qserve.TILE_N, qserve.TILE_K, qserve.blocks_per_sm(rows))
+
+
+def test_qserve_ordered_across_streams(gen):
+    """The kept split-K state is one set a card, so calls must be ordered:
+    every split call leaves its arrival counters and int32 sums at zero, and
+    calls on two streams joined by events each give the twin's bits."""
+    from sgl_kernel_tpu_torch.utils import kept_buffer
+
+    fn, args = qserve_calls(gen, "split")
+    ref = qserve.qserve_w4a8_per_group_gemm_ref(*args)
+    tiles = -(-args[1].shape[0] // qserve.TILE_N)
+    outs, side = [], torch.cuda.Stream()
+    for stream in (side, torch.cuda.current_stream(), side):
+        stream.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(stream):
+            outs.append(fn())
+        torch.cuda.current_stream().wait_stream(stream)
+    torch.cuda.synchronize()
+    dev = args[0].device
+    assert int(kept_buffer("qserve_counters", dev, tiles, torch.int32)[:tiles].abs().sum()) == 0
+    m, n = ref.shape
+    assert int(kept_buffer("qserve_sums", dev, m * n, torch.int32)[:m * n].abs().sum()) == 0
+    assert all(torch.equal(out, ref) for out in outs)
+
+
+def test_flash_launches_by_head_dim(gen):
+    """K7 and K9 count their launches at head dim 576 (the MLA tile) apart:
+    ``launches_576`` rises only there, ``launches`` at every head dim."""
+    q, k, v = mla_qkv(gen, 1, 64, 64)
+    ql = torch.tensor([64], dtype=torch.int32, device="cuda")
+    q1, k1, v1 = randn(gen, 1, 64, 4, 128), randn(gen, 1, 64, 4, 128), randn(gen, 1, 64, 4, 128)
+    qkv, ints, meta = packed_inputs(gen, [40], 16, 1, 576)
+    qkv = (qkv[0], qkv[1], torch.nn.functional.pad(qkv[1][..., :512], (0, 64)).contiguous())
+    qkv1, ints1, _ = packed_inputs(gen, [40], 4, 4, 128)
+    fa, fp = flash_prefill.flash_attention, flash_packed.flash_attention_packed
+    before = (fa.launches, fa.launches_576, fp.launches, fp.launches_576)
+    fa(q, k, v, ql, ql, causal=True)
+    fa(q1, k1, v1, ql, ql, causal=True)
+    fp(*qkv, *ints, max_kvb=1)
+    fp(*qkv1, *ints1, max_kvb=1)
+    fp(*qkv1, *ints1, max_kvb=1)
+    assert (fa.launches, fa.launches_576, fp.launches, fp.launches_576) == (
+        before[0] + 2, before[1] + 1, before[2] + 3, before[3] + 1)
 
 
 def test_scaled_mm_library_paths(gen):

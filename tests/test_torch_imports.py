@@ -162,3 +162,38 @@ def test_slice8_exports_and_cpu_dispatch():
     skt.sparse_attn_func(q, q, q, z, torch.zeros(1, 2, 1, 1, dtype=torch.int32), z,
                          torch.zeros(1, 2, 1, 1, dtype=torch.int32))
     assert all(n == 0 for n in skt.launch_counts().values())
+
+
+def test_head_dim_launch_counts():
+    """K7 and K9 count their launches at head dim 576 apart from the rest;
+    reset_launch_counts zeroes them, and CPU tensors (the plain twins)
+    launch nothing."""
+    skt.reset_launch_counts()
+    q, kv = torch.randn(1, 4, 16, 576), torch.randn(1, 4, 1, 576)
+    out = skt.flash_attention(q, kv, kv)
+    assert out.shape == q.shape
+    assert skt.head_dim_launch_counts() == {"flash_attention_576": 0, "flash_attention_packed_576": 0}
+    skt.flash_attention.launches_576 = skt.flash_attention_packed.launches_576 = 3
+    skt.reset_launch_counts()
+    assert set(skt.head_dim_launch_counts().values()) == {0}
+
+
+def test_kept_buffer_keys_the_device_it_means():
+    """Every spelling of one device finds the same kept buffer (a kernel
+    writes the buffer of its tensors' device, and readers such as
+    ``qserve.exact_route_blocks("cpu")`` name it as they like); a larger
+    request makes a larger buffer, other kinds get their own."""
+    from sgl_kernel_tpu_torch.ops.gemm import qserve
+    from sgl_kernel_tpu_torch.utils import kept_buffer
+
+    buf = kept_buffer("test_kept", "cpu", 8, torch.int32)
+    assert buf is kept_buffer("test_kept", torch.device("cpu"), 8, torch.int32)
+    assert buf.numel() >= 8 and int(buf.abs().sum()) == 0
+    assert kept_buffer("test_kept_other", "cpu", 8, torch.int32) is not buf
+    assert kept_buffer("test_kept", "cpu", buf.numel() + 1, torch.int32).numel() > buf.numel()
+    counter = kept_buffer("qserve_exact_blocks", torch.device("cpu"), 1, torch.int32)
+    counter[0] += 3
+    try:
+        assert qserve.exact_route_blocks("cpu") == int(counter[0])
+    finally:
+        counter[0] -= 3

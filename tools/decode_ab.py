@@ -1,6 +1,6 @@
 """Device time of the decode kernels K5, K1, K13a, K13b and K15, of one
-prefill kernel, K16, and of the blockwise-fp8 GEMMs K17 and K18, for the
-port found at ROOT.
+prefill kernel, K16, and of the GEMMs K17, K18 and K19, for the port
+found at ROOT.
 
 Times, with CUDA graphs (chip_smoke.py's method: the calls captured and
 replayed, so the host launch path is not measured):
@@ -37,6 +37,12 @@ replayed, so the host launch path is not measured):
   (bm 128; CUDA-event ms beside row-wise ``torch._scaled_grouped_mm`` on the
   valid rows, ``_scaled_grouped_mm`` rows), rows aligned by
   moe_align_block_size;
+- k19: K19 (``qserve_w4a8_per_group_gemm``) at Llama-3-8B's four GEMMs (qkv
+  [M, 4096 -> 6144], o [M, 4096 -> 4096], gate_up [M, 4096 -> 28672], down
+  [M, 14336 -> 4096]; group 128) on QServe-made weights (int8 channels,
+  then 4-bit groups: tests/test_gemm.py:278-292) at M=16 (CUDA-graph ms)
+  and M=1,024 (CUDA-event ms), each beside ``torch._int_mm`` on the int8 W8
+  (A padded to 17 rows at M=16; ``_int_mm`` rows);
 - floor: one empty kernel (``torch.cuda._sleep(0)``) a graph node, the
   least a kernel of the decode step costs on the device.
 K13a and K15 rows are timed warm (the same inputs call after call) and cold
@@ -61,12 +67,12 @@ import subprocess
 import sys
 from pathlib import Path
 
-GROUPS = ("k5", "k1", "k13a", "k13b", "k15", "k16", "k17", "k18", "floor")
+GROUPS = ("k5", "k1", "k13a", "k13b", "k15", "k16", "k17", "k18", "k19", "floor")
 # the sources a group may launch (those a tree lacks are skipped: K13b had a
 # source of its own before it moved onto K13a's kernel)
 SOURCES = {"k5": ("decode_attention",), "k1": ("w4a16_decode", "w4a16_gemm"), "k13a": ("mla_decode",),
            "k13b": ("mla_decode", "mla_decode_dma"), "k15": ("mqa_logits",), "k16": ("sparse_vs",),
-           "k17": ("blockwise_fp8",), "k18": ("blockwise_fp8",), "floor": ()}
+           "k17": ("blockwise_fp8",), "k18": ("blockwise_fp8",), "k19": ("qserve_gemm",), "floor": ()}
 COLD_BYTES = 150e6  # three times the 50 MB L2
 
 
@@ -351,6 +357,36 @@ def main(root: Path, groups) -> None:
             res[f"k18_{label}_rows"], res[f"k18_{label}_experts_hit"] = cap, int(torch.unique(eids).numel())
         del banks
         torch.cuda.empty_cache()
+    if "k19" in groups:
+        from sgl_kernel_tpu_torch.ops.gemm import qserve
+
+        def qserve_weights(n, k, g):
+            """codes, zeros_x_s2, s2 (int8), per-channel scales and the int8 W8
+            of a random weight quantized as QServe does."""
+            b = torch.randn((n, k), generator=gen, device=dev) * 0.01
+            chn = b.abs().amax(-1, keepdim=True) / 119
+            bi8 = torch.clamp(torch.round(b / chn), -119, 119).reshape(n, k // g, g)
+            del b
+            s2 = torch.clamp(torch.round((bi8.amax(-1) - bi8.amin(-1)) / 15), min=1.0)
+            z2 = -torch.round(bi8.amin(-1) / s2)
+            codes = torch.clamp(torch.round(bi8 / s2[..., None]) + z2[..., None], 0, 15)
+            w8 = ((codes - z2[..., None]) * s2[..., None]).reshape(n, k).to(torch.int8)
+            return codes.reshape(n, k).to(torch.uint8), z2 * s2, s2.to(torch.int8), chn[:, 0].half(), w8
+
+        for label, n, k in (("qkv", 6144, 4096), ("o", 4096, 4096), ("gate_up", 28672, 4096), ("down", 4096, 14336)):
+            codes, zs2, s2, ws, w8 = qserve_weights(n, k, 128)
+            w8_t = w8.t()
+            for m in (16, 1024):
+                aq = torch.randint(-128, 128, (m, k), generator=gen, device=dev, dtype=torch.int8)
+                as_ = (torch.rand(m, generator=gen, device=dev) * 0.01 + 1e-3).half()
+                a_lib = torch.nn.functional.pad(aq, (0, 0, 0, max(0, 17 - m)))
+                fn = lambda: qserve.qserve_w4a8_per_group_gemm(aq, codes, zs2, s2, ws, as_)
+                lib = lambda: torch._int_mm(a_lib, w8_t)
+                time_fn = graph_ms if m == 16 else (lambda f: event_ms(f, 20))
+                res[f"k19_{label}_m{m}"] = time_fn(fn)
+                res[f"k19_{label}_m{m}_int_mm"] = time_fn(lib)
+            del codes, w8, w8_t
+            torch.cuda.empty_cache()
     if "floor" in groups:
         res["floor_empty_kernel"] = graph_ms(lambda: torch.cuda._sleep(0), reps=100)
     print(json.dumps(res), flush=True)
