@@ -134,8 +134,19 @@ at M=16 and 1,024 beside the event ms, their TOP/s and GB/s, and the route
 its blocks took; QServe-made weights must keep every block of the eight
 rows and of the op path's 32 calls on the int8 route (the kernel's
 exact-route counter unmoved). The kernels line splits K7's and K9's
-launches by head dim (576 apart from 64 / 128). Each phase prints its time
-([time] lines).
+launches by head dim (576 apart from 64 / 128). Slice 17 (K1 past 32 rows
+and K11 at bm 64 / 128 on one W4A16 wgmma tile): K1 also at wave A's packed
+gate_up (M=16,384); every K1 row past 32 rows must run the wgmma tile (its
+route counter) and gives cuBLAS's bf16 product on the dequantized weight
+beside tinygemm; K11 at DeepSeek's wave A (gate_up and down, 16,384 rows,
+bm 128) and Mixtral's (gate_up) beside K12's device ms on the same shape
+and torch._grouped_mm on the dequantized bank; every wave of phase 4 must
+run no K1 or K11 call on the mma.sync tile and some on the wgmma tile
+(launches by kernel, ``skt.route_launch_counts()``); a torch.profiler
+capture of wave A's packed prefill step on the Llama, DeepSeek and
+Mixtral W4A16 engines gives device ms by kernel group ([profile-prefill]
+lines). The kernels line gives K1's and K11's sources and launches by
+kernel. Each phase prints its time ([time] lines).
 
 Prints a JSON line of per-kernel numbers, then, last,
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -772,7 +783,10 @@ def inner_call_ms(torch, module, attr, fn):
 def phase_w4a16(torch, skt):
     """K1 against its plain version at the W4A16 Llama-3-8B GEMMs: the five
     decode GEMMs of a step (M=16) with the prologue and epilogue each has on
-    the path, two prefill GEMMs (M=1024), an mxfp4 and a zeros+bias case."""
+    the path, two prefill GEMMs (M=1024) and wave A's packed gate_up (M =
+    16,384), an mxfp4 and a zeros+bias case. Rows past 32 must run the wgmma
+    tile (its route counter) and give cuBLAS's bf16 product on the
+    dequantized weight beside tinygemm as a second yardstick."""
     from sgl_kernel_tpu_torch.ops.gemm import w4a16
 
     dev = torch.device(DEVICE)
@@ -783,7 +797,8 @@ def phase_w4a16(torch, skt):
     cases = [("qkv", 16, 6144, 4096, "norm"), ("o", 16, 4096, 4096, "residual"),
              ("gate_up", 16, 28672, 4096, "norm"), ("down", 16, 4096, 14336, "fused"),
              ("lm_head", 16, 129024, 4096, "norm"), ("gate_up_prefill", 1024, 28672, 4096, None),
-             ("down_prefill", 1024, 4096, 14336, "fused"), ("mxfp4", 16, 4096, 4096, "mxfp4"),
+             ("down_prefill", 1024, 4096, 14336, "fused"), ("gate_up_wave_a", 16384, 28672, 4096, None),
+             ("mxfp4", 16, 4096, 4096, "mxfp4"),
              ("zeros_bias", 16, 4096, 4096, "zeros_bias")]
     for name, m, n, k, opt in cases:
         kw = dict(group_size=g)
@@ -805,7 +820,10 @@ def phase_w4a16(torch, skt):
         elif opt == "fused":
             kw.update(prologue="silu_mul", fused_gate_up=True, residual=torch.randn((m, n), generator=gen,
                                                                                     device=dev).to(bf))
+        wgmma_before = w4a16.w4a16_gemm.launches_by_route["wgmma"]
         out = w4a16.w4a16_gemm(a, w, scales, **kw)
+        if m > 32 and w4a16.w4a16_gemm.launches_by_route["wgmma"] != wgmma_before + 1:
+            fail(f"w4a16_gemm {name}: M={m} did not run the wgmma tile ({w4a16.w4a16_gemm.launches_by_route})")
         ref = w4a16.w4a16_gemm_ref(a, w, scales, **kw)
         err = check(f"w4a16_gemm {name} [{m}, {n}, {k}]", [(out, ref)])
         check_repeat(f"w4a16_gemm {name}", lambda: w4a16.w4a16_gemm(a, w, scales, **kw), out)
@@ -827,6 +845,15 @@ def phase_w4a16(torch, skt):
             graph_ms=graph_ms(torch, lambda: w4a16.w4a16_gemm(a, w, scales, **kw)), library_graph_ms=lib_graph,
             kernels_per_call=per_call)
         r = rows[f"w4a16_gemm_{name}"]
+        if m > 32:  # cuBLAS's bf16 product on the dequantized weight, a yardstick the port never calls
+            wd = w4a16.dequant_w4(w, scales, group_size=g).t().contiguous()
+            a0 = a[:, :k].contiguous()
+            r["cublas_bf16_graph_ms"] = graph_ms(torch, lambda: torch.matmul(a0, wd))
+            r["tflops"] = 2 * m * n * k / r["graph_ms"] / 1e9
+            r["cublas_bf16_tflops"] = 2 * m * n * k / r["cublas_bf16_graph_ms"] / 1e9
+            log(f"[kernel] w4a16_gemm {name}: {r['tflops']:.1f} TFLOP/s on its graph ms, cuBLAS bf16 on the "
+                f"dequantized weight {r['cublas_bf16_graph_ms']:.4f} ms ({r['cublas_bf16_tflops']:.1f} TFLOP/s)")
+            del wd, a0
         if m == 16 and name in ("qkv", "o", "gate_up", "down", "lm_head"):  # the step's GEMMs with cold weights
             wc, sc_, layers = cold_bank(torch, gen, (), k, n, g, dev)
             r["cold_graph_ms"] = cold_graph_ms(torch, lambda lid: w4a16.w4a16_gemm(a, wc, sc_, layer_id=lid, **kw),
@@ -1066,7 +1093,7 @@ def run_wave(torch, skt, eng, stats, label, wave, prompts, sampled=(), expect=()
     fin = eng.run_until_done()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    counts = {**skt.launch_counts(), **skt.head_dim_launch_counts()}
+    counts = {**skt.launch_counts(), **skt.head_dim_launch_counts(), **skt.route_launch_counts()}
     for rid in rids:
         out = fin[rid].output if rid in fin else None
         if out is None or len(out) != NEW_TOKENS or not all(0 <= t < eng.cfg.vocab_size for t in out):
@@ -1160,6 +1187,12 @@ def phase_serve(torch, skt, cfg, label, kernels, n_a=16, n_b=12, wave_c=True, pa
     res = dict(engine=label, waves=[a, bc], w4a16_by_regime=dict(stats["by_regime"]),
                w4a16_dma_by_regime=dict(stats["dma_by_regime"]),
                launches={k: a["launches"][k] + bc["launches"][k] for k in a["launches"]})
+    # every K1 call past 32 rows and every K11 call at bm 64 / 128 runs the
+    # wgmma tile: the main path's weights all map, so the mma.sync tile never runs
+    for name in ("w4a16_gemm", "w4a16_grouped_mm"):
+        if name in kernels and (res["launches"][f"{name}_tile"] or not res["launches"][f"{name}_wgmma"]):
+            fail(f"serve {label}: {name} launches by kernel "
+                 f"{ {k: v for k, v in res['launches'].items() if k.startswith(name + '_')} }")
     if cold:
         if routing is not None:
             routing.mode = None
@@ -1211,13 +1244,40 @@ def cold_compare(torch, skt, cfg, label, eng, prompts, warm_rids, warm_first, ro
     return res
 
 
-# device time a step of the W4A16 GEMMs, by kernel-name fragment
-GEMM_GROUPS = {"K1 w4a16_gemm": ("w4a16_kernel", "split_reduce_kernel", "row_prologue_kernel",
-                                  "w4a16_decode_kernel", "act_rows_kernel"),
+# device time a step of the W4A16 GEMMs, by kernel-name fragment: K1's
+# decode kernel, the wgmma tile of K1 (M > 32) and K11 (bm 64 / 128), the
+# mma.sync tile (weights the others cannot map), the streaming core
+GEMM_GROUPS = {"K1 decode": ("w4a16_decode_kernel", "act_rows_kernel"),
+               "K1 / K11 wgmma tile": ("w4a16_wgmma_kernel", "w4a16_rows_kernel"),
+               "K1 / K11 mma.sync tile": ("w4a16_kernel<", "split_reduce_kernel", "row_prologue_kernel"),
                "K10 / K11 streaming core": ("w4s::stream_kernel", "w4s::rows_kernel"),
                "K5 paged_attention_decode_dma": ("::decode_kernel<",)}
+# a packed prefill's device time: the GEMMs, attention, the MoE's bf16 GEMM
+PREFILL_GROUPS = {**GEMM_GROUPS, "K7 / K9 flash": ("flash_kernel", "packed_kernel", "flash576_kernel",
+                                                   "packed576_kernel"),
+                  "K12 bf16_grouped_mm": ("bf16_grouped",)}
 # the DeepSeek decode attention: K13a and the NSA indexer's K15
 MLA_GROUPS = {"K13a mla_decode": ("mla_decode_kernel",), "K15 fp8_paged_mqa_logits": ("mqa_logits_kernel",)}
+
+
+def device_spans(torch, prof):
+    """A torch.profiler trace's device kernels (the CPU-side op rows carry
+    their kernels' time again): their (start, end) spans, µs and launches
+    by kernel name, and the µs the device was busy (the union of the spans;
+    kernels of one stream do not overlap)."""
+    spans, per_kernel, n_kernel = [], {}, {}
+    for evt in prof.events():
+        if evt.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        start, end = evt.time_range.start, evt.time_range.end
+        spans.append((start, end))
+        per_kernel[evt.name] = per_kernel.get(evt.name, 0.0) + (end - start)
+        n_kernel[evt.name] = n_kernel.get(evt.name, 0) + 1
+    busy_us, last = 0.0, float("-inf")
+    for start, end in sorted(spans):
+        busy_us += max(0.0, end - max(start, last))
+        last = max(last, end)
+    return spans, per_kernel, n_kernel, busy_us
 
 
 def phase_profile(torch, eng, lens, label, top=12, groups=None):
@@ -1247,20 +1307,7 @@ def phase_profile(torch, eng, lens, label, top=12, groups=None):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     eng.run_until_done()
-    # device kernels only: the CPU-side op rows of the trace carry their
-    # kernels' time again
-    spans, per_kernel, n_kernel = [], {}, {}
-    for evt in prof.events():
-        if evt.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        start, end = evt.time_range.start, evt.time_range.end
-        spans.append((start, end))
-        per_kernel[evt.name] = per_kernel.get(evt.name, 0.0) + (end - start)
-        n_kernel[evt.name] = n_kernel.get(evt.name, 0) + 1
-    busy_us, last = 0.0, float("-inf")
-    for start, end in sorted(spans):
-        busy_us += max(0.0, end - max(start, last))
-        last = max(last, end)
+    spans, per_kernel, n_kernel, busy_us = device_spans(torch, prof)
     top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:top]
     res = dict(
         engine=label, batch=len(lens), steps=steps, step_ms=1e3 * wall / steps,
@@ -1274,6 +1321,35 @@ def phase_profile(torch, eng, lens, label, top=12, groups=None):
         res["group_launches_per_step"] = {g: sum(v for k, v in n_kernel.items() if any(f in k for f in frags)) / steps
                                           for g, frags in groups.items()}
     log("[profile] " + json.dumps(res))
+    return res
+
+
+def phase_prefill_profile(torch, eng, lens, label, top=12, groups=PREFILL_GROUPS):
+    """Where wave A's prefill time goes: 16 fresh prompts of wave A's
+    ``lens`` admitted on the idle engine, its next scheduler step (the one
+    packed prefill launch, then the first decode step of those rows) traced
+    with torch.profiler; device ms and launches by kernel group, the top
+    kernels, the device-busy share of the step's wall time."""
+    gen = torch.Generator().manual_seed(SEED + 7)
+    for n in lens:
+        eng.add_request(torch.randint(1, eng.cfg.vocab_size, (n,), generator=gen).tolist(), max_new_tokens=2)
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        eng.step()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    eng.run_until_done()
+    spans, per_kernel, n_kernel, busy_us = device_spans(torch, prof)
+    res = dict(engine=label, prompts=len(lens), tokens=sum(lens), step_ms=1e3 * wall, device_busy_ms=busy_us / 1e3,
+               device_busy_share=busy_us / 1e6 / wall, kernel_launches=len(spans),
+               group_ms={g: sum(v for k, v in per_kernel.items() if any(f in k for f in frags)) / 1e3
+                         for g, frags in groups.items()},
+               group_launches={g: sum(v for k, v in n_kernel.items() if any(f in k for f in frags))
+                               for g, frags in groups.items()},
+               kernels_ms={k[:80]: v / 1e3 for k, v in sorted(per_kernel.items(), key=lambda kv: -kv[1])[:top]})
+    log("[profile-prefill] " + json.dumps(res))
     return res
 
 
@@ -1390,7 +1466,10 @@ def grouped_w4_row(torch, moe, name, a, w, sc, al, bm, pairs, g, decode):
     kw = dict(bm=bm)
     args = (a, w, sc, al.block_expert_ids, None, 1, al.num_valid_blocks)
     fn = lambda: moe.w4a16_grouped_mm(*args, **kw)
+    wgmma_before = moe.w4a16_grouped_mm.launches_by_route["wgmma"]
     out = fn()
+    if bm >= 64 and moe.w4a16_grouped_mm.launches_by_route["wgmma"] != wgmma_before + 1:
+        fail(f"{name}: bm {bm} did not run the wgmma tile ({moe.w4a16_grouped_mm.launches_by_route})")
     ref = moe.w4a16_grouped_mm_ref(*args, **kw)
     err = check(f"{name} [cap {a.shape[0]}, bm {bm}, {nv} valid blocks, {hit} experts]",
                 [(out[: nv * bm], ref[: nv * bm])])
@@ -1678,11 +1757,15 @@ def phase_moe_bf16_kernels(torch, skt):
     bf16_grouped_mm at the bf16 MoE paths' shapes, against their plain
     versions: DeepSeek-V2-Lite's B=16 decode (64 experts, top-6, stacked
     banks, layer 1 of 2) and wave A's 16,384-row packed prefill at bm 128,
-    Mixtral-8x7B's B=16 decode (8 experts, top-2, an unstacked bank) and a
-    1,024-token Mixtral prefill at bm 128. Each K12 row has CUDA-graph ms
-    and TFLOP/s beside torch._grouped_mm's from the same call."""
+    Mixtral-8x7B's B=16 decode (8 experts, top-2, an unstacked bank), a
+    1,024-token Mixtral prefill and Mixtral's wave A (16,384 rows) at bm 128.
+    Each K12 row has CUDA-graph ms and TFLOP/s beside torch._grouped_mm's
+    from the same call; at the two wave A shapes K11 (the W4A16 engines'
+    grouped GEMM, on the wgmma tile) runs beside it on int4 codes of the
+    same bank shape."""
     from sgl_kernel_tpu_torch.ops import moe, rope
     from sgl_kernel_tpu_torch.ops.activation import silu_and_mul
+    from sgl_kernel_tpu_torch.ops.gemm import w4a16
 
     dev = torch.device(DEVICE)
     gen = torch.Generator(device=dev).manual_seed(SEED + 6)
@@ -1710,9 +1793,34 @@ def phase_moe_bf16_kernels(torch, skt):
             pos, q, k, cache)), library_ms=None, library_note="no single PyTorch call", bound_ms=bms, bound_by=bby),
         fn)
 
-    def grouped(label, t, e, k_top, w1, w2, lid, routing, down=True):
+    def w4_beside(label, name, a, kk, n, e, al, bm, pairs, k12):
+        """K11 on random int4 codes and group-128 scales of the bf16 bank's
+        shape (layer 1 of two stacked), on the same rows and alignment,
+        beside K12's device ms on that shape (``k12``) and torch._grouped_mm
+        on the dequantized layer (a yardstick the port never calls)."""
+        w = torch.randint(0, 256, (2, e, kk // 2, n), generator=gen, device=dev, dtype=torch.int32).to(torch.uint8)
+        sc = (0.002 + 0.004 * torch.rand((2, e, kk // 128, n), generator=gen, device=dev)).to(bf)
+        tag = f"w4a16_grouped_mm {label} {name}"
+        row = grouped_w4_row(torch, moe, tag, a, w, sc, al, bm, pairs, 128, False)
+        args = (a, w, sc, al.block_expert_ids, None, 1, al.num_valid_blocks)
+        ref = moe.w4a16_grouped_mm_ref(*args, bm=bm)
+        wd = torch.stack([w4a16.dequant_w4(w[1, i], sc[1, i]).t().contiguous() for i in range(e)])
+        lib_fn, lib_note = grouped_mm_yardstick(torch, a, wd, al, row["valid_blocks"] * bm, ref)
+        del ref
+        row = device_rate(torch, row, lambda: moe.w4a16_grouped_mm(*args, bm=bm), 2 * pairs * kk * n, lib_fn)
+        row.update(k12_graph_ms=k12["graph_ms"], k12_tflops=k12["tflops"],
+                   library_note=f"torch._grouped_mm on the dequantized bf16 layer: {lib_note}")
+        lib = "null" if row.get("library_graph_ms") is None else f"{row['library_graph_ms']:.4f}"
+        log(f"[kernel] {tag}: graph_ms={row['graph_ms']:.4f} ({row['tflops']:.1f} TFLOP/s) against K12 bf16 on the "
+            f"same shape {k12['graph_ms']:.4f} ({k12['tflops']:.1f}); torch._grouped_mm dequantized {lib} "
+            f"({lib_note}); bound {row['bound_ms']:.4f}")
+        rows[f"w4a16_grouped_mm_{label}_{name}"] = row
+        del w, sc, wd
+
+    def grouped(label, t, e, k_top, w1, w2, lid, routing, down=True, w4=False):
         """One routed call: tokens through routing, the alignment, then
-        gate_up (and down on silu_and_mul of gate_up's output)."""
+        gate_up (and down on silu_and_mul of gate_up's output); with ``w4``
+        K11 beside each K12 row (``w4_beside``)."""
         bm = moe.pick_block_size(t, k_top, e)
         tw, tids = routing(torch.randn((t, e), generator=gen, device=dev))
         al = moe.moe_align_block_size(tids, tw, e, bm)
@@ -1745,6 +1853,8 @@ def phase_moe_bf16_kernels(torch, skt):
                 library_ms=None if lib_fn is None else time_ms(torch, lib_fn), library_note=lib_note,
                 bound_ms=bms, bound_by=bby, valid_blocks=nv, experts_hit=hit, bm=bm), call, 2 * pairs * kk * n, lib_fn)
             report(f"bf16_grouped_mm_{label}_{name}", row)
+            if w4:
+                w4_beside(label, name, a, kk, n, e, al, bm, pairs, row)
 
     dcfg = v2_lite_cfg(torch, skt, quant=None)
     e, h, inter = dcfg.num_experts, dcfg.hidden_size, dcfg.moe_intermediate
@@ -1755,7 +1865,7 @@ def phase_moe_bf16_kernels(torch, skt):
     grouped("deepseek_decode", 16, e, dcfg.num_experts_per_tok, w1, w2, 1, biased)
     # wave A's packed launch: 16,384 rows, top-6 of 64, bm 128 (the
     # wgmma tile), gate_up then down on its silu_and_mul
-    grouped("deepseek_wave_a", 16384, e, dcfg.num_experts_per_tok, w1, w2, 1, biased)
+    grouped("deepseek_wave_a", 16384, e, dcfg.num_experts_per_tok, w1, w2, 1, biased, w4=True)
     del w1, w2
     torch.cuda.empty_cache()
     e, h, inter = mcfg.num_experts, mcfg.hidden_size, mcfg.intermediate_size
@@ -1764,6 +1874,9 @@ def phase_moe_bf16_kernels(torch, skt):
     softmax = lambda lg: moe.topk_softmax(lg, mcfg.top_k, renormalize=True)
     grouped("mixtral_decode", 16, e, mcfg.top_k, w1, w2, None, softmax)
     grouped("mixtral_prefill", 1024, e, mcfg.top_k, w1, w2, None, softmax, down=False)
+    # Mixtral's wave A: 16,384 packed rows, top-2 of 8 at bm 128, gate_up;
+    # K11 beside it on int4 codes of the same bank shape
+    grouped("mixtral_wave_a", 16384, e, mcfg.top_k, w1, w2, None, softmax, down=False, w4=True)
     del w1, w2
     torch.cuda.empty_cache()
     return rows
@@ -3261,6 +3374,7 @@ def main():
         free_memory(torch)
     with phase("4-5 serve llama w4a16"):
         serve["w4a16"], eng, lens = phase_serve(torch, skt, w4_cfg, "w4a16", LLAMA_W4)
+        profile["w4a16 prefill"] = phase_prefill_profile(torch, eng, lens, "w4a16")
         profile["w4a16"] = phase_profile(torch, eng, lens, "w4a16", groups=GEMM_GROUPS)
         params = eng.params
         del eng
@@ -3310,6 +3424,7 @@ def main():
                                                               mixed=False)
         if eng.caches[0].dtype != torch.int8:
             fail(f"serve deepseek: the latent pool is {eng.caches[0].dtype}")
+        profile["deepseek-w4a16-int8 prefill"] = phase_prefill_profile(torch, eng, lens, "deepseek-w4a16-int8")
         profile["deepseek-w4a16-int8"] = phase_profile(torch, eng, lens, "deepseek-w4a16-int8",
                                                        groups={**GEMM_GROUPS, **MLA_GROUPS})
         del eng
@@ -3324,6 +3439,7 @@ def main():
     with phase("4-5 serve mixtral w4a16"):
         serve["mixtral-w4a16"], eng, lens = phase_serve(torch, skt, mx_w4_cfg, "mixtral-w4a16", MIXTRAL_W4,
                                                         mixed=False)
+        profile["mixtral-w4a16 prefill"] = phase_prefill_profile(torch, eng, lens, "mixtral-w4a16")
         profile["mixtral-w4a16"] = phase_profile(torch, eng, lens, "mixtral-w4a16", groups=GEMM_GROUPS)
         del eng
         free_memory(torch)
@@ -3423,6 +3539,12 @@ def main():
     # launches: the main paths' waves in phase 4, counted from 0 before each
     # wave, summed over every engine, and the op paths (K13b, K8, K16-K19, K11
     # under w4a8_grouped_mm)
+    # K1 and K11 each run three kernels by shape: decode, the wgmma tile, the mma.sync tile
+    sources = {"w4a16_gemm": ["sgl_kernel_tpu_torch/csrc/w4a16_decode.cu", "sgl_kernel_tpu_torch/csrc/w4a16_wgmma.cu",
+                              "sgl_kernel_tpu_torch/csrc/w4a16_gemm.cu"],
+               "w4a16_grouped_mm": ["sgl_kernel_tpu_torch/csrc/w4a16_grouped_decode.cu",
+                                    "sgl_kernel_tpu_torch/csrc/w4a16_wgmma.cu",
+                                    "sgl_kernel_tpu_torch/csrc/grouped_gemm.cu"]}
     for name, (route, src, repl, row) in meta.items():
         r = rows[row]
         kernels.append(dict(name=name, route=route, source=src, replaces=repl,
@@ -3432,6 +3554,14 @@ def main():
         if name in ("flash_attention", "flash_attention_packed"):  # K7 / K9 at head dim 576 apart
             at576 = sum(res["launches"].get(f"{name}_576", 0) for res in (*serve.values(), *paths.values()))
             kernels[-1]["launches_by_head_dim"] = {"64/128": kernels[-1]["launches"] - at576, "576": at576}
+        if name in sources:  # launches by kernel, and the prefill row's numbers beside the decode row's
+            kernels[-1]["sources"] = sources[name]
+            kernels[-1]["launches_by_kernel"] = {
+                way: sum(res["launches"].get(f"{name}_{way}", 0) for res in (*serve.values(), *paths.values()))
+                for way in (("decode", "wgmma", "tile") if name == "w4a16_gemm" else ("stream", "wgmma", "tile"))}
+            pre = rows["w4a16_gemm_gate_up_prefill" if name == "w4a16_gemm" else "w4a16_grouped_mm_prefill_gate_up"]
+            kernels[-1]["wgmma_tile"] = {key: pre.get(key) for key in ("max_abs_err", "ms", "graph_ms", "plain_ms",
+                                                                       "bound_ms", "bound_by", "library_ms")}
         if kernels[-1]["launches"] <= 0:
             fail(f"{name}: no launch in the served waves")
     log("[kernel] rmsnorm at [1024, 4096]: " + json.dumps(rows["rmsnorm_1024"]))
@@ -3439,7 +3569,10 @@ def main():
                  "paged_attention_decode_dma_int8", "paged_attention_decode_dma_e4m3", "flash_attention_lse",
                  "w4a16_grouped_mm_decode_gate_up", "w4a16_grouped_mm_decode_down",
                  "w4a16_grouped_mm_mixtral_decode_gate_up", "w4a16_grouped_mm_mixtral_decode_down",
-                 "w4a16_grouped_mm_prefill_gate_up", "w4a16_gemm_dma_gate_up", "w4a16_gemm_gate_up", "mla_decode", "mla_decode_e4m3",
+                 "w4a16_grouped_mm_prefill_gate_up", "w4a16_grouped_mm_deepseek_wave_a_gate_up",
+                 "w4a16_grouped_mm_deepseek_wave_a_down", "w4a16_grouped_mm_mixtral_wave_a_gate_up",
+                 "bf16_grouped_mm_mixtral_wave_a_gate_up", "w4a16_gemm_gate_up_prefill", "w4a16_gemm_down_prefill",
+                 "w4a16_gemm_gate_up_wave_a", "w4a16_gemm_dma_gate_up", "w4a16_gemm_gate_up", "mla_decode", "mla_decode_e4m3",
                  "mla_decode_int8", "mla_decode_nsa_int8", "mla_decode_nsa_bf16", "mla_decode_ctx8192",
                  "fp8_paged_mqa_logits_decode",
                  "flash_attention_576_lse", "flash_attention_packed_576", "bf16_grouped_mm_deepseek_decode_down",

@@ -155,6 +155,8 @@ def reset_launch_counts():
         fn.launches = 0
     for fn in (flash_attention, flash_attention_packed):
         fn.launches_576 = 0
+    for fn in (w4a16_gemm, w4a16_grouped_mm):
+        fn.launches_by_route = dict.fromkeys(fn.launches_by_route, 0)
 
 
 def launch_counts():
@@ -167,3 +169,12 @@ def head_dim_launch_counts():
     rest of ``launch_counts()``'s."""
     return {"flash_attention_576": flash_attention.launches_576,
             "flash_attention_packed_576": flash_attention_packed.launches_576}
+
+
+def route_launch_counts():
+    """K1's and K11's launches by kernel: K1 on the decode kernel, the wgmma
+    tile and the mma.sync tile (``w4a16.route``); K11 on the streaming
+    core, the wgmma tile and the mma.sync tile (``grouped_gemm.grouped_route``).
+    Their sums are ``launch_counts()``'s."""
+    return {f"{name}_{way}": n for name, fn in (("w4a16_gemm", w4a16_gemm), ("w4a16_grouped_mm", w4a16_grouped_mm))
+            for way, n in fn.launches_by_route.items()}

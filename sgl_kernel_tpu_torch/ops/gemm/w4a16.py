@@ -2,8 +2,10 @@
 
 ``w4a16_gemm`` is kernel K1, CUDA C++ replacing the Pallas ``w4a16_gemm``
 (sgl_kernel_tpu/ops/gemm/w4a16.py:301, pallas_call at :539 and :551):
-decode rows (M <= 32) on ``csrc/w4a16_decode.cu``, prefill rows (and decode
-weights whose rows TMA cannot map, N % 16 != 0) on ``csrc/w4a16_gemm.cu``.
+decode rows (M <= 32) on ``csrc/w4a16_decode.cu``, prefill rows (M > 32) on
+the wgmma tile of ``csrc/w4a16_wgmma.cu``, and weights TMA cannot map (N %
+16 != 0, unaligned, or a packed K that is not a multiple of 128) on the
+mma.sync tile of ``csrc/w4a16_gemm.cu``; ``route`` names the choice.
 ``w4a16_gemm_ref`` is its plain PyTorch twin
 (dequantize, then one f32 product per scale group, chunked over N so a
 lm_head-sized call stays a few hundred MB on the CPU).
@@ -292,7 +294,46 @@ def plan(m: int, n: int, k_pad: int, group_size: int, n_sm: int = 132):
     return (0 if m <= 16 else 1), blocks, cdiv(stages, blocks)
 
 
+# the wgmma tile (csrc/w4a16_wgmma.cu): k of a stage; a block is 64 rows by
+# 256 columns or 128 rows by 128 columns
+_WG_BK = 128
+
+
+def _wg_cols(bm: int) -> int:
+    return 128 * (128 // bm)
+
+
+def route(m: int, k_pad: int, vec_w: bool) -> str:
+    """The kernel a call of ``m`` rows takes. ``vec_w``: TMA maps the
+    weights (N a multiple of 16; codes, scales and zeros start 16-byte
+    aligned). ``"decode"``: M <= 32 on ``csrc/w4a16_decode.cu``;
+    ``"wgmma"``: M > 32 on ``csrc/w4a16_wgmma.cu``, whose stages also need K
+    in whole 128-deep stages; ``"tile"``: the rest, on the mma.sync tile of
+    ``csrc/w4a16_gemm.cu``."""
+    if _m_bucket(m) == 0:
+        return "decode" if vec_w else "tile"
+    return "wgmma" if vec_w and k_pad % _WG_BK == 0 else "tile"
+
+
+def wgmma_plan(m: int, n: int, k_pad: int, n_sm: int = 132):
+    """(rows a block, split, stages a split) of a wgmma-tile launch: 64-row
+    blocks of 256 columns up to 64 rows, else 128-row blocks of 128 columns
+    (a decoded code feeds twice the products). Where the tiles cannot give
+    every SM a block, K splits over blocks in whole 128-deep stages, at
+    least 4 a split and no more splits than keep every block in one wave;
+    every split non-empty."""
+    bm = 64 if m <= 64 else 128
+    tiles = cdiv(m, bm) * cdiv(n, _wg_cols(bm))
+    stages = k_pad // _WG_BK
+    split = 1
+    if tiles < n_sm:
+        split = max(1, min(n_sm // tiles, stages // 4))
+    per = cdiv(stages, split)
+    return bm, cdiv(stages, per), per
+
+
 _ARGS = (ctypes.c_void_p,) * 12 + (ctypes.c_int,) * 15 + (ctypes.c_float, ctypes.c_void_p)
+_WG_ARGS = (ctypes.c_void_p,) * 13 + (ctypes.c_int,) * 14 + (ctypes.c_float, ctypes.c_void_p)
 _DEC_ARGS = (ctypes.c_void_p,) * 13 + (ctypes.c_int,) * 12 + (ctypes.c_float, ctypes.c_void_p)
 
 
@@ -304,6 +345,11 @@ def _entry():
 @functools.cache
 def _decode_entry():
     return _build.bind("w4a16_decode", "skt_w4a16_decode", _DEC_ARGS)
+
+
+@functools.cache
+def _wgmma_entry():
+    return _build.bind("w4a16_wgmma", "skt_w4a16_wgmma", _WG_ARGS)
 
 
 def w4a16_gemm(a, w, scales, zeros=None, bias=None, a2=None, residual=None, layer_id=None,
@@ -359,9 +405,16 @@ def w4a16_gemm(a, w, scales, zeros=None, bias=None, a2=None, residual=None, laye
     aligned = lambda *ts: all(t is None or t.data_ptr() % 16 == 0 for t in ts)
     vec_a = aligned(a_, a2_, nw_) and lda % 8 == 0 and lda2 % 8 == 0
     vec_w = n % 16 == 0 and aligned(w_, s_, z_)
-    if _m_bucket(m) == 0 and vec_w:  # the decode kernel: TMA maps the weight, scale and zero rows
-        if not aligned(b_, res):  # its epilogue reads 4 columns at once
-            b_, res = (t.clone() if t is not None else None for t in (b_, res))
+    way = route(m, k_pad, vec_w)
+    w4a16_gemm.launches_by_route[way] += 1
+    if way != "tile" and not aligned(b_, res):  # their epilogues read 4 columns at once
+        b_, res = (t.clone() if t is not None else None for t in (b_, res))
+    if way == "wgmma":
+        _wgmma_launch(a_, a2_, nw_, w_, s_, z_, b_, res, out, k_pad, k, group_size=group_size, fmt=fmt,
+                      norm_eps=norm_eps, vec_a=vec_a)
+        w4a16_gemm.launches += 1
+        return out
+    if way == "decode":  # the decode kernel: TMA maps the weight, scale and zero rows
         tile, blocks, _ = plan(m, n, k_pad, group_size, n_sm)
         mp = 16 if m <= 16 else 32
         partial = torch.empty((blocks * 2 * mp * _DEC_BN,), dtype=torch.float32, device=a.device)
@@ -379,6 +432,32 @@ def w4a16_gemm(a, w, scales, zeros=None, bias=None, a2=None, residual=None, laye
                  norm_eps=norm_eps, vec_a=vec_a, vec_w=vec_w, name="w4a16_gemm")
     w4a16_gemm.launches += 1
     return out
+
+
+def _wgmma_launch(a_, a2_, nw_, w_, s_, z_, b_, res, out, k_pad, k, *, group_size, fmt, norm_eps, vec_a):
+    """One call of the wgmma tile (``csrc/w4a16_wgmma.cu``) on checked,
+    dense operands: the rows pass first where a prologue, rows TMA cannot
+    map or zeros need it, then the tile, K split by ``wgmma_plan``."""
+    m, n = a_.shape[0], w_.shape[-1]
+    dev = a_.device
+    bm, split, per = wgmma_plan(m, n, k_pad, sm_count(dev.index or 0))
+    prologue_id = 1 if nw_ is not None else (2 if a2_ is not None else 0)
+    act = None
+    if prologue_id or a_.data_ptr() % 16 or a_.stride(0) % 8:  # the tile reads the rows pass's rows
+        act = torch.empty((m, k_pad), dtype=torch.bfloat16, device=dev)
+    asum = None
+    if z_ is not None:  # each group's activation sums, [K/G][M rounded up to 128]
+        asum = torch.empty(((k_pad // group_size) * round_up(m, 128),), dtype=torch.float32, device=dev)
+    ws = counters = None
+    if split > 1:
+        ws = torch.empty((split * m * n,), dtype=torch.float32, device=dev)
+        counters = kept_buffer("w4a16_wgmma_counters", dev, cdiv(m, bm) * cdiv(n, _wg_cols(bm)), torch.int32)
+    ptr = lambda t: t.data_ptr() if t is not None else None
+    _build.check(_wgmma_entry()(
+        ptr(a_), ptr(a2_), ptr(nw_), ptr(act), ptr(asum), ptr(w_), ptr(s_), ptr(z_), ptr(b_), ptr(res), ptr(out),
+        ptr(ws), ptr(counters), m, n, k_pad, k, a_.stride(0), a2_.stride(0) if a2_ is not None else 0, group_size, bm,
+        prologue_id, int(fmt == "mxfp4"), int(out.dtype == torch.float32), int(vec_a), split, per, norm_eps,
+        _build.stream_ptr(dev)), "w4a16_gemm")
 
 
 def _tile_launch(a_, a2_, nw_, w_, s_, z_, b_, res, out, k_pad, k, *, group_size, fmt, norm_eps, vec_a, vec_w,
@@ -406,3 +485,5 @@ def _tile_launch(a_, a2_, nw_, w_, s_, z_, b_, res, out, k_pad, k, *, group_size
 
 
 w4a16_gemm.launches = 0
+# launches by kernel (``route``): the decode kernel, the wgmma tile, the mma.sync tile
+w4a16_gemm.launches_by_route = {"decode": 0, "wgmma": 0, "tile": 0}

@@ -4,9 +4,11 @@
 ``w4a16_grouped_mm`` (sgl_kernel_tpu/ops/moe/grouped_gemm.py:259,
 pallas_call at :419): at bm 16 / 32 (decode) the W4A16 streaming core
 (``csrc/w4a16_grouped_decode.cu``, ``ops/gemm/w4a16_stream.py``), its units
-counted on the device from ``num_valid_blocks``; at bm 64 / 128, for
-per-channel scales and for banks TMA cannot map, CUDA C++ in
-``csrc/grouped_gemm.cu`` on K1's tile code. ``w4a16_grouped_mm_ref`` is its
+counted on the device from ``num_valid_blocks``; at bm 64 / 128 K1's wgmma
+tile (``csrc/w4a16_wgmma.cu``), per-channel scales included; for
+per-channel scales at bm 16 / 32 and banks TMA cannot map, CUDA C++ in
+``csrc/grouped_gemm.cu`` on the mma.sync tile (``grouped_route`` names
+the choice). ``w4a16_grouped_mm_ref`` is its
 plain twin: K1's twin (ops/gemm/w4a16.py) per valid row block, so the two
 differ only by summation order.
 
@@ -109,6 +111,20 @@ def _tile(bm: int) -> int:
     return 0 if bm == 16 else (1 if bm == 32 else 2)
 
 
+def grouped_route(bm: int, n: int, k_pad: int, per_channel: bool, *banks) -> str:
+    """The kernel a K11 call takes: ``"stream"`` (bm 16 / 32, group scales,
+    a bank TMA maps: ``w4a16_stream.mappable``), ``"wgmma"`` (bm 64 / 128 on
+    the wgmma tile, whose maps need N a multiple of 16, 16-byte aligned codes,
+    8-byte aligned scale and zero rows and K in whole 128-deep stages) or
+    ``"tile"`` (the mma.sync tile, ``csrc/grouped_gemm.cu``: the rest)."""
+    if bm in (16, 32):
+        return "stream" if not per_channel and w4a16_stream.mappable(n, *banks) else "tile"
+    w, scales, zeros = banks
+    ok = (n % 16 == 0 and k_pad % 128 == 0 and w.data_ptr() % 16 == 0
+          and all(t is None or t.data_ptr() % 8 == 0 for t in (scales, zeros)))
+    return "wgmma" if ok else "tile"
+
+
 _ARGS = ((ctypes.c_void_p,) * 7 + (ctypes.c_int,) * 8 + (ctypes.c_longlong,) * 2 + (ctypes.c_int,) * 4
          + (ctypes.c_void_p,))
 
@@ -124,6 +140,15 @@ def _entry():
 @functools.cache
 def _decode_entry():
     return _build.bind("w4a16_grouped_decode", "skt_w4a16_grouped_decode", _DEC_ARGS)
+
+
+_WG_ARGS = ((ctypes.c_void_p,) * 9 + (ctypes.c_int,) * 8 + (ctypes.c_longlong,) * 2 + (ctypes.c_int,) * 3
+            + (ctypes.c_void_p,))
+
+
+@functools.cache
+def _wgmma_entry():
+    return _build.bind("w4a16_wgmma", "skt_w4a16_wgmma_grouped", _WG_ARGS)
 
 
 def w4a16_grouped_mm(x_sorted, w, scales, block_expert_ids, zeros=None, layer_id=None, num_valid_blocks=None, *,
@@ -175,7 +200,27 @@ def w4a16_grouped_mm(x_sorted, w, scales, block_expert_ids, zeros=None, layer_id
     ptr = lambda t: t.data_ptr() if t is not None else None
     vec_a = x.data_ptr() % 16 == 0 and x.stride(0) % 8 == 0
     banks = (w, scales, zeros)  # as they lie: [L, E, ...] with the layer a coordinate, or [E, ...]
-    if bm in (16, 32) and not per_channel and w4a16_stream.mappable(n, *banks):
+    way = grouped_route(bm, n, k_pad, per_channel, *((w_, s_, z_) if bm in (64, 128) else banks))
+    w4a16_grouped_mm.launches_by_route[way] += 1
+    if way == "wgmma":
+        # the layer's [E, K/2, N] codes (a view); scales and zeros by their
+        # strides, per-channel ones with a group stride of 0
+        wl = w_ if w_.is_contiguous() else w_.contiguous()
+        if s_.stride(2) != 1 or s_.stride(0) % 4 or s_.stride(1) % 4 or (
+                z_ is not None and z_.stride() != s_.stride()):
+            s_, z_ = s_.contiguous(), None if z_ is None else z_.contiguous()
+        act = None
+        if x.data_ptr() % 16 or x.stride(0) % 8:  # rows TMA cannot map: the rows pass copies them
+            act = torch.empty((cap, k_pad), dtype=bf, device=x.device)
+        asum = None if z_ is None else torch.empty(((k_pad // group_size) * cap,), dtype=torch.float32,
+                                                    device=x.device)
+        _build.check(_wgmma_entry()(
+            ptr(x), ptr(wl), ptr(s_), ptr(z_), ptr(eids), ptr(nv), ptr(act), ptr(asum), ptr(out), cap, n, k_pad, k,
+            x.stride(0), group_size, bm, wl.shape[0], s_.stride(0), s_.stride(1), int(fmt == "mxfp4"),
+            int(out_dtype == torch.float32), int(vec_a), _build.stream_ptr(x.device)), "w4a16_grouped_mm")
+        w4a16_grouped_mm.launches += 1
+        return out
+    if way == "stream":
         layers, experts, layer = (w.shape[0], w.shape[1], int(layer_id)) if layer_id is not None else (1, w.shape[0], 0)
         n_sm = sm_count(x.device.index or 0)
         blocks = w4a16_stream.grid(n_sm)
@@ -200,6 +245,8 @@ def w4a16_grouped_mm(x_sorted, w, scales, block_expert_ids, zeros=None, layer_id
 
 
 w4a16_grouped_mm.launches = 0
+# launches by kernel (``grouped_route``): the streaming core, the wgmma tile, the mma.sync tile
+w4a16_grouped_mm.launches_by_route = {"stream": 0, "wgmma": 0, "tile": 0}
 
 
 def ragged_grouped_mm(x_sorted, weights, group_sizes):

@@ -674,6 +674,93 @@ def test_w4a16_unsupported_raise(gen):
         w4a16.w4a16_gemm(a, w, s, group_size=256)
 
 
+# K1 at M > 32 on the wgmma tile (csrc/w4a16_wgmma.cu): the row counts of
+# the main path (extends and wave B, mixed steps near 1,040, ragged tiles)
+WG_M = [33, 64, 200, 257, 1024, 1040]
+
+
+def check_wgmma(a, w, s, kw):
+    """One call on the wgmma tile (counted on its route), against the twin."""
+    before = w4a16.w4a16_gemm.launches_by_route["wgmma"]
+    check_w4(a, w, s, kw)
+    assert w4a16.w4a16_gemm.launches_by_route["wgmma"] == before + 1
+
+
+@pytest.mark.parametrize("option", [None, "norm", "a2_silu", "fused_gate_up", "residual", "bias", "zeros", "mxfp4",
+                                    "mxfp4_zeros", "f32_out", "padded_k", "layer_id"])
+@pytest.mark.parametrize("m", WG_M)
+def test_w4a16_wgmma_options(gen, option, m):
+    """Every option at each row count; N = 400 leaves the second column
+    tile's second code box past N (its columns never stored)."""
+    check_wgmma(*w4_case(gen, m, 400, 1024, 32 if option and option.startswith("mxfp4") else 64, option))
+
+
+@pytest.mark.parametrize("gs", [32, 64, 128])
+@pytest.mark.parametrize("m", WG_M)
+def test_w4a16_wgmma_groups(gen, gs, m):
+    """Each group size (a promotion every 2, 4 or 8 k16 steps)."""
+    check_wgmma(*w4_case(gen, m, 768, 2048, gs, "residual"))
+
+
+@pytest.mark.parametrize("m", [33, 64, 200])
+def test_w4a16_wgmma_split_k(gen, m):
+    """Few tiles: K splits over blocks in whole stages and the last block of
+    a tile sums the partials in split order, adds bias and residual, casts;
+    two calls give the same bits."""
+    n, k, gs = 256, 8192, 128
+    _, split, per = w4a16.wgmma_plan(m, n, k, sm_count(0))
+    assert split > 1 and (split - 1) * per < k // 128 <= split * per
+    a, w, s, kw = w4_case(gen, m, n, k, gs, "residual")
+    kw["bias"] = randn(gen, n, dtype=torch.float32)
+    check_wgmma(a, w, s, kw)
+    assert torch.equal(w4a16.w4a16_gemm(a, w, s, **kw), w4a16.w4a16_gemm(a, w, s, **kw))
+
+
+@pytest.mark.parametrize("option", [None, "norm", "zeros"])
+def test_w4a16_wgmma_graph_replay(gen, option):
+    """A captured call (split K, and the rows pass with a prologue or zeros)
+    replayed as the activations change in place: each replay equals the
+    eager call bit for bit and agrees with the twin."""
+    a, w, s, kw = w4_case(gen, 200, 512, 4096, 128, option)
+    assert w4a16.wgmma_plan(200, 512, 4096, sm_count(0))[1] > 1
+    fn = lambda: w4a16.w4a16_gemm(a, w, s, **kw)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fn()
+    for _ in range(3):
+        a.copy_(randn(gen, *a.shape) * (3 if option == "norm" else 1))
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, fn())
+        assert_elementwise(out, w4a16.w4a16_gemm_ref(a, w, s, **kw))
+
+
+@pytest.mark.parametrize("option,rows_pass", [(None, False), ("norm", True), ("fused_gate_up", True),
+                                              ("zeros", True)])
+def test_w4a16_wgmma_one_launch(gen, option, rows_pass):
+    """A call is the tile's one launch, behind the rows pass where a
+    prologue or zeros need it (a torch.profiler trace of four calls, which
+    may miss the first kernel)."""
+    a, w, s, kw = w4_case(gen, 1024, 512, 1024, 128, option)
+    fn = lambda: w4a16.w4a16_gemm(a, w, s, **kw)
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(4):
+            fn()
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    tiles = sum("w4a16_wgmma_kernel" in n for n in names)
+    rows = sum("w4a16_rows_kernel" in n for n in names)
+    assert tiles >= 3 and tiles + rows == len(names), names
+    assert (tiles - 1 <= rows <= tiles) if rows_pass else rows == 0, names
+
+
 def check_w4_dma(a, w, s, kw):
     before = w4a16_dma.w4a16_gemm_dma.launches
     out = w4a16_dma.w4a16_gemm_dma(a, w, s, **kw)
@@ -849,6 +936,70 @@ def test_grouped_w4a16_options(gen, option):
 DECODE_EIDS = [0, 0, 3, 3, 3, 5, 1]  # neighbouring blocks of one expert, and a lone one
 
 
+@pytest.mark.parametrize("bm", [64, 128])
+@pytest.mark.parametrize("case", ["int4", "zeros", "mxfp4", "mxfp4_zeros", "f32_out", "per_channel", "last_expert",
+                                  "unstacked", "k1408"])
+def test_grouped_wgmma(gen, bm, case):
+    """K11 at bm 64 / 128 on the wgmma tile: 5 of 7 row blocks valid (NaN in
+    the padding rows reaches no valid row), each scale form (groups of 128,
+    mxfp4 at 32, zeros, per-channel), a float32 output, layer L-1 and
+    expert E-1 of a stacked bank, an unstacked bank, K of 11 groups; two
+    calls give the same bits."""
+    blocks, layers, e, valid = len(DECODE_EIDS), 3, 6, 5
+    fmt = "mxfp4" if case.startswith("mxfp4") else "int4"
+    gs = 32 if fmt == "mxfp4" else 128
+    x, w, s, z, _ = grouped_inputs(gen, bm=bm, blocks=blocks, k=1408 if case == "k1408" else 512, n=400, gs=gs, e=e,
+                                   layers=layers, fmt=fmt, zeros=case in ("zeros", "mxfp4_zeros"))
+    ids = [e - 1, e - 1, 2, e - 1, 0, 4, 4] if case == "last_expert" else DECODE_EIDS
+    eids = torch.tensor(ids, dtype=torch.int32, device="cuda")
+    x[valid * bm:] = float("nan")
+    nvt = torch.tensor(valid, dtype=torch.int32, device="cuda")
+    lid = layers - 1 if case == "last_expert" else 1
+    kw = dict(bm=bm, group_size=gs, fmt=fmt, out_dtype=torch.float32 if case == "f32_out" else torch.bfloat16)
+    args = (x, w, s, eids, z, lid, nvt)
+    if case == "unstacked":
+        args = (x, w[lid], s[lid], eids, None, None, nvt)
+    elif case == "per_channel":
+        args = (x, w[lid], s[lid][:, :1].contiguous(), eids, None, None, nvt)
+        kw["per_channel"] = True
+    fn = lambda: moe.w4a16_grouped_mm(*args, **kw)
+    before = dict(moe.w4a16_grouped_mm.launches_by_route)
+    out = fn()
+    assert moe.w4a16_grouped_mm.launches_by_route["wgmma"] == before["wgmma"] + 1
+    ref = moe.w4a16_grouped_mm_ref(*args, **kw)
+    rows = valid * bm
+    assert out.dtype == ref.dtype and torch.isfinite(out[:rows]).all()
+    assert_elementwise(out[:rows], ref[:rows])
+    assert torch.equal(fn()[:rows], out[:rows])
+
+
+@pytest.mark.parametrize("bm", [64, 128])
+def test_grouped_wgmma_graph_num_valid(gen, bm):
+    """One CUDA graph of K11 on the wgmma tile replayed as num_valid_blocks
+    changes in place: each replay equals the eager call at that count bit
+    for bit and agrees with the twin."""
+    blocks = len(DECODE_EIDS)
+    x, w, s, _, _ = grouped_inputs(gen, bm=bm, blocks=blocks, k=1408, n=2048, gs=128, e=6)
+    eids = torch.tensor(DECODE_EIDS, dtype=torch.int32, device="cuda")
+    nvt = torch.tensor(blocks, dtype=torch.int32, device="cuda")
+    fn = lambda: moe.w4a16_grouped_mm(x, w, s, eids, None, 1, nvt, bm=bm)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fn()
+    for nv in (5, 1, 7, 0, 3):
+        nvt.fill_(nv)
+        graph.replay()
+        torch.cuda.synchronize()
+        rows = nv * bm
+        assert torch.equal(out[:rows], fn()[:rows])
+        assert_elementwise(out[:rows], moe.w4a16_grouped_mm_ref(x, w, s, eids, None, 1, nvt, bm=bm)[:rows])
+
+
 @pytest.mark.parametrize("bm", [16, 32])
 @pytest.mark.parametrize("valid", [0, 1, 7])
 @pytest.mark.parametrize("gs,fmt,zeros", [(32, "int4", False), (64, "int4", True), (128, "int4", False),
@@ -948,19 +1099,21 @@ def test_w4a16_dma_whole_tiles(gen):
 
 
 def test_grouped_decode_routes_by_shape(gen, monkeypatch):
-    """bm 16 / 32 over a mappable bank run the streaming core; bm 64, a bank
-    TMA cannot map (N % 16 != 0) and per-channel scales (w4a8_grouped_mm's
-    form) run the tile kernel; each launches K11 once and agrees with the twin."""
+    """bm 16 / 32 over a mappable bank run the streaming core; bm 64 / 128
+    the wgmma tile, per-channel scales too; a bank TMA cannot map (N % 16 !=
+    0) and per-channel scales at bm 16 (w4a8_grouped_mm's form) run the tile
+    kernel; each launches K11 once and agrees with the twin."""
     from sgl_kernel_tpu_torch.ops.moe import grouped_gemm
 
     taken = []
-    for name in ("_entry", "_decode_entry"):
+    for name in ("_entry", "_decode_entry", "_wgmma_entry"):
         real = getattr(grouped_gemm, name)
         monkeypatch.setattr(grouped_gemm, name, lambda real=real, name=name: (
             lambda *a: taken.append(name) or real()(*a)))
     nvt = torch.tensor(4, dtype=torch.int32, device="cuda")
     for n, bm, per_channel, route in ((256, 16, False, "_decode_entry"), (256, 32, False, "_decode_entry"),
-                                      (256, 64, False, "_entry"), (200, 16, False, "_entry"),
+                                      (256, 64, False, "_wgmma_entry"), (256, 128, True, "_wgmma_entry"),
+                                      (200, 64, False, "_entry"), (200, 16, False, "_entry"),
                                       (256, 16, True, "_entry")):
         x, w, s, _, eids = grouped_inputs(gen, bm=bm, blocks=4, k=512, n=n, gs=128, e=4)
         if per_channel:

@@ -201,7 +201,7 @@ def to_torch_kwargs(kw):
     return out
 
 
-@pytest.mark.parametrize("m", [3, 16, 40])
+@pytest.mark.parametrize("m", [3, 16, 40, 72])
 @pytest.mark.parametrize("option", OPTIONS)
 def test_w4a16_twin_matches_pallas(rng, option, m):
     args, kw = k1_case(rng, option, m)
@@ -252,10 +252,13 @@ def test_w4a16_contract_errors(rng):
 ])
 def test_w4a16_launch_plan(m, n, k, expect):
     """Decode: two blocks an SM take equal shares of the (128-column tile,
-    256-deep k block) stages, which they cover once. Prefill: K splits in
-    whole groups, covering every group once."""
+    256-deep k block) stages, which they cover once. Prefill on the
+    mma.sync tile (weights the wgmma tile cannot take): K splits in whole groups,
+    covering every group once. On mappable weights decode rows take the
+    decode kernel and prefill rows the wgmma tile."""
     tile, split, per = tw.plan(m, n, k, 128, n_sm=132)
     assert (tile, split, per) == expect
+    assert tw.route(m, k, True) == ("decode" if m <= 32 else "wgmma")
     if tile == 2:
         assert (split - 1) * per < k // 128 <= split * per
     else:
@@ -277,3 +280,43 @@ def test_w4a16_decode_plan_covers_k(m, n, k, g):
     assert blocks == min(264, stages)
     shares = [stages * (b + 1) // blocks - stages * b // blocks for b in range(blocks)]
     assert sum(shares) == stages and min(shares) >= 1 and max(shares) == per <= min(shares) + 1
+
+
+@pytest.mark.parametrize("m,n,k,vec_w,expect", [
+    (16, 6144, 4096, True, "decode"),       # a decode step's qkv
+    (32, 28672, 4096, True, "decode"),
+    (16, 200, 4096, False, "tile"),         # ragged N: TMA cannot map the weight rows
+    (33, 6144, 4096, True, "wgmma"),        # the smallest prefill
+    (1040, 6144, 4096, True, "wgmma"),      # a mixed step
+    (16384, 28672, 4096, True, "wgmma"),    # wave A's packed gate_up
+    (1024, 200, 4096, False, "tile"),       # ragged N
+    (1024, 256, 1376, True, "tile"),        # K of 43 groups of 32: not whole 128-deep stages
+])
+def test_w4a16_route(m, n, k, vec_w, expect):
+    """Which kernel a call takes: the decode kernel at M <= 32, the wgmma
+    tile above it, the mma.sync tile where TMA cannot map the weights or K is not
+    whole 128-deep stages."""
+    assert tw.route(m, k, vec_w) == expect
+
+
+@pytest.mark.parametrize("m,n,k,expect", [
+    (1024, 28672, 4096, (128, 1, 32)),   # gate_up: 8 x 224 tiles of 128 x 128 fill the SMs
+    (1024, 4096, 14336, (128, 1, 112)),  # down: 256 tiles
+    (16384, 28672, 4096, (128, 1, 32)),  # wave A's gate_up
+    (1040, 6144, 4096, (128, 1, 32)),    # a mixed step's qkv: 432 tiles
+    (33, 6144, 4096, (64, 5, 7)),        # 24 tiles of 64 x 256: K in 5 splits of 7 stages (the last 4), 120 blocks
+    (200, 4096, 4096, (128, 2, 16)),     # 64 tiles: two splits, 128 blocks
+    (64, 256, 8192, (64, 16, 4)),        # one tile: splits of 4 stages, the fewest a split takes
+    (64, 256, 256, (64, 1, 2)),          # 2 stages: too few to split
+])
+def test_w4a16_wgmma_plan(m, n, k, expect):
+    """The wgmma tile's launch: 64-row blocks of 256 columns up to 64 rows,
+    128-row blocks of 128 columns above; K splits in whole 128-deep stages
+    (at least 4 a split) only where the tiles cannot give every SM a block,
+    never into a second wave; the splits cover every stage once, none
+    empty."""
+    bm, split, per = tw.wgmma_plan(m, n, k, n_sm=132)
+    assert (bm, split, per) == expect
+    stages = k // 128
+    assert (split - 1) * per < stages <= split * per
+    assert split == 1 or (per >= 4 and -(-m // bm) * -(-n // (128 * (128 // bm))) * split <= 132)

@@ -96,7 +96,7 @@ def test_kernel_sources_and_entry_points():
     assert stems == {"decode_attention", "flash_packed", "flash_prefill", "store_cache", "w4a16_gemm",
                      "grouped_gemm", "bf16_grouped_gemm", "mla_decode", "mqa_logits",
                      "w4a16_gemm_dma", "blockwise_fp8", "qserve_gemm", "sparse_vs", "w4a16_decode",
-                     "w4a16_grouped_decode"}
+                     "w4a16_grouped_decode", "w4a16_wgmma"}
     entry = {"decode_attention": "skt_paged_decode", "flash_packed": "skt_flash_packed",
              "flash_prefill": "skt_flash_prefill", "store_cache": "skt_store_cache_all_layers",
              "w4a16_gemm": "skt_w4a16_gemm", "grouped_gemm": "skt_w4a16_grouped_mm",
@@ -104,7 +104,8 @@ def test_kernel_sources_and_entry_points():
              "mqa_logits": "skt_fp8_paged_mqa_logits",
              "w4a16_gemm_dma": "skt_w4a16_gemm_dma", "blockwise_fp8": "skt_fp8_blockwise_mm",
              "qserve_gemm": "skt_qserve_w4a8_per_group", "sparse_vs": "skt_sparse_attn",
-             "w4a16_decode": "skt_w4a16_decode", "w4a16_grouped_decode": "skt_w4a16_grouped_decode"}
+             "w4a16_decode": "skt_w4a16_decode", "w4a16_grouped_decode": "skt_w4a16_grouped_decode",
+             "w4a16_wgmma": "skt_w4a16_wgmma"}
     for src in _build.sources():
         text = src.read_text()
         assert f'extern "C" int {entry[src.stem]}(' in text

@@ -101,6 +101,8 @@ def grouped_case(rng, *, e=4, k=256, n=128, gs=64, fmt="int4", zeros=False, laye
     ("mxfp4", False, None, 32, 16, 5),
     ("int4", False, 3, 128, 16, 2),
     ("int4", True, 2, 64, 64, 1),
+    ("mxfp4", True, 2, 32, 128, 3),
+    ("int4", False, None, 128, 128, 5),
 ])
 def test_w4a16_grouped_mm_twin(fmt, zeros, layers, gs, bm, valid):
     """K11's twin against the Pallas kernel (interpret mode) on the rows of
@@ -324,3 +326,28 @@ def test_w4a8_grouped_mm(zeros, bm):
                                bm=bm, out_dtype=torch.float32)
     close(out, ref, 2e-5)
     assert tmoe.w4a8_grouped_mm(t_(x), t_(xs), t_(packed), t_(s1), t_(eids), bm=bm).dtype == torch.bfloat16
+
+
+@pytest.mark.parametrize("bm,n,k,per_channel,expect", [
+    (16, 256, 512, False, "stream"),
+    (32, 2816, 2048, False, "stream"),
+    (64, 256, 512, False, "wgmma"),
+    (128, 2816, 2048, False, "wgmma"),   # V2-Lite gate_up at prefill
+    (128, 4096, 14336, False, "wgmma"),  # Mixtral down
+    (128, 256, 512, True, "wgmma"),      # per-channel scales (w4a8_grouped_mm's form)
+    (16, 256, 512, True, "tile"),        # per-channel at decode: the mma.sync tile
+    (64, 200, 512, False, "tile"),       # ragged N: TMA cannot map the codes
+    (64, 256, 1376, False, "tile"),      # K of 43 groups of 32: not whole 128-deep stages
+])
+def test_w4a16_grouped_route(bm, n, k, per_channel, expect):
+    """K11's kernel by bm and bank: the streaming core at bm 16 / 32, the
+    wgmma tile at bm 64 / 128, the mma.sync tile for the rest."""
+    from sgl_kernel_tpu_torch.ops.moe import grouped_gemm
+
+    gs = 32 if k % 128 else 128
+    e = 3
+    w = torch.zeros((e, k // 2, n), dtype=torch.uint8)
+    s = torch.zeros((e, 1 if per_channel else k // gs, n), dtype=torch.bfloat16)
+    if per_channel:
+        s = s.expand(e, k // gs, n)
+    assert grouped_gemm.grouped_route(bm, n, k, per_channel, w, s, None) == expect

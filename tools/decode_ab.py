@@ -1,6 +1,6 @@
 """Device time of the decode kernels K5, K1, K13a, K13b and K15, of one
-prefill kernel, K16, and of the GEMMs K17, K18 and K19, for the port
-found at ROOT.
+prefill kernel, K16, of the GEMMs K17, K18 and K19, and of K1 and K11 at
+prefill rows, for the port found at ROOT.
 
 Times, with CUDA graphs (chip_smoke.py's method: the calls captured and
 replayed, so the host launch path is not measured):
@@ -43,6 +43,19 @@ replayed, so the host launch path is not measured):
   then 4-bit groups: tests/test_gemm.py:278-292) at M=16 (CUDA-graph ms)
   and M=1,024 (CUDA-event ms), each beside ``torch._int_mm`` on the int8 W8
   (A padded to 17 rows at M=16; ``_int_mm`` rows);
+- k1p: K1 at prefill rows (group 128): Llama-3-8B's qkv (norm), o
+  (residual), gate_up (norm) and down (silu on the gate / up halves,
+  residual) at M = 64, 200 and 1,040 (extends, wave B, mixed steps), gate_up
+  (bare) and down at M = 1,024, and wave A's packed gate_up at M = 16,384;
+  each beside cuBLAS's bf16 product on the dequantized weight (``_cublas``
+  rows, a yardstick no tree calls); CUDA-graph ms (event ms at 16,384);
+- k11p: K11 at prefill row blocks, gate_up on int4 codes and group-128
+  scales with rows routed and aligned as the model does: DeepSeek-V2-Lite
+  (64 experts, top-6, 2,048 -> 2,816; and down, 1,408 -> 2,048) at 1,024
+  tokens (bm 64 and 128) and at wave A's 16,384 (bm 128), Mixtral-8x7B (8
+  experts, top-2, 4,096 -> 28,672) at 1,024 (bm 64 and 128) and 16,384
+  (bm 128); each beside K12 (``bf16_grouped_mm``) on a bf16 bank of the
+  same shape (``_k12`` rows); CUDA-graph ms;
 - floor: one empty kernel (``torch.cuda._sleep(0)``) a graph node, the
   least a kernel of the decode step costs on the device.
 K13a and K15 rows are timed warm (the same inputs call after call) and cold
@@ -67,12 +80,14 @@ import subprocess
 import sys
 from pathlib import Path
 
-GROUPS = ("k5", "k1", "k13a", "k13b", "k15", "k16", "k17", "k18", "k19", "floor")
+GROUPS = ("k5", "k1", "k13a", "k13b", "k15", "k16", "k17", "k18", "k19", "k1p", "k11p", "floor")
 # the sources a group may launch (those a tree lacks are skipped: K13b had a
 # source of its own before it moved onto K13a's kernel)
 SOURCES = {"k5": ("decode_attention",), "k1": ("w4a16_decode", "w4a16_gemm"), "k13a": ("mla_decode",),
            "k13b": ("mla_decode", "mla_decode_dma"), "k15": ("mqa_logits",), "k16": ("sparse_vs",),
-           "k17": ("blockwise_fp8",), "k18": ("blockwise_fp8",), "k19": ("qserve_gemm",), "floor": ()}
+           "k17": ("blockwise_fp8",), "k18": ("blockwise_fp8",), "k19": ("qserve_gemm",),
+           "k1p": ("w4a16_wgmma", "w4a16_gemm"), "k11p": ("w4a16_wgmma", "grouped_gemm", "bf16_grouped_gemm"),
+           "floor": ()}
 COLD_BYTES = 150e6  # three times the 50 MB L2
 
 
@@ -386,6 +401,66 @@ def main(root: Path, groups) -> None:
                 res[f"k19_{label}_m{m}"] = time_fn(fn)
                 res[f"k19_{label}_m{m}_int_mm"] = time_fn(lib)
             del codes, w8, w8_t
+            torch.cuda.empty_cache()
+    if "k1p" in groups:
+        cases = [(f"k1p_{name}_m{m}", m, n, k, opt) for m in (64, 200, 1040)
+                 for name, n, k, opt in (("qkv", 6144, 4096, "norm"), ("o", 4096, 4096, "residual"),
+                                         ("gate_up", 28672, 4096, "norm"), ("down", 4096, 14336, "fused"))]
+        cases += [("k1p_gate_up_m1024", 1024, 28672, 4096, None), ("k1p_down_m1024", 1024, 4096, 14336, "fused"),
+                  ("k1p_gate_up_m16384", 16384, 28672, 4096, None)]
+        weights = {}
+        for name, m, n, k, opt in cases:
+            if (n, k) not in weights:
+                weights.clear()
+                torch.cuda.empty_cache()
+                w, s, _ = w4a16.quantize_w4(torch.randn((n, k), generator=gen, device=dev) * 0.02, group_size=128)
+                weights[(n, k)] = (w, s, w4a16.dequant_w4(w, s, group_size=128).t().contiguous())
+            w, s, wd = weights[(n, k)]
+            a = randn(m, 2 * k if opt == "fused" else k)
+            kw = dict(group_size=128)
+            if opt == "norm":
+                kw["norm_weight"] = randn(k)
+            elif opt == "residual":
+                kw["residual"] = randn(m, n)
+            elif opt == "fused":
+                kw.update(prologue="silu_mul", fused_gate_up=True, residual=randn(m, n))
+            time_fn = graph_ms if m <= 1040 else (lambda f: event_ms(f, 10))
+            res[name] = time_fn(lambda: w4a16.w4a16_gemm(a, w, s, **kw))
+            a0 = a[:, :k].contiguous()
+            res[f"{name}_cublas"] = time_fn(lambda: torch.matmul(a0, wd))
+            del a, a0
+        weights.clear()
+        torch.cuda.empty_cache()
+    if "k11p" in groups:
+        for label, e, k_top, h, inter, shapes in (
+                ("v2lite", 64, 6, 2048, 1408, ((1024, 64), (1024, 128), (16384, 128))),
+                ("mixtral", 8, 2, 4096, 14336, ((1024, 64), (1024, 128), (16384, 128)))):
+            steps = [("gate_up", h, 2 * inter)] + ([("down", inter, h)] if label == "v2lite" else [])
+            banks = {}
+            for name, kk, n in steps:
+                w = torch.randint(0, 256, (1, e, kk // 2, n), generator=gen, device=dev, dtype=torch.int32)
+                sc = (0.002 + 0.004 * torch.rand((1, e, kk // 128, n), generator=gen, device=dev)).to(bf)
+                banks[name] = (w.to(torch.uint8), sc, randn(e, kk, n, scale=kk ** -0.5))
+                del w
+            for t, bm in shapes:
+                logits = torch.randn((t, e), generator=gen, device=dev)
+                if label == "v2lite":
+                    tw, tids = moe.biased_topk(logits, torch.zeros(e, device=dev), k_top, renormalize=True,
+                                               apply_routed_scaling_factor_on_output=True)
+                else:
+                    tw, tids = moe.topk_softmax(logits, k_top, renormalize=True)
+                al = moe.moe_align_block_size(tids, tw, e, bm)
+                for name, kk, n in steps:
+                    w, sc, wb = banks[name]
+                    x = moe.scatter_tokens_to_experts(randn(t, kk), al)
+                    args = (al.block_expert_ids, None, 0, al.num_valid_blocks)
+                    tag = f"k11p_{label}_{name}_t{t}_bm{bm}"
+                    res[tag] = graph_ms(lambda: moe.w4a16_grouped_mm(x, w, sc, *args, bm=bm), reps=5 if t > 1024 else 20)
+                    res[f"{tag}_k12"] = graph_ms(lambda: moe.bf16_grouped_mm(x, wb, al.block_expert_ids, None,
+                                                                             al.num_valid_blocks, bm=bm),
+                                                 reps=5 if t > 1024 else 20)
+                    del x
+            banks.clear()
             torch.cuda.empty_cache()
     if "floor" in groups:
         res["floor_empty_kernel"] = graph_ms(lambda: torch.cuda._sleep(0), reps=100)

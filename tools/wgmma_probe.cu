@@ -1,4 +1,6 @@
-// The int8 warpgroup MMA's rate on the card, alone: each warpgroup of a
+// The int8 warpgroup MMA's rate on the card, alone (and the bf16
+// register-A loop of csrc/w4a16_wgmma.cu, with and without its int4
+// decode): each warpgroup of a
 // block issues `iters` rounds of four chained k32 wgmmas (.s32.s8.s8,
 // m64nNk32) into one accumulator, a commit group a round with one group
 // left in flight (as csrc/qserve_gemm.cu issues a box), its B (and, in
@@ -7,7 +9,7 @@
 // zeros or the bytes of a hash. Built and timed by tools/wgmma_probe.py;
 // measurement only.
 
-#include "common.cuh"
+#include "w4a16_tile.cuh"  // common.cuh and int4_pair (the W4A16 tiles' int4 decode)
 
 namespace {
 
@@ -173,7 +175,119 @@ cudaError_t launch(int blocks, int iters, int rnd, unsigned* out, cudaStream_t s
   return cudaGetLastError();
 }
 
+// The bf16 loop of csrc/w4a16_wgmma.cu, alone: each warpgroup of a block
+// issues k16 steps of two m64n64k16 register-A wgmmas (two accumulators),
+// a commit group a step with one group left in flight, B a zero 64-row
+// tile of swizzled shared memory; the fragments held (DECODE false) or
+// decoded each step from two int4 code words of a swizzled [64][128-byte]
+// stage of hash bytes, as that tile reads them (DECODE); with PROMOTE,
+// every 8 steps (a group of 128) the accumulators are waited for and added
+// into a total, scaled.
+template <bool DECODE, bool PROMOTE>
+__global__ void __launch_bounds__(256, 1) bf16_probe_kernel(int iters, unsigned* out) {
+  extern __shared__ __align__(16) uint8_t smem_raw[];
+  uint8_t* base = smem_raw + ((1024u - (skt::smem_u32(smem_raw) & 1023u)) & 1023u);
+  uint8_t* codes = base;             // [2 warpgroups][64 rows][128 bytes]
+  uint8_t* b_tile = base + 2 * 8192;  // [64 rows][128 bytes] zeros
+  for (int i = threadIdx.x; i < 3 * 8192 / 4; i += blockDim.x)
+    reinterpret_cast<uint32_t*>(base)[i] = i < 2 * 8192 / 4 ? (uint32_t)i * 2654435761u ^ 0x9E3779B9u : 0u;
+  skt::fence_proxy_async();
+  __syncthreads();
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, wg = warp / 4, w = warp % 4;
+  const int g = lane >> 2, t = lane & 3, chunk = w + 4 * (g >> 2);
+  const uint8_t* wbox = codes + wg * 8192;
+  const int off0 = t * 128 + ((chunk ^ t) << 4) + 4 * (g & 3);
+  const int off1 = (t + 4) * 128 + ((chunk ^ (t + 4)) << 4) + 4 * (g & 3);
+  const uint32_t b_s = skt::smem_u32(b_tile);
+  float acc[2][32], part[2][32];
+#pragma unroll
+  for (int m = 0; m < 2; ++m)
+#pragma unroll
+    for (int x = 0; x < 32; ++x) acc[m][x] = 0.f, part[m][x] = 0.f;
+  uint32_t fr[2][2][4];
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+#pragma unroll
+    for (int m = 0; m < 2; ++m)
+#pragma unroll
+      for (int x = 0; x < 4; ++x) fr[h][m][x] = 0x3F803F80u;
+  for (int it = 0; it < iters; ++it) {
+#pragma unroll
+    for (int kk = 0; kk < 8; ++kk) {
+      if (DECODE) {
+        const uint32_t x0 = *reinterpret_cast<const uint32_t*>(wbox + (kk & 1) * 1024 + off0);
+        const uint32_t x1 = *reinterpret_cast<const uint32_t*>(wbox + (kk & 1) * 1024 + off1);
+        const uint32_t y0 = x0 >> 4, y1 = x1 >> 4;
+#pragma unroll
+        for (int m = 0; m < 2; ++m)
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            const int j = 2 * m + (q & 1);
+            fr[kk & 1][m][q] = int4_pair(__byte_perm(q < 2 ? x0 : x1, q < 2 ? y0 : y1,
+                                                     j | (j << 4) | ((4 + j) << 8) | ((4 + j) << 12)));
+          }
+      }
+#pragma unroll
+      for (int m = 0; m < 2; ++m) {
+        skt::fence_regs(fr[kk & 1][m]);
+        skt::fence_regs(part[m]);
+      }
+      skt::wgmma_fence();
+      const uint64_t db = skt::wgmma_desc(b_s + (kk & 3) * 32, 16, 1024);
+#pragma unroll
+      for (int m = 0; m < 2; ++m) skt::wgmma_m64n64k16_rs<false>(part[m], fr[kk & 1][m], db, PROMOTE ? kk != 0 : 1);
+      skt::wgmma_commit();
+      if (PROMOTE && kk == 7) {
+        skt::wgmma_wait<0>();
+#pragma unroll
+        for (int m = 0; m < 2; ++m) {
+          skt::fence_regs(part[m]);
+#pragma unroll
+          for (int x = 0; x < 32; ++x) acc[m][x] += part[m][x] * (1.f + 0.001f * x);
+        }
+      } else {
+        skt::wgmma_wait<1>();
+#pragma unroll
+        for (int m = 0; m < 2; ++m) {
+          skt::fence_regs(part[m]);
+          skt::fence_regs(fr[(kk + 1) & 1][m]);
+        }
+      }
+    }
+  }
+  skt::wgmma_wait<0>();
+  float v = 0.f;
+#pragma unroll
+  for (int m = 0; m < 2; ++m) {
+    skt::fence_regs(part[m]);
+#pragma unroll
+    for (int x = 0; x < 32; ++x) v += acc[m][x] + part[m][x];
+  }
+  out[blockIdx.x * blockDim.x + threadIdx.x] = __float_as_uint(v);
+}
+
+template <bool DECODE, bool PROMOTE>
+cudaError_t launch_bf16(int blocks, int iters, unsigned* out, cudaStream_t st) {
+  auto kernel = bf16_probe_kernel<DECODE, PROMOTE>;
+  const int smem = 1024 + 3 * 8192;
+  kernel<<<blocks, 256, smem, st>>>(iters, out);
+  return cudaGetLastError();
+}
+
 }  // namespace
+
+// The bf16 loop of the W4A16 wgmma tile: mode 0 fragments held, 1 decoded
+// from int4 codes each step, 2 decoded with a promotion every 8 steps;
+// two warpgroups a block, `iters` rounds of 8 steps; out holds blocks x 256
+// words. Returns cudaGetLastError().
+extern "C" int skt_wgmma_probe_bf16(int mode, int blocks, int iters, void* out, void* stream) {
+  unsigned* o = (unsigned*)out;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (mode == 0) return (int)launch_bf16<false, false>(blocks, iters, o, st);
+  if (mode == 1) return (int)launch_bf16<true, false>(blocks, iters, o, st);
+  if (mode == 2) return (int)launch_bf16<true, true>(blocks, iters, o, st);
+  return (int)cudaErrorInvalidValue;
+}
 
 // mode 0: A from registers, 1: A from shared memory; n 128 or 256; nwg
 // 1 or 2 warpgroups a block; rnd 0: zero operands, 1: bytes of a hash;

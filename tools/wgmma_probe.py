@@ -10,7 +10,11 @@ registers (``rs``) or from shared memory (``ss``), N 128 or 256 (the
 activation rows as wgmma's N), one or two warpgroups a block, the operands
 zeros or the bytes of a hash (``zero`` / ``hash``). CUDA-event
 ms over the launch, and TOP/s against the int8 peak of 1,979 (the H100
-SXM data sheet). Prints the card's name and power limit, then one JSON
+SXM data sheet). Then the bf16 register-A loop of
+``csrc/w4a16_wgmma.cu`` (two m64n64k16 wgmmas a k16 step, two warpgroups a
+block): fragments held, decoded from int4 codes of a swizzled stage each
+step, and decoded with a promotion every 8 steps (a group of 128); TFLOP/s
+against the bf16 peak of 989. Prints the card's name and power limit, then one JSON
 line, also written to ``--out``. Measurement only: no model and no test
 runs it.
 """
@@ -28,8 +32,9 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
 
-ITERS = 4096  # rounds of four wgmmas a warpgroup
+ITERS = 4096  # rounds of four wgmmas a warpgroup (of 8 k16 steps in the bf16 loop)
 INT8_OPS = 1979e12
+BF16_FLOPS = 989e12
 
 
 def main(out_path):
@@ -71,6 +76,24 @@ def main(out_path):
             ops = blocks * nwg * ITERS * 4 * 2 * 64 * n * 32
             res[f"{mname}_n{n}_wg{nwg}_{'hash' if rnd else 'zero'}"] = {
                 "ms": ms, "tops": ops / ms / 1e9, "share_of_peak": ops / ms / 1e-3 / INT8_OPS}
+    bf = ctypes.CDLL(str(lib)).skt_wgmma_probe_bf16
+    bf.argtypes = (ctypes.c_int,) * 3 + (ctypes.c_void_p, ctypes.c_void_p)
+    bf.restype = ctypes.c_int
+    for mode, mname in ((0, "held"), (1, "decode"), (2, "decode_promote")):
+        def call():
+            _build.check(bf(mode, blocks, ITERS, out.data_ptr(), stream), "wgmma_probe_bf16")
+        call()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        for _ in range(3):
+            call()
+        end.record()
+        torch.cuda.synchronize()
+        ms = start.elapsed_time(end) / 3
+        ops = blocks * 2 * ITERS * 8 * 2 * 2 * 64 * 64 * 16  # two warpgroups, 8 steps of two m64n64k16
+        res[f"bf16_rs_n64x2_{mname}"] = {"ms": ms, "tflops": ops / ms / 1e9,
+                                         "share_of_peak": ops / ms / 1e-3 / BF16_FLOPS}
     print(json.dumps(res), flush=True)
     if out_path:
         Path(out_path).write_text(json.dumps(res, indent=1))
