@@ -49,8 +49,9 @@ int8 latent pool): (2) the grouped W4A16 GEMM (K11) at the B=16 decode's
 gate_up and down and at a 1,024-token prefill, MLA decode (K13a) at B=16
 over contexts 1..1056 on bf16, int8 and e4m3 pools (and the slice 13 rows
 below), the MLA qkv prep (K14)
-at 16 tokens, and K7 / K9 at head dim 576 (the extend passes, wave A's
-packing); (3) card against CPU at V2-Lite widths cut to 2 layers (layer 0
+at 16 tokens, and K7 / K9 at head dim 576 in the MLA form the model calls
+(the extend passes, wave D's last prefix pass of 1,024 queries over 5,120
+keys, wave A's packing); (3) card against CPU at V2-Lite widths cut to 2 layers (layer 0
 dense, layer 1 MoE), bf16 and int8 latent: prefill, 4 decode steps,
 prefill_packed, prefill_extend, with the card's routing replaced by the
 CPU's where they differ (each flip counted); (4) the engine at full depth
@@ -146,7 +147,15 @@ run no K1 or K11 call on the mma.sync tile and some on the wgmma tile
 capture of wave A's packed prefill step on the Llama, DeepSeek and
 Mixtral W4A16 engines gives device ms by kernel group ([profile-prefill]
 lines). The kernels line gives K1's and K11's sources and launches by
-kernel. Each phase prints its time ([time] lines).
+kernel. Slice 18 (K7 and K9 at head dim 576 on one wgmma tile of 64
+(position, head) rows): phase 2's 576 rows drive the MLA form (V read from
+K's own boxes, q's two parts where they lie, 512-wide output) and give
+CUDA-graph ms and TFLOP/s; the extend row also holds the public form with a
+padded V to its twin; the prefill profiles give the 576 tile's device ms as
+a group of its own; every DeepSeek and NSA wave that prefills must launch
+K7 or K9 at 576 (wave A the packed K9, waves B+C and D K7); the kernels
+line gives K7's and K9's 576 rows beside their 64 / 128 ones. Each phase
+prints its time ([time] lines).
 
 Prints a JSON line of per-kernel numbers, then, last,
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -1122,6 +1131,13 @@ def run_wave(torch, skt, eng, stats, label, wave, prompts, sampled=(), expect=()
     return res, rids
 
 
+def check_576(label, wave, res, name):
+    """A DeepSeek or NSA wave's prefill attention ran the 576 tile of K7 or
+    K9 (``name``: flash_attention_576 or flash_attention_packed_576)."""
+    if res["launches"].get(name, 0) <= 0:
+        fail(f"serve {label} wave {wave}: {name} launched {res['launches'].get(name)} times")
+
+
 def phase_serve(torch, skt, cfg, label, kernels, n_a=16, n_b=12, wave_c=True, params=None, cold=True, mixed=True,
                 num_pages=1024, after=None):
     """One main path: the default Engine serving ``cfg`` (Llama-3-8B,
@@ -1184,6 +1200,9 @@ def phase_serve(torch, skt, cfg, label, kernels, n_a=16, n_b=12, wave_c=True, pa
             fail(f"serve {label}: K1 launches by regime {stats['by_regime']}, K10 {stats['dma_by_regime']}")
     elif "w4a16_gemm" in kernels and not all(stats["by_regime"][r] > 0 for r in want):
         fail(f"serve {label}: K1 launches by regime {stats['by_regime']}")
+    if isinstance(cfg, skt.DeepseekConfig):  # the MLA prefill runs K7 / K9's 576 tile
+        check_576(label, "A", a, "flash_attention_packed_576")
+        check_576(label, "B+C" if wave_c else "B", bc, "flash_attention_576")
     res = dict(engine=label, waves=[a, bc], w4a16_by_regime=dict(stats["by_regime"]),
                w4a16_dma_by_regime=dict(stats["dma_by_regime"]),
                launches={k: a["launches"][k] + bc["launches"][k] for k in a["launches"]})
@@ -1253,8 +1272,8 @@ GEMM_GROUPS = {"K1 decode": ("w4a16_decode_kernel", "act_rows_kernel"),
                "K10 / K11 streaming core": ("w4s::stream_kernel", "w4s::rows_kernel"),
                "K5 paged_attention_decode_dma": ("::decode_kernel<",)}
 # a packed prefill's device time: the GEMMs, attention, the MoE's bf16 GEMM
-PREFILL_GROUPS = {**GEMM_GROUPS, "K7 / K9 flash": ("flash_kernel", "packed_kernel", "flash576_kernel",
-                                                   "packed576_kernel"),
+PREFILL_GROUPS = {**GEMM_GROUPS, "K7 / K9 flash 64/128": ("flash_kernel<", "packed_kernel<"),
+                  "K7 / K9 flash 576": ("flash576_kernel", "packed576_kernel"),
                   "K12 bf16_grouped_mm": ("bf16_grouped",)}
 # the DeepSeek decode attention: K13a and the NSA indexer's K15
 MLA_GROUPS = {"K13a mla_decode": ("mla_decode_kernel",), "K15 fp8_paged_mqa_logits": ("mqa_logits_kernel",)}
@@ -1667,10 +1686,13 @@ def phase_deepseek_kernels(torch, skt):
                                 plain_ms=time_ms(torch, lambda: rope.mla_qkv_prep_ref(pos, 26, q, kv, w, cache, **kw)),
                                 library_ms=None, library_note="no single PyTorch call", bound_ms=bms, bound_by=bby), fn)
 
-    # K7 at 576: the two extend passes of prefill_extend, 512 fresh latent
-    # rows over a 512-row prefix, with lse
+    # K7 at 576 through the MLA form the model calls (q's latent and rope
+    # columns apart, V = the latent's first 512 columns, 512 wide): the two
+    # extend passes of prefill_extend, 512 fresh latent rows over a 512-row
+    # prefix, with lse; the public form with a padded V held to its own twin
     s = pre = 512
     q = randn(1, s, nh, 576, scale=0.3)
+    qn, qp = q[..., :512].contiguous(), q[..., 512:].contiguous()
     k1, k2 = randn(1, s, 1, 576), randn(1, pre, 1, 576)
     v1, v2 = (F.pad(x[..., :512], (0, 64)) for x in (k1, k2))
     ql = torch.tensor([s], dtype=torch.int32, device=dev)
@@ -1678,47 +1700,84 @@ def phase_deepseek_kernels(torch, skt):
     zero = torch.zeros_like(pl_)
 
     def passes(fn):
+        return (fn(qn, qp, k1, ql, ql, pl_, pl_, causal=True, sm_scale=sm, return_lse=True)
+                + fn(qn, qp, k2, ql, pl_, pl_, zero, causal=True, sm_scale=sm, return_lse=True))
+
+    def public(fn):
         return (fn(q, k1, v1, ql, ql, None, pl_, pl_, causal=True, sm_scale=sm, return_lse=True)
                 + fn(q, k2, v2, ql, pl_, None, pl_, zero, causal=True, sm_scale=sm, return_lse=True))
 
-    err = check("flash_attention 576 lse, extend 512 over 512",
-                list(zip(passes(flash_prefill.flash_attention), passes(flash_prefill.flash_attention_ref))))
-    n_bytes = (s * nh * 576 + 2 * (s + pre) * 576) * 2 + 2 * (s * nh * 576 * 2 + nh * s * 4)
-    bms, bby = bound_ms(n_bytes, 4 * nh * 576 * (s * (s + 1) // 2 + s * pre), BF16_FLOPS)
+    err = check("flash_attention_mla 576 lse, extend 512 over 512",
+                list(zip(passes(flash_prefill.flash_attention_mla), passes(flash_prefill.flash_attention_mla_ref))))
+    check("flash_attention 576 public form (padded V), extend 512 over 512",
+          list(zip(public(flash_prefill.flash_attention), public(flash_prefill.flash_attention_ref))))
+    pairs_ext = s * (s + 1) // 2 + s * pre
+    n_bytes = (s * nh * 576 + (s + pre) * 576) * 2 + 2 * (s * nh * 512 * 2 + nh * s * 4)
+    bms, bby = bound_ms(n_bytes, 4 * nh * 576 * pairs_ext, BF16_FLOPS)
     qt = q.transpose(1, 2)
     kt, vt = (torch.cat([a, c], 1).transpose(1, 2) for a, c in ((k2, k1), (v2, v1)))
     mask = torch.arange(pre + s, device=dev)[None, :] <= (pre + torch.arange(s, device=dev))[:, None]
     lib_fn = lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask, scale=sm, enable_gqa=True)
+    fn = lambda: passes(flash_prefill.flash_attention_mla)
     report("flash_attention_576_lse", dict(
-        max_abs_err=err, ms=time_ms(torch, lambda: passes(flash_prefill.flash_attention)),
-        plain_ms=time_ms(torch, lambda: passes(flash_prefill.flash_attention_ref), iters=3),
+        max_abs_err=err, ms=time_ms(torch, fn), public_ms=time_ms(torch, lambda: public(flash_prefill.flash_attention)),
+        plain_ms=time_ms(torch, lambda: passes(flash_prefill.flash_attention_mla_ref), iters=3),
         library_ms=time_ms(torch, lib_fn), library_note="SDPA with the extend mask: the merged output, no lse",
-        bound_ms=bms, bound_by=bby))
+        bound_ms=bms, bound_by=bby), fn, (4 * nh * 576 * pairs_ext, n_bytes))
 
-    # K9 at 576: wave A's packing (16 prompts of 16..1024 tokens, block 256)
+    # K7 at 576: wave D's last prefix pass, 1,024 queries over 5,120 prefix
+    # keys, all visible, with lse (the MLA form)
+    s, pre = 1024, 5120
+    qn, qp, kv = randn(1, s, nh, 512, scale=0.3), randn(1, s, nh, 64, scale=0.3), randn(1, pre, 1, 576)
+    ql = torch.tensor([s], dtype=torch.int32, device=dev)
+    pl_ = torch.tensor([pre], dtype=torch.int32, device=dev)
+    kw = dict(causal=True, sm_scale=sm, return_lse=True)
+    fn = lambda: flash_prefill.flash_attention_mla(qn, qp, kv, ql, pl_, pl_, zero, **kw)
+    out, lse = fn()
+    ref, ref_lse = flash_prefill.flash_attention_mla_ref(qn, qp, kv, ql, pl_, pl_, zero, **kw)
+    err = check("flash_attention_mla 576 lse, prefix pass 1,024 over 5,120", [(out, ref), (lse, ref_lse)])
+    del ref, ref_lse
+    n_bytes = (s * nh * 576 + pre * 576) * 2 + s * nh * 512 * 2 + nh * s * 4
+    bms, bby = bound_ms(n_bytes, 4 * nh * 576 * s * pre, BF16_FLOPS)
+    qt = torch.cat([qn, qp], -1).transpose(1, 2)
+    kt, vt = kv.transpose(1, 2), F.pad(kv[..., :512], (0, 64)).transpose(1, 2)
+    lib_fn = lambda: F.scaled_dot_product_attention(qt, kt, vt, scale=sm, enable_gqa=True)
+    report("flash_attention_576_prefix5120", dict(
+        max_abs_err=err, ms=time_ms(torch, fn, iters=10),
+        plain_ms=time_ms(torch, lambda: flash_prefill.flash_attention_mla_ref(qn, qp, kv, ql, pl_, pl_, zero, **kw),
+                         iters=2, warmup=1),
+        library_ms=time_ms(torch, lib_fn, iters=5), library_note="SDPA over the 5,120 keys, V padded to 576, no lse",
+        bound_ms=bms, bound_by=bby), fn, (4 * nh * 576 * s * pre, n_bytes))
+    del qn, qp, kv, qt, kt, vt, out, lse
+
+    # K9 at 576 through the MLA form: wave A's packing (16 prompts of
+    # 16..1024 tokens, block 256)
     lens = serve_lens(16)
     blk_seq, blk_q0, seq_meta, tok0, tp, max_kvb = packed_layout(lens, 17)
     ints = [torch.from_numpy(a).to(dev) for a in (blk_seq, blk_q0, seq_meta)]
     q, k = randn(tp, nh, 576, scale=0.3), randn(tp, 1, 576)
-    v = F.pad(k[..., :512], (0, 64))
+    qn, qp = q[..., :512].contiguous(), q[..., 512:].contiguous()
     kw = dict(max_kvb=max_kvb, causal=True, sm_scale=sm, return_lse=True)
-    out, lse = flash_packed.flash_attention_packed(q, k, v, *ints, **kw)
-    ref, ref_lse = flash_packed.flash_attention_packed_ref(q, k, v, *ints, **kw)
+    fn = lambda: flash_packed.flash_attention_packed_mla(qn, qp, k, *ints, **kw)
+    out, lse = fn()
+    ref, ref_lse = flash_packed.flash_attention_packed_mla_ref(qn, qp, k, *ints, **kw)
     pairs = []
     for t0, n in zip(tok0, lens):
         pairs += [(out[t0: t0 + n], ref[t0: t0 + n]), (lse[:, t0: t0 + n], ref_lse[:, t0: t0 + n])]
-    err = check(f"flash_attention_packed 576 [{tp} tokens, 16 prompts, lse]", pairs)
+    err = check(f"flash_attention_packed_mla 576 [{tp} tokens, 16 prompts, lse]", pairs)
     n_tok = sum(lens)
-    n_bytes = n_tok * (nh + 2) * 576 * 2 + tp * nh * 576 * 2 + nh * tp * 4
-    bms, bby = bound_ms(n_bytes, 4 * nh * 576 * sum(n * (n + 1) // 2 for n in lens), BF16_FLOPS)
-    lib_fn, lib_note = packed_library(torch, F, q, k, v, lens, tok0, ref, scale=sm)
+    pairs_a = sum(n * (n + 1) // 2 for n in lens)
+    n_bytes = n_tok * (nh + 1) * 576 * 2 + tp * nh * 512 * 2 + nh * tp * 4
+    bms, bby = bound_ms(n_bytes, 4 * nh * 576 * pairs_a, BF16_FLOPS)
+    v = F.pad(k[..., :512], (0, 64))
+    lib_fn, lib_note = packed_library(torch, F, q, k, v, lens, tok0, F.pad(ref, (0, 64)), scale=sm)
     log(f"[kernel] flash_attention_packed 576 library: {lib_note}")
     report("flash_attention_packed_576", dict(
-        max_abs_err=err, ms=time_ms(torch, lambda: flash_packed.flash_attention_packed(q, k, v, *ints, **kw)),
-        plain_ms=time_ms(torch, lambda: flash_packed.flash_attention_packed_ref(q, k, v, *ints, **kw), iters=2,
+        max_abs_err=err, ms=time_ms(torch, fn),
+        plain_ms=time_ms(torch, lambda: flash_packed.flash_attention_packed_mla_ref(qn, qp, k, *ints, **kw), iters=2,
                          warmup=1),
         library_ms=None if lib_fn is None else time_ms(torch, lib_fn), library_note=lib_note,
-        bound_ms=bms, bound_by=bby))
+        bound_ms=bms, bound_by=bby), fn, (4 * nh * 576 * pairs_a, n_bytes))
     return rows
 
 
@@ -2435,6 +2494,7 @@ def wave_d(torch, skt, eng, stats, res, label):
                         expect=[k for k in DEEPSEEK_NSA if k != "flash_attention_packed"], hits=0)
     finally:
         sparse.restore()
+    check_576(label, "D", d, "flash_attention_576")
     n_chunks = -(-NSA_PROMPT // 1024)
     if d["program_calls"] != {"prefill": len(prompts), "prefill_extend": len(prompts) * (n_chunks - 1)}:
         fail(f"serve {label} wave D: prompts in chunks by {d['program_calls']}")
@@ -3554,6 +3614,9 @@ def main():
         if name in ("flash_attention", "flash_attention_packed"):  # K7 / K9 at head dim 576 apart
             at576 = sum(res["launches"].get(f"{name}_576", 0) for res in (*serve.values(), *paths.values()))
             kernels[-1]["launches_by_head_dim"] = {"64/128": kernels[-1]["launches"] - at576, "576": at576}
+            r576 = rows["flash_attention_576_lse" if name == "flash_attention" else "flash_attention_packed_576"]
+            kernels[-1]["head_dim_576"] = {key: r576.get(key) for key in (
+                "max_abs_err", "ms", "graph_ms", "tflops", "plain_ms", "bound_ms", "bound_by", "library_ms")}
         if name in sources:  # launches by kernel, and the prefill row's numbers beside the decode row's
             kernels[-1]["sources"] = sources[name]
             kernels[-1]["launches_by_kernel"] = {
@@ -3575,7 +3638,8 @@ def main():
                  "w4a16_gemm_gate_up_wave_a", "w4a16_gemm_dma_gate_up", "w4a16_gemm_gate_up", "mla_decode", "mla_decode_e4m3",
                  "mla_decode_int8", "mla_decode_nsa_int8", "mla_decode_nsa_bf16", "mla_decode_ctx8192",
                  "fp8_paged_mqa_logits_decode",
-                 "flash_attention_576_lse", "flash_attention_packed_576", "bf16_grouped_mm_deepseek_decode_down",
+                 "flash_attention_576_lse", "flash_attention_576_prefix5120", "flash_attention_packed_576",
+                 "bf16_grouped_mm_deepseek_decode_down",
                  "bf16_grouped_mm_mixtral_decode_gate_up", "bf16_grouped_mm_mixtral_decode_down",
                  "bf16_grouped_mm_mixtral_prefill_gate_up", "bf16_grouped_mm_deepseek_decode_gate_up",
                  "bf16_grouped_mm_deepseek_wave_a_gate_up", "bf16_grouped_mm_deepseek_wave_a_down",

@@ -164,7 +164,7 @@ def launch_counts():
 
 
 def head_dim_launch_counts():
-    """K7 / K9 launches at head dim 576 (``mla_tile.cuh``), counted apart
+    """K7 / K9 launches at head dim 576 (``mla_flash_tile.cuh``), counted apart
     from their launches at 64 / 128 (``flash_tile.cuh``), which are the
     rest of ``launch_counts()``'s."""
     return {"flash_attention_576": flash_attention.launches_576,

@@ -291,6 +291,12 @@ __device__ __forceinline__ void named_sync(int id, int threads) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
 
+// an arrival on that barrier that does not wait: the handing side of a
+// hand-off between warpgroups, whose other side waits in named_sync
+__device__ __forceinline__ void named_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
 // the same barrier, returning whether `pred` held for any of those threads
 __device__ __forceinline__ bool named_sync_or(int id, int threads, bool pred) {
   uint32_t any;

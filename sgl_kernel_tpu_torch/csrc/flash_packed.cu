@@ -28,13 +28,15 @@
 // re-fetch nothing, have no counterpart: skipped tiles are never visited,
 // and key rows past kv_len are never read.
 //
-// Head dim 576 (DeepSeek MLA packed prefill, deepseek.py:444-459: q
+// Head dim 576 (DeepSeek's MLA packed prefill, deepseek.py:444-459: q
 // [TP, 16, 576] against one latent K/V head) takes K7's 576 tile
-// (mla_tile.cuh): a block's 16 rows are consecutive (position, head) pairs
-// of one packed q block and KV head, one position's 16 heads for MLA.
+// (mla_flash_tile.cuh): a block's 64 rows are consecutive (position, head)
+// pairs of one packed q block and KV head; a null v is the MLA form (V is
+// K's first 512 columns, out [TPq, Hq, 512]).
 
 #include "flash_tile.cuh"
-#include "mla_tile.cuh"
+#include "mla_flash_tile.cuh"
+#include "tma_map.cuh"
 
 namespace {
 
@@ -72,42 +74,76 @@ __global__ void __launch_bounds__(skt::kFlashThreads) packed_kernel(
                      skt::kFlashBQ, q_len - q0, kv_len, q_start + q0, kv_start, causal, scale_log2);
 }
 
-__global__ void __launch_bounds__(skt::kMlaThreads) packed576_kernel(
-    const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
-    const int* __restrict__ blk_seq, const int* __restrict__ blk_q0, const int* __restrict__ seq_meta,
-    bf16* __restrict__ out, float* __restrict__ lse, int tp, int block, int n_q_heads, int n_kv_heads,
-    int max_kvb, int causal, float scale_log2) {
+struct alignas(64) Args576 {
+  CUtensorMap tk, tv;  // k / v as [TPkv][Hkv * 576], boxes of 64 columns x 64 keys, 128-byte swizzle
+  const bf16 *q, *q_pe, *k, *v;  // q_pe: q's rope columns (null: q is 576 wide)
+  const int *blk_seq, *blk_q0, *seq_meta;
+  bf16* out;
+  float* lse;
+  int tp, block, n_q_heads, n_kv_heads, max_kvb, causal;
+  float scale_log2;
+};
+
+template <bool SEP_V>
+__global__ void __launch_bounds__(skt::kMfThreads, 1) packed576_kernel(const __grid_constant__ Args576 a) {
   extern __shared__ __align__(16) unsigned char smem[];
-  constexpr int D = skt::kMlaD;
-  const int group = n_q_heads / n_kv_heads;
-  const int tiles = block * group / skt::kMlaRows;
-  const int nb = blockIdx.x / tiles;
-  const int r0 = (blockIdx.x % tiles) * skt::kMlaRows;  // first (position, head) row in the q block
-  const int hk = blockIdx.y;
-  const int* meta = seq_meta + blk_seq[nb] * 6;
-  const int q0 = blk_q0[nb];
+  constexpr int D = skt::kMfD, DV = SEP_V ? D : 512;
+  const int group = a.n_q_heads / a.n_kv_heads;
+  const int tiles = a.block * group / skt::kMfRows;
+  const int by = gridDim.y - 1 - blockIdx.y;  // a sequence's last tiles (the most keys) first
+  const int nb = by / tiles, r0 = (by % tiles) * skt::kMfRows;  // first (position, head) row in the q block
+  const int hk = blockIdx.x;
+  const int* meta = a.seq_meta + a.blk_seq[nb] * 6;
+  const int q0 = a.blk_q0[nb];
   const int q_len = meta[0];
-  const int kv_len = min(min(meta[1], meta[5] * block), max_kvb * block);
+  const int kv_len = min(min(meta[1], meta[5] * a.block), a.max_kvb * a.block);
   const int q_start = meta[2];
   const int kv_start = meta[3];
-  // the last row that sees keys sets the causal limit
-  const int last_vis = min((r0 + skt::kMlaRows - 1) / group, q_len - q0 - 1);
-  int kv_end = last_vis >= r0 / group ? kv_len : 0;
-  if (causal && kv_end > 0) kv_end = min(kv_end, max(0, q_start + q0 + last_vis - kv_start + 1));
-  auto offset = [&](int r) {
-    const long long row = (long long)nb * block + (r0 + r) / group;
-    return row * n_q_heads * D + (long long)(hk * group + (r0 + r) % group) * D;
+  auto limit = [&](int r) {  // rows past q_len see no key
+    const int pos = q0 + (r0 + r) / group;
+    if (pos >= q_len) return 0;
+    return a.causal ? min(kv_len, max(0, q_start + pos - kv_start + 1)) : kv_len;
   };
-  const long long kv_off = (long long)meta[4] * block * n_kv_heads * D + (long long)hk * D;
-  skt::mla_flash_rows(
-      smem, [&](int r) { return q + offset(r); }, k + kv_off, v + kv_off, (long long)n_kv_heads * D, kv_len,
-      kv_end, kv_start, causal, [&](int r) { return q_start + q0 + (r0 + r) / group; },
-      [&](int r) { return q0 + (r0 + r) / group < q_len; }, [&](int r) { return out + offset(r); },
+  // the last row that sees keys has the largest limit
+  const int last = min(skt::kMfRows - 1, (q_len - q0) * group - 1 - r0);
+  const int kv_end = last >= 0 ? limit(last) : 0;
+  const long long kv_stride = (long long)a.n_kv_heads * D;
+  const int key_row0 = meta[4] * a.block;
+  const long long kv_off = (long long)key_row0 * kv_stride + (long long)hk * D;
+  const skt::MfKeys keys{(kv_end + skt::kMfKeys - 1) / skt::kMfKeys, kv_len, key_row0, hk * D,
+                         a.k + kv_off, SEP_V ? a.v + kv_off : nullptr, kv_stride};
+  auto row_of = [&](int r) {  // (packed token, head) of row r, as a row of [TPq * Hq]
+    return ((long long)nb * a.block + (r0 + r) / group) * a.n_q_heads + hk * group + (r0 + r) % group;
+  };
+  const auto rows = skt::mf_rows(
+      [&](int r, int ch) { return skt::mf_q_chunk(a.q, a.q_pe, row_of(r), ch); }, limit,
+      [&](int r) -> bf16* { return a.out + row_of(r) * DV; },
       [&](int r) -> float* {
-        if (lse == nullptr) return nullptr;
-        return lse + (long long)(hk * group + (r0 + r) % group) * tp + (long long)nb * block + (r0 + r) / group;
-      },
-      scale_log2);
+        if (a.lse == nullptr) return nullptr;
+        return a.lse + (long long)(hk * group + (r0 + r) % group) * a.tp + (long long)nb * a.block + (r0 + r) / group;
+      });
+  skt::mla_flash_block<SEP_V>(smem, &a.tk, &a.tv, keys, rows, a.scale_log2);
+}
+
+template <bool SEP_V>
+int launch576(cudaStream_t st, Args576& a, int nqb, int tp_kv) {
+  constexpr size_t bytes = skt::MfSmem::kBytes;
+  const long long cols = (long long)a.n_kv_heads * skt::kMfD;
+  if (!skt::map_2d(&a.tk, a.k, 2, tp_kv, cols, cols, 64, skt::kMfKeys, true) ||
+      (SEP_V && !skt::map_2d(&a.tv, a.v, 2, tp_kv, cols, cols, 64, skt::kMfKeys, true)))
+    return (int)cudaErrorInvalidValue;
+  if (!SEP_V) a.tv = a.tk;
+  static bool attr_set = false;  // dynamic shared memory above 48 KB needs the opt-in once
+  if (!attr_set) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(packed576_kernel<SEP_V>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+    if (err != cudaSuccess) return (int)err;
+    attr_set = true;
+  }
+  const int group = a.n_q_heads / a.n_kv_heads;
+  dim3 grid(a.n_kv_heads, nqb * (a.block * group / skt::kMfRows));
+  packed576_kernel<SEP_V><<<grid, skt::kMfThreads, bytes, st>>>(a);
+  return (int)cudaSuccess;
 }
 
 template <int D>
@@ -128,12 +164,15 @@ int launch_packed(cudaStream_t st, const bf16* q, const bf16* k, const bf16* v, 
 }  // namespace
 
 // Supported: head_dim 64, 128 or 576 (576: Hq / Hkv dividing 16 or a
-// multiple of 16), bf16, Hq a multiple of Hkv, block a
-// multiple of 64. tp = NQB * block. lse may be null.
+// multiple of 16; v null for the MLA form, V = K's first 512 columns and
+// out [TPq, Hq, 512]; q_pe not null: q holds the latent's 512 columns and
+// q_pe [TPq, Hq, 64] the rope's), bf16, Hq a multiple of Hkv, block a
+// multiple of 64. tp = NQB * block; tp_kv = k's packed rows. lse and q_pe
+// may be null.
 extern "C" int skt_flash_packed(
-    const void* q, const void* k, const void* v, const void* blk_seq, const void* blk_q0,
+    const void* q, const void* q_pe, const void* k, const void* v, const void* blk_seq, const void* blk_q0,
     const void* seq_meta, void* out, void* lse, int nqb, int block, int n_q_heads,
-    int n_kv_heads, int head_dim, int max_kvb, int causal, float sm_scale, void* stream) {
+    int n_kv_heads, int head_dim, int max_kvb, int causal, float sm_scale, int tp_kv, void* stream) {
   if (block % skt::kFlashBQ != 0) return (int)cudaErrorInvalidValue;
   const int tp = nqb * block;
   const float sl = sm_scale * skt::kLog2e;
@@ -150,12 +189,15 @@ extern "C" int skt_flash_packed(
     }
     case 576: {
       const int group = n_q_heads / n_kv_heads;
-      if (skt::kMlaRows % group && group % skt::kMlaRows) return (int)cudaErrorInvalidValue;
-      constexpr size_t bytes = skt::MlaSmem<true>::kBytes;
-      cudaError_t err = cudaFuncSetAttribute(packed576_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-      if (err != cudaSuccess) return (int)err;
-      dim3 grid576(nqb * (block * group / skt::kMlaRows), n_kv_heads);
-      packed576_kernel<<<grid576, skt::kMlaThreads, bytes, st>>>((const bf16*)q, (const bf16*)k, (const bf16*)v, (const int*)blk_seq, (const int*)blk_q0, (const int*)seq_meta, (bf16*)out, (float*)lse, tp, block, n_q_heads, n_kv_heads, max_kvb, causal, sl);
+      if ((16 % group && group % 16) || tp_kv <= 0) return (int)cudaErrorInvalidValue;
+      Args576 a{};
+      a.q = (const bf16*)q, a.q_pe = (const bf16*)q_pe, a.k = (const bf16*)k, a.v = (const bf16*)v;
+      a.blk_seq = (const int*)blk_seq, a.blk_q0 = (const int*)blk_q0, a.seq_meta = (const int*)seq_meta;
+      a.out = (bf16*)out, a.lse = (float*)lse;
+      a.tp = tp, a.block = block, a.n_q_heads = n_q_heads, a.n_kv_heads = n_kv_heads, a.max_kvb = max_kvb;
+      a.causal = causal, a.scale_log2 = sl;
+      const int err = v == nullptr ? launch576<false>(st, a, nqb, tp_kv) : launch576<true>(st, a, nqb, tp_kv);
+      if (err != 0) return err;
       break;
     }
     default:

@@ -28,16 +28,18 @@
 // The TPU kernel's head-major transpose is not needed: the kernel reads the
 // [B, S, H, D] layout with strides.
 //
-// Head dim 576 (DeepSeek MLA prefill: q [B, S, 16, 576], one latent K/V
-// head, V zero past 512, mla.py:520-557) takes another tile: the 16 query
-// rows of a block are the (position, head) pairs of one KV head in order,
-// which for 16 heads over one KV head is one position's heads, so each K/V
-// tile is read once for all of them (mla_tile.cuh, mma.sync). Grid: one
-// block per 16 such rows, per KV head and sequence; the causal limit is the
-// block's last position.
+// Head dim 576 (DeepSeek's MLA prefill: q [B, S, 16, 576] against one
+// latent KV head, V its first 512 columns, mla.py:520-557) takes the tile of
+// mla_flash_tile.cuh: a block's 64 rows are consecutive (position, head)
+// pairs of one KV head, each row's causal limit its own position's. A null
+// v is the MLA form: V is K's first 512 columns and out is [B, Sq, Hq, 512];
+// else v is the caller's and out 576 wide. Grid: the KV head fastest, then
+// the row tiles in reverse (longest first), then the sequence; a tile wholly
+// past q_len visits no key and writes its zeros and lse.
 
 #include "flash_tile.cuh"
-#include "mla_tile.cuh"
+#include "mla_flash_tile.cuh"
+#include "tma_map.cuh"
 
 namespace {
 
@@ -72,41 +74,72 @@ __global__ void __launch_bounds__(skt::kFlashThreads) flash_kernel(
                      rows, see_rows, kv_len, q_start + q0, kv_start, causal, scale_log2);
 }
 
-__global__ void __launch_bounds__(skt::kMlaThreads) flash576_kernel(
-    const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
-    const int* __restrict__ lens, bf16* __restrict__ out, float* __restrict__ lse, int sq, int skv,
-    int n_q_heads, int n_kv_heads, int causal, float scale_log2) {
+struct alignas(64) Args576 {
+  CUtensorMap tk, tv;  // k / v as [B * Skv][Hkv * 576], boxes of 64 columns x 64 keys, 128-byte swizzle
+  const bf16 *q, *q_pe, *k, *v;  // q_pe: q's rope columns (null: q is 576 wide)
+  const int* lens;
+  bf16* out;
+  float* lse;
+  int sq, skv, n_q_heads, n_kv_heads, causal;
+  float scale_log2;
+};
+
+template <bool SEP_V>
+__global__ void __launch_bounds__(skt::kMfThreads, 1) flash576_kernel(const __grid_constant__ Args576 a) {
   extern __shared__ __align__(16) unsigned char smem[];
-  constexpr int D = skt::kMlaD;
-  const int group = n_q_heads / n_kv_heads;
-  const int hk = blockIdx.y, b = blockIdx.z;
-  const int r0 = blockIdx.x * skt::kMlaRows;  // first (position, head) row of the KV head
-  const int total = sq * group;
-  const int q_len = lens[b * 4 + 0];
-  const int kv_len = min(lens[b * 4 + 1], skv);
-  const int q_start = lens[b * 4 + 2];
-  const int kv_start = lens[b * 4 + 3];
-  const int last_pos = (min(total, r0 + skt::kMlaRows) - 1) / group;
-  // padding rows of a block that starts before q_len attend like valid rows
+  constexpr int D = skt::kMfD, DV = SEP_V ? D : 512;
+  const int group = a.n_q_heads / a.n_kv_heads;
+  const int hk = blockIdx.x, b = blockIdx.z;
+  const int r0 = (gridDim.y - 1 - blockIdx.y) * skt::kMfRows;  // first (position, head) row: longest first
+  const int n_rows = min(skt::kMfRows, a.sq * group - r0);
+  const int q_len = a.lens[b * 4 + 0];
+  const int kv_len = min(a.lens[b * 4 + 1], a.skv);
+  const int q_start = a.lens[b * 4 + 2];
+  const int kv_start = a.lens[b * 4 + 3];
+  // padding rows of a tile that starts before q_len attend like valid rows
   const bool see = r0 / group < q_len;
-  int kv_end = see ? kv_len : 0;
-  if (causal && kv_end > 0) kv_end = min(kv_end, max(0, q_start + last_pos - kv_start + 1));
-  auto offset = [&](int r) {
-    const int pos = (r0 + r) / group, head = hk * group + (r0 + r) % group;
-    return ((long long)b * sq + pos) * n_q_heads * D + (long long)head * D;
+  auto limit = [&](int r) {
+    if (!see) return 0;
+    return a.causal ? min(kv_len, max(0, q_start + (r0 + r) / group - kv_start + 1)) : kv_len;
   };
-  const long long kv_off = (long long)b * skv * n_kv_heads * D + (long long)hk * D;
-  skt::mla_flash_rows(
-      smem, [&](int r) { return r0 + r < total ? q + offset(r) : nullptr; }, k + kv_off, v + kv_off,
-      (long long)n_kv_heads * D, kv_len, kv_end, kv_start, causal,
-      [&](int r) { return q_start + (r0 + r) / group; }, [&](int) { return see; },
-      [&](int r) { return out + offset(r); },
+  const int kv_end = limit(n_rows - 1);  // the last row's limit is the largest
+  const long long kv_stride = (long long)a.n_kv_heads * D;
+  const long long kv_off = (long long)b * a.skv * kv_stride + (long long)hk * D;
+  const skt::MfKeys keys{(kv_end + skt::kMfKeys - 1) / skt::kMfKeys, kv_len, b * a.skv, hk * D, a.k + kv_off,
+                         SEP_V ? a.v + kv_off : nullptr, kv_stride};
+  auto row_of = [&](int r) {  // (position, head) of row r, as a row of [B * Sq * Hq]
+    return ((long long)b * a.sq + (r0 + r) / group) * a.n_q_heads + hk * group + (r0 + r) % group;
+  };
+  const auto rows = skt::mf_rows(
+      [&](int r, int ch) -> const bf16* { return r < n_rows ? skt::mf_q_chunk(a.q, a.q_pe, row_of(r), ch) : nullptr; },
+      limit,
+      [&](int r) -> bf16* { return r < n_rows ? a.out + row_of(r) * DV : nullptr; },
       [&](int r) -> float* {
-        if (lse == nullptr) return nullptr;
-        const int pos = (r0 + r) / group, head = hk * group + (r0 + r) % group;
-        return lse + ((long long)b * n_q_heads + head) * sq + pos;
-      },
-      scale_log2);
+        if (a.lse == nullptr || r >= n_rows) return nullptr;
+        return a.lse + ((long long)b * a.n_q_heads + hk * group + (r0 + r) % group) * a.sq + (r0 + r) / group;
+      });
+  skt::mla_flash_block<SEP_V>(smem, &a.tk, &a.tv, keys, rows, a.scale_log2);
+}
+
+template <bool SEP_V>
+int launch576(cudaStream_t st, Args576& a, int batch) {
+  constexpr size_t bytes = skt::MfSmem::kBytes;
+  const long long rows = (long long)batch * a.skv, cols = (long long)a.n_kv_heads * skt::kMfD;
+  if (!skt::map_2d(&a.tk, a.k, 2, rows, cols, cols, 64, skt::kMfKeys, true) ||
+      (SEP_V && !skt::map_2d(&a.tv, a.v, 2, rows, cols, cols, 64, skt::kMfKeys, true)))
+    return (int)cudaErrorInvalidValue;
+  if (!SEP_V) a.tv = a.tk;
+  static bool attr_set = false;  // dynamic shared memory above 48 KB needs the opt-in once
+  if (!attr_set) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(flash576_kernel<SEP_V>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+    if (err != cudaSuccess) return (int)err;
+    attr_set = true;
+  }
+  const int group = a.n_q_heads / a.n_kv_heads;
+  dim3 grid(a.n_kv_heads, (a.sq * group + skt::kMfRows - 1) / skt::kMfRows, batch);
+  flash576_kernel<SEP_V><<<grid, skt::kMfThreads, bytes, st>>>(a);
+  return (int)cudaSuccess;
 }
 
 template <int D>
@@ -126,9 +159,12 @@ int launch_flash(cudaStream_t st, const bf16* q, const bf16* k, const bf16* v, c
 }  // namespace
 
 // Supported: head_dim 64, 128 or 576 (576: Hq / Hkv dividing 16 or a
-// multiple of 16), bf16, Hq a multiple of Hkv. lse may be null.
+// multiple of 16; v null for the MLA form, V = K's first 512 columns and
+// out [B, Sq, Hq, 512]; q_pe not null: q holds the latent's 512 columns
+// and q_pe [B, Sq, Hq, 64] the rope's), bf16, Hq a multiple of Hkv. lse and
+// q_pe may be null.
 extern "C" int skt_flash_prefill(
-    const void* q, const void* k, const void* v, const void* lens, void* out, void* lse,
+    const void* q, const void* q_pe, const void* k, const void* v, const void* lens, void* out, void* lse,
     int batch, int sq, int skv, int n_q_heads, int n_kv_heads, int head_dim,
     int causal, float sm_scale, void* stream) {
   const float sl = sm_scale * skt::kLog2e;
@@ -144,12 +180,15 @@ extern "C" int skt_flash_prefill(
     }
     case 576: {
       const int group = n_q_heads / n_kv_heads;
-      if (skt::kMlaRows % group && group % skt::kMlaRows) return (int)cudaErrorInvalidValue;
-      constexpr size_t bytes = skt::MlaSmem<true>::kBytes;
-      cudaError_t err = cudaFuncSetAttribute(flash576_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-      if (err != cudaSuccess) return (int)err;
-      dim3 grid576((sq * group + skt::kMlaRows - 1) / skt::kMlaRows, n_kv_heads, batch);
-      flash576_kernel<<<grid576, skt::kMlaThreads, bytes, st>>>((const bf16*)q, (const bf16*)k, (const bf16*)v, (const int*)lens, (bf16*)out, (float*)lse, sq, skv, n_q_heads, n_kv_heads, causal, sl);
+      if (16 % group && group % 16) return (int)cudaErrorInvalidValue;
+      Args576 a{};
+      a.q = (const bf16*)q, a.q_pe = (const bf16*)q_pe, a.k = (const bf16*)k, a.v = (const bf16*)v;
+      a.lens = (const int*)lens;
+      a.out = (bf16*)out, a.lse = (float*)lse;
+      a.sq = sq, a.skv = skv, a.n_q_heads = n_q_heads, a.n_kv_heads = n_kv_heads, a.causal = causal;
+      a.scale_log2 = sl;
+      const int err = v == nullptr ? launch576<false>(st, a, batch) : launch576<true>(st, a, batch);
+      if (err != 0) return err;
       break;
     }
     default:

@@ -54,7 +54,7 @@ from typing import Any, Dict, Optional, Union
 import torch
 
 from ..ops.attention import merge_state
-from ..ops.attention.flash_packed import flash_attention_packed
+from ..ops.attention.flash_packed import flash_attention_packed_mla
 from ..ops.attention.mla import D_CKV, D_LATENT, D_ROPE, mla_decode, mla_prefill
 from ..ops.attention.nsa import (
     fast_topk_transform_fused,
@@ -533,13 +533,13 @@ def prefill_nsa(params, cfg: DeepseekConfig, kv_cache, idx_k, idx_s, tokens, pos
 
 def _mla_attend_packed(q_lat, q_pe, kv_row, blk_seq, blk_q0, seq_meta, cfg: DeepseekConfig, tp: int, max_kvb: int):
     """Packed MLA self-attention: one MQA head over the block-aligned packed
-    latent rows (K9 at 576), the latent doubling as V (zero-padded to 576)."""
-    q = torch.cat([q_lat.reshape(tp, cfg.num_heads, D_LATENT), q_pe.reshape(tp, cfg.num_heads, D_ROPE)], dim=-1)
-    kv = kv_row.reshape(tp, 1, D_CKV).to(q.dtype)
-    v = torch.nn.functional.pad(kv[..., :D_LATENT], (0, D_ROPE))
-    out = flash_attention_packed(q, kv, v, blk_seq, blk_q0, seq_meta, max_kvb=max_kvb, causal=True,
-                                 sm_scale=_sm_scale(cfg))
-    return out[..., :D_LATENT]
+    latent rows (K9 at 576), q's two parts read where they lie and the
+    latent's first 512 columns doubling as V (JAX concatenates q and
+    zero-pads V to 576; the values are the same)."""
+    return flash_attention_packed_mla(q_lat.reshape(tp, cfg.num_heads, D_LATENT),
+                                      q_pe.reshape(tp, cfg.num_heads, D_ROPE),
+                                      kv_row.reshape(tp, 1, D_CKV).to(q_lat.dtype), blk_seq, blk_q0, seq_meta,
+                                      max_kvb=max_kvb, causal=True, sm_scale=_sm_scale(cfg))
 
 
 def prefill_packed(params, cfg: DeepseekConfig, kv_cache, idx_k, idx_s, tokens, positions, blk_seq, blk_q0,

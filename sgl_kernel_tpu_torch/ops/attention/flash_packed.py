@@ -13,7 +13,10 @@ replacing the Pallas ``flash_attention_packed``
 ``flash_attention_packed_ref`` is its plain PyTorch twin and covers the
 whole JAX contract (causal with q_start / kv_start, window, softcap, sinks,
 base-2 lse); the kernel takes the causal or full attention and the lse the
-serving path needs, and raises on the rest. The host helpers
+serving path needs, and raises on the rest. ``flash_attention_packed_mla``
+is the same at head dim 576 with V the first 512 columns of K (DeepSeek's
+packed MLA prefill): no padded V is built and the output is the 512
+columns the model reads; ``flash_attention_packed_mla_ref`` is its twin. The host helpers
 (``build_packed_metadata``, ``make_seq_meta``, ``pack_padded``,
 ``unpack_to_padded``) are numpy and give the JAX package's bytes.
 """
@@ -28,7 +31,7 @@ import torch
 
 from ... import _build
 from ...utils import cdiv, round_up
-from .flash_prefill import LOG2E
+from .flash_prefill import D_MLA, DV_MLA, LOG2E
 
 
 def build_packed_metadata(q_lens, kv_lens=None, *, block: int = 256):
@@ -119,7 +122,7 @@ def flash_attention_packed_ref(q, k, v, blk_seq, blk_q0, seq_meta, *, max_kvb: i
     scale = sm_scale if sm_scale is not None else 1.0 / d ** 0.5
     if tp % block or blk_seq.shape[0] != tp // block:
         raise ValueError(f"flash_attention_packed: {blk_seq.shape[0]} q blocks for {tp} tokens of block {block}")
-    out = torch.empty_like(q)
+    out = q.new_empty(q.shape[:-1] + v.shape[-1:])
     lse = torch.empty((hq, tp), dtype=torch.float32, device=q.device)
     metas = seq_meta.to(torch.int64).tolist()
     snk = None if sinks is None else sinks.float().to(q.device)[:, None]
@@ -155,7 +158,7 @@ def flash_attention_packed_ref(q, k, v, blk_seq, blk_q0, seq_meta, *, max_kvb: i
     return (out, lse) if return_lse else out
 
 
-_ARGS = (ctypes.c_void_p,) * 8 + (ctypes.c_int,) * 7 + (ctypes.c_float, ctypes.c_void_p)
+_ARGS = (ctypes.c_void_p,) * 9 + (ctypes.c_int,) * 7 + (ctypes.c_float, ctypes.c_int, ctypes.c_void_p)
 
 
 def flash_attention_packed(q, k, v, blk_seq, blk_q0, seq_meta, *, max_kvb: int, causal: bool = True,
@@ -192,14 +195,59 @@ def flash_attention_packed(q, k, v, blk_seq, blk_q0, seq_meta, *, max_kvb: int, 
     lse = torch.empty((hq, tp), dtype=torch.float32, device=q.device) if return_lse else None
     scale = sm_scale if sm_scale is not None else 1.0 / d ** 0.5
     fn = _build.bind("flash_packed", "skt_flash_packed", _ARGS)
-    _build.check(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), *(t.data_ptr() for t in ints), out.data_ptr(),
+    _build.check(fn(q.data_ptr(), None, k.data_ptr(), v.data_ptr(), *(t.data_ptr() for t in ints), out.data_ptr(),
                     None if lse is None else lse.data_ptr(), tp // block, block, hq, hkv, d, int(max_kvb),
-                    int(causal), scale, _build.stream_ptr(q.device)),
+                    int(causal), scale, k.shape[0], _build.stream_ptr(q.device)),
                  "flash_attention_packed")
     flash_attention_packed.launches += 1
-    flash_attention_packed.launches_576 += d == 576  # the 576-wide tile (mla_tile.cuh), counted apart
+    flash_attention_packed.launches_576 += d == 576  # the 576-wide tile (mla_flash_tile.cuh), counted apart
     return (out, lse) if return_lse else out
 
 
 flash_attention_packed.launches = 0
 flash_attention_packed.launches_576 = 0
+
+
+def flash_attention_packed_mla_ref(q_nope, q_pe, kv, blk_seq, blk_q0, seq_meta, *, max_kvb: int, causal: bool = True,
+                                   sm_scale: Optional[float] = None, return_lse: bool = False, block: int = 256):
+    """Plain twin of ``flash_attention_packed_mla``:
+    ``flash_attention_packed_ref`` with q = [q_nope | q_pe] and V the first
+    512 columns of ``kv``."""
+    return flash_attention_packed_ref(torch.cat([q_nope, q_pe], dim=-1), kv, kv[..., :DV_MLA], blk_seq, blk_q0,
+                                      seq_meta, max_kvb=max_kvb, causal=causal, sm_scale=sm_scale,
+                                      return_lse=return_lse, block=block)
+
+
+def flash_attention_packed_mla(q_nope, q_pe, kv, blk_seq, blk_q0, seq_meta, *, max_kvb: int, causal: bool = True,
+                               sm_scale: Optional[float] = None, return_lse: bool = False, block: int = 256):
+    """``flash_attention_packed(q, kv, v)`` with q = [q_nope | q_pe] and v
+    the first 512 columns of kv zero-padded to 576, returning only the first
+    512 output columns: q_nope [TPq, Hq, 512], q_pe [TPq, Hq, 64], kv [TPkv,
+    Hkv, 576]; returns out [TPq, Hq, 512] (+ lse [Hq, TPq] base 2). CUDA
+    tensors go through K9's 576 tile, which reads q's two parts where they
+    lie and V from K's own boxes, counted on ``flash_attention_packed``."""
+    if q_nope.device.type != "cuda":
+        return flash_attention_packed_mla_ref(q_nope, q_pe, kv, blk_seq, blk_q0, seq_meta, max_kvb=max_kvb,
+                                              causal=causal, sm_scale=sm_scale, return_lse=return_lse, block=block)
+    tp, hq, dn = q_nope.shape
+    hkv = kv.shape[1]
+    if (dn != DV_MLA or tuple(q_pe.shape) != (tp, hq, D_MLA - DV_MLA) or kv.shape[2] != D_MLA or hq % hkv
+            or (16 % (hq // hkv) and (hq // hkv) % 16) or block % 64 or tp % block or kv.shape[0] % block
+            or blk_seq.shape[0] != tp // block):
+        raise ValueError(f"flash_attention_packed_mla: unsupported shapes q_nope {tuple(q_nope.shape)} q_pe "
+                         f"{tuple(q_pe.shape)} kv {tuple(kv.shape)} blocks {tuple(blk_seq.shape)} of {block}")
+    if not (q_nope.dtype == q_pe.dtype == kv.dtype == torch.bfloat16):
+        raise NotImplementedError("flash_attention_packed_mla: the CUDA kernel takes bf16")
+    q_nope, q_pe, kv = q_nope.contiguous(), q_pe.contiguous(), kv.contiguous()
+    ints = [t.to(device=q_nope.device, dtype=torch.int32).contiguous() for t in (blk_seq, blk_q0, seq_meta)]
+    out = q_nope.new_empty((tp, hq, DV_MLA))
+    lse = torch.empty((hq, tp), dtype=torch.float32, device=q_nope.device) if return_lse else None
+    scale = sm_scale if sm_scale is not None else 1.0 / D_MLA ** 0.5
+    fn = _build.bind("flash_packed", "skt_flash_packed", _ARGS)
+    _build.check(fn(q_nope.data_ptr(), q_pe.data_ptr(), kv.data_ptr(), None, *(t.data_ptr() for t in ints),
+                    out.data_ptr(), None if lse is None else lse.data_ptr(), tp // block, block, hq, hkv, D_MLA,
+                    int(max_kvb), int(causal), scale, kv.shape[0], _build.stream_ptr(q_nope.device)),
+                 "flash_attention_packed_mla")
+    flash_attention_packed.launches += 1
+    flash_attention_packed.launches_576 += 1
+    return (out, lse) if return_lse else out

@@ -7,6 +7,12 @@ replacing the Pallas ``flash_attention``
 contract (window, softcap, sinks, base-2 lse); the kernel takes the
 causal or full attention and the base-2 lse the serving path needs, and
 raises on the rest.
+
+``flash_attention_mla`` is the same function at head dim 576 with V the
+first 512 columns of K (DeepSeek's MLA prefill, mla.py:520-557 of the JAX
+package, whose V is K's latent zero-padded to 576): it launches K7's
+kernel with no V operand, so no padded V is built, and writes the 512
+columns the model reads. ``flash_attention_mla_ref`` is its twin.
 """
 
 from __future__ import annotations
@@ -71,7 +77,7 @@ def flash_attention_ref(q, k, v, q_lens=None, kv_lens=None, sinks=None, q_start=
     return out
 
 
-_ARGS = (ctypes.c_void_p,) * 6 + (ctypes.c_int,) * 7 + (ctypes.c_float, ctypes.c_void_p)
+_ARGS = (ctypes.c_void_p,) * 7 + (ctypes.c_int,) * 7 + (ctypes.c_float, ctypes.c_void_p)
 
 
 def flash_attention(q, k, v, q_lens=None, kv_lens=None, sinks=None, q_start=None,
@@ -83,8 +89,8 @@ def flash_attention(q, k, v, q_lens=None, kv_lens=None, sinks=None, q_start=None
     kv row 0 (defaults kv_len - q_len and 0). Returns out [B, Sq, Hq, D]
     (+ lse [B, Hq, Sq] float32 base 2 when return_lse; a row that sees no
     key has o = 0 and lse -1e30 * log2(e)). CUDA tensors go through the K7
-    kernel, which takes bf16, head_dim 64, 128 or 576 (576: the MLA prefill,
-    with Hq / Hkv dividing 16 or a multiple of 16), and neither sinks,
+    kernel, which takes bf16, head_dim 64, 128 or 576 (576: the MLA prefill's
+    tile, with Hq / Hkv dividing 16 or a multiple of 16), and neither sinks,
     window nor softcap."""
     if q.device.type != "cuda":
         return flash_attention_ref(
@@ -106,14 +112,59 @@ def flash_attention(q, k, v, q_lens=None, kv_lens=None, sinks=None, q_start=None
     lse = torch.empty((b, hq, sq), dtype=torch.float32, device=q.device) if return_lse else None
     scale = sm_scale if sm_scale is not None else 1.0 / d ** 0.5
     fn = _build.bind("flash_prefill", "skt_flash_prefill", _ARGS)
-    _build.check(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), lens.data_ptr(), out.data_ptr(),
+    _build.check(fn(q.data_ptr(), None, k.data_ptr(), v.data_ptr(), lens.data_ptr(), out.data_ptr(),
                     None if lse is None else lse.data_ptr(), b, sq, skv, hq, hkv, d, int(causal), scale,
                     _build.stream_ptr(q.device)),
                  "flash_attention")
     flash_attention.launches += 1
-    flash_attention.launches_576 += d == 576  # the 576-wide tile (mla_tile.cuh), counted apart
+    flash_attention.launches_576 += d == 576  # the 576-wide tile (mla_flash_tile.cuh), counted apart
     return (out, lse) if return_lse else out
 
 
 flash_attention.launches = 0
 flash_attention.launches_576 = 0
+
+D_MLA, DV_MLA = 576, 512  # MLA's q / k width and its V (the latent) width
+
+
+def flash_attention_mla_ref(q_nope, q_pe, kv, q_lens=None, kv_lens=None, q_start=None, kv_start=None, *,
+                            causal: bool = True, sm_scale: Optional[float] = None, return_lse: bool = False):
+    """Plain twin of ``flash_attention_mla``: ``flash_attention_ref`` with q
+    = [q_nope | q_pe] and V the first 512 columns of ``kv``."""
+    return flash_attention_ref(torch.cat([q_nope, q_pe], dim=-1), kv, kv[..., :DV_MLA], q_lens, kv_lens, None,
+                               q_start, kv_start, causal=causal, sm_scale=sm_scale, return_lse=return_lse)
+
+
+def flash_attention_mla(q_nope, q_pe, kv, q_lens=None, kv_lens=None, q_start=None, kv_start=None, *,
+                        causal: bool = True, sm_scale: Optional[float] = None, return_lse: bool = False):
+    """``flash_attention(q, kv, v)`` with q = [q_nope | q_pe] and v the first
+    512 columns of kv zero-padded to 576, returning only the first 512 output
+    columns (the rest are zero): q_nope [B, Sq, Hq, 512], q_pe [B, Sq, Hq,
+    64], kv [B, Skv, Hkv, 576]; returns out [B, Sq, Hq, 512] (+ lse [B, Hq,
+    Sq] base 2). CUDA tensors go through K7's 576 tile, which reads q's two
+    parts where they lie and V from K's own boxes, counted on
+    ``flash_attention``."""
+    if q_nope.device.type != "cuda":
+        return flash_attention_mla_ref(q_nope, q_pe, kv, q_lens, kv_lens, q_start, kv_start, causal=causal,
+                                       sm_scale=sm_scale, return_lse=return_lse)
+    b, sq, hq, dn = q_nope.shape
+    skv, hkv = kv.shape[1], kv.shape[2]
+    if (dn != DV_MLA or tuple(q_pe.shape) != (b, sq, hq, D_MLA - DV_MLA) or kv.shape[0] != b
+            or kv.shape[3] != D_MLA or hq % hkv or (16 % (hq // hkv) and (hq // hkv) % 16)):
+        raise ValueError(f"flash_attention_mla: unsupported shapes q_nope {tuple(q_nope.shape)} q_pe "
+                         f"{tuple(q_pe.shape)} kv {tuple(kv.shape)}")
+    if not (q_nope.dtype == q_pe.dtype == kv.dtype == torch.bfloat16):
+        raise NotImplementedError("flash_attention_mla: the CUDA kernel takes bf16")
+    q_nope, q_pe, kv = q_nope.contiguous(), q_pe.contiguous(), kv.contiguous()
+    lens = torch.stack(_lens(q_nope, kv, q_lens, kv_lens, q_start, kv_start), dim=1).contiguous()
+    out = q_nope.new_empty((b, sq, hq, DV_MLA))
+    lse = torch.empty((b, hq, sq), dtype=torch.float32, device=q_nope.device) if return_lse else None
+    scale = sm_scale if sm_scale is not None else 1.0 / D_MLA ** 0.5
+    fn = _build.bind("flash_prefill", "skt_flash_prefill", _ARGS)
+    _build.check(fn(q_nope.data_ptr(), q_pe.data_ptr(), kv.data_ptr(), None, lens.data_ptr(), out.data_ptr(),
+                    None if lse is None else lse.data_ptr(), b, sq, skv, hq, hkv, D_MLA, int(causal), scale,
+                    _build.stream_ptr(q_nope.device)),
+                 "flash_attention_mla")
+    flash_attention.launches += 1
+    flash_attention.launches_576 += 1
+    return (out, lse) if return_lse else out

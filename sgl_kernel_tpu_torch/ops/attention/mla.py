@@ -24,9 +24,11 @@ length-0 row's lse is -inf, as on the TPU (K13a: -1e30 * log2(e)). Its
 launches count on ``mla_decode_dma``, not on ``mla_decode``.
 ``mla_decode_dma_ref`` is its twin.
 
-``mla_prefill`` is the flash prefill (K7) over the latent as one MQA head,
-V zero-padded from 512 to 576 lanes and sliced back, as JAX does
-(mla.py:520-557).
+``mla_prefill`` is the flash prefill (K7) over the latent as one MQA head
+(mla.py:520-557), through ``flash_attention_mla``: q's two parts are read
+where they lie and V is the latent's first 512 columns, read from K's own
+tile, where JAX concatenates q, zero-pads V to 576 lanes and slices the
+output back; the values are the same.
 """
 
 from __future__ import annotations
@@ -39,7 +41,7 @@ import torch.nn.functional as F
 
 from ... import _build
 from ...utils import kept_buffer, sm_count
-from .flash_prefill import LOG2E, flash_attention
+from .flash_prefill import LOG2E, flash_attention_mla
 from .merge_state import merge_states
 
 D_LATENT = 512
@@ -247,12 +249,5 @@ def mla_prefill(q_nope, q_pe, kv, q_lens=None, kv_lens=None, *, sm_scale: Option
     (out, lse [B, H, S] base 2) with ``return_lse``; ``q_start`` /
     ``kv_start`` offset the causal mask as in ``flash_attention``."""
     scale = sm_scale if sm_scale is not None else 1.0 / D_CKV ** 0.5
-    q = torch.cat([q_nope, q_pe], dim=-1)
-    k = kv[:, :, None, :].to(q.dtype)
-    v = F.pad(kv[:, :, None, :D_LATENT], (0, D_ROPE)).to(q.dtype)
-    out = flash_attention(q, k, v, q_lens, kv_lens, q_start=q_start, kv_start=kv_start, causal=causal,
-                          sm_scale=scale, return_lse=return_lse)
-    if return_lse:
-        o, lse = out
-        return o[..., :D_LATENT], lse
-    return out[..., :D_LATENT]
+    return flash_attention_mla(q_nope, q_pe, kv[:, :, None, :].to(q_nope.dtype), q_lens, kv_lens, q_start, kv_start,
+                               causal=causal, sm_scale=scale, return_lse=return_lse)

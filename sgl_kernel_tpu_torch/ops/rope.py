@@ -50,7 +50,7 @@ from typing import Optional
 
 import torch
 
-from ..utils import next_power_of_2
+from ..utils import next_power_of_2, resolve_device
 
 
 def compute_cos_sin_cache(
@@ -64,10 +64,12 @@ def compute_cos_sin_cache(
     original_max_position: Optional[int] = None,
     attention_factor: float = 1.0,
     dtype=torch.float32,
-    device="cpu",
+    device="cuda",
 ):
     """[max_position, rotary_dim] cache = [cos | sin], computed in float32
-    (llama3 frequency scaling when low/high_freq_factor are set)."""
+    (llama3 frequency scaling when low/high_freq_factor are set), on
+    ``device``: the card unless the caller names the CPU."""
+    device = resolve_device(device)
     inv_freq = 1.0 / (base ** (torch.arange(0, rotary_dim, 2, dtype=torch.float32) / rotary_dim))
     if low_freq_factor is not None:
         if high_freq_factor is None or original_max_position is None:

@@ -1366,6 +1366,11 @@ def mla_qkv(gen, b, s, skv, h=16):
     return q, kv[:, :, None].contiguous(), v[:, :, None].contiguous()
 
 
+def halves(q):
+    """q's latent and rope columns as the MLA entries take them."""
+    return q[..., :512].contiguous(), q[..., 512:].contiguous()
+
+
 @pytest.mark.parametrize("n", [1, 255, 256, 257])
 def test_flash_576_causal(gen, n):
     """K7 at head dim 576 (the MLA prefill: 16 heads over one latent head,
@@ -1413,6 +1418,136 @@ def test_packed_576_group16(gen, n):
     q, k, _ = qkv
     v = torch.nn.functional.pad(k[..., :512], (0, 64)).contiguous()
     check_packed((q, k, v), ints, meta, lens, 4, 16)
+
+
+@pytest.mark.parametrize("n", [1, 3, 4, 5, 63, 64, 65, 255, 257])
+@pytest.mark.parametrize("h", [16, 4])
+def test_flash_576_tile_rows(gen, n, h):
+    """K7's 576 tile at q lengths whose 64-row tiles (4 positions of 16
+    heads, or 16 of 4) straddle positions and the causal diagonal: sequence
+    0 attends n queries over n keys, sequence 1 n queries as the last n of
+    n + 70 keys (kv_len off the multiples of 64), with lse. The MLA form (V
+    = K's first 512 columns, 512 wide) against its twin; the public form
+    with a padded V equal to it, bit for bit, in the first 512 columns and
+    zero past them."""
+    q, k, v = mla_qkv(gen, 2, n, n + 70, h)
+    ql, kl, qs, ks = int_lens([n, n], [n, n + 70], [0, 70], [0, 0])
+    fa = flash_prefill.flash_attention
+    before = (fa.launches, fa.launches_576)
+    out, lse = flash_prefill.flash_attention_mla(*halves(q), k, ql, kl, qs, ks, causal=True, sm_scale=0.06, return_lse=True)
+    assert (fa.launches, fa.launches_576) == (before[0] + 1, before[1] + 1)
+    assert out.shape == (2, n, h, 512) and lse.shape == (2, h, n)
+    ref, ref_lse = flash_prefill.flash_attention_mla_ref(*halves(q), k, ql, kl, qs, ks, causal=True, sm_scale=0.06,
+                                                         return_lse=True)
+    assert_elementwise(out, ref)
+    assert_elementwise(lse, ref_lse)
+    pub, pub_lse = flash_prefill.flash_attention(q, k, v, ql, kl, None, qs, ks, causal=True, sm_scale=0.06,
+                                                 return_lse=True)
+    assert torch.equal(pub[..., :512], out) and not pub[..., 512:].any() and torch.equal(pub_lse, lse)
+
+
+@pytest.mark.parametrize("h", [16, 4])
+def test_flash_576_prefix_pass_keyless_and_unread(gen, h):
+    """The prefix pass of an extend at 576 in the MLA form: every query row
+    sees its sequence's whole prefix (130 keys, 1, none: o = 0 and lse
+    -1e30 * log2(e), padding rows too), and key rows at or past kv_len
+    filled with NaN give the same output and lse, bit for bit, as those rows
+    zeroed: the tile neither reads nor attends them."""
+    q, k, _ = mla_qkv(gen, 3, 70, 130, h)
+    ql, pre, zero = int_lens([70, 33, 5], [130, 1, 0], [0, 0, 0])
+    runs = []
+    for fill in (0.0, float("nan")):
+        kf = k.clone()
+        for i, m in enumerate(pre.tolist()):
+            kf[i, m:] = fill
+        runs.append(flash_prefill.flash_attention_mla(*halves(q), kf, ql, pre, pre, zero, causal=True, return_lse=True))
+        if not runs[1:]:
+            ref, ref_lse = flash_prefill.flash_attention_mla_ref(*halves(q), kf, ql, pre, pre, zero, causal=True,
+                                                                 return_lse=True)
+    (out, lse), (out1, lse1) = runs
+    assert torch.equal(out, out1) and torch.equal(lse, lse1)
+    for i, m in enumerate(ql.tolist()[:2]):
+        assert_elementwise(out[i, :m], ref[i, :m])
+        assert_elementwise(lse[i, :, :m], ref_lse[i, :, :m])
+    assert not out[2].any() and is_empty_lse(lse[2])
+
+
+@pytest.mark.parametrize("sq,prefix", [(1024, 0), (1024, 5120)])
+def test_flash_576_long(gen, sq, prefix):
+    """K7's 576 tile at the main path's long shapes in the MLA form with
+    lse: a 1,024-token causal prefill, and wave D's last prefix pass (1,024
+    queries over 5,120 prefix keys, all visible: 80 key tiles through the
+    ring)."""
+    q, k, _ = mla_qkv(gen, 1, sq, prefix or sq)
+    if prefix:
+        lens = int_lens([sq], [prefix], [prefix], [0])
+    else:
+        lens = int_lens([sq], [sq], [0], [0])
+    out, lse = flash_prefill.flash_attention_mla(*halves(q), k, *lens, causal=True, return_lse=True)
+    ref, ref_lse = flash_prefill.flash_attention_mla_ref(*halves(q), k, *lens, causal=True, return_lse=True)
+    assert torch.isfinite(out).all() and torch.isfinite(lse).all()
+    assert_elementwise(out, ref)
+    assert_elementwise(lse, ref_lse)
+
+
+@pytest.mark.parametrize("h", [16, 4])
+def test_packed_576_mla_form_padding(gen, h):
+    """K9's 576 tile in the MLA form over the engine's layout (a ragged
+    batch, padding blocks on the empty pseudo-sequence) against its twin;
+    the public form with a padded V equal to it, bit for bit, in the first
+    512 columns; NaN in every padding row of q and k and in every padding
+    block changes nothing, bit for bit; rows that see no key give zeros and
+    the twin's lse."""
+    lens = [16, 300, 1, 777, 65]
+    (q, k, _), ints, meta = packed_inputs(gen, lens, h, 1, 576, n_pad_blocks=3)
+    valid = torch.zeros(q.shape[0], dtype=torch.bool, device="cuda")
+    for t0, n in zip(meta["seq_tok0"].tolist(), lens):
+        valid[t0: t0 + n] = True
+    runs = []
+    for fill in (0.0, float("nan")):
+        qf, kf = q.clone(), k.clone()
+        qf[~valid], kf[~valid] = fill, fill
+        before = flash_packed.flash_attention_packed.launches_576
+        runs.append(flash_packed.flash_attention_packed_mla(*halves(qf), kf, *ints, max_kvb=8, return_lse=True))
+        assert flash_packed.flash_attention_packed.launches_576 == before + 1
+        if not runs[1:]:
+            qz, kz = qf, kf
+    (out, lse), (out1, lse1) = runs
+    assert torch.equal(out, out1) and torch.equal(lse, lse1)
+    ref, ref_lse = flash_packed.flash_attention_packed_mla_ref(*halves(qz), kz, *ints, max_kvb=8, return_lse=True)
+    for t0, n in zip(meta["seq_tok0"].tolist(), lens):
+        assert_elementwise(out[t0: t0 + n], ref[t0: t0 + n])
+        assert_elementwise(lse[:, t0: t0 + n], ref_lse[:, t0: t0 + n])
+    assert not out[~valid].any() and is_empty_lse(lse[:, ~valid])
+    v = torch.nn.functional.pad(kz[..., :512], (0, 64)).contiguous()
+    pub, pub_lse = flash_packed.flash_attention_packed(qz, kz, v, *ints, max_kvb=8, return_lse=True)
+    assert torch.equal(pub[..., :512], out) and not pub[..., 512:].any() and torch.equal(pub_lse, lse)
+
+
+def test_576_two_calls_and_graph_replay_bit_equal(gen):
+    """K7 (an extend's fresh pass at global offsets) and K9 (a packed batch
+    with a padding block) at 576 in the MLA form: a second call and a
+    CUDA-graph replay of both give the same bits."""
+    q, k, _ = mla_qkv(gen, 1, 300, 700)
+    lens = int_lens([300], [700], [400], [0])
+    (pq, pk, _), ints, _ = packed_inputs(gen, [90, 600, 17], 16, 1, 576, n_pad_blocks=1)
+    calls = [lambda: flash_prefill.flash_attention_mla(*halves(q), k, *lens, causal=True, return_lse=True),
+             lambda: flash_packed.flash_attention_packed_mla(*halves(pq), pk, *ints, max_kvb=4, return_lse=True)]
+    first = [t for c in calls for t in c()]
+    again = [t for c in calls for t in c()]
+    assert all(torch.equal(a, b) for a, b in zip(first, again))
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for c in calls:
+            c()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = [t for c in calls for t in c()]
+    graph.replay()
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, captured))
 
 
 def test_mla_decode_unsplit_grid(gen):

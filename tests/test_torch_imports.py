@@ -2,6 +2,9 @@
 package, no module of it imports them, and its entry points refuse to run
 on a machine without a card unless the CPU is asked for."""
 
+import importlib
+import inspect
+import pkgutil
 import re
 import subprocess
 import sys
@@ -50,6 +53,31 @@ def test_entry_points_need_a_card_by_default():
         skt.Engine(skt.MixtralConfig.tiny())
     with pytest.raises(RuntimeError, match="no CUDA device"):
         skt.Engine(skt.DeepseekConfig.tiny(nsa=True, idx_dim=32))
+
+
+def test_device_parameters_default_to_the_card():
+    """Every public function of the port (and public method or constructor
+    of its classes) that takes a ``device`` with a default defaults to
+    "cuda": the CPU runs only when the caller names it."""
+    found, bad = [], []
+    for info in pkgutil.walk_packages(skt.__path__, "sgl_kernel_tpu_torch."):
+        mod = importlib.import_module(info.name)
+        for name, obj in vars(mod).items():
+            if name.startswith("_") or getattr(obj, "__module__", None) != mod.__name__:
+                continue
+            fns = [(name, obj)] if inspect.isfunction(obj) else []
+            if inspect.isclass(obj):
+                fns += [(f"{name}.{k}", getattr(v, "__func__", v)) for k, v in vars(obj).items()
+                        if (k == "__init__" or not k.startswith("_"))
+                        and (inspect.isfunction(v) or isinstance(v, (classmethod, staticmethod)))]
+            for label, fn in fns:
+                p = inspect.signature(fn).parameters.get("device")
+                if p is not None and p.default is not inspect.Parameter.empty:
+                    found.append(label)
+                    if p.default != "cuda":
+                        bad.append(f"{info.name}.{label}: device={p.default!r}")
+    assert not bad, bad
+    assert "compute_cos_sin_cache" in found and "Engine.__init__" in found
 
 
 def test_unserved_engine_arguments_raise():

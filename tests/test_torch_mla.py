@@ -224,6 +224,42 @@ def test_mla_prefill(offsets):
         np.testing.assert_allclose(tl.numpy()[i, :, :n], np.asarray(jl)[i, :, :n], rtol=1e-5, atol=1e-4)
 
 
+@pytest.mark.parametrize("offsets", [False, True])
+@pytest.mark.parametrize("h", [16, 4])
+def test_flash_attention_mla_twin(offsets, h):
+    """K7's MLA entry (V the first 512 columns of the latent K, 512-wide
+    output) on the CPU, its plain twin, against JAX's ``mla_prefill`` (V the
+    latent zero-padded to 576, sliced back) on the same bytes: causal over the
+    fresh latents, then the extend form at global offsets and a prefix pass
+    in which one sequence has no prefix (o = 0, lse -1e30 * log2(e) on the
+    port's side); float32, 2e-5 of the scale, lse 1e-4."""
+    from sgl_kernel_tpu_torch.ops.attention import flash_prefill
+
+    rng = np.random.default_rng(14)
+    b, s, skv = 2, 24, 40 if offsets else 24
+    q_nope = (rng.standard_normal((b, s, h, 512)) * 0.3).astype(np.float32)
+    q_pe = (rng.standard_normal((b, s, h, 64)) * 0.3).astype(np.float32)
+    kv = (rng.standard_normal((b, skv, 576)) * 0.5).astype(np.float32)
+    q_lens = np.array([24, 9], np.int32)
+    kv_lens = np.array([40, 0], np.int32) if offsets else q_lens
+    kw = dict(q_start=np.array([40, 0], np.int32), kv_start=np.array([0, 0], np.int32)) if offsets else {}
+    jo, jl = jmla.mla_prefill(jnp.asarray(q_nope), jnp.asarray(q_pe), jnp.asarray(kv), jnp.asarray(q_lens),
+                              jnp.asarray(kv_lens), sm_scale=0.08, return_lse=True,
+                              **{k: jnp.asarray(v) for k, v in kw.items()})
+    args = (t_(q_nope), t_(q_pe), t_(kv)[:, :, None], t_(q_lens), t_(kv_lens),
+            *(t_(kw[k]) if kw else None for k in ("q_start", "kv_start")))
+    for fn in (flash_prefill.flash_attention_mla, flash_prefill.flash_attention_mla_ref):
+        to, tl = fn(*args, causal=True, sm_scale=0.08, return_lse=True)
+        assert to.shape == (b, s, h, 512) and tl.shape == (b, h, s)
+        for i, n in enumerate(q_lens):
+            if kv_lens[i] == 0:  # no key: the port's convention, not compared with JAX
+                assert not to[i].any() and torch.all(tl[i] == np.float32(-1e30 * flash_prefill.LOG2E))
+                continue
+            close(to[i, :n], np.asarray(jo)[i, :n], 2e-5)
+            np.testing.assert_allclose(tl.numpy()[i, :, :n], np.asarray(jl)[i, :, :n], rtol=1e-5, atol=1e-4)
+    assert flash_prefill.flash_attention.launches_576 == 0  # CPU tensors: the twin, no launch
+
+
 @pytest.mark.parametrize("t,dtype", [(1, "f32"), (5, "bf16"), (64, "f32")])
 def test_mla_qkv_prep_twin(t, dtype):
     rng = np.random.default_rng(13)

@@ -164,6 +164,36 @@ def test_packed_padding_pseudo_sequence(rng):
                                        block=2 * BLOCK)
 
 
+def test_packed_576_group16(rng):
+    """K9 at head dim 576, DeepSeek's packed MLA prefill: 16 heads over one
+    latent KV head, two prompts and a padding block, V the latent's first
+    512 columns zero-padded to 576 on JAX's side. The public twin against
+    the Pallas kernel in interpret mode on the same bytes, and the MLA
+    entry (V read as K's first 512 columns, 512-wide output) and its twin
+    equal to the public twin's first 512 columns; float32 (F32: another
+    summation order), lse to 1e-4."""
+    q_lens = [150, 37]
+    qkv, ints, meta = packed_case(rng, q_lens, None, 16, 1, 576, n_pad_blocks=1)
+    (qj, qt), (kj, kt), _ = qkv
+    vj = jnp.pad(kj[..., :512], ((0, 0), (0, 0), (0, 64)))
+    vt = torch.nn.functional.pad(kt[..., :512], (0, 64))
+    (bsj, bst), (b0j, b0t), (smj, smt) = ints
+    kw = dict(max_kvb=4, causal=True, sm_scale=0.05, return_lse=True, block=BLOCK)
+    ro, rl = jpacked.flash_attention_packed(qj, kj, vj, bsj, b0j, smj, **kw)
+    oo, ol = tpacked.flash_attention_packed(qt, kt, vt, bst, b0t, smt, **kw)
+    rows = valid_rows(q_lens, meta)
+    close(np.asarray(ro)[rows], oo[rows], **F32)
+    np.testing.assert_allclose(np.asarray(rl)[:, rows], ol[:, rows].numpy(), rtol=1e-5, atol=1e-4)
+    assert not oo[~torch.from_numpy(np.isin(np.arange(oo.shape[0]), rows))].any()
+    for fn in (tpacked.flash_attention_packed_mla, tpacked.flash_attention_packed_mla_ref):
+        mo, ml = fn(qt[..., :512], qt[..., 512:], kt, bst, b0t, smt, **kw)
+        assert mo.shape == (oo.shape[0], 16, 512)
+        # the same sums over 512 instead of 576 value columns: at most another summation order
+        torch.testing.assert_close(mo, oo[..., :512], rtol=1e-6, atol=1e-6)
+        torch.testing.assert_close(ml, ol, rtol=1e-6, atol=1e-6)
+    assert tpacked.flash_attention_packed.launches_576 == 0  # CPU tensors: the twins, no launch
+
+
 @pytest.mark.parametrize("hq,hkv", [(4, 4), (4, 1)])
 def test_flash_prefill_lse(rng, hq, hkv):
     """K7's twin: the base-2 lse of the extend passes against JAX

@@ -56,6 +56,19 @@ replayed, so the host launch path is not measured):
   experts, top-2, 4,096 -> 28,672) at 1,024 (bm 64 and 128) and 16,384
   (bm 128); each beside K12 (``bf16_grouped_mm``) on a bf16 bank of the
   same shape (``_k12`` rows); CUDA-graph ms;
+- k79m: K7 and K9 at head dim 576, DeepSeek-V2-Lite's MLA prefill (16
+  heads over one latent head, sm_scale 1/sqrt(192)), each through the
+  function the model calls (``mla.mla_prefill``, ``deepseek._mla_attend_packed``:
+  on a tree without the MLA form they pad V to 576 and slice the output)
+  and through the public ``flash_attention`` / ``flash_attention_packed``
+  with a padded V (``_public`` rows): a causal 1,024-token prefill, the
+  extend pair 512 over 512 with lse, wave D's last prefix pass (1,024
+  queries over 5,120 prefix keys, all visible, lse) and wave A's packing
+  (16 prompts of 16..1,024 tokens, block 256); CUDA-graph ms, event ms
+  (``_event`` rows) beside the longer ones, the bound (``_bound``: max of
+  operations at 4 x 16 x 576 a visible pair over the bf16 peak and bytes
+  over 3.35 TB/s), and SDPA as the yardstick (``_sdpa``: padded V, the
+  extend mask, jagged nested tensors for the packing);
 - floor: one empty kernel (``torch.cuda._sleep(0)``) a graph node, the
   least a kernel of the decode step costs on the device.
 K13a and K15 rows are timed warm (the same inputs call after call) and cold
@@ -80,14 +93,14 @@ import subprocess
 import sys
 from pathlib import Path
 
-GROUPS = ("k5", "k1", "k13a", "k13b", "k15", "k16", "k17", "k18", "k19", "k1p", "k11p", "floor")
+GROUPS = ("k5", "k1", "k13a", "k13b", "k15", "k16", "k17", "k18", "k19", "k1p", "k11p", "k79m", "floor")
 # the sources a group may launch (those a tree lacks are skipped: K13b had a
 # source of its own before it moved onto K13a's kernel)
 SOURCES = {"k5": ("decode_attention",), "k1": ("w4a16_decode", "w4a16_gemm"), "k13a": ("mla_decode",),
            "k13b": ("mla_decode", "mla_decode_dma"), "k15": ("mqa_logits",), "k16": ("sparse_vs",),
            "k17": ("blockwise_fp8",), "k18": ("blockwise_fp8",), "k19": ("qserve_gemm",),
            "k1p": ("w4a16_wgmma", "w4a16_gemm"), "k11p": ("w4a16_wgmma", "grouped_gemm", "bf16_grouped_gemm"),
-           "floor": ()}
+           "k79m": ("flash_prefill", "flash_packed"), "floor": ()}
 COLD_BYTES = 150e6  # three times the 50 MB L2
 
 
@@ -462,9 +475,107 @@ def main(root: Path, groups) -> None:
                     del x
             banks.clear()
             torch.cuda.empty_cache()
+    if "k79m" in groups:
+        k79m(torch, res, randn, graph_ms, event_ms, dev)
     if "floor" in groups:
         res["floor_empty_kernel"] = graph_ms(lambda: torch.cuda._sleep(0), reps=100)
     print(json.dumps(res), flush=True)
+
+
+def k79m(torch, res, randn, graph_ms, event_ms, dev):
+    """The k79m group (module docstring)."""
+    from types import SimpleNamespace
+
+    from sgl_kernel_tpu_torch.models import deepseek
+    from sgl_kernel_tpu_torch.ops.attention import flash_packed, flash_prefill, mla
+    from sgl_kernel_tpu_torch.serving.engine import packed_layout
+
+    F = torch.nn.functional
+    nh, sm = 16, 1.0 / 192 ** 0.5
+    flops = lambda pairs: 4 * nh * 576 * pairs
+
+    def bound(n_bytes, pairs):
+        return 1e3 * max(n_bytes / 3.35e12, flops(pairs) / 989e12)
+
+    def i32(*v):
+        return torch.tensor(v, dtype=torch.int32, device=dev)
+
+    def rows(name, path, public, sdpa, pairs, n_bytes, event_iters=0):
+        res[name] = graph_ms(path, reps=5 if event_iters else 20)
+        res[f"{name}_tflops"] = flops(pairs) / res[name] / 1e9
+        res[f"{name}_public"] = graph_ms(public, reps=5 if event_iters else 20)
+        if event_iters:
+            res[f"{name}_event"] = event_ms(path, event_iters)
+        try:  # the yardstick, where this torch computes it
+            res[f"{name}_sdpa"] = event_ms(sdpa, 5) if event_iters else graph_ms(sdpa)
+        except Exception as e:
+            torch.cuda.synchronize()
+            res[f"{name}_sdpa"] = f"{type(e).__name__}: {str(e).splitlines()[0][:100]}"
+        res[f"{name}_bound"] = bound(n_bytes, pairs)
+
+    def pad(kv):
+        return F.pad(kv[..., :512], (0, 64))
+
+    # 1,024-token causal prefill
+    s = 1024
+    qn, qp, kv = randn(1, s, nh, 512, scale=0.3), randn(1, s, nh, 64, scale=0.3), randn(1, s, 576)
+    q, k4 = torch.cat([qn, qp], -1), kv[:, :, None]
+    v4 = pad(k4)
+    ql = i32(s)
+    qt, kt, vt = q.transpose(1, 2), k4.transpose(1, 2), v4.transpose(1, 2)
+    rows("k79m_causal1024", lambda: mla.mla_prefill(qn, qp, kv, ql, ql, sm_scale=sm),
+         lambda: flash_prefill.flash_attention(q, k4, v4, ql, ql, causal=True, sm_scale=sm),
+         lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, scale=sm, enable_gqa=True),
+         s * (s + 1) // 2, (s * nh * 576 + s * 576) * 2 + s * nh * 512 * 2)
+    # the extend pair: 512 fresh rows over a 512-row prefix, with lse
+    s = pre = 512
+    qn, qp = randn(1, s, nh, 512, scale=0.3), randn(1, s, nh, 64, scale=0.3)
+    kv1, kv2 = randn(1, s, 576), randn(1, pre, 576)
+    q = torch.cat([qn, qp], -1)
+    k1, k2 = kv1[:, :, None], kv2[:, :, None]
+    v1, v2 = pad(k1), pad(k2)
+    ql, pl_, zero = i32(s), i32(pre), i32(0)
+    kw = dict(sm_scale=sm, return_lse=True)
+    qt = q.transpose(1, 2)
+    kt, vt = torch.cat([k2, k1], 1).transpose(1, 2), torch.cat([v2, v1], 1).transpose(1, 2)
+    mask = torch.arange(pre + s, device=dev)[None, :] <= (pre + torch.arange(s, device=dev))[:, None]
+    rows("k79m_extend512",
+         lambda: (mla.mla_prefill(qn, qp, kv1, ql, ql, q_start=pl_, kv_start=pl_, **kw),
+                  mla.mla_prefill(qn, qp, kv2, ql, pl_, q_start=pl_, kv_start=zero, **kw)),
+         lambda: (flash_prefill.flash_attention(q, k1, v1, ql, ql, None, pl_, pl_, causal=True, **kw),
+                  flash_prefill.flash_attention(q, k2, v2, ql, pl_, None, pl_, zero, causal=True, **kw)),
+         lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask, scale=sm, enable_gqa=True),
+         s * (s + 1) // 2 + s * pre, (s * nh * 576 + (s + pre) * 576) * 2 + 2 * (s * nh * 512 * 2 + nh * s * 4))
+    # wave D's last prefix pass: 1,024 queries over 5,120 prefix keys, all visible
+    s, pre = 1024, 5120
+    qn, qp, kv = randn(1, s, nh, 512, scale=0.3), randn(1, s, nh, 64, scale=0.3), randn(1, pre, 576)
+    q, k4 = torch.cat([qn, qp], -1), kv[:, :, None]
+    v4 = pad(k4)
+    ql, pl_ = i32(s), i32(pre)
+    qt, kt, vt = q.transpose(1, 2), k4.transpose(1, 2), v4.transpose(1, 2)
+    rows("k79m_prefix5120", lambda: mla.mla_prefill(qn, qp, kv, ql, pl_, q_start=pl_, kv_start=zero, **kw),
+         lambda: flash_prefill.flash_attention(q, k4, v4, ql, pl_, None, pl_, zero, causal=True, **kw),
+         lambda: F.scaled_dot_product_attention(qt, kt, vt, scale=sm, enable_gqa=True),
+         s * pre, (s * nh * 576 + pre * 576) * 2 + s * nh * 512 * 2 + nh * s * 4, event_iters=10)
+    # wave A's packing through K9
+    lens = [16 + (1008 * i) // 15 for i in range(16)]
+    blk_seq, blk_q0, seq_meta, tok0, tp, max_kvb = packed_layout(lens, 17)
+    ints = [torch.from_numpy(a).to(dev) for a in (blk_seq, blk_q0, seq_meta)]
+    q_lat, q_pe, kv_row = randn(tp, nh, 512, scale=0.3), randn(tp, nh, 64, scale=0.3), randn(tp, 576)
+    cfg = SimpleNamespace(num_heads=nh, qk_nope_dim=128)
+    q, k3 = torch.cat([q_lat, q_pe], -1), kv_row[:, None]
+    v3 = pad(k3)
+    idx = torch.cat([torch.arange(t0, t0 + n, device=dev) for t0, n in zip(tok0, lens)])
+    offsets = torch.tensor([0] + [sum(lens[:i + 1]) for i in range(len(lens))], device=dev)
+    njt = [torch.nested.nested_tensor_from_jagged(x[idx], offsets).transpose(1, 2)
+           for x in (q, k3.expand(-1, nh, -1), v3.expand(-1, nh, -1))]
+    n_tok = sum(lens)
+    rows("k79m_packed_wave_a",
+         lambda: deepseek._mla_attend_packed(q_lat, q_pe, kv_row, *ints, cfg, tp, max_kvb),
+         lambda: flash_packed.flash_attention_packed(q, k3, v3, *ints, max_kvb=max_kvb, causal=True, sm_scale=sm),
+         lambda: F.scaled_dot_product_attention(*njt, is_causal=True, scale=sm),
+         sum(n * (n + 1) // 2 for n in lens), n_tok * (nh + 1) * 576 * 2 + tp * nh * 512 * 2, event_iters=10)
+    torch.cuda.empty_cache()
 
 
 if __name__ == "__main__":
