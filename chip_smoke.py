@@ -1468,8 +1468,9 @@ def report_row(torch, name, row, dev_fn=None, work=None):
         row.update(tflops=n_ops / t / 1e9, gbs=n_bytes / t / 1e6)
         if row["library_ms"] is not None:
             row["library_tflops"] = n_ops / row["library_ms"] / 1e9
-    extra = "".join(f" {key}={row[key]:.4f}" for key in ("graph_ms", "cold_ms", "library_graph_ms", "tflops", "gbs",
-                                                          "library_tflops", "k13a_graph_ms") if row.get(key) is not None)
+    extra = "".join(f" {key}={row[key]:.4f}" for key in ("graph_ms", "cold_ms", "public_ms", "library_graph_ms", "tflops",
+                                                          "gbs", "library_tflops", "k13a_graph_ms")
+                    if row.get(key) is not None)
     log(f"[kernel] {name}: ms={row['ms']:.4f}{extra} plain_ms={row['plain_ms']:.4f} library_ms={lib} "
         f"bound_ms={row['bound_ms']:.4f} ({row['bound_by']}) {row.get('library_note', '')}")
     return row
@@ -1689,7 +1690,9 @@ def phase_deepseek_kernels(torch, skt):
     # K7 at 576 through the MLA form the model calls (q's latent and rope
     # columns apart, V = the latent's first 512 columns, 512 wide): the two
     # extend passes of prefill_extend, 512 fresh latent rows over a 512-row
-    # prefix, with lse; the public form with a padded V held to its own twin
+    # prefix, with lse; the public form with a padded V held to its own twin.
+    # The MLA form's work is 2 x 16 x (576 + 512) a visible pair: S over 576
+    # columns, P V over the 512 of V
     s = pre = 512
     q = randn(1, s, nh, 576, scale=0.3)
     qn, qp = q[..., :512].contiguous(), q[..., 512:].contiguous()
@@ -1713,7 +1716,7 @@ def phase_deepseek_kernels(torch, skt):
           list(zip(public(flash_prefill.flash_attention), public(flash_prefill.flash_attention_ref))))
     pairs_ext = s * (s + 1) // 2 + s * pre
     n_bytes = (s * nh * 576 + (s + pre) * 576) * 2 + 2 * (s * nh * 512 * 2 + nh * s * 4)
-    bms, bby = bound_ms(n_bytes, 4 * nh * 576 * pairs_ext, BF16_FLOPS)
+    bms, bby = bound_ms(n_bytes, 2 * nh * (576 + 512) * pairs_ext, BF16_FLOPS)
     qt = q.transpose(1, 2)
     kt, vt = (torch.cat([a, c], 1).transpose(1, 2) for a, c in ((k2, k1), (v2, v1)))
     mask = torch.arange(pre + s, device=dev)[None, :] <= (pre + torch.arange(s, device=dev))[:, None]
@@ -1723,7 +1726,7 @@ def phase_deepseek_kernels(torch, skt):
         max_abs_err=err, ms=time_ms(torch, fn), public_ms=time_ms(torch, lambda: public(flash_prefill.flash_attention)),
         plain_ms=time_ms(torch, lambda: passes(flash_prefill.flash_attention_mla_ref), iters=3),
         library_ms=time_ms(torch, lib_fn), library_note="SDPA with the extend mask: the merged output, no lse",
-        bound_ms=bms, bound_by=bby), fn, (4 * nh * 576 * pairs_ext, n_bytes))
+        bound_ms=bms, bound_by=bby), fn, (2 * nh * (576 + 512) * pairs_ext, n_bytes))
 
     # K7 at 576: wave D's last prefix pass, 1,024 queries over 5,120 prefix
     # keys, all visible, with lse (the MLA form)
@@ -1738,7 +1741,7 @@ def phase_deepseek_kernels(torch, skt):
     err = check("flash_attention_mla 576 lse, prefix pass 1,024 over 5,120", [(out, ref), (lse, ref_lse)])
     del ref, ref_lse
     n_bytes = (s * nh * 576 + pre * 576) * 2 + s * nh * 512 * 2 + nh * s * 4
-    bms, bby = bound_ms(n_bytes, 4 * nh * 576 * s * pre, BF16_FLOPS)
+    bms, bby = bound_ms(n_bytes, 2 * nh * (576 + 512) * s * pre, BF16_FLOPS)
     qt = torch.cat([qn, qp], -1).transpose(1, 2)
     kt, vt = kv.transpose(1, 2), F.pad(kv[..., :512], (0, 64)).transpose(1, 2)
     lib_fn = lambda: F.scaled_dot_product_attention(qt, kt, vt, scale=sm, enable_gqa=True)
@@ -1747,11 +1750,12 @@ def phase_deepseek_kernels(torch, skt):
         plain_ms=time_ms(torch, lambda: flash_prefill.flash_attention_mla_ref(qn, qp, kv, ql, pl_, pl_, zero, **kw),
                          iters=2, warmup=1),
         library_ms=time_ms(torch, lib_fn, iters=5), library_note="SDPA over the 5,120 keys, V padded to 576, no lse",
-        bound_ms=bms, bound_by=bby), fn, (4 * nh * 576 * s * pre, n_bytes))
+        bound_ms=bms, bound_by=bby), fn, (2 * nh * (576 + 512) * s * pre, n_bytes))
     del qn, qp, kv, qt, kt, vt, out, lse
 
     # K9 at 576 through the MLA form: wave A's packing (16 prompts of
-    # 16..1024 tokens, block 256)
+    # 16..1024 tokens, block 256); the public form with a padded V held to
+    # its own twin
     lens = serve_lens(16)
     blk_seq, blk_q0, seq_meta, tok0, tp, max_kvb = packed_layout(lens, 17)
     ints = [torch.from_numpy(a).to(dev) for a in (blk_seq, blk_q0, seq_meta)]
@@ -1765,19 +1769,27 @@ def phase_deepseek_kernels(torch, skt):
     for t0, n in zip(tok0, lens):
         pairs += [(out[t0: t0 + n], ref[t0: t0 + n]), (lse[:, t0: t0 + n], ref_lse[:, t0: t0 + n])]
     err = check(f"flash_attention_packed_mla 576 [{tp} tokens, 16 prompts, lse]", pairs)
+    v = F.pad(k[..., :512], (0, 64))
+    public_fn = lambda: flash_packed.flash_attention_packed(q, k, v, *ints, **kw)
+    out_p, lse_p = public_fn()
+    ref_p, ref_lse_p = flash_packed.flash_attention_packed_ref(q, k, v, *ints, **kw)
+    pairs = []
+    for t0, n in zip(tok0, lens):
+        pairs += [(out_p[t0: t0 + n], ref_p[t0: t0 + n]), (lse_p[:, t0: t0 + n], ref_lse_p[:, t0: t0 + n])]
+    check(f"flash_attention_packed 576 public form (padded V) [{tp} tokens, 16 prompts, lse]", pairs)
+    del out_p, lse_p, ref_p, ref_lse_p, pairs
     n_tok = sum(lens)
     pairs_a = sum(n * (n + 1) // 2 for n in lens)
     n_bytes = n_tok * (nh + 1) * 576 * 2 + tp * nh * 512 * 2 + nh * tp * 4
-    bms, bby = bound_ms(n_bytes, 4 * nh * 576 * pairs_a, BF16_FLOPS)
-    v = F.pad(k[..., :512], (0, 64))
+    bms, bby = bound_ms(n_bytes, 2 * nh * (576 + 512) * pairs_a, BF16_FLOPS)
     lib_fn, lib_note = packed_library(torch, F, q, k, v, lens, tok0, F.pad(ref, (0, 64)), scale=sm)
     log(f"[kernel] flash_attention_packed 576 library: {lib_note}")
     report("flash_attention_packed_576", dict(
-        max_abs_err=err, ms=time_ms(torch, fn),
+        max_abs_err=err, ms=time_ms(torch, fn), public_ms=time_ms(torch, public_fn),
         plain_ms=time_ms(torch, lambda: flash_packed.flash_attention_packed_mla_ref(qn, qp, k, *ints, **kw), iters=2,
                          warmup=1),
         library_ms=None if lib_fn is None else time_ms(torch, lib_fn), library_note=lib_note,
-        bound_ms=bms, bound_by=bby), fn, (4 * nh * 576 * pairs_a, n_bytes))
+        bound_ms=bms, bound_by=bby), fn, (2 * nh * (576 + 512) * pairs_a, n_bytes))
     return rows
 
 
@@ -3616,7 +3628,7 @@ def main():
             kernels[-1]["launches_by_head_dim"] = {"64/128": kernels[-1]["launches"] - at576, "576": at576}
             r576 = rows["flash_attention_576_lse" if name == "flash_attention" else "flash_attention_packed_576"]
             kernels[-1]["head_dim_576"] = {key: r576.get(key) for key in (
-                "max_abs_err", "ms", "graph_ms", "tflops", "plain_ms", "bound_ms", "bound_by", "library_ms")}
+                "max_abs_err", "ms", "graph_ms", "tflops", "public_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
         if name in sources:  # launches by kernel, and the prefill row's numbers beside the decode row's
             kernels[-1]["sources"] = sources[name]
             kernels[-1]["launches_by_kernel"] = {

@@ -76,7 +76,7 @@ __global__ void __launch_bounds__(skt::kFlashThreads) packed_kernel(
 
 struct alignas(64) Args576 {
   CUtensorMap tk, tv;  // k / v as [TPkv][Hkv * 576], boxes of 64 columns x 64 keys, 128-byte swizzle
-  const bf16 *q, *q_pe, *k, *v;  // q_pe: q's rope columns (null: q is 576 wide)
+  const bf16 *q, *q_pe, *k, *v;  // q_pe: q's rope columns in the MLA form (v null), else null
   const int *blk_seq, *blk_q0, *seq_meta;
   bf16* out;
   float* lse;
@@ -116,7 +116,7 @@ __global__ void __launch_bounds__(skt::kMfThreads, 1) packed576_kernel(const __g
     return ((long long)nb * a.block + (r0 + r) / group) * a.n_q_heads + hk * group + (r0 + r) % group;
   };
   const auto rows = skt::mf_rows(
-      [&](int r, int ch) { return skt::mf_q_chunk(a.q, a.q_pe, row_of(r), ch); }, limit,
+      [&](int r, int ch) { return skt::mf_q_chunk<!SEP_V>(a.q, a.q_pe, row_of(r), ch); }, limit,
       [&](int r) -> bf16* { return a.out + row_of(r) * DV; },
       [&](int r) -> float* {
         if (a.lse == nullptr) return nullptr;
@@ -164,11 +164,11 @@ int launch_packed(cudaStream_t st, const bf16* q, const bf16* k, const bf16* v, 
 }  // namespace
 
 // Supported: head_dim 64, 128 or 576 (576: Hq / Hkv dividing 16 or a
-// multiple of 16; v null for the MLA form, V = K's first 512 columns and
-// out [TPq, Hq, 512]; q_pe not null: q holds the latent's 512 columns and
-// q_pe [TPq, Hq, 64] the rope's), bf16, Hq a multiple of Hkv, block a
-// multiple of 64. tp = NQB * block; tp_kv = k's packed rows. lse and q_pe
-// may be null.
+// multiple of 16; the MLA form: v null, V = K's first 512 columns, out
+// [TPq, Hq, 512], q the latent's 512 columns and q_pe [TPq, Hq, 64] the
+// rope's; otherwise q_pe null), bf16, Hq a multiple of Hkv, block a
+// multiple of 64. tp = NQB * block; tp_kv = k's packed rows. lse may be
+// null.
 extern "C" int skt_flash_packed(
     const void* q, const void* q_pe, const void* k, const void* v, const void* blk_seq, const void* blk_q0,
     const void* seq_meta, void* out, void* lse, int nqb, int block, int n_q_heads,
@@ -189,7 +189,8 @@ extern "C" int skt_flash_packed(
     }
     case 576: {
       const int group = n_q_heads / n_kv_heads;
-      if ((16 % group && group % 16) || tp_kv <= 0) return (int)cudaErrorInvalidValue;
+      if ((16 % group && group % 16) || tp_kv <= 0 || (v == nullptr) != (q_pe != nullptr))
+        return (int)cudaErrorInvalidValue;
       Args576 a{};
       a.q = (const bf16*)q, a.q_pe = (const bf16*)q_pe, a.k = (const bf16*)k, a.v = (const bf16*)v;
       a.blk_seq = (const int*)blk_seq, a.blk_q0 = (const int*)blk_q0, a.seq_meta = (const int*)seq_meta;

@@ -76,7 +76,7 @@ __global__ void __launch_bounds__(skt::kFlashThreads) flash_kernel(
 
 struct alignas(64) Args576 {
   CUtensorMap tk, tv;  // k / v as [B * Skv][Hkv * 576], boxes of 64 columns x 64 keys, 128-byte swizzle
-  const bf16 *q, *q_pe, *k, *v;  // q_pe: q's rope columns (null: q is 576 wide)
+  const bf16 *q, *q_pe, *k, *v;  // q_pe: q's rope columns in the MLA form (v null), else null
   const int* lens;
   bf16* out;
   float* lse;
@@ -111,7 +111,7 @@ __global__ void __launch_bounds__(skt::kMfThreads, 1) flash576_kernel(const __gr
     return ((long long)b * a.sq + (r0 + r) / group) * a.n_q_heads + hk * group + (r0 + r) % group;
   };
   const auto rows = skt::mf_rows(
-      [&](int r, int ch) -> const bf16* { return r < n_rows ? skt::mf_q_chunk(a.q, a.q_pe, row_of(r), ch) : nullptr; },
+      [&](int r, int ch) -> const bf16* { return r < n_rows ? skt::mf_q_chunk<!SEP_V>(a.q, a.q_pe, row_of(r), ch) : nullptr; },
       limit,
       [&](int r) -> bf16* { return r < n_rows ? a.out + row_of(r) * DV : nullptr; },
       [&](int r) -> float* {
@@ -159,10 +159,10 @@ int launch_flash(cudaStream_t st, const bf16* q, const bf16* k, const bf16* v, c
 }  // namespace
 
 // Supported: head_dim 64, 128 or 576 (576: Hq / Hkv dividing 16 or a
-// multiple of 16; v null for the MLA form, V = K's first 512 columns and
-// out [B, Sq, Hq, 512]; q_pe not null: q holds the latent's 512 columns
-// and q_pe [B, Sq, Hq, 64] the rope's), bf16, Hq a multiple of Hkv. lse and
-// q_pe may be null.
+// multiple of 16; the MLA form: v null, V = K's first 512 columns, out
+// [B, Sq, Hq, 512], q the latent's 512 columns and q_pe [B, Sq, Hq, 64] the
+// rope's; otherwise q_pe null), bf16, Hq a multiple of Hkv. lse may be
+// null.
 extern "C" int skt_flash_prefill(
     const void* q, const void* q_pe, const void* k, const void* v, const void* lens, void* out, void* lse,
     int batch, int sq, int skv, int n_q_heads, int n_kv_heads, int head_dim,
@@ -180,7 +180,7 @@ extern "C" int skt_flash_prefill(
     }
     case 576: {
       const int group = n_q_heads / n_kv_heads;
-      if (16 % group && group % 16) return (int)cudaErrorInvalidValue;
+      if ((16 % group && group % 16) || (v == nullptr) != (q_pe != nullptr)) return (int)cudaErrorInvalidValue;
       Args576 a{};
       a.q = (const bf16*)q, a.q_pe = (const bf16*)q_pe, a.k = (const bf16*)k, a.v = (const bf16*)v;
       a.lens = (const int*)lens;

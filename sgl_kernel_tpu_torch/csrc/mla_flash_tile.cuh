@@ -94,11 +94,12 @@ struct MfKeys {
   long long kv_stride;
 };
 
-// 8 q values of row `row` from column 8 ch: one 576-wide q, or (q_pe not
-// null) the latent's 512 columns in q and the rope's 64 in q_pe, so that
-// the caller builds no 576-wide copy
+// 8 q values of row `row` from column 8 ch: one 576-wide q, or (SPLIT_Q,
+// the MLA form) the latent's 512 columns in q and the rope's 64 in q_pe, so
+// that the caller builds no 576-wide copy
+template <bool SPLIT_Q>
 __device__ __forceinline__ const bf16* mf_q_chunk(const bf16* q, const bf16* q_pe, long long row, int ch) {
-  if (q_pe == nullptr) return q + row * kMfD + ch * 8;
+  if constexpr (!SPLIT_Q) return q + row * kMfD + ch * 8;
   return ch < 64 ? q + row * 512 + ch * 8 : q_pe + row * 64 + (ch - 64) * 8;
 }
 

@@ -66,8 +66,8 @@ replayed, so the host launch path is not measured):
   queries over 5,120 prefix keys, all visible, lse) and wave A's packing
   (16 prompts of 16..1,024 tokens, block 256); CUDA-graph ms, event ms
   (``_event`` rows) beside the longer ones, the bound (``_bound``: max of
-  operations at 4 x 16 x 576 a visible pair over the bf16 peak and bytes
-  over 3.35 TB/s), and SDPA as the yardstick (``_sdpa``: padded V, the
+  the MLA form's operations, 2 x 16 x (576 + 512) a visible pair, over the
+  bf16 peak and bytes over 3.35 TB/s; TFLOP/s at the same count), and SDPA as the yardstick (``_sdpa``: padded V, the
   extend mask, jagged nested tensors for the packing);
 - floor: one empty kernel (``torch.cuda._sleep(0)``) a graph node, the
   least a kernel of the decode step costs on the device.
@@ -492,7 +492,7 @@ def k79m(torch, res, randn, graph_ms, event_ms, dev):
 
     F = torch.nn.functional
     nh, sm = 16, 1.0 / 192 ** 0.5
-    flops = lambda pairs: 4 * nh * 576 * pairs
+    flops = lambda pairs: 2 * nh * (576 + 512) * pairs  # S over 576 columns, P V over 512
 
     def bound(n_bytes, pairs):
         return 1e3 * max(n_bytes / 3.35e12, flops(pairs) / 989e12)

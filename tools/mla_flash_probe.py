@@ -73,7 +73,7 @@ def main() -> None:
             ms = graph_ms(lambda: flash_prefill.flash_attention_mla(qn, qp, kv, ql, pl, pl, zero, sm_scale=sm,
                                                                     return_lse=True))
             res["rows"].append(dict(q=q_len, blocks=blocks, prefix=pre, tiles=pre // 64, ms=ms,
-                                    tflops=4 * nh * 576 * q_len * pre / ms / 1e9))
+                                    tflops=2 * nh * (576 + 512) * q_len * pre / ms / 1e9))
     for q_len in (1056, 528):
         pts = [(r["tiles"], r["ms"]) for r in res["rows"] if r["q"] == q_len]
         n = len(pts)
