@@ -42,8 +42,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
              (counts set to 0 just before it), K1 in prefill, decode and
              mixed steps, K5 on the int8 pool.
   5. profile the bf16 and the W4A16 engine: 16 prompts admitted again, 4
-             decode steps traced with torch.profiler; step time,
-             device-busy share and device time per kernel name.
+             decode steps traced with torch.profiler eagerly and 4 as graph
+             replays; step time, device-busy share, kernel and host
+             launches, device time per kernel name.
 Then the same phases for the DeepSeek path (DeepSeek-V2-Lite widths, W4A16,
 int8 latent pool): (2) the grouped W4A16 GEMM (K11) at the B=16 decode's
 gate_up and down and at a 1,024-token prefill, MLA decode (K13a) at B=16
@@ -154,8 +155,21 @@ CUDA-graph ms and TFLOP/s; the extend row also holds the public form with a
 padded V to its twin; the prefill profiles give the 576 tile's device ms as
 a group of its own; every DeepSeek and NSA wave that prefills must launch
 K7 or K9 at 576 (wave A the packed K9, waves B+C and D K7); the kernels
-line gives K7's and K9's 576 rows beside their 64 / 128 ones. Each phase
-prints its time ([time] lines).
+line gives K7's and K9's 576 rows beside their 64 / 128 ones. Slice 19
+(each engine's decode step as one captured CUDA graph, and decode_burst):
+phase 4's decode steps are graph replays (the graph captured at the
+engine's warm-up; a wave fails on any eager decode call or no replay), K1
+and K10 counted by regime around the engine's decode step, the replays'
+launches through the graph's tally, which must hold every kernel of the
+decode step; phase 5 traces 4 steps eager (``eng._eager_decode``) and 4
+graphed on the same batch, for every engine of phase 4 (the int8-KV and
+8-layer Mixtral engines added), with host launches a step, the replay's
+device ms by CUDA events, and one step's graphed logits against eager ones
+on the same inputs within the element-wise gate (``graph_vs_eager``); the
+burst phase (``phase_burst``) runs 16 greedy requests through the Llama
+W4A16 and DeepSeek W4A16 + int8 engines at decode_burst=8 and 1 on the same
+weights: ms per token, and identical tokens but for near ties within the
+gate. Each phase prints its time ([time] lines).
 
 Prints a JSON line of per-kernel numbers, then, last,
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -1039,13 +1053,17 @@ def instrument(eng):
     """Wrap one engine's programs to count K1 and K10 launches by regime
     (prefill programs, decode step, mixed step), the calls of each prefill program
     and the prompt tokens that mixed steps carry, and to keep each
-    request's first-token logits while ``stats["capture"]`` is set. Returns
-    the stats dict."""
+    request's first-token logits while ``stats["capture"]`` is set. The
+    decode regime is counted around the engine's decode step, so a graph
+    replay's launches come in through its tally (a replay does not call the
+    wrappers); ``eager_decode`` counts the adapter's decode calls, which on
+    the card run only to warm up and capture a graph (or under the A/B
+    switch ``eng._eager_decode``). Returns the stats dict."""
     import sgl_kernel_tpu_torch as skt
 
     gemm, gemm_dma = skt.KERNELS["w4a16_gemm"], skt.KERNELS["w4a16_gemm_dma"]
     stats = dict(by_regime={"prefill": 0, "decode": 0, "mixed": 0}, dma_by_regime={"prefill": 0, "decode": 0, "mixed": 0},
-                 calls={}, mixed_tokens=0, first={}, capture=False)
+                 calls={}, mixed_tokens=0, first={}, capture=False, eager_decode=0)
 
     def counted(fn, regime, name=None):
         def call(*args, **kw):
@@ -1060,7 +1078,14 @@ def instrument(eng):
 
     for name in ("prefill", "prefill_packed", "prefill_extend"):
         setattr(eng.adapter, name, counted(getattr(eng.adapter, name), "prefill", name))
-    eng.adapter.decode = counted(eng.adapter.decode, "decode")
+    eng._decode_batch = counted(eng._decode_batch, "decode")
+    decode = eng.adapter.decode
+
+    def eager_decode(*args):
+        stats["eager_decode"] += 1
+        return decode(*args)
+
+    eng.adapter.decode = eager_decode
     try_mixed = counted(eng._try_mixed_step, "mixed")
 
     def mixed():
@@ -1092,6 +1117,7 @@ def run_wave(torch, skt, eng, stats, label, wave, prompts, sampled=(), expect=()
     eng.metrics = Metrics()
     stats["mixed_tokens"] = 0
     stats["calls"] = {}
+    stats["eager_decode"] = 0
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     skt.reset_launch_counts()
@@ -1119,12 +1145,16 @@ def run_wave(torch, skt, eng, stats, label, wave, prompts, sampled=(), expect=()
     n_mixed = snap.get("mixed_steps", 0)
     if n_mixed < min_mixed:
         fail(f"serve {label} wave {wave}: {n_mixed} mixed steps, expected >= {min_mixed}")
+    replays = snap.get("decode_graph_replays", 0)
+    if stats["eager_decode"] or replays <= 0:
+        fail(f"serve {label} wave {wave}: {stats['eager_decode']} eager decode calls, {replays} graph replays")
     plain_tokens = snap["tokens_prefilled"] - stats["mixed_tokens"]
     res = dict(
         wave=wave, requests=len(rids), prompt_tokens=sum(len(p) for p in prompts),
         prefill_tokens=snap["tokens_prefilled"], prefill_tok_s=plain_tokens / snap["prefill_total_s"],
         prefill_s=snap["prefill_total_s"], decode_ms_step=snap.get("decode_mean_ms"),
-        decode_steps=snap.get("decode_count", 0), mixed_steps=n_mixed, mixed_ms=snap.get("mixed_mean_ms"),
+        decode_steps=snap.get("decode_count", 0), decode_graph_replays=replays, mixed_steps=n_mixed,
+        mixed_ms=snap.get("mixed_mean_ms"),
         mixed_prefill_tokens=stats["mixed_tokens"], prefix_cache_hit_tokens=hit, program_calls=dict(stats["calls"]),
         wall_s=wall, peak_gb=torch.cuda.max_memory_allocated() / 1e9, launches=counts)
     log(f"[serve] {label} wave {wave}: " + json.dumps(res))
@@ -1200,10 +1230,21 @@ def phase_serve(torch, skt, cfg, label, kernels, n_a=16, n_b=12, wave_c=True, pa
             fail(f"serve {label}: K1 launches by regime {stats['by_regime']}, K10 {stats['dma_by_regime']}")
     elif "w4a16_gemm" in kernels and not all(stats["by_regime"][r] > 0 for r in want):
         fail(f"serve {label}: K1 launches by regime {stats['by_regime']}")
+    # the decode graph's tally (what one replay launches) holds every kernel
+    # of the decode step: all of the engine's but the prefill attention, K1
+    # under gemm_impl="dma" (K10 takes every decode GEMM) and K2 in the fused
+    # W4A16 Llama (its norms ride in K1's prologue at decode)
+    tally = eng._graphs[1].tally.counts()
+    norm_in_k1 = getattr(cfg, "fused", False) and cfg.quant == "w4a16" and cfg.gemm_impl == "pipeline"
+    step_kernels = [k for k in kernels if k not in ("flash_attention", "flash_attention_packed")
+                    and not (k == "w4a16_gemm" and "w4a16_gemm_dma" in kernels)
+                    and not (k == "rmsnorm" and norm_in_k1)]
+    if any(tally.get(k, 0) <= 0 for k in step_kernels):
+        fail(f"serve {label}: the decode graph launches {tally}, missing some of {step_kernels}")
     if isinstance(cfg, skt.DeepseekConfig):  # the MLA prefill runs K7 / K9's 576 tile
         check_576(label, "A", a, "flash_attention_packed_576")
         check_576(label, "B+C" if wave_c else "B", bc, "flash_attention_576")
-    res = dict(engine=label, waves=[a, bc], w4a16_by_regime=dict(stats["by_regime"]),
+    res = dict(engine=label, waves=[a, bc], decode_graph_tally=tally, w4a16_by_regime=dict(stats["by_regime"]),
                w4a16_dma_by_regime=dict(stats["dma_by_regime"]),
                launches={k: a["launches"][k] + bc["launches"][k] for k in a["launches"]})
     # every K1 call past 32 rows and every K11 call at bm 64 / 128 runs the
@@ -1299,47 +1340,198 @@ def device_spans(torch, prof):
     return spans, per_kernel, n_kernel, busy_us
 
 
+LAUNCH_CALLS = ("cudaLaunchKernel", "cuLaunchKernel", "cudaGraphLaunch", "cuGraphLaunch")
+
+
+def host_launches(torch, prof):
+    """The host's launch calls in a torch.profiler trace: kernel launches
+    (``cudaLaunchKernel*`` and ``cuLaunchKernel*``, Triton's included) and
+    graph launches."""
+    return sum(1 for evt in prof.events()
+               if evt.device_type == torch.autograd.DeviceType.CPU and evt.name.startswith(LAUNCH_CALLS))
+
+
 def phase_profile(torch, eng, lens, label, top=12, groups=None):
-    """Where a decode step's time goes: the serving engine of phase 4, 16
-    prompts of ``lens`` admitted again (prompts past the engine's chunk are
-    prefilled a chunk a step, all 16 side by side), then 4 decode-only
-    scheduler steps traced with torch.profiler. Device-busy time is the
-    union of the kernel intervals over the window (kernels of one stream do
-    not overlap). ``groups`` {label: name fragments} adds the device ms and
-    the launches a step of the kernels whose names hold one of the
-    fragments."""
+    """Where a decode step's time goes, eager against graphed: the serving
+    engine of phase 4, 16 prompts of ``lens`` admitted again (prompts past
+    the engine's chunk are prefilled a chunk a step, all 16 side by side),
+    then decode-only scheduler steps run eagerly (``eng._eager_decode``),
+    and as many again as graph replays: in each mode one step untimed, 4
+    timed by the host clock (``step_ms``), 4 traced with torch.profiler.
+    The profiler's device tracing adds time to every kernel, which a replay
+    (kernels back to back) feels and an eager step (kernels behind the
+    host) hides, so the step time comes from the untraced steps and the
+    trace gives the rest: device-busy time, the union of the kernel
+    intervals (kernels of one stream do not overlap), and its share of the
+    traced steps' wall time; device kernels and host launch calls a step
+    (one cudaGraphLaunch a replayed step). ``groups`` {label: name
+    fragments} adds the device ms and the launches a step of the kernels
+    whose names hold one of the fragments. Then the replay's device time by
+    CUDA events over back-to-back replays, the host's time in one replay
+    call (cudaGraphLaunch), and ``graph_vs_eager`` on the batch."""
     steps = 4
     gen = torch.Generator().manual_seed(SEED + 3)
     for n in lens:
         eng.add_request(torch.randint(1, eng.cfg.vocab_size, (n,), generator=gen).tolist(),
-                        max_new_tokens=steps + 4)
+                        max_new_tokens=4 * steps + 14)
     eng.step()  # admission (one packed prefill, or the first chunks) and the first decode step
     while eng.waiting or eng.prefilling:
         eng.step()
-    eng.step()  # one decode-only step outside the trace
-    torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
+    res = dict(engine=label, batch=len(lens), steps=steps)
+    for mode in ("eager", "graph"):
+        eng._eager_decode = mode == "eager"
+        eng.step()  # one decode-only step in this mode, untimed
+        torch.cuda.synchronize()
         t0 = time.perf_counter()
         for _ in range(steps):
             eng.step()
         torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
+        step_ms = 1e3 * (time.perf_counter() - t0) / steps
+        with torch.profiler.profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            for _ in range(steps):
+                eng.step()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        spans, per_kernel, n_kernel, busy_us = device_spans(torch, prof)
+        top_k = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:top]
+        row = dict(step_ms=step_ms, traced_step_ms=1e3 * wall / steps,
+                   device_busy_ms_per_step=busy_us / 1e3 / steps if spans else None,
+                   device_busy_share=busy_us / 1e6 / wall if spans else None,
+                   kernel_launches_per_step=len(spans) / steps,
+                   host_launches_per_step=host_launches(torch, prof) / steps,
+                   kernels_ms_per_step={k[:80]: v / 1e3 / steps for k, v in top_k})
+        if groups:
+            row["group_ms_per_step"] = {g: sum(v for k, v in per_kernel.items() if any(f in k for f in frags))
+                                        / 1e3 / steps for g, frags in groups.items()}
+            row["group_launches_per_step"] = {g: sum(v for k, v in n_kernel.items() if any(f in k for f in frags))
+                                              / steps for g, frags in groups.items()}
+        res[mode] = row
+    eng._eager_decode = False
+    if not res["graph"]["kernel_launches_per_step"]:
+        log(f"[profile] {label}: the trace shows no device kernel under graph replay")
+    replay = eng._graphs[1].graph.replay
+    res["graph"]["replay_device_ms"] = time_ms(torch, replay, iters=10, warmup=1)
+    t0 = time.perf_counter()  # the host's side of a replay: the cudaGraphLaunch call alone
+    for _ in range(5):
+        replay()
+    res["graph"]["replay_launch_host_ms"] = 1e3 * (time.perf_counter() - t0) / 5
+    torch.cuda.synchronize()
+    res["logits_vs_eager"] = graph_vs_eager(torch, eng, label)
     eng.run_until_done()
-    spans, per_kernel, n_kernel, busy_us = device_spans(torch, prof)
-    top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:top]
-    res = dict(
-        engine=label, batch=len(lens), steps=steps, step_ms=1e3 * wall / steps,
-        device_busy_ms_per_step=busy_us / 1e3 / steps if spans else None,
-        device_busy_share=busy_us / 1e6 / wall if spans else None,
-        kernel_launches_per_step=len(spans) / steps,
-        kernels_ms_per_step={k[:80]: v / 1e3 / steps for k, v in top})
-    if groups:
-        res["group_ms_per_step"] = {g: sum(v for k, v in per_kernel.items() if any(f in k for f in frags)) / 1e3 / steps
-                                    for g, frags in groups.items()}
-        res["group_launches_per_step"] = {g: sum(v for k, v in n_kernel.items() if any(f in k for f in frags)) / steps
-                                          for g, frags in groups.items()}
     log("[profile] " + json.dumps(res))
+    return res
+
+
+def top_two_gap(rows):
+    """Each row's top-two logit gap, and ``check``'s element-wise gate at its
+    top logit: how far apart two logits may lie and still be a near tie."""
+    top = rows.topk(2, dim=-1).values
+    return top[:, 0] - top[:, 1], 2.0 ** -7 * top[:, 0].abs() + 2.0 ** -12 * rows.abs().amax(-1)
+
+
+def graph_vs_eager(torch, eng, label):
+    """One decode step of the running batch on the same static inputs, eager
+    and replayed (both write the same KV rows): the logits within ``check``'s
+    element-wise gate (every kernel of a step sums in a fixed order, so they
+    are expected bit-equal, which is reported), and the greedy tokens
+    identical but where the eager logits' top two are within that gate of
+    each other (a near tie that sums in another order could flip), each
+    such row printed."""
+    reqs = [r for r in eng.running if not r.done]
+    eng._inputs.fill(*eng._decode_inputs(reqs, 0))
+    graph = eng._graphs[1]
+    eager = graph(eager=True)[: len(reqs)].float()
+    replay = graph()[: len(reqs)].float()
+    bit_equal = bool(torch.equal(replay, eager))
+    err = check(f"decode graph vs eager {label}", [(replay, eager)])
+    gaps, gates = top_two_gap(eager)
+    flips = (replay.argmax(-1) != eager.argmax(-1)).nonzero().flatten().tolist()
+    for i in flips:
+        gap, gate = float(gaps[i]), float(gates[i])
+        log(f"[profile] {label}: graph and eager pick different tokens in row {i}, top-two gap {gap:.6g} "
+            f"(gate {gate:.6g})")
+        if gap > gate:
+            fail(f"decode graph vs eager {label}: row {i} flips a top-two gap of {gap} > {gate}")
+    return dict(rows=len(reqs), max_abs_err=err, bit_equal=bit_equal, token_flips=len(flips))
+
+
+BURST = 8
+
+
+def phase_burst(torch, skt, cfg, label, params, n=16):
+    """decode_burst: ``n`` greedy requests of 4 * BURST + 1 tokens (the
+    prefill's, then four bursts of BURST) through an engine with
+    decode_burst=BURST and one with decode_burst=1, on the same weights
+    (prefix cache off, so both prefill alike), each after a warm-up request
+    that captures its graph. Reports decode ms per token of every row (the
+    decode timer over the 32 tokens), the graph replays and, beside them,
+    one step's device time (CUDA events over back-to-back replays of the
+    single-step graph at the run's last inputs). The tokens must
+    be equal; where they differ, the first divergence is printed with the
+    step-by-step engine's top-two logit gap at that token, which must lie
+    within the element-wise gate (a near tie that sums in another order
+    could flip)."""
+    from sgl_kernel_tpu_torch.utils.metrics import Metrics
+
+    gen = torch.Generator().manual_seed(SEED + 11)
+    prompts = [random_prompt(torch, gen, cfg.vocab_size, 64 + 48 * i) for i in range(n)]
+    new = 4 * BURST + 1
+    res, outs, first_rid, steps = {"engine": label}, {}, {}, []
+    for burst in (1, BURST):
+        eng = skt.Engine(cfg, params, device=DEVICE, max_batch=16, page_size=64, num_pages=256, seed=SEED,
+                         prefill_chunk=1024, decode_burst=burst, enable_prefix_cache=False)
+        eng.add_request(list(range(1, 17)), max_new_tokens=burst + 1)
+        eng.run_until_done()
+        eng.finished.clear()
+        if burst == 1:  # each pick's top-two gap and its gate, kept on the device until the run ends
+            append = eng._append_tokens
+
+            def record(reqs, logits, append=append):
+                steps.append(([(r.rid, len(r.output)) for r in reqs],
+                              torch.stack(top_two_gap(logits[: len(reqs)].float()))))
+                return append(reqs, logits)
+
+            eng._append_tokens = record
+        eng.metrics = Metrics()
+        rids = [eng.add_request(p, max_new_tokens=new) for p in prompts]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fin = eng.run_until_done()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        snap = eng.metrics.snapshot()
+        outs[burst], first_rid[burst] = [fin[r].output for r in rids], rids[0]
+        if any(len(o) != new for o in outs[burst]) or snap.get("nonfinite_logits", 0):
+            fail(f"burst {label} decode_burst={burst}: outputs of {[len(o) for o in outs[burst]]} tokens, "
+                 f"{snap.get('nonfinite_logits', 0)} non-finite rows")
+        res[f"burst_{burst}"] = dict(
+            decode_ms_per_token=1e3 * snap["decode_total_s"] / (new - 1), decode_s=snap["decode_total_s"],
+            decode_programs=snap["decode_count"], graph_replays=snap.get("decode_graph_replays", 0),
+            tokens_decoded=snap["tokens_decoded"], wall_s=wall)
+        if burst == 1:  # the device time of one step at the run's last inputs, replays back to back
+            res["burst_1"]["step_device_ms"] = time_ms(torch, eng._graphs[1].graph.replay, iters=5, warmup=1)
+        del eng
+        free_memory(torch)
+    gaps = {}
+    for keys, vals in steps:
+        for (rid, at), (gap, gate) in zip(keys, vals.t().tolist()):
+            gaps[(rid, at)] = (gap, gate)
+    diverged = []
+    for i, (a, b) in enumerate(zip(outs[1], outs[BURST])):
+        at = next((j for j, (x, y) in enumerate(zip(a, b)) if x != y), None)
+        if at is None:
+            continue
+        gap, gate = gaps[(first_rid[1] + i, at)]
+        log(f"[burst] {label}: request {i} first differs at token {at} ({a[at]} against {b[at]}), step-by-step "
+            f"top-two gap {gap:.6g} (gate {gate:.6g})")
+        diverged.append(dict(request=i, token=at, gap=gap, gate=gate))
+        if gap > gate:
+            fail(f"burst {label}: request {i}'s tokens differ at {at}, top-two gap {gap} > gate {gate}")
+    res.update(identical_requests=n - len(diverged), diverged=diverged,
+               speedup=res["burst_1"]["decode_ms_per_token"] / res[f"burst_{BURST}"]["decode_ms_per_token"])
+    log("[burst] " + json.dumps(res))
     return res
 
 
@@ -2469,11 +2661,13 @@ def phase_parity_nsa(torch, skt, cfg, label):
 
 class SparseRows:
     """Counts, at each decode step's first layer, the rows that select fewer
-    slots than their length (on the device; read after the wave)."""
+    slots than their length, into a counter on the device (read after the
+    wave): an in-place add, so a decode graph captured with the hook in
+    place adds on every replay."""
 
-    def __init__(self, module, n_layers, attr="fast_topk_transform_fused"):
+    def __init__(self, torch, module, n_layers, device, attr="fast_topk_transform_fused"):
         self.module, self.attr, self.orig, self.n_layers = module, attr, getattr(module, attr), n_layers
-        self.calls, self.found = 0, []
+        self.calls, self.total = 0, torch.zeros((), dtype=torch.int64, device=device)
         setattr(module, attr, self)
 
     def restore(self):
@@ -2482,12 +2676,21 @@ class SparseRows:
     def __call__(self, logits, lengths, *args, **kw):
         out = self.orig(logits, lengths, *args, **kw)
         if self.calls % self.n_layers == 0:
-            self.found.append(((out >= 0).sum(1) < lengths.to(out.device)).sum())
+            self.total += ((out >= 0).sum(1) < lengths.to(out.device)).sum()
         self.calls += 1
         return out
 
     def count(self):
-        return int(sum(int(x) for x in self.found))
+        return int(self.total)
+
+
+def recapture(eng):
+    """Capture the engine's decode graph again, so that a hook installed
+    since is in the replayed step: over padding rows only (length 0, slot
+    -1), so the warm-up stores nothing."""
+    eng._inputs.fill(*eng._decode_inputs([], 0))
+    eng._graphs.pop(1, None)
+    eng._decode_graph(1)()
 
 
 def wave_d(torch, skt, eng, stats, res, label):
@@ -2495,17 +2698,20 @@ def wave_d(torch, skt, eng, stats, res, label):
     1,024-token chunks (one plain prefill and five extends each), then 32
     decode tokens each, every decode row over a sparse selection. K15
     launches (only decode steps score), and at least one decode row selects
-    fewer slots than its length."""
+    fewer slots than its length (counted by a hook captured into the decode
+    graph for the wave)."""
     from sgl_kernel_tpu_torch.models import deepseek as ds
 
     gen = torch.Generator().manual_seed(SEED + 4)
     prompts = [random_prompt(torch, gen, eng.cfg.vocab_size, NSA_PROMPT) for _ in range(4)]
-    sparse = SparseRows(ds, eng.cfg.num_layers)
+    sparse = SparseRows(torch, ds, eng.cfg.num_layers, eng.device)
     try:
+        recapture(eng)
         d, _ = run_wave(torch, skt, eng, stats, label, "D", prompts,
                         expect=[k for k in DEEPSEEK_NSA if k != "flash_attention_packed"], hits=0)
     finally:
         sparse.restore()
+    recapture(eng)  # the step without the hook again
     check_576(label, "D", d, "flash_attention_576")
     n_chunks = -(-NSA_PROMPT // 1024)
     if d["program_calls"] != {"prefill": len(prompts), "prefill_extend": len(prompts) * (n_chunks - 1)}:
@@ -3455,9 +3661,10 @@ def main():
         # the same W4A16 weights over int8 KV pools (bench.py:121's kv_scale)
         int8_cfg = dataclasses.replace(w4_cfg, kv_dtype=torch.int8, kv_scale=1 / 16)
         serve["w4a16-int8kv"], eng, _ = phase_serve(torch, skt, int8_cfg, "w4a16-int8kv", LLAMA_W4, n_a=4, n_b=4,
-                                                    wave_c=False, params=params, cold=False)
+                                                       wave_c=False, params=params, cold=False)
         if eng.caches[0].dtype != torch.int8:
             fail(f"serve w4a16-int8kv: pools are {eng.caches[0].dtype}")
+        profile["w4a16-int8kv"] = phase_profile(torch, eng, serve_lens(16), "w4a16-int8kv", groups=GEMM_GROUPS)
         del eng
         free_memory(torch)
     with phase("4-5 serve llama w4a16-dma"):
@@ -3467,11 +3674,16 @@ def main():
         for wave, (dw, pw) in enumerate(zip(serve["w4a16-dma"]["waves"], serve["w4a16"]["waves"])):
             log(f"[serve] decode ms/step wave {'A' if wave == 0 else 'B+C'}: w4a16-dma {dw['decode_ms_step']:.2f} "
                 f"against w4a16 (pipeline) {pw['decode_ms_step']:.2f}")
-        log(f"[profile] decode step: w4a16-dma {profile['w4a16-dma']['step_ms']:.2f} ms, "
-            f"{profile['w4a16-dma']['kernel_launches_per_step']:.0f} launches, GEMMs "
-            f"{profile['w4a16-dma']['group_ms_per_step']} against w4a16 {profile['w4a16']['step_ms']:.2f} ms, "
-            f"{profile['w4a16']['kernel_launches_per_step']:.0f} launches, {profile['w4a16']['group_ms_per_step']}")
-        del eng, params
+        dma, pipe = profile["w4a16-dma"], profile["w4a16"]
+        log(f"[profile] decode step: w4a16-dma {dma['graph']['step_ms']:.2f} ms graphed, {dma['eager']['step_ms']:.2f} "
+            f"eager, {dma['eager']['kernel_launches_per_step']:.0f} launches, GEMMs {dma['eager']['group_ms_per_step']} "
+            f"against w4a16 {pipe['graph']['step_ms']:.2f} ms graphed, {pipe['eager']['step_ms']:.2f} eager, "
+            f"{pipe['eager']['kernel_launches_per_step']:.0f} launches, {pipe['eager']['group_ms_per_step']}")
+        del eng
+        free_memory(torch)
+    with phase("burst llama w4a16"):
+        burst = {"w4a16": phase_burst(torch, skt, w4_cfg, "w4a16", params)}
+        del params
         free_memory(torch)
 
     # the DeepSeek path: V2-Lite widths, W4A16, int8 latent (bench.py's
@@ -3499,7 +3711,12 @@ def main():
         profile["deepseek-w4a16-int8 prefill"] = phase_prefill_profile(torch, eng, lens, "deepseek-w4a16-int8")
         profile["deepseek-w4a16-int8"] = phase_profile(torch, eng, lens, "deepseek-w4a16-int8",
                                                        groups={**GEMM_GROUPS, **MLA_GROUPS})
+        params = eng.params
         del eng
+        free_memory(torch)
+    with phase("burst deepseek w4a16-int8"):
+        burst["deepseek-w4a16-int8"] = phase_burst(torch, skt, ds_cfg, "deepseek-w4a16-int8", params)
+        del params
         free_memory(torch)
 
     # the Mixtral path (K4, K11 and K12 at Mixtral-8x7B's widths) and the
@@ -3539,7 +3756,7 @@ def main():
         del eng
         free_memory(torch)
     for eng_label in ("deepseek-w4a16-int8", "deepseek-bf16", "deepseek-nsa"):
-        pr = profile[eng_label]
+        pr = profile[eng_label]["eager"]
         log(f"[profile] {eng_label} decode step: K13a / K15 device ms {json.dumps(pr['group_ms_per_step'])}, "
             f"launches {json.dumps(pr['group_launches_per_step'])}")
     with phase("4 path mla_decode dma"):
@@ -3551,6 +3768,7 @@ def main():
         serve["mixtral-bf16-8l"], eng, _ = phase_serve(
             torch, skt, dataclasses.replace(mx_bf16_cfg, num_layers=8), "mixtral-bf16-8l", MIXTRAL_BF16, n_a=4,
             n_b=4, wave_c=False, cold=False, mixed=False)
+        profile["mixtral-bf16-8l"] = phase_profile(torch, eng, serve_lens(16), "mixtral-bf16-8l")
         del eng
         free_memory(torch)
     # slice 8's paths: the ops a user calls (no model calls them, in JAX either)
@@ -3666,8 +3884,14 @@ def main():
                  "paged_attention_decode_dma_options", *sorted(n for n in rows if n.startswith(
                      ("fp8_blockwise", "qserve", "sparse_attn")))):
         log(f"[kernel] {name}: " + json.dumps(rows[name]))
-    log(json.dumps({"card": card, "parity": parity, "serve": serve, "profile": profile, "paths": paths,
-                    "launch_floor_ms": floor, "phase_s": times}))
+    for eng_label, pr in profile.items():  # the decode A/B of every profiled engine, one line each
+        if "graph" in pr:
+            log(f"[decode-ab] {eng_label}: " + json.dumps({mode: {k: pr[mode].get(k) for k in (
+                "step_ms", "traced_step_ms", "device_busy_ms_per_step", "device_busy_share", "kernel_launches_per_step",
+                "host_launches_per_step", "replay_device_ms", "replay_launch_host_ms")} for mode in ("eager", "graph")}
+                | {"logits_vs_eager": pr["logits_vs_eager"]}))
+    log(json.dumps({"card": card, "parity": parity, "serve": serve, "profile": profile, "burst": burst,
+                    "paths": paths, "launch_floor_ms": floor, "phase_s": times}))
     log(f"[kernel] worst err/tol over every gate: {WORST['ratio']:.4g} ({WORST['name']})")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -15,6 +15,13 @@ no TPU kernel to port. The layout, byte for byte:
 Everything stays on the device: ``num_valid_blocks`` is a 0-d int32 tensor
 the grouped GEMM reads there, and no step here waits for the host (the
 counts are a scatter-add, not ``bincount``, whose output size needs a sync).
+
+The combine sums each token's K slots in k order by a gather through
+``pair_slots`` (the slot of each (token, k) pair, a field JAX's alignment
+does not have), not by a scatter-add: float atomics add in an order that
+changes from run to run, and a decode step replayed from a CUDA graph must
+give the eager step's bits. JAX scatter-adds in slot order, so the two sums
+may differ in the last float32 bit.
 """
 
 from __future__ import annotations
@@ -46,6 +53,7 @@ class MoeAlignment(NamedTuple):
     num_valid_blocks: torch.Tensor  # [] int32
     group_sizes: torch.Tensor       # [E] unpadded per-expert counts
     padded_group_sizes: torch.Tensor  # [E] per-expert counts padded to block_size
+    pair_slots: torch.Tensor        # [T*K] the slot of each (token, k) pair (the inverse of sorted_pair_ids)
 
 
 def moe_align_block_size(topk_ids, topk_weights, num_experts: int, block_size: int) -> MoeAlignment:
@@ -75,8 +83,9 @@ def moe_align_block_size(topk_ids, topk_weights, num_experts: int, block_size: i
     last_valid_expert = torch.where(valid, block_expert, torch.zeros_like(block_expert)).max()
     block_expert = torch.where(valid, block_expert, last_valid_expert)
     i32 = torch.int32
+    pair_slots = torch.empty_like(dest).scatter_(0, order, dest)
     return MoeAlignment(sorted_pair_ids.to(i32), block_expert.to(i32), token_ids.to(i32), pair_weight,
-                        num_valid.to(i32), counts.to(i32), padded.to(i32))
+                        num_valid.to(i32), counts.to(i32), padded.to(i32), pair_slots.to(i32))
 
 
 def scatter_tokens_to_experts(hidden, alignment: MoeAlignment):
@@ -87,10 +96,9 @@ def scatter_tokens_to_experts(hidden, alignment: MoeAlignment):
 
 
 def apply_shuffle_mul_sum(expert_out, alignment: MoeAlignment, num_tokens: int):
-    """Combine: out[t] = sum over the token's slots of weight * expert_out[slot],
-    in float32, rounded once to expert_out's dtype. Pad slots (and the
-    undefined rows of padding blocks) land on the dropped row T."""
-    contrib = expert_out.float() * alignment.pair_weight[:, None]
-    out = torch.zeros((num_tokens + 1, expert_out.shape[1]), dtype=torch.float32, device=expert_out.device)
-    out.index_add_(0, alignment.token_ids.long(), contrib)
-    return out[:num_tokens].to(expert_out.dtype)
+    """Combine: out[t] = sum over the token's K slots, in k order, of weight *
+    expert_out[slot], in float32, rounded once to expert_out's dtype. Pad
+    slots and the undefined rows of padding blocks are never read."""
+    slots = alignment.pair_slots.long().reshape(num_tokens, -1 if num_tokens else 0)  # [T, K]
+    contrib = expert_out[slots].float() * alignment.pair_weight[slots][..., None]
+    return contrib.sum(1).to(expert_out.dtype)

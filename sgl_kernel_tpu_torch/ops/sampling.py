@@ -72,10 +72,21 @@ def sampling_from_probs(probs, generator: Optional[torch.Generator] = None):
     return (csum < u).sum(-1).clamp(0, v - 1).to(torch.int32)
 
 
+def _filter(probs, fn, arg, neutral):
+    """``fn(probs, arg)``; a per-row list may hold None for rows the filter
+    skips (their probs pass unchanged)."""
+    if not isinstance(arg, (list, tuple)) or all(a is not None for a in arg):
+        return fn(probs, arg)
+    want = torch.tensor([a is not None for a in arg], device=probs.device)
+    return torch.where(want[:, None], fn(probs, [neutral if a is None else a for a in arg]), probs)
+
+
 def sample_tokens(logits, generator: Optional[torch.Generator] = None, temperature=1.0,
                   top_k=None, top_p=None, min_p=None, *, temperature_is_zero: bool = False):
     """temperature -> softmax -> top-k -> top-p -> min-p -> sample; greedy
-    argmax when ``temperature_is_zero``."""
+    argmax when ``temperature_is_zero``. Each argument is a scalar or a
+    per-row list; a filter's list may hold None for rows it skips (the
+    engine samples requests with different filters in one call)."""
     if temperature_is_zero:
         return logits.argmax(-1).to(torch.int32)
     temp = torch.as_tensor(temperature, dtype=torch.float32, device=logits.device)
@@ -83,9 +94,9 @@ def sample_tokens(logits, generator: Optional[torch.Generator] = None, temperatu
         temp = temp[:, None]
     probs = torch.softmax(logits.float() / temp.clamp_min(1e-6), dim=-1)
     if top_k is not None:
-        probs = top_k_renorm_probs(probs, top_k)
+        probs = _filter(probs, top_k_renorm_probs, top_k, 0)
     if top_p is not None:
-        probs = top_p_renorm_probs(probs, top_p)
+        probs = _filter(probs, top_p_renorm_probs, top_p, 1.0)
     if min_p is not None:
-        probs = min_p_filter_probs(probs, min_p)
+        probs = _filter(probs, min_p_filter_probs, min_p, 0.0)
     return sampling_from_probs(probs, generator)

@@ -15,6 +15,14 @@ neither model has a ``mixed_step``, so the engine advances their chunked
 prompts by extend. ``supports_spec`` is False (speculative decoding is a
 later slice), and the PD page transfer (``extract_pages`` /
 ``inject_pages``) is not ported yet.
+
+The engine captures each adapter's ``decode`` into a CUDA graph
+(``serving/decode_graph.py``), so a decode reads nothing back to the host,
+makes no tensor whose shape depends on values on the device, updates the
+pools it is given in place (and returns them), and launches every kernel
+on the current stream. Every decode here does so as written: the MoE
+alignment counts by a scatter-add, the NSA top-k is a fixed-width sort, the
+latent store redirects its dropped rows on the device.
 """
 
 from __future__ import annotations

@@ -16,8 +16,16 @@ feeds the model adapter's programs. Each scheduler step:
 - retires finished requests: their full pages go to the prefix cache, the
   rest to the free list.
 
-Speculative decoding, decode bursts, grammars and a device mesh are later
-slices: the arguments that ask for them raise ``NotImplementedError``.
+A decode step runs the adapter's ``decode`` over inputs at fixed addresses
+(``serving/decode_graph.py``): on the card as a CUDA graph captured at the
+first decode step and replayed after, the counterpart of JAX's jitted
+``decode_step``; on the CPU eagerly. With ``decode_burst > 1`` a batch whose
+requests are all greedy runs up to ``decode_burst`` steps in one graph, the
+argmax fed back on the device (JAX's ``_make_burst_fn``); tokens past a stop
+token are discarded on the host, and mixed steps are off.
+
+Speculative decoding, grammars and a device mesh are later slices: the
+arguments that ask for them raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -32,6 +40,7 @@ from ..ops.sampling import sample_tokens
 from ..utils import cdiv, resolve_device
 from ..utils.metrics import Metrics, logger
 from .adapters import adapter_for
+from .decode_graph import DecodeGraph, DecodeInputs
 
 
 @dataclasses.dataclass
@@ -107,7 +116,12 @@ class Engine:
     serves without the cache, this engine raises if the library cannot be
     built. An adapter without ``prefill_extend`` (``supports_extend =
     False``) turns the cache off and cannot chunk prompts; one without
-    ``prefill_packed`` prefills each fresh prompt on its own."""
+    ``prefill_packed`` prefills each fresh prompt on its own.
+
+    On the card every decode step is a CUDA graph replay (one graph per
+    burst length, captured at its first use, released with the engine);
+    ``_eager_decode = True`` runs the steps eagerly instead, for an A/B
+    against the graph."""
 
     _PACK_BLOCK = 256  # flash_packed block / sequence alignment
 
@@ -136,8 +150,8 @@ class Engine:
             raise NotImplementedError("Engine(mesh=...): multi-device serving is not ported yet")
         if draft_cfg is not None:
             raise NotImplementedError("Engine(draft_cfg=...): speculative decoding is not ported yet")
-        if decode_burst != 1:
-            raise NotImplementedError("Engine(decode_burst>1): decode bursts are not ported yet")
+        if decode_burst < 1:
+            raise ValueError(f"Engine(decode_burst={decode_burst}): a burst is at least one step")
         self.device = resolve_device(device)
         self.adapter = adapter if adapter is not None else adapter_for(cfg, self.device)
         self.cfg = cfg
@@ -173,6 +187,13 @@ class Engine:
         self.finished: Dict[int, Request] = {}
         self._next_rid = 0
         self._gen = torch.Generator(device=self.device).manual_seed(seed)
+        # decode steps: static inputs, and a graph per burst length (1 = the
+        # plain step), as JAX jits one program per length (``_burst_fns``)
+        self.decode_burst = decode_burst
+        self._inputs = DecodeInputs(self.device, max_batch, self.max_pages_per_seq)
+        self._graphs: Dict[int, DecodeGraph] = {}
+        self._decode_pools = self.caches  # every program updates these in place
+        self._eager_decode = False
         self.metrics = Metrics()
         self.log_every = log_every
 
@@ -367,36 +388,108 @@ class Engine:
 
     def _append_tokens(self, reqs: List[Request], logits):
         """Pick each request's next token from its row of ``logits``: greedy
-        rows by one batched argmax (one host transfer), sampled rows through
-        ``sample_tokens`` with the engine's generator. Rows whose logits are
-        not all finite are counted in ``nonfinite_logits``."""
+        rows by one batched argmax, the sampled rows by one ``sample_tokens``
+        call with per-row temperature / top-k / top-p / min-p and the
+        engine's generator; the picks and the finite flags come back in one
+        host transfer. Rows whose logits are not all finite are counted in
+        ``nonfinite_logits``."""
         rows = logits[: len(reqs)]
-        picked = torch.stack([rows.argmax(-1), torch.isfinite(rows).all(-1).long()]).cpu()
+        picks = rows.argmax(-1)
+        sampled = [i for i, r in enumerate(reqs) if r.temperature != 0.0]
+        if sampled:
+            at = torch.tensor(sampled, device=rows.device)
+            rs = [reqs[i] for i in sampled]
+
+            def per_row(vals):  # None: no sampled row asks for the filter
+                return None if all(v is None for v in vals) else vals
+
+            drawn = sample_tokens(
+                rows.index_select(0, at), self._gen, temperature=[r.temperature for r in rs],
+                top_k=per_row([r.top_k for r in rs]), top_p=per_row([r.top_p for r in rs]),
+                min_p=per_row([r.min_p for r in rs]))
+            picks = picks.index_copy(0, at, drawn.to(picks.dtype))
+        picked = torch.stack([picks, torch.isfinite(rows).all(-1).long()]).cpu()
         self.metrics.inc("nonfinite_logits", int((picked[1] == 0).sum()))
-        for i, req in enumerate(reqs):
-            if req.temperature == 0.0:
-                tok = int(picked[0, i])
-            else:
-                tok = int(sample_tokens(
-                    rows[i: i + 1], self._gen, temperature=req.temperature,
-                    top_k=None if req.top_k is None else [req.top_k],
-                    top_p=None if req.top_p is None else [req.top_p],
-                    min_p=None if req.min_p is None else [req.min_p],
-                )[0])
+        for req, tok in zip(reqs, picked[0].tolist()):
             req.output.append(tok)
             if len(req.output) >= req.max_new_tokens or tok in req.stop_tokens:
                 req.done = True
+
+    def _decode_graph(self, burst: int) -> DecodeGraph:
+        """The decode program of ``burst`` steps over the static inputs (a
+        graph on the card, captured at its first call). ``burst`` 1 gives
+        the step's logits [max_batch, V]; more gives [max_batch, burst + 1]
+        int32: each step's argmax, fed back as the next step's token, then 1
+        where every step's logits were finite. Between steps positions and
+        lengths advance by one and slot_loc is looked up in the page tables
+        (padding rows, slot -1, stay -1), as JAX's scan body does
+        (sgl_kernel_tpu/serving/engine.py:593-609)."""
+        if burst in self._graphs:
+            return self._graphs[burst]
+        adapter, params, caches, page = self.adapter, self.params, self.caches, self.page_size
+
+        def step(tokens, positions, tables, lengths, slot_loc):
+            logits, out = adapter.decode(params, caches, tokens, positions, tables, lengths, slot_loc)
+            if any(a is not b for a, b in zip(out, caches)):
+                raise RuntimeError(f"{adapter.name}: decode must update the pools in place")
+            return logits
+
+        def steps(tokens, positions, tables, lengths, slot_loc):
+            rows = torch.arange(tables.shape[0], device=tables.device)
+            toks, finite = [], True
+            for _ in range(burst):
+                logits = step(tokens, positions, tables, lengths, slot_loc)
+                tokens = logits.argmax(-1).to(torch.int32)
+                finite = torch.isfinite(logits).all(-1) & finite
+                toks.append(tokens)
+                positions, lengths = positions + 1, lengths + 1
+                col = (positions // page).clamp_max(tables.shape[1] - 1).long()
+                slot_loc = torch.where(slot_loc >= 0, tables[rows, col] * page + positions % page, -1)
+            return torch.stack(toks + [finite.to(torch.int32)], dim=1)
+
+        graph = self._graphs[burst] = DecodeGraph(step if burst == 1 else steps, self._inputs)
+        return graph
+
+    def _run_decode(self, reqs, burst: int, pad_length: int):
+        """Fill the static inputs from ``reqs`` and run the ``burst``-step
+        program: a graph replay on the card unless ``_eager_decode``."""
+        if any(a is not b for a, b in zip(self.caches, self._decode_pools)):
+            raise RuntimeError("Engine: the KV pools moved; the decode graphs hold their addresses")
+        self._inputs.fill(*self._decode_inputs(reqs, pad_length))
+        graph = self._decode_graph(burst)
+        replays = graph.replays
+        out = graph(eager=self._eager_decode)
+        self.metrics.inc("decode_graph_replays", graph.replays - replays)
+        return out
 
     def _decode_batch(self):
         reqs = [r for r in self.running if not r.done]
         if not reqs:
             return
-        tokens, positions, lengths, slot_loc, tables = self._decode_inputs(reqs, 0)
-        logits, self.caches = self.adapter.decode(
-            self.params, self.caches, self._dev(tokens), self._dev(positions),
-            self._dev(tables), self._dev(lengths), self._dev(slot_loc))
-        self._append_tokens(reqs, logits)
+        if self.decode_burst > 1 and all(r.temperature == 0.0 for r in reqs):
+            burst = min(self.decode_burst, min(r.max_new_tokens - len(r.output) for r in reqs))
+            if burst > 1:
+                return self._decode_burst_batch(reqs, burst)
+        self._append_tokens(reqs, self._run_decode(reqs, 1, 0))
         self.metrics.inc("tokens_decoded", len(reqs))
+        self.metrics.set_gauge("decode_batch", len(reqs))
+
+    def _decode_burst_batch(self, reqs, burst: int):
+        """``burst`` greedy steps in one program (padding rows length 1, as
+        JAX's ``_decode_burst_batch``); a request keeps its tokens up to and
+        including a stop token, and its pages hold the KV of the discarded
+        rest until it retires."""
+        out = self._run_decode(reqs, burst, 1)[: len(reqs)].cpu()
+        self.metrics.inc("nonfinite_logits", int((out[:, burst] == 0).sum()))
+        for r, toks in zip(reqs, out[:, :burst].tolist()):
+            for t in toks:
+                r.output.append(t)
+                self.metrics.inc("tokens_decoded")
+                if t in r.stop_tokens:
+                    r.done = True
+                    break
+            if len(r.output) >= r.max_new_tokens:
+                r.done = True
         self.metrics.set_gauge("decode_batch", len(reqs))
 
     def _try_mixed_step(self):
@@ -404,7 +497,7 @@ class Engine:
         batch into one ``mixed_step``. Returns the prefill Request it
         advanced (the caller skips it in ``_advance_prefilling``), or None
         when the plain path should run."""
-        if not self.enable_mixed or not self.prefilling:
+        if not self.enable_mixed or not self.prefilling or self.decode_burst > 1:
             return None
         if not hasattr(getattr(self.adapter, "_m", None), "mixed_step"):
             return None

@@ -26,7 +26,9 @@ a column inside a slash block, ids at and past kv_len, NaN past kv_len
 unread, B = 2 through the varlen wrapper, one launch a call and two calls
 bit-equal) and the
 library GEMMs around them (int8 / fp8 scaled_mm, the per-channel QServe GEMM,
-w4a8_grouped_mm on K11).
+w4a8_grouped_mm on K11), and the engine's decode step as a CUDA graph
+(replays bit-equal to eager steps on three engines, a burst graph's tokens,
+the launch tally, a capture that cannot succeed raising).
 
 Needs a CUDA device: every test here is marked ``cuda`` and skips without
 one. On the card (tests/conftest.py imports JAX, which that machine need not
@@ -2755,3 +2757,157 @@ def test_decode_repeatable_in_graph(gen):
         graph.replay()
         torch.cuda.synchronize()
         assert torch.equal(out[0], first[0]) and torch.equal(out[1], first[1])
+
+
+# ---------------------------------------------------------------------------
+# The decode step as a captured CUDA graph (serving/decode_graph.py): three
+# engines at published widths cut to 2 layers, random weights from a seed.
+
+def _graph_cfg(kind):
+    import dataclasses
+
+    from sgl_kernel_tpu_torch import DeepseekConfig, LlamaConfig, MixtralConfig
+
+    if kind == "llama-w4a16":
+        return dataclasses.replace(LlamaConfig.llama3_8b(quant="w4a16", fused=True), num_layers=2, max_position=2048)
+    if kind == "mixtral-w4a16":
+        return dataclasses.replace(MixtralConfig.mixtral_8x7b(quant="w4a16"), num_layers=2, max_position=2048)
+    # DeepSeek-V2-Lite widths (layer 0 dense, layer 1 MoE, top-6 of 64), W4A16, int8 latent
+    return DeepseekConfig(vocab_size=102400, hidden_size=2048, num_layers=2, num_heads=16, qk_nope_dim=128,
+                          v_head_dim=128, num_experts=64, num_experts_per_tok=6, moe_intermediate=1408,
+                          dense_intermediate=10944, num_dense_layers=1, routed_scaling_factor=1.0, max_position=2048,
+                          dtype=torch.bfloat16, quant="w4a16", group_size=128, kv_dtype=torch.int8, kv_scale=1 / 16)
+
+
+@pytest.fixture(scope="module")
+def graph_engines():
+    """Engine factory: ``make(kind, **kw)``, the weights of each kind drawn
+    once and shared by its engines."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    from sgl_kernel_tpu_torch import Engine
+
+    params = {}
+
+    def make(kind, **kw):
+        eng = Engine(_graph_cfg(kind), params.get(kind), device="cuda", max_batch=16, page_size=64, num_pages=128,
+                     seed=1, **kw)
+        params[kind] = eng.params
+        return eng
+
+    yield make
+    params.clear()
+    torch.cuda.empty_cache()
+
+
+def _admit(eng, n=16, new=24, seed=0):
+    """``n`` random prompts of 20 + 32 i tokens admitted and prefilled, and two
+    decode steps run (the graph captured, then replayed); returns the running
+    requests."""
+    g = torch.Generator().manual_seed(seed)
+    for i in range(n):
+        eng.add_request(torch.randint(1, eng.cfg.vocab_size, (20 + 32 * i,), generator=g).tolist(),
+                        max_new_tokens=new)
+    eng.step()
+    eng.step()
+    return [r for r in eng.running if not r.done]
+
+
+GRAPH_KINDS = ("deepseek-w4a16-int8", "llama-w4a16", "mixtral-w4a16")
+
+
+@pytest.mark.parametrize("kind", GRAPH_KINDS)
+def test_decode_graph_replay_matches_eager(graph_engines, kind):
+    """Six decode steps, the static inputs refilled in place each step: the
+    graph's logits equal the eager step's on the same inputs bit for bit
+    (both write the same KV rows; every kernel of the step sums in a fixed
+    order, the MoE combine too since it gathers each token's K slots), then
+    the batch advances by the graph's greedy tokens."""
+    eng = graph_engines(kind)
+    reqs = _admit(eng)
+    graph = eng._decode_graph(1)
+    assert graph.graph is not None
+    replays = graph.replays
+    for _ in range(6):
+        eng._inputs.fill(*eng._decode_inputs(reqs, 0))
+        eager = graph(eager=True).clone()
+        replay = graph().clone()
+        assert torch.equal(replay, eager)
+        eng._append_tokens(reqs, replay)
+    assert graph.replays == replays + 6
+    eng.run_until_done()
+
+
+def test_decode_burst_graph_matches_steps(graph_engines):
+    """decode_burst=4 on the W4A16 Llama engine (one graph of 4 greedy steps,
+    the argmax fed back on the device) against decode_burst=1 on the same
+    weights: identical tokens for 16 requests of 13 tokens (the prefill's,
+    then three bursts), and the burst graph replayed three times."""
+    outs = {}
+    for burst in (1, 4):
+        eng = graph_engines("llama-w4a16", decode_burst=burst, enable_prefix_cache=False)
+        g = torch.Generator().manual_seed(5)
+        rids = [eng.add_request(torch.randint(1, eng.cfg.vocab_size, (30 + 17 * i,), generator=g).tolist(),
+                                max_new_tokens=13) for i in range(16)]
+        eng.run_until_done()
+        outs[burst] = [eng.finished[r].output for r in rids]
+        if burst == 4:
+            assert eng._graphs[4].replays == 3 and 1 not in eng._graphs
+        assert eng.metrics.counters.get("nonfinite_logits", 0) == 0
+    assert outs[4] == outs[1]
+
+
+@pytest.mark.parametrize("kind", GRAPH_KINDS)
+def test_decode_graph_tally_matches_eager_counts(graph_engines, kind):
+    """A replay adds to each wrapper's counters (launches, K7 / K9's 576
+    count, K1 / K11's launches by kernel) what the captured step launched:
+    the tally equals the counters' movement over one eager step, and one
+    replay moves them by as much."""
+    import sgl_kernel_tpu_torch as skt
+
+    def counts():
+        c = {**skt.launch_counts(), **skt.head_dim_launch_counts(), **skt.route_launch_counts()}
+        return {k: n for k, n in c.items() if n}
+
+    eng = graph_engines(kind)
+    reqs = _admit(eng, n=4)
+    graph = eng._decode_graph(1)
+    eng._inputs.fill(*eng._decode_inputs(reqs, 0))
+    skt.reset_launch_counts()
+    graph(eager=True)
+    eager = counts()
+    skt.reset_launch_counts()
+    graph()
+    torch.cuda.synchronize()
+    assert counts() == eager == graph.tally.counts()
+    # every engine here decodes its linears on K1's decode kernel (M <= 32)
+    assert eager["w4a16_gemm"] == eager["w4a16_gemm_decode"] > 0
+    skt.reset_launch_counts()
+    eng.run_until_done()
+
+
+def test_decode_graph_capture_failure_raises(graph_engines):
+    """An adapter whose decode reads a value back to the host cannot be
+    captured: the first decode step raises, after the one eager warm-up
+    call and the failed capture, and decodes nothing eagerly in its place."""
+    from sgl_kernel_tpu_torch import Engine
+    from sgl_kernel_tpu_torch.serving.adapters import LlamaAdapter
+
+    base = graph_engines("llama-w4a16")
+    calls = []
+
+    class HostReadAdapter(LlamaAdapter):
+        def decode(self, *args):
+            logits, caches = super().decode(*args)
+            calls.append(logits.sum().item())  # a host read: not allowed in a capture
+            return logits, caches
+
+    eng = Engine(base.cfg, base.params, device="cuda", adapter=HostReadAdapter(base.cfg, "cuda"), max_batch=16,
+                 page_size=64, num_pages=64, enable_prefix_cache=False)
+    eng.add_request(list(range(1, 40)), max_new_tokens=4)
+    with pytest.raises(RuntimeError):
+        eng.step()  # the prefill, then the first decode step: warm-up and capture
+    torch.cuda.synchronize()
+    assert len(calls) == 1  # the warm-up's; the capture raised at its host read
+    assert [len(r.output) for r in eng.running] == [1]  # the prefill's token only
+    assert eng._graphs[1].graph is None

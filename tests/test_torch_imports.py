@@ -82,9 +82,13 @@ def test_device_parameters_default_to_the_card():
 
 def test_unserved_engine_arguments_raise():
     cfg = skt.LlamaConfig.tiny(fused=True)
-    for kw in (dict(mesh=object()), dict(draft_cfg=cfg), dict(decode_burst=4)):
+    for kw in (dict(mesh=object()), dict(draft_cfg=cfg)):
         with pytest.raises(NotImplementedError):
             skt.Engine(cfg, device="cpu", num_pages=8, page_size=16, **kw)
+    # decode bursts are served (tests/test_torch_engine.py); a burst is at least one step
+    assert skt.Engine(cfg, device="cpu", num_pages=8, page_size=16, decode_burst=4).decode_burst == 4
+    with pytest.raises(ValueError):
+        skt.Engine(cfg, device="cpu", num_pages=8, page_size=16, decode_burst=0)
     eng = skt.Engine(cfg, device="cpu", num_pages=8, page_size=16, prefill_chunk=32)
     assert eng.native is not None and eng.allocator.free == 7  # the prefix cache is on by default
     with pytest.raises(NotImplementedError):

@@ -68,6 +68,8 @@ def test_alignment_arrays(t, k, e, bs):
     for name in ja._fields:
         np.testing.assert_array_equal(getattr(ta, name).numpy(), np.asarray(getattr(ja, name)), err_msg=name)
     assert ta.num_valid_blocks.ndim == 0 and ta.num_valid_blocks.dtype == torch.int32
+    # the port's extra field, the combine's gather map: the inverse of sorted_pair_ids
+    assert torch.equal(ta.sorted_pair_ids[ta.pair_slots.long()], torch.arange(t * k, dtype=torch.int32))
     assert tmoe.pick_block_size(t, k, e) == jmoe.pick_block_size(t, k, e)
     h = rng.standard_normal((t, 24)).astype(np.float32)
     xs = tmoe.scatter_tokens_to_experts(t_(h), ta)
