@@ -169,7 +169,27 @@ on the same inputs within the element-wise gate (``graph_vs_eager``); the
 burst phase (``phase_burst``) runs 16 greedy requests through the Llama
 W4A16 and DeepSeek W4A16 + int8 engines at decode_burst=8 and 1 on the same
 weights: ms per token, and identical tokens but for near ties within the
-gate. Each phase prints its time ([time] lines).
+gate. Slice 20 (gpt-oss at gpt-oss-20b's widths, K7 / K9 with sinks,
+window and soft cap, K11 at K = 2,880, the Qwen options): (2) K7 at a
+1,024-token causal prefill of gpt-oss's 64 heads of 64 over 8, plain, with
+the sinks and the 128-token window, and with a soft cap of 30 alone, the
+extend pair 512 / 512 with lse, sinks and window, K9 at wave A's packing
+with sinks and window (SDPA with the window as a boolean mask, no sinks, as
+the yardstick; TFLOP/s on visible pairs), and K11 on MXFP4 banks at
+gate_up and down, B=16 (bm 16, the streaming core) and a 1,024-token
+prefill (bm 128, the wgmma tile asserted), beside torch._grouped_mm on the
+dequantized bank; (3) card against CPU at 2 layers (one windowed, one
+global) for gpt-oss (prefill of prompts of 300 and 23 tokens, 4 decode
+steps, packed, extend; routing replayed, sinks and biases seeded) and for
+Qwen3-8B (LlamaConfig.qwen3_8b(), prefill and decode, the q / k norms and
+biases seeded); (4) the gpt-oss engine at full depth (24 layers, MXFP4
+experts, seeded sinks and q / k / v biases) in waves A, B+C (C's prompt in
+one prefill and three extends) and the cold check: K9 must launch with
+sinks and window in wave A, K7 with the window in B+C, K11 on the wgmma
+tile and never on the mma.sync tile; (5) its decode profile, eager against
+graphed, beside gptoss_step_bytes' bound. The kernels line gives K7's and
+K9's launches by option and their gpt-oss rows, and K11's MXFP4 K = 2,880
+rows. Each phase prints its time ([time] lines).
 
 Prints a JSON line of per-kernel numbers, then, last,
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -895,33 +915,41 @@ def phase_w4a16(torch, skt):
 PARITY_PROGRAMS = ("prefill", "decode", "packed", "extend", "mixed")
 
 
-def phase_parity(torch, skt, cfg, label, programs=PARITY_PROGRAMS, n_decode=4):
+def phase_parity(torch, skt, cfg, label, programs=PARITY_PROGRAMS, n_decode=4, lens=(40, 23)):
     """Full width, 2 layers: the card against the CPU on the same weights
-    (drawn on the card, copied to the CPU). ``programs``: the prefill of two
-    prompts and ``n_decode`` decode steps, then on fresh pools a packed
-    prefill, an extend and a mixed step (those named). A Mixtral config runs
-    models/mixtral.py with its routing recorded on the CPU and replayed on
+    (drawn on the card, ``seed_extras`` applied, copied to the CPU).
+    ``programs``: the prefill of two prompts of ``lens`` tokens and
+    ``n_decode`` decode steps, then on fresh pools a packed prefill, an
+    extend of 23 tokens over the first prompt and a mixed step (those
+    named). A Mixtral or gpt-oss config runs models/mixtral.py or
+    models/gptoss.py with its routing recorded on the CPU and replayed on
     the card (flips counted); a Llama config models/llama.py."""
-    from sgl_kernel_tpu_torch.models import llama, mixtral
+    from sgl_kernel_tpu_torch.models import gptoss, llama, mixtral
     from sgl_kernel_tpu_torch.serving.engine import packed_layout
 
-    m = mixtral if isinstance(cfg, skt.MixtralConfig) else llama
+    m = (gptoss if isinstance(cfg, skt.GptOssConfig) else mixtral if isinstance(cfg, skt.MixtralConfig)
+         else llama)
     cfg = dataclasses.replace(cfg, num_layers=2)
     t0 = time.perf_counter()
     params_gpu = m.init_weights(cfg, torch.Generator(device=DEVICE).manual_seed(SEED), device=DEVICE)
+    seed_extras(torch, params_gpu)
     to_cpu = lambda v: {k: to_cpu(x) for k, x in v.items()} if isinstance(v, dict) else v.cpu()
     params_cpu = to_cpu(params_gpu)
-    page, n_pages, bucket = 64, 8, 64
+    page = 64
+    bucket = -(-max(lens) // page) * page
+    # each prompt's pages: its tokens, the decode steps and (the first) the extend's and mixed step's 43
+    need = [max(2, -(-(n + n_decode + (43 if i == 0 else 0)) // page)) for i, n in enumerate(lens)]
+    pages = [list(range(1 + sum(need[:i]), 1 + sum(need[:i + 1]))) for i in range(len(lens))]
+    n_pages = max(8, 1 + sum(need))
     sides = {}
     for dev in ("cpu", DEVICE):
         caches = m.make_caches(cfg, n_pages, page, device=dev)
         sides[dev] = dict(params=params_cpu if dev == "cpu" else params_gpu, k=caches[0], v=caches[1],
                           rope=m.build_rope_cache(cfg, device=dev))
     rng = torch.Generator().manual_seed(SEED + 1)
-    prompts = [torch.randint(0, cfg.vocab_size, (n,), generator=rng).tolist() for n in (40, 23)]
-    pages = [[1, 2], [3, 4]]
+    prompts = [torch.randint(0, cfg.vocab_size, (n,), generator=rng).tolist() for n in lens]
     slot = lambda i, p: pages[i][p // page] * page + p % page
-    replay = RoutingReplay(mixtral, "topk_softmax") if m is mixtral else None
+    replay = RoutingReplay(m, "topk_softmax") if m is not llama else None
 
     def run(dev, name, *arrays, n_out=1, **kw):
         sd = sides[dev]
@@ -1002,7 +1030,7 @@ def phase_parity(torch, skt, cfg, label, programs=PARITY_PROGRAMS, n_decode=4):
         if "extend" in programs:
             out = {dev: run(dev, "prefill_extend", [pad(ext[:23], 0)], [pad(list(range(n0, n0 + 23)), 0)], [23],
                             [n0 + 23], [tab(0)], [pad([slot(0, p) for p in range(n0, n0 + 23)], -1)],
-                            prefix_max=page)
+                            prefix_max=-(-n0 // page) * page)
                    for dev in ("cpu", DEVICE)}
             compare(out["cpu"], out[DEVICE], "prefill_extend")
         if "mixed" in programs:
@@ -1043,6 +1071,8 @@ MIXTRAL_W4 = MIXTRAL_BF16[:-1] + ("w4a16_gemm", "w4a16_grouped_mm")
 DEEPSEEK_BF16 = ("rmsnorm", "flash_attention", "flash_attention_packed", "bf16_grouped_mm", "mla_decode",
                  "mla_qkv_prep")
 DEEPSEEK_W4 = DEEPSEEK_BF16[:3] + ("w4a16_gemm", "w4a16_grouped_mm", "mla_decode", "mla_qkv_prep")
+# gpt-oss: bf16 attention linears and lm_head (cuBLAS), MXFP4 experts on K11
+GPTOSS = MIXTRAL_BF16[:-1] + ("w4a16_grouped_mm",)
 
 
 def random_prompt(torch, gen, vocab, n):
@@ -1128,7 +1158,8 @@ def run_wave(torch, skt, eng, stats, label, wave, prompts, sampled=(), expect=()
     fin = eng.run_until_done()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    counts = {**skt.launch_counts(), **skt.head_dim_launch_counts(), **skt.route_launch_counts()}
+    counts = {**skt.launch_counts(), **skt.head_dim_launch_counts(), **skt.route_launch_counts(),
+              **skt.option_launch_counts()}
     for rid in rids:
         out = fin[rid].output if rid in fin else None
         if out is None or len(out) != NEW_TOKENS or not all(0 <= t < eng.cfg.vocab_size for t in out):
@@ -1194,9 +1225,9 @@ def phase_serve(torch, skt, cfg, label, kernels, n_a=16, n_b=12, wave_c=True, pa
     stats = instrument(eng)
     routing = None
     if cold and isinstance(cfg, skt.MixtralConfig):
-        from sgl_kernel_tpu_torch.models import mixtral
+        from sgl_kernel_tpu_torch.models import gptoss, mixtral
 
-        routing = TokenRouting(mixtral, "topk_softmax")
+        routing = TokenRouting(gptoss if isinstance(cfg, skt.GptOssConfig) else mixtral, "topk_softmax")
         routing.watch(eng)
         routing.mode = "record"
 
@@ -1244,6 +1275,12 @@ def phase_serve(torch, skt, cfg, label, kernels, n_a=16, n_b=12, wave_c=True, pa
     if isinstance(cfg, skt.DeepseekConfig):  # the MLA prefill runs K7 / K9's 576 tile
         check_576(label, "A", a, "flash_attention_packed_576")
         check_576(label, "B+C" if wave_c else "B", bc, "flash_attention_576")
+    if isinstance(cfg, skt.GptOssConfig):  # K9 with sinks and window in A, K7's extends windowed in B+C
+        for wave, r, names in (("A", a, ("flash_attention_packed_sinks", "flash_attention_packed_window")),
+                               ("B+C", bc, ("flash_attention_window",))):
+            if any(r["launches"].get(n, 0) <= 0 for n in names):
+                fail(f"serve {label} wave {wave}: option launches {skt.option_launch_counts()} "
+                     f"{ {n: r['launches'].get(n) for n in names} }")
     res = dict(engine=label, waves=[a, bc], decode_graph_tally=tally, w4a16_by_regime=dict(stats["by_regime"]),
                w4a16_dma_by_regime=dict(stats["dma_by_regime"]),
                launches={k: a["launches"][k] + bc["launches"][k] for k in a["launches"]})
@@ -1645,6 +1682,226 @@ def mixtral_step_bytes(cfg, batch=16, ctx=1024):
     return cfg.num_layers * layer + lin(vocab, h), pool_bytes, hit
 
 
+def gptoss_cfg(**kw):
+    """gpt-oss-20b at its published widths (openai/gpt-oss-20b config.json:
+    vocab 201,088, hidden 2,880, intermediate 2,880, 24 layers, 64 query and
+    8 KV heads of 64, 32 experts top-4, sliding_window 128 on alternate
+    layers, rope_theta 150,000, rms_norm_eps 1e-5, swiglu alpha 1.702 and
+    limit 7.0), q / k / v biases, MXFP4 expert banks, bf16. Cut: positions
+    to 8,192 (the waves reach 4,160) and no YaRN rope scaling (the JAX
+    package has none)."""
+    import torch
+    from sgl_kernel_tpu_torch import GptOssConfig
+
+    return dataclasses.replace(GptOssConfig(
+        vocab_size=201088, hidden_size=2880, intermediate_size=2880, num_layers=24, num_heads=64, num_kv_heads=8,
+        head_dim=64, rope_theta=150000.0, rms_eps=1e-5, max_position=8192, dtype=torch.bfloat16, num_experts=32,
+        top_k=4, sliding_window=128, swiglu_alpha=1.702, swiglu_limit=7.0, qkv_bias=True, quant="mxfp4"), **kw)
+
+
+def seed_extras(torch, params, seed=SEED + 21):
+    """Seeded values for the weights an init leaves trivial, so the card
+    runs them: gpt-oss's sinks (zero at init) N(0, 2^2), q / k / v biases
+    (zero) N(0, 0.1^2), Qwen3's q / k norms (one) 1 + N(0, 0.1^2)."""
+    lw = params["layers"]
+    gen = torch.Generator(device=lw["input_norm"].device).manual_seed(seed)
+    for name, base, scale in (("sinks", 0.0, 2.0), ("q_bias", 0.0, 0.1), ("k_bias", 0.0, 0.1), ("v_bias", 0.0, 0.1),
+                              ("q_norm", 1.0, 0.1), ("k_norm", 1.0, 0.1)):
+        if name in lw:
+            t = lw[name]
+            t.copy_((base + scale * torch.randn(t.shape, generator=gen, device=t.device)).to(t.dtype))
+    return params
+
+
+def gptoss_step_bytes(cfg, batch=16, ctx=1024):
+    """The bytes one gpt-oss decode step of ``cfg`` must read, from the
+    shapes ``models/gptoss.init_weights`` gives: every layer's bf16 q, k, v,
+    o, their biases, the sinks and the router, the MXFP4 expert banks that
+    ``batch`` tokens of top-k hit (``experts_hit``: codes and bf16 group-32
+    scales), the bf16 lm_head; and, apart, the K and V rows of ``batch``
+    sequences of ``ctx`` tokens (a windowed layer reads its last
+    ``sliding_window``). Returns (weight bytes, pool bytes, experts hit)."""
+    h, d, inter, e = cfg.hidden_size, cfg.head_dim, cfg.intermediate_size, cfg.num_experts
+    nq, nkv = cfg.num_heads, cfg.num_kv_heads
+    mx = lambda n, k: k // 2 * n + 2 * (k // 32) * n
+    hit = experts_hit(e, cfg.top_k, batch)
+    attn = 2 * (2 * nq * d * h + 2 * nkv * d * h) + 2 * (nq + 2 * nkv) * d + 2 * h + 2 * nq
+    layer = attn + 2 * e * h + 2 * 2 * h + hit * (mx(2 * inter, h) + mx(h, inter))
+    weights = cfg.num_layers * layer + 2 * cfg.vocab_size * h + 2 * h
+    rows = sum(min(ctx, cfg.sliding_window) if i % 2 == 0 else ctx for i in range(cfg.num_layers))
+    return weights, batch * rows * 2 * nkv * d * 2, hit
+
+
+def window_pairs(q_pos, kv_len, kv_start, window):
+    """The (query, key) pairs a causal, windowed attention visits: each
+    query at position p sees the keys at positions in (p - window, p] of
+    [kv_start, kv_start + kv_len)."""
+    total = 0
+    for p in q_pos:
+        hi, lo = min(p, kv_start + kv_len - 1), max(kv_start, p - window + 1 if window else kv_start)
+        total += max(0, hi - lo + 1)
+    return total
+
+
+def phase_gptoss_kernels(torch, skt):
+    """K7, K9 and K11 against their plain versions at gpt-oss-20b's shapes
+    (``gptoss_cfg``): K7 at a 1,024-token causal prefill plain, with sinks
+    and the 128-token window, and with a soft cap of 30 alone; the extend
+    pair 512 over 512 with lse, sinks and window; K9 at wave A's packing
+    with sinks and window; K11 on MXFP4 banks at gate_up and down, B=16 and
+    a 1,024-token prefill. Attention rows give CUDA-graph ms and TFLOP/s on
+    the visible pairs beside SDPA with the window as a boolean mask and no
+    sinks; K11's rows torch._grouped_mm on the dequantized bank."""
+    from sgl_kernel_tpu_torch.ops import moe
+    from sgl_kernel_tpu_torch.ops.activation import swiglu_alpha_limit
+    from sgl_kernel_tpu_torch.ops.attention import flash_packed, flash_prefill, merge_state
+    from sgl_kernel_tpu_torch.ops.gemm import w4a16
+    from sgl_kernel_tpu_torch.serving.engine import packed_layout
+
+    F = torch.nn.functional
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 20)
+    bf = torch.bfloat16
+    cfg = gptoss_cfg()
+    nq, nkv, d, win, h = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, cfg.sliding_window, cfg.hidden_size
+    sinks = 2.0 * torch.randn(nq, generator=gen, device=dev)
+    rows = {}
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(bf)
+
+    def sdpa_mask(q_pos, k_pos, window):
+        m = k_pos[None, :] <= q_pos[:, None]
+        return m & (k_pos[None, :] > q_pos[:, None] - window) if window else m
+
+    # K7: a causal prefill of 1,024 tokens, plain, with sinks and window, with a soft cap alone
+    s = 1024
+    q, k, v = randn(1, s, nq, d), randn(1, s, nkv, d), randn(1, s, nkv, d)
+    pos = torch.arange(s, device=dev)
+    for tag, kw in (("plain", {}), ("sinks_window", dict(sinks=sinks, sliding_window=win)),
+                    ("softcap", dict(logit_soft_cap=30.0))):
+        fn = functools.partial(flash_prefill.flash_attention, q, k, v, causal=True, **kw)
+        err = check(f"flash_attention gpt-oss causal {s} {tag}",
+                    [(fn(), flash_prefill.flash_attention_ref(q, k, v, causal=True, **kw))])
+        pairs = window_pairs(range(s), s, 0, kw.get("sliding_window"))
+        n_ops = 4 * nq * d * pairs
+        bms, bby = bound_ms((2 * s * nq * d + 2 * s * nkv * d) * 2 + (nq * 4 if "sinks" in kw else 0), n_ops,
+                            BF16_FLOPS)
+        mask = sdpa_mask(pos, pos, kw.get("sliding_window"))
+        lib = functools.partial(F.scaled_dot_product_attention, q.transpose(1, 2), k.transpose(1, 2),
+                                v.transpose(1, 2), attn_mask=mask, enable_gqa=True)
+        rows[f"flash_attention_gptoss_{tag}"] = device_rate(torch, dict(
+            max_abs_err=err, ms=time_ms(torch, fn),
+            plain_ms=time_ms(torch, lambda: flash_prefill.flash_attention_ref(q, k, v, causal=True, **kw), iters=3),
+            library_ms=time_ms(torch, lib), bound_ms=bms, bound_by=bby, visible_pairs=pairs,
+            library_note="SDPA with the causal (and window) mask as a boolean mask, no sinks, no soft cap"),
+            fn, n_ops, lib)
+
+    # the extend pair: 512 fresh tokens over a 512-token prefix, with lse, sinks and window
+    pre = 512
+    k2, v2 = randn(1, pre, nkv, d), randn(1, pre, nkv, d)
+    q1, k1, v1 = randn(1, s // 2, nq, d), randn(1, s // 2, nkv, d), randn(1, s // 2, nkv, d)
+    ql = torch.tensor([s // 2], dtype=torch.int32, device=dev)
+    pl_ = torch.tensor([pre], dtype=torch.int32, device=dev)
+    zero = torch.zeros_like(pl_)
+    okw = dict(sliding_window=win, causal=True, return_lse=True)
+
+    def passes(fn):
+        return (fn(q1, k1, v1, ql, ql, sinks, pl_, pl_, **okw) + fn(q1, k2, v2, ql, pl_, sinks, pl_, zero, **okw))
+
+    got = passes(flash_prefill.flash_attention)
+    err = check("flash_attention gpt-oss extend 512 over 512, lse, sinks, window 128",
+                list(zip(got, passes(flash_prefill.flash_attention_ref))))
+    q_pos = range(pre, pre + s // 2)
+    pairs = window_pairs(q_pos, s // 2, pre, win) + window_pairs(q_pos, pre, 0, win)
+    n_ops = 4 * nq * d * pairs
+    # reads: q, the fresh and prefix k / v; writes: both passes' out and lse
+    n_bytes = (s // 2 * nq * d + 2 * (s // 2 + pre) * nkv * d) * 2 + 2 * (s // 2 * nq * d * 2 + nq * s // 2 * 4)
+    bms, bby = bound_ms(n_bytes, n_ops, BF16_FLOPS)
+    kt, vt = (torch.cat([a, b], 1).transpose(1, 2) for a, b in ((k2, k1), (v2, v1)))
+    qp, kp = torch.arange(pre, pre + s // 2, device=dev), torch.arange(pre + s // 2, device=dev)
+    lib = functools.partial(F.scaled_dot_product_attention, q1.transpose(1, 2), kt, vt,
+                            attn_mask=sdpa_mask(qp, kp, win), enable_gqa=True)
+    fn = functools.partial(passes, flash_prefill.flash_attention)
+    rows["flash_attention_gptoss_extend"] = device_rate(torch, dict(
+        max_abs_err=err, ms=time_ms(torch, fn),
+        plain_ms=time_ms(torch, lambda: passes(flash_prefill.flash_attention_ref), iters=3),
+        library_ms=time_ms(torch, lib), bound_ms=bms, bound_by=bby, visible_pairs=pairs,
+        library_note="one SDPA over prefix + fresh keys with the extend and window mask, no sinks"), fn, n_ops, lib)
+    del q, k, v, q1, k1, v1, k2, v2, got
+
+    # K9 at wave A's packing (16 prompts of 16..1024 tokens, block 256) with sinks and window
+    lens = serve_lens(16)
+    blk_seq, blk_q0, seq_meta, tok0, tp, max_kvb = packed_layout(lens, 17)
+    ints = [torch.from_numpy(a).to(dev) for a in (blk_seq, blk_q0, seq_meta)]
+    q, k, v = randn(tp, nq, d), randn(tp, nkv, d), randn(tp, nkv, d)
+    pkw = dict(max_kvb=max_kvb, causal=True, sinks=sinks, sliding_window=win)
+    out = flash_packed.flash_attention_packed(q, k, v, *ints, **pkw)
+    ref = flash_packed.flash_attention_packed_ref(q, k, v, *ints, **pkw)
+    err = check(f"flash_attention_packed gpt-oss [{tp} tokens, 16 prompts, sinks, window 128]",
+                [(out[t0: t0 + n], ref[t0: t0 + n]) for t0, n in zip(tok0, lens)])
+    pairs = sum(window_pairs(range(n), n, 0, win) for n in lens)
+    n_ops = 4 * nq * d * pairs
+    n_tok = sum(lens)
+    bms, bby = bound_ms(n_tok * (nq + 2 * nkv) * d * 2 + tp * nq * d * 2 + nq * 4, n_ops, BF16_FLOPS)
+    # the yardstick: SDPA over the prompts padded to 1,024, the causal, window and length mask
+    b, smax = len(lens), max(lens)
+    idx = torch.stack([t0 + torch.arange(smax, device=dev).clamp(max=n - 1) for t0, n in zip(tok0, lens)])
+    ar = torch.arange(smax, device=dev)
+    mask = (sdpa_mask(ar, ar, win)[None] & (ar[None, :] < torch.tensor(lens, device=dev)[:, None])[:, None, :])
+    qb, kb, vb = (x[idx].transpose(1, 2) for x in (q, k, v))
+    lib = functools.partial(F.scaled_dot_product_attention, qb, kb, vb, attn_mask=mask[:, None], enable_gqa=True)
+    fn = functools.partial(flash_packed.flash_attention_packed, q, k, v, *ints, **pkw)
+    rows["flash_attention_packed_gptoss"] = device_rate(torch, dict(
+        max_abs_err=err, ms=time_ms(torch, fn),
+        plain_ms=time_ms(torch, lambda: flash_packed.flash_attention_packed_ref(q, k, v, *ints, **pkw), iters=3),
+        library_ms=time_ms(torch, lib), bound_ms=bms, bound_by=bby, visible_pairs=pairs,
+        library_note="SDPA over the prompts padded to 1,024 with the causal, window and length mask, no sinks"),
+        fn, n_ops, lib)
+    del q, k, v, qb, kb, vb, out, ref
+
+    # K11 on MXFP4 banks (two stacked layers of 32 experts), gate_up [2,880 -> 5,760] and down [2,880 -> 2,880]
+    e, k_top, inter = cfg.num_experts, cfg.top_k, cfg.intermediate_size
+
+    def bank(kk, n):
+        w = torch.randint(0, 256, (2, e, kk // 2, n), generator=gen, device=dev, dtype=torch.int32).to(torch.uint8)
+        return w, torch.exp2(torch.randint(-9, -6, (2, e, kk // 32, n), generator=gen, device=dev).float()).to(bf)
+
+    banks = {"gate_up": bank(h, 2 * inter), "down": bank(inter, h)}
+    for t, label in ((16, "decode"), (1024, "prefill")):
+        bm = moe.pick_block_size(t, k_top, e)
+        tw, tids = moe.topk_softmax(torch.randn((t, e), generator=gen, device=dev), k_top, renormalize=True)
+        al = moe.moe_align_block_size(tids, tw, e, bm)
+        a = moe.scatter_tokens_to_experts(randn(t, h), al)
+        for name in ("gate_up", "down"):
+            w, sc = banks[name]
+            tag = f"w4a16_grouped_mm gptoss {label} {name}"
+            row = grouped_w4_row(torch, moe, tag, a, w, sc, al, bm, t * k_top, 32, label == "decode", fmt="mxfp4")
+            args = (a, w, sc, al.block_expert_ids, None, 1, al.num_valid_blocks)
+            kw = dict(bm=bm, group_size=32, fmt="mxfp4")
+            ref = moe.w4a16_grouped_mm_ref(*args, **kw)
+            wd = torch.stack([w4a16.dequant_w4(w[1, i], sc[1, i], group_size=32, fmt="mxfp4").t().contiguous()
+                              for i in range(e)])
+            lib_fn, lib_note = grouped_mm_yardstick(torch, a, wd, al, row["valid_blocks"] * bm, ref)
+            row = device_rate(torch, row, lambda: moe.w4a16_grouped_mm(*args, **kw), 2 * t * k_top * a.shape[1] *
+                              w.shape[-1], lib_fn)
+            row.update(bm=bm, library_ms=None if lib_fn is None else time_ms(torch, lib_fn),
+                       library_note=f"torch._grouped_mm on the dequantized bf16 layer: {lib_note}")
+            rows[f"w4a16_grouped_mm_gptoss_{label}_{name}"] = row
+            log(f"[kernel] {tag}: bm {bm} graph_ms={row['graph_ms']:.4f} ({row['tflops']:.1f} TFLOP/s), "
+                f"torch._grouped_mm dequantized {row.get('library_graph_ms')} ({lib_note}); "
+                f"bound {row['bound_ms']:.4f}")
+            if name == "gate_up":
+                a = swiglu_alpha_limit(moe.w4a16_grouped_mm(*args, **kw), cfg.swiglu_alpha, cfg.swiglu_limit)
+            del wd, ref
+    del banks
+    for name, r in rows.items():
+        if name.startswith("flash"):
+            report_row(torch, name, r)
+    free_memory(torch)
+    return rows
+
+
 def report_row(torch, name, row, dev_fn=None, work=None):
     """Log one kernel's row; with ``dev_fn`` (a call of the kernel) add its
     CUDA-graph device time as ``graph_ms``; with ``work`` (the operations
@@ -1668,14 +1925,15 @@ def report_row(torch, name, row, dev_fn=None, work=None):
     return row
 
 
-def grouped_w4_row(torch, moe, name, a, w, sc, al, bm, pairs, g, decode):
-    """K11 (w4a16_grouped_mm) on layer 1 of the stacked bank ``w`` against
-    its plain version, over the valid rows of the alignment ``al``; at
-    decode also two calls bit-equal and the cold device time, the calls
-    cycling the bank's layers (K11 reads only the experts its rows hit)."""
+def grouped_w4_row(torch, moe, name, a, w, sc, al, bm, pairs, g, decode, fmt="int4"):
+    """K11 (w4a16_grouped_mm) on layer 1 of the stacked bank ``w`` (int4 or
+    mxfp4 codes, groups of ``g``) against its plain version, over the valid
+    rows of the alignment ``al``; at decode also two calls bit-equal and the
+    cold device time, the calls cycling the bank's layers (K11 reads only
+    the experts its rows hit)."""
     nv = int(al.num_valid_blocks)
     hit = int((al.group_sizes > 0).sum())
-    kw = dict(bm=bm)
+    kw = dict(bm=bm, group_size=g, fmt=fmt)
     args = (a, w, sc, al.block_expert_ids, None, 1, al.num_valid_blocks)
     fn = lambda: moe.w4a16_grouped_mm(*args, **kw)
     wgmma_before = moe.w4a16_grouped_mm.launches_by_route["wgmma"]
@@ -3632,6 +3890,7 @@ def main():
         rows.update(phase_decode_variants(torch, skt))
         free_memory(torch)
         rows.update(phase_slice8_kernels(torch, skt))
+        rows.update(phase_gptoss_kernels(torch, skt))
         floor = launch_floor_ms(torch)
         log(f"[kernel] launch floor (an empty kernel's CUDA-graph node): {floor:.4f} ms")
     bf16_cfg = skt.LlamaConfig.llama3_8b(fused=True)
@@ -3771,6 +4030,27 @@ def main():
         profile["mixtral-bf16-8l"] = phase_profile(torch, eng, serve_lens(16), "mixtral-bf16-8l")
         del eng
         free_memory(torch)
+    # the gpt-oss path at gpt-oss-20b's widths (K7 / K9 with sinks and the
+    # window, K11 on MXFP4 banks at K = 2,880) and Qwen3-8B's options
+    from sgl_kernel_tpu_torch.models import gptoss
+
+    gpt_cfg = gptoss_cfg()
+    w_bytes, pool_bytes, hit = gptoss_step_bytes(gpt_cfg)
+    log(f"[bound] gpt-oss-20b decode step, B=16: {w_bytes / 1e9:.4f} GB of weights ({hit:.2f} of "
+        f"{gpt_cfg.num_experts} experts hit per layer) -> {1e3 * w_bytes / HBM_BYTES_PER_S:.4f} ms at 3.35 TB/s; "
+        f"KV rows at a 1,024-token context (windowed layers 128) {pool_bytes / 1e9:.4f} GB more")
+    with phase("3 parity gptoss qwen3"):
+        parity["gptoss"] = phase_parity(torch, skt, gpt_cfg, "gptoss", programs=("prefill", "decode", "packed",
+                                                                                  "extend"), lens=(300, 23))
+        parity["qwen3-8b"] = phase_parity(torch, skt, skt.LlamaConfig.qwen3_8b(), "qwen3-8b",
+                                          programs=("prefill", "decode"))
+    with phase("4-5 serve gptoss"):
+        params = seed_extras(torch, gptoss.init_weights(gpt_cfg, torch.Generator(device=DEVICE).manual_seed(SEED),
+                                                        DEVICE))
+        serve["gptoss"], eng, lens = phase_serve(torch, skt, gpt_cfg, "gptoss", GPTOSS, params=params, mixed=False)
+        profile["gptoss"] = phase_profile(torch, eng, lens, "gptoss", groups=GEMM_GROUPS)
+        del eng, params
+        free_memory(torch)
     # slice 8's paths: the ops a user calls (no model calls them, in JAX either)
     with phase("4 path sparse_attn_varlen_func"):
         paths["sparse_attn_varlen_func"] = path_sparse_attn_varlen(torch, skt)
@@ -3842,6 +4122,12 @@ def main():
                             max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
                             bound_by=r["bound_by"], library_ms=r["library_ms"]))
         if name in ("flash_attention", "flash_attention_packed"):  # K7 / K9 at head dim 576 apart
+            kernels[-1]["launches_by_option"] = {
+                opt: sum(res["launches"].get(f"{name}_{opt}", 0) for res in (*serve.values(), *paths.values()))
+                for opt in ("sinks", "window", "softcap")}
+            kernels[-1]["gptoss"] = {tag: {key: rows[tag].get(key) for key in (
+                "max_abs_err", "ms", "graph_ms", "tflops", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                "library_graph_ms")} for tag in rows if tag.startswith(f"{name}_gptoss")}
             at576 = sum(res["launches"].get(f"{name}_576", 0) for res in (*serve.values(), *paths.values()))
             kernels[-1]["launches_by_head_dim"] = {"64/128": kernels[-1]["launches"] - at576, "576": at576}
             r576 = rows["flash_attention_576_lse" if name == "flash_attention" else "flash_attention_packed_576"]
@@ -3855,6 +4141,10 @@ def main():
             pre = rows["w4a16_gemm_gate_up_prefill" if name == "w4a16_gemm" else "w4a16_grouped_mm_prefill_gate_up"]
             kernels[-1]["wgmma_tile"] = {key: pre.get(key) for key in ("max_abs_err", "ms", "graph_ms", "plain_ms",
                                                                        "bound_ms", "bound_by", "library_ms")}
+            if name == "w4a16_grouped_mm":  # gpt-oss's MXFP4 banks at K = 2,880 (the wgmma tile's half stage)
+                kernels[-1]["mxfp4_k2880"] = {tag: {key: rows[tag].get(key) for key in (
+                    "max_abs_err", "ms", "graph_ms", "tflops", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                    "library_graph_ms", "bm")} for tag in rows if tag.startswith("w4a16_grouped_mm_gptoss")}
         if kernels[-1]["launches"] <= 0:
             fail(f"{name}: no launch in the served waves")
     log("[kernel] rmsnorm at [1024, 4096]: " + json.dumps(rows["rmsnorm_1024"]))
@@ -3882,7 +4172,8 @@ def main():
                  "paged_attention_decode_dma_split16", "paged_attention_decode_dma_split_32k",
                  "paged_attention_decode_dma_ctx8192", "paged_attention_decode_dma", "w4a16_gemm_lm_head",
                  "paged_attention_decode_dma_options", *sorted(n for n in rows if n.startswith(
-                     ("fp8_blockwise", "qserve", "sparse_attn")))):
+                     ("fp8_blockwise", "qserve", "sparse_attn", "flash_attention_gptoss",
+                      "flash_attention_packed_gptoss", "w4a16_grouped_mm_gptoss")))):
         log(f"[kernel] {name}: " + json.dumps(rows[name]))
     for eng_label, pr in profile.items():  # the decode A/B of every profiled engine, one line each
         if "graph" in pr:

@@ -19,8 +19,10 @@ Kernels ported so far (each wrapper counts its launches in ``.launches``):
   prefill), K17 fp8_blockwise_scaled_mm, K18 fp8_blockwise_scaled_grouped_mm
   and K19 qserve_w4a8_per_group_gemm (CUDA C++), with the op surface around
   them (the schedule builders, the INT8 / FP8 / NVFP4 GEMMs, the per-channel
-  QServe GEMM and w4a8_grouped_mm on K11). Models: Llama (``LlamaConfig``), Mixtral
-  (``MixtralConfig``, module ``models.mixtral``) and DeepSeek MLA + MoE
+  QServe GEMM and w4a8_grouped_mm on K11). Models: Llama (``LlamaConfig``,
+  with the Qwen options ``qkv_bias`` / ``qk_norm`` and ``qwen3_8b()``), Mixtral
+  (``MixtralConfig``, module ``models.mixtral``), gpt-oss (``GptOssConfig``,
+  module ``models.gptoss``: sinks, alternating windows, MXFP4 experts) and DeepSeek MLA + MoE
   (``DeepseekConfig``, module ``models.deepseek``), with NSA sparse decode
   (``nsa=True``). The serving engine's radix prefix cache is host C++
   (``csrc/serving_native.cpp``, bound by ``serving/native.py``).
@@ -28,6 +30,7 @@ Kernels ported so far (each wrapper counts its launches in ``.launches``):
 
 from .interop import params_from_numpy, tensor_from_numpy
 from .models.deepseek import DeepseekConfig
+from .models.gptoss import GptOssConfig
 from .models.mixtral import MixtralConfig
 from .models.llama import (
     LlamaConfig,
@@ -106,9 +109,10 @@ from .ops.moe import (
     w4a8_grouped_mm,
 )
 from .ops.norm import fused_add_rmsnorm, gemma_fused_add_rmsnorm, gemma_rmsnorm, rmsnorm
-from .ops.quant import per_token_quant_fp8
+from .ops.quant import per_token_group_quant_fp4, per_token_quant_fp8
 from .ops.rope import (
     compute_cos_sin_cache,
+    fused_qk_norm_rope,
     mla_qkv_prep,
     rope_decode_fused,
     rope_decode_fused_qkv,
@@ -121,7 +125,7 @@ from .ops.sampling import (
     top_k_renorm_probs,
     top_p_renorm_probs,
 )
-from .serving.adapters import DeepseekAdapter, LlamaAdapter, MixtralAdapter, adapter_for
+from .serving.adapters import DeepseekAdapter, GptOssAdapter, LlamaAdapter, MixtralAdapter, adapter_for
 from .serving.engine import Engine, PageAllocator, Request
 from .utils import cdiv, next_power_of_2, resolve_device, round_up
 
@@ -155,6 +159,7 @@ def reset_launch_counts():
         fn.launches = 0
     for fn in (flash_attention, flash_attention_packed):
         fn.launches_576 = 0
+        fn.launches_by_option = dict.fromkeys(fn.launches_by_option, 0)
     for fn in (w4a16_gemm, w4a16_grouped_mm):
         fn.launches_by_route = dict.fromkeys(fn.launches_by_route, 0)
 
@@ -169,6 +174,15 @@ def head_dim_launch_counts():
     rest of ``launch_counts()``'s."""
     return {"flash_attention_576": flash_attention.launches_576,
             "flash_attention_packed_576": flash_attention_packed.launches_576}
+
+
+def option_launch_counts():
+    """K7's and K9's launches that took each option (sinks, sliding
+    window, soft cap; gpt-oss's prefill), a launch with two counted under
+    both: ``flash_attention_sinks`` and the like."""
+    return {f"{name}_{opt}": n for name, fn in (("flash_attention", flash_attention),
+                                                ("flash_attention_packed", flash_attention_packed))
+            for opt, n in fn.launches_by_option.items()}
 
 
 def route_launch_counts():

@@ -12,7 +12,11 @@
 // position <= the query's (flash_packed.py:141-160). out [TPq, Hq, D]; lse
 // [Hq, TPq] float32 base 2 when its pointer is not null. A row that sees no
 // key (past q_len, or a padding block whose sequence has q_len 0) gets
-// o = 0 and the twin's lse, -1e30 * log2(e), and reads nothing.
+// o = 0 and the twin's lse, -1e30 * log2(e), and reads nothing. At head
+// dims 64 / 128 the options of flash_packed.py:146-168 too (gpt-oss's packed
+// admission): a sliding window (each 64-row block visits only the key tiles
+// that hold a key one of its rows may see), a tanh soft cap and per-head
+// sinks [Hq] float32 (natural log, in the denominator once).
 //
 // Bound: operations, 4 * Hq * D * sum_i len_i (len_i + 1) / 2 at the bf16
 // tensor-core peak (989 TFLOP/s) for a causal self-attention batch. Design:
@@ -48,10 +52,11 @@ __global__ void __launch_bounds__(skt::kFlashThreads) packed_kernel(
     const bf16* __restrict__ v, const int* __restrict__ blk_seq,
     const int* __restrict__ blk_q0, const int* __restrict__ seq_meta,
     bf16* __restrict__ out, float* __restrict__ lse, int tp, int block,
-    int n_q_heads, int n_kv_heads, int max_kvb, int causal, float scale_log2) {
+    int n_q_heads, int n_kv_heads, int max_kvb, int causal, float scale_log2, skt::FlashOpts opts) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int tiles = block / skt::kFlashBQ;
   const int h = blockIdx.x;
+  if (opts.sinks != nullptr) opts.sinks += h;
   const int by = gridDim.y - 1 - blockIdx.y;  // a sequence's last tiles (the most keys) first
   const int nb = by / tiles;
   const int sub = (by % tiles) * skt::kFlashBQ;
@@ -71,7 +76,7 @@ __global__ void __launch_bounds__(skt::kFlashThreads) packed_kernel(
   const long long kv_off = (long long)meta[4] * block * kv_row_stride + (long long)hk * D;
   skt::flash_rows<D>(smem, q + q_off, q_row_stride, k + kv_off, v + kv_off, kv_row_stride, out + q_off,
                      lse == nullptr ? nullptr : lse + (long long)h * tp + row0,
-                     skt::kFlashBQ, q_len - q0, kv_len, q_start + q0, kv_start, causal, scale_log2);
+                     skt::kFlashBQ, q_len - q0, kv_len, q_start + q0, kv_start, causal, scale_log2, opts);
 }
 
 struct alignas(64) Args576 {
@@ -149,7 +154,7 @@ int launch576(cudaStream_t st, Args576& a, int nqb, int tp_kv) {
 template <int D>
 int launch_packed(cudaStream_t st, const bf16* q, const bf16* k, const bf16* v, const int* blk_seq,
                   const int* blk_q0, const int* seq_meta, bf16* out, float* lse, int nqb, int block, int n_q_heads,
-                  int n_kv_heads, int max_kvb, int causal, float scale_log2) {
+                  int n_kv_heads, int max_kvb, int causal, float scale_log2, const skt::FlashOpts& opts) {
   constexpr size_t bytes = skt::FlashSmem<D>::kBytes;
   cudaError_t err = cudaFuncSetAttribute(packed_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err != cudaSuccess) return (int)err;
@@ -157,7 +162,7 @@ int launch_packed(cudaStream_t st, const bf16* q, const bf16* k, const bf16* v, 
   dim3 grid(n_q_heads, nqb * (block / skt::kFlashBQ));
   packed_kernel<D><<<grid, skt::kFlashThreads, bytes, st>>>(q, k, v, blk_seq, blk_q0, seq_meta, out, lse,
                                                             nqb * block, block, n_q_heads, n_kv_heads, max_kvb,
-                                                            causal, scale_log2);
+                                                            causal, scale_log2, opts);
   return (int)cudaSuccess;
 }
 
@@ -168,12 +173,18 @@ int launch_packed(cudaStream_t st, const bf16* q, const bf16* k, const bf16* v, 
 // [TPq, Hq, 512], q the latent's 512 columns and q_pe [TPq, Hq, 64] the
 // rope's; otherwise q_pe null), bf16, Hq a multiple of Hkv, block a
 // multiple of 64. tp = NQB * block; tp_kv = k's packed rows. lse may be
-// null.
+// null. window (0: none), softcap (0: none) and sinks ([Hq] float32, or
+// null) at head dims 64 / 128 only.
 extern "C" int skt_flash_packed(
     const void* q, const void* q_pe, const void* k, const void* v, const void* blk_seq, const void* blk_q0,
     const void* seq_meta, void* out, void* lse, int nqb, int block, int n_q_heads,
-    int n_kv_heads, int head_dim, int max_kvb, int causal, float sm_scale, int tp_kv, void* stream) {
-  if (block % skt::kFlashBQ != 0) return (int)cudaErrorInvalidValue;
+    int n_kv_heads, int head_dim, int max_kvb, int causal, float sm_scale, int tp_kv, int window, float softcap,
+    const void* sinks, void* stream) {
+  if (block % skt::kFlashBQ != 0 || window < 0 || softcap < 0.f ||
+      (head_dim == 576 && (window || softcap != 0.f || sinks)))
+    return (int)cudaErrorInvalidValue;
+  const skt::FlashOpts opts{window, softcap > 0.f ? sm_scale / softcap : 0.f, softcap * skt::kLog2e,
+                            (const float*)sinks};
   const int tp = nqb * block;
   const float sl = sm_scale * skt::kLog2e;
   cudaStream_t st = (cudaStream_t)stream;
@@ -183,7 +194,7 @@ extern "C" int skt_flash_packed(
       auto launch = head_dim == 64 ? launch_packed<64> : launch_packed<128>;
       const int err = launch(st, (const bf16*)q, (const bf16*)k, (const bf16*)v, (const int*)blk_seq,
                              (const int*)blk_q0, (const int*)seq_meta, (bf16*)out, (float*)lse, nqb, block, n_q_heads,
-                             n_kv_heads, max_kvb, causal, sl);
+                             n_kv_heads, max_kvb, causal, sl, opts);
       if (err != 0) return err;
       break;
     }

@@ -12,6 +12,10 @@
 // are padding: a q tile wholly past q_len is written as zeros (lse of a row
 // that sees no key), other padding rows get the formula's value; all stay
 // finite. A row that sees no key gets o = 0 and the twin's lse, -1e30 * log2(e).
+// At head dims 64 / 128 the options of flash_prefill.py:39-82 too (gpt-oss):
+// a sliding window (key position > query position - window; key tiles wholly
+// outside it are not visited), a tanh soft cap and per-head sinks [Hq]
+// float32 (natural log, in the denominator once; the lse includes them).
 //
 // Bound: operations, 4 * Hq * D per visible (query, key) pair at the bf16
 // tensor-core peak (989 TFLOP/s): at the main path's S=1024 causal prefill
@@ -50,9 +54,10 @@ __global__ void __launch_bounds__(skt::kFlashThreads) flash_kernel(
     const bf16* __restrict__ q, const bf16* __restrict__ k,
     const bf16* __restrict__ v, const int* __restrict__ lens,
     bf16* __restrict__ out, float* __restrict__ lse, int sq, int skv,
-    int n_q_heads, int n_kv_heads, int causal, float scale_log2) {
+    int n_q_heads, int n_kv_heads, int causal, float scale_log2, skt::FlashOpts opts) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int h = blockIdx.x;
+  if (opts.sinks != nullptr) opts.sinks += h;
   const int q0 = (gridDim.y - 1 - blockIdx.y) * skt::kFlashBQ;  // the tiles with the most keys first
   const int b = blockIdx.z;
   const int hk = h / (n_q_heads / n_kv_heads);
@@ -71,7 +76,7 @@ __global__ void __launch_bounds__(skt::kFlashThreads) flash_kernel(
   const int see_rows = q0 < q_len ? rows : 0;
   skt::flash_rows<D>(smem, q + q_off, q_row_stride, k + kv_off, v + kv_off, kv_row_stride, out + q_off,
                      lse == nullptr ? nullptr : lse + ((long long)b * n_q_heads + h) * sq + q0,
-                     rows, see_rows, kv_len, q_start + q0, kv_start, causal, scale_log2);
+                     rows, see_rows, kv_len, q_start + q0, kv_start, causal, scale_log2, opts);
 }
 
 struct alignas(64) Args576 {
@@ -145,14 +150,14 @@ int launch576(cudaStream_t st, Args576& a, int batch) {
 template <int D>
 int launch_flash(cudaStream_t st, const bf16* q, const bf16* k, const bf16* v, const int* lens, bf16* out,
                  float* lse, int batch, int sq, int skv, int n_q_heads, int n_kv_heads, int causal,
-                 float scale_log2) {
+                 float scale_log2, const skt::FlashOpts& opts) {
   constexpr size_t bytes = skt::FlashSmem<D>::kBytes;
   cudaError_t err = cudaFuncSetAttribute(flash_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err != cudaSuccess) return (int)err;
   // heads fastest: blocks start in order, so the grid runs longest-first over every head
   dim3 grid(n_q_heads, (sq + skt::kFlashBQ - 1) / skt::kFlashBQ, batch);
   flash_kernel<D><<<grid, skt::kFlashThreads, bytes, st>>>(q, k, v, lens, out, lse, sq, skv, n_q_heads, n_kv_heads,
-                                                           causal, scale_log2);
+                                                           causal, scale_log2, opts);
   return (int)cudaSuccess;
 }
 
@@ -162,19 +167,24 @@ int launch_flash(cudaStream_t st, const bf16* q, const bf16* k, const bf16* v, c
 // multiple of 16; the MLA form: v null, V = K's first 512 columns, out
 // [B, Sq, Hq, 512], q the latent's 512 columns and q_pe [B, Sq, Hq, 64] the
 // rope's; otherwise q_pe null), bf16, Hq a multiple of Hkv. lse may be
-// null.
+// null. window (0: none), softcap (0: none) and sinks ([Hq] float32, or
+// null) at head dims 64 / 128 only.
 extern "C" int skt_flash_prefill(
     const void* q, const void* q_pe, const void* k, const void* v, const void* lens, void* out, void* lse,
     int batch, int sq, int skv, int n_q_heads, int n_kv_heads, int head_dim,
-    int causal, float sm_scale, void* stream) {
+    int causal, float sm_scale, int window, float softcap, const void* sinks, void* stream) {
   const float sl = sm_scale * skt::kLog2e;
   cudaStream_t st = (cudaStream_t)stream;
+  if (window < 0 || softcap < 0.f || (head_dim == 576 && (window || softcap != 0.f || sinks)))
+    return (int)cudaErrorInvalidValue;
+  const skt::FlashOpts opts{window, softcap > 0.f ? sm_scale / softcap : 0.f, softcap * skt::kLog2e,
+                            (const float*)sinks};
   switch (head_dim) {
     case 64:
     case 128: {
       auto launch = head_dim == 64 ? launch_flash<64> : launch_flash<128>;
       const int err = launch(st, (const bf16*)q, (const bf16*)k, (const bf16*)v, (const int*)lens, (bf16*)out,
-                             (float*)lse, batch, sq, skv, n_q_heads, n_kv_heads, causal, sl);
+                             (float*)lse, batch, sq, skv, n_q_heads, n_kv_heads, causal, sl, opts);
       if (err != 0) return err;
       break;
     }

@@ -29,6 +29,17 @@
 // the product is in flight (FlashAttention-3's intra-warpgroup overlap),
 // measured slower on the H100 than this order with two blocks an SM.
 //
+// Options (gpt-oss's prefill, flash_prefill.py:39-82 of the JAX package):
+// a tanh soft cap, s = cap tanh(s / cap) on the scaled score before the
+// running max; a sliding window, key positions > the row's - window; sinks,
+// one natural-log logit a head added to a row's denominator once, at the
+// store, so the lse includes it. Under a window a block visits only the key
+// tiles that hold a key some row may see (the TPU kernel's run predicate,
+// flash_prefill.py:125-126): from the tile holding row 0's first visible key
+// to the causal limit, so a windowed layer costs O(S window) and not O(S^2).
+// Every visited tile builds the mask then. tanhf is the accurate one: its
+// cost sits in the softmax step, which holds the tensor cores idle.
+//
 // Numbers. Scores are exact bf16 products summed in float32. P enters P V
 // as two bf16 terms, p = hi + lo (hi = bf16(p), lo = bf16(p - hi)), two
 // wgmmas each, so P is carried to ~2^-16 and the result matches a float32
@@ -50,6 +61,15 @@ constexpr int kFlashStages = 2;     // slots each of K and V tiles
 // (-1e30 + ln 1e-38) * log2(e), which is -1e30 * log2(e) in float32. Finite,
 // so merging two such rows gives weights of 1 and a zero row, never NaN.
 constexpr float kEmptyLse = -1e30f * kLog2e;
+
+// The options of a call: window 0 is none; cap_in 0 is no soft cap, else
+// scores map to cap_out tanh(s cap_in) (cap_in = scale / cap, cap_out = cap
+// log2(e)); sinks [Hq] natural-log logits a head, or null.
+struct FlashOpts {
+  int window;
+  float cap_in, cap_out;
+  const float* sinks;
+};
 
 // Dynamic shared memory of a block: q, then the stages' K and V tiles, and
 // 1 KB of slack to start the first tile on a 1024-byte boundary.
@@ -231,11 +251,12 @@ __device__ __forceinline__ void flash_softmax_pv(FlashAcc<D>& a, float (&s)[32],
 // The tile's rows out: out and lse at row 0 (out's row stride q_stride, lse
 // rows contiguous, lse may be null); rows r < rows are written, those r <
 // see_rows with a nonzero sum as O / l and lse (m + log2 l) * lse_scale, the
-// others as zeros and empty_lse.
+// others as zeros and empty_lse. sink (a natural-log logit, or null) joins
+// the sum of a row with one: l + 2^(sink log2(e) - m).
 template <int D>
 __device__ __forceinline__ void flash_store(FlashAcc<D>& a, bf16* __restrict__ out, long long q_stride,
                                             float* __restrict__ lse, int rows, int see_rows, float lse_scale,
-                                            float empty_lse) {
+                                            float empty_lse, const float* __restrict__ sink = nullptr) {
   constexpr int NS = D / 64;
   const int lane = threadIdx.x % 32, t = lane % 4;
   const int r0 = (threadIdx.x / 32 % 4) * 16 + lane / 4;
@@ -246,6 +267,7 @@ __device__ __forceinline__ void flash_store(FlashAcc<D>& a, bf16* __restrict__ o
     const int r = r0 + 8 * i;
     if (r >= rows) continue;
     const bool seen = r < see_rows && a.l[i] != 0.f;
+    if (seen && sink != nullptr) a.l[i] += exp2f(__ldg(sink) * kLog2e - a.m[i]);
     const float inv = seen ? 1.f / a.l[i] : 0.f;
     bf16* orow = out + r * q_stride + 2 * t;
 #pragma unroll
@@ -266,13 +288,14 @@ __device__ __forceinline__ void flash_store(FlashAcc<D>& a, bf16* __restrict__ o
 // rows: query rows present in memory (loaded and written, <= 64).
 // see_rows: rows r < see_rows may see keys; the others get o = 0 and
 // kEmptyLse. kv_len: key rows c < kv_len may be seen. q_pos0 / kv_pos0:
-// global positions of query row 0 / key row 0 for the causal mask.
+// global positions of query row 0 / key row 0 for the causal mask and the
+// window. o: the options, its sinks already at this head's (or null).
 template <int D>
 __device__ __forceinline__ void flash_rows(unsigned char* smem, const bf16* __restrict__ q, long long q_stride,
                                            const bf16* __restrict__ k, const bf16* __restrict__ v,
                                            long long kv_stride, bf16* __restrict__ out, float* __restrict__ lse,
                                            int rows, int see_rows, int kv_len, int q_pos0, int kv_pos0, int causal,
-                                           float scale_log2) {
+                                           float scale_log2, const FlashOpts& o) {
   constexpr int BK = kFlashBK;
   constexpr int KT = FlashSmem<D>::kTile;
   unsigned char* sq = smem + ((1024u - (smem_u32(smem) & 1023u)) & 1023u);
@@ -285,6 +308,8 @@ __device__ __forceinline__ void flash_rows(unsigned char* smem, const bf16* __re
   int kv_end = see_rows > 0 ? kv_len : 0;
   if (causal && kv_end > 0) kv_end = min(kv_end, max(0, q_pos0 + see_rows - 1 - kv_pos0 + 1));
   const int n_tiles = (kv_end + BK - 1) / BK;
+  // under a window, the first tile holding a key row 0 may see (later rows see later keys)
+  const int t0 = o.window > 0 ? max(0, q_pos0 - o.window + 1 - kv_pos0) / BK : 0;
 
   // smem: q | K slots 0, 1 | V slots 0, 1; tile j in slots j % 2
   auto k_slot = [&](int j) { return sq + KT * (1 + (j & 1)); };
@@ -293,13 +318,14 @@ __device__ __forceinline__ void flash_rows(unsigned char* smem, const bf16* __re
   FlashAcc<D> acc;
   acc.init();
 
-  if (n_tiles > 0) {
+  if (n_tiles > t0) {
+    const long long off = (long long)t0 * BK * kv_stride;
     flash_load_tile<D>(sq, q, q_stride, rows);
-    flash_load_tile<D>(k_slot(0), k, kv_stride, kv_len);
-    flash_load_tile<D>(v_slot(0), v, kv_stride, kv_len);
+    flash_load_tile<D>(k_slot(t0), k + off, kv_stride, kv_len - t0 * BK);
+    flash_load_tile<D>(v_slot(t0), v + off, kv_stride, kv_len - t0 * BK);
     cp_async_commit();
   }
-  for (int j = 0; j < n_tiles; ++j) {
+  for (int j = t0; j < n_tiles; ++j) {
     const int j0 = j * BK;
     if (j + 1 < n_tiles) {  // the next tile into the other slots
       const long long off = (long long)(j0 + BK) * kv_stride;
@@ -314,20 +340,28 @@ __device__ __forceinline__ void flash_rows(unsigned char* smem, const bf16* __re
     float s[32];
     flash_scores<D>(s, q_addr, smem_u32(k_slot(j)));
 
-    // The mask only where the tile holds kv_len or (causal) keys past row 0's position
+    // The soft cap on the scaled scores; the mask only where the tile holds
+    // kv_len or (causal) keys past row 0's position, or under a window
+    if (o.cap_in != 0.f) {
 #pragma unroll
-    for (int e = 0; e < 32; ++e) s[e] *= scale_log2;
-    if (j0 + BK > kv_len || (causal && kv_pos0 + j0 + BK - 1 > q_pos0)) {
+      for (int e = 0; e < 32; ++e) s[e] = o.cap_out * tanhf(s[e] * o.cap_in);
+    } else {
+#pragma unroll
+      for (int e = 0; e < 32; ++e) s[e] *= scale_log2;
+    }
+    if (j0 + BK > kv_len || (causal && kv_pos0 + j0 + BK - 1 > q_pos0) || o.window > 0) {
 #pragma unroll
       for (int e = 0; e < 32; ++e) {
         const int row = r0 + ((e >> 1) & 1) * 8, col = j0 + (e >> 2) * 8 + 2 * t + (e & 1);
-        if (!(col < kv_len && (!causal || kv_pos0 + col <= q_pos0 + row))) s[e] = __int_as_float(0xff800000);
+        const int kp = kv_pos0 + col, qp = q_pos0 + row;
+        if (!(col < kv_len && (!causal || kp <= qp) && (o.window <= 0 || kp > qp - o.window)))
+          s[e] = __int_as_float(0xff800000);
       }
     }
     flash_softmax_pv<D>(acc, s, smem_u32(v_slot(j)));
     __syncthreads();  // these slots may be refilled
   }
-  flash_store<D>(acc, out, q_stride, lse, rows, see_rows, 1.f, kEmptyLse);
+  flash_store<D>(acc, out, q_stride, lse, rows, see_rows, 1.f, kEmptyLse, o.sinks);
 }
 
 }  // namespace skt

@@ -36,6 +36,10 @@
 // k] activation boxes; 128-byte swizzled, zero-filled past N and M; maps
 // encoded once per pointer and shape and kept), refilling a slot one stage
 // after the warps released it, so the two warpgroups may run a stage apart.
+// K11's K may end in half a stage (gpt-oss's 2,880 = 22 x 128 + 64, groups
+// of 32): the maps span the true K, the last stage brings its first
+// activation box and a code box whose rows past K/2 TMA zero-fills, and the
+// warps run its first four k16 steps only, so no scale past K/G is read.
 //
 // Codes to fragments without a k permutation. A fragment register of row r
 // holds k (2t, 2t+1) or (2t+8, 2t+9) of a k16 step: the two nibbles of one
@@ -275,7 +279,8 @@ __global__ void __launch_bounds__(kThreads, 1) w4a16_wgmma_kernel(const __grid_c
     e = min(max(p.expert_ids[blk], 0), p.n_experts - 1);
   }
   const int s0 = blockIdx.y * p.stages_per_split;
-  const int n_k = min(p.K / kBK, s0 + p.stages_per_split) - s0;
+  const int n_k = min((p.K + kBK - 1) / kBK, s0 + p.stages_per_split) - s0;  // stages, the last maybe half
+  const int n_q = min(p.K, (s0 + p.stages_per_split) * kBK) / 16 - s0 * (kBK / 16);  // k16 steps
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
 
   // Thread 0 is also the producer: stage s0 + i into slot i % S, a code
@@ -283,11 +288,12 @@ __global__ void __launch_bounds__(kThreads, 1) w4a16_wgmma_kernel(const __grid_c
   const int boxes = min(MT, (p.N - n0 + 127) / 128);
   auto fetch = [&](int i) {
     const int s = i % S, k = (s0 + i) * kBK;
+    const bool whole = k + kBK <= p.K;  // else half a stage: no second activation box
     uint8_t* st = ring + s * C::STAGE;
-    skt::mbar_expect_tx(&full[s], boxes * kWBox + 2 * C::kABox);
+    skt::mbar_expect_tx(&full[s], boxes * kWBox + (whole ? 2 : 1) * C::kABox);
     for (int b = 0; b < boxes; ++b) skt::tma_load_3d(st + b * kWBox, &kp.tm_w, n0 + 128 * b, k / 2, e, &full[s]);
     skt::tma_load_2d(st + MT * kWBox, &kp.tm_a, k, m0, &full[s]);
-    skt::tma_load_2d(st + MT * kWBox + C::kABox, &kp.tm_a, k + 64, m0, &full[s]);
+    if (whole) skt::tma_load_2d(st + MT * kWBox + C::kABox, &kp.tm_a, k + 64, m0, &full[s]);
   };
   if (tid == 0) {
     for (int s = 0; s < S; ++s) {
@@ -345,7 +351,7 @@ __global__ void __launch_bounds__(kThreads, 1) w4a16_wgmma_kernel(const __grid_c
 #pragma unroll
     for (int q = 0; q < kPair; ++q) {
       const int i = i0 + q / 8, kk = q % 8, par = (q / KPG) & 1;
-      if (i >= n_k) break;
+      if (i * (kBK / 16) + kk >= n_q) break;
       const int s = i % S;
       const long long gi = g0 + ((long long)i * kBK + kk * 16) / G;  // this step's group
       if (kk % KPG == 0 && cols_in) {  // a new group: its scales, used at its promotion
@@ -404,7 +410,7 @@ __global__ void __launch_bounds__(kThreads, 1) w4a16_wgmma_kernel(const __grid_c
     skt::fence_regs(part[1][m]);
   }
   {  // the last group
-    const int q_last = n_k * (kBK / 16) - 1;
+    const int q_last = n_q - 1;
     const long long gl = g0 + q_last / KPG;
     const float* ls = ZR ? sums + gl * p.ld_sum : nullptr;
     if ((q_last / KPG) & 1) promote<BM, MT, ZR>(acc, part[1], sc[1], zc[1], ls);
@@ -666,7 +672,8 @@ extern "C" int skt_w4a16_wgmma(const void* a, const void* a2, const void* norm_w
 }
 
 // K11 at bm 64 / 128: x [cap, lda] bf16, k_valid columns used; w [E, K/2,
-// N] uint8 (one layer of a stacked bank), 16-byte aligned; scales / zeros
+// N] uint8 (one layer of a stacked bank), 16-byte aligned, K a multiple of
+// 64 (the last stage half deep where K % 128 == 64); scales / zeros
 // [E, *, N] bf16, 8-byte aligned, expert e's group g at e * s_estride + g *
 // s_gstride (s_gstride 0: per channel; both multiples of 4);
 // block_expert_ids [cap / block_rows], *num_valid the valid row blocks (read
@@ -679,7 +686,7 @@ extern "C" int skt_w4a16_wgmma_grouped(const void* x, const void* w, const void*
                                        int block_rows, int n_experts, long long s_estride, long long s_gstride,
                                        int mxfp4, int out_f32, int vec_a, void* stream) {
   const bool want_act = !w4g::aligned16(x) || lda % 8;
-  if (M < 1 || N % 16 || K % w4g::kBK || K % group || k_valid > K || (block_rows != 64 && block_rows != 128) ||
+  if (M < 1 || N % 16 || K % (w4g::kBK / 2) || K % group || k_valid > K || (block_rows != 64 && block_rows != 128) ||
       M % block_rows || n_experts < 1 || (want_act && act_ws == nullptr) || (zeros && asum_ws == nullptr) ||
       !w4g::aligned16(w) || reinterpret_cast<uintptr_t>(scales) % 8 || s_estride % 4 || s_gstride % 4 ||
       (zeros && reinterpret_cast<uintptr_t>(zeros) % 8))
@@ -694,7 +701,7 @@ extern "C" int skt_w4a16_wgmma_grouped(const void* x, const void* w, const void*
   p.s_estride = s_estride, p.s_gstride = s_gstride;
   p.M = M, p.N = N, p.K = K, p.n_experts = n_experts, p.block_rows = block_rows, p.ld_sum = M;
   p.out_kind = out_f32 ? skt::kOutF32 : skt::kOutBf16;
-  p.split = 1, p.stages_per_split = K / w4g::kBK;
+  p.split = 1, p.stages_per_split = (K + w4g::kBK - 1) / w4g::kBK;
   w4g::RowsParams r{};
   r.a = (const bf16*)x;
   r.act = want_act ? (bf16*)act_ws : nullptr, r.asum = zeros ? (float*)asum_ws : nullptr;

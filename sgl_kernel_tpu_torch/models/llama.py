@@ -15,10 +15,13 @@ prompts block-aligned packed into one launch), ``prefill_extend`` (a suffix
 over a prefix already in the paged cache: two flash passes joined by
 ``merge_state``), ``decode_step`` (one token per sequence against the paged
 cache) and ``mixed_step`` (a decode batch and one prefill chunk as one token
-stream). All update the KV pools IN PLACE, where the JAX versions donate
-them, and return them. KV pools may be int8
-or fp8 with a per-tensor ``kv_scale``: stores quantize (``_kv_quant``) and
-decode attention folds the scale back in.
+stream). The Qwen options: ``qkv_bias`` adds ``layers.q_bias`` / ``k_bias`` /
+``v_bias`` to the projections, ``qk_norm`` (Qwen3, ``qwen3_8b()``) a per-head
+RMSNorm (``layers.q_norm`` / ``k_norm`` [L, D], K2 over [T, H, D] rows) on q
+and k before RoPE; either keeps the fused decode (K3) off. All update the
+KV pools IN PLACE, where the JAX versions donate them, and return them. KV
+pools may be int8 or fp8 with a per-tensor ``kv_scale``: stores quantize
+(``_kv_quant``) and decode attention folds the scale back in.
 
 Kernels on the path: W4A16 GEMM (K1, with the decode norms in its
 prologue; with ``gemm_impl="dma"`` the decode-bucket GEMMs, M <= 32, take
@@ -65,7 +68,7 @@ class LlamaConfig:
     rms_eps: float = 1e-5
     max_position: int = 8192
     dtype: torch.dtype = torch.bfloat16
-    quant: Optional[str] = None  # None | "w4a16"
+    quant: Optional[str] = None  # None | "w4a16" ("mxfp4": the MoE configs' expert banks)
     group_size: int = 128
     # q/k/v and gate/up as single fused projections (the serving layout)
     fused: bool = False
@@ -79,10 +82,18 @@ class LlamaConfig:
     # or (x / kv_scale) cast (fp8), decode attention folds it back in;
     # required for int8 pools
     kv_scale: Optional[float] = None
+    # Qwen-family options: per-head RMSNorm on q / k before RoPE (Qwen3),
+    # biases on the q / k / v projections (Qwen2, gpt-oss)
+    qk_norm: bool = False
+    qkv_bias: bool = False
+
+    # the quant values the config takes; the MoE configs add "mxfp4" (their
+    # expert banks), as only the JAX package's MoE models quantize so
+    _QUANTS = (None, "w4a16")
 
     def __post_init__(self):
-        if self.quant not in (None, "w4a16"):
-            raise NotImplementedError(f"quant={self.quant!r}: only 'w4a16' is ported")
+        if self.quant not in self._QUANTS:
+            raise NotImplementedError(f"{type(self).__name__}(quant={self.quant!r}): takes {self._QUANTS}")
         if self.gemm_impl not in ("pipeline", "dma"):
             raise ValueError(f"gemm_impl must be 'pipeline' or 'dma', got {self.gemm_impl!r}")
         if self.kv_dtype not in (None, torch.bfloat16, torch.float32, torch.int8, torch.float8_e4m3fn,
@@ -94,6 +105,14 @@ class LlamaConfig:
         return LlamaConfig(
             vocab_size=128256, hidden_size=4096, intermediate_size=14336,
             num_layers=32, num_heads=32, num_kv_heads=8, head_dim=128, **kw
+        )
+
+    @staticmethod
+    def qwen3_8b(**kw):
+        return LlamaConfig(
+            vocab_size=151936, hidden_size=4096, intermediate_size=12288,
+            num_layers=36, num_heads=32, num_kv_heads=8, head_dim=128,
+            rope_theta=1e6, qk_norm=True, **kw
         )
 
     @staticmethod
@@ -149,6 +168,12 @@ def init_weights(cfg: LlamaConfig, generator: Union[torch.Generator, int] = 0,
         layers["up"] = linear(cfg.intermediate_size, h)
     if mlp:
         layers["down"] = linear(h, cfg.intermediate_size)
+    if cfg.qk_norm:
+        layers["q_norm"] = torch.ones((n_layers, d), dtype=cfg.dtype, device=dev)
+        layers["k_norm"] = torch.ones((n_layers, d), dtype=cfg.dtype, device=dev)
+    if cfg.qkv_bias:
+        for name, heads in (("q_bias", nq), ("k_bias", nkv), ("v_bias", nkv)):
+            layers[name] = torch.zeros((n_layers, heads * d), dtype=cfg.dtype, device=dev)
     embed = draw(cfg.vocab_size, h, 0.02)
     lm_head = draw(cfg.vocab_size, h, 1.0 / h ** 0.5)
     return {
@@ -263,6 +288,15 @@ def _qkv(h, weights, cfg, n_tokens, layer_id=None):
         q = _linear(h, weights["q"], cfg, layer_id=layer_id).reshape(n_tokens, nq, d)
         k = _linear(h, weights["k"], cfg, layer_id=layer_id).reshape(n_tokens, nkv, d)
         v = _linear(h, weights["v"], cfg, layer_id=layer_id).reshape(n_tokens, nkv, d)
+    if cfg.qkv_bias:
+        def bias(name, heads):
+            b = weights[name]
+            return (b[layer_id] if layer_id is not None else b).reshape(1, heads, d)
+        q, k, v = q + bias("q_bias", nq), k + bias("k_bias", nkv), v + bias("v_bias", nkv)
+    if cfg.qk_norm:  # per-head RMSNorm (K2 over [T, H, D] rows)
+        pick = lambda w: w[layer_id] if layer_id is not None else w
+        q = rmsnorm(q, pick(weights["q_norm"]), cfg.rms_eps)
+        k = rmsnorm(k, pick(weights["k_norm"]), cfg.rms_eps)
     return q, k, v
 
 
@@ -351,7 +385,7 @@ def decode_layers(lw, cfg: LlamaConfig, k_cache, v_cache, x, positions, page_tab
     n_stack = lw["input_norm"].shape[0]
     k_all, v_all = [], []
     for lidx in range(n_stack):
-        if cfg.fused:
+        if cfg.fused and not cfg.qkv_bias and not cfg.qk_norm:
             # input_norm in the qkv GEMM's prologue, then split + rope (K3)
             qkv = _linear(x, lw["qkv"], cfg, layer_id=lidx, norm=lw["input_norm"])
             q, k, v = rope_decode_fused_qkv(positions, qkv, rope_cache, num_q=cfg.num_heads,

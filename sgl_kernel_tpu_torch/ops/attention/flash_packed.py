@@ -10,13 +10,13 @@ q_start, kv_start, kv_blk0, kv_blks).
 ``flash_attention_packed`` is kernel K9, CUDA C++ in ``csrc/flash_packed.cu``,
 replacing the Pallas ``flash_attention_packed``
 (sgl_kernel_tpu/ops/attention/flash_packed.py:195, pallas_call at :292).
-``flash_attention_packed_ref`` is its plain PyTorch twin and covers the
+``flash_attention_packed_ref`` is its plain PyTorch twin. Both cover the
 whole JAX contract (causal with q_start / kv_start, window, softcap, sinks,
-base-2 lse); the kernel takes the causal or full attention and the lse the
-serving path needs, and raises on the rest. ``flash_attention_packed_mla``
-is the same at head dim 576 with V the first 512 columns of K (DeepSeek's
-packed MLA prefill): no padded V is built and the output is the 512
-columns the model reads; ``flash_attention_packed_mla_ref`` is its twin. The host helpers
+base-2 lse); at head dim 576 the kernel takes no option and raises on one.
+``flash_attention_packed_mla`` is the same at head dim 576 with V the first
+512 columns of K (DeepSeek's packed MLA prefill): no padded V is built and
+the output is the 512 columns the model reads;
+``flash_attention_packed_mla_ref`` is its twin. The host helpers
 (``build_packed_metadata``, ``make_seq_meta``, ``pack_padded``,
 ``unpack_to_padded``) are numpy and give the JAX package's bytes.
 """
@@ -31,7 +31,7 @@ import torch
 
 from ... import _build
 from ...utils import cdiv, round_up
-from .flash_prefill import D_MLA, DV_MLA, LOG2E
+from .flash_prefill import D_MLA, DV_MLA, LOG2E, OPTIONS, kernel_options
 
 
 def build_packed_metadata(q_lens, kv_lens=None, *, block: int = 256):
@@ -115,7 +115,7 @@ def flash_attention_packed_ref(q, k, v, blk_seq, blk_q0, seq_meta, *, max_kvb: i
     """Plain PyTorch twin of ``flash_attention_packed``: each q block against
     its sequence's keys, dense f32 scores. Rows past q_len see no key (o = 0,
     lse -1e30 * log2(e)); keys past min(kv_len, kv_blks, max_kvb blocks) are
-    not seen."""
+    not seen. Sinks join the sum of a row that sees a key only."""
     tp, hq, d = q.shape
     hkv = k.shape[1]
     group = hq // hkv
@@ -150,7 +150,7 @@ def flash_attention_packed_ref(q, k, v, blk_seq, blk_q0, seq_meta, *, max_kvb: i
         p = torch.exp(s - m[..., None])
         l = p.sum(dim=-1)
         if snk is not None:
-            l = l + torch.exp(snk - m)
+            l = torch.where(l > 0, l + torch.exp(snk - m), l)
         o = torch.einsum("hij,jhd->ihd", p, vb)
         l_inv = torch.where(l == 0, torch.zeros_like(l), 1.0 / l)
         out[nb * block: (nb + 1) * block] = (o * l_inv.t()[..., None]).to(q.dtype)
@@ -158,7 +158,8 @@ def flash_attention_packed_ref(q, k, v, blk_seq, blk_q0, seq_meta, *, max_kvb: i
     return (out, lse) if return_lse else out
 
 
-_ARGS = (ctypes.c_void_p,) * 9 + (ctypes.c_int,) * 7 + (ctypes.c_float, ctypes.c_int, ctypes.c_void_p)
+_ARGS = ((ctypes.c_void_p,) * 9 + (ctypes.c_int,) * 7 + (ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_float)
+         + (ctypes.c_void_p,) * 2)
 
 
 def flash_attention_packed(q, k, v, blk_seq, blk_q0, seq_meta, *, max_kvb: int, causal: bool = True,
@@ -171,15 +172,15 @@ def flash_attention_packed(q, k, v, blk_seq, blk_q0, seq_meta, *, max_kvb: int, 
     sequence may see (the TPU grid's kv extent). Returns out [TPq, Hq, D]
     (+ lse [Hq, TPq] float32 base 2 when return_lse). CUDA tensors go through
     the K9 kernel, which takes bf16, head_dim 64, 128 or 576 (576: the MLA
-    prefill, with Hq / Hkv dividing 16 or a multiple of 16), a block that is
-    a multiple of 64, and no window, softcap or sinks."""
+    prefill, with Hq / Hkv dividing 16 or a multiple of 16, and none of
+    window, softcap and sinks) and a block that is a multiple of 64. Each
+    launch counts in ``launches`` and under each option it takes in
+    ``launches_by_option``."""
     if q.device.type != "cuda":
         return flash_attention_packed_ref(
             q, k, v, blk_seq, blk_q0, seq_meta, max_kvb=max_kvb, causal=causal, sm_scale=sm_scale,
             sliding_window=sliding_window, logit_soft_cap=logit_soft_cap, sinks=sinks,
             return_lse=return_lse, block=block)
-    if sinks is not None or sliding_window is not None or logit_soft_cap is not None:
-        raise NotImplementedError("flash_attention_packed: the CUDA kernel takes no sinks, window or softcap yet")
     tp, hq, d = q.shape
     hkv = k.shape[1]
     if (hq % hkv or d not in (64, 128, 576) or k.shape != v.shape or k.shape[2] != d or block % 64
@@ -189,6 +190,8 @@ def flash_attention_packed(q, k, v, blk_seq, blk_q0, seq_meta, *, max_kvb: int, 
                          f"blocks {tuple(blk_seq.shape)} of {block}")
     if not (q.dtype == k.dtype == v.dtype == torch.bfloat16):
         raise NotImplementedError("flash_attention_packed: the CUDA kernel takes bf16")
+    window, cap, sinks, used = kernel_options(d, hq, q.device, sinks, sliding_window, logit_soft_cap,
+                                              "flash_attention_packed")
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     ints = [t.to(device=q.device, dtype=torch.int32).contiguous() for t in (blk_seq, blk_q0, seq_meta)]
     out = torch.empty_like(q)
@@ -197,15 +200,20 @@ def flash_attention_packed(q, k, v, blk_seq, blk_q0, seq_meta, *, max_kvb: int, 
     fn = _build.bind("flash_packed", "skt_flash_packed", _ARGS)
     _build.check(fn(q.data_ptr(), None, k.data_ptr(), v.data_ptr(), *(t.data_ptr() for t in ints), out.data_ptr(),
                     None if lse is None else lse.data_ptr(), tp // block, block, hq, hkv, d, int(max_kvb),
-                    int(causal), scale, k.shape[0], _build.stream_ptr(q.device)),
+                    int(causal), scale, k.shape[0], window, cap, None if sinks is None else sinks.data_ptr(),
+                    _build.stream_ptr(q.device)),
                  "flash_attention_packed")
     flash_attention_packed.launches += 1
     flash_attention_packed.launches_576 += d == 576  # the 576-wide tile (mla_flash_tile.cuh), counted apart
+    for o in used:
+        flash_attention_packed.launches_by_option[o] += 1
     return (out, lse) if return_lse else out
 
 
 flash_attention_packed.launches = 0
 flash_attention_packed.launches_576 = 0
+# launches that took each option (a launch with two counts under both)
+flash_attention_packed.launches_by_option = dict.fromkeys(OPTIONS, 0)
 
 
 def flash_attention_packed_mla_ref(q_nope, q_pe, kv, blk_seq, blk_q0, seq_meta, *, max_kvb: int, causal: bool = True,
@@ -246,7 +254,7 @@ def flash_attention_packed_mla(q_nope, q_pe, kv, blk_seq, blk_q0, seq_meta, *, m
     fn = _build.bind("flash_packed", "skt_flash_packed", _ARGS)
     _build.check(fn(q_nope.data_ptr(), q_pe.data_ptr(), kv.data_ptr(), None, *(t.data_ptr() for t in ints),
                     out.data_ptr(), None if lse is None else lse.data_ptr(), tp // block, block, hq, hkv, D_MLA,
-                    int(max_kvb), int(causal), scale, kv.shape[0], _build.stream_ptr(q_nope.device)),
+                    int(max_kvb), int(causal), scale, kv.shape[0], 0, 0.0, None, _build.stream_ptr(q_nope.device)),
                  "flash_attention_packed_mla")
     flash_attention_packed.launches += 1
     flash_attention_packed.launches_576 += 1

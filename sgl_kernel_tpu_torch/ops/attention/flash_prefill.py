@@ -3,10 +3,13 @@
 ``flash_attention`` is kernel K7, CUDA C++ in ``csrc/flash_prefill.cu``,
 replacing the Pallas ``flash_attention``
 (sgl_kernel_tpu/ops/attention/flash_prefill.py:165, pallas_call at :260).
-``flash_attention_ref`` is its plain PyTorch twin and covers the whole JAX
-contract (window, softcap, sinks, base-2 lse); the kernel takes the
-causal or full attention and the base-2 lse the serving path needs, and
-raises on the rest.
+``flash_attention_ref`` is its plain PyTorch twin. Both cover the whole JAX
+contract: causal or full attention with q / kv offsets, a sliding window, a
+tanh soft cap, per-head sinks and the base-2 lse (gpt-oss's prefill takes
+the sinks and the window); at head dim 576 the kernel takes no option and
+raises on one. A row that sees no key gets o = 0 and lse -1e30 * log2(e),
+sinks or not (JAX's finalize gives +inf there once a sink joins an empty
+sum).
 
 ``flash_attention_mla`` is the same function at head dim 576 with V the
 first 512 columns of K (DeepSeek's MLA prefill, mla.py:520-557 of the JAX
@@ -66,8 +69,8 @@ def flash_attention_ref(q, k, v, q_lens=None, kv_lens=None, sinks=None, q_start=
     m = s.amax(dim=-1, keepdim=True).clamp_min(-1e30)
     p = torch.exp(s - m)
     l = p.sum(dim=-1, keepdim=True)
-    if sinks is not None:
-        l = l + torch.exp(sinks.float().to(q.device)[None, :, None, None] - m)
+    if sinks is not None:  # the sink joins the sum of a row that sees a key
+        l = torch.where(l > 0, l + torch.exp(sinks.float().to(q.device)[None, :, None, None] - m), l)
     o = torch.einsum("bhij,bjhd->bihd", p, vf)
     l_inv = torch.where(l == 0, torch.zeros_like(l), 1.0 / l)
     out = (o * l_inv.permute(0, 2, 1, 3)).to(q.dtype)
@@ -77,7 +80,30 @@ def flash_attention_ref(q, k, v, q_lens=None, kv_lens=None, sinks=None, q_start=
     return out
 
 
-_ARGS = (ctypes.c_void_p,) * 7 + (ctypes.c_int,) * 7 + (ctypes.c_float, ctypes.c_void_p)
+_ARGS = ((ctypes.c_void_p,) * 7 + (ctypes.c_int,) * 7 + (ctypes.c_float, ctypes.c_int, ctypes.c_float)
+         + (ctypes.c_void_p,) * 2)
+
+OPTIONS = ("sinks", "window", "softcap")
+
+
+def kernel_options(d: int, hq: int, device, sinks, sliding_window, logit_soft_cap, name: str):
+    """The options as the kernels take them: (window, softcap, sinks
+    tensor) with 0 / 0.0 / None for an option not given; raises where the
+    kernel takes none (head dim 576) or the value is out of its range.
+    Shared by K7 and K9."""
+    used = [o for o, x in zip(OPTIONS, (sinks, sliding_window, logit_soft_cap)) if x is not None]
+    if used and d == D_MLA:
+        raise NotImplementedError(f"{name}: the head-dim 576 tile takes no {', '.join(used)}")
+    if sliding_window is not None and int(sliding_window) < 1:
+        raise ValueError(f"{name}: sliding_window must be >= 1, got {sliding_window}")
+    if logit_soft_cap is not None and not float(logit_soft_cap) > 0:
+        raise ValueError(f"{name}: logit_soft_cap must be > 0, got {logit_soft_cap}")
+    if sinks is not None:
+        sinks = sinks.to(device=device, dtype=torch.float32).contiguous()
+        if sinks.shape != (hq,):
+            raise ValueError(f"{name}: sinks {tuple(sinks.shape)} for {hq} heads")
+    return (0 if sliding_window is None else int(sliding_window),
+            0.0 if logit_soft_cap is None else float(logit_soft_cap), sinks, used)
 
 
 def flash_attention(q, k, v, q_lens=None, kv_lens=None, sinks=None, q_start=None,
@@ -88,17 +114,18 @@ def flash_attention(q, k, v, q_lens=None, kv_lens=None, sinks=None, q_start=None
     q_lens/kv_lens [B]; q_start/kv_start [B] global positions of q row 0 /
     kv row 0 (defaults kv_len - q_len and 0). Returns out [B, Sq, Hq, D]
     (+ lse [B, Hq, Sq] float32 base 2 when return_lse; a row that sees no
-    key has o = 0 and lse -1e30 * log2(e)). CUDA tensors go through the K7
-    kernel, which takes bf16, head_dim 64, 128 or 576 (576: the MLA prefill's
-    tile, with Hq / Hkv dividing 16 or a multiple of 16), and neither sinks,
-    window nor softcap."""
+    key has o = 0 and lse -1e30 * log2(e)). sinks [Hq] natural-log logits;
+    a key is inside ``sliding_window`` when its position > the query's -
+    window. CUDA tensors go through the K7 kernel, which takes bf16, head_dim
+    64, 128 or 576 (576: the MLA prefill's tile, with Hq / Hkv dividing 16 or
+    a multiple of 16, and none of sinks, window and softcap). Each launch
+    counts in ``launches`` and under each option it takes in
+    ``launches_by_option``."""
     if q.device.type != "cuda":
         return flash_attention_ref(
             q, k, v, q_lens, kv_lens, sinks, q_start, kv_start, causal=causal,
             sm_scale=sm_scale, sliding_window=sliding_window,
             logit_soft_cap=logit_soft_cap, return_lse=return_lse)
-    if sinks is not None or sliding_window is not None or logit_soft_cap is not None:
-        raise NotImplementedError("flash_attention: the CUDA kernel takes no sinks, window or softcap yet")
     b, sq, hq, d = q.shape
     skv, hkv = k.shape[1], k.shape[2]
     if (hq % hkv or d not in (64, 128, 576) or k.shape != v.shape or k.shape[0] != b or k.shape[3] != d
@@ -106,6 +133,8 @@ def flash_attention(q, k, v, q_lens=None, kv_lens=None, sinks=None, q_start=None
         raise ValueError(f"flash_attention: unsupported shapes q {tuple(q.shape)} k {tuple(k.shape)}")
     if not (q.dtype == k.dtype == v.dtype == torch.bfloat16):
         raise NotImplementedError("flash_attention: the CUDA kernel takes bf16")
+    window, cap, sinks, used = kernel_options(d, hq, q.device, sinks, sliding_window, logit_soft_cap,
+                                              "flash_attention")
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     lens = torch.stack(_lens(q, k, q_lens, kv_lens, q_start, kv_start), dim=1).contiguous()
     out = torch.empty_like(q)
@@ -113,16 +142,20 @@ def flash_attention(q, k, v, q_lens=None, kv_lens=None, sinks=None, q_start=None
     scale = sm_scale if sm_scale is not None else 1.0 / d ** 0.5
     fn = _build.bind("flash_prefill", "skt_flash_prefill", _ARGS)
     _build.check(fn(q.data_ptr(), None, k.data_ptr(), v.data_ptr(), lens.data_ptr(), out.data_ptr(),
-                    None if lse is None else lse.data_ptr(), b, sq, skv, hq, hkv, d, int(causal), scale,
-                    _build.stream_ptr(q.device)),
+                    None if lse is None else lse.data_ptr(), b, sq, skv, hq, hkv, d, int(causal), scale, window,
+                    cap, None if sinks is None else sinks.data_ptr(), _build.stream_ptr(q.device)),
                  "flash_attention")
     flash_attention.launches += 1
     flash_attention.launches_576 += d == 576  # the 576-wide tile (mla_flash_tile.cuh), counted apart
+    for o in used:
+        flash_attention.launches_by_option[o] += 1
     return (out, lse) if return_lse else out
 
 
 flash_attention.launches = 0
 flash_attention.launches_576 = 0
+# launches that took each option (a launch with two counts under both)
+flash_attention.launches_by_option = dict.fromkeys(OPTIONS, 0)
 
 D_MLA, DV_MLA = 576, 512  # MLA's q / k width and its V (the latent) width
 
@@ -162,8 +195,8 @@ def flash_attention_mla(q_nope, q_pe, kv, q_lens=None, kv_lens=None, q_start=Non
     scale = sm_scale if sm_scale is not None else 1.0 / D_MLA ** 0.5
     fn = _build.bind("flash_prefill", "skt_flash_prefill", _ARGS)
     _build.check(fn(q_nope.data_ptr(), q_pe.data_ptr(), kv.data_ptr(), None, lens.data_ptr(), out.data_ptr(),
-                    None if lse is None else lse.data_ptr(), b, sq, skv, hq, hkv, D_MLA, int(causal), scale,
-                    _build.stream_ptr(q_nope.device)),
+                    None if lse is None else lse.data_ptr(), b, sq, skv, hq, hkv, D_MLA, int(causal), scale, 0,
+                    0.0, None, _build.stream_ptr(q_nope.device)),
                  "flash_attention_mla")
     flash_attention.launches += 1
     flash_attention.launches_576 += 1

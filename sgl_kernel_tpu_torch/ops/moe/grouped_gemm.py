@@ -115,12 +115,13 @@ def grouped_route(bm: int, n: int, k_pad: int, per_channel: bool, *banks) -> str
     """The kernel a K11 call takes: ``"stream"`` (bm 16 / 32, group scales,
     a bank TMA maps: ``w4a16_stream.mappable``), ``"wgmma"`` (bm 64 / 128 on
     the wgmma tile, whose maps need N a multiple of 16, 16-byte aligned codes,
-    8-byte aligned scale and zero rows and K in whole 128-deep stages) or
+    8-byte aligned scale and zero rows and K in 128-deep stages, the last of
+    which may be half deep: K a multiple of 64, as gpt-oss's 2,880) or
     ``"tile"`` (the mma.sync tile, ``csrc/grouped_gemm.cu``: the rest)."""
     if bm in (16, 32):
         return "stream" if not per_channel and w4a16_stream.mappable(n, *banks) else "tile"
     w, scales, zeros = banks
-    ok = (n % 16 == 0 and k_pad % 128 == 0 and w.data_ptr() % 16 == 0
+    ok = (n % 16 == 0 and k_pad % 64 == 0 and w.data_ptr() % 16 == 0
           and all(t is None or t.data_ptr() % 8 == 0 for t in (scales, zeros)))
     return "wgmma" if ok else "tile"
 

@@ -28,6 +28,22 @@ def e2m1_encode(x: torch.Tensor) -> torch.Tensor:
     return ((x < 0.0).to(torch.uint8) << 3) | code
 
 
+E2M1_EMAX = 2  # the largest E2M1 exponent: 6 = 1.5 x 2^2
+
+_INV_LN2 = 1.4426950408889634
+
+
+def ue8m0_encode_from_amax(amax: torch.Tensor, emax: int = E2M1_EMAX):
+    """OCP MX shared scale of a group from its float32 absmax:
+    e = clamp(floor(log2(amax)) - emax, -127, 127); returns (byte e + 127
+    uint8, value 2^e float32) (formats.py:70-77). log2 is taken as ln times
+    the float32 1 / ln 2, the product XLA makes of it, so the exponent is
+    JAX's where a value sits an ulp from a power of two."""
+    log2 = torch.log(amax.float()) * torch.tensor(_INV_LN2, dtype=torch.float32)
+    e = torch.clamp(torch.floor(log2) - float(emax), -127, 127).to(torch.int32)
+    return (e + 127).to(torch.uint8), torch.exp2(e.float())
+
+
 def e2m1_decode(code: torch.Tensor) -> torch.Tensor:
     """E2M1 codes (the low 4 bits) -> float32 values."""
     c = code.to(torch.int64) & 0xF

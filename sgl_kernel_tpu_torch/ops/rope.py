@@ -1,7 +1,9 @@
 """Rotary position embedding.
 
 ``compute_cos_sin_cache`` builds the [max_pos, rot] = [cos | sin] float32
-cache of the JAX package; ``rotary_embedding`` (prefill) is plain PyTorch.
+cache of the JAX package; ``rotary_embedding`` (prefill) is plain PyTorch,
+and ``fused_qk_norm_rope`` (Qwen3's per-head q / k norm, then RoPE, over
+packed qkv) is K2 and ``rotary_embedding``.
 ``rope_decode_fused_qkv`` is kernel K3, a Triton kernel that replaces the
 Pallas ``rope_decode_fused_qkv`` (sgl_kernel_tpu/ops/rope.py:228,
 pallas_call at :243); ``rope_decode_fused_qkv_ref`` is its plain twin.
@@ -122,6 +124,26 @@ def rotary_embedding(positions, query, key, head_size: int, cos_sin_cache, is_ne
         return _rotate_neox(xh, cos, sin).reshape(x.shape)
 
     return apply(query), apply(key)
+
+
+def fused_qk_norm_rope(qkv, num_heads_q: int, num_heads_k: int, num_heads_v: int, head_dim: int, q_weight, k_weight,
+                       positions, cos_sin_cache, *, eps: float = 1e-6, is_neox: bool = True):
+    """Per-head RMSNorm on q and k, then RoPE, over packed qkv [T, (Hq + Hk
+    + Hv) * D] (sgl_kernel_tpu/ops/rope.py:168-194, the functional form of an
+    in-place fused op). Returns the new qkv. No kernel of its own: the norm
+    is K2 over [T, H, D] rows, the rotation ``rotary_embedding``."""
+    from .norm import rmsnorm
+
+    t = qkv.shape[0]
+    nq, nk = num_heads_q * head_dim, num_heads_k * head_dim
+    q, k, v = qkv[:, :nq], qkv[:, nq:nq + nk], qkv[:, nq + nk:]
+    if v.shape[-1] != num_heads_v * head_dim:
+        raise ValueError(f"fused_qk_norm_rope: qkv {tuple(qkv.shape)} for {num_heads_q}+{num_heads_k}+"
+                         f"{num_heads_v} heads of {head_dim}")
+    q = rmsnorm(q.reshape(t, num_heads_q, head_dim), q_weight, eps).reshape(t, -1)
+    k = rmsnorm(k.reshape(t, num_heads_k, head_dim), k_weight, eps).reshape(t, -1)
+    q, k = rotary_embedding(positions, q, k, head_dim, cos_sin_cache, is_neox)
+    return torch.cat([q, k, v], dim=-1)
 
 
 def rope_decode_fused_qkv_ref(positions, qkv, cos_sin_cache, *, num_q: int, num_kv: int, head_dim: int):

@@ -9,7 +9,8 @@ The Llama adapter serves the padded ``prefill``, the packed multi-prompt
 ``prefill_packed``, the ``prefill_extend`` of a cached prefix or a prompt
 chunk, and the ``decode`` step; the engine reaches ``mixed_step`` through
 ``_m``. The Mixtral adapter serves the same four programs of its own model
-over the same (k, v) pools, and the DeepSeek adapter over one latent pool
+over the same (k, v) pools, as does the gpt-oss adapter (sinks, a window on
+even layers, MXFP4 experts), and the DeepSeek adapter over one latent pool
 (with NSA sparse decode, the latent pool and the two indexer pools);
 neither model has a ``mixed_step``, so the engine advances their chunked
 prompts by extend. ``supports_spec`` is False (speculative decoding is a
@@ -27,7 +28,7 @@ latent store redirects its dropped rows on the device.
 
 from __future__ import annotations
 
-from ..models import deepseek, llama, mixtral
+from ..models import deepseek, gptoss, llama, mixtral
 from ..utils import resolve_device
 
 
@@ -90,6 +91,21 @@ class MixtralAdapter(LlamaAdapter):
     def __init__(self, cfg, device="cuda"):
         super().__init__(cfg, device)
         self._m = mixtral
+
+
+class GptOssAdapter(MixtralAdapter):
+    """gpt-oss (models/gptoss.py): attention sinks, a sliding window on
+    even layers and the clamped-swiglu MoE over the Mixtral adapter's
+    programs and (k, v) pools (adapters.py:142-155 of the JAX package).
+    Extend runs both flash passes sink-free and applies the sinks once after
+    the merge. Its decode is capturable as the others': each layer's window
+    is a Python int, the sinks a slice of the stacked tree."""
+
+    name = "gptoss"
+
+    def __init__(self, cfg, device="cuda"):
+        super().__init__(cfg, device)
+        self._m = gptoss
 
 
 class DeepseekAdapter:
@@ -158,10 +174,13 @@ class DeepseekAdapter:
 
 def adapter_for(cfg, device="cuda"):
     """The adapter for a config's type, the most specific first
-    (``MixtralConfig`` is a ``LlamaConfig``); a DeepSeek config asks for the
-    decode mode it names (NSA, or compression, which raises)."""
+    (``GptOssConfig`` is a ``MixtralConfig``, which is a ``LlamaConfig``); a
+    DeepSeek config asks for the decode mode it names (NSA, or compression,
+    which raises)."""
     if isinstance(cfg, deepseek.DeepseekConfig):
         return DeepseekAdapter(cfg, device, use_nsa=bool(cfg.nsa), use_compress=bool(cfg.compress))
+    if isinstance(cfg, gptoss.GptOssConfig):
+        return GptOssAdapter(cfg, device)
     if isinstance(cfg, mixtral.MixtralConfig):
         return MixtralAdapter(cfg, device)
     if isinstance(cfg, llama.LlamaConfig):

@@ -23,8 +23,8 @@ function runs eagerly on the same static inputs; on the CPU the first call
 records the tally below as a capture would.
 
 A replay does not pass through the kernels' Python wrappers, so their
-launch counters (``launches``, ``launches_576``, ``launches_by_route`` of
-every wrapper in ``KERNELS``) would not move. The capture records how far
+launch counters (``launches``, ``launches_576``, ``launches_by_route`` and
+``launches_by_option`` of every wrapper in ``KERNELS``) would not move. The capture records how far
 each counter moved while the step was captured (``LaunchTally``), puts the
 counters back (nothing ran), and every replay adds that tally again: the
 counts stay those of the kernels the device ran.
@@ -53,8 +53,9 @@ def _counters() -> Iterator[Tuple[Counter, object]]:
         yield (name, "launches", None), fn
         if hasattr(fn, "launches_576"):
             yield (name, "launches_576", None), fn
-        for key in getattr(fn, "launches_by_route", {}):
-            yield (name, "launches_by_route", key), fn
+        for attr in ("launches_by_route", "launches_by_option"):
+            for key in getattr(fn, attr, {}):
+                yield (name, attr, key), fn
 
 
 def _snapshot() -> Dict[Counter, int]:
@@ -85,8 +86,9 @@ class LaunchTally:
 
     def counts(self) -> Dict[str, int]:
         """The tally under the names ``launch_counts()``,
-        ``head_dim_launch_counts()`` and ``route_launch_counts()`` use:
-        ``name``, ``name_576`` and ``name_<route>``."""
+        ``head_dim_launch_counts()``, ``route_launch_counts()`` and
+        ``option_launch_counts()`` use: ``name``, ``name_576``,
+        ``name_<route>`` and ``name_<option>``."""
         out = {}
         for (name, attr, key), n in self.deltas.items():
             out[name if attr == "launches" else f"{name}_576" if key is None else f"{name}_{key}"] = n

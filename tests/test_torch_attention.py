@@ -238,6 +238,47 @@ def test_flash_bf16_extend_offsets(rng):
         close(rl[i, :, :n], ol[i, :, :n], **BF16)
 
 
+FLASH_OPTIONS = {"sinks": dict(sinks=True), "window": dict(sliding_window=8), "softcap": dict(logit_soft_cap=5.0),
+                 "all": dict(sinks=True, sliding_window=8, logit_soft_cap=5.0)}
+
+
+@pytest.mark.parametrize("opt", list(FLASH_OPTIONS))
+@pytest.mark.parametrize("hq,hkv", [(4, 2), (8, 1)])
+def test_flash_options_offsets(rng, opt, hq, hkv):
+    """K7's twin with gpt-oss's options (per-head sinks, a sliding window,
+    a tanh soft cap), alone and together, at extend offsets (q_start /
+    kv_start), GQA 2:1 and 8:1, with the lse, float32. Sequence 1's q sits at
+    positions 32..47 over keys 0..47; sequence 2's at 50..54 over keys 0..29,
+    so under the window of 8 its rows see no key: the port gives them o = 0
+    and lse -1e30 * log2(e) (JAX's lse there is -inf or, with a sink, +inf;
+    ROADMAP queue 3), and only rows that see a key are compared."""
+    b, sq, skv, d = 2, 16, 48, 32
+    kw = dict(FLASH_OPTIONS[opt])
+    (qj, qt), (kj, kt), (vj, vt) = [both(rng.standard_normal(sh).astype(np.float32), jnp.float32)
+                                    for sh in ((b, sq, hq, d), (b, skv, hkv, d), (b, skv, hkv, d))]
+    q_lens, kv_lens = np.array([16, 5], np.int32), np.array([48, 30], np.int32)
+    qs, ks = np.array([32, 50], np.int32), np.array([0, 0], np.int32)
+    sinks = (rng.standard_normal(hq) * 2).astype(np.float32) if kw.pop("sinks", False) else None
+    ro, rl = jflash.flash_attention(qj, kj, vj, *map(jnp.asarray, (q_lens, kv_lens)),
+                                    None if sinks is None else jnp.asarray(sinks), *map(jnp.asarray, (qs, ks)),
+                                    causal=True, return_lse=True, **kw)
+    oo, ol = tatt.flash_attention(qt, kt, vt, *map(torch.from_numpy, (q_lens, kv_lens)),
+                                  None if sinks is None else torch.from_numpy(sinks), *map(torch.from_numpy, (qs, ks)),
+                                  causal=True, return_lse=True, **kw)
+    window = kw.get("sliding_window")
+    for i in range(b):
+        for r in range(q_lens[i]):
+            qp = qs[i] + r
+            kp = ks[i] + np.arange(kv_lens[i])
+            seen = ((kp <= qp) & ((kp > qp - window) if window else True)).any()
+            if seen:
+                close(ro[i, r], oo[i, r], **F32)
+                close(rl[i, :, r], ol[i, :, r], **F32)
+            else:
+                assert not oo[i, r].any() and torch.all(ol[i, :, r] == np.float32(-1e30 * tatt.flash_prefill.LOG2E))
+    assert (window is not None) == (not oo[1, :5].any())
+
+
 def test_merge_states(rng):
     t, h, d = 5, 4, 16
     va, vb = (rng.standard_normal((t, h, d)).astype(np.float32) for _ in range(2))

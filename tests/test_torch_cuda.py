@@ -28,7 +28,12 @@ bit-equal) and the
 library GEMMs around them (int8 / fp8 scaled_mm, the per-channel QServe GEMM,
 w4a8_grouped_mm on K11), and the engine's decode step as a CUDA graph
 (replays bit-equal to eager steps on three engines, a burst graph's tokens,
-the launch tally, a capture that cannot succeed raising).
+the launch tally, a capture that cannot succeed raising; the gpt-oss engine
+at gpt-oss-20b's widths too); gpt-oss's options in K7 / K9 (sinks, window,
+soft cap, alone and together, head dims 64 / 128, GQA 8:1, extend offsets,
+rows that see no key, the window's tile skipping at windows of 1 and wider
+than S) and K11 at K = 2,880 (half a 128-deep stage) on the wgmma tile and
+the streaming core, MXFP4 and int4.
 
 Needs a CUDA device: every test here is marked ``cuda`` and skips without
 one. On the card (tests/conftest.py imports JAX, which that machine need not
@@ -425,7 +430,8 @@ def test_packed_ragged_batch_padding_blocks(gen, d):
 
 def test_packed_extend_offsets_and_raises(gen):
     """Extend metadata (q the last q_len of kv_len, explicit kv_start),
-    non-causal attention, and the options the kernel does not take."""
+    non-causal attention, and the options the 576 tile does not take (the
+    64 / 128 tile takes them: test_flash_options, test_packed_options)."""
     q_lens, kv_lens = [40, 300], [500, 300]
     seq_meta, meta = flash_packed.make_seq_meta(q_lens, kv_lens, kv_start=[0, 7])
     ints = [torch.from_numpy(a).cuda() for a in (meta["blk_seq"], meta["blk_q0"], seq_meta)]
@@ -436,11 +442,150 @@ def test_packed_extend_offsets_and_raises(gen):
         ref = flash_packed.flash_attention_packed_ref(q, k, v, *ints, max_kvb=meta["max_kvb"], causal=causal)
         for t0, n in zip(meta["seq_tok0"].tolist(), q_lens):
             assert_elementwise(out[t0: t0 + n], ref[t0: t0 + n])
-    for kw in (dict(sliding_window=64), dict(logit_soft_cap=5.0), dict(sinks=torch.zeros(8, device="cuda"))):
+    q, k = randn(gen, meta["total_q"], 16, 576), randn(gen, meta["total_kv"], 1, 576)
+    for kw in (dict(sliding_window=64), dict(logit_soft_cap=5.0), dict(sinks=torch.zeros(16, device="cuda"))):
         with pytest.raises(NotImplementedError):
-            flash_packed.flash_attention_packed(q, k, v, *ints, max_kvb=meta["max_kvb"], **kw)
+            flash_packed.flash_attention_packed(q, k, k, *ints, max_kvb=meta["max_kvb"], **kw)
         with pytest.raises(NotImplementedError):
-            flash_prefill.flash_attention(q[None], k[None], v[None], **kw)
+            flash_prefill.flash_attention(q[None], k[None], k[None], **kw)
+
+
+FLASH_OPTS = ("sinks", "window", "softcap", "all")
+
+
+def flash_opts(gen, opt, hq, window=100):
+    """The keyword options of one case: gpt-oss's sinks (natural log, [Hq]
+    float32), a window, a soft cap of 30, or all three."""
+    kw = {}
+    if opt in ("sinks", "all"):
+        kw["sinks"] = torch.randn(hq, generator=gen, device="cuda") * 2
+    if opt in ("window", "all"):
+        kw["sliding_window"] = window
+    if opt in ("softcap", "all"):
+        kw["logit_soft_cap"] = 30.0
+    return kw
+
+
+def rows_seeing_keys(ql, kl, qs, ks, window, causal=True):
+    """[B, Sq] bool: the rows r < q_len that see a key at or before their
+    position (causal) and inside the window."""
+    b, out = ql.shape[0], []
+    for i in range(b):
+        qp = qs[i].item() + torch.arange(ql.max().item())
+        kp = ks[i].item() + torch.arange(kl[i].item())
+        vis = torch.ones(qp.shape[0], kp.shape[0], dtype=torch.bool)
+        if causal:
+            vis &= kp[None] <= qp[:, None]
+        if window:
+            vis &= kp[None] > qp[:, None] - window
+        out.append(vis.any(1) & (torch.arange(qp.shape[0]) < ql[i].item()))
+    return torch.stack(out).cuda()
+
+
+@pytest.mark.parametrize("opt", FLASH_OPTS)
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("hq,hkv", [(8, 1), (16, 4)])
+def test_flash_options(gen, opt, d, hq, hkv):
+    """K7 with gpt-oss's options on the wgmma tile against the twin, with
+    the lse: a causal prefill of 300, an extend of 130 over 390 keys at
+    global offsets (q_start 260), and 40 queries at positions 500.. over
+    200 keys from 0, which under the window of 100 see none (o = 0, lse
+    -1e30 log2(e), sinks or not); GQA 8:1 and 4:1, head dims 64 and 128.
+    Each launch counts under its options."""
+    b, sq, skv = 3, 300, 390
+    q, k, v = randn(gen, b, sq, hq, d), randn(gen, b, skv, hkv, d), randn(gen, b, skv, hkv, d)
+    ql, kl, qs, ks = int_lens([300, 130, 40], [300, 390, 200], [0, 260, 500], [0, 0, 0])
+    kw = flash_opts(gen, opt, hq)
+    before = dict(flash_prefill.flash_attention.launches_by_option)
+    out, lse = flash_prefill.flash_attention(q, k, v, ql, kl, kw.get("sinks"), qs, ks, causal=True, return_lse=True,
+                                             sliding_window=kw.get("sliding_window"),
+                                             logit_soft_cap=kw.get("logit_soft_cap"))
+    after = flash_prefill.flash_attention.launches_by_option
+    for o in ("sinks", "window", "softcap"):
+        assert after[o] == before[o] + (opt in (o, "all"))
+    ref, ref_lse = flash_prefill.flash_attention_ref(q, k, v, ql, kl, kw.get("sinks"), qs, ks, causal=True,
+                                                     return_lse=True, sliding_window=kw.get("sliding_window"),
+                                                     logit_soft_cap=kw.get("logit_soft_cap"))
+    seen = rows_seeing_keys(ql, kl, qs, ks, kw.get("sliding_window"))
+    assert torch.isfinite(out).all() and torch.isfinite(lse).all()
+    for i, n in enumerate(ql.tolist()):
+        rows = seen[i, :n]
+        if rows.any():
+            assert_elementwise(out[i, :n][rows], ref[i, :n][rows])
+            assert_elementwise(lse[i, :, :n][:, rows], ref_lse[i, :, :n][:, rows])
+        assert not out[i, :n][~rows].any() and (rows.all() or is_empty_lse(lse[i, :, :n][:, ~rows]))
+    assert bool(seen[2, :40].any()) == ("sliding_window" not in kw)
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_window_skips_tiles(gen, d, causal):
+    """The window's tile skipping: with a window of 1 each causal row sees
+    only its own key, so the output is v at that row bit for bit (every
+    earlier key tile skipped, the mask built on the visited one); a window
+    wider than every sequence changes no bit of the output or lse. S =
+    4,096 with a window of 128 (gpt-oss's local layers) against the twin."""
+    b, s, hq, hkv = 2, 700, 8, 1
+    q, k, v = randn(gen, b, s, hq, d), randn(gen, b, s, hkv, d), randn(gen, b, s, hkv, d)
+    ql = int_lens([700, 333])[0]
+    if causal:
+        out = flash_prefill.flash_attention(q, k, v, ql, ql, causal=True, sliding_window=1)
+        for i, n in enumerate(ql.tolist()):
+            assert torch.equal(out[i, :n], v[i, :n].expand(n, hq, d))
+    plain, plain_lse = flash_prefill.flash_attention(q, k, v, ql, ql, causal=causal, return_lse=True)
+    wide, wide_lse = flash_prefill.flash_attention(q, k, v, ql, ql, causal=causal, return_lse=True,
+                                                   sliding_window=s + 1)
+    assert torch.equal(wide, plain) and torch.equal(wide_lse, plain_lse)
+    n = 4096
+    q, k, v = randn(gen, 1, n, hq, d), randn(gen, 1, n, hkv, d), randn(gen, 1, n, hkv, d)
+    out = flash_prefill.flash_attention(q, k, v, causal=causal, sliding_window=128)
+    assert_elementwise(out, flash_prefill.flash_attention_ref(q, k, v, causal=causal, sliding_window=128))
+
+
+@pytest.mark.parametrize("opt", FLASH_OPTS)
+@pytest.mark.parametrize("d", [64, 128])
+def test_packed_options(gen, opt, d):
+    """K9 with gpt-oss's options against the twin over the engine's layout
+    (a ragged batch, padding blocks on the empty pseudo-sequence, max_kvb a
+    power of two above every sequence's), GQA 8:1, window 128, with the
+    lse; rows past q_len and padding blocks give o = 0 and the empty lse.
+    Each launch counts under its options."""
+    lens, hq = [16, 300, 1, 777, 256, 90], 8
+    qkv, ints, meta = packed_inputs(gen, lens, hq, 1, d, n_pad_blocks=3)
+    kw = flash_opts(gen, opt, hq, window=128)
+    before = dict(flash_packed.flash_attention_packed.launches_by_option)
+    out, lse = flash_packed.flash_attention_packed(*qkv, *ints, max_kvb=8, return_lse=True, **kw)
+    after = flash_packed.flash_attention_packed.launches_by_option
+    for o in ("sinks", "window", "softcap"):
+        assert after[o] == before[o] + (opt in (o, "all"))
+    ref, ref_lse = flash_packed.flash_attention_packed_ref(*qkv, *ints, max_kvb=8, return_lse=True, **kw)
+    assert torch.isfinite(out).all() and torch.isfinite(lse).all()
+    seen = torch.zeros(qkv[0].shape[0], dtype=torch.bool, device="cuda")
+    for t0, n in zip(meta["seq_tok0"].tolist(), lens):
+        seen[t0: t0 + n] = True
+        assert_elementwise(out[t0: t0 + n], ref[t0: t0 + n])
+        assert_elementwise(lse[:, t0: t0 + n], ref_lse[:, t0: t0 + n])
+    assert not out[~seen].any() and is_empty_lse(lse[:, ~seen])
+
+
+def test_packed_window_extend_offsets(gen):
+    """K9 with a window over extend metadata (q the last q_len of kv_len at
+    kv_start 7, one sequence whose queries sit past its keys' window): each
+    64-row block visits only the tiles its window reaches."""
+    q_lens, kv_lens = [40, 300, 64], [500, 300, 64]
+    seq_meta, meta = flash_packed.make_seq_meta(q_lens, kv_lens, q_start=[460, 0, 400], kv_start=[0, 7, 0])
+    ints = [torch.from_numpy(a).cuda() for a in (meta["blk_seq"], meta["blk_q0"], seq_meta)]
+    q = randn(gen, meta["total_q"], 8, 64)
+    k, v = randn(gen, meta["total_kv"], 1, 64), randn(gen, meta["total_kv"], 1, 64)
+    sinks = torch.randn(8, generator=gen, device="cuda")
+    kw = dict(max_kvb=meta["max_kvb"], sliding_window=128, sinks=sinks, return_lse=True)
+    out, lse = flash_packed.flash_attention_packed(q, k, v, *ints, **kw)
+    ref, ref_lse = flash_packed.flash_attention_packed_ref(q, k, v, *ints, **kw)
+    for t0, n in zip(meta["seq_tok0"].tolist()[:2], q_lens[:2]):
+        assert_elementwise(out[t0: t0 + n], ref[t0: t0 + n])
+        assert_elementwise(lse[:, t0: t0 + n], ref_lse[:, t0: t0 + n])
+    t0 = meta["seq_tok0"].tolist()[2]
+    assert not out[t0: t0 + 64].any() and is_empty_lse(lse[:, t0: t0 + 64])
 
 
 def check_flash(q, k, v, lens, causal):
@@ -1098,6 +1243,34 @@ def test_w4a16_dma_whole_tiles(gen):
     kw["bias"] = randn(gen, 264 * 256, dtype=torch.float32)
     check_w4_dma(a, w, s, kw)
     assert torch.equal(w4a16_dma.w4a16_gemm_dma(a, w, s, **kw), w4a16_dma.w4a16_gemm_dma(a, w, s, **kw))
+
+
+@pytest.mark.parametrize("bm", [16, 32, 64, 128])
+@pytest.mark.parametrize("fmt,gs,zeros", [("mxfp4", 32, False), ("int4", 32, False), ("int4", 64, True)])
+@pytest.mark.parametrize("n", [2880, 5760])
+def test_grouped_k2880(gen, bm, fmt, gs, zeros, n):
+    """K11 at gpt-oss-20b's K = 2,880 (22 stages of 128 and half of one; 11
+    of 256 and a quarter on the streaming core): the wgmma tile at bm 64 /
+    128, the streaming core at 16 / 32, never the mma.sync tile; down's N
+    2,880 and gate_up's 5,760; 5 of 7 row blocks valid with NaN in the
+    padding rows; two calls give the same bits."""
+    blocks, valid = len(DECODE_EIDS), 5
+    x, w, s, z, _ = grouped_inputs(gen, bm=bm, blocks=blocks, k=2880, n=n, gs=gs, e=6, layers=2, fmt=fmt, zeros=zeros)
+    eids = torch.tensor(DECODE_EIDS, dtype=torch.int32, device="cuda")
+    x[valid * bm:] = float("nan")
+    nvt = torch.tensor(valid, dtype=torch.int32, device="cuda")
+    kw = dict(bm=bm, group_size=gs, fmt=fmt)
+    fn = lambda: moe.w4a16_grouped_mm(x, w, s, eids, z, 1, nvt, **kw)
+    before = dict(moe.w4a16_grouped_mm.launches_by_route)
+    out = fn()
+    route = "stream" if bm in (16, 32) else "wgmma"
+    assert moe.w4a16_grouped_mm.launches_by_route[route] == before[route] + 1
+    assert moe.w4a16_grouped_mm.launches_by_route["tile"] == before["tile"]
+    rows = valid * bm
+    ref = moe.w4a16_grouped_mm_ref(x, w, s, eids, z, 1, nvt, **kw)
+    assert torch.isfinite(out[:rows]).all()
+    assert_elementwise(out[:rows], ref[:rows])
+    assert torch.equal(fn()[:rows], out[:rows])
 
 
 def test_grouped_decode_routes_by_shape(gen, monkeypatch):
@@ -2772,6 +2945,10 @@ def _graph_cfg(kind):
         return dataclasses.replace(LlamaConfig.llama3_8b(quant="w4a16", fused=True), num_layers=2, max_position=2048)
     if kind == "mixtral-w4a16":
         return dataclasses.replace(MixtralConfig.mixtral_8x7b(quant="w4a16"), num_layers=2, max_position=2048)
+    if kind == "gptoss-mxfp4":  # gpt-oss-20b's widths (chip_smoke.gptoss_cfg), 2 layers: one windowed, one global
+        import chip_smoke
+
+        return dataclasses.replace(chip_smoke.gptoss_cfg(), num_layers=2, max_position=2048)
     # DeepSeek-V2-Lite widths (layer 0 dense, layer 1 MoE, top-6 of 64), W4A16, int8 latent
     return DeepseekConfig(vocab_size=102400, hidden_size=2048, num_layers=2, num_heads=16, qk_nope_dim=128,
                           v_head_dim=128, num_experts=64, num_experts_per_tok=6, moe_intermediate=1408,
@@ -2816,7 +2993,7 @@ def _admit(eng, n=16, new=24, seed=0):
 GRAPH_KINDS = ("deepseek-w4a16-int8", "llama-w4a16", "mixtral-w4a16")
 
 
-@pytest.mark.parametrize("kind", GRAPH_KINDS)
+@pytest.mark.parametrize("kind", GRAPH_KINDS + ("gptoss-mxfp4",))
 def test_decode_graph_replay_matches_eager(graph_engines, kind):
     """Six decode steps, the static inputs refilled in place each step: the
     graph's logits equal the eager step's on the same inputs bit for bit
@@ -2824,6 +3001,8 @@ def test_decode_graph_replay_matches_eager(graph_engines, kind):
     order, the MoE combine too since it gathers each token's K slots), then
     the batch advances by the graph's greedy tokens."""
     eng = graph_engines(kind)
+    if kind.startswith("gptoss"):  # seeded sinks (the init's are zero), so the decode's sinks count
+        eng.params["layers"]["sinks"].copy_(torch.randn(eng.params["layers"]["sinks"].shape, device="cuda"))
     reqs = _admit(eng)
     graph = eng._decode_graph(1)
     assert graph.graph is not None

@@ -53,6 +53,8 @@ def test_entry_points_need_a_card_by_default():
         skt.Engine(skt.MixtralConfig.tiny())
     with pytest.raises(RuntimeError, match="no CUDA device"):
         skt.Engine(skt.DeepseekConfig.tiny(nsa=True, idx_dim=32))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        skt.Engine(skt.GptOssConfig.tiny(quant="mxfp4", qkv_bias=True))
 
 
 def test_device_parameters_default_to_the_card():
@@ -116,6 +118,26 @@ def test_kernel_wrappers_count_launches():
     x = torch.randn(3, 64)
     skt.rmsnorm(x, torch.ones(64))  # CPU tensor: the plain twin, no launch
     assert all(n == 0 for n in skt.launch_counts().values())
+
+
+def test_option_launch_counters_and_adapters():
+    """K7 / K9 count their launches by option (gpt-oss's sinks, window and
+    soft cap) beside their plain ones, reset with the rest and moved by a
+    decode graph's tally; adapter_for names an adapter for every served
+    config type, the most specific first."""
+    assert set(skt.option_launch_counts()) == {f"{k}_{o}" for k in ("flash_attention", "flash_attention_packed")
+                                               for o in ("sinks", "window", "softcap")}
+    skt.flash_attention.launches_by_option["window"] = 3
+    skt.reset_launch_counts()
+    assert not any(skt.option_launch_counts().values())
+    from sgl_kernel_tpu_torch.serving import decode_graph
+
+    counters = {(name, attr, key) for (name, attr, key), _ in decode_graph._counters()}
+    assert ("flash_attention_packed", "launches_by_option", "sinks") in counters
+    kinds = {type(skt.adapter_for(cfg, "cpu")).__name__ for cfg in (
+        skt.LlamaConfig.tiny(), skt.LlamaConfig.tiny(qk_norm=True), skt.MixtralConfig.tiny(),
+        skt.GptOssConfig.tiny(), skt.DeepseekConfig.tiny())}
+    assert kinds == {"LlamaAdapter", "MixtralAdapter", "GptOssAdapter", "DeepseekAdapter"}
 
 
 def test_kernel_sources_and_entry_points():

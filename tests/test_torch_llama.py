@@ -40,12 +40,24 @@ def configs(dtype, kv_dtype=None, **extra):
             tllama.LlamaConfig(dtype=torch.bfloat16, **kw, **extra_t))
 
 
+def qwen_extras(params, cfg):
+    """Non-trivial Qwen-option weights in the JAX tree (its init leaves the
+    q / k norms at one and the biases at zero); a no-op without the options."""
+    rng = np.random.default_rng(11)
+    lw = params["layers"]
+    for name in ("q_norm", "k_norm", "q_bias", "k_bias", "v_bias"):
+        if name in lw:
+            base = 1.0 if name.endswith("norm") else 0.0
+            lw[name] = jnp.asarray(base + 0.2 * rng.standard_normal(lw[name].shape), lw[name].dtype)
+
+
 def run_both(dtype, prompt_lens, n_decode, **cfg_kw):
     """Prefill each prompt (batch of one, bucket-padded, as the engine does),
     then decode all sequences together. Returns the per-call logits of both
     sides and the final pools."""
     jcfg, tcfg = configs(dtype, **cfg_kw)
     jparams = jllama.init_weights(jcfg, jax.random.PRNGKey(3))
+    qwen_extras(jparams, jcfg)
     tparams = interop.params_from_numpy(jax.tree_util.tree_map(np.asarray, jparams), "cpu")
     jk, jv = jllama.make_caches(jcfg, N_PAGES, PAGE)
     tk, tv = tllama.make_caches(tcfg, N_PAGES, PAGE, device="cpu")
@@ -126,6 +138,8 @@ def test_params_from_numpy_bf16_bytes():
 def test_unported_options_raise():
     with pytest.raises(NotImplementedError):
         tllama.LlamaConfig.tiny(quant="w8a8")
+    with pytest.raises(NotImplementedError):  # mxfp4 is the MoE configs' expert format
+        tllama.LlamaConfig.tiny(quant="mxfp4")
     # K10, the DMA decode GEMM, runs the decode bucket (M <= 32); prefill
     # rows take K1. Its decode step is held to JAX's gemm_impl="dma" below.
     dma = tllama.LlamaConfig.tiny(quant="w4a16", group_size=32, fused=True, gemm_impl="dma")
@@ -295,6 +309,7 @@ def run_admission_paths(dtype, **cfg_kw):
     final pools of both sides."""
     jcfg, tcfg = configs(dtype, **cfg_kw)
     jparams = jllama.init_weights(jcfg, jax.random.PRNGKey(4))
+    qwen_extras(jparams, jcfg)
     tparams = interop.params_from_numpy(jax.tree_util.tree_map(np.asarray, jparams), "cpu")
     jk, jv = jllama.make_caches(jcfg, N_PAGES, PAGE)
     tk, tv = tllama.make_caches(tcfg, N_PAGES, PAGE, device="cpu")
@@ -444,3 +459,53 @@ def test_dma_decode_takes_k10_with_standalone_norm(monkeypatch):
 
 def test_admission_paths_w4a16_dma():
     test_admission_paths_w4a16(gemm_impl="dma")
+
+
+QWEN = {"qwen3": dict(qk_norm=True), "qwen2": dict(qkv_bias=True, fused=False),
+        "both_w4a16": dict(qk_norm=True, qkv_bias=True, quant="w4a16", group_size=32)}
+
+
+@pytest.mark.parametrize("name", list(QWEN))
+def test_qwen_prefill_decode(name):
+    """The Qwen options (per-head q / k RMSNorm on K2, q / k / v biases, and
+    both over W4A16 weights) through prefill and decode, with the norms and
+    biases nonzero: float32 end to end, the same ops in another summation
+    order, within 1e-4 as test_prefill_decode_f32; the same argmax."""
+    jl, tl, (jk, jv), (tk, tv) = run_both("f32", [5, 23], n_decode=3, **QWEN[name])
+    for a, b in zip(jl, tl):
+        np.testing.assert_allclose(a, b, rtol=1e-4, atol=1e-4)
+        np.testing.assert_array_equal(a.argmax(-1), b.argmax(-1))
+    np.testing.assert_allclose(np.asarray(jk), tk.numpy(), rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(np.asarray(jv), tv.numpy(), rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("name", ["qwen3", "qwen2"])
+def test_qwen_admission_paths(name):
+    """The Qwen options through the engine's other programs (packed prefill,
+    extend over a cached prefix, a mixed step), float32, within 1e-4."""
+    jl, tl, (jk, _), (tk, _) = run_admission_paths("f32", **QWEN[name])
+    for a, b in zip(jl, tl):
+        np.testing.assert_allclose(a, b, rtol=1e-4, atol=1e-4)
+        np.testing.assert_array_equal(a.argmax(-1), b.argmax(-1))
+    np.testing.assert_allclose(np.asarray(jk), tk.numpy(), rtol=1e-4, atol=1e-4)
+
+
+def test_qwen_config_and_fused_decode_off(monkeypatch):
+    """qwen3_8b's widths and options; init adds the Qwen weights; with
+    either option the fused layout's decode runs K2, the split q / k / v and
+    K4, never K3 (llama.py:379 of the JAX package)."""
+    cfg = tllama.LlamaConfig.qwen3_8b()
+    assert (cfg.vocab_size, cfg.hidden_size, cfg.intermediate_size, cfg.num_layers, cfg.num_heads,
+            cfg.num_kv_heads, cfg.head_dim, cfg.rope_theta, cfg.qk_norm, cfg.qkv_bias) == (
+        151936, 4096, 12288, 36, 32, 8, 128, 1e6, True, False)
+    tiny = tllama.LlamaConfig.tiny(fused=True, qk_norm=True, qkv_bias=True)
+    params = tllama.init_weights(tiny, 0, "cpu")
+    lw = params["layers"]
+    assert lw["q_norm"].shape == (2, 32) and lw["k_bias"].shape == (2, 64) and "qkv" in lw
+    called = []
+    monkeypatch.setattr(tllama, "rope_decode_fused_qkv", lambda *a, **k: called.append(1))
+    k, v = tllama.make_caches(tiny, 4, PAGE, device="cpu")
+    rope = tllama.build_rope_cache(tiny, device="cpu")
+    i = lambda *x: torch.tensor(x, dtype=torch.int32)
+    logits, _, _ = tllama.decode_step(params, tiny, k, v, i(3), i(0), i(1, 0).reshape(1, 2), i(1), i(16), rope)
+    assert not called and torch.isfinite(logits).all()

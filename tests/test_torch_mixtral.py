@@ -168,10 +168,11 @@ def test_routing_and_moe_mlp(pair):
 
 
 def test_config_and_adapter():
-    """mixtral_8x7b's widths; the fused layout, quantized KV pools and
-    mxfp4 banks are refused; adapter_for picks the Mixtral adapter before
-    the Llama one (a MixtralConfig is a LlamaConfig), whose model has no
-    mixed step."""
+    """mixtral_8x7b's widths; the fused layout and quantized KV pools are
+    refused; mxfp4 banks are the MoE configs' (attention stays dense, the
+    banks MXFP4 at groups of 32), refused by the dense Llama config;
+    adapter_for picks the Mixtral adapter before the Llama one (a
+    MixtralConfig is a LlamaConfig), whose model has no mixed step."""
     import sgl_kernel_tpu_torch as skt
 
     cfg = MixtralConfig.mixtral_8x7b(quant="w4a16")
@@ -181,7 +182,11 @@ def test_config_and_adapter():
         with pytest.raises((ValueError, NotImplementedError)):
             MixtralConfig.tiny(**kw)
     with pytest.raises(NotImplementedError):
-        MixtralConfig.tiny(quant="mxfp4")
+        skt.LlamaConfig.tiny(quant="mxfp4")
+    mx = tmix.init_weights(MixtralConfig.tiny(quant="mxfp4"), 0, "cpu")["layers"]
+    assert mx["q"].shape == (2, 128, 128) and mx["moe_w1"]["packed"].shape == (2, 4, 64, 128)
+    assert mx["moe_w1"]["scales"].shape == (2, 4, 4, 128) and mx["moe_w1"]["scales"].dtype == torch.bfloat16
+    assert tmix.moe_weights_for(mx, MixtralConfig.tiny(quant="mxfp4"))[-2:] == (32, "mxfp4")
     ad = skt.adapter_for(MixtralConfig.tiny(), "cpu")
     assert isinstance(ad, skt.MixtralAdapter) and ad._m is tmix and ad.supports_extend and not ad.supports_spec
     assert not hasattr(ad._m, "mixed_step")

@@ -339,7 +339,10 @@ def test_w4a8_grouped_mm(zeros, bm):
     (128, 256, 512, True, "wgmma"),      # per-channel scales (w4a8_grouped_mm's form)
     (16, 256, 512, True, "tile"),        # per-channel at decode: the mma.sync tile
     (64, 200, 512, False, "tile"),       # ragged N: TMA cannot map the codes
-    (64, 256, 1376, False, "tile"),      # K of 43 groups of 32: not whole 128-deep stages
+    (64, 256, 1376, False, "tile"),      # K of 43 groups of 32: a stage that ends in a quarter
+    (64, 5760, 2880, False, "wgmma"),    # gpt-oss-20b gate_up: K = 22.5 stages of 128, groups of 32
+    (128, 2880, 2880, False, "wgmma"),   # gpt-oss-20b down
+    (16, 5760, 2880, False, "stream"),   # gpt-oss-20b gate_up at decode
 ])
 def test_w4a16_grouped_route(bm, n, k, per_channel, expect):
     """K11's kernel by bm and bank: the streaming core at bm 16 / 32, the
@@ -353,3 +356,70 @@ def test_w4a16_grouped_route(bm, n, k, per_channel, expect):
     if per_channel:
         s = s.expand(e, k // gs, n)
     assert grouped_gemm.grouped_route(bm, n, k, per_channel, w, s, None) == expect
+
+
+def test_per_token_group_quant_fp4_bytes():
+    """MXFP4 group quantization (E2M1 codes, UE8M0 group-32 scales) equal to
+    JAX's byte for byte, at gpt-oss's K = 2,880, on groups whose absmax sits
+    at, an ulp under and an ulp over a power of two, an all-zero group and
+    rows of 1e-3 to 30 scale. The silu forms are held to the scales exactly
+    and the codes up to rounding ties of silu (XLA's sigmoid and torch's
+    differ by an ulp): at most 0.1 % of codes, each the same value (+0 and
+    -0) or one magnitude step apart with the same sign."""
+    from sgl_kernel_tpu.ops.quant import per_token_group_quant_fp4 as jq
+    from sgl_kernel_tpu_torch.ops.quant import formats, per_token_group_quant_fp4 as tq
+
+    rng = np.random.default_rng(21)
+    x = (rng.standard_normal((48, 2880)) * rng.choice([1e-3, 1.0, 30.0], (48, 1))).astype(np.float32)
+    x[0, :32] = 0.0
+    for i, v in enumerate((8192.0, np.nextafter(np.float32(4.0), 0), np.float32(31.999996), 2.0 ** -20)):
+        x[i + 1, 32:64] = v
+    jp, js = jq(jnp.asarray(x))
+    tp, ts = tq(t_(x))
+    assert tp.dtype == ts.dtype == torch.uint8 and tuple(tp.shape) == (48, 1440) and tuple(ts.shape) == (48, 90)
+    np.testing.assert_array_equal(tp.numpy(), np.asarray(jp))
+    np.testing.assert_array_equal(ts.numpy(), np.asarray(js))
+    y = rng.standard_normal((48, 2880)).astype(np.float32)
+    for args, kw in (((x, y), {}), ((np.concatenate([x, y], -1),), dict(fuse_silu_and_mul=True))):
+        jp, js = jq(*map(jnp.asarray, args), **kw)
+        tp, ts = tq(*map(t_, args), **kw)
+        np.testing.assert_array_equal(ts.numpy(), np.asarray(js))
+        jc = formats.unpack_int4(t_(np.asarray(jp))).long()
+        tc = formats.unpack_int4(tp).long()
+        flip = jc != tc
+        zeros = (jc & 7) + (tc & 7) == 0
+        step = ((jc >> 3) == (tc >> 3)) & (((jc & 7) - (tc & 7)).abs() == 1)
+        assert flip.float().mean() < 1e-3 and (zeros | step)[flip].all()
+
+
+@pytest.mark.parametrize("t", [5, 70])
+def test_fused_experts_mxfp4_half_stage(t):
+    """gpt-oss's MoE on stacked MXFP4 banks made the JAX model's way
+    (per_token_group_quant_fp4 of W.T, mxfp4_to_tpu_layout) at hidden and
+    intermediate widths of 192 = 128 + 64 (gpt-oss-20b's 2,880 ends the same
+    way, in half a 128-deep stage), routed by softmax top-2 with expert
+    biases and the clamped swiglu, bf16 activations: within two bf16
+    roundings of the scale, 2^-6 (the swiglu's bf16 output may round the
+    other way on the two sides, and the second GEMM and the combine each
+    round once more; 2^-6.5 seen at 70 tokens)."""
+    from sgl_kernel_tpu.ops.gemm.w4a16 import mxfp4_to_tpu_layout
+    from sgl_kernel_tpu.ops.quant import per_token_group_quant_fp4
+
+    rng = np.random.default_rng(22)
+    layers, e, h, inter = 2, 4, 192, 192
+    w1 = (rng.standard_normal((layers, e, h, 2 * inter)) / np.sqrt(h)).astype(np.float32)
+    w2 = (rng.standard_normal((layers, e, inter, h)) / np.sqrt(inter)).astype(np.float32)
+    q = jax.vmap(jax.vmap(lambda m: mxfp4_to_tpu_layout(*per_token_group_quant_fp4(m.T))))
+    (p1, s1), (p2, s2) = q(jnp.asarray(w1)), q(jnp.asarray(w2))
+    mw = jmoe.MoeWeights(w1=p1, w2=p2, w1_scales=s1, w2_scales=s2, fmt="mxfp4", group_size=32,
+                         b1=jnp.asarray(rng.standard_normal((layers, e, 2 * inter)) * 0.1, jnp.float32),
+                         b2=jnp.asarray(rng.standard_normal((layers, e, h)) * 0.1, jnp.float32))
+    x = jnp.asarray(rng.standard_normal((t, h)), jnp.bfloat16)
+    logits = rng.standard_normal((t, e)).astype(np.float32)
+    jtw, jids = jmoe.topk_softmax(jnp.asarray(logits), 2, renormalize=True)
+    ttw, tids = tmoe.topk_softmax(t_(logits), 2, renormalize=True)
+    kw = dict(layer_id=1, activation="swiglu_gpt_oss", gemm1_alpha=1.702, gemm1_limit=7.0)
+    ref = jmoe.fused_experts(x, mw, jtw, jids, **kw)
+    out = tmoe.fused_experts(t_(np.asarray(x)), port_weights(mw), ttw, tids, **kw)
+    assert out.dtype == torch.bfloat16
+    close(out, np.asarray(ref, np.float32), 2.0 ** -6)

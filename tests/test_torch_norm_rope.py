@@ -129,6 +129,26 @@ def test_rope_decode_fused(rng, dt, hq, hkv, d, rot):
     assert trope.rope_decode_fused.launches == 0  # a CPU tensor takes the twin
 
 
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("nq,nk,nv,d,rot", [(4, 2, 2, 32, 32), (8, 2, 2, 64, 32), (32, 8, 8, 128, 128)])
+def test_fused_qk_norm_rope(rng, dt, nq, nk, nv, d, rot):
+    """Qwen3's per-head q / k RMSNorm then RoPE over packed qkv [T, (Hq +
+    Hk + Hv) D]; v passes through unchanged."""
+    jdt, _ = DTYPES[dt]
+    t = 9
+    qj, qt = both(rng.standard_normal((t, (nq + nk + nv) * d)).astype(np.float32), jdt)
+    wq, wqt = both((1 + 0.2 * rng.standard_normal(d)).astype(np.float32), jdt)
+    wk, wkt = both((1 + 0.2 * rng.standard_normal(d)).astype(np.float32), jdt)
+    pos = rng.integers(0, 64, t).astype(np.int32)
+    jc = jrope.compute_cos_sin_cache(rot, 64, 10000.0)
+    tc = trope.compute_cos_sin_cache(rot, 64, 10000.0, device="cpu")
+    ref = jrope.fused_qk_norm_rope(qj, nq, nk, nv, d, wq, wk, jnp.asarray(pos), jc)
+    out = trope.fused_qk_norm_rope(qt, nq, nk, nv, d, wqt, wkt, torch.from_numpy(pos), tc)
+    assert out.shape == qt.shape and out.dtype == qt.dtype
+    close(ref, out, **TOL[dt])
+    assert torch.equal(out[:, (nq + nk) * d:], qt[:, (nq + nk) * d:])
+
+
 def test_rope_decode_rejects_bad_width():
     with pytest.raises(ValueError):
         trope.rope_decode_fused_qkv(torch.zeros(2, dtype=torch.int32), torch.zeros(2, 100),

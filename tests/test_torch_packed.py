@@ -146,6 +146,32 @@ def test_packed_window_softcap_sinks(rng, causal):
     close(np.asarray(rl)[:, rows], ol[:, rows], **F32)
 
 
+@pytest.mark.parametrize("opt", ["sinks", "window", "softcap", "all"])
+def test_packed_options_offsets(rng, opt):
+    """K9's twin with each of gpt-oss's options alone and together, at
+    extend offsets (q_start 180 / 60 over kv_start 10 / 0), GQA 8:1, with
+    the lse. Sequence 2's rows sit past its 40 keys' window of 12 and see
+    none: the port gives them o = 0 and lse -1e30 * log2(e) (ROADMAP queue 3);
+    rows that see a key are compared."""
+    q_lens, kv_lens = [40, 17], [200, 40]
+    hq = 8
+    kw = {"sinks": dict(sinks=True), "window": dict(sliding_window=12), "softcap": dict(logit_soft_cap=5.0),
+          "all": dict(sinks=True, sliding_window=12, logit_soft_cap=5.0)}[opt]
+    qkv, ints, meta = packed_case(rng, q_lens, kv_lens, hq, 1, 32, q_start=[180, 60], kv_start=[10, 0])
+    if kw.pop("sinks", False):
+        kw["sinks"] = (rng.standard_normal(hq) * 2).astype(np.float32)
+    (ro, rl), (oo, ol) = run_both(qkv, ints, meta["max_kvb"], causal=True, return_lse=True, **kw)
+    seq0 = valid_rows(q_lens[:1], meta)
+    close(np.asarray(ro)[seq0], oo[seq0], **F32)
+    close(np.asarray(rl)[:, seq0], ol[:, seq0], **F32)
+    seq1 = meta["seq_tok0"][1] + np.arange(q_lens[1])
+    if "sliding_window" in kw:
+        assert not oo[seq1].any() and torch.all(ol[:, seq1] == np.float32(-1e30 * tflash.LOG2E))
+    else:
+        close(np.asarray(ro)[seq1], oo[seq1], **F32)
+        close(np.asarray(rl)[:, seq1], ol[:, seq1], **F32)
+
+
 def test_packed_padding_pseudo_sequence(rng):
     """The engine's layout: the block count padded to a power of two, the
     padding blocks on a q_len-0 row with kv_blks 1, and max_kvb above every

@@ -56,6 +56,12 @@ replayed, so the host launch path is not measured):
   experts, top-2, 4,096 -> 28,672) at 1,024 (bm 64 and 128) and 16,384
   (bm 128); each beside K12 (``bf16_grouped_mm``) on a bf16 bank of the
   same shape (``_k12`` rows); CUDA-graph ms;
+- k11g: K11 at gpt-oss-20b's expert widths (32 experts, top-4, K = 2,880:
+  gate_up 2,880 -> 5,760 and down 2,880 -> 2,880) by code format and
+  group: MXFP4 at groups of 32 (the model's), int4 at 32 and at 64, each at
+  a B=16 decode (bm 16, the streaming core; cold: the calls cycle two
+  stacked layers) and a 1,024-token prefill (bm 128, the wgmma tile),
+  beside the bank's bytes over 3.35 TB/s (``_bound`` rows); CUDA-graph ms;
 - k79m: K7 and K9 at head dim 576, DeepSeek-V2-Lite's MLA prefill (16
   heads over one latent head, sm_scale 1/sqrt(192)), each through the
   function the model calls (``mla.mla_prefill``, ``deepseek._mla_attend_packed``:
@@ -93,14 +99,14 @@ import subprocess
 import sys
 from pathlib import Path
 
-GROUPS = ("k5", "k1", "k13a", "k13b", "k15", "k16", "k17", "k18", "k19", "k1p", "k11p", "k79m", "floor")
+GROUPS = ("k5", "k1", "k13a", "k13b", "k15", "k16", "k17", "k18", "k19", "k1p", "k11p", "k11g", "k79m", "floor")
 # the sources a group may launch (those a tree lacks are skipped: K13b had a
 # source of its own before it moved onto K13a's kernel)
 SOURCES = {"k5": ("decode_attention",), "k1": ("w4a16_decode", "w4a16_gemm"), "k13a": ("mla_decode",),
            "k13b": ("mla_decode", "mla_decode_dma"), "k15": ("mqa_logits",), "k16": ("sparse_vs",),
            "k17": ("blockwise_fp8",), "k18": ("blockwise_fp8",), "k19": ("qserve_gemm",),
            "k1p": ("w4a16_wgmma", "w4a16_gemm"), "k11p": ("w4a16_wgmma", "grouped_gemm", "bf16_grouped_gemm"),
-           "k79m": ("flash_prefill", "flash_packed"), "floor": ()}
+           "k11g": ("w4a16_grouped_decode", "w4a16_wgmma"), "k79m": ("flash_prefill", "flash_packed"), "floor": ()}
 COLD_BYTES = 150e6  # three times the 50 MB L2
 
 
@@ -472,6 +478,32 @@ def main(root: Path, groups) -> None:
                     res[f"{tag}_k12"] = graph_ms(lambda: moe.bf16_grouped_mm(x, wb, al.block_expert_ids, None,
                                                                              al.num_valid_blocks, bm=bm),
                                                  reps=5 if t > 1024 else 20)
+                    del x
+            banks.clear()
+            torch.cuda.empty_cache()
+    if "k11g" in groups:
+        e, k_top, h = 32, 4, 2880
+        for fmt, g in (("mxfp4", 32), ("int4", 32), ("int4", 64)):
+            banks = {}
+            for name, kk, n in (("gate_up", h, 2 * h), ("down", h, h)):
+                w = torch.randint(0, 256, (2, e, kk // 2, n), generator=gen, device=dev, dtype=torch.int32)
+                sc = torch.exp2(torch.randint(-9, -6, (2, e, kk // g, n), generator=gen, device=dev).float()).to(bf)
+                banks[name] = (w.to(torch.uint8), sc, kk, n)
+                del w
+            for t, bm in ((16, 16), (1024, 128)):
+                tw, tids = moe.topk_softmax(torch.randn((t, e), generator=gen, device=dev), k_top, renormalize=True)
+                al = moe.moe_align_block_size(tids, tw, e, bm)
+                hit = int((al.group_sizes > 0).sum())
+                for name, (w, sc, kk, n) in banks.items():
+                    x = moe.scatter_tokens_to_experts(randn(t, kk), al)
+                    kw = dict(bm=bm, group_size=g, fmt=fmt)
+                    args = (al.block_expert_ids, None)
+                    tag = f"k11g_{fmt}_g{g}_{name}_t{t}"
+                    res[tag] = graph_ms(lambda: moe.w4a16_grouped_mm(x, w, sc, *args, 1, al.num_valid_blocks, **kw))
+                    res[f"{tag}_bound"] = 1e3 * hit * (kk // 2 * n + 2 * (kk // g) * n) / 3.35e12
+                    if t == 16:
+                        res[f"{tag}_cold"] = cold_ms(lambda lid: moe.w4a16_grouped_mm(
+                            x, w, sc, *args, lid, al.num_valid_blocks, **kw), 2)
                     del x
             banks.clear()
             torch.cuda.empty_cache()
