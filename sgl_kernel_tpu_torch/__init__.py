@@ -24,7 +24,9 @@ Kernels ported so far (each wrapper counts its launches in ``.launches``):
   (``MixtralConfig``, module ``models.mixtral``), gpt-oss (``GptOssConfig``,
   module ``models.gptoss``: sinks, alternating windows, MXFP4 experts) and DeepSeek MLA + MoE
   (``DeepseekConfig``, module ``models.deepseek``), with NSA sparse decode
-  (``nsa=True``). The serving engine's radix prefix cache is host C++
+  (``nsa=True``) and KV compression (``compress="c4"`` / ``"c128"``, module
+  ``ops.compression``; each request's ring in an engine state slot). The
+  serving engine's radix prefix cache is host C++
   (``csrc/serving_native.cpp``, bound by ``serving/native.py``).
 """
 

@@ -42,8 +42,24 @@ up to 64 tokens), K13a (decode attention, dense or over the selected rows),
 K15 (the NSA indexer), the routed experts' grouped GEMM (K11 on int4 banks,
 K12 on the bf16 banks of ``quant=None``), K7 (prefill and the extend passes
 at head dim 576) and K9 (packed prefill at 576). Not ported, and raising:
-KV compression (``compress``) and several logits per sequence (speculative
-verify).
+several logits per sequence (speculative verify).
+
+KV compression (``compress="c4"`` or ``"c128"``, ops/compression.py): each
+layer also projects a 576-wide score row a token (``comp_score``, W4A16
+under ``quant``) and holds a positional embedding over the pooled window
+(``comp_ape``, float32). ``make_compress_caches`` gives the latent pool, a
+score pool of its shape and a ring pool [L, slots, compress_ring, 576] whose
+slot a request holds for its life (the engine's state slots). The prefill
+programs ``prefill_c`` and ``prefill_packed_c`` attend exactly (K7 / K9 at
+576), store the latent and score rows and build each request's ring from
+the stored windows; ``decode_step_c`` stores the fresh rows, pools the
+window of every row whose length reaches a ratio multiple into its ring
+slot, and attends over the last ``compress_local`` tokens and the live ring
+tokens in plain float32, merged by lse. The pooling and this attention are
+plain PyTorch, as the JAX model has them in plain ``jnp``. The decode pools
+on every step (writes of rows with no event dropped on the device), where
+JAX skips the pooling by ``lax.cond`` on steps with no event: a captured
+graph cannot branch on device data.
 """
 
 from __future__ import annotations
@@ -54,6 +70,7 @@ from typing import Any, Dict, Optional, Union
 import torch
 
 from ..ops.attention import merge_state
+from ..ops.attention.merge_state import LOG2E
 from ..ops.attention.flash_packed import flash_attention_packed_mla
 from ..ops.attention.mla import D_CKV, D_LATENT, D_ROPE, mla_decode, mla_prefill
 from ..ops.attention.nsa import (
@@ -63,8 +80,9 @@ from ..ops.attention.nsa import (
     fused_q_indexer_rope_hadamard_quant,
     sparse_mla_decode,
 )
+from ..ops.compression import _flat_rows, compress_window, plan_compress_decode, plan_compress_prefill
 from ..ops.gemm.w4a16 import quantize_w4, w4a16_gemm
-from ..ops.kvcache import store_cache_mla
+from ..ops.kvcache import _put_rows, store_cache_mla
 from ..ops.moe import MoeWeights, biased_topk, fused_experts, pick_block_size
 from ..ops.norm import rmsnorm
 from ..ops.rope import compute_cos_sin_cache, mla_qkv_prep, rotary_embedding
@@ -112,7 +130,10 @@ class DeepseekConfig:
     # latent pool dtype: None (the model dtype), torch.int8,
     # torch.float8_e4m3fn or torch.float8_e5m2
     kv_dtype: Any = None
-    # DSv4 KV compression (not ported: raises)
+    # DSv4 KV compression: None | "c4" (ratio 4, overlapping windows of 8) |
+    # "c128" (plain windows of 128); decode attends over the last
+    # compress_local tokens (None: max(64, ratio)) and the compress_ring
+    # latest pooled tokens
     compress: Optional[str] = None
     compress_ring: int = 64
     compress_local: Optional[int] = None
@@ -120,6 +141,8 @@ class DeepseekConfig:
     def __post_init__(self):
         if self.quant not in (None, "w4a16"):
             raise NotImplementedError(f"quant={self.quant!r}: only 'w4a16' is ported")
+        if self.compress not in (None, "c4", "c128"):
+            raise ValueError(f"compress={self.compress!r}: 'c4' or 'c128'")
         if self.kv_dtype not in (None, torch.bfloat16, torch.float32, torch.int8, torch.float8_e4m3fn,
                                  torch.float8_e5m2):
             raise ValueError(f"unsupported kv_dtype {self.kv_dtype}")
@@ -135,21 +158,15 @@ class DeepseekConfig:
         )
 
 
-def _served(cfg: DeepseekConfig):
-    """Raise for the configurations whose paths are not ported."""
-    if cfg.compress:
-        raise NotImplementedError(f"DeepseekConfig(compress={cfg.compress!r}): KV compression is not ported yet")
-
-
 def init_weights(cfg: DeepseekConfig, generator: Union[torch.Generator, int] = 0, device="cuda") -> Dict[str, Any]:
     """Random layer-stacked weights in the JAX recipe's shapes and scales
-    (each matrix N(0, 1/fan_in) but the router's and the embedding's 0.02;
-    norms one; router bias zero). ``generator`` is a torch.Generator on
+    (each matrix N(0, 1/fan_in) but the router's, the embedding's and the
+    compression's score projection and window embedding 0.02; norms one;
+    router bias zero). ``generator`` is a torch.Generator on
     ``device`` or an int seed. A quantized linear is drawn, cast and
     quantized one layer at a time and an expert bank one layer's bank at a
     time, so the float32 temporaries stay one layer large (the whole float32
     bank of a V2-Lite ``moe_w1`` would be 37.8 GB)."""
-    _served(cfg)
     dev = resolve_device(device)
     if isinstance(generator, int):
         generator = torch.Generator(device=dev).manual_seed(generator)
@@ -170,13 +187,13 @@ def init_weights(cfg: DeepseekConfig, generator: Union[torch.Generator, int] = 0
             out[i] = m
         return out
 
-    def linear(n, k):
+    def linear(n, k, scale=None):
         """[L, N, K], or its W4A16 tree when the config quantizes."""
         if not quant:
-            return stack(lambda: draw((n, k)))
+            return stack(lambda: draw((n, k), scale))
         packed = scales = None
         for i in range(n_layers):
-            p, s, _ = quantize_w4(draw((n, k)), group_size=cfg.group_size)
+            p, s, _ = quantize_w4(draw((n, k), scale), group_size=cfg.group_size)
             if packed is None:
                 packed, scales = p.new_empty((n_layers, *p.shape)), s.new_empty((n_layers, *s.shape))
             packed[i], scales[i] = p, s
@@ -233,6 +250,11 @@ def init_weights(cfg: DeepseekConfig, generator: Union[torch.Generator, int] = 0
         layers["wk_idx"] = stack(lambda: draw((cfg.idx_dim, h)))
         layers["idx_norm"] = torch.ones((n_layers, cfg.idx_dim), dtype=cfg.dtype, device=dev)
         layers["w_idx_gate"] = stack(lambda: draw((cfg.idx_heads, h), 0.02))
+    if cfg.compress:
+        # a score row a token as wide as the latent row, and the window's
+        # positional embedding (drawn in the model dtype, kept in float32)
+        layers["comp_score"] = linear(D_CKV, h, 0.02)
+        layers["comp_ape"] = stack(lambda: draw((_comp_window(cfg), D_CKV), 0.02).float())
     lm_head = draw((cfg.vocab_size, h))
     if quant:
         # N padded to a multiple of 2048 (the JAX llama._quantize_matrix)
@@ -251,7 +273,6 @@ def init_weights(cfg: DeepseekConfig, generator: Union[torch.Generator, int] = 0
 def make_cache(cfg: DeepseekConfig, num_pages: int, page_size: int, kv_dtype=None, device="cuda"):
     """The latent pool [L, P, page, 576] of ``kv_dtype``, else the config's,
     else the model dtype."""
-    _served(cfg)
     dt = kv_dtype or cfg.kv_dtype or cfg.dtype
     if dt == torch.int8 and cfg.kv_scale is None:
         # without a scale the store's cast would truncate the latent to {-1, 0, 1}
@@ -266,7 +287,6 @@ def build_rope_cache(cfg: DeepseekConfig, device="cuda"):
 def make_indexer_cache(cfg: DeepseekConfig, num_pages: int, page_size: int, device="cuda"):
     """The NSA indexer pools, flat and layer-stacked: fp8 e4m3 keys
     [L*P*page, idx_dim] and their float32 scales [L*P*page]."""
-    _served(cfg)
     dev = resolve_device(device)
     s = cfg.num_layers * num_pages * page_size
     return (torch.zeros((s, cfg.idx_dim), dtype=torch.float8_e4m3fn, device=dev),
@@ -404,13 +424,20 @@ def _lat_deq(cfg: DeepseekConfig, rows, dtype):
     return rows if cfg.kv_scale is None else rows * _scale_in(dtype, cfg.kv_scale)
 
 
-def _store(cfg: DeepseekConfig, kv_cache, kv_row, slot_loc, lidx: int):
-    """Layer ``lidx``'s latent rows into the stacked pool's flat view at
-    layer-offset slots (slot -1 dropped), in place."""
-    l, n_pages, page, d = kv_cache.shape
-    sl = slot_loc.reshape(-1).to(kv_cache.device).long()
+def _store_rows(pool, rows, slot_loc, lidx: int):
+    """Layer ``lidx``'s rows into a stacked [L, P, page, D] pool's flat view
+    at layer-offset slots (slot -1 dropped), cast to the pool's dtype, in
+    place."""
+    l, n_pages, page, d = pool.shape
+    sl = slot_loc.reshape(-1).to(pool.device).long()
     off = torch.where(sl >= 0, lidx * n_pages * page + sl, torch.full_like(sl, -1))
-    store_cache_mla(_lat_quant(cfg, kv_row), kv_cache.view(l * n_pages, page, d), off)
+    store_cache_mla(rows, pool.view(l * n_pages, page, d), off)
+
+
+def _store(cfg: DeepseekConfig, kv_cache, kv_row, slot_loc, lidx: int):
+    """Layer ``lidx``'s latent rows, in the pool's representation, into the
+    latent pool (``_store_rows``)."""
+    _store_rows(kv_cache, _lat_quant(cfg, kv_row), slot_loc, lidx)
 
 
 def _logits(x_last, params, cfg: DeepseekConfig):
@@ -458,7 +485,6 @@ def decode_step(params, cfg: DeepseekConfig, kv_cache, tokens, positions, page_t
     (idx_k, idx_s, idx_rope_cache) each layer also stores the fresh indexer
     key, then selects and attends only to the best ``index_topk`` rows
     (``decode_step_nsa``). Returns (logits [B, V] float32, kv_cache)."""
-    _served(cfg)
     b = tokens.shape[0]
     x = params["embed"][tokens.long()].to(cfg.dtype)
     lw = params["layers"]
@@ -495,12 +521,12 @@ def decode_step_nsa(params, cfg: DeepseekConfig, kv_cache, idx_k, idx_s, tokens,
 
 
 def prefill(params, cfg: DeepseekConfig, kv_cache, tokens, positions, q_lens, slot_loc, rope_cache, *,
-            indexer=None):
+            indexer=None, score_cache=None):
     """Prefill a padded batch [B, S]: causal MLA (K7 at 576) over the fresh
     latent rows, stored per layer; with ``indexer`` = (idx_k, idx_s,
-    idx_rope_cache) each token's indexer key is stored too. Returns
-    (last-token logits [B, V] float32, kv_cache)."""
-    _served(cfg)
+    idx_rope_cache) each token's indexer key is stored too, with
+    ``score_cache`` (KV compression) its score row. Returns (last-token
+    logits [B, V] float32, kv_cache)."""
     b, s = tokens.shape
     x = params["embed"][tokens.reshape(-1).long()].to(cfg.dtype)
     lw = params["layers"]
@@ -512,6 +538,8 @@ def prefill(params, cfg: DeepseekConfig, kv_cache, tokens, positions, q_lens, sl
         _store(cfg, kv_cache, kv_row, slot_loc, lidx)
         if indexer is not None:
             _indexer_ingest(h, lw, lidx, cfg, positions, slot_loc, indexer, pool_tokens)
+        if score_cache is not None:
+            _store_rows(score_cache, _lin(h, lw["comp_score"], cfg, lidx), slot_loc, lidx)
         attn = mla_prefill(q_lat.reshape(b, s, nh, D_LATENT), q_pe.reshape(b, s, nh, D_ROPE),
                            kv_row.reshape(b, s, D_CKV), q_lens, q_lens, sm_scale=_sm_scale(cfg))
         x = x + _mla_out(attn.reshape(b * s, nh, D_LATENT), lw, lidx, cfg, b * s)
@@ -544,13 +572,13 @@ def _mla_attend_packed(q_lat, q_pe, kv_row, blk_seq, blk_q0, seq_meta, cfg: Deep
 
 def prefill_packed(params, cfg: DeepseekConfig, kv_cache, idx_k, idx_s, tokens, positions, blk_seq, blk_q0,
                    seq_meta, last_idx, slot_loc, rope_cache, *, max_kvb: int, with_indexer: bool = False,
-                   idx_rope_cache=None):
+                   idx_rope_cache=None, score_cache=None):
     """Token-packed multi-prompt MLA prefill: tokens/positions/slot_loc [TP]
     packed; blk_seq/blk_q0 [NQB]; seq_meta [B, 6]; last_idx [B]. With
     ``with_indexer`` each token's NSA indexer key goes into ``idx_k`` /
-    ``idx_s`` too (rope at ``idx_rope_cache``). Returns (logits [B, V]
-    float32, kv_cache), and idx_k, idx_s after them with the indexer."""
-    _served(cfg)
+    ``idx_s`` too (rope at ``idx_rope_cache``), with ``score_cache`` (KV
+    compression) its score row. Returns (logits [B, V] float32, kv_cache),
+    and idx_k, idx_s after them with the indexer."""
     tp = tokens.shape[0]
     x = params["embed"][tokens.long()].to(cfg.dtype)
     lw = params["layers"]
@@ -561,6 +589,8 @@ def prefill_packed(params, cfg: DeepseekConfig, kv_cache, idx_k, idx_s, tokens, 
         _store(cfg, kv_cache, kv_row, slot_loc, lidx)
         if with_indexer:
             _indexer_ingest(h, lw, lidx, cfg, positions, slot_loc, (idx_k, idx_s, idx_rope_cache), pool_tokens)
+        if score_cache is not None:
+            _store_rows(score_cache, _lin(h, lw["comp_score"], cfg, lidx), slot_loc, lidx)
         attn = _mla_attend_packed(q_lat, q_pe, kv_row, blk_seq, blk_q0, seq_meta, cfg, tp, max_kvb)
         x = x + _mla_out(attn.reshape(tp, cfg.num_heads, D_LATENT), lw, lidx, cfg, tp)
         x = x + _mlp(rmsnorm(x, lw["post_norm"][lidx], cfg.rms_eps), lw, lidx, cfg)
@@ -582,7 +612,6 @@ def prefill_extend(params, cfg: DeepseekConfig, kv_cache, tokens, positions, q_l
     keys are stored too. Returns (logits [B, V] float32 of each suffix's
     last token, kv_cache). Only ``num_logits=1`` is ported (several logits
     per sequence serve the speculative verify)."""
-    _served(cfg)
     if num_logits != 1:
         raise NotImplementedError("prefill_extend(num_logits>1): speculative verify is not ported yet")
     b, s = tokens.shape
@@ -628,3 +657,184 @@ def prefill_extend_nsa(params, cfg: DeepseekConfig, kv_cache, idx_k, idx_s, toke
                                       slot_loc, rope_cache, prefix_max=prefix_max,
                                       indexer=(idx_k, idx_s, idx_rope_cache))
     return logits, kv_cache, idx_k, idx_s
+
+
+# ---------------------------------------------------------------------------
+# KV compression: exact prefill that builds each request's ring of pooled
+# latent rows, and a decode over the ring and the last compress_local tokens
+# ---------------------------------------------------------------------------
+
+
+def _comp_ratio(cfg: DeepseekConfig) -> int:
+    return 4 if cfg.compress == "c4" else 128
+
+
+def _comp_window(cfg: DeepseekConfig) -> int:
+    r = _comp_ratio(cfg)
+    return 2 * r if r == 4 else r
+
+
+def _comp_local(cfg: DeepseekConfig) -> int:
+    r = _comp_ratio(cfg)
+    local = cfg.compress_local if cfg.compress_local is not None else max(64, r)
+    if local < r:
+        # tokens older than the local window but not yet pooled would be
+        # attended by neither branch
+        raise ValueError(f"compress_local={local} < ratio {r}")
+    return local
+
+
+def _check_unscaled(cfg: DeepseekConfig):
+    if cfg.kv_scale is not None:
+        raise ValueError("kv_scale applies to the dense and NSA latent pools; the compressed family's rings "
+                         "pool unscaled latents")
+
+
+def make_compress_caches(cfg: DeepseekConfig, num_pages: int, page_size: int, max_slots: int = 16, device="cuda"):
+    """(latent pool, score pool [L, P, page, 576] in the model dtype, ring
+    pool [L, max_slots, compress_ring, 576] in the model dtype)."""
+    dev = resolve_device(device)
+    kv = make_cache(cfg, num_pages, page_size, device=dev)
+    sc = torch.zeros((cfg.num_layers, num_pages, page_size, D_CKV), dtype=cfg.dtype, device=dev)
+    comp = torch.zeros((cfg.num_layers, max_slots, cfg.compress_ring, D_CKV), dtype=cfg.dtype, device=dev)
+    return kv, sc, comp
+
+
+def _dense_mla_attend(q_lat, q_pe, rows, mask, scale):
+    """Masked MLA attention in float32 over gathered latent rows: q_lat [B, H,
+    512], q_pe [B, H, 64], rows [B, K, 576], mask [B, K]. Returns (o [B, H,
+    512], lse [B, H] base 2); a row with nothing unmasked gives (0, -inf)."""
+    q = torch.cat([q_lat, q_pe], dim=-1).float()
+    r = rows.float()
+    s2 = torch.einsum("bhd,bkd->bhk", q, r) * (scale * LOG2E)
+    s2 = torch.where(mask[:, None, :], s2, float("-inf"))
+    m = s2.amax(dim=-1)
+    m_safe = torch.where(torch.isfinite(m), m, 0.0)
+    p = torch.where(mask[:, None, :], torch.exp2(s2 - m_safe[..., None]), 0.0)
+    total = p.sum(dim=-1)
+    o = torch.einsum("bhk,bkd->bhd", p, r[..., :D_LATENT]) / torch.clamp(total, min=1e-30)[..., None]
+    lse = torch.where(total > 0, m_safe + torch.log2(torch.clamp(total, min=1e-30)), float("-inf"))
+    return o, lse
+
+
+def decode_step_c(params, cfg: DeepseekConfig, kv_cache, score_cache, comp_cache, tokens, positions, page_tables,
+                  lengths, slot_loc, state_slots, rope_cache):
+    """Compressed-KV decode step. kv_cache / score_cache [L, P, page, 576];
+    comp_cache [L, S, ring, 576], a request's rows at its ``state_slots``
+    [B]; ``lengths`` [B] count the fresh token. Each layer stores the fresh
+    latent and score rows, pools the last window of every row whose length
+    is a ratio multiple into ring slot (n_events - 1) % ring (the other
+    rows' writes dropped on the device), then attends over the last
+    ``compress_local`` tokens and the live ring tokens and merges the two by
+    lse. Returns (logits [B, V] float32, kv_cache, score_cache, comp_cache),
+    the pools updated in place."""
+    _check_unscaled(cfg)
+    b = tokens.shape[0]
+    ring, local = cfg.compress_ring, _comp_local(cfg)
+    x = params["embed"][tokens.long()].to(cfg.dtype)
+    lw = params["layers"]
+    n_layers, n_pages, page, d = kv_cache.shape
+    dev = kv_cache.device
+    pool_tokens, ring_rows = n_pages * page, comp_cache.shape[1] * ring
+    lengths, tables = lengths.to(dev).long(), page_tables.to(dev)
+    slots = state_slots.to(dev).long()
+    src, dst, n_comp = plan_compress_decode(lengths, compress_ratio=_comp_ratio(cfg), ring_size=ring)
+    src, dst = src.long(), dst.long()
+    src_valid = src >= 0
+    src_rows = _flat_rows(tables, torch.where(src_valid, src, 0), page)  # [B, W], layer offset added below
+    loc_pos = lengths[:, None] - local + torch.arange(local, device=dev)[None, :]
+    loc_valid = loc_pos >= 0
+    loc_rows = _flat_rows(tables, torch.where(loc_valid, loc_pos, 0), page)  # [B, local]
+    dst_rows = torch.where(dst >= 0, slots * ring + dst, -1)
+    live_rows = slots[:, None] * ring + torch.arange(ring, device=dev)[None, :]  # [B, ring]
+    live = torch.arange(ring, device=dev)[None, :] < n_comp[:, None]
+    kv_flat, sc_flat = kv_cache.view(-1, d), score_cache.view(-1, d)
+    comp_flat = comp_cache.view(-1, d)
+    for lidx in range(cfg.num_layers):
+        h = rmsnorm(x, lw["input_norm"][lidx], cfg.rms_eps)
+        q_lat, q_pe, kv_row = _mla_qkv(h, lw, lidx, cfg, b, positions, rope_cache)
+        _store(cfg, kv_cache, kv_row, slot_loc, lidx)
+        _store_rows(score_cache, _lin(h, lw["comp_score"], cfg, lidx), slot_loc, lidx)
+        base, cbase = lidx * pool_tokens, lidx * ring_rows
+        win_sc = torch.where(src_valid[..., None], sc_flat[base + src_rows].float(), float("-inf"))
+        pooled = compress_window(kv_flat[base + src_rows], win_sc, lw["comp_ape"][lidx])
+        _put_rows(comp_flat, torch.where(dst_rows >= 0, cbase + dst_rows, -1), pooled)
+        o_loc, lse_loc = _dense_mla_attend(q_lat, q_pe, kv_flat[base + loc_rows], loc_valid, _sm_scale(cfg))
+        o_c, lse_c = _dense_mla_attend(q_lat, q_pe, comp_flat[cbase + live_rows], live, _sm_scale(cfg))
+        attn, _ = merge_state(o_loc, lse_loc, o_c, lse_c)
+        x = x + _mla_out(attn.to(cfg.dtype), lw, lidx, cfg, b)
+        x = x + _mlp(rmsnorm(x, lw["post_norm"][lidx], cfg.rms_eps), lw, lidx, cfg)
+    x = rmsnorm(x, params["final_norm"], cfg.rms_eps)
+    return _logits(x, params, cfg), kv_cache, score_cache, comp_cache
+
+
+# elements of one gather of window rows in the ring build (64 MB in float32):
+# the build takes a layer's events in chunks of at most this many rows x 576
+_RING_BUILD_ELEMS = 1 << 24
+
+
+def _build_rings(params, cfg: DeepseekConfig, kv_cache, score_cache, comp_cache, slot_of, valid, dst, state_slots):
+    """Pool every window the prefill plan names into each request's ring, in
+    place: slot_of [B, n, W] the windows' flat pool slots, valid [B, n, W],
+    dst [B, n] ring slots (-1: no window), state_slots [B]. A layer at a
+    time, its events in chunks, so the gathered windows stay small (all
+    layers and events at once would be ~4 GB at c128 with 16 requests)."""
+    n_layers, n_pages, page, d = kv_cache.shape
+    ring = cfg.compress_ring
+    b, n, w = slot_of.shape
+    slot_of = torch.where(valid, slot_of, 0)
+    dst = dst.long()
+    rows = torch.where(dst >= 0, state_slots.to(dst.device).long()[:, None] * ring + dst, -1)  # [B, n]
+    kv_flat = kv_cache.view(n_layers, n_pages * page, d)
+    sc_flat = score_cache.view(n_layers, n_pages * page, d)
+    comp_flat = comp_cache.view(-1, d)
+    step = max(1, _RING_BUILD_ELEMS // (b * w * d))
+    for lidx in range(n_layers):
+        ape, cbase = params["layers"]["comp_ape"][lidx], lidx * comp_cache.shape[1] * ring
+        for e0 in range(0, n, step):
+            idx = slot_of[:, e0: e0 + step]
+            sc = torch.where(valid[:, e0: e0 + step, :, None], sc_flat[lidx][idx].float(), float("-inf"))
+            pooled = compress_window(kv_flat[lidx][idx], sc, ape)
+            r = rows[:, e0: e0 + step].reshape(-1)
+            _put_rows(comp_flat, torch.where(r >= 0, cbase + r, -1), pooled.reshape(-1, d))
+
+
+def prefill_c(params, cfg: DeepseekConfig, kv_cache, score_cache, comp_cache, tokens, positions, q_lens, slot_loc,
+              state_slots, rope_cache):
+    """Compressed-family prefill of a padded batch [B, S]: exact causal MLA
+    (K7 at 576; compression bounds only the decode's reads), the latent and
+    score rows stored, then each request's ring built from its stored
+    windows (``plan_compress_prefill``) at its ``state_slots`` [B]. Returns
+    (last-token logits [B, V] float32, kv_cache, score_cache, comp_cache)."""
+    _check_unscaled(cfg)
+    logits, kv_cache = prefill(params, cfg, kv_cache, tokens, positions, q_lens, slot_loc, rope_cache,
+                               score_cache=score_cache)
+    dev = kv_cache.device
+    src, dst, _ = plan_compress_prefill(q_lens.to(dev), compress_ratio=_comp_ratio(cfg), ring_size=cfg.compress_ring)
+    src = src.long()
+    valid = src >= 0
+    slot_of = slot_loc.to(dev).long().gather(1, torch.where(valid, src, 0).reshape(src.shape[0], -1))
+    _build_rings(params, cfg, kv_cache, score_cache, comp_cache, slot_of.reshape(src.shape), valid, dst, state_slots)
+    return logits, kv_cache, score_cache, comp_cache
+
+
+def prefill_packed_c(params, cfg: DeepseekConfig, kv_cache, score_cache, comp_cache, tokens, positions, blk_seq,
+                     blk_q0, seq_meta, last_idx, slot_loc, state_slots, rope_cache, *, max_kvb: int):
+    """Compressed-family packed prefill: ``prefill_packed``'s exact MLA over
+    several block-aligned prompts (K9 at 576) with the score rows stored,
+    then each sequence's ring built from the packed layout (sequence i's
+    tokens start at packed index seq_meta[i, 4] * block, as the engine lays
+    the blocks out). Returns (logits [B, V] float32, kv_cache, score_cache,
+    comp_cache)."""
+    _check_unscaled(cfg)
+    logits, kv_cache = prefill_packed(params, cfg, kv_cache, None, None, tokens, positions, blk_seq, blk_q0, seq_meta,
+                                      last_idx, slot_loc, rope_cache, max_kvb=max_kvb, score_cache=score_cache)
+    dev = kv_cache.device
+    seq_meta = seq_meta.to(dev).long()
+    seq_q0 = seq_meta[:, 4] * (tokens.shape[0] // blk_seq.shape[0])  # each sequence's first packed token
+    src, dst, _ = plan_compress_prefill(seq_meta[:, 0], compress_ratio=_comp_ratio(cfg), ring_size=cfg.compress_ring)
+    src = src.long()
+    valid = src >= 0
+    slot_of = slot_loc.to(dev).long()[seq_q0[:, None, None] + torch.where(valid, src, 0)]
+    _build_rings(params, cfg, kv_cache, score_cache, comp_cache, slot_of, valid, dst, state_slots)
+    return logits, kv_cache, score_cache, comp_cache

@@ -11,11 +11,17 @@ chunk, and the ``decode`` step; the engine reaches ``mixed_step`` through
 ``_m``. The Mixtral adapter serves the same four programs of its own model
 over the same (k, v) pools, as does the gpt-oss adapter (sinks, a window on
 even layers, MXFP4 experts), and the DeepSeek adapter over one latent pool
-(with NSA sparse decode, the latent pool and the two indexer pools);
+(with NSA sparse decode, the latent pool and the two indexer pools;
+with KV compression, the latent pool, the score pool and the ring pool);
 neither model has a ``mixed_step``, so the engine advances their chunked
 prompts by extend. ``supports_spec`` is False (speculative decoding is a
-later slice), and the PD page transfer (``extract_pages`` /
-``inject_pages``) is not ported yet.
+later slice), and the PD page and state transfer (``extract_pages`` /
+``inject_pages``, ``extract_state`` / ``inject_state``) is not ported yet.
+
+An adapter with ``needs_state_slots`` (DeepSeek with KV compression) keeps
+per-request state outside the pages: its ``make_caches`` takes
+``max_slots`` and its prefill, packed prefill and decode take
+``state_slots``, each row's slot in that state, which the engine assigns.
 
 The engine captures each adapter's ``decode`` into a CUDA graph
 (``serving/decode_graph.py``), so a decode reads nothing back to the host,
@@ -23,7 +29,9 @@ makes no tensor whose shape depends on values on the device, updates the
 pools it is given in place (and returns them), and launches every kernel
 on the current stream. Every decode here does so as written: the MoE
 alignment counts by a scatter-add, the NSA top-k is a fixed-width sort, the
-latent store redirects its dropped rows on the device.
+latent store and the compression ring's writes redirect their dropped rows
+on the device (the compressed decode pools on every step and drops the
+writes of rows with no event, where JAX branches).
 """
 
 from __future__ import annotations
@@ -112,29 +120,43 @@ class DeepseekAdapter:
     """DeepSeek MLA family (models/deepseek.py) over the cache
     ``(latent_pool,)``, [L, P, page, 576], or with ``use_nsa`` (NSA sparse
     decode) ``(latent_pool, idx_k, idx_s)``, the indexer's fp8 keys and
-    scales, every program routed to its NSA form. The page size is the
-    caller's: the JAX adapter's ``recommended_page_size = 1024`` is a TPU
-    finding (adapters.py:258-265) this port does not rely on. KV compression
-    (``use_compress``) is not ported and raises."""
+    scales, every program routed to its NSA form. With ``use_compress`` (KV
+    compression, ``cfg.compress``) the cache is ``(latent_pool, score_pool,
+    ring_pool)`` and the programs are the compressed family's: a request's
+    ring is state that lives in its state slot (``needs_state_slots``), and
+    there is no extend program (a ring is not shared by a prefix), so the
+    engine serves it with the prefix cache off and no chunking. The page
+    size is the caller's: the JAX adapter's ``recommended_page_size = 1024``
+    is a TPU finding (adapters.py:258-265) this port does not rely on."""
 
     name = "deepseek"
     supports_spec = False
     supports_extend = True
+    needs_state_slots = False
 
     def __init__(self, cfg, device="cuda", *, use_nsa: bool = False, use_compress: bool = False):
         if use_compress:
-            raise NotImplementedError("DeepseekAdapter: KV compression is not ported yet")
+            if use_nsa:
+                raise ValueError("DeepseekAdapter: compression and NSA decode are exclusive modes")
+            if cfg.compress not in ("c4", "c128"):
+                raise ValueError(f"DeepseekAdapter(use_compress=True) needs compress 'c4' or 'c128', "
+                                 f"not {cfg.compress!r}")
+            self.needs_state_slots = True
+            self.supports_extend = False
         self.cfg = cfg
         self.device = resolve_device(device)
         self._m = deepseek
         self.use_nsa = use_nsa
+        self.use_compress = use_compress
         self.rope_cache = deepseek.build_rope_cache(cfg, self.device)
         self.idx_rope_cache = deepseek.build_idx_rope_cache(cfg, self.device) if use_nsa else None
 
     def init_weights(self, generator):
         return self._m.init_weights(self.cfg, generator, self.device)
 
-    def make_caches(self, num_pages: int, page_size: int):
+    def make_caches(self, num_pages: int, page_size: int, max_slots: int = 16):
+        if self.use_compress:
+            return self._m.make_compress_caches(self.cfg, num_pages, page_size, max_slots, device=self.device)
         kv = self._m.make_cache(self.cfg, num_pages, page_size, device=self.device)
         if not self.use_nsa:
             return (kv,)
@@ -144,27 +166,43 @@ class DeepseekAdapter:
         """The model's ``indexer`` argument: None, or (idx_k, idx_s, rope)."""
         return (caches[1], caches[2], self.idx_rope_cache) if self.use_nsa else None
 
-    def prefill(self, params, caches, tokens, positions, q_lens, slot_loc):
+    def prefill(self, params, caches, tokens, positions, q_lens, slot_loc, state_slots=None):
+        if self.use_compress:
+            logits, *caches = self._m.prefill_c(params, self.cfg, *caches, tokens, positions, q_lens, slot_loc,
+                                                state_slots, self.rope_cache)
+            return logits, tuple(caches)
         logits, kv = self._m.prefill(params, self.cfg, caches[0], tokens, positions, q_lens, slot_loc,
                                      self.rope_cache, indexer=self._indexer(caches))
         return logits, (kv, *caches[1:])
 
     def prefill_extend(self, params, caches, tokens, positions, q_lens, kv_lens, page_tables, slot_loc, *,
                        prefix_max: int):
+        if self.use_compress:
+            raise ValueError("DeepseekAdapter: the compressed family has no extend program")
         logits, kv = self._m.prefill_extend(params, self.cfg, caches[0], tokens, positions, q_lens, kv_lens,
                                             page_tables, slot_loc, self.rope_cache, prefix_max=prefix_max,
                                             indexer=self._indexer(caches))
         return logits, (kv, *caches[1:])
 
-    def decode(self, params, caches, tokens, positions, page_tables, lengths, slot_loc):
+    def decode(self, params, caches, tokens, positions, page_tables, lengths, slot_loc, state_slots=None):
+        if self.use_compress:
+            logits, *caches = self._m.decode_step_c(params, self.cfg, *caches, tokens, positions, page_tables,
+                                                    lengths, slot_loc, state_slots, self.rope_cache)
+            return logits, tuple(caches)
         logits, kv = self._m.decode_step(params, self.cfg, caches[0], tokens, positions, page_tables, lengths,
                                          slot_loc, self.rope_cache, indexer=self._indexer(caches))
         return logits, (kv, *caches[1:])
 
     def prefill_packed(self, params, caches, tokens, positions, blk_seq, blk_q0, seq_meta, last_idx, slot_loc, *,
-                       max_kvb: int):
+                       max_kvb: int, state_slots=None):
         """Several fresh prompts block-aligned packed into one launch (the
-        indexer keys stored too under NSA)."""
+        indexer keys stored too under NSA; the score rows stored and the rings
+        built under compression)."""
+        if self.use_compress:
+            logits, *caches = self._m.prefill_packed_c(params, self.cfg, *caches, tokens, positions, blk_seq,
+                                                       blk_q0, seq_meta, last_idx, slot_loc, state_slots,
+                                                       self.rope_cache, max_kvb=max_kvb)
+            return logits, tuple(caches)
         idx = caches[1:] if self.use_nsa else (None, None)
         out = self._m.prefill_packed(params, self.cfg, caches[0], *idx, tokens, positions, blk_seq, blk_q0,
                                      seq_meta, last_idx, slot_loc, self.rope_cache, max_kvb=max_kvb,
@@ -175,8 +213,8 @@ class DeepseekAdapter:
 def adapter_for(cfg, device="cuda"):
     """The adapter for a config's type, the most specific first
     (``GptOssConfig`` is a ``MixtralConfig``, which is a ``LlamaConfig``); a
-    DeepSeek config asks for the decode mode it names (NSA, or compression,
-    which raises)."""
+    DeepSeek config asks for the decode mode it names (NSA or compression;
+    both together raise)."""
     if isinstance(cfg, deepseek.DeepseekConfig):
         return DeepseekAdapter(cfg, device, use_nsa=bool(cfg.nsa), use_compress=bool(cfg.compress))
     if isinstance(cfg, gptoss.GptOssConfig):

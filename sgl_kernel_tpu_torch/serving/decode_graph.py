@@ -10,9 +10,12 @@ captured once into a CUDA graph and replayed, so a step costs the host one
 input copy and one graph launch instead of one Python call per kernel.
 
 ``DecodeInputs`` holds a step's inputs at fixed addresses: tokens,
-positions, lengths, slot_loc [max_batch] and the page tables [max_batch,
-max_pages] are views of one int32 buffer on the device, filled each step
-from one host staging buffer (pinned on the card) by one copy.
+positions, lengths, slot_loc, state_slots [max_batch] and the page tables
+[max_batch, max_pages] are views of one int32 buffer on the device, filled
+each step from one host staging buffer (pinned on the card) by one copy.
+``state_slots`` is each row's slot in the per-request state of an adapter
+that keeps one (``needs_state_slots``: DeepSeek's compression rings); a
+step passes it to such an adapter's decode and to no other.
 ``DecodeGraph`` runs a step function over those inputs. On the card the
 first call warms the function up eagerly on a side stream (Triton compiles,
 nvcc libraries load, ``utils.kept_buffer`` workspaces reach their size),
@@ -99,42 +102,46 @@ class DecodeInputs:
     """A decode batch's inputs at fixed device addresses: views of one int32
     buffer, filled from one host staging buffer by one copy a step."""
 
+    _ROWS = 5  # tokens, positions, lengths, slot_loc, state_slots
+
     def __init__(self, device, max_batch: int, max_pages: int):
         self.device = torch.device(device)
         self.max_batch, self.max_pages = max_batch, max_pages
-        n = max_batch * (4 + max_pages)
+        rows = self._ROWS * max_batch
+        n = rows + max_batch * max_pages
         on_card = self.device.type == "cuda"
         self._host = torch.zeros(n, dtype=torch.int32, pin_memory=on_card)
         self._host_np = self._host.numpy()
         self._dev = torch.zeros(n, dtype=torch.int32, device=self.device)
         self._copied = torch.cuda.Event() if on_card else None
-        self.tokens, self.positions, self.lengths, self.slot_loc = self._dev[: 4 * max_batch].view(4, max_batch)
-        self.tables = self._dev[4 * max_batch:].view(max_batch, max_pages)
+        (self.tokens, self.positions, self.lengths, self.slot_loc,
+         self.state_slots) = self._dev[:rows].view(self._ROWS, max_batch)
+        self.tables = self._dev[rows:].view(max_batch, max_pages)
 
-    def fill(self, tokens, positions, lengths, slot_loc, tables):
+    def fill(self, tokens, positions, lengths, slot_loc, tables, state_slots):
         """Copy one step's arrays ([max_batch] each, tables [max_batch,
         max_pages]) into the static tensors."""
         if self._copied is not None:
             self._copied.synchronize()  # the last step's copy has read the staging buffer
         b = self.max_batch
         h = self._host_np
-        for i, a in enumerate((tokens, positions, lengths, slot_loc)):
+        for i, a in enumerate((tokens, positions, lengths, slot_loc, state_slots)):
             h[i * b: (i + 1) * b] = a
-        h[4 * b:] = np.asarray(tables).reshape(-1)
+        h[self._ROWS * b:] = np.asarray(tables).reshape(-1)
         self._dev.copy_(self._host, non_blocking=self._copied is not None)
         if self._copied is not None:
             self._copied.record()
 
     def args(self):
         """The adapter's decode argument order: tokens, positions, page
-        tables, lengths, slot_loc."""
-        return self.tokens, self.positions, self.tables, self.lengths, self.slot_loc
+        tables, lengths, slot_loc, then state_slots."""
+        return self.tokens, self.positions, self.tables, self.lengths, self.slot_loc, self.state_slots
 
 
 class DecodeGraph:
-    """``fn(tokens, positions, tables, lengths, slot_loc) -> tensor`` over
-    ``inputs``: captured into a CUDA graph at the first call on the card and
-    replayed after; eager on the CPU or when asked."""
+    """``fn(tokens, positions, tables, lengths, slot_loc, state_slots) ->
+    tensor`` over ``inputs``: captured into a CUDA graph at the first call
+    on the card and replayed after; eager on the CPU or when asked."""
 
     def __init__(self, fn: Callable[..., torch.Tensor], inputs: DecodeInputs):
         self.fn, self.inputs = fn, inputs

@@ -24,6 +24,13 @@ requests are all greedy runs up to ``decode_burst`` steps in one graph, the
 argmax fed back on the device (JAX's ``_make_burst_fn``); tokens past a stop
 token are discarded on the host, and mixed steps are off.
 
+An adapter with ``needs_state_slots`` (DeepSeek with KV compression) keeps
+per-request state beside the pages: the engine makes ``max_batch + 1``
+slots of it, gives each admitted request a slot from a free list (admission
+waits while none is free) and takes it back when the request retires; slot
+``max_batch`` is the scratch slot of a decode batch's padding rows, so
+whatever they write touches no request's state.
+
 Speculative decoding, grammars and a device mesh are later slices: the
 arguments that ask for them raise ``NotImplementedError``.
 """
@@ -60,6 +67,7 @@ class Request:
     shared_pages: int = 0        # leading cache-owned pages in ``pages``
     lock_id: int = 0             # radix-cache pin handle (0 = none)
     prefill_pos: int = 0         # chunked-prefill progress (tokens stored)
+    state_slot: int = -1         # slot in the adapter's per-request state (-1: none)
 
     @property
     def seq_len(self) -> int:
@@ -168,7 +176,13 @@ class Engine:
             params = self.adapter.init_weights(torch.Generator(device=self.device).manual_seed(seed))
         self.params = params
         self.rope_cache = self.adapter.rope_cache
-        self.caches = self.adapter.make_caches(num_pages, page_size)
+        self._stateful = getattr(self.adapter, "needs_state_slots", False)
+        if self._stateful:
+            # slot max_batch is the padding rows' scratch slot
+            self.caches = self.adapter.make_caches(num_pages, page_size, max_slots=max_batch + 1)
+            self._free_state_slots = list(range(max_batch - 1, -1, -1))
+        else:
+            self.caches = self.adapter.make_caches(num_pages, page_size)
         # an adapter without an extend program can consume no cached prefix
         # and chunk no prompt
         if not getattr(self.adapter, "supports_extend", True):
@@ -241,10 +255,19 @@ class Engine:
     def _dev(self, a) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(self.device)
 
+    def _state_slots(self, reqs, n_rows: int) -> np.ndarray:
+        """Each row's state slot, [n_rows]: the requests' own, then the
+        scratch slot ``max_batch`` for padding rows."""
+        ss = np.full(n_rows, self.max_batch, np.int32)
+        ss[: len(reqs)] = [r.state_slot for r in reqs]
+        return ss
+
     def _decode_inputs(self, reqs, pad_length: int):
-        """tokens, positions, lengths, slot_loc [max_batch] and page tables of
-        a decode batch; padding rows have length ``pad_length`` and slot -1
-        (as in the JAX engine: 0 in the decode step, 1 in the mixed step)."""
+        """tokens, positions, lengths, slot_loc [max_batch], page tables and
+        state slots of a decode batch; padding rows have length
+        ``pad_length``, slot -1 and the scratch state slot (as in the JAX
+        engine: length 0 in the decode step, 1 in the mixed step and a
+        burst)."""
         bp = self.max_batch
         tokens = np.zeros(bp, np.int32)
         positions = np.zeros(bp, np.int32)
@@ -256,13 +279,16 @@ class Engine:
             positions[i] = pos
             lengths[i] = r.seq_len
             slot_loc[i] = self._slot(r, pos)
-        return tokens, positions, lengths, slot_loc, self._batch_tables(reqs, bp)
+        return tokens, positions, lengths, slot_loc, self._batch_tables(reqs, bp), self._state_slots(reqs, bp)
 
     # ------------------------------------------------------------------
     def _admit(self):
         batch: List[Request] = []  # fresh full prefills -> one packed launch
         while self.waiting and len(self.running) + len(self.prefilling) + len(batch) < self.max_batch:
             req = self.waiting[0]
+            if self._stateful and not self._free_state_slots:
+                self.metrics.inc("admission_blocked")
+                break
             shared: List[int] = []
             if self.native is not None and len(req.prompt) > 1:
                 # reuse the longest cached page-aligned prefix, keeping at
@@ -285,6 +311,8 @@ class Engine:
                 self.metrics.inc("admission_blocked")
                 break
             req.pages = shared + pages
+            if self._stateful:
+                req.state_slot = self._free_state_slots.pop()
             self.waiting.pop(0)
             self.metrics.inc("requests_admitted")
             self.metrics.inc("prefix_cache_hit_tokens", req.prefix_len)
@@ -328,7 +356,8 @@ class Engine:
             last_idx[i] = t0 + n - 1
         logits, self.caches = self.adapter.prefill_packed(
             self.params, self.caches, *(self._dev(a) for a in (tokens, positions, blk_seq, blk_q0, seq_meta,
-                                                               last_idx, slot_loc)), max_kvb=max_kvb)
+                                                               last_idx, slot_loc)), max_kvb=max_kvb,
+            **self._state_kw(reqs, self.max_batch + 1))
         self._append_tokens(reqs, logits)
 
     def _prefill(self, req: Request):
@@ -377,7 +406,7 @@ class Engine:
         if pre == 0:
             logits, self.caches = self.adapter.prefill(
                 self.params, self.caches, self._dev(tokens), self._dev(positions),
-                self._dev(np.array([s], np.int32)), self._dev(slot_loc))
+                self._dev(np.array([s], np.int32)), self._dev(slot_loc), **self._state_kw([req], 1))
         else:
             logits, self.caches = self.adapter.prefill_extend(
                 self.params, self.caches, self._dev(tokens), self._dev(positions),
@@ -385,6 +414,11 @@ class Engine:
                 self._dev(self._page_table(req)[None]), self._dev(slot_loc),
                 prefix_max=cdiv(pre, self.page_size) * self.page_size)
         return logits
+
+    def _state_kw(self, reqs, n_rows: int):
+        """The ``state_slots`` argument of a stateful adapter's program, else
+        none."""
+        return {"state_slots": self._dev(self._state_slots(reqs, n_rows))} if self._stateful else {}
 
     def _append_tokens(self, reqs: List[Request], logits):
         """Pick each request's next token from its row of ``logits``: greedy
@@ -427,18 +461,20 @@ class Engine:
         if burst in self._graphs:
             return self._graphs[burst]
         adapter, params, caches, page = self.adapter, self.params, self.caches, self.page_size
+        stateful = self._stateful
 
-        def step(tokens, positions, tables, lengths, slot_loc):
-            logits, out = adapter.decode(params, caches, tokens, positions, tables, lengths, slot_loc)
+        def step(tokens, positions, tables, lengths, slot_loc, state_slots):
+            kw = {"state_slots": state_slots} if stateful else {}
+            logits, out = adapter.decode(params, caches, tokens, positions, tables, lengths, slot_loc, **kw)
             if any(a is not b for a, b in zip(out, caches)):
                 raise RuntimeError(f"{adapter.name}: decode must update the pools in place")
             return logits
 
-        def steps(tokens, positions, tables, lengths, slot_loc):
+        def steps(tokens, positions, tables, lengths, slot_loc, state_slots):
             rows = torch.arange(tables.shape[0], device=tables.device)
             toks, finite = [], True
             for _ in range(burst):
-                logits = step(tokens, positions, tables, lengths, slot_loc)
+                logits = step(tokens, positions, tables, lengths, slot_loc, state_slots)
                 tokens = logits.argmax(-1).to(torch.int32)
                 finite = torch.isfinite(logits).all(-1) & finite
                 toks.append(tokens)
@@ -497,7 +533,7 @@ class Engine:
         batch into one ``mixed_step``. Returns the prefill Request it
         advanced (the caller skips it in ``_advance_prefilling``), or None
         when the plain path should run."""
-        if not self.enable_mixed or not self.prefilling or self.decode_burst > 1:
+        if not self.enable_mixed or not self.prefilling or self.decode_burst > 1 or self._stateful:
             return None
         if not hasattr(getattr(self.adapter, "_m", None), "mixed_step"):
             return None
@@ -518,7 +554,7 @@ class Engine:
         pf_positions[:s] = np.arange(pre, end)
         pf_slots = np.full(bucket, -1, np.int32)
         pf_slots[:s] = [self._slot(pf, p) for p in range(pre, end)]
-        tokens, positions, lengths, slot_loc, tables = self._decode_inputs(reqs, 1)
+        tokens, positions, lengths, slot_loc, tables, _ = self._decode_inputs(reqs, 1)
         k, v = self.caches
         with self.metrics.time("mixed"):
             dec_logits, pf_logits, k, v = self.adapter._m.mixed_step(
@@ -566,6 +602,9 @@ class Engine:
             else:
                 self.allocator.release(r.pages)
             r.pages = []
+            if r.state_slot >= 0:
+                self._free_state_slots.append(r.state_slot)
+                r.state_slot = -1
             self.finished[r.rid] = r
             self.metrics.inc("requests_finished")
         self.running = still

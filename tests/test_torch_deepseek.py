@@ -161,10 +161,17 @@ def run_packed(pair, toks, pos, blk_seq, blk_q0, seq_meta, last, sl, max_kvb):
 
 
 def test_unported_paths_raise():
+    """Several logits per sequence (speculative verify) and an int8 latent
+    without a scale raise; NSA and KV compression are served (the compressed
+    family: tests/test_torch_compression.py)."""
     cfg = DeepseekConfig.tiny()
-    with pytest.raises(NotImplementedError):
-        tds.make_cache(DeepseekConfig.tiny(compress="c4"), 4, 16, device="cpu")
     tds.make_cache(DeepseekConfig.tiny(nsa=True), 4, 16, device="cpu")  # NSA is served
+    ccfg = DeepseekConfig.tiny(compress="c4", compress_ring=8)
+    kv, sc, comp = tds.make_compress_caches(ccfg, 4, 16, max_slots=3, device="cpu")
+    assert kv.shape == sc.shape == (ccfg.num_layers, 4, 16, 576)
+    assert comp.shape == (ccfg.num_layers, 3, 8, 576) and comp.dtype == sc.dtype == ccfg.dtype
+    with pytest.raises(ValueError):
+        DeepseekConfig.tiny(compress="c2")
     with pytest.raises(NotImplementedError):
         tds.prefill_extend({}, cfg, None, torch.zeros(1, 4, dtype=torch.int32), None, None, None, None, None, None,
                            prefix_max=16, num_logits=2)

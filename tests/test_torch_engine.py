@@ -425,7 +425,7 @@ def test_decode_graph_cpu_runner_and_tally(monkeypatch):
                         ("paged_attention_decode_dma", None), ("store_cache_all_layers", None)):
         monkeypatch.setattr(tllama, name, counting(getattr(tllama, name), skt.KERNELS[name], route))
     skt.reset_launch_counts()
-    tokens, positions, lengths, slot_loc, tables = eng._decode_inputs(reqs, 0)
+    tokens, positions, lengths, slot_loc, tables, _ = eng._decode_inputs(reqs, 0)
     t = lambda a: torch.from_numpy(np.ascontiguousarray(a, np.int32))
     ref, _ = eng.adapter.decode(eng.params, eng.caches, t(tokens), t(positions), t(tables), t(lengths), t(slot_loc))
     direct = {**skt.launch_counts(), **skt.route_launch_counts()}

@@ -55,6 +55,8 @@ def test_entry_points_need_a_card_by_default():
         skt.Engine(skt.DeepseekConfig.tiny(nsa=True, idx_dim=32))
     with pytest.raises(RuntimeError, match="no CUDA device"):
         skt.Engine(skt.GptOssConfig.tiny(quant="mxfp4", qkv_bias=True))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        skt.Engine(skt.DeepseekConfig.tiny(compress="c4"))
 
 
 def test_device_parameters_default_to_the_card():
@@ -173,8 +175,9 @@ def test_kernel_sources_and_entry_points():
 def test_deepseek_adapter_serves_the_plain_mode_only():
     """adapter_for picks the DeepSeek adapter by config type and the decode
     mode the config names: the plain mode over one latent pool, NSA over
-    (latent, fp8 indexer keys, their float32 scales); compression is not
-    ported and raises."""
+    (latent, fp8 indexer keys, their float32 scales), compression over
+    (latent, scores, rings of max_slots state slots) with state slots and no
+    extend program; NSA and compression together raise."""
     cfg = skt.DeepseekConfig.tiny()
     ad = skt.adapter_for(cfg, "cpu")
     assert isinstance(ad, skt.DeepseekAdapter) and ad.supports_extend and not hasattr(ad._m, "mixed_step")
@@ -186,10 +189,17 @@ def test_deepseek_adapter_serves_the_plain_mode_only():
     pool, idx_k, idx_s = ad.make_caches(4, 16)
     assert idx_k.shape == (ncfg.num_layers * 4 * 16, 32) and idx_k.dtype == torch.float8_e4m3fn
     assert idx_s.shape == (ncfg.num_layers * 4 * 16,) and idx_s.dtype == torch.float32
-    with pytest.raises(NotImplementedError):
-        skt.adapter_for(skt.DeepseekConfig.tiny(compress="c128"), "cpu")
-    with pytest.raises(NotImplementedError):
-        skt.DeepseekAdapter(cfg, "cpu", use_compress=True)
+    assert not ad.needs_state_slots
+    ccfg = skt.DeepseekConfig.tiny(compress="c128", compress_ring=4)
+    ad = skt.adapter_for(ccfg, "cpu")
+    assert ad.use_compress and ad.needs_state_slots and not ad.supports_extend and not ad.supports_spec
+    pool, scores, rings = ad.make_caches(4, 16, max_slots=5)
+    assert pool.shape == scores.shape == (ccfg.num_layers, 4, 16, 576)
+    assert rings.shape == (ccfg.num_layers, 5, 4, 576)
+    with pytest.raises(ValueError):
+        skt.adapter_for(skt.DeepseekConfig.tiny(compress="c4", nsa=True), "cpu")
+    with pytest.raises(ValueError):
+        skt.DeepseekAdapter(cfg, "cpu", use_compress=True)  # the config names no ratio
 
 
 def test_slice8_exports_and_cpu_dispatch():
