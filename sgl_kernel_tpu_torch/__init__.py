@@ -25,7 +25,9 @@ Kernels ported so far (each wrapper counts its launches in ``.launches``):
   module ``models.gptoss``: sinks, alternating windows, MXFP4 experts) and DeepSeek MLA + MoE
   (``DeepseekConfig``, module ``models.deepseek``), with NSA sparse decode
   (``nsa=True``) and KV compression (``compress="c4"`` / ``"c128"``, module
-  ``ops.compression``; each request's ring in an engine state slot). The
+  ``ops.compression``; each request's ring in an engine state slot).
+  Speculative decoding (``models.spec``: chain and tree rounds, a Llama
+  draft; ``ops.speculative``) is served by ``Engine(draft_cfg=...)``. The
   serving engine's radix prefix cache is host C++
   (``csrc/serving_native.cpp``, bound by ``serving/native.py``).
 """
@@ -44,6 +46,7 @@ from .models.llama import (
     prefill,
     prefill_extend,
     prefill_packed,
+    prefill_tree,
 )
 from .ops.attention import (
     apply_sinks,
@@ -98,7 +101,13 @@ from .ops.gemm import (
     w4a16_gemm_dma,
 )
 from .ops.hadamard import hadamard_transform
-from .ops.kvcache import store_cache_all_layers, store_cache_head_major, store_cache_mla, store_cache_stacked
+from .ops.kvcache import (
+    move_cache_rows_stacked,
+    store_cache_all_layers,
+    store_cache_head_major,
+    store_cache_mla,
+    store_cache_stacked,
+)
 from .ops.moe import (
     MoeWeights,
     bf16_grouped_mm,
@@ -126,6 +135,12 @@ from .ops.sampling import (
     sampling_from_probs,
     top_k_renorm_probs,
     top_p_renorm_probs,
+)
+from .ops.speculative import (
+    build_tree_kernel_efficient,
+    segment_packbits,
+    tree_speculative_sampling_target_only,
+    verify_tree_greedy,
 )
 from .serving.adapters import DeepseekAdapter, GptOssAdapter, LlamaAdapter, MixtralAdapter, adapter_for
 from .serving.engine import Engine, PageAllocator, Request

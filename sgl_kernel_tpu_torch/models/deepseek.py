@@ -87,6 +87,7 @@ from ..ops.moe import MoeWeights, biased_topk, fused_experts, pick_block_size
 from ..ops.norm import rmsnorm
 from ..ops.rope import compute_cos_sin_cache, mla_qkv_prep, rotary_embedding
 from ..utils import resolve_device, round_up
+from . import llama
 
 # Products accumulate in float32 as the JAX model's
 # preferred_element_type=float32 does: no TF32 for float32 weights and no
@@ -610,10 +611,8 @@ def prefill_extend(params, cfg: DeepseekConfig, kv_cache, tokens, positions, q_l
     (masked by its length), and merge_state joins them by the base-2 lse.
     With ``indexer`` = (idx_k, idx_s, idx_rope_cache) the chunk's indexer
     keys are stored too. Returns (logits [B, V] float32 of each suffix's
-    last token, kv_cache). Only ``num_logits=1`` is ported (several logits
-    per sequence serve the speculative verify)."""
-    if num_logits != 1:
-        raise NotImplementedError("prefill_extend(num_logits>1): speculative verify is not ported yet")
+    last token, kv_cache); with ``num_logits`` n > 1 (the speculative chain
+    verify) [B, n, V], of each sequence's last n positions."""
     b, s = tokens.shape
     dev = kv_cache.device
     nh = cfg.num_heads
@@ -644,8 +643,8 @@ def prefill_extend(params, cfg: DeepseekConfig, kv_cache, tokens, positions, q_l
         x = x + _mla_out(om, lw, lidx, cfg, b * s)
         x = x + _mlp(rmsnorm(x, lw["post_norm"][lidx], cfg.rms_eps), lw, lidx, cfg)
     x = rmsnorm(x, params["final_norm"], cfg.rms_eps).reshape(b, s, -1)
-    last = (q_lens.long() - 1).clamp(0, s - 1)
-    return _logits(x[torch.arange(b, device=dev), last], params, cfg), kv_cache
+    logits = _logits(llama.logit_rows(x, q_lens, num_logits), params, cfg)
+    return llama._logits_shape(logits, b, num_logits), kv_cache
 
 
 def prefill_extend_nsa(params, cfg: DeepseekConfig, kv_cache, idx_k, idx_s, tokens, positions, q_lens, kv_lens,

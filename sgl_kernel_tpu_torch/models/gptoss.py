@@ -165,10 +165,11 @@ def prefill_extend(params, cfg: GptOssConfig, k_cache, v_cache, tokens, position
     """Extend (chunked) prefill of a suffix over a prefix already in the
     paged cache: the suffix's K/V stored, ``prefix_max`` cached positions
     gathered, then ``_extend_attention``. Returns (logits [B, V] float32 of
-    each suffix's last token, k_cache, v_cache). Only ``num_logits=1`` is
-    ported (several logits per sequence serve the speculative verify)."""
+    each suffix's last token, k_cache, v_cache). ``num_logits`` must be 1:
+    JAX's gpt-oss extend has no several-logit form (gptoss.py:155-158), so
+    gpt-oss takes no draft (``GptOssAdapter.supports_spec`` is False)."""
     if num_logits != 1:
-        raise NotImplementedError("prefill_extend(num_logits>1): speculative verify is not ported yet")
+        raise NotImplementedError("gpt-oss prefill_extend gives one logit per sequence (JAX's has no num_logits)")
     b, s = tokens.shape
     dev = k_cache.device
     x = params["embed"][tokens.reshape(-1).long()].to(cfg.dtype)

@@ -13,12 +13,14 @@ Entry points: ``prefill`` (flash attention over a padded prompt batch, KV
 stored per layer, last-token logits), ``prefill_packed`` (several fresh
 prompts block-aligned packed into one launch), ``prefill_extend`` (a suffix
 over a prefix already in the paged cache: two flash passes joined by
-``merge_state``), ``decode_step`` (one token per sequence against the paged
-cache) and ``mixed_step`` (a decode batch and one prefill chunk as one token
-stream). The Qwen options: ``qkv_bias`` adds ``layers.q_bias`` / ``k_bias`` /
-``v_bias`` to the projections, ``qk_norm`` (Qwen3, ``qwen3_8b()``) a per-head
-RMSNorm (``layers.q_norm`` / ``k_norm`` [L, D], K2 over [T, H, D] rows) on q
-and k before RoPE; either keeps the fused decode (K3) off. All update the
+``merge_state``; with ``num_logits`` the speculative verify's logits of a
+sequence's last positions), ``prefill_tree`` (the speculative tree's verify:
+a tree-masked fresh pass merged with the prefix), ``decode_step`` (one token
+per sequence against the paged cache) and ``mixed_step`` (a decode batch and
+one prefill chunk as one token stream). The Qwen options: ``qkv_bias``
+adds ``layers.q_bias`` / ``k_bias`` / ``v_bias`` to the projections,
+``qk_norm`` (Qwen3, ``qwen3_8b()``) a per-head RMSNorm (``layers.q_norm`` /
+``k_norm`` [L, D], K2 over [T, H, D] rows) on q and k before RoPE; either keeps the fused decode (K3) off. All update the
 KV pools IN PLACE, where the JAX versions donate them, and return them. KV
 pools may be int8 or fp8 with a per-tensor ``kv_scale``: stores quantize
 (``_kv_quant``) and decode attention folds the scale back in.
@@ -28,7 +30,8 @@ prologue; with ``gemm_impl="dma"`` the decode-bucket GEMMs, M <= 32, take
 K10 instead, after a standalone rmsnorm), rmsnorm (K2), rope_decode_fused_qkv (K3; the ``fused=False``
 decode step takes K2, the separate q/k/v linears and rope_decode_fused, K4),
 paged decode attention (K5), the all-layers KV store (K6), flash prefill
-(K7, with its base-2 lse on the extend passes), packed flash prefill (K9).
+(K7, with its base-2 lse on the extend passes and the tree's non-causal
+prefix pass), packed flash prefill (K9).
 The bf16 linears are plain ``torch.matmul``, as the JAX model leaves them to
 XLA.
 """
@@ -510,10 +513,9 @@ def prefill_extend(params, cfg: LlamaConfig, k_cache, v_cache, tokens, positions
     the suffix's K/V first, then gathers ``prefix_max`` cached positions (the
     mask by prefix length hides the fresh rows among them). Returns (logits
     [B, V] float32 of each suffix's last token, k_cache, v_cache); the pools
-    are updated in place. Only ``num_logits=1`` is ported (the speculative
-    verify's several logits per sequence are a later slice)."""
-    if num_logits != 1:
-        raise NotImplementedError("prefill_extend(num_logits>1): speculative verify is not ported yet")
+    are updated in place. With ``num_logits`` n > 1 (the speculative verify)
+    the logits are [B, n, V], of each sequence's last n positions
+    (``logit_rows``)."""
     b, s = tokens.shape
     dev = k_cache.device
     x = params["embed"][tokens.reshape(-1).long()].to(cfg.dtype)
@@ -537,9 +539,78 @@ def prefill_extend(params, cfg: LlamaConfig, k_cache, v_cache, tokens, positions
         h2 = rmsnorm(x, lw["post_norm"][lidx], cfg.rms_eps)
         x = x + _mlp(h2, lw, cfg, layer_id=lidx)
     x = rmsnorm(x, params["final_norm"], cfg.rms_eps).reshape(b, s, -1)
-    last = (q_lens.long() - 1).clamp(0, s - 1)
-    logits = _linear(x[torch.arange(b, device=dev), last], params["lm_head"], cfg).float()[:, : cfg.vocab_size]
-    return logits, k_cache, v_cache
+    logits = _linear(logit_rows(x, q_lens, num_logits), params["lm_head"], cfg).float()[:, : cfg.vocab_size]
+    return _logits_shape(logits, b, num_logits), k_cache, v_cache
+
+
+def logit_rows(x, q_lens, num_logits: int = 1):
+    """The hidden rows an extend takes logits of: x [B, S, H] -> [B * n, H],
+    each sequence's last ``num_logits`` positions (q_len - n .. q_len - 1,
+    clipped to [0, S), as JAX clips them: a suffix shorter than n repeats
+    its row 0 in the leading rows, which the caller masks)."""
+    b, s = x.shape[:2]
+    ar = torch.arange(num_logits, device=x.device)
+    idx = (q_lens.long().to(x.device)[:, None] - num_logits + ar[None, :]).clamp(0, s - 1)
+    return x[torch.arange(b, device=x.device)[:, None], idx].reshape(b * num_logits, -1)
+
+
+def _logits_shape(logits, b: int, num_logits: int):
+    """[B, V] for one logit a sequence, else [B, n, V]."""
+    return logits if num_logits == 1 else logits.reshape(b, num_logits, -1)
+
+
+def prefill_tree(params, cfg: LlamaConfig, k_cache, v_cache, tokens, positions, tree_mask, prefix_lens,
+                 page_tables, slot_loc, rope_cache, *, prefix_max: int):
+    """Tree-masked verify forward (the speculative tree round): the dt fresh
+    tokens of each sequence form a draft tree, node i attending its
+    ancestors-or-self (``tree_mask`` [B, dt, dt], build_tree_kernel_efficient)
+    and the whole cached prefix. tokens / positions / slot_loc [B, dt]
+    (slot_loc per NODE: siblings share a position but need their own rows);
+    prefix_lens [B]. Per layer: a dense float32 tree-masked pass over the
+    fresh nodes with its base-2 lse (plain torch, as ``jnp`` in JAX), the
+    prefix pass on K7 with ``causal=False`` over the gathered ``prefix_max``
+    positions, and merge_state (llama.py:721-800). Returns (logits [B, dt, V]
+    float32 for every node, k_cache, v_cache); the pools are updated in
+    place."""
+    b, dt = tokens.shape
+    dev = k_cache.device
+    x = params["embed"][tokens.reshape(-1).long()].to(cfg.dtype)
+    lw = params["layers"]
+    prefix_lens = prefix_lens.to(dev, torch.int32)
+    tree_mask = tree_mask.to(dev)
+    page_sz = k_cache.shape[-2]
+    pre_slots = _prefix_slots(page_tables.to(dev), prefix_max, page_sz)
+    nq, nkv, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    scale_log2 = (1.0 / d ** 0.5) * 1.4426950408889634
+    q_lens = torch.full((b,), dt, dtype=torch.int32, device=dev)
+    for lidx in range(cfg.num_layers):
+        h = rmsnorm(x, lw["input_norm"][lidx], cfg.rms_eps)
+        q, k, v = _qkv(h, lw, cfg, b * dt, layer_id=lidx)
+        q, k = rotary_embedding(positions.reshape(-1), q, k, d, rope_cache)
+        store_cache_stacked(_kv_quant(cfg, k), _kv_quant(cfg, v), k_cache, v_cache, slot_loc.reshape(-1), lidx)
+        qb = q.reshape(b, dt, nq, d)
+        # pass 1: dense tree-masked attention over the fresh nodes
+        kr = k.reshape(b, dt, nkv, d).repeat_interleave(nq // nkv, dim=2).float()
+        vr = v.reshape(b, dt, nkv, d).repeat_interleave(nq // nkv, dim=2).float()
+        s2 = torch.einsum("bihd,bjhd->bhij", qb.float(), kr) * scale_log2
+        s2 = s2.masked_fill(~tree_mask[:, None], float("-inf"))
+        m = s2.amax(-1)  # [B, H, dt]: a node always sees itself
+        p = torch.exp2(s2 - m[..., None])
+        l1 = p.sum(-1)
+        o1 = torch.einsum("bhij,bjhd->bihd", p, vr) / l1.transpose(1, 2)[..., None]
+        lse1 = (m + torch.log2(l1)).transpose(1, 2)  # [B, dt, H]
+        # pass 2: the cached prefix, visible to every node
+        kpre = _kv_deq(cfg, _gather_prefix(k_cache, lidx, pre_slots, page_sz), qb.dtype)
+        vpre = _kv_deq(cfg, _gather_prefix(v_cache, lidx, pre_slots, page_sz), qb.dtype)
+        o2, l2 = flash_attention(qb, kpre, vpre, q_lens, prefix_lens, causal=False, return_lse=True)
+        om, _ = merge_state(o1.reshape(b * dt, nq, d), lse1.reshape(b * dt, nq),
+                            o2.reshape(b * dt, nq, d).float(), l2.transpose(1, 2).reshape(b * dt, nq))
+        x = x + _linear(om.reshape(b * dt, -1).to(cfg.dtype), lw["o"], cfg, layer_id=lidx)
+        h2 = rmsnorm(x, lw["post_norm"][lidx], cfg.rms_eps)
+        x = x + _mlp(h2, lw, cfg, layer_id=lidx)
+    x = rmsnorm(x, params["final_norm"], cfg.rms_eps)
+    logits = _linear(x, params["lm_head"], cfg).float()[:, : cfg.vocab_size]
+    return logits.reshape(b, dt, -1), k_cache, v_cache
 
 
 def mixed_step(params, cfg: LlamaConfig, k_cache, v_cache, dec_tokens, dec_positions, dec_tables, dec_lengths,

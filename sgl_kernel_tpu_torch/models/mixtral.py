@@ -16,7 +16,8 @@ into the stacked [L, E, K/2, N] banks.
 Entry points, each updating the KV pools IN PLACE where JAX donates them:
 ``decode_step``, ``prefill`` (a padded batch), ``prefill_packed`` (several
 prompts block-aligned into one launch) and ``prefill_extend`` (a suffix over
-a cached prefix: two flash passes merged by lse; ``num_logits=1`` only). The
+a cached prefix: two flash passes merged by lse; ``num_logits=n`` gives each
+sequence's last n positions, [B, n, V], the speculative chain verify's form). The
 JAX model has no mixed step, so neither has this one: the engine advances
 chunked prompts by extend.
 
@@ -226,10 +227,8 @@ def prefill_extend(params, cfg: MixtralConfig, k_cache, v_cache, tokens, positio
     """Extend (chunked) prefill of a suffix over a prefix already in the
     paged cache (llama.prefill_extend's two flash passes merged by lse, with
     the MoE MLP). Returns (logits [B, V] float32 of each suffix's last
-    token, k_cache, v_cache). Only ``num_logits=1`` is ported (several
-    logits per sequence serve the speculative verify)."""
-    if num_logits != 1:
-        raise NotImplementedError("prefill_extend(num_logits>1): speculative verify is not ported yet")
+    token, k_cache, v_cache); with ``num_logits`` n > 1 (the speculative
+    verify) [B, n, V], of each sequence's last n positions."""
     b, s = tokens.shape
     dev = k_cache.device
     x = params["embed"][tokens.reshape(-1).long()].to(cfg.dtype)
@@ -251,8 +250,8 @@ def prefill_extend(params, cfg: MixtralConfig, k_cache, v_cache, tokens, positio
                                        prefix_lens, kpre, vpre)
         x = _block_tail(x, attn, lw, lidx, cfg)
     x = rmsnorm(x, params["final_norm"], cfg.rms_eps).reshape(b, s, -1)
-    last = (q_lens.long() - 1).clamp(0, s - 1)
-    return _logits(x[torch.arange(b, device=dev), last], params, cfg), k_cache, v_cache
+    logits = _logits(llama.logit_rows(x, q_lens, num_logits), params, cfg)
+    return llama._logits_shape(logits, b, num_logits), k_cache, v_cache
 
 
 def prefill_packed(params, cfg: MixtralConfig, k_cache, v_cache, tokens, positions, blk_seq, blk_q0, seq_meta,

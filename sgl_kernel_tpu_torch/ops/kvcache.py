@@ -11,7 +11,8 @@ PLACE (where the JAX model donates them) and return them.
 ``store_cache_all_layers_ref`` is its plain twin. The other stores are plain
 PyTorch ``index_put_``, as the JAX package leaves them to XLA's scatter:
 ``store_cache_head_major`` fills the head-major pools [H, P, page, D] of
-``paged_attention_decode`` (K8).
+``paged_attention_decode`` (K8), and ``move_cache_rows_stacked`` moves token
+rows between slots across all layers (the speculative tree's fix-up).
 """
 
 from __future__ import annotations
@@ -116,18 +117,29 @@ def store_cache_head_major(k, v, k_pool, v_pool, loc):
     _put_rows(k_pool.view(h * p * page, d), rows, k.reshape(-1, d))
     _put_rows(v_pool.view(h * p * page, d), rows, v.reshape(-1, d))
     return k_pool, v_pool
-    # the rows move as integers of the pool's width (fp8 has no where/index_put)
-    bits = {1: torch.uint8, 2: torch.int16, 4: torch.int32}[pool.element_size()]
-    vals = kv.reshape(rows.shape[0], d).to(pool.dtype).view(bits)
-    flat = flat.view(bits)
-    keep = (rows >= 0) & (rows < p * page)
-    # one-element index_select, not t[0-d tensor], which reads the index on the host
-    last = torch.where(keep, torch.arange(rows.shape[0], device=rows.device), -1).max().clamp_min(0).reshape(1)
-    any_kept = keep.any()
-    fb_row = torch.where(any_kept, rows.index_select(0, last), 0)
-    fb_val = torch.where(any_kept, vals.index_select(0, last), flat.index_select(0, fb_row))
-    flat.index_put_((torch.where(keep, rows, fb_row),), torch.where(keep[:, None], vals, fb_val))
-    return pool
+
+
+def move_cache_rows_stacked(k_pool, v_pool, src_loc, dst_loc):
+    """Copy token rows from flat slots ``src_loc`` to ``dst_loc`` [T] across
+    every layer of the stacked page-major pools [L, P, H, page, D], in place
+    (kvcache.py:98-119, a plain gather and scatter in JAX): the speculative
+    tree's fix-up, which moves accepted nodes' rows to their position slots.
+    A move whose src or dst is negative or past the pool is dropped. Every
+    source row is read before any is written, so src and dst may overlap.
+    Returns (k_pool, v_pool)."""
+    l, p, h, page, d = k_pool.shape
+    dev = k_pool.device
+    src = src_loc.to(device=dev, dtype=torch.long).reshape(-1)
+    dst = dst_loc.to(device=dev, dtype=torch.long).reshape(-1)
+    ok = (src >= 0) & (src < p * page) & (dst >= 0) & (dst < p * page)
+    lids = (torch.arange(l, device=dev) * (p * h * page))[:, None, None]
+    rows_src = lids + _page_major_slots(src.clamp(0, p * page - 1), p, h, page)[None]  # [L, T, H]
+    rows_dst = torch.where(ok[None, :, None], lids + _page_major_slots(dst.clamp_min(0), p, h, page)[None], -1)
+    bits = {1: torch.uint8, 2: torch.int16, 4: torch.int32}[k_pool.element_size()]
+    for pool in (k_pool, v_pool):  # rows move as integers of the pool's width (fp8 has no gather)
+        flat = pool.view(l * p * h * page, d).view(bits)
+        _put_rows(flat, rows_dst.reshape(-1), flat[rows_src.reshape(-1)])
+    return k_pool, v_pool
 
 
 def store_cache_all_layers_ref(k_all, v_all, k_pool, v_pool, loc):

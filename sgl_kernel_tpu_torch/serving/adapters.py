@@ -14,9 +14,13 @@ even layers, MXFP4 experts), and the DeepSeek adapter over one latent pool
 (with NSA sparse decode, the latent pool and the two indexer pools;
 with KV compression, the latent pool, the score pool and the ring pool);
 neither model has a ``mixed_step``, so the engine advances their chunked
-prompts by extend. ``supports_spec`` is False (speculative decoding is a
-later slice), and the PD page and state transfer (``extract_pages`` /
-``inject_pages``, ``extract_state`` / ``inject_state``) is not ported yet.
+prompts by extend. ``supports_spec`` says whether the engine may put a
+draft in front of the family (``models/spec.py``): its ``prefill_extend``
+takes ``num_logits`` for the chain verify, as JAX's Llama, Mixtral and
+DeepSeek do. gpt-oss, DeepSeek with NSA decode and DeepSeek with KV
+compression take no draft. The PD page and state transfer
+(``extract_pages`` / ``inject_pages``, ``extract_state`` /
+``inject_state``) is not ported yet.
 
 An adapter with ``needs_state_slots`` (DeepSeek with KV compression) keeps
 per-request state outside the pages: its ``make_caches`` takes
@@ -44,7 +48,7 @@ class LlamaAdapter:
     """Llama dense family (models/llama.py) over (k_pool, v_pool) caches."""
 
     name = "llama"
-    supports_spec = False
+    supports_spec = True  # a Llama-family draft in front (models/spec.py); trees through prefill_tree
     supports_extend = True  # prefill_extend: prefix reuse + chunked prefill
 
     def __init__(self, cfg, device="cuda"):
@@ -66,10 +70,11 @@ class LlamaAdapter:
         return logits, (k, v)
 
     def prefill_extend(self, params, caches, tokens, positions, q_lens, kv_lens, page_tables, slot_loc, *,
-                       prefix_max: int):
+                       prefix_max: int, num_logits: int = 1):
         k, v = caches
         logits, k, v = self._m.prefill_extend(params, self.cfg, k, v, tokens, positions, q_lens, kv_lens,
-                                              page_tables, slot_loc, self.rope_cache, prefix_max=prefix_max)
+                                              page_tables, slot_loc, self.rope_cache, prefix_max=prefix_max,
+                                              num_logits=num_logits)
         return logits, (k, v)
 
     def prefill_packed(self, params, caches, tokens, positions, blk_seq, blk_q0, seq_meta, last_idx, slot_loc,
@@ -93,7 +98,7 @@ class MixtralAdapter(LlamaAdapter):
     programs and (k, v) pools over the Mixtral model's functions."""
 
     name = "mixtral"
-    supports_spec = False
+    supports_spec = True  # chain speculation (no tree program)
     supports_extend = True
 
     def __init__(self, cfg, device="cuda"):
@@ -107,9 +112,13 @@ class GptOssAdapter(MixtralAdapter):
     programs and (k, v) pools (adapters.py:142-155 of the JAX package).
     Extend runs both flash passes sink-free and applies the sinks once after
     the merge. Its decode is capturable as the others': each layer's window
-    is a Python int, the sinks a slice of the stacked tree."""
+    is a Python int, the sinks a slice of the stacked tree. It takes no
+    draft: JAX's ``GptOssAdapter`` inherits ``supports_spec`` but its extend
+    has no ``num_logits``, so the JAX engine fails at its first round
+    (ROADMAP queue 3)."""
 
     name = "gptoss"
+    supports_spec = False
 
     def __init__(self, cfg, device="cuda"):
         super().__init__(cfg, device)
@@ -130,7 +139,7 @@ class DeepseekAdapter:
     is a TPU finding (adapters.py:258-265) this port does not rely on."""
 
     name = "deepseek"
-    supports_spec = False
+    supports_spec = True  # chain speculation on the dense MLA decode; not with NSA or compression
     supports_extend = True
     needs_state_slots = False
 
@@ -143,6 +152,8 @@ class DeepseekAdapter:
                                  f"not {cfg.compress!r}")
             self.needs_state_slots = True
             self.supports_extend = False
+        if use_nsa or use_compress:
+            self.supports_spec = False
         self.cfg = cfg
         self.device = resolve_device(device)
         self._m = deepseek
@@ -176,12 +187,12 @@ class DeepseekAdapter:
         return logits, (kv, *caches[1:])
 
     def prefill_extend(self, params, caches, tokens, positions, q_lens, kv_lens, page_tables, slot_loc, *,
-                       prefix_max: int):
+                       prefix_max: int, num_logits: int = 1):
         if self.use_compress:
             raise ValueError("DeepseekAdapter: the compressed family has no extend program")
         logits, kv = self._m.prefill_extend(params, self.cfg, caches[0], tokens, positions, q_lens, kv_lens,
                                             page_tables, slot_loc, self.rope_cache, prefix_max=prefix_max,
-                                            indexer=self._indexer(caches))
+                                            num_logits=num_logits, indexer=self._indexer(caches))
         return logits, (kv, *caches[1:])
 
     def decode(self, params, caches, tokens, positions, page_tables, lengths, slot_loc, state_slots=None):

@@ -31,22 +31,38 @@ waits while none is free) and takes it back when the request retires; slot
 ``max_batch`` is the scratch slot of a decode batch's padding rows, so
 whatever they write touches no request's state.
 
-Speculative decoding, grammars and a device mesh are later slices: the
-arguments that ask for them raise ``NotImplementedError``.
+With a draft (``draft_cfg``, a Llama-family config) the engine decodes
+speculatively (``models/spec.py``), as the JAX engine does: a decode batch
+whose requests are all greedy runs one round a scheduler step, ahead of
+``decode_burst``, and each request appends its accepted drafts and one
+target token. ``spec_topk=1`` runs chain rounds: the draft's ``spec_gamma``
+steps as one captured graph over the draft model (the body of a
+``decode_burst`` program, its own static inputs), then one eager verify
+extend of the target with ``num_logits=spec_gamma+1``. ``spec_topk > 1``
+runs tree rounds, eagerly, on a target with ``prefill_tree`` (Llama). The
+draft has its own zero-filled pools over the engine's page ids, a prompt is
+prefilled into them when its prefill ends (on every admission route), and
+each request reserves ``spec_gamma * spec_topk`` more rows; mixed steps are
+off. ``spec_proposed`` and ``spec_accepted`` count the drafts.
+
+Grammars and a device mesh are later slices: the arguments that ask for
+them raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Dict, List, Optional
 
 import numpy as np
 import torch
 
+from ..models import spec
 from ..ops.sampling import sample_tokens
 from ..utils import cdiv, resolve_device
 from ..utils.metrics import Metrics, logger
-from .adapters import adapter_for
+from .adapters import LlamaAdapter, adapter_for
 from .decode_graph import DecodeGraph, DecodeInputs
 
 
@@ -98,6 +114,43 @@ def packed_layout(lens: List[int], n_rows: int, block: int = 256):
     return blk_seq, blk_q0, seq_meta, tok0, nb * block, 1 << (max(nqb) - 1).bit_length()
 
 
+def _decode_fn(adapter, params, caches, stateful: bool):
+    """``adapter``'s decode over ``caches`` as a DecodeGraph step function:
+    (tokens, positions, tables, lengths, slot_loc, state_slots) -> logits;
+    the pools must be updated in place (a graph holds their addresses)."""
+    def step(tokens, positions, tables, lengths, slot_loc, state_slots):
+        kw = {"state_slots": state_slots} if stateful else {}
+        logits, out = adapter.decode(params, caches, tokens, positions, tables, lengths, slot_loc, **kw)
+        if any(a is not b for a, b in zip(out, caches)):
+            raise RuntimeError(f"{adapter.name}: decode must update the pools in place")
+        return logits
+
+    return step
+
+
+def _greedy_steps(step, burst: int, page: int):
+    """``burst`` greedy steps of ``step`` as one program -> [B, burst + 1]
+    int32: each step's argmax, fed back as the next step's token, then 1
+    where every step's logits were finite. Between steps positions and
+    lengths advance by one and slot_loc is looked up in the page tables
+    (padding rows, slot -1, stay -1), as JAX's scan bodies do
+    (sgl_kernel_tpu/serving/engine.py:593-609, models/spec.py:74-84)."""
+    def steps(tokens, positions, tables, lengths, slot_loc, state_slots):
+        rows = torch.arange(tables.shape[0], device=tables.device)
+        toks, finite = [], True
+        for _ in range(burst):
+            logits = step(tokens, positions, tables, lengths, slot_loc, state_slots)
+            tokens = logits.argmax(-1).to(torch.int32)
+            finite = torch.isfinite(logits).all(-1) & finite
+            toks.append(tokens)
+            positions, lengths = positions + 1, lengths + 1
+            col = (positions // page).clamp_max(tables.shape[1] - 1).long()
+            slot_loc = torch.where(slot_loc >= 0, tables[rows, col] * page + positions % page, -1)
+        return torch.stack(toks + [finite.to(torch.int32)], dim=1)
+
+    return steps
+
+
 class PageAllocator:
     """Free-list page allocator over the paged KV pool (page 0 reserved as
     the pad page: padding rows of a page table point at it)."""
@@ -127,9 +180,17 @@ class Engine:
     ``prefill_packed`` prefills each fresh prompt on its own.
 
     On the card every decode step is a CUDA graph replay (one graph per
-    burst length, captured at its first use, released with the engine);
-    ``_eager_decode = True`` runs the steps eagerly instead, for an A/B
-    against the graph."""
+    burst length, captured at its first use, released with the engine), as
+    is a chain round's draft rollout; ``_eager_decode = True`` runs them
+    eagerly instead, for an A/B against the graph.
+
+    ``draft_cfg`` puts a Llama-family draft in front of the target
+    (speculative decoding, module docstring), with ``draft_params`` or
+    weights drawn from a generator seeded ``seed + 1`` (JAX's
+    ``PRNGKey(seed + 1)``); ``spec_gamma`` drafts a round, ``spec_topk``
+    siblings a level (1: chains). A target whose adapter has no
+    ``supports_spec`` (gpt-oss, DeepSeek with NSA or compression), or
+    ``spec_topk > 1`` on one without ``prefill_tree``, raises ValueError."""
 
     _PACK_BLOCK = 256  # flash_packed block / sequence alignment
 
@@ -146,6 +207,9 @@ class Engine:
         seed: int = 0,
         enable_prefix_cache: bool = True,
         draft_cfg=None,
+        draft_params=None,
+        spec_gamma: int = 4,
+        spec_topk: int = 1,
         mesh=None,
         prefill_chunk: Optional[int] = None,
         log_every: int = 0,
@@ -156,12 +220,18 @@ class Engine:
     ):
         if mesh is not None:
             raise NotImplementedError("Engine(mesh=...): multi-device serving is not ported yet")
-        if draft_cfg is not None:
-            raise NotImplementedError("Engine(draft_cfg=...): speculative decoding is not ported yet")
         if decode_burst < 1:
             raise ValueError(f"Engine(decode_burst={decode_burst}): a burst is at least one step")
         self.device = resolve_device(device)
         self.adapter = adapter if adapter is not None else adapter_for(cfg, self.device)
+        if draft_cfg is not None:
+            if not getattr(self.adapter, "supports_spec", False):
+                raise ValueError(f"{self.adapter.name} has no speculative verify program (models/spec.py)")
+            if spec_topk > 1 and getattr(self.adapter._m, "prefill_tree", None) is None:
+                raise ValueError(f"{self.adapter.name} has no tree-masked verify program (prefill_tree); "
+                                 "use spec_topk=1 chain speculation")
+            if spec_gamma < 1 or spec_topk < 1:
+                raise ValueError(f"Engine(spec_gamma={spec_gamma}, spec_topk={spec_topk}): both are at least 1")
         self.cfg = cfg
         self.page_size = page_size
         self.max_batch = max_batch
@@ -208,6 +278,18 @@ class Engine:
         self._graphs: Dict[int, DecodeGraph] = {}
         self._decode_pools = self.caches  # every program updates these in place
         self._eager_decode = False
+        # speculative decoding: the draft's adapter, weights and pools over
+        # the same page ids, and the chain rollout's graph on its own inputs
+        self.draft_cfg = draft_cfg
+        self.spec_gamma, self.spec_topk = spec_gamma, spec_topk
+        if draft_cfg is not None:
+            self.draft = LlamaAdapter(draft_cfg, self.device)
+            self.draft_params = draft_params if draft_params is not None else self.draft.init_weights(
+                torch.Generator(device=self.device).manual_seed(seed + 1))
+            self.draft_caches = self.draft.make_caches(num_pages, page_size)  # zeros, as jnp.zeros
+            self._draft_pools = self.draft_caches  # every program updates these in place
+            self._draft_inputs = DecodeInputs(self.device, max_batch, self.max_pages_per_seq)
+            self._draft_graph: Optional[DecodeGraph] = None
         self.metrics = Metrics()
         self.log_every = log_every
 
@@ -296,7 +378,9 @@ class Engine:
                 matched, shared, req.lock_id = self.native.match_prefix_locked(req.prompt[:-1])
                 req.prefix_len = matched
                 req.shared_pages = len(shared)
-            need = cdiv(req.seq_len + req.max_new_tokens, self.page_size) - len(shared)
+            # a spec round writes up to spec_gamma * spec_topk rows past the root
+            slack = self.spec_gamma * self.spec_topk if self.draft_cfg is not None else 0
+            need = cdiv(req.seq_len + req.max_new_tokens + slack, self.page_size) - len(shared)
             pages = self.allocator.alloc(need)
             if pages is None and self.native is not None:
                 # evict unpinned cached pages (LRU) back to the free list and
@@ -358,6 +442,7 @@ class Engine:
             self.params, self.caches, *(self._dev(a) for a in (tokens, positions, blk_seq, blk_q0, seq_meta,
                                                                last_idx, slot_loc)), max_kvb=max_kvb,
             **self._state_kw(reqs, self.max_batch + 1))
+        self._prefill_draft(reqs)
         self._append_tokens(reqs, logits)
 
     def _prefill(self, req: Request):
@@ -367,7 +452,9 @@ class Engine:
             while total - pre > self.prefill_chunk:
                 self._prefill_range(req, pre, pre + self.prefill_chunk)
                 pre += self.prefill_chunk
-        self._append_tokens([req], self._prefill_range(req, pre, total))
+        logits = self._prefill_range(req, pre, total)
+        self._prefill_draft([req])
+        self._append_tokens([req], logits)
 
     def _advance_prefilling(self, skip=None):
         """One chunk of progress per chunked prefill, so this step's decode
@@ -385,6 +472,7 @@ class Engine:
             self.metrics.inc("tokens_prefilled", end - req.prefill_pos)
             req.prefill_pos = end
             if end == total:
+                self._prefill_draft([req])
                 self._append_tokens([req], logits)
                 self.running.append(req)
             else:
@@ -420,6 +508,25 @@ class Engine:
         none."""
         return {"state_slots": self._dev(self._state_slots(reqs, n_rows))} if self._stateful else {}
 
+    def _prefill_draft(self, reqs: List[Request]):
+        """Prefill each request's whole prompt into the draft's pools (one
+        padded prefill a request, as JAX's ``_finish_prefill``): every
+        admission route calls it where a prompt's prefill ends."""
+        if self.draft_cfg is None:
+            return
+        for req in reqs:
+            n = len(req.prompt)
+            bucket = max(self.prefill_bucket, 1 << (n - 1).bit_length())
+            tokens = np.zeros((1, bucket), np.int32)
+            tokens[0, :n] = req.prompt
+            positions = np.zeros((1, bucket), np.int32)
+            positions[0, :n] = np.arange(n)
+            slot_loc = np.full((1, bucket), -1, np.int32)
+            slot_loc[0, :n] = [self._slot(req, p) for p in range(n)]
+            _, self.draft_caches = self.draft.prefill(
+                self.draft_params, self.draft_caches, self._dev(tokens), self._dev(positions),
+                self._dev(np.array([n], np.int32)), self._dev(slot_loc))
+
     def _append_tokens(self, reqs: List[Request], logits):
         """Pick each request's next token from its row of ``logits``: greedy
         rows by one batched argmax, the sampled rows by one ``sample_tokens``
@@ -452,38 +559,13 @@ class Engine:
     def _decode_graph(self, burst: int) -> DecodeGraph:
         """The decode program of ``burst`` steps over the static inputs (a
         graph on the card, captured at its first call). ``burst`` 1 gives
-        the step's logits [max_batch, V]; more gives [max_batch, burst + 1]
-        int32: each step's argmax, fed back as the next step's token, then 1
-        where every step's logits were finite. Between steps positions and
-        lengths advance by one and slot_loc is looked up in the page tables
-        (padding rows, slot -1, stay -1), as JAX's scan body does
-        (sgl_kernel_tpu/serving/engine.py:593-609)."""
+        the step's logits [max_batch, V]; more gives ``_greedy_steps``'
+        [max_batch, burst + 1] int32."""
         if burst in self._graphs:
             return self._graphs[burst]
-        adapter, params, caches, page = self.adapter, self.params, self.caches, self.page_size
-        stateful = self._stateful
-
-        def step(tokens, positions, tables, lengths, slot_loc, state_slots):
-            kw = {"state_slots": state_slots} if stateful else {}
-            logits, out = adapter.decode(params, caches, tokens, positions, tables, lengths, slot_loc, **kw)
-            if any(a is not b for a, b in zip(out, caches)):
-                raise RuntimeError(f"{adapter.name}: decode must update the pools in place")
-            return logits
-
-        def steps(tokens, positions, tables, lengths, slot_loc, state_slots):
-            rows = torch.arange(tables.shape[0], device=tables.device)
-            toks, finite = [], True
-            for _ in range(burst):
-                logits = step(tokens, positions, tables, lengths, slot_loc, state_slots)
-                tokens = logits.argmax(-1).to(torch.int32)
-                finite = torch.isfinite(logits).all(-1) & finite
-                toks.append(tokens)
-                positions, lengths = positions + 1, lengths + 1
-                col = (positions // page).clamp_max(tables.shape[1] - 1).long()
-                slot_loc = torch.where(slot_loc >= 0, tables[rows, col] * page + positions % page, -1)
-            return torch.stack(toks + [finite.to(torch.int32)], dim=1)
-
-        graph = self._graphs[burst] = DecodeGraph(step if burst == 1 else steps, self._inputs)
+        step = _decode_fn(self.adapter, self.params, self.caches, self._stateful)
+        graph = self._graphs[burst] = DecodeGraph(step if burst == 1 else _greedy_steps(step, burst, self.page_size),
+                                                  self._inputs)
         return graph
 
     def _run_decode(self, reqs, burst: int, pad_length: int):
@@ -502,6 +584,8 @@ class Engine:
         reqs = [r for r in self.running if not r.done]
         if not reqs:
             return
+        if self.draft_cfg is not None and all(r.temperature == 0.0 for r in reqs):
+            return self._spec_decode_batch(reqs)
         if self.decode_burst > 1 and all(r.temperature == 0.0 for r in reqs):
             burst = min(self.decode_burst, min(r.max_new_tokens - len(r.output) for r in reqs))
             if burst > 1:
@@ -528,12 +612,76 @@ class Engine:
                 r.done = True
         self.metrics.set_gauge("decode_batch", len(reqs))
 
+    def _spec_decode_batch(self, reqs):
+        """One speculative round over the running batch padded to
+        ``max_batch`` (padding rows: length 1, slot -1, their writes
+        dropped), as JAX's ``_spec_decode_batch``: a chain round (the
+        draft's graph, then the verify) or a tree round. Each request
+        appends its accepted drafts and the target's token, up to its
+        ``max_new_tokens`` and a stop token; the tokens, counts and finite
+        flags come back in one host transfer."""
+        b, gamma = len(reqs), self.spec_gamma
+        tokens, positions, lengths, slot_loc, tables, state_slots = self._decode_inputs(reqs, 1)
+        slack = gamma * self.spec_topk
+        prefix_max = max(self.page_size, cdiv(int(lengths.max()) + slack, self.page_size) * self.page_size)
+        valid = torch.arange(self.max_batch, device=self.device) < b
+        if any(a is not b_ for a, b_ in zip(self.draft_caches, self._draft_pools)):
+            raise RuntimeError("Engine: the draft pools moved; the draft graph holds their addresses")
+        self._draft_inputs.fill(tokens, positions, lengths, slot_loc, tables, state_slots)
+        inp = self._draft_inputs
+        if self.spec_topk > 1:
+            k, v = self.caches
+            dk, dv = self.draft_caches
+            new, n_new, k, v, dk, dv, finite = spec.tree_round(
+                self.params, self.draft_params, k, v, dk, dv, inp.tokens, inp.lengths, inp.tables, self.rope_cache,
+                self.draft.rope_cache, valid, cfg_t=self.cfg, cfg_d=self.draft_cfg, gamma=gamma,
+                topk=self.spec_topk, prefix_max=prefix_max)
+            self.caches, self.draft_caches = (k, v), (dk, dv)
+        else:
+            graph = self._draft_rollout()
+            replays = graph.replays
+            rolled = graph(eager=self._eager_decode)  # [max_batch, gamma + 1]: the drafts, then finite
+            self.metrics.inc("draft_graph_replays", graph.replays - replays)
+            new, n_new, self.caches, finite = spec.verify_chain(
+                functools.partial(self.adapter.prefill_extend, self.params, self.caches), inp.tokens,
+                rolled[:, :gamma], inp.lengths, inp.tables, valid, gamma=gamma, page_size=self.page_size,
+                prefix_max=prefix_max)
+            finite = finite & (rolled[:, gamma] != 0)
+        out = torch.cat([new, n_new[:, None], finite.to(torch.int32)[:, None]], dim=1)[:b].cpu().numpy()
+        self.metrics.inc("spec_rounds")
+        self.metrics.inc("nonfinite_logits", int((out[:, gamma + 2] == 0).sum()))
+        # n_new per request = accepted drafts + 1 target token (models/spec.py)
+        self.metrics.inc("spec_proposed", gamma * b)
+        self.metrics.inc("spec_accepted", int(out[:, gamma + 1].sum()) - b)
+        for r, row in zip(reqs, out):
+            take = min(int(row[gamma + 1]), r.max_new_tokens - len(r.output))
+            for t in row[:take].tolist():
+                r.output.append(t)
+                self.metrics.inc("tokens_decoded")
+                if t in r.stop_tokens:
+                    r.done = True
+                    break
+            if len(r.output) >= r.max_new_tokens:
+                r.done = True
+        self.metrics.set_gauge("decode_batch", b)
+
+    def _draft_rollout(self) -> DecodeGraph:
+        """The chain round's ``spec_gamma`` greedy draft steps as one program
+        over the draft's static inputs (a graph on the card, captured at its
+        first call): the ``decode_burst`` body over the draft model, [max_batch,
+        spec_gamma + 1] int32, each step's argmax then the finite flag."""
+        if self._draft_graph is None:
+            step = _decode_fn(self.draft, self.draft_params, self.draft_caches, False)
+            self._draft_graph = DecodeGraph(_greedy_steps(step, self.spec_gamma, self.page_size), self._draft_inputs)
+        return self._draft_graph
+
     def _try_mixed_step(self):
         """Fuse the first in-flight prefill chunk with this step's decode
         batch into one ``mixed_step``. Returns the prefill Request it
         advanced (the caller skips it in ``_advance_prefilling``), or None
         when the plain path should run."""
-        if not self.enable_mixed or not self.prefilling or self.decode_burst > 1 or self._stateful:
+        if (not self.enable_mixed or not self.prefilling or self.decode_burst > 1 or self._stateful
+                or self.draft_cfg is not None):
             return None
         if not hasattr(getattr(self.adapter, "_m", None), "mixed_step"):
             return None

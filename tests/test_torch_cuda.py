@@ -35,7 +35,10 @@ plain pooling, padding rows writing the scratch slot alone); gpt-oss's options i
 soft cap, alone and together, head dims 64 / 128, GQA 8:1, extend offsets,
 rows that see no key, the window's tile skipping at windows of 1 and wider
 than S) and K11 at K = 2,880 (half a 128-deep stage) on the wgmma tile and
-the streaming core, MXFP4 and int4.
+the streaming core, MXFP4 and int4; speculative decoding: K7's non-causal
+prefix pass at tree-sized q (5, 9 and 13 nodes), the tree fix-up's row move
+in place and under graph capture, the chain round's draft rollout as a
+graph (replays bit-equal to the eager rollout) and a tree engine's rounds.
 
 Needs a CUDA device: every test here is marked ``cuda`` and skips without
 one. On the card (tests/conftest.py imports JAX, which that machine need not
@@ -3157,3 +3160,122 @@ def test_decode_graph_capture_failure_raises(graph_engines):
     assert len(calls) == 1  # the warm-up's; the capture raised at its host read
     assert [len(r.output) for r in eng.running] == [1]  # the prefill's token only
     assert eng._graphs[1].graph is None
+
+
+# Speculative decoding (models/spec.py): the tree verify's non-causal prefix
+# pass on K7, the tree fix-up's row move, and the chain round's draft
+# rollout as a captured graph.
+
+@pytest.mark.parametrize("hq,hkv,d", [(32, 8, 128), (32, 8, 64), (4, 4, 64)])
+@pytest.mark.parametrize("dt", [5, 9, 13])
+def test_flash_tree_prefix_pass(gen, hq, hkv, d, dt):
+    """K7 with causal=False as prefill_tree's prefix pass: dt = 1 + gamma *
+    topk tree nodes of each sequence over its whole cached prefix (ragged,
+    one prefix empty, one a single key), with the lse; out and lse against
+    the twin, the empty prefix's rows o = 0 and lse -1e30 * log2(e)."""
+    b, skv = 4, 320
+    q, k, v = randn(gen, b, dt, hq, d), randn(gen, b, skv, hkv, d), randn(gen, b, skv, hkv, d)
+    ql = torch.full((b,), dt, dtype=torch.int32, device="cuda")
+    pre = torch.tensor([320, 0, 1, 131], dtype=torch.int32, device="cuda")
+    out, lse = flash_prefill.flash_attention(q, k, v, ql, pre, causal=False, return_lse=True)
+    ref, ref_lse = flash_prefill.flash_attention_ref(q, k, v, ql, pre, causal=False, return_lse=True)
+    for i in (0, 2, 3):
+        assert_kernel_close(out[i], ref[i])
+        assert_elementwise(lse[i], ref_lse[i])
+    assert not out[1].any() and is_empty_lse(lse[1])
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float8_e4m3fn, torch.int8])
+def test_move_cache_rows_stacked_in_place(gen, dtype):
+    """The tree fix-up's row move on the card: equal bit for bit to the same
+    moves on a CPU copy (chains whose sources are other moves'
+    destinations, dropped moves), the pools where they were, and the same
+    moves captured in a CUDA graph and replayed (no host read)."""
+    l, p, h, page, d = 4, 8, 8, 16, 64
+    src = torch.tensor([3, 5, 9, 7, 40, -1, 4, 200, 12, 2], dtype=torch.int32)
+    dst = torch.tensor([5, 9, 3, 7, 41, 6, -2, 11, p * page, 13], dtype=torch.int32)
+
+    def pools():
+        if dtype == torch.int8:
+            return [torch.randint(-127, 128, (l, p, h, page, d), generator=gen, device="cuda", dtype=torch.int8)
+                    for _ in range(2)]
+        return [randn(gen, l, p, h, page, d).to(dtype) for _ in range(2)]
+
+    k, v = pools()
+    kc, vc = k.cpu(), v.cpu()
+    ptrs = (k.data_ptr(), v.data_ptr())
+    ko, vo = kvcache.move_cache_rows_stacked(k, v, src.cuda(), dst.cuda())
+    kvcache.move_cache_rows_stacked(kc, vc, src, dst)
+    assert ko is k and vo is v and (k.data_ptr(), v.data_ptr()) == ptrs
+    bits = torch.int8 if dtype == torch.int8 else torch.int16 if dtype == torch.bfloat16 else torch.uint8
+    assert torch.equal(k.cpu().view(bits), kc.view(bits)) and torch.equal(v.cpu().view(bits), vc.view(bits))
+    k, v = pools()
+    kc, vc = k.cpu(), v.cpu()
+    s, t = src.cuda(), dst.cuda()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        kvcache.move_cache_rows_stacked(k, v, s, t)
+    graph.replay()
+    kvcache.move_cache_rows_stacked(kc, vc, src, dst)
+    assert torch.equal(k.cpu().view(bits), kc.view(bits)) and torch.equal(v.cpu().view(bits), vc.view(bits))
+
+
+def _spec_engine(graph_engines, **kw):
+    """The 2-layer Llama-3-8B W4A16 target with a draft at Llama-3.2-1B's
+    widths cut to 2 layers (bf16, seeded), chain rounds of gamma 4."""
+    import dataclasses
+
+    import chip_smoke
+    import sgl_kernel_tpu_torch as skt
+
+    dcfg = dataclasses.replace(chip_smoke.llama32_1b_cfg(skt), num_layers=2, max_position=2048)
+    return graph_engines("llama-w4a16", draft_cfg=dcfg, spec_gamma=4, **kw)
+
+
+def test_spec_draft_graph_matches_eager(graph_engines):
+    """The chain round's draft rollout (4 greedy steps of the draft in one
+    captured graph) on 16 running requests: over four rounds, the replay's
+    drafts and finite flags equal the eager rollout's on the same inputs bit
+    for bit (both write the same draft rows), one replay a round, and the
+    engine's rounds then emit tokens with finite logits."""
+    eng = _spec_engine(graph_engines)
+    reqs = _admit(eng, new=40)  # prefill, then two rounds (the graph captured)
+    graph = eng._draft_graph
+    assert graph is not None and graph.graph is not None
+    assert eng.metrics.counters["draft_graph_replays"] == eng.metrics.counters["spec_rounds"] == 2
+    for _ in range(4):
+        eng._draft_inputs.fill(*eng._decode_inputs(reqs, 1))
+        eager = graph(eager=True).clone()
+        assert torch.equal(graph(), eager)
+        assert bool((eager[: len(reqs), 4] == 1).all())  # every step's logits finite
+        eng._spec_decode_batch(reqs)
+    eng.run_until_done()
+    assert eng.metrics.counters.get("nonfinite_logits", 0) == 0
+    assert eng.metrics.counters["spec_proposed"] > 0
+
+
+def test_spec_tree_round_on_card(graph_engines):
+    """A tree engine (gamma 4, top-2: 9 nodes a sequence) on the card: its
+    rounds run K7's non-causal prefix pass and the row move; with draft =
+    target every emitted token has finite logits, the rounds accept drafts,
+    and every token equals the target's own teacher-forced pick at its
+    position (one packed prefill over each prompt and its output) unless
+    the target's top-two gap there is under chip_smoke.SPEC_GAP."""
+    import chip_smoke
+
+    base = graph_engines("llama-w4a16")
+    eng = graph_engines("llama-w4a16", draft_cfg=base.cfg, draft_params=base.params, spec_gamma=4, spec_topk=2,
+                        enable_prefix_cache=False)
+    del base
+    g = torch.Generator().manual_seed(0)
+    prompts = [torch.randint(1, eng.cfg.vocab_size, (20 + 32 * i,), generator=g).tolist() for i in range(16)]
+    rids = [eng.add_request(p, max_new_tokens=20) for p in prompts]
+    fin = eng.run_until_done()
+    c = eng.metrics.counters
+    assert c.get("nonfinite_logits", 0) == 0 and c["spec_accepted"] > 0
+    outs = [fin[r].output for r in rids]
+    assert all(len(o) == 20 for o in outs)
+    picks, gaps = chip_smoke.teacher_forced(torch, eng.cfg, eng.params, prompts, outs)
+    misses = [(i, j, gap[j]) for i, (o, p, gap) in enumerate(zip(outs, picks, gaps))
+              for j, (x, y) in enumerate(zip(o, p)) if x != y]
+    assert all(gap < chip_smoke.SPEC_GAP for _, _, gap in misses), misses

@@ -161,10 +161,9 @@ def run_packed(pair, toks, pos, blk_seq, blk_q0, seq_meta, last, sl, max_kvb):
 
 
 def test_unported_paths_raise():
-    """Several logits per sequence (speculative verify) and an int8 latent
-    without a scale raise; NSA and KV compression are served (the compressed
-    family: tests/test_torch_compression.py)."""
-    cfg = DeepseekConfig.tiny()
+    """An int8 latent without a scale raises; several logits per sequence
+    (tests/test_torch_spec.py), NSA and KV compression are served (the
+    compressed family: tests/test_torch_compression.py)."""
     tds.make_cache(DeepseekConfig.tiny(nsa=True), 4, 16, device="cpu")  # NSA is served
     ccfg = DeepseekConfig.tiny(compress="c4", compress_ring=8)
     kv, sc, comp = tds.make_compress_caches(ccfg, 4, 16, max_slots=3, device="cpu")
@@ -172,9 +171,6 @@ def test_unported_paths_raise():
     assert comp.shape == (ccfg.num_layers, 3, 8, 576) and comp.dtype == sc.dtype == ccfg.dtype
     with pytest.raises(ValueError):
         DeepseekConfig.tiny(compress="c2")
-    with pytest.raises(NotImplementedError):
-        tds.prefill_extend({}, cfg, None, torch.zeros(1, 4, dtype=torch.int32), None, None, None, None, None, None,
-                           prefix_max=16, num_logits=2)
     with pytest.raises(ValueError):
         tds.make_cache(DeepseekConfig.tiny(kv_dtype=torch.int8), 4, 16, device="cpu")
 

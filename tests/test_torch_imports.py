@@ -86,9 +86,12 @@ def test_device_parameters_default_to_the_card():
 
 def test_unserved_engine_arguments_raise():
     cfg = skt.LlamaConfig.tiny(fused=True)
-    for kw in (dict(mesh=object()), dict(draft_cfg=cfg)):
-        with pytest.raises(NotImplementedError):
-            skt.Engine(cfg, device="cpu", num_pages=8, page_size=16, **kw)
+    with pytest.raises(NotImplementedError):
+        skt.Engine(cfg, device="cpu", num_pages=8, page_size=16, mesh=object())
+    # a draft is served (tests/test_torch_spec.py), but not in front of gpt-oss, whose JAX extend has no num_logits
+    with pytest.raises(ValueError):
+        skt.Engine(skt.GptOssConfig.tiny(quant="mxfp4", qkv_bias=True), device="cpu", num_pages=8, page_size=16,
+                   draft_cfg=cfg)
     # decode bursts are served (tests/test_torch_engine.py); a burst is at least one step
     assert skt.Engine(cfg, device="cpu", num_pages=8, page_size=16, decode_burst=4).decode_burst == 4
     with pytest.raises(ValueError):
@@ -181,6 +184,7 @@ def test_deepseek_adapter_serves_the_plain_mode_only():
     cfg = skt.DeepseekConfig.tiny()
     ad = skt.adapter_for(cfg, "cpu")
     assert isinstance(ad, skt.DeepseekAdapter) and ad.supports_extend and not hasattr(ad._m, "mixed_step")
+    assert ad.supports_spec  # a draft in front of the plain mode only
     (pool,) = ad.make_caches(4, 16)
     assert pool.shape == (cfg.num_layers, 4, 16, 576)
     ncfg = skt.DeepseekConfig.tiny(nsa=True, idx_dim=32)

@@ -409,9 +409,14 @@ def test_admission_paths_int8_kv():
 
 
 def test_extend_num_logits_raises():
-    cfg = tllama.LlamaConfig.tiny(fused=True)
+    """Llama's extend takes num_logits (tests/test_torch_spec.py); gpt-oss's
+    raises for more than one, as JAX's gpt-oss extend has no num_logits."""
+    from sgl_kernel_tpu_torch import GptOssConfig
+    from sgl_kernel_tpu_torch.models import gptoss
+
+    cfg = GptOssConfig.tiny(quant="mxfp4", qkv_bias=True)
     with pytest.raises(NotImplementedError):
-        tllama.prefill_extend(None, cfg, None, None, torch.zeros((1, 4), dtype=torch.int32), None, None, None,
+        gptoss.prefill_extend(None, cfg, None, None, torch.zeros((1, 4), dtype=torch.int32), None, None, None,
                               None, None, None, prefix_max=16, num_logits=2)
 
 

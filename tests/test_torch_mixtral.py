@@ -188,7 +188,7 @@ def test_config_and_adapter():
     assert mx["moe_w1"]["scales"].shape == (2, 4, 4, 128) and mx["moe_w1"]["scales"].dtype == torch.bfloat16
     assert tmix.moe_weights_for(mx, MixtralConfig.tiny(quant="mxfp4"))[-2:] == (32, "mxfp4")
     ad = skt.adapter_for(MixtralConfig.tiny(), "cpu")
-    assert isinstance(ad, skt.MixtralAdapter) and ad._m is tmix and ad.supports_extend and not ad.supports_spec
+    assert isinstance(ad, skt.MixtralAdapter) and ad._m is tmix and ad.supports_extend and ad.supports_spec
     assert not hasattr(ad._m, "mixed_step")
     params = ad.init_weights(torch.Generator().manual_seed(0))
     lw = params["layers"]
