@@ -16,6 +16,9 @@
 // a sliding window (key position > query position - window; key tiles wholly
 // outside it are not visited), a tanh soft cap and per-head sinks [Hq]
 // float32 (natural log, in the denominator once; the lse includes them).
+// Head dim 256 (hybrid GDN's GQA layers, Qwen3-Next's 16 heads of 256 over
+// 2) runs the same tile with two warpgroups a block, each its 128 columns of
+// O (flash_tile.cuh), one block an SM, with no option.
 //
 // Bound: operations, 4 * Hq * D per visible (query, key) pair at the bf16
 // tensor-core peak (989 TFLOP/s): at the main path's S=1024 causal prefill
@@ -50,7 +53,7 @@ namespace {
 using skt::bf16;
 
 template <int D>
-__global__ void __launch_bounds__(skt::kFlashThreads) flash_kernel(
+__global__ void __launch_bounds__(skt::FlashSmem<D>::kThreads) flash_kernel(
     const bf16* __restrict__ q, const bf16* __restrict__ k,
     const bf16* __restrict__ v, const int* __restrict__ lens,
     bf16* __restrict__ out, float* __restrict__ lse, int sq, int skv,
@@ -156,14 +159,14 @@ int launch_flash(cudaStream_t st, const bf16* q, const bf16* k, const bf16* v, c
   if (err != cudaSuccess) return (int)err;
   // heads fastest: blocks start in order, so the grid runs longest-first over every head
   dim3 grid(n_q_heads, (sq + skt::kFlashBQ - 1) / skt::kFlashBQ, batch);
-  flash_kernel<D><<<grid, skt::kFlashThreads, bytes, st>>>(q, k, v, lens, out, lse, sq, skv, n_q_heads, n_kv_heads,
+  flash_kernel<D><<<grid, skt::FlashSmem<D>::kThreads, bytes, st>>>(q, k, v, lens, out, lse, sq, skv, n_q_heads, n_kv_heads,
                                                            causal, scale_log2, opts);
   return (int)cudaSuccess;
 }
 
 }  // namespace
 
-// Supported: head_dim 64, 128 or 576 (576: Hq / Hkv dividing 16 or a
+// Supported: head_dim 64, 128, 256 or 576 (576: Hq / Hkv dividing 16 or a
 // multiple of 16; the MLA form: v null, V = K's first 512 columns, out
 // [B, Sq, Hq, 512], q the latent's 512 columns and q_pe [B, Sq, Hq, 64] the
 // rope's; otherwise q_pe null), bf16, Hq a multiple of Hkv. lse may be
@@ -181,8 +184,10 @@ extern "C" int skt_flash_prefill(
                             (const float*)sinks};
   switch (head_dim) {
     case 64:
-    case 128: {
-      auto launch = head_dim == 64 ? launch_flash<64> : launch_flash<128>;
+    case 128:
+    case 256: {
+      if (head_dim == 256 && (window || softcap != 0.f || sinks)) return (int)cudaErrorInvalidValue;
+      auto launch = head_dim == 64 ? launch_flash<64> : head_dim == 128 ? launch_flash<128> : launch_flash<256>;
       const int err = launch(st, (const bf16*)q, (const bf16*)k, (const bf16*)v, (const int*)lens, (bf16*)out,
                              (float*)lse, batch, sq, skv, n_q_heads, n_kv_heads, causal, sl, opts);
       if (err != 0) return err;

@@ -1,5 +1,5 @@
 // The flash-attention tile shared by K7 (flash_prefill.cu) and K9
-// (flash_packed.cu) at head dims 64 and 128: one warpgroup (4 warps, 128
+// (flash_packed.cu) at head dims 64 and 128, and K7 at 256: one warpgroup (4 warps, 128
 // threads) computes 64 query rows of one head against the key rows they may
 // see, on Hopper's warpgroup MMA (wgmma) with float32 accumulators. The two
 // kernels differ only in how a block finds its rows (a padded [B, S, H, D]
@@ -11,7 +11,16 @@
 // each of K and V tiles, 64 keys a tile, every tile [64][D] bf16 stored as
 // D/64 swizzled [64][64] sub-tiles (common.cuh), so wgmma reads them without
 // bank conflicts through matrix descriptors. At D=128 that is 16 KB +
-// 2 x 2 x 16 KB: two blocks fit an SM. Tiles are filled by cp.async, whose
+// 2 x 2 x 16 KB: two blocks fit an SM.
+//
+// D=256 (hybrid GDN's attention layers, 16 heads of 256 over 2): 32 KB + 2 x
+// 2 x 32 KB, about 161 KB with the slack, one block an SM. One warpgroup
+// would hold O in 128 float32 registers a thread beside S's 32 and P's two
+// bf16 terms (32): ptxas spilled it at the 255-register cap (a register an
+// asynchronous wgmma uses must not spill). So a block runs two warpgroups
+// (256 threads) on the same 64 rows: each computes S = q K^T over all 256
+// dims and the same softmax, and P V for its own 128 columns of O (64
+// registers). The scores are computed twice, a third more tensor work. Tiles are filled by cp.async, whose
 // zero-fill keeps every key row at or past kv_len unread, and zero in
 // shared memory (so 0 x NaN never reaches P V).
 //
@@ -75,22 +84,24 @@ struct FlashOpts {
 // 1 KB of slack to start the first tile on a 1024-byte boundary.
 template <int D>
 struct FlashSmem {
-  static_assert(D == 64 || D == 128, "the wgmma flash tile takes head dims 64 and 128");
+  static_assert(D == 64 || D == 128 || D == 256, "the wgmma flash tile takes head dims 64, 128 and 256");
+  static constexpr int kGroups = D == 256 ? 2 : 1;   // warpgroups a block, each its D / kGroups columns of O
+  static constexpr int kThreads = kFlashThreads * kGroups;
   static constexpr int kSub = 64 * 128;              // bytes of one swizzled [64][64] sub-tile
   static constexpr int kTile = (D / 64) * kSub;      // bytes of a [64][D] tile
   static constexpr size_t kBytes = (size_t)kTile * (1 + 2 * kFlashStages) + 1024;
 };
 
 // Rows [0, 64) of a bf16 array (row stride `stride` elements) into a
-// swizzled [64][D] tile by cp.async; rows at or past n_valid are written as
-// zeros and not read.
-template <int D>
+// swizzled [64][D] tile by cp.async, by the block's NT threads; rows at or
+// past n_valid are written as zeros and not read.
+template <int D, int NT = kFlashThreads>
 __device__ __forceinline__ void flash_load_tile(unsigned char* tile, const bf16* __restrict__ src, long long stride,
                                                 int n_valid) {
   constexpr int CH = D / 8;  // 16-byte chunks of a row
 #pragma unroll
-  for (int it = 0; it < 64 * CH / kFlashThreads; ++it) {
-    const int e = it * kFlashThreads + threadIdx.x, r = e / CH, ch = e % CH;
+  for (int it = 0; it < 64 * CH / NT; ++it) {
+    const int e = it * NT + threadIdx.x, r = e / CH, ch = e % CH;
     const bool ok = r < n_valid;
     cp_async16(tile + (ch / 8) * FlashSmem<D>::kSub + sw128(r, ch % 8), src + (ok ? r * stride : 0) + ch * 8, ok);
   }
@@ -290,6 +301,8 @@ __device__ __forceinline__ void flash_store(FlashAcc<D>& a, bf16* __restrict__ o
 // kEmptyLse. kv_len: key rows c < kv_len may be seen. q_pos0 / kv_pos0:
 // global positions of query row 0 / key row 0 for the causal mask and the
 // window. o: the options, its sinks already at this head's (or null).
+// Run by FlashSmem<D>::kThreads threads: at D=256 warpgroup g computes O's
+// columns [128 g, 128 g + 128) and warpgroup 0 writes the lse.
 template <int D>
 __device__ __forceinline__ void flash_rows(unsigned char* smem, const bf16* __restrict__ q, long long q_stride,
                                            const bf16* __restrict__ k, const bf16* __restrict__ v,
@@ -298,10 +311,12 @@ __device__ __forceinline__ void flash_rows(unsigned char* smem, const bf16* __re
                                            float scale_log2, const FlashOpts& o) {
   constexpr int BK = kFlashBK;
   constexpr int KT = FlashSmem<D>::kTile;
+  constexpr int NT = FlashSmem<D>::kThreads, DO = D / FlashSmem<D>::kGroups;
   unsigned char* sq = smem + ((1024u - (smem_u32(smem) & 1023u)) & 1023u);
   const uint32_t q_addr = smem_u32(sq);
   const int lane = threadIdx.x % 32, t = lane % 4;
-  const int r0 = (threadIdx.x / 32) * 16 + lane / 4;  // the thread's rows: r0 and r0 + 8
+  const int wg = threadIdx.x / kFlashThreads;  // the warpgroup: O's columns [DO wg, DO wg + DO)
+  const int r0 = (threadIdx.x / 32 % 4) * 16 + lane / 4;  // the thread's rows: r0 and r0 + 8
   see_rows = min(see_rows, rows);
 
   // visible keys for this tile: the last row that sees keys sets the causal limit
@@ -315,22 +330,22 @@ __device__ __forceinline__ void flash_rows(unsigned char* smem, const bf16* __re
   auto k_slot = [&](int j) { return sq + KT * (1 + (j & 1)); };
   auto v_slot = [&](int j) { return sq + KT * (3 + (j & 1)); };
 
-  FlashAcc<D> acc;
+  FlashAcc<DO> acc;
   acc.init();
 
   if (n_tiles > t0) {
     const long long off = (long long)t0 * BK * kv_stride;
-    flash_load_tile<D>(sq, q, q_stride, rows);
-    flash_load_tile<D>(k_slot(t0), k + off, kv_stride, kv_len - t0 * BK);
-    flash_load_tile<D>(v_slot(t0), v + off, kv_stride, kv_len - t0 * BK);
+    flash_load_tile<D, NT>(sq, q, q_stride, rows);
+    flash_load_tile<D, NT>(k_slot(t0), k + off, kv_stride, kv_len - t0 * BK);
+    flash_load_tile<D, NT>(v_slot(t0), v + off, kv_stride, kv_len - t0 * BK);
     cp_async_commit();
   }
   for (int j = t0; j < n_tiles; ++j) {
     const int j0 = j * BK;
     if (j + 1 < n_tiles) {  // the next tile into the other slots
       const long long off = (long long)(j0 + BK) * kv_stride;
-      flash_load_tile<D>(k_slot(j + 1), k + off, kv_stride, kv_len - j0 - BK);
-      flash_load_tile<D>(v_slot(j + 1), v + off, kv_stride, kv_len - j0 - BK);
+      flash_load_tile<D, NT>(k_slot(j + 1), k + off, kv_stride, kv_len - j0 - BK);
+      flash_load_tile<D, NT>(v_slot(j + 1), v + off, kv_stride, kv_len - j0 - BK);
     }
     cp_async_commit();
     cp_async_wait<1>();  // tile j (and q) landed
@@ -358,10 +373,10 @@ __device__ __forceinline__ void flash_rows(unsigned char* smem, const bf16* __re
           s[e] = __int_as_float(0xff800000);
       }
     }
-    flash_softmax_pv<D>(acc, s, smem_u32(v_slot(j)));
+    flash_softmax_pv<DO>(acc, s, smem_u32(v_slot(j)) + wg * (DO / 64) * FlashSmem<D>::kSub);
     __syncthreads();  // these slots may be refilled
   }
-  flash_store<D>(acc, out, q_stride, lse, rows, see_rows, 1.f, kEmptyLse, o.sinks);
+  flash_store<DO>(acc, out + wg * DO, q_stride, wg == 0 ? lse : nullptr, rows, see_rows, 1.f, kEmptyLse, o.sinks);
 }
 
 }  // namespace skt

@@ -6,8 +6,8 @@ replacing the Pallas ``flash_attention``
 ``flash_attention_ref`` is its plain PyTorch twin. Both cover the whole JAX
 contract: causal or full attention with q / kv offsets, a sliding window, a
 tanh soft cap, per-head sinks and the base-2 lse (gpt-oss's prefill takes
-the sinks and the window); at head dim 576 the kernel takes no option and
-raises on one. A row that sees no key gets o = 0 and lse -1e30 * log2(e),
+the sinks and the window); at head dims 256 (hybrid GDN's attention) and
+576 the kernel takes no option and raises on one. A row that sees no key gets o = 0 and lse -1e30 * log2(e),
 sinks or not (JAX's finalize gives +inf there once a sink joins an empty
 sum).
 
@@ -92,8 +92,8 @@ def kernel_options(d: int, hq: int, device, sinks, sliding_window, logit_soft_ca
     kernel takes none (head dim 576) or the value is out of its range.
     Shared by K7 and K9."""
     used = [o for o, x in zip(OPTIONS, (sinks, sliding_window, logit_soft_cap)) if x is not None]
-    if used and d == D_MLA:
-        raise NotImplementedError(f"{name}: the head-dim 576 tile takes no {', '.join(used)}")
+    if used and d in (D_MLA, 256):
+        raise NotImplementedError(f"{name}: the head-dim {d} tile takes no {', '.join(used)}")
     if sliding_window is not None and int(sliding_window) < 1:
         raise ValueError(f"{name}: sliding_window must be >= 1, got {sliding_window}")
     if logit_soft_cap is not None and not float(logit_soft_cap) > 0:
@@ -117,9 +117,10 @@ def flash_attention(q, k, v, q_lens=None, kv_lens=None, sinks=None, q_start=None
     key has o = 0 and lse -1e30 * log2(e)). sinks [Hq] natural-log logits;
     a key is inside ``sliding_window`` when its position > the query's -
     window. CUDA tensors go through the K7 kernel, which takes bf16, head_dim
-    64, 128 or 576 (576: the MLA prefill's tile, with Hq / Hkv dividing 16 or
-    a multiple of 16, and none of sinks, window and softcap). Each launch
-    counts in ``launches`` and under each option it takes in
+    64, 128, 256 or 576 (256 and 576 with none of sinks, window and softcap;
+    576: the MLA prefill's tile, with Hq / Hkv dividing 16 or a multiple of
+    16). Each launch counts in ``launches``, at 256 and 576 also in
+    ``launches_256`` / ``launches_576``, and under each option it takes in
     ``launches_by_option``."""
     if q.device.type != "cuda":
         return flash_attention_ref(
@@ -128,7 +129,7 @@ def flash_attention(q, k, v, q_lens=None, kv_lens=None, sinks=None, q_start=None
             logit_soft_cap=logit_soft_cap, return_lse=return_lse)
     b, sq, hq, d = q.shape
     skv, hkv = k.shape[1], k.shape[2]
-    if (hq % hkv or d not in (64, 128, 576) or k.shape != v.shape or k.shape[0] != b or k.shape[3] != d
+    if (hq % hkv or d not in (64, 128, 256, 576) or k.shape != v.shape or k.shape[0] != b or k.shape[3] != d
             or (d == 576 and 16 % (hq // hkv) and (hq // hkv) % 16)):
         raise ValueError(f"flash_attention: unsupported shapes q {tuple(q.shape)} k {tuple(k.shape)}")
     if not (q.dtype == k.dtype == v.dtype == torch.bfloat16):
@@ -147,6 +148,7 @@ def flash_attention(q, k, v, q_lens=None, kv_lens=None, sinks=None, q_start=None
                  "flash_attention")
     flash_attention.launches += 1
     flash_attention.launches_576 += d == 576  # the 576-wide tile (mla_flash_tile.cuh), counted apart
+    flash_attention.launches_256 += d == 256  # the 256-wide instance of flash_tile.cuh, counted apart
     for o in used:
         flash_attention.launches_by_option[o] += 1
     return (out, lse) if return_lse else out
@@ -154,6 +156,7 @@ def flash_attention(q, k, v, q_lens=None, kv_lens=None, sinks=None, q_start=None
 
 flash_attention.launches = 0
 flash_attention.launches_576 = 0
+flash_attention.launches_256 = 0
 # launches that took each option (a launch with two counts under both)
 flash_attention.launches_by_option = dict.fromkeys(OPTIONS, 0)
 

@@ -9,7 +9,11 @@ PLACE (where the JAX model donates them) and return them.
 ``csrc/store_cache.cu``, replacing the Pallas ``store_cache_all_layers``
 (sgl_kernel_tpu/ops/kvcache.py:193, pallas_call at :209);
 ``store_cache_all_layers_ref`` is its plain twin. The other stores are plain
-PyTorch ``index_put_``, as the JAX package leaves them to XLA's scatter:
+PyTorch ``index_put_``, as the JAX package leaves them to XLA's scatter, and
+none of them waits for the host (a dropped row is redirected, never removed
+by a boolean index), so each may run inside a captured CUDA graph;
+``store_cache_stacked`` (the prefill programs' per-layer store) keeps the last
+of several writes to one slot:
 ``store_cache_head_major`` fills the head-major pools [H, P, page, D] of
 ``paged_attention_decode`` (K8), and ``move_cache_rows_stacked`` moves token
 rows between slots across all layers (the speculative tree's fix-up).
@@ -35,18 +39,18 @@ def _page_major_slots(loc, p, h, page):
 
 
 def _drop_scatter(flat, rows, vals):
-    """flat[rows] = vals for rows in range; later rows win (in order)."""
-    rows = rows.reshape(-1)
-    vals = vals.reshape(rows.shape[0], -1).to(flat.dtype)
-    keep = (rows >= 0) & (rows < flat.shape[0])
-    rows, vals = rows[keep], vals[keep]
-    # index_put_ leaves the winner among duplicate indices unspecified:
-    # keep only the last write to each row so token order decides
-    if rows.numel():
-        uniq, inv = torch.unique(rows, return_inverse=True)
-        last = torch.full((uniq.shape[0],), -1, dtype=torch.long, device=rows.device)
-        last.scatter_reduce_(0, inv, torch.arange(rows.shape[0], device=rows.device), "amax")
-        flat[uniq] = vals[last]
+    """flat[rows] = vals for rows in range; later rows win (in order). No
+    wait for the host: a stable sort of the rows and a neighbour compare
+    keep each row's last write, and ``_put_rows`` redirects every other
+    (dropped or overwritten) one."""
+    rows = rows.reshape(-1).long()
+    n = rows.shape[0]
+    if n == 0:
+        return flat
+    rows = torch.where((rows >= 0) & (rows < flat.shape[0]), rows, -1)
+    srt, order = torch.sort(rows, stable=True)
+    last = torch.cat([srt[:-1] != srt[1:], torch.ones(1, dtype=torch.bool, device=rows.device)])
+    _put_rows(flat, torch.where(last & (srt >= 0), srt, -1), vals.reshape(n, -1).index_select(0, order))
     return flat
 
 

@@ -3,7 +3,9 @@
 ``rmsnorm`` is kernel K2, a Triton kernel that replaces the Pallas
 ``rmsnorm`` (sgl_kernel_tpu/ops/norm.py:40, pallas_call at :62). Its plain
 PyTorch twin ``rmsnorm_ref`` runs for CPU tensors; ``fused_add_rmsnorm``
-and the gemma variants go through ``rmsnorm``.
+and the gemma variants go through ``rmsnorm``. ``l2norm`` (GDN's q / k
+norm, norm.py:97-100 of the JAX package, plain ``jnp`` there) is plain
+PyTorch on either device.
 Statistics are taken in float32 whatever the input type, then cast back.
 
 Kernel note (K2). Bound: bytes: one read of x, one write of the output,
@@ -89,3 +91,10 @@ def fused_add_rmsnorm(x, residual, weight, eps: float = 1e-6, *, gemma: bool = F
 
 gemma_rmsnorm = functools.partial(rmsnorm, gemma=True)
 gemma_fused_add_rmsnorm = functools.partial(fused_add_rmsnorm, gemma=True)
+
+
+def l2norm(x, eps: float = 1e-6):
+    """x / sqrt(sum(x^2) + eps) over the last dim, in float32, cast back to
+    x's dtype (the GDN q / k norm)."""
+    xf = x.float()
+    return (xf * torch.rsqrt(xf.square().sum(-1, keepdim=True) + eps)).to(x.dtype)

@@ -20,8 +20,12 @@ step passes it to such an adapter's decode and to no other.
 first call warms the function up eagerly on a side stream (Triton compiles,
 nvcc libraries load, ``utils.kept_buffer`` workspaces reach their size),
 then captures it under ``torch.cuda.graph``; every call replays it and
-returns the same static output tensor. A capture that fails raises: there
-is no eager fallback. On the CPU, or when the caller asks for ``eager``, the
+returns the same static output tensor. The warm-up runs the step once more
+than the engine asked for: a step that only rewrites its rows (KV stores,
+ring writes) rewrites them alike, but one that advances a recurrent state
+in place (hybrid GDN's conv and SSM rows) would advance it twice, so the
+tensors passed as ``restore`` are saved before the warm-up and put back
+after it. A capture that fails raises: there is no eager fallback. On the CPU, or when the caller asks for ``eager``, the
 function runs eagerly on the same static inputs; on the CPU the first call
 records the tally below as a capture would.
 
@@ -143,8 +147,9 @@ class DecodeGraph:
     tensor`` over ``inputs``: captured into a CUDA graph at the first call
     on the card and replayed after; eager on the CPU or when asked."""
 
-    def __init__(self, fn: Callable[..., torch.Tensor], inputs: DecodeInputs):
+    def __init__(self, fn: Callable[..., torch.Tensor], inputs: DecodeInputs, restore=()):
         self.fn, self.inputs = fn, inputs
+        self.restore = tuple(restore)  # state the step advances in place: undone after the warm-up
         self.graph: Optional[torch.cuda.CUDAGraph] = None
         self.out: Optional[torch.Tensor] = None
         self.tally: Optional[LaunchTally] = None
@@ -173,7 +178,11 @@ class DecodeGraph:
         side = torch.cuda.Stream(dev)
         side.wait_stream(main)
         with torch.cuda.stream(side):  # warm-up: compiles, loads and sizes everything the step needs
+            saved = [t.clone() for t in self.restore]
             self.fn(*self.inputs.args())
+            for t, s in zip(self.restore, saved):
+                t.copy_(s)
+            del saved
         main.wait_stream(side)
         graph = torch.cuda.CUDAGraph()
         before = _snapshot()

@@ -24,12 +24,16 @@ requests are all greedy runs up to ``decode_burst`` steps in one graph, the
 argmax fed back on the device (JAX's ``_make_burst_fn``); tokens past a stop
 token are discarded on the host, and mixed steps are off.
 
-An adapter with ``needs_state_slots`` (DeepSeek with KV compression) keeps
-per-request state beside the pages: the engine makes ``max_batch + 1``
+An adapter with ``needs_state_slots`` (DeepSeek with KV compression, hybrid
+GDN) keeps per-request state beside the pages: the engine makes ``max_batch + 1``
 slots of it, gives each admitted request a slot from a free list (admission
 waits while none is free) and takes it back when the request retires; slot
 ``max_batch`` is the scratch slot of a decode batch's padding rows, so
-whatever they write touches no request's state.
+whatever they write touches no request's state. Every program of such an
+adapter takes the slots of its rows (a chunk's extend too, so a chunked
+prompt continues its own state), and mixed steps are off. An adapter with
+``supports_prefix_reuse = False`` (hybrid GDN) chunks its prompts but runs
+with the prefix cache off.
 
 With a draft (``draft_cfg``, a Llama-family config) the engine decodes
 speculatively (``models/spec.py``), as the JAX engine does: a decode batch
@@ -177,7 +181,9 @@ class Engine:
     serves without the cache, this engine raises if the library cannot be
     built. An adapter without ``prefill_extend`` (``supports_extend =
     False``) turns the cache off and cannot chunk prompts; one without
-    ``prefill_packed`` prefills each fresh prompt on its own.
+    ``prefill_packed`` prefills each fresh prompt on its own, and one with
+``supports_prefix_reuse = False`` (hybrid GDN: a prefix's recurrent
+state cannot be shared) turns the cache off but still chunks prompts.
 
     On the card every decode step is a CUDA graph replay (one graph per
     burst length, captured at its first use, released with the engine), as
@@ -259,6 +265,11 @@ class Engine:
             enable_prefix_cache = False
             if prefill_chunk is not None:
                 raise ValueError(f"{self.adapter.name} has no extend program; prefill_chunk needs one")
+        # a stateful family that chunks its own prompts (hybrid GDN) may
+        # still not adopt another request's prefix: the recurrent state
+        # behind a radix-cache hit does not exist
+        if not getattr(self.adapter, "supports_prefix_reuse", getattr(self.adapter, "supports_extend", True)):
+            enable_prefix_cache = False
         self.native = None
         if enable_prefix_cache:
             from .native import NativeAllocator
@@ -500,7 +511,7 @@ class Engine:
                 self.params, self.caches, self._dev(tokens), self._dev(positions),
                 self._dev(np.array([s], np.int32)), self._dev(np.array([end], np.int32)),
                 self._dev(self._page_table(req)[None]), self._dev(slot_loc),
-                prefix_max=cdiv(pre, self.page_size) * self.page_size)
+                prefix_max=cdiv(pre, self.page_size) * self.page_size, **self._state_kw([req], 1))
         return logits
 
     def _state_kw(self, reqs, n_rows: int):
@@ -565,8 +576,15 @@ class Engine:
             return self._graphs[burst]
         step = _decode_fn(self.adapter, self.params, self.caches, self._stateful)
         graph = self._graphs[burst] = DecodeGraph(step if burst == 1 else _greedy_steps(step, burst, self.page_size),
-                                                  self._inputs)
+                                                  self._inputs, restore=self._recurrent_state())
         return graph
+
+    def _recurrent_state(self):
+        """The pools the adapter's decode advances in place (a recurrent
+        state: ``adapter.recurrent_state(caches)``), which a graph's capture
+        must not advance twice; none for the others."""
+        fn = getattr(self.adapter, "recurrent_state", None)
+        return () if fn is None else tuple(fn(self.caches))
 
     def _run_decode(self, reqs, burst: int, pad_length: int):
         """Fill the static inputs from ``reqs`` and run the ``burst``-step

@@ -38,7 +38,11 @@ than S) and K11 at K = 2,880 (half a 128-deep stage) on the wgmma tile and
 the streaming core, MXFP4 and int4; speculative decoding: K7's non-causal
 prefix pass at tree-sized q (5, 9 and 13 nodes), the tree fix-up's row move
 in place and under graph capture, the chain round's draft rollout as a
-graph (replays bit-equal to the eager rollout) and a tree engine's rounds.
+graph (replays bit-equal to the eager rollout) and a tree engine's rounds;
+K7 at head dim 256 (hybrid GDN's attention, two warpgroups a block):
+causal and extend with lse, GQA groups 1 and 8, lengths at the 64-row /
+64-key tile edges, a length-0 row, keys past kv_len unread, its launch
+counter, and the options it refuses; the hybrid GDN engine's decode graph.
 
 Needs a CUDA device: every test here is marked ``cuda`` and skips without
 one. On the card (tests/conftest.py imports JAX, which that machine need not
@@ -108,7 +112,8 @@ def test_rope_decode_fused_qkv(gen, nq, nkv, d, rot, dtype):
     assert torch.equal(out[2], ref[2])  # v is a copy
 
 
-@pytest.mark.parametrize("hq,hkv,d,rot", [(32, 8, 128, 128), (8, 2, 64, 32), (4, 4, 128, 64), (16, 2, 64, 64)])
+@pytest.mark.parametrize("hq,hkv,d,rot", [(32, 8, 128, 128), (8, 2, 64, 32), (4, 4, 128, 64), (16, 2, 64, 64),
+                                         (16, 2, 256, 256)])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_rope_decode_fused(gen, hq, hkv, d, rot, dtype):
     """K4 on split q and k: head dims 64 and 128, rot below D (the tail
@@ -3279,3 +3284,135 @@ def test_spec_tree_round_on_card(graph_engines):
     misses = [(i, j, gap[j]) for i, (o, p, gap) in enumerate(zip(outs, picks, gaps))
               for j, (x, y) in enumerate(zip(o, p)) if x != y]
     assert all(gap < chip_smoke.SPEC_GAP for _, _, gap in misses), misses
+
+
+@pytest.mark.parametrize("n", [1, 63, 64, 65, 128, 129])
+@pytest.mark.parametrize("hq,hkv", [(16, 2), (8, 8)])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_256_tile_lengths(gen, n, hq, hkv, causal):
+    """K7 at head dim 256 (two warpgroups, each 128 columns of O) at the
+    tile edges, as test_flash_tile_lengths: n queries over n keys, the last n
+    of n + 70 keys, and n over a 1-key prefix at explicit offsets; a
+    sequence of length 0 beside them writes zeros and the empty lse."""
+    sq, skv = n + 3, n + 70
+    q, k, v = randn(gen, 4, sq, hq, 256), randn(gen, 4, skv, hkv, 256), randn(gen, 4, skv, hkv, 256)
+    lens = int_lens([n, n, n, 0], [n, n + 70, 1, 9], [0, 70, 5, 9], [0, 0, 5, 0])
+    fa = flash_prefill.flash_attention
+    before = (fa.launches, fa.launches_256)
+    out, lse = fa(q, k, v, *lens[:2], None, *lens[2:], causal=causal, return_lse=True)
+    assert (fa.launches, fa.launches_256) == (before[0] + 1, before[1] + 1)
+    ref, ref_lse = flash_prefill.flash_attention_ref(q, k, v, *lens[:2], None, *lens[2:], causal=causal,
+                                                     return_lse=True)
+    assert torch.isfinite(out).all() and torch.isfinite(lse).all()
+    for i in range(3):
+        assert_elementwise(out[i, :n], ref[i, :n])
+        assert_elementwise(lse[i, :, :n], ref_lse[i, :, :n])
+    assert not out[3, :64].any() and is_empty_lse(lse[3, :, :64])
+
+
+def test_flash_256_extend_pair_and_merge(gen):
+    """The hybrid extend's two K7 passes at 16 heads of 256 over 2 (512 fresh
+    rows at offset 512, then the 512-row prefix), each with its lse against
+    the twin, and their merge_state against the twins' merge."""
+    from sgl_kernel_tpu_torch.ops.attention import merge_state
+
+    s, pre, hq, hkv, d = 512, 512, 16, 2, 256
+    q, k, v = randn(gen, 1, s, hq, d), randn(gen, 1, s, hkv, d), randn(gen, 1, s, hkv, d)
+    kp, vp = randn(gen, 1, pre, hkv, d), randn(gen, 1, pre, hkv, d)
+    ql, pl = int_lens([s], [pre])
+    zero = torch.zeros_like(pl)
+    outs = []
+    for fn in (flash_prefill.flash_attention, flash_prefill.flash_attention_ref):
+        o1, l1 = fn(q, k, v, ql, ql, None, pl, pl, causal=True, return_lse=True)
+        o2, l2 = fn(q, kp, vp, ql, pl, None, pl, zero, causal=True, return_lse=True)
+        outs.append((o1, l1, o2, l2))
+    for got, want in zip(outs[0], outs[1]):
+        assert_elementwise(got, want)
+    merged = [merge_state(o1.reshape(s, hq, d), l1.transpose(1, 2).reshape(s, hq), o2.reshape(s, hq, d),
+                          l2.transpose(1, 2).reshape(s, hq))[0].float() for o1, l1, o2, l2 in outs]
+    # each pass is within an output ulp of its twin; where the two weighted
+    # passes cancel, their merge is within an ulp of the passes' scale, not
+    # of its own
+    scale = torch.maximum(outs[1][0].float().abs().amax(-1), outs[1][2].float().abs().amax(-1)).reshape(s, hq, 1)
+    assert ((merged[0] - merged[1]).abs() <= 2.0 ** -7 * scale).all()
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_256_keys_past_kv_len_unread_and_long(gen, causal):
+    """At 256: k / v rows past kv_len filled with NaN change nothing, bit for
+    bit; and S = 2,048 beside 2,000 queries over 2,047 keys."""
+    sq, skv = 100, 300
+    q, k, v = randn(gen, 3, sq, 16, 256), randn(gen, 3, skv, 2, 256), randn(gen, 3, skv, 2, 256)
+    lens = int_lens([100, 70, 33], [256, 1, 0], [256, 1, 0], [0, 0, 0])
+    filled = []
+    for fill in (0.0, float("nan")):
+        kf, vf = k.clone(), v.clone()
+        for i, n in enumerate(lens[1].tolist()):
+            kf[i, n:], vf[i, n:] = fill, fill
+        filled.append((kf, vf))
+    out0, lse0 = check_flash(q, *filled[0], lens, causal)
+    out1, lse1 = flash_prefill.flash_attention(q, *filled[1], *lens[:2], None, *lens[2:], causal=causal,
+                                               return_lse=True)
+    assert torch.equal(out0, out1) and torch.equal(lse0, lse1)
+    s = 2048
+    q, k, v = randn(gen, 2, s, 16, 256), randn(gen, 2, s, 2, 256), randn(gen, 2, s, 2, 256)
+    check_flash(q, k, v, int_lens([s, 2000], [s, 2047], [0, 47], [0, 0]), causal)
+
+
+@pytest.mark.parametrize("opt", ["sinks", "window", "softcap"])
+def test_flash_256_options_raise(gen, opt):
+    """Sinks, window and soft cap are not taken at head dim 256 (no hybrid
+    model uses them): the wrapper raises before launching."""
+    q, k = randn(gen, 1, 64, 16, 256), randn(gen, 1, 64, 2, 256)
+    kw = {"sinks": dict(sinks=torch.zeros(16, device="cuda")), "window": dict(sliding_window=32),
+          "softcap": dict(logit_soft_cap=30.0)}[opt]
+    before = flash_prefill.flash_attention.launches
+    with pytest.raises(NotImplementedError):
+        flash_prefill.flash_attention(q, k, k, **kw)
+    assert flash_prefill.flash_attention.launches == before
+
+
+def test_hybrid_gdn_decode_graph(gen):
+    """The tiny hybrid GDN model in bf16 at head dim 256 (16 heads over 2)
+    served by the engine on the card: every decode step a graph replay whose
+    logits equal an eager step's bit for bit, the state rows of the batch
+    written back, and the outputs finite."""
+    import dataclasses
+
+    from sgl_kernel_tpu_torch import Engine, HybridGdnConfig
+
+    cfg = dataclasses.replace(HybridGdnConfig.tiny(dtype=torch.bfloat16), num_heads=16, num_kv_heads=2,
+                              head_dim=256, max_position=512)
+    eng = Engine(cfg, device="cuda", max_batch=4, num_pages=32, page_size=16, prefill_chunk=32)
+    assert eng.native is None
+    for n in (5, 40, 70):
+        eng.add_request(list(range(1, n + 1)), max_new_tokens=6)
+    while eng.waiting or eng.prefilling:
+        eng.step()
+    eng.step()
+    reqs = [r for r in eng.running if not r.done]
+    before = [c.clone() for c in eng.caches]
+    eng._inputs.fill(*eng._decode_inputs(reqs, 0))
+    graph = eng._graphs[1]
+    eager = graph(eager=True).clone()
+    after_eager = [c.clone() for c in eng.caches]
+    for c, b in zip(eng.caches, before):
+        c.copy_(b)
+    replay = graph().clone()
+    assert torch.equal(eager, replay) and torch.isfinite(replay[: len(reqs)]).all()
+    assert all(torch.equal(c, a) for c, a in zip(eng.caches, after_eager))
+    eng.run_until_done()
+    assert all(len(r.output) == 6 for r in eng.finished.values())
+    assert eng.metrics.counters["decode_graph_replays"] > 0
+    # the first step of a fresh engine captures its graph, and the capture's
+    # warm-up run must not advance the recurrent state a second time: a
+    # graphed engine's tokens equal an eager engine's on the same weights
+    outs = []
+    for eager in (True, False):
+        e2 = Engine(cfg, eng.params, device="cuda", max_batch=4, num_pages=32, page_size=16)
+        e2._eager_decode = eager
+        rids = [e2.add_request(list(range(3, 3 + n)), max_new_tokens=8) for n in (7, 30)]
+        e2.run_until_done()
+        outs.append([e2.finished[r].output for r in rids])
+        assert (e2.metrics.counters.get("decode_graph_replays", 0) > 0) != eager
+    assert outs[0] == outs[1]

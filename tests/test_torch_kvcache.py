@@ -126,3 +126,37 @@ def test_store_cache_head_major(rng, jdt):
     tkv.store_cache_head_major(tensor_from_numpy(np.asarray(k), "cpu")[:2], tensor_from_numpy(np.asarray(v), "cpu")[:2],
                                stacked_k[0], stacked_v[0], torch.tensor([-1, p * page], dtype=torch.int32))
     same(kp, stacked_k[0])
+
+
+def _drop_scatter_by_unique(flat, rows, vals):
+    """The host-syncing store this module had before (a boolean index and
+    torch.unique), kept as the oracle of its replacement."""
+    rows = rows.reshape(-1)
+    vals = vals.reshape(rows.shape[0], -1).to(flat.dtype)
+    keep = (rows >= 0) & (rows < flat.shape[0])
+    rows, vals = rows[keep], vals[keep]
+    if rows.numel():
+        uniq, inv = torch.unique(rows, return_inverse=True)
+        last = torch.full((uniq.shape[0],), -1, dtype=torch.long, device=rows.device)
+        last.scatter_reduce_(0, inv, torch.arange(rows.shape[0], device=rows.device), "amax")
+        flat[uniq] = vals[last]
+    return flat
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int8, torch.float8_e4m3fn])
+def test_drop_scatter_without_host_sync_keeps_last_wins(dtype):
+    """store_cache_stacked's drop (a stable sort of the rows and a neighbour
+    compare, no boolean index) writes what the old unique-based store wrote,
+    bit for bit: rows written several times keep their last value, rows
+    below 0 or past the pool are dropped, including calls where every row is
+    dropped or one row is written by all."""
+    gen = torch.Generator().manual_seed(3)
+    n_rows, d = 40, 8
+    cases = [torch.randint(-3, n_rows + 3, (64,), generator=gen),   # duplicates, negatives, past the pool
+             torch.full((5,), -1), torch.full((6,), 7), torch.tensor([n_rows, -2, 0, 0])]
+    for rows in cases:
+        vals = (torch.randn((rows.shape[0], d), generator=gen) * 8).to(dtype)
+        base = (torch.randn((n_rows, d), generator=gen) * 8).to(dtype)
+        want = _drop_scatter_by_unique(base.clone(), rows, vals)
+        got = tkv._drop_scatter(base.clone(), rows, vals)
+        assert torch.equal(got.view(torch.uint8), want.view(torch.uint8)), rows
